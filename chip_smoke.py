@@ -4,17 +4,21 @@
 
 Phases, each of which fails the run by raising:
   1. device: a CUDA card must be present; prints its name and power limit;
-  2. build: compiles the main path's kernel from ``csrc/`` and prints
-     ptxas' register/shared-memory report;
-  3. kernel vs plain: the kernel against its plain PyTorch version on the
-     same numpy-seeded inputs, laid out at the main path's shapes as the
-     main path lays them out, with the tolerance stated there;
-  4. main path: the port's ``System`` (RGBD sensor, fused window BA) tracks a
-     synthetic KAIST-calibration sequence (1280x560, two moving vehicles,
-     the bench's offline widths) on the card; the kernel launch counters are
-     zeroed just before and read just after, camera ATE must stay under 1 %
-     of the path length, objects must be tracked, and the result txts must
-     be written. The kernel's arguments of every call are kept, and phase 3
+  2. build: compiles every kernel in ``csrc/`` (one nvcc each, started
+     together) and prints ptxas' register/shared-memory report of each;
+  3. kernels vs plain: each kernel against its plain PyTorch version on the
+     same numpy-seeded inputs, laid out at the main paths' shapes as the
+     main paths lay them out, with the tolerances stated there;
+  4. the paths: the port's ``System`` (RGBD sensor) tracks a synthetic
+     KAIST-calibration sequence (1280x560, two moving vehicles, the bench's
+     offline widths) on the card twice: (a) the VO path with the fused
+     window BA (kernel 1, the pose LM) and (b) the bJoint path at the JAX
+     package's default host-assembled window BA (kernel 2, the joint flow +
+     pose solve). The launch counters are zeroed just before each path and
+     read just after; each path must launch its kernel twice a tracked frame
+     and the other kernel never, keep camera ATE under 1 % of the path
+     length, track objects on more than half of the frames and write the
+     result txts. The kernels' arguments of every call are kept, and phase 3
      runs again on those of one frame, where both versions are also timed;
   5. summary: a ``{"kernels": [...]}`` JSON line, then the device line.
 
@@ -51,6 +55,10 @@ OFFLINE_CONFIG = {
 TRACKER_KW = dict(n_bg=3000, n_obj=4000, max_objects=8, seed=0,
                   local_ba=True, fused_ba=True, ba_max_points=1000,
                   ba_iters=10)
+# the bJoint path: the window BA at the default (host-assembled), full records
+JOINT_KW = dict(n_bg=3000, n_obj=4000, max_objects=8, seed=0,
+                ba_max_points=1000, ba_iters=10, joint_flow=True,
+                record="full")
 
 
 def check(ok, what) -> None:
@@ -230,35 +238,155 @@ def time_pose_lm(cases, cam):
         plain_ms += p_ms
         nbytes += b_
         flops += f_
+    return (ms, plain_ms) + bound(nbytes, flops)
+
+
+def joint_camera_problem(rng, cam, N):
+    """The camera's joint solve as the main path lays it out (B=1): points
+    5-40 m in front of the last camera (the world frame here), their last
+    pixels, the measured flow to their projection through T_true with
+    0.3 px noise and 8 % of +30 px outliers, about 90 % in the initial
+    inlier set, T_init perturbed."""
+    import torch
+
+    uv = np.stack([rng.uniform(30.0, cam.width - 30.0, N),
+                   rng.uniform(20.0, cam.height - 20.0, N)], -1)
+    obs_last = torch.tensor(uv, dtype=torch.float32)
+    X = cam.backproject(obs_last, torch.tensor(rng.uniform(5.0, 40.0, N),
+                                               dtype=torch.float32))
+    Tt = _pose(rng.normal(0, 0.01, 3), rng.normal(0, 0.3, 3))
+    fm = cam.project(X @ Tt[:3, :3].T + Tt[:3, 3]) - obs_last
+    fm += torch.tensor(rng.normal(0, 0.3, (N, 2)), dtype=torch.float32)
+    fm[torch.tensor(rng.uniform(size=N) < 0.08)] += 30.0
+    valid = torch.tensor(rng.uniform(size=(1, N)) < 0.9)
+    T0 = _pose(rng.normal(0, 0.005, 3), rng.normal(0, 0.05, 3)) @ Tt
+    return T0[None], X, obs_last, fm, valid
+
+
+def joint_object_problems(rng, cam, B, N, Tcw):
+    """The object batch's joint solve as the main path lays it out: one
+    (N, 3) world point set, one (N, 2) array of last pixels and one (N, 2)
+    measured flow shared by the B problems, each object's points picked out
+    by a disjoint mask; object b is a 600 x 300 px patch 2-10 m away moved
+    by its own motion H_b (flow noise 0.2 px), a tenth of the points
+    belongs to no object, M_init = Tcw H_b perturbed."""
+    import torch
+
+    owner = np.where(rng.uniform(size=N) < 0.1, -1, rng.randint(0, B, N))
+    uv = np.zeros((N, 2))
+    z = np.zeros(N)
+    for b in range(-1, B):
+        sel = owner == b
+        uc = rng.uniform(330.0, cam.width - 330.0)
+        vc = rng.uniform(170.0, cam.height - 170.0)
+        uv[sel, 0] = uc + rng.uniform(-300.0, 300.0, sel.sum())
+        uv[sel, 1] = vc + rng.uniform(-150.0, 150.0, sel.sum())
+        z[sel] = rng.uniform(4.0, 8.0) + rng.uniform(-2.0, 2.0, sel.sum())
+    obs_last = torch.tensor(uv, dtype=torch.float32)
+    X = cam.backproject(obs_last, torch.tensor(z, dtype=torch.float32))
+    fm = torch.zeros(N, 2)
+    masks, M0 = [], []
+    for b in range(B):
+        sel = torch.tensor(owner == b)
+        M = Tcw @ _pose(rng.normal(0, 0.01, 3), rng.normal(0, 0.3, 3))
+        fm[sel] = cam.project(X[sel] @ M[:3, :3].T + M[:3, 3]) - obs_last[sel]
+        masks.append(sel)
+        M0.append(_pose(rng.normal(0, 0.005, 3), rng.normal(0, 0.05, 3)) @ M)
+    fm += torch.tensor(rng.normal(0, 0.2, (N, 2)), dtype=torch.float32)
+    return torch.stack(M0), X, obs_last, fm, torch.stack(masks)
+
+
+def check_flow_joint(cases, cam) -> float:
+    """flow_joint_batched against flow_joint_batched_ref on each case
+    (name, args). Bars (per problem, those of the JAX parity test
+    tests/test_flow_joint.py:190-200): |log(T_ref^-1 T)| < 1e-4, inlier
+    sets differing on at most max(3, 1 %) of the points, the flows of
+    common inliers within 1e-2 px. Returns max_abs_err over T and those
+    flows."""
+    import torch
+    from vido_slam_tpu_torch.estimation import flow_joint_kernel as fj
+    from vido_slam_tpu_torch.geometry.se3 import inverse_se3, log_se3
+
+    err = 0.0
+    for name, args in cases:
+        got = fj.flow_joint_batched(*args, cam)
+        ref = fj.flow_joint_batched_ref(*args, cam)
+        torch.cuda.synchronize()
+        N = args[4].shape[1]
+        for b in range(args[4].shape[0]):
+            rot = float(torch.linalg.norm(
+                log_se3(inverse_se3(ref.T[b]) @ got.T[b])))
+            flips = int((got.inliers[b] != ref.inliers[b]).sum())
+            both = got.inliers[b] & ref.inliers[b]
+            dflow = float((got.flow[b] - ref.flow[b]).abs()[both].max()) \
+                if both.any() else 0.0
+            check(math.isfinite(rot) and rot < 1e-4, (name, b, "pose", rot))
+            check(flips <= max(3, N // 100), (name, b, "inlier flips", flips))
+            check(dflow < 1e-2, (name, b, "flow", dflow))
+            err = max(err, dflow)
+        err = max(err, float((got.T - ref.T).abs().max()))
+        print(f"flow_joint_batched {name}: valid {args[4].sum(-1).tolist()}, "
+              f"inliers {got.num_inliers.tolist()}, iters "
+              f"{got.num_iters.tolist()}, plain {ref.num_iters.tolist()}: "
+              f"within the bars")
+    return err
+
+
+def time_flow_joint(cases, cam):
+    """Kernel and plain ms of the cases together (CUDA events, mean of 20
+    and of 3 calls after a warm-up) and their bound: (ms, plain_ms,
+    bound_ms, bound_by)."""
+    from vido_slam_tpu_torch.estimation import flow_joint_kernel as fj
+
+    ms = plain_ms = 0.0
+    nbytes = flops = 0
+    for name, args in cases:
+        k_ms = time_cuda(lambda: fj.flow_joint_batched(*args, cam), 20)
+        p_ms = time_cuda(lambda: fj.flow_joint_batched_ref(*args, cam), 3)
+        res = fj.flow_joint_batched(*args, cam)
+        b_ = sum(t.numel() * t.element_size() for t in args + tuple(res))
+        f_ = fj.operations(args[4], res.num_iters)
+        print(f"flow_joint_batched {name}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms, {b_} bytes, {f_} flops")
+        ms += k_ms
+        plain_ms += p_ms
+        nbytes += b_
+        flops += f_
+    return (ms, plain_ms) + bound(nbytes, flops)
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the float32 operations over the float32 peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (ms, plain_ms, max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 class KernelArgs:
-    """Stands in for ``pose_lm_batched`` in ``estimation/pose.py`` while the
-    main path runs: passes every call on to the wrapper, which launches and
-    counts, and keeps a copy of each call's arguments, so that the kernel
-    can be held against its plain version on what the main path gave it."""
+    """Stands in for a kernel's wrapper (``pose_lm_batched`` in
+    ``estimation/pose.py``, ``flow_joint_batched`` in
+    ``estimation/flow_joint.py``) while a main path runs: passes every call
+    on to the wrapper, which launches and counts, and keeps a copy of each
+    call's tensor arguments (the first five; the fifth is ``valid``), so
+    that the kernel can be held against its plain version on what the main
+    path gave it."""
 
-    def __init__(self):
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
         self.calls = []
 
     def __call__(self, *args, **kw):
-        from vido_slam_tpu_torch.estimation import lm_kernel
-
         self.calls.append((tuple(a.clone() for a in args[:5]), kw))
-        return lm_kernel.pose_lm_batched(*args, **kw)
+        return self.wrapper(*args, **kw)
 
-    def frame_cases(self):
-        """The camera and object calls of the tracked frame whose object
-        call has the most valid points, as check_pose_lm cases."""
+    def frame_calls(self):
+        """The (camera, objects) calls of the tracked frame whose object
+        call has the most valid points, and the frame's number."""
         pairs = [self.calls[i:i + 2] for i in range(0, len(self.calls), 2)]
         k = max(range(len(pairs)),
                 key=lambda i: int(pairs[i][1][0][4].sum()))
-        return [(f"main path frame {k + 1} {what}", args, kw, True)
-                for what, (args, kw) in zip(("camera", "objects"), pairs[k])]
+        return pairs[k], k + 1
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +441,7 @@ def main_path_inputs(seq, device, n_frames):
     return inputs
 
 
-def run_main_path(inputs, device, counters):
+def run_main_path(inputs, device, counters, tracker_kw=TRACKER_KW):
     """Drive System.TrackRGBD over the frames; returns the system, the
     host seconds of every frame (the first one initialises) and each
     counter's launches during the run."""
@@ -323,7 +451,7 @@ def run_main_path(inputs, device, counters):
 
     system = System()
     system.init_from_config(config_from_dict(OFFLINE_CONFIG), Sensor.RGBD,
-                            device=device, **TRACKER_KW)
+                            device=device, **tracker_kw)
     for c in counters:
         c.launches = 0
     times = []
@@ -376,7 +504,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from vido_slam_tpu_torch.estimation import lm_kernel, pose
+    from vido_slam_tpu_torch.estimation import (flow_joint, flow_joint_kernel,
+                                                lm_kernel, pose)
     from vido_slam_tpu_torch.estimation.pose import (HUBER_DELTA_POSE,
                                                      OBJ_ITERS, POSE_ITERS)
     from vido_slam_tpu_torch.utils import cuda_build
@@ -388,13 +517,14 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    log = cuda_build.build("pose_lm")
-    print(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "ptxas" in line:
-            print(f"  pose_lm: {line.strip()}")
+    logs = cuda_build.build_all()
+    print(f"build of {sorted(logs)}: {time.perf_counter() - t0:.1f} s")
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "ptxas" in line:
+                print(f"  {name}: {line.strip()}")
 
-    # phase 3 on numpy-seeded problems laid out as the main path lays them
+    # phase 3 on numpy-seeded problems laid out as the main paths lay them
     seq = offline_sequence(N_FRAMES, "cuda")
     cam = seq.scene.cam
     rng = np.random.RandomState(0)
@@ -406,43 +536,78 @@ def main() -> int:
          object_problems(rng, cam, 8, 4000, Tcw),
          dict(huber_delta=None, max_iters=OBJ_ITERS), False),
     ]
-    err = check_pose_lm(
+    err_lm = check_pose_lm(
         [(n, tuple(a.to(dev).contiguous() for a in args), kw, v)
          for n, args, kw, v in cases], cam)
+    joint_cases = [
+        ("camera B=1 N=3000", joint_camera_problem(rng, cam, 3000)),
+        ("objects B=8 N=4000, shared points, pixels and flows",
+         joint_object_problems(rng, cam, 8, 4000, Tcw)),
+    ]
+    err_fj = check_flow_joint(
+        [(n, tuple(a.to(dev).contiguous() for a in args))
+         for n, args in joint_cases], cam)
 
-    # phase 4; the stand-in keeps the kernel's arguments for phase 3 below
-    counters = [lm_kernel.pose_lm_batched]
-    recorder = KernelArgs()
-    pose.pose_lm_batched = recorder
-    try:
-        system, times, launches = run_main_path(
-            main_path_inputs(seq, "cuda", N_FRAMES), "cuda", counters)
-    finally:
-        pose.pose_lm_batched = lm_kernel.pose_lm_batched
+    # phase 4; the stand-ins keep the kernels' arguments for phase 3 below
+    counters = [lm_kernel.pose_lm_batched, flow_joint_kernel.flow_joint_batched]
+    inputs = main_path_inputs(seq, "cuda", N_FRAMES)
     n_tracked = N_FRAMES - 1
-    check(launches[0] == 2 * n_tracked,
-          f"pose_lm_batched launched {launches[0]} times over {n_tracked} "
-          f"frames")
-    ate, path, with_obj = check_main_path(system, seq, N_FRAMES)
-    steady = times[4:]
-    print(f"main path: {N_FRAMES} frames 1280x560, ATE {ate:.4f} m over "
-          f"{path:.2f} m ({100 * ate / path:.3f} %), objects on {with_obj}/"
-          f"{n_tracked} frames; ms/frame mean {1e3 * np.mean(steady):.2f} "
-          f"median {1e3 * np.median(steady):.2f} (frames 4-{n_tracked}, "
-          f"host clock over torch.cuda.synchronize)")
+    runs = {}
+    for own, (path, kw, module, attr) in enumerate((
+            ("VO, fused window BA", TRACKER_KW, pose, "pose_lm_batched"),
+            ("bJoint, host-assembled window BA", JOINT_KW, flow_joint,
+             "flow_joint_batched"))):
+        wrapper = getattr(module, attr)
+        recorder = KernelArgs(wrapper)
+        setattr(module, attr, recorder)
+        try:
+            system, times, launches = run_main_path(inputs, "cuda", counters,
+                                                    kw)
+        finally:
+            setattr(module, attr, wrapper)
+        expect = [0, 0]
+        expect[own] = 2 * n_tracked
+        check(launches == expect,
+              f"{path}: pose_lm_batched and flow_joint_batched launched "
+              f"{launches} times over {n_tracked} frames, not {expect}")
+        ate, length, with_obj = check_main_path(system, seq, N_FRAMES)
+        steady = times[4:]
+        print(f"{path}: {N_FRAMES} frames 1280x560, ATE {ate:.4f} m over "
+              f"{length:.2f} m ({100 * ate / length:.3f} %), objects on "
+              f"{with_obj}/{n_tracked} frames, launches {launches}; ms/frame "
+              f"mean {1e3 * np.mean(steady):.2f} median "
+              f"{1e3 * np.median(steady):.2f} (frames 4-{n_tracked}, host "
+              f"clock over torch.cuda.synchronize)")
+        runs[attr] = (recorder, launches[own])
 
-    # phase 3 on the arguments the main path gave the kernel in one frame
-    frame = recorder.frame_cases()
-    err = max(err, check_pose_lm(frame, cam))
-    ms, plain_ms, bound_ms, bound_by = time_pose_lm(frame, cam)
+    # phase 3 on the arguments the main paths gave the kernels in one frame
+    recorder, launches_lm = runs["pose_lm_batched"]
+    calls, k = recorder.frame_calls()
+    frame = [(f"main path frame {k} {what}", args, kw, True)
+             for what, (args, kw) in zip(("camera", "objects"), calls)]
+    err_lm = max(err_lm, check_pose_lm(frame, cam))
+    timing_lm = time_pose_lm(frame, cam)
+    recorder, launches_fj = runs["flow_joint_batched"]
+    calls, k = recorder.frame_calls()
+    frame = [(f"bJoint path frame {k} {what}", args)
+             for what, (args, _) in zip(("camera", "objects"), calls)]
+    err_fj = max(err_fj, check_flow_joint(frame, cam))
+    timing_fj = time_flow_joint(frame, cam)
 
-    entry = dict(
-        name="pose_lm_batched", route="cuda",
-        source="vido_slam_tpu_torch/csrc/pose_lm.cu",
-        replaces="vido_slam_tpu/estimation/lm_pallas.py:220",
-        launches=launches[0], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    print(json.dumps({"kernels": [entry]}))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    entries = [
+        dict(name="pose_lm_batched", route="cuda",
+             source="vido_slam_tpu_torch/csrc/pose_lm.cu",
+             replaces="vido_slam_tpu/estimation/lm_pallas.py:220",
+             launches=launches_lm, max_abs_err=err_lm,
+             **dict(zip(keys, timing_lm)), library_ms=None),
+        dict(name="flow_joint_batched", route="cuda",
+             source="vido_slam_tpu_torch/csrc/flow_joint.cu",
+             replaces="vido_slam_tpu/estimation/flow_joint_pallas.py:308",
+             launches=launches_fj, max_abs_err=err_fj,
+             **dict(zip(keys, timing_fj)), library_ms=None),
+    ]
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

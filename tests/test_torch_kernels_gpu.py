@@ -6,15 +6,18 @@ card. Run there with
 (--noconftest: tests/conftest.py configures JAX, which the port's tests
 here do not use.)
 Each test decides inside itself whether a card is present and skips
-without one. Bars: those of chip_smoke.py (per problem |log(T_ref^-1 T)| <
-1e-4, |chi2 - chi2_ref| <= 1e-3 max(1, chi2_ref), at most 3 inlier
-flips)."""
+without one. Bars: those of chip_smoke.py. Kernel 1 (pose LM): per problem
+|log(T_ref^-1 T)| < 1e-4, |chi2 - chi2_ref| <= 1e-3 max(1, chi2_ref), at
+most 3 inlier flips. Kernel 2 (joint flow + pose): per problem
+|log(T_ref^-1 T)| < 1e-4, inlier sets differing on at most max(3, 1 %) of
+the points, flows of common inliers within 1e-2 px."""
 
 import numpy as np
 import pytest
 import torch
 
-from vido_slam_tpu_torch.estimation import lm_kernel
+import chip_smoke
+from vido_slam_tpu_torch.estimation import flow_joint_kernel, lm_kernel
 from vido_slam_tpu_torch.estimation.pose import HUBER_DELTA_POSE, RP_THRES
 from vido_slam_tpu_torch.geometry.camera import Camera
 from vido_slam_tpu_torch.geometry.se3 import inverse_se3, log_se3, make_se3
@@ -171,3 +174,82 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
     out = lm_kernel.pose_lm_batched(*args, cam, huber_delta=HUBER_DELTA_POSE)
     torch.cuda.synchronize()
     assert out.T.is_cuda
+
+
+def _joint_args(B, N, layout, seed):
+    """Kernel 2's inputs, made by chip_smoke.py's problem functions: the camera
+    solve (B=1) or the object batch in the main path's shared layout."""
+    rng = np.random.RandomState(seed)
+    cam = _cam()
+    if layout == "camera":
+        args = chip_smoke.joint_camera_problem(rng, cam, N)
+    else:
+        Tcw = chip_smoke._pose([0.0, 0.02, 0.0], [0.1, 0.0, -3.0])
+        args = chip_smoke.joint_object_problems(rng, cam, B, N, Tcw)
+    return cam, tuple(a.cuda().contiguous() for a in args)
+
+
+@pytest.mark.parametrize("B,N,layout", [
+    (1, 3000, "camera"),          # the camera solve
+    (8, 4000, "main path"),       # the object batch
+    (3, 300, "main path"),
+    (3, 12000, "main path"),      # too large for shared memory
+])
+def test_flow_joint_kernel_matches_plain(B, N, layout):
+    _need_card()
+    cam, args = _joint_args(B, N, layout, seed=B + N)
+    before = flow_joint_kernel.flow_joint_batched.launches
+    got = flow_joint_kernel.flow_joint_batched(*args, cam)
+    assert flow_joint_kernel.flow_joint_batched.launches == before + 1
+    ref = flow_joint_kernel.flow_joint_batched_ref(*args, cam)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.T).all() and torch.isfinite(got.flow).all()
+    assert (got.num_iters >= 1).all()
+    np.testing.assert_array_equal(got.num_inliers.cpu().numpy(),
+                                  got.inliers.sum(-1).cpu().numpy())
+    for b in range(B):
+        err = float(torch.linalg.norm(log_se3(inverse_se3(ref.T[b])
+                                              @ got.T[b])))
+        assert err < 1e-4, (b, err)
+        flips = int((got.inliers[b] != ref.inliers[b]).sum())
+        assert flips <= max(3, N // 100), (b, flips)
+        both = got.inliers[b] & ref.inliers[b]
+        if both.any():
+            assert float((got.flow[b] - ref.flow[b]).abs()[both].max()) \
+                < 1e-2, b
+    # the prior set bounds the inliers
+    assert not (got.inliers & ~args[4]).any()
+
+
+def test_flow_joint_kernel_checks_inputs():
+    _need_card()
+    cam, args = _joint_args(1, 200, "camera", seed=1)
+    bad = list(args)
+    bad[3] = args[3].double()
+    with pytest.raises(TypeError):
+        flow_joint_kernel.flow_joint_batched(*bad, cam)
+    bad = list(args)
+    bad[2] = args[2].t().contiguous().t()
+    with pytest.raises(ValueError):
+        flow_joint_kernel.flow_joint_batched(*bad, cam)
+    bad = list(args)
+    bad[4] = args[4][:, :100].contiguous()
+    with pytest.raises(ValueError):
+        flow_joint_kernel.flow_joint_batched(*bad, cam)
+    bad = list(args)
+    bad[1] = args[1].cpu()
+    with pytest.raises(ValueError):
+        flow_joint_kernel.flow_joint_batched(*bad, cam)
+
+
+def test_flow_joint_cuda_tensors_never_reach_the_plain_version(monkeypatch):
+    _need_card()
+    cam, args = _joint_args(1, 500, "camera", seed=2)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(flow_joint_kernel, "flow_joint_batched_ref", refuse)
+    out = flow_joint_kernel.flow_joint_batched(*args, cam)
+    torch.cuda.synchronize()
+    assert out.T.is_cuda and out.flow.is_cuda

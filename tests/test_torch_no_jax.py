@@ -22,8 +22,11 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "vido_slam_tpu" or m.startswith("vido_slam_tpu."))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+need = {"vido_slam_tpu_torch.estimation." + m
+        for m in ("assembly", "flow_joint", "flow_joint_kernel", "lm_kernel")}
+missing = sorted(need - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 23 else 0)
 """
 
 

@@ -1,14 +1,17 @@
 """Per-frame tracking — Tracking::GrabImageRGBD / Track() (Tracking.cc:283-782,
 1081-1509); counterpart of ``vido_slam_tpu/tracking.py`` for the offline VO
-path: precomputed depth, flow and mask, grid-sampled features, the fused
-window BA.
+path: precomputed depth, flow and mask, grid-sampled features.
 
 Each frame ``_track_step`` runs on the tracker's device: mask repair, flow
-propagation of the feature slots, RANSAC + LM for the camera pose, scene
-flow and object selection, RANSAC + LM for up to ``max_objects`` object
-motions (one batched LM kernel launch), feature renewal and the window BA
-over device-side rings. The host then copies the outputs it needs in one
-transfer and does the tracking-id bookkeeping and the map records.
+propagation of the feature slots, the camera pose, scene flow and object
+selection, up to ``max_objects`` object motions (one batched kernel launch),
+feature renewal and, with ``fused_ba``, the window BA over device-side
+rings. The pose solves are RANSAC + LM on fixed correspondences, or with
+``joint_flow`` (the reference's bJoint) RANSAC + the joint flow+pose solve,
+whose optimized flows move the inlier keypoints. The host then copies the
+outputs it needs in one transfer, does the tracking-id bookkeeping and the
+map records and, by default (``fused_ba=False``, as in the JAX package),
+assembles the window BA from the map records and solves it.
 """
 
 from __future__ import annotations
@@ -20,6 +23,11 @@ import numpy as np
 import torch
 
 from vido_slam_tpu_torch.config import Config
+from vido_slam_tpu_torch.estimation.assembly import assemble_static_window
+from vido_slam_tpu_torch.estimation.flow_joint import (
+    estimate_camera_pose_joint,
+    estimate_object_motions_joint_batched,
+)
 from vido_slam_tpu_torch.estimation.pose import (
     estimate_camera_pose,
     estimate_object_motions_batched,
@@ -28,6 +36,7 @@ from vido_slam_tpu_torch.estimation.window_ba import solve_window_ba
 from vido_slam_tpu_torch.frontend.association import update_mask
 from vido_slam_tpu_torch.frontend.features import (
     FeatureSet,
+    gather_depth_bilinear,
     propagate_features,
     sample_background_features,
     sample_object_points,
@@ -130,9 +139,10 @@ def _select_objects(stats: ObjectStats, max_objects: int):
 def _track_step(state: TrackState, depth, flow, mask, cam: Camera, *,
                 n_bg: int, n_obj: int, max_objects: int, th_depth_bg: float,
                 th_depth_obj: float, sf_mg_thres: float, sf_ds_thres: float,
-                height: int, width: int, fused_ba: bool = True,
-                ba_window: int = 20, ba_points: int = 1000,
-                ba_iters: int = 10, record_light: bool = False):
+                height: int, width: int, joint_flow: bool = False,
+                fused_ba: bool = False, ba_window: int = 20,
+                ba_points: int = 1000, ba_iters: int = 10,
+                record_light: bool = False):
     """One frame; returns (new_state, StepOutputs)."""
     dev = depth.device
     f32 = torch.float32
@@ -155,9 +165,23 @@ def _track_step(state: TrackState, depth, flow, mask, cam: Camera, *,
                                     state.Tcw)
     T_mm = torch.where(state.has_velocity, state.velocity @ state.Tcw,
                        state.Tcw)
-    est = estimate_camera_pose(
-        k_cam, pts3d_stat, cur_stat.uv, cur_stat.valid & state.stat.valid,
-        cam, T_mm, cam.backproject(cur_stat.uv, cur_stat.depth))
+    if joint_flow:
+        # bJoint (Tracking.cc:1133-1134): inlier keypoints move to
+        # obs_last + optimized flow, and their depth is re-read there
+        est, flow_opt = estimate_camera_pose_joint(
+            k_cam, pts3d_stat, state.stat.uv, cur_stat.uv,
+            cur_stat.valid & state.stat.valid, cam, T_mm,
+            cam.backproject(cur_stat.uv, cur_stat.depth))
+        uv_j = torch.where(est.inliers[:, None], state.stat.uv + flow_opt,
+                           cur_stat.uv)
+        d_j = gather_depth_bilinear(depth, uv_j)
+        cur_stat = cur_stat._replace(
+            uv=uv_j, depth=torch.where(est.inliers & (d_j > 0), d_j,
+                                       cur_stat.depth))
+    else:
+        est = estimate_camera_pose(
+            k_cam, pts3d_stat, cur_stat.uv, cur_stat.valid & state.stat.valid,
+            cam, T_mm, cam.backproject(cur_stat.uv, cur_stat.depth))
     Tcw = est.T
     velocity = Tcw @ inverse_se3(state.Tcw)
     cam_motion = inverse_se3(velocity)
@@ -188,15 +212,32 @@ def _track_step(state: TrackState, depth, flow, mask, cam: Camera, *,
                  & active[:, None] & (point_labels[None, :] > 0))
     obj_pc_cur = cam.backproject(cur_obj.uv, cur_obj.depth)
     obj_keys = prng.split(k_obj, max_objects)
-    H, obj_inl, n_inl = estimate_object_motions_batched(
-        obj_keys, Tcw, pts3d_obj_pre, cur_obj.uv, obj_masks, cam, H_mm,
-        has_mm, obj_pc_cur)
+    if joint_flow:
+        H, obj_inl, n_inl, obj_flow = estimate_object_motions_joint_batched(
+            obj_keys, Tcw, pts3d_obj_pre, state.obj.uv, cur_obj.uv,
+            obj_masks, cam, H_mm, has_mm, obj_pc_cur)
+    else:
+        H, obj_inl, n_inl = estimate_object_motions_batched(
+            obj_keys, Tcw, pts3d_obj_pre, cur_obj.uv, obj_masks, cam, H_mm,
+            has_mm, obj_pc_cur)
     wK = obj_masks.to(f32)
     cent = (wK @ pts3d_obj_pre) / torch.clamp(wK.sum(dim=1, keepdim=True),
                                               min=1.0)
     sp_v = H[:, :3, 3] - ((torch.eye(3, device=dev) - H[:, :3, :3])
                           @ cent[..., None])[..., 0]
     speed = torch.sqrt(torch.sum(sp_v * sp_v, dim=-1)) * 36.0
+    if joint_flow:
+        # updateflow write-back (Optimizer.cc:3224-3232); the per-object
+        # masks are disjoint, so a masked sum combines the K flow fields
+        upd = obj_masks & obj_inl
+        moved = upd.any(dim=0)
+        fl_comb = torch.sum(upd.to(f32)[..., None] * obj_flow, dim=0)
+        uv_j = torch.where(moved[:, None], state.obj.uv + fl_comb,
+                           cur_obj.uv)
+        d_j = gather_depth_bilinear(depth, uv_j)
+        cur_obj = cur_obj._replace(
+            uv=uv_j, depth=torch.where(moved & (d_j > 0), d_j,
+                                       cur_obj.depth))
     ok = active & (n_inl >= MIN_OBJ_INLIERS)
     H = torch.where(ok[:, None, None], H, eye4)
     speed = torch.where(ok, speed, torch.zeros_like(speed))
@@ -233,7 +274,8 @@ def _track_step(state: TrackState, depth, flow, mask, cam: Camera, *,
                                        stats, sem_as_id)
     point_labels = torch.where(obj_new, fresh_labels, point_labels)
 
-    # 7. window BA over the device rings (PartialBatchOptimization)
+    # 7. window BA over the device rings (PartialBatchOptimization); the
+    # host-assembled mode keeps the rings too, so the state is the JAX one
     W = ba_window
     obs_cur = cam.backproject(renewed_stat.uv, renewed_stat.depth)
     prev_valid = state.ba_obs_valid[-1]
@@ -330,12 +372,7 @@ class Tracker:
                  local_ba: bool = True, ba_max_points: int = 1000,
                  ba_iters: int = 15, use_imu: bool = False,
                  pipelined: bool = False, joint_flow: bool = False,
-                 fused_ba: bool = True, record: str = "auto", device=None):
-        if joint_flow:
-            raise _not_ported("joint_flow=True (the bJoint mode)", 8)
-        if local_ba and not fused_ba:
-            raise _not_ported("the host-assembled window BA "
-                              "(local_ba=True, fused_ba=False)", 9)
+                 fused_ba: bool = False, record: str = "auto", device=None):
         if pipelined:
             raise _not_ported("pipelined=True", 16)
         if use_imu:
@@ -354,9 +391,15 @@ class Tracker:
         self.object_tracker = ObjectTracker()
         self.state: Optional[TrackState] = None
         self.frame_id = 0
+        self.local_ba = local_ba
+        # fused: the window BA runs inside the step over device rings;
+        # otherwise it is assembled from the map records after each frame
         self.fused_ba = fused_ba and local_ba
         self.ba_max_points = ba_max_points
         self.ba_iters = ba_iters
+        # the reference's bJoint: joint flow+pose solves instead of LM on
+        # fixed correspondences
+        self.joint_flow = joint_flow
         # UseSampleFeature=0 asks for FAST corners on the gray image
         self.use_fast = not config.system.use_sample_feature
         if record not in ("auto", "full", "light"):
@@ -367,6 +410,9 @@ class Tracker:
                                      and config.system.choose_data != 2)
         else:
             self.record_light = record == "light"
+        if self.record_light and local_ba and not self.fused_ba:
+            raise ValueError("record='light' needs the fused window BA: the "
+                             "host-assembled one reads per-point records")
 
     def _step_kwargs(self):
         s = self.cfg.system
@@ -375,7 +421,8 @@ class Tracker:
             th_depth_bg=s.th_depth_bg, th_depth_obj=s.th_depth_obj,
             sf_mg_thres=s.sf_mg_thres, sf_ds_thres=s.sf_ds_thres,
             height=self.cam.height, width=self.cam.width,
-            fused_ba=self.fused_ba, ba_window=s.window_size,
+            joint_flow=self.joint_flow, fused_ba=self.fused_ba,
+            ba_window=s.window_size,
             ba_points=self.ba_max_points, ba_iters=self.ba_iters,
             record_light=self.record_light)
 
@@ -474,6 +521,10 @@ class Tracker:
             t0 = time.perf_counter()
             Tcw = self._apply_fused_ba(h)
             self.map.lba_time.append(time.perf_counter() - t0)
+        elif self.local_ba and len(self.map) >= 3:
+            t0 = time.perf_counter()
+            Tcw = self._run_window_ba()
+            self.map.lba_time.append(time.perf_counter() - t0)
         return np.asarray(Tcw)
 
     def finish(self):
@@ -544,4 +595,37 @@ class Tracker:
             p3d = np.array(recs[-1].stat_3d)
             p3d[np.asarray(h.ba_slots)[ok]] = np.asarray(h.ba_points)[ok]
             recs[-1].stat_3d = p3d
+        return recs[-1].Tcw
+
+    def _run_window_ba(self) -> np.ndarray:
+        """Assemble the static window BA from the map records, solve it on
+        the tracker's device and write it back (Tracking.cc:1431-1447 ->
+        Optimizer.cc:43-1228; the partial write-back of
+        Optimizer.cc:1056-1142): every window record gets its refined pose,
+        and every observation slot its track's refined point."""
+        W = self.cfg.system.window_size
+        prob = assemble_static_window(self.map, self.cam, W,
+                                      self.ba_max_points)
+        frame_valid = np.zeros(W, bool)
+        frame_valid[prob.pad:] = True
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+        res = solve_window_ba(
+            put(prob.Twc0), put(prob.odom), put(prob.odom_valid),
+            put(prob.X0), put(prob.obs), put(prob.obs_valid),
+            put(prob.point_valid), put(frame_valid), max_iters=self.ba_iters)
+        # the next frame tracks from the refined pose, on the device
+        self.state = self.state._replace(Tcw=inverse_se3(res.Twc[-1]))
+        Twc, X = to_host((res.Twc, res.points))
+        recs = self.map.frames[len(self.map) - (W - prob.pad):]
+        for i, rec in enumerate(recs):
+            rec.Tcw = np.linalg.inv(Twc[prob.pad + i]).astype(np.float32)
+        for wi in range(prob.pad, W):
+            sl = prob.slots[wi]
+            m = (sl >= 0) & prob.point_valid
+            p3d = np.array(recs[wi - prob.pad].stat_3d)
+            p3d[sl[m]] = X[m]
+            recs[wi - prob.pad].stat_3d = p3d
         return recs[-1].Tcw

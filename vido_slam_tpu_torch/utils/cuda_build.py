@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels: ``nvcc`` into a shared library
 with a plain C interface, bound with ``ctypes``.
 
-``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` at first use; the
-hash of the source names the file, so an edited source is rebuilt. A failed
-build raises: there is no fallback.
+At first use every ``csrc/<name>.cu`` that is not built yet becomes
+``build/lib<name>-<hash>.so``, one ``nvcc`` per source, all started
+together; the hash of the source names the file, so an edited source is
+rebuilt. A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -38,34 +40,60 @@ def _source(name: str) -> str:
     return os.path.join(_PKG, "csrc", f"{name}.cu")
 
 
+def sources() -> list:
+    """Names of the kernel sources in ``csrc/``."""
+    return sorted(os.path.splitext(os.path.basename(f))[0]
+                  for f in glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
+
+
 def library_path(name: str) -> str:
     with open(_source(name), "rb") as f:
         digest = hashlib.sha1(f.read() + ARCH.encode()).hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless it is built already. Returns nvcc's
-    report (-Xptxas -v: registers, shared memory, spills), empty when
-    nothing was compiled."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return ""
+def build_all() -> Dict[str, str]:
+    """Compile every source that is not built yet, one nvcc each, all at
+    once. Returns each compiled source's nvcc report (-Xptxas -v:
+    registers, shared memory, spills); sources already built are left
+    out."""
+    todo = [n for n in sources() if not os.path.exists(library_path(n))]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    proc = subprocess.run(
-        [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _source(name)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name} (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    procs = {}
+    for name in todo:
+        tmp = f"{library_path(name)}.tmp{os.getpid()}"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+             _source(name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n"
+                          f"{logs[name]}")
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def build(name: str) -> str:
+    """Build ``csrc/<name>.cu`` (and every other source not built yet) unless
+    it is built already. Returns its nvcc report, empty when nothing was
+    compiled."""
+    if os.path.exists(library_path(name)):
+        return ""
+    return build_all()[name]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library, built at first use."""
+    """The kernel library, built (with every other source) at first use."""
     lib = _loaded.get(name)
     if lib is None:
         build(name)
