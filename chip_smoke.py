@@ -8,18 +8,27 @@ Phases, each of which fails the run by raising:
      together) and prints ptxas' register/shared-memory report of each;
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      same numpy-seeded inputs, laid out at the main paths' shapes as the
-     main paths lay them out, with the tolerances stated there;
+     main paths lay them out (kernels 3 and 4 at the five pyramid levels of
+     a 1280x576 LiteFlowNet pair), with the tolerances stated there;
   4. the paths: the port's ``System`` (RGBD sensor) tracks a synthetic
      KAIST-calibration sequence (1280x560, two moving vehicles, the bench's
      offline widths) on the card twice: (a) the VO path with the fused
      window BA (kernel 1, the pose LM) and (b) the bJoint path at the JAX
      package's default host-assembled window BA (kernel 2, the joint flow +
-     pose solve). The launch counters are zeroed just before each path and
-     read just after; each path must launch its kernel twice a tracked frame
-     and the other kernel never, keep camera ATE under 1 % of the path
-     length, track objects on more than half of the frames and write the
-     result txts. The kernels' arguments of every call are kept, and phase 3
-     runs again on those of one frame, where both versions are also timed;
+     pose solve); then (c) the flow path: the perception flow branch with
+     the port's LiteFlowNet (seeded random weights) over 8 consecutive
+     pairs of the synthetic driving clip at 1280x560 with KAIST focal
+     lengths (kernels 3 and 4, the cost volume and the regularization
+     tail). The launch counters are zeroed just before each path and read
+     just after; (a) and (b) must launch their kernel twice a tracked frame,
+     (c) each of its kernels five times a pair, and no other kernel. (a) and
+     (b) must keep camera ATE under 1 % of the path length, track objects
+     on more than half of the frames and write the result txts; (c) must
+     give finite (560, 1280, 2) flows. The kernels' arguments of every call
+     are kept, and phase 3 runs again on those of one frame or pair, where
+     both versions are also timed. Then the whole net on the card (kernels)
+     is held against the port on the CPU (plain versions) on one 192x640
+     pair;
   5. summary: a ``{"kernels": [...]}`` JSON line, then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -355,6 +364,194 @@ def time_flow_joint(cases, cam):
     return (ms, plain_ms) + bound(nbytes, flops)
 
 
+# LiteFlowNet at the KAIST perception size: 1280x560 frames run the net at
+# 1280x576 (the next multiples of 32); per pyramid level 2..6 the cost
+# volume's (channels, height, width, stride) and the regularization's
+# (window, height, width)
+FLOW_H, FLOW_W = 560, 1280
+FLOW_PAIRS = 8
+CORR_LEVELS = [(64, 288, 640, 2), (64, 144, 320, 2), (96, 72, 160, 1),
+               (128, 36, 80, 1), (192, 18, 40, 1)]
+REG_LEVELS = [(7, 288, 640), (5, 144, 320), (5, 72, 160), (3, 36, 80),
+              (3, 18, 40)]
+
+
+def correlation_cases(rng, dev):
+    """Seeded unit-normal (f1, f2, stride) at each level's shape, N=1."""
+    import torch
+
+    def t(*shape):
+        return torch.tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    return [(f"level {lv} C={C} {H}x{W} stride {s}", (t(1, C, H, W),
+                                                      t(1, C, H, W), s))
+            for lv, (C, H, W, s) in zip(range(2, 7), CORR_LEVELS)]
+
+
+def regularize_cases(rng, dev):
+    """Seeded (dc, flow, wx, bx, wy, by, k) at each level's shape, N=1:
+    unit-normal logits and weights, flows of a few px."""
+    import torch
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    cases = []
+    for lv, (k, H, W) in zip(range(2, 7), REG_LEVELS):
+        K = k * k
+        cases.append((f"level {lv} K={K} {H}x{W}", (
+            t(rng.randn(1, K, H, W)), t(rng.randn(1, 2, H, W) * 3),
+            t(rng.randn(K)), t([0.3]), t(rng.randn(K)), t([-0.2]), k)))
+    return cases
+
+
+def check_correlation(cases) -> float:
+    """correlation against correlation_ref on each case (name, args): max
+    |kernel - plain| <= 1e-5 max(1, max |plain|), the bar of the CPU test
+    (atol 1e-5 on unit-normal inputs) relative to the output's magnitude.
+    Returns max_abs_err."""
+    import torch
+    from vido_slam_tpu_torch.ops import correlation as corr
+
+    err = 0.0
+    for name, args in cases:
+        got = corr.correlation(*args)
+        ref = corr.correlation_ref(*args)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        check(got.shape == ref.shape and math.isfinite(e)
+              and e <= 1e-5 * scale, ("correlation", name, e, scale))
+        err = max(err, e)
+        print(f"correlation {name}: max error {e:.3e} (bar "
+              f"{1e-5 * scale:.1e})")
+    return err
+
+
+def check_regularize(cases) -> float:
+    """dist_weighted_flow against dist_weighted_flow_ref on each case:
+    |kernel - plain| <= 1e-5 + 1e-5 |plain| element by element (the CPU
+    test's rtol = atol = 1e-5). Returns max_abs_err."""
+    import torch
+    from vido_slam_tpu_torch.ops import regularize as reg
+
+    err = 0.0
+    for name, args in cases:
+        got = reg.dist_weighted_flow(*args)
+        ref = reg.dist_weighted_flow_ref(*args)
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        ok = bool((diff <= 1e-5 + 1e-5 * ref.abs()).all())
+        e = float(diff.max())
+        check(got.shape == ref.shape and ok and math.isfinite(e),
+              ("dist_weighted_flow", name, e))
+        err = max(err, e)
+        print(f"dist_weighted_flow {name}: max error {e:.3e}, within "
+              f"rtol = atol = 1e-5")
+    return err
+
+
+def time_cuda_graph(fn, reps):
+    """Device ms of one ``fn()``: ``reps`` calls captured in a CUDA graph,
+    the replay timed by CUDA events. Unlike ``time_cuda`` it leaves out the
+    host time of the calls, which is longer than a small kernel."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_flow_kernel(cases, kernel, plain, count):
+    """Kernel and plain ms of the cases together (one pair's five levels)
+    and their bound: (ms, plain_ms, bound_ms, bound_by). The kernel's ms is
+    its device time (``time_cuda_graph``, 20 calls), the plain version's
+    the mean of 3 calls after a warm-up (CUDA events). ``count(args)``
+    gives the (bytes, flops) of a call."""
+    ms = plain_ms = 0.0
+    nbytes = flops = 0
+    for name, args in cases:
+        k_ms = time_cuda_graph(lambda: kernel(*args), 20)
+        p_ms = time_cuda(lambda: plain(*args), 3)
+        b_, f_ = count(args)
+        print(f"{kernel.__name__} {name}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, {b_} bytes, {f_} flops")
+        ms += k_ms
+        plain_ms += p_ms
+        nbytes += b_
+        flops += f_
+    return (ms, plain_ms) + bound(nbytes, flops)
+
+
+def flow_inputs(dev):
+    """The flow path's inputs on ``dev``: FLOW_PAIRS + 1 frames of the
+    driving clip at 1280x560 (KAIST focal lengths) and the port's
+    LiteFlowNet from seed 0."""
+    from vido_slam_tpu_torch.io.synthetic import driving_clip
+    from vido_slam_tpu_torch.models.liteflownet import LiteFlowNet
+
+    cfg = OFFLINE_CONFIG
+    clip = driving_clip(height=FLOW_H, width=FLOW_W, n_frames=FLOW_PAIRS + 1,
+                        fx=cfg["Camera.fx"], fy=cfg["Camera.fy"], device=dev)
+    return clip, LiteFlowNet(seed=0, device=dev)
+
+
+def run_flow_path(clip, net, counters):
+    """The perception flow branch over the clip's consecutive pairs.
+    Returns the flows, the host seconds of every pair and each counter's
+    launches during the run."""
+    import torch
+    from vido_slam_tpu_torch.models.perception import perception_flow
+
+    for c in counters:
+        c.launches = 0
+    flows, times = [], []
+    for k in range(clip.shape[0] - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flows.append(perception_flow(net, clip[k], clip[k + 1]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return flows, times, [c.launches for c in counters]
+
+
+def check_whole_net(dev) -> float:
+    """The whole net on the card (kernels) against the port on the CPU
+    (plain versions), same seed-0 weights, on one 192x640 pair of the
+    driving clip: max |flow_gpu - flow_cpu| <= 1e-3 max(1, max |flow|).
+    Returns the error."""
+    import torch
+    from vido_slam_tpu_torch.io.synthetic import driving_clip
+    from vido_slam_tpu_torch.models.liteflownet import LiteFlowNet
+
+    clip = driving_clip(height=192, width=640, n_frames=2, device=dev)
+    x = clip.permute(0, 3, 1, 2) / 255.0
+    got = LiteFlowNet(seed=0, device=dev)(x[:1], x[1:]).cpu()
+    xc = x.cpu()
+    want = LiteFlowNet(seed=0, device="cpu")(xc[:1], xc[1:])
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    check(got.shape == (1, 2, 96, 320) and math.isfinite(err)
+          and err <= 1e-3 * scale, ("whole net GPU vs CPU", err, scale))
+    print(f"whole net 192x640, card (kernels) vs CPU (plain): max |flow| "
+          f"{float(want.abs().max()):.4f}, max error {err:.3e}")
+    return err
+
+
 def bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
     the float32 operations over the float32 peak."""
@@ -366,18 +563,22 @@ def bound(nbytes, flops):
 class KernelArgs:
     """Stands in for a kernel's wrapper (``pose_lm_batched`` in
     ``estimation/pose.py``, ``flow_joint_batched`` in
-    ``estimation/flow_joint.py``) while a main path runs: passes every call
+    ``estimation/flow_joint.py``, ``correlation`` and ``dist_weighted_flow``
+    in ``models/liteflownet.py``) while a main path runs: passes every call
     on to the wrapper, which launches and counts, and keeps a copy of each
-    call's tensor arguments (the first five; the fifth is ``valid``), so
-    that the kernel can be held against its plain version on what the main
-    path gave it."""
+    call's first ``n_args`` positional arguments (tensors cloned) and its
+    keywords, so that the kernel can be held against its plain version on
+    what the main path gave it."""
 
-    def __init__(self, wrapper):
+    def __init__(self, wrapper, n_args=5):
         self.wrapper = wrapper
+        self.n_args = n_args
         self.calls = []
 
     def __call__(self, *args, **kw):
-        self.calls.append((tuple(a.clone() for a in args[:5]), kw))
+        import torch
+        self.calls.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                 for a in args[:self.n_args]), kw))
         return self.wrapper(*args, **kw)
 
     def frame_calls(self):
@@ -508,6 +709,8 @@ def main() -> int:
                                                 lm_kernel, pose)
     from vido_slam_tpu_torch.estimation.pose import (HUBER_DELTA_POSE,
                                                      OBJ_ITERS, POSE_ITERS)
+    from vido_slam_tpu_torch.models import liteflownet
+    from vido_slam_tpu_torch.ops import correlation, regularize
     from vido_slam_tpu_torch.utils import cuda_build
     from vido_slam_tpu_torch.utils.device import resolve_device
 
@@ -548,8 +751,16 @@ def main() -> int:
         [(n, tuple(a.to(dev).contiguous() for a in args))
          for n, args in joint_cases], cam)
 
+    corr_cases = correlation_cases(rng, dev)
+    reg_cases = regularize_cases(rng, dev)
+    err_corr = check_correlation(corr_cases)
+    err_reg = check_regularize(reg_cases)
+    del corr_cases, reg_cases
+
     # phase 4; the stand-ins keep the kernels' arguments for phase 3 below
-    counters = [lm_kernel.pose_lm_batched, flow_joint_kernel.flow_joint_batched]
+    counters = [lm_kernel.pose_lm_batched, flow_joint_kernel.flow_joint_batched,
+                correlation.correlation, regularize.dist_weighted_flow]
+    names = [c.__name__ for c in counters]
     inputs = main_path_inputs(seq, "cuda", N_FRAMES)
     n_tracked = N_FRAMES - 1
     runs = {}
@@ -565,11 +776,11 @@ def main() -> int:
                                                     kw)
         finally:
             setattr(module, attr, wrapper)
-        expect = [0, 0]
+        expect = [0] * len(counters)
         expect[own] = 2 * n_tracked
         check(launches == expect,
-              f"{path}: pose_lm_batched and flow_joint_batched launched "
-              f"{launches} times over {n_tracked} frames, not {expect}")
+              f"{path}: {names} launched {launches} times over {n_tracked} "
+              f"frames, not {expect}")
         ate, length, with_obj = check_main_path(system, seq, N_FRAMES)
         steady = times[4:]
         print(f"{path}: {N_FRAMES} frames 1280x560, ATE {ate:.4f} m over "
@@ -579,6 +790,36 @@ def main() -> int:
               f"{1e3 * np.median(steady):.2f} (frames 4-{n_tracked}, host "
               f"clock over torch.cuda.synchronize)")
         runs[attr] = (recorder, launches[own])
+    del inputs, system
+
+    # (c) the flow path
+    recorders = {attr: KernelArgs(getattr(liteflownet, attr), n)
+                 for attr, n in (("correlation", 3),
+                                 ("dist_weighted_flow", 7))}
+    for attr, rec in recorders.items():
+        setattr(liteflownet, attr, rec)
+    clip, net = flow_inputs(dev)
+    try:
+        flows, times, launches = run_flow_path(clip, net, counters)
+    finally:
+        for attr, rec in recorders.items():
+            setattr(liteflownet, attr, rec.wrapper)
+    expect = [0, 0, 5 * FLOW_PAIRS, 5 * FLOW_PAIRS]
+    check(launches == expect,
+          f"flow path: {names} launched {launches} times over {FLOW_PAIRS} "
+          f"pairs, not {expect}")
+    for f in flows:
+        check(f.shape == (FLOW_H, FLOW_W, 2) and bool(torch.isfinite(f).all()),
+              f"flow of shape {tuple(f.shape)}, finite: "
+              f"{bool(torch.isfinite(f).all())}")
+    steady = times[1:]
+    print(f"flow path: {FLOW_PAIRS} pairs {FLOW_W}x{FLOW_H} (net at "
+          f"{FLOW_W}x576), launches {launches}, flow |max| "
+          f"{max(float(f.abs().max()) for f in flows):.4f} px; ms/pair mean "
+          f"{1e3 * np.mean(steady):.2f} median {1e3 * np.median(steady):.2f} "
+          f"(pairs 2-{FLOW_PAIRS}, host clock over torch.cuda.synchronize); "
+          f"first pair {1e3 * times[0]:.2f} ms")
+    del flows, clip, net
 
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
@@ -593,6 +834,26 @@ def main() -> int:
              for what, (args, _) in zip(("camera", "objects"), calls)]
     err_fj = max(err_fj, check_flow_joint(frame, cam))
     timing_fj = time_flow_joint(frame, cam)
+    # ... and those of the flow path's second pair, one call a level
+    pair = 1
+    level_calls = {}
+    for attr, rec in recorders.items():
+        level_calls[attr] = [
+            (f"flow path pair {pair + 1} call {i + 1}", args)
+            for i, (args, _) in enumerate(rec.calls[5 * pair:5 * pair + 5])]
+    err_corr = max(err_corr, check_correlation(level_calls["correlation"]))
+    err_reg = max(err_reg, check_regularize(level_calls["dist_weighted_flow"]))
+    timing_corr = time_flow_kernel(
+        level_calls["correlation"], correlation.correlation,
+        correlation.correlation_ref,
+        lambda a: (correlation.nbytes(a[0], a[2]),
+                   correlation.operations(a[0], a[2])))
+    timing_reg = time_flow_kernel(
+        level_calls["dist_weighted_flow"], regularize.dist_weighted_flow,
+        regularize.dist_weighted_flow_ref,
+        lambda a: (regularize.nbytes(a[0]), regularize.operations(a[0])))
+    del recorders, level_calls
+    check_whole_net(dev)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     entries = [
@@ -606,6 +867,16 @@ def main() -> int:
              replaces="vido_slam_tpu/estimation/flow_joint_pallas.py:308",
              launches=launches_fj, max_abs_err=err_fj,
              **dict(zip(keys, timing_fj)), library_ms=None),
+        dict(name="correlation", route="cuda",
+             source="vido_slam_tpu_torch/csrc/correlation.cu",
+             replaces="vido_slam_tpu/ops/correlation.py:154",
+             launches=launches[2], max_abs_err=err_corr,
+             **dict(zip(keys, timing_corr)), library_ms=None),
+        dict(name="dist_weighted_flow", route="cuda",
+             source="vido_slam_tpu_torch/csrc/regularize.cu",
+             replaces="vido_slam_tpu/ops/regularize.py:146",
+             launches=launches[3], max_abs_err=err_reg,
+             **dict(zip(keys, timing_reg)), library_ms=None),
     ]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ without one. Bars: those of chip_smoke.py. Kernel 1 (pose LM): per problem
 |log(T_ref^-1 T)| < 1e-4, |chi2 - chi2_ref| <= 1e-3 max(1, chi2_ref), at
 most 3 inlier flips. Kernel 2 (joint flow + pose): per problem
 |log(T_ref^-1 T)| < 1e-4, inlier sets differing on at most max(3, 1 %) of
-the points, flows of common inliers within 1e-2 px."""
+the points, flows of common inliers within 1e-2 px. Kernel 3 (cost
+volume): max error <= 1e-5 max(1, max |plain|). Kernel 4 (regularization
+tail): rtol = atol = 1e-5 element by element."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from vido_slam_tpu_torch.estimation.pose import HUBER_DELTA_POSE, RP_THRES
 from vido_slam_tpu_torch.geometry.camera import Camera
 from vido_slam_tpu_torch.geometry.se3 import inverse_se3, log_se3, make_se3
 from vido_slam_tpu_torch.geometry.so3 import exp_so3
+from vido_slam_tpu_torch.ops import correlation, regularize
 
 torch.set_num_threads(1)
 
@@ -253,3 +256,77 @@ def test_flow_joint_cuda_tensors_never_reach_the_plain_version(monkeypatch):
     out = flow_joint_kernel.flow_joint_batched(*args, cam)
     torch.cuda.synchronize()
     assert out.T.is_cuda and out.flow.is_cuda
+
+
+# kernels 3 and 4: LiteFlowNet's cost volume and regularization tail, at
+# the five pyramid levels of a 1280x576 pair (chip_smoke.CORR_LEVELS and
+# REG_LEVELS), a ragged height and width, and two images
+
+@pytest.mark.parametrize("N,C,H,W,stride", [
+    (1,) + lv for lv in chip_smoke.CORR_LEVELS] + [
+    (1, 64, 37, 53, 2),           # odd H and W at stride 2
+    (1, 96, 19, 45, 1),
+    (2, 64, 144, 320, 2),
+    (2, 8, 13, 7, 1),             # fewer channels than a chunk of 16
+])
+def test_correlation_kernel_matches_plain(N, C, H, W, stride):
+    _need_card()
+    rng = np.random.RandomState(C + H + W + stride)
+    f1, f2 = (torch.tensor(rng.randn(N, C, H, W).astype(np.float32)).cuda()
+              for _ in range(2))
+    before = correlation.correlation.launches
+    got = correlation.correlation(f1, f2, stride)
+    assert correlation.correlation.launches == before + 1
+    ref = correlation.correlation_ref(f1, f2, stride)
+    torch.cuda.synchronize()
+    assert got.shape == (N, 49, -(-H // stride), -(-W // stride))
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("N,k,H,W", [
+    (1,) + lv for lv in chip_smoke.REG_LEVELS] + [
+    (1, 7, 37, 53),               # ragged against the 32 x 8 block
+    (2, 5, 144, 320),
+    (2, 3, 5, 3),                 # smaller than a block and the window
+])
+def test_regularize_kernel_matches_plain(N, k, H, W):
+    _need_card()
+    rng = np.random.RandomState(N + k + H + W)
+    K = k * k
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32)).cuda()
+
+    args = (t(rng.randn(N, K, H, W)), t(rng.randn(N, 2, H, W) * 3),
+            t(rng.randn(K)), t([0.3]), t(rng.randn(K)), t([-0.2]), k)
+    before = regularize.dist_weighted_flow.launches
+    got = regularize.dist_weighted_flow(*args)
+    assert regularize.dist_weighted_flow.launches == before + 1
+    ref = regularize.dist_weighted_flow_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (N, 2, H, W)
+    assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
+
+
+def test_flow_kernels_check_inputs(monkeypatch):
+    _need_card()
+    f = torch.randn(1, 8, 10, 12, device="cuda")
+    with pytest.raises(ValueError):
+        correlation.correlation(f, f.cpu(), 1)
+    with pytest.raises(TypeError):
+        correlation.correlation(f.half(), f.half(), 1)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(correlation, "correlation_ref", refuse)
+    monkeypatch.setattr(regularize, "dist_weighted_flow_ref", refuse)
+    assert correlation.correlation(f, f, 2).is_cuda
+    w = torch.randn(9, device="cuda")
+    b = torch.zeros(1, device="cuda")
+    out = regularize.dist_weighted_flow(
+        torch.randn(1, 9, 10, 12, device="cuda"), f[:, :2].contiguous(), w,
+        b, w, b, 3)
+    torch.cuda.synchronize()
+    assert out.is_cuda

@@ -22,11 +22,14 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "vido_slam_tpu" or m.startswith("vido_slam_tpu."))
-need = {"vido_slam_tpu_torch.estimation." + m
-        for m in ("assembly", "flow_joint", "flow_joint_kernel", "lm_kernel")}
+need = {"vido_slam_tpu_torch." + m
+        for m in ("estimation.assembly", "estimation.flow_joint",
+                  "estimation.flow_joint_kernel", "estimation.lm_kernel",
+                  "models.layers", "models.liteflownet", "models.perception",
+                  "ops.correlation", "ops.regularize", "ops.warp")}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 23 else 0)
+sys.exit(1 if bad or missing or len(names) < 32 else 0)
 """
 
 

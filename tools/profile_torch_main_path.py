@@ -1,6 +1,7 @@
 """Where the time goes on the port's main path, on one GPU.
 
     python tools/profile_torch_main_path.py [--frames 24]
+    python tools/profile_torch_main_path.py --flow [--frames 9]
 
 Drives the same System run as chip_smoke.py (KAIST 1280x560 synthetic
 sequence, RGBD, fused window BA), after the kernel build and a short
@@ -13,6 +14,11 @@ warm-up run, and reports:
   * from ``torch.profiler`` over an unwrapped run: device time by kernel
     name, the number of device events per frame, and the device's busy
     share of the frames' wall time (the union of the device intervals).
+With ``--flow`` it drives chip_smoke.py's flow path instead (the
+perception flow branch over consecutive 1280x560 driving-clip pairs, the
+net at 1280x576) and reports the same for it, per pair: the wall time of
+the encoder and of each level's Matching, Subpixel and Regularization
+(synchronised the same way), and the device trace of an unwrapped run.
 Prints a JSON summary as its last line. Needs a CUDA device.
 """
 
@@ -52,15 +58,111 @@ def _wrap(name, fn, acc):
     return timed
 
 
+def device_trace(run):
+    """Runs ``run()`` under torch.profiler. Returns its result, the sorted
+    device intervals, device ms by kernel name and the device's busy ms
+    (the union of the intervals). Device events only (kernels, copies,
+    fills): op-level entries of key_averages() repeat their kernels'
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    kern = collections.defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            kern[ev.name] += (ev.time_range.end - ev.time_range.start) / 1e3
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:  # union of the device intervals
+        if cur_e is None or s > cur_e:
+            busy_us += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_ms = (busy_us + (0.0 if cur_e is None else cur_e - cur_s)) / 1e3
+    return out, spans, kern, busy_ms
+
+
+def profile_flow(n_frames):
+    """The flow path: per-module synchronised wall time per pair, then the
+    device trace of an unwrapped run, after one warm-up run."""
+    from vido_slam_tpu_torch.models import liteflownet
+    from vido_slam_tpu_torch.ops import correlation, regularize
+
+    counters = [correlation.correlation, regularize.dist_weighted_flow]
+    chip_smoke.FLOW_PAIRS = n_frames - 1
+    clip, net = chip_smoke.flow_inputs("cuda")
+    chip_smoke.run_flow_path(clip, net, counters)       # build, warm-up
+    acc = collections.defaultdict(float)
+    modules = {"encoder": liteflownet.Features}
+    for name in ("Matching", "Subpixel", "Regularization"):
+        modules[name] = getattr(liteflownet, name)
+    originals = {n: m.forward for n, m in modules.items()}
+
+    def per_level(name, fn):
+        def timed(self, *a):
+            key = name if name == "encoder" else f"{name} L{self.level}"
+            return _wrap(key, lambda *b: fn(self, *b), acc)(*a)
+        return timed
+
+    for n, m in modules.items():
+        m.forward = per_level(n, originals[n])
+    try:
+        _, wrapped, _ = chip_smoke.run_flow_path(clip, net, counters)
+    finally:
+        for n, m in modules.items():
+            m.forward = originals[n]
+    n_pairs = len(wrapped)
+    module_ms = {k: 1e3 * v / n_pairs for k, v in sorted(acc.items())}
+    (_, times, launches), spans, kern, busy_ms = device_trace(
+        lambda: chip_smoke.run_flow_path(clip, net, counters))
+    wall_ms = 1e3 * float(np.sum(times))
+    ours = {k: v for k, v in kern.items()
+            if "correlation_kernel" in k or "dist_weighted_flow_kernel" in k}
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:15]
+    print(f"flow path, {n_pairs} pairs: ms/pair under the profiler mean "
+          f"{1e3 * np.mean(times):.2f} median {1e3 * np.median(times):.2f}; "
+          f"wrapped ms/pair {1e3 * np.mean(wrapped):.2f}; launches "
+          f"{launches}; per module and level (synchronised):")
+    for k, v in module_ms.items():
+        print(f"  {k:24s} {v:8.2f} ms")
+    print(f"device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+          f"({100 * busy_ms / wall_ms:.1f} %), {len(spans) / n_pairs:.0f} "
+          f"device events per pair; kernels 3 and 4 "
+          f"{sum(ours.values()) / n_pairs:.3f} ms a pair; top by device ms:")
+    for k, v in top:
+        print(f"  {v:9.3f} ms  {k[:90]}")
+    print(json.dumps({
+        "ms_per_pair_mean": 1e3 * float(np.mean(times)),
+        "ms_per_pair_median": 1e3 * float(np.median(times)),
+        "module_ms": module_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "device_ms_per_pair": busy_ms / n_pairs,
+        "kernels_3_4_device_ms_per_pair": sum(ours.values()) / n_pairs,
+        "device_events_per_pair": len(spans) / n_pairs,
+        "top_kernels_ms": dict(top),
+    }))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--warmup", type=int, default=4)
+    ap.add_argument("--flow", action="store_true",
+                    help="profile the flow path instead of the VO path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
         return 1
     print(chip_smoke.card_line())
+    if args.flow:
+        return profile_flow(min(args.frames, 9))
     seq = chip_smoke.offline_sequence(args.frames, "cuda")
     inputs = chip_smoke.main_path_inputs(seq, "cuda", args.frames)
     counters = [lm_kernel.pose_lm_batched]
@@ -82,31 +184,10 @@ def main():
 
     # 2. device trace over an unwrapped run (the inputs are on the device
     # already, so every device event of the trace belongs to a frame)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, times2, _ = chip_smoke.run_main_path(inputs, "cuda", counters)
+    (_, times2, _), spans, kern, busy_ms = device_trace(
+        lambda: chip_smoke.run_main_path(inputs, "cuda", counters))
     steady = times2[1 + args.warmup:]
     wall_ms = 1e3 * float(np.sum(times2))  # every frame of the trace
-    # device events only (kernels, copies, fills): op-level entries of
-    # key_averages() repeat their kernels' time
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA)
-    kern = collections.defaultdict(float)
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            kern[ev.name] += (ev.time_range.end - ev.time_range.start) / 1e3
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:  # union of the device intervals
-        if cur_e is None or s > cur_e:
-            busy_us += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_ms = (busy_us + (0.0 if cur_e is None else cur_e - cur_s)) / 1e3
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:15]
     print(f"frames {args.frames}, tracked {len(times2) - 1}; ms/frame under the "
           f"profiler mean {1e3 * np.mean(steady):.2f} median "

@@ -2,16 +2,22 @@
 NVIDIA H100 (sm_90a).
 
 The port stands alone: it imports torch, numpy, yaml and the standard
-library, never JAX and never ``vido_slam_tpu``. Ported so far is the offline
-VO main path, ``System.TrackRGBD`` -> ``Tracker.track`` -> ``_track_step``
-with the fused window BA, and its one TPU kernel, the batched pose LM, as
-the CUDA kernel ``csrc/pose_lm.cu``.
+library, never JAX and never ``vido_slam_tpu``. Ported so far: the offline
+path ``System.TrackRGBD`` -> ``Tracker.track`` -> ``_track_step`` (VO with
+either window BA, and the bJoint mode) and the flow branch of the
+perception graph (LiteFlowNet), with four TPU kernels rewritten as CUDA
+kernels in ``csrc/``: the batched pose LM, the joint flow + pose solve,
+LiteFlowNet's cost volume and its regularization tail.
 
 - ``geometry``   : SO(3)/SE(3) and the pinhole camera.
 - ``frontend``   : feature sampling, mask repair, scene flow, object stats.
-- ``estimation`` : RANSAC, the LM kernel and its plain version, pose
+- ``estimation`` : RANSAC, the LM kernels and their plain versions, pose
                    estimation, the window BA.
-- ``io``         : result writers and the synthetic sequence renderer.
+- ``models``     : LiteFlowNet, its layers and the perception flow branch.
+- ``ops``        : warps and resizing, the cost-volume and regularization
+                   kernels and their plain versions.
+- ``io``         : result writers and the synthetic sequence and clip
+                   renderers.
 - ``utils``      : threefry PRNG bit-equal to ``jax.random``, stable order
                    helpers, device choice, the kernel build.
 

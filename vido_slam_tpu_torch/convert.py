@@ -3,8 +3,8 @@
 numpy arrays (``jax.device_get`` of them), become the port's tensors.
 
 The inputs are read by field name, so any object with the JAX field names
-works; nothing of the JAX package is imported. The slice has no network
-parameters: the tracker's state is what a run carries.
+works; nothing of the JAX package is imported. LiteFlowNet's parameter
+dict carries across the same way (``liteflownet_state_dict_from_numpy``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,22 @@ def key_from_numpy(key, device=None) -> torch.Tensor:
     """A raw (2,) uint32 threefry key -> the port's int64 key."""
     return torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64),
                            device=resolve_device(device))
+
+
+def liteflownet_state_dict_from_numpy(params) -> dict:
+    """The JAX package's LiteFlowNet parameter dict (numpy arrays, conv
+    kernels HWIO) as float32 CPU tensors in torch layout, for
+    ``LiteFlowNet.load_state_dict(strict=True)``: a 4-D array goes through
+    ``transpose(3, 2, 0, 1)``, the inverse of ``layers.convert_tensor``
+    (HWIO -> OIHW for a Conv2d, (kh, kw, 1, C) -> (C, 1, kh, kw) for the
+    grouped ConvTranspose2d); 1-D arrays pass unchanged."""
+    out = {}
+    for key, value in params.items():
+        a = np.asarray(value, np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        out[key] = torch.from_numpy(a.copy())
+    return out
 
 
 def camera_from_numpy(cam) -> Camera:

@@ -182,7 +182,61 @@ def simple_scene(width: int = 256, height: int = 160, moving_box: bool = True,
     return SyntheticScene(cam=cam, ground_y=1.5, boxes=(box,))
 
 
+def render_rgb(scene: SyntheticScene, Tcw, box_poses) -> torch.Tensor:
+    """(H, W, 3) float32 RGB in [0, 255] of one frame, ray cast: a
+    textured road (checker, world-space noise, a dashed centre line),
+    shaded boxes and a sky gradient. Textures are functions of world
+    coordinates, so the image motion follows the camera and the boxes."""
+    cam = scene.cam
+    dev = Tcw.device
+    dirs = _ray_dirs(cam, dev)
+    Twc = inverse_se3(Tcw)
+    depth = _plane_depth(Tcw, dirs, scene.ground_y)
+    hit = torch.zeros(depth.shape, dtype=torch.int32, device=dev)
+    for i, (box, T_ow) in enumerate(zip(scene.boxes, box_poses)):
+        zb = _box_depth(T_ow, Tcw, dirs, box.half_extent.to(dev))
+        closer = zb < depth
+        depth = torch.where(closer, zb, depth)
+        hit = torch.where(closer, torch.full_like(hit, i + 1), hit)
+    sky_px = torch.isinf(depth)
+
+    pc = dirs * torch.where(sky_px, torch.ones_like(depth), depth)[..., None]
+    pw = pc @ Twc[:3, :3].T + Twc[:3, 3]
+    gx, gz = pw[..., 0], pw[..., 2]
+    checker = (torch.floor(gx * 0.5) + torch.floor(gz * 0.5)) % 2.0
+    noise = 0.5 + 0.25 * (torch.sin(gx * 7.3) * torch.cos(gz * 5.1)
+                          + torch.sin(gx * 2.9 + gz * 3.7))
+    base = 0.32 + 0.08 * checker + 0.06 * noise
+    lane = (torch.abs(gx) < 0.15) & ((torch.floor(gz * 0.8) % 2.0) < 1.0)
+    color = torch.stack([
+        torch.where(lane, torch.full_like(base, 0.85), base),
+        torch.where(lane, torch.full_like(base, 0.80), base),
+        torch.where(lane, torch.full_like(base, 0.30), base * 1.05)], -1)
+
+    palette = torch.tensor([
+        [0.75, 0.15, 0.12], [0.12, 0.35, 0.75], [0.15, 0.6, 0.2],
+        [0.8, 0.55, 0.1], [0.5, 0.2, 0.6], [0.1, 0.6, 0.6]], device=dev)
+    for i, (box, T_ow) in enumerate(zip(scene.boxes, box_poses)):
+        T_ow_inv = inverse_se3(T_ow)
+        po = pw @ T_ow_inv[:3, :3].T + T_ow_inv[:3, 3]
+        a = torch.abs(po / torch.clamp(box.half_extent.to(dev), min=1e-6))
+        face = torch.argmax(a, dim=-1)               # 0 x, 1 y, 2 z
+        shade = torch.where(face == 1, 1.0, torch.where(face == 0, 0.75,
+                                                        0.55))
+        stripe = 0.9 + 0.1 * torch.sign(torch.sin(po[..., 0] * 6.0))
+        c = palette[i % palette.shape[0]] * (shade * stripe)[..., None]
+        color = torch.where((hit == i + 1)[..., None], c, color)
+
+    tsky = (torch.arange(cam.height, dtype=torch.float32, device=dev)
+            / cam.height)[:, None].expand(depth.shape)
+    sky = torch.stack([0.45 + 0.2 * tsky, 0.6 + 0.15 * tsky,
+                       0.85 - 0.05 * tsky], -1)
+    color = torch.where(sky_px[..., None], sky, color)
+    return torch.clamp(color, 0.0, 1.0) * 255.0
+
+
 # Analytic driving trajectory (the bench clip's camera path)
+DRIVING_FPS = 10.0        # KAIST camera rate
 DRIVING_V0 = 6.0          # m/s mean forward speed
 DRIVING_V1 = 1.5          # m/s speed oscillation amplitude
 DRIVING_PSI1 = 0.02       # rad yaw oscillation amplitude
@@ -203,3 +257,44 @@ def driving_pose(t: float) -> np.ndarray:
     Twc[:3, :3] = _yaw_mat(DRIVING_PSI1 * np.sin(w * t))
     Twc[:3, 3] = [0.0, 0.0, s]
     return np.linalg.inv(Twc)
+
+
+def driving_clip(height: int = 192, width: int = 640, n_frames: int = 24,
+                 fx: float = 408.2, fy: float = 408.7,
+                 return_poses: bool = False, device=None):
+    """The synthetic driving clip, (n_frames, H, W, 3) float32 RGB 0..255 on
+    ``device`` (the card unless the caller asks for the CPU): the camera
+    drives the analytic ``driving_pose`` trajectory over a textured road
+    with three moving vehicles as boxes. The JAX package's realistic
+    perception input (bench.py). With ``return_poses`` also the ground-truth
+    Tcw stack (n_frames, 4, 4) float32 numpy."""
+    dev = resolve_device(device)
+    cam = Camera.create(fx=fx, fy=fy, cx=width / 2, cy=height * 0.55,
+                        width=width, height=height, bf=193.8)
+    boxes = (
+        Box(half_extent=torch.tensor([0.9, 0.7, 2.0]), label=1,
+            pose0=translation_se3([-2.5, 0.8, 14.0]),
+            motion=translation_se3([0.0, 0.0, 0.5])),
+        Box(half_extent=torch.tensor([0.9, 0.7, 2.0]), label=2,
+            pose0=translation_se3([2.5, 0.8, 30.0]),
+            motion=translation_se3([0.0, 0.0, -0.9])),
+        Box(half_extent=torch.tensor([1.2, 1.0, 2.6]), label=3,
+            pose0=translation_se3([0.0, 0.6, 45.0]),
+            motion=translation_se3([0.02, 0.0, 0.3])),
+    )
+    scene = SyntheticScene(cam=cam, ground_y=1.5, boxes=boxes)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    Tcws = [driving_pose(k / DRIVING_FPS) for k in range(n_frames)]
+    poses = [np.asarray(b.pose0, np.float64) for b in boxes]
+    frames = []
+    for k in range(n_frames):
+        frames.append(render_rgb(scene, f32(Tcws[k]), [f32(p) for p in poses]))
+        poses = [np.asarray(b.motion, np.float64) @ p
+                 for b, p in zip(boxes, poses)]
+    clip = torch.stack(frames)
+    if return_poses:
+        return clip, np.stack(Tcws).astype(np.float32)
+    return clip

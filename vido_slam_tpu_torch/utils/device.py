@@ -20,3 +20,22 @@ def resolve_device(device=None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def kernel_device(what: str, tensors) -> torch.device:
+    """The one device of a kernel wrapper's inputs, which must all be
+    contiguous float32 tensors on the CPU or all on one CUDA device.
+    Raises ``ValueError`` for mixed devices or a non-contiguous tensor and
+    ``TypeError`` for another dtype."""
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{what}: all tensors must be on the CPU or all on "
+                         f"one CUDA device")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return dev
