@@ -28,7 +28,16 @@ Phases, each of which fails the run by raising:
      are kept, and phase 3 runs again on those of one frame or pair, where
      both versions are also timed. Then the whole net on the card (kernels)
      is held against the port on the CPU (plain versions) on one 192x640
-     pair;
+     pair. Last, (d) the mask path: the perception mask branch with the
+     port's Mask R-CNN R-50-FPN (seeded random weights, class 3's score
+     bias lifted) over 8 frames of the driving clip at 1280x560, the
+     detector at 1088x800 (kernel 5, the multilevel ROIAlign, twice a
+     frame: the box head's 1000 ROIs at 7x7 and the mask head's 100 at
+     14x14); each mask must be a (560, 1280) uint8 map with some labelled
+     pixels. Kernel 5 is held against its plain version on seeded pyramids
+     and on one frame's arguments; the whole detector on the card against
+     the CPU on one frame at 320x256; one frame of the reference ROS
+     node's X-101-32x8d-FPN must launch kernel 5 twice and stay finite;
   5. summary: a ``{"kernels": [...]}`` JSON line, then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -552,6 +561,220 @@ def check_whole_net(dev) -> float:
     return err
 
 
+# Mask R-CNN at the perception size: a 1280x560 frame runs the detector at
+# 1088x800, whose P2-P5 are 272x200 ... 34x25 at 256 channels
+MASK_FRAMES = 8
+MASK_LEVELS = [(272, 200), (136, 100), (68, 50), (34, 25)]
+# class 3 (car): its score bias lifted so that random weights give
+# detections, and on a 0..1 image a probability of exactly 1.0 (ties that
+# float32 noise cannot reorder)
+MASK_LIFT = 30.0
+
+
+def roi_cases(rng, dev):
+    """Seeded (feats, rois, levels, scales, resolution, 2) at the heads'
+    shapes: unit-normal P2-P5 of a 1088x800 image, the box head's 1000
+    ROIs at 7x7 and the mask head's 100 at 14x14. The ROIs span all four
+    levels (sides log-uniform from 0.3 to 1500 px, so some under 1 px) and
+    start up to 60 px outside the image; two 28-px boxes put samples
+    exactly at -1 and at 271 = H - 1 of P2."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn.roi_heads import (
+        POOLER_SCALES, assign_fpn_level)
+
+    feats = [torch.tensor(rng.randn(1, 256, h, w).astype(np.float32),
+                          device=dev) for h, w in MASK_LEVELS]
+    cases = []
+    for R, r in ((1000, 7), (100, 14)):
+        x1 = rng.uniform(-60, 800, R)
+        y1 = rng.uniform(-60, 1088, R)
+        ww, hh = np.exp(rng.uniform(np.log(0.3), np.log(1500), (2, R)))
+        rois = np.stack([x1, y1, x1 + ww, y1 + hh], 1).astype(np.float32)
+        rois[:2] = [[-5, -5, 23, 23], [100, 1081, 128, 1109]]
+        rois = torch.tensor(rois, device=dev)
+        levels = assign_fpn_level(rois)
+        cases.append((f"R={R} {r}x{r} levels "
+                      f"{torch.bincount(levels.long(), minlength=4).tolist()}",
+                      (feats, rois, levels, POOLER_SCALES, r, 2)))
+    return cases
+
+
+def check_roi_align(cases) -> float:
+    """roi_align_multilevel against roi_align_multilevel_ref on each case:
+    max |kernel - plain| <= 1e-5 max(1, max |feature|) (the kernel and the
+    plain version put every sample at the same float32 position and differ
+    only in the order of 16 weighted sums). Returns max_abs_err."""
+    import torch
+    from vido_slam_tpu_torch.ops import roi_align
+
+    err = 0.0
+    for name, args in cases:
+        got = roi_align.roi_align_multilevel(*args)
+        ref = roi_align.roi_align_multilevel_ref(*args)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
+        check(got.shape == ref.shape and math.isfinite(e)
+              and e <= 1e-5 * scale, ("roi_align_multilevel", name, e, scale))
+        err = max(err, e)
+        print(f"roi_align_multilevel {name}: max error {e:.3e} (bar "
+              f"{1e-5 * scale:.1e})")
+    return err
+
+
+def mask_inputs(dev):
+    """The mask path's inputs on ``dev``: MASK_FRAMES frames of the driving
+    clip at 1280x560 (KAIST focal lengths) and the port's Mask R-CNN
+    R-50-FPN (at 1088x800) from seed 0 with class 3 lifted."""
+    from vido_slam_tpu_torch.io.synthetic import driving_clip
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           RESNET50_FPN)
+
+    c = OFFLINE_CONFIG
+    clip = driving_clip(height=FLOW_H, width=FLOW_W, n_frames=MASK_FRAMES,
+                        fx=c["Camera.fx"], fy=c["Camera.fy"], device=dev)
+    model = lifted(MaskRCNN(RESNET50_FPN, seed=0, device=dev))
+    return clip, model
+
+
+def lifted(model):
+    """``model`` with class 3's score bias at MASK_LIFT."""
+    import torch
+
+    with torch.no_grad():
+        model.roi_heads.box.predictor.cls_score.bias[3] = MASK_LIFT
+    return model
+
+
+class Detected:
+    """Stands in for ``maskrcnn_inference`` in ``models/perception.py``:
+    passes every call on and keeps each frame's detections (on the
+    device, read after the run)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.outputs = []
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.outputs.append(out)
+        return out
+
+
+def run_mask_path(clip, model, counters):
+    """The perception mask branch over the clip's frames. Returns the masks,
+    each frame's detections, the host seconds of every frame and each
+    counter's launches during the run."""
+    import torch
+    from vido_slam_tpu_torch.models import perception
+
+    detected = Detected(perception.maskrcnn_inference)
+    perception.maskrcnn_inference = detected
+    try:
+        for c in counters:
+            c.launches = 0
+        masks, times = [], []
+        for k in range(clip.shape[0]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masks.append(perception.perception_mask(model, clip[k],
+                                                    device=clip.device))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = [c.launches for c in counters]
+    finally:
+        perception.maskrcnn_inference = detected.fn
+    return masks, detected.outputs, times, launches
+
+
+def check_masks(masks, dets, what) -> list:
+    """Each mask (560, 1280) uint8 with some labelled pixels, each frame's
+    detections finite. Returns the valid detections per frame."""
+    import torch
+
+    n_valid = []
+    for m, d in zip(masks, dets):
+        check(m.shape == (FLOW_H, FLOW_W) and m.dtype == torch.uint8
+              and bool((m > 0).any()),
+              f"{what}: mask {tuple(m.shape)} {m.dtype}, labelled pixels "
+              f"{int((m > 0).sum())}")
+        check(bool(torch.isfinite(d.boxes).all())
+              and bool(torch.isfinite(d.masks28).all()),
+              f"{what}: non-finite detections")
+        n_valid.append(int(d.valid.sum()))
+    return n_valid
+
+
+def check_whole_detector(dev, frame) -> float:
+    """The whole detector on the card (kernel 5) against the port on the
+    CPU (plain version), same seed-0 weights, on one driving-clip frame
+    resized to 320x256 and scaled to 0..1: FPN features and the box head's
+    logits (on the CPU's proposals) within 1e-4 of their largest
+    magnitude; the (560, 1280) semantic masks equal on at least 99 % of
+    the pixels (the discrete selections may part on float noise). Returns
+    the largest relative error."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn import model as mm
+    from vido_slam_tpu_torch.models.maskrcnn.roi_heads import box_head_forward
+    from vido_slam_tpu_torch.ops.warp import resize_bilinear
+
+    cfg = mm.MaskRCNNConfig(input_h=320, input_w=256)
+    x = (resize_bilinear(frame.permute(2, 0, 1)[None], 320, 256)
+         / 255.0).contiguous()
+    dev = str(dev)
+    nets = {d: lifted(mm.MaskRCNN(cfg, seed=0, device=d))
+            for d in (dev, "cpu")}
+    xs = {dev: x, "cpu": x.cpu()}
+    with torch.no_grad():
+        feats = {d: nets[d].backbone(xs[d]) for d in nets}
+        props, _, _ = mm.rpn_proposals(nets["cpu"], feats["cpu"])
+        logits = {d: box_head_forward(nets[d].roi_heads.box, feats[d][:4],
+                                      props.to(d))[0].cpu() for d in nets}
+    rel = 0.0
+    for name, got, want in [(f"P{i + 2}", feats[dev][i].cpu(),
+                             feats["cpu"][i]) for i in range(5)]             + [("box logits", logits[dev], logits["cpu"])]:
+        e = float((got - want).abs().max())             / max(1.0, float(want.abs().max()))
+        check(math.isfinite(e) and e <= 1e-4, ("whole detector", name, e))
+        rel = max(rel, e)
+    sem = {}
+    for d in nets:
+        det = mm.maskrcnn_inference(nets[d], xs[d])
+        sem[d] = mm.paste_semantic_mask(det, 320, 256, FLOW_H, FLOW_W).cpu()
+        sem[d + " valid"] = int(det.valid.sum())
+    agree = float((sem[dev] == sem["cpu"]).float().mean())
+    check(agree >= 0.99 and bool((sem["cpu"] > 0).any()),
+          ("whole detector semantic masks", agree))
+    print(f"whole detector 320x256, card (kernel) vs CPU (plain): largest "
+          f"error {rel:.3e} of the magnitude (FPN P2-P6, box logits); valid "
+          f"detections {sem[dev + ' valid']} and {sem['cpu valid']}; semantic "
+          f"masks agree on {100 * agree:.4f} % of the pixels")
+    return rel
+
+
+def time_roi_align(cases):
+    """Kernel and plain ms of one frame's two calls together and their
+    bound: (ms, plain_ms, bound_ms, bound_by). Kernel ms is device time
+    (``time_cuda_graph``, 20 calls), plain ms CUDA events over 3 calls."""
+    from vido_slam_tpu_torch.ops import roi_align
+
+    ms = plain_ms = 0.0
+    nbytes = flops = 0
+    for name, args in cases:
+        k_ms = time_cuda_graph(lambda: roi_align.roi_align_multilevel(*args),
+                               20)
+        p_ms = time_cuda(lambda: roi_align.roi_align_multilevel_ref(*args), 3)
+        b_ = roi_align.nbytes(*args)
+        f_ = roi_align.operations(args[1], args[0][0].shape[1], args[4],
+                                  args[5])
+        print(f"roi_align_multilevel {name}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, {b_} bytes, {f_} flops")
+        ms += k_ms
+        plain_ms += p_ms
+        nbytes += b_
+        flops += f_
+    return (ms, plain_ms) + bound(nbytes, flops)
+
+
 def bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
     the float32 operations over the float32 peak."""
@@ -564,11 +787,12 @@ class KernelArgs:
     """Stands in for a kernel's wrapper (``pose_lm_batched`` in
     ``estimation/pose.py``, ``flow_joint_batched`` in
     ``estimation/flow_joint.py``, ``correlation`` and ``dist_weighted_flow``
-    in ``models/liteflownet.py``) while a main path runs: passes every call
-    on to the wrapper, which launches and counts, and keeps a copy of each
-    call's first ``n_args`` positional arguments (tensors cloned) and its
-    keywords, so that the kernel can be held against its plain version on
-    what the main path gave it."""
+    in ``models/liteflownet.py``, ``roi_align_multilevel`` in
+    ``models/maskrcnn/roi_heads.py``) while a main path runs: passes every
+    call on to the wrapper, which launches and counts, and keeps a copy of
+    each call's first ``n_args`` positional arguments (tensors, also in
+    lists, cloned) and its keywords, so that the kernel can be held against
+    its plain version on what the main path gave it."""
 
     def __init__(self, wrapper, n_args=5):
         self.wrapper = wrapper
@@ -577,8 +801,13 @@ class KernelArgs:
 
     def __call__(self, *args, **kw):
         import torch
-        self.calls.append((tuple(a.clone() if torch.is_tensor(a) else a
-                                 for a in args[:self.n_args]), kw))
+
+        def keep(a):
+            if torch.is_tensor(a):
+                return a.clone()
+            return [keep(x) for x in a] if isinstance(a, list) else a
+
+        self.calls.append((tuple(keep(a) for a in args[:self.n_args]), kw))
         return self.wrapper(*args, **kw)
 
     def frame_calls(self):
@@ -710,7 +939,10 @@ def main() -> int:
     from vido_slam_tpu_torch.estimation.pose import (HUBER_DELTA_POSE,
                                                      OBJ_ITERS, POSE_ITERS)
     from vido_slam_tpu_torch.models import liteflownet
-    from vido_slam_tpu_torch.ops import correlation, regularize
+    from vido_slam_tpu_torch.models.maskrcnn import roi_heads
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           RESNEXT101_FPN)
+    from vido_slam_tpu_torch.ops import correlation, regularize, roi_align
     from vido_slam_tpu_torch.utils import cuda_build
     from vido_slam_tpu_torch.utils.device import resolve_device
 
@@ -755,11 +987,13 @@ def main() -> int:
     reg_cases = regularize_cases(rng, dev)
     err_corr = check_correlation(corr_cases)
     err_reg = check_regularize(reg_cases)
+    err_roi = check_roi_align(roi_cases(rng, dev))
     del corr_cases, reg_cases
 
     # phase 4; the stand-ins keep the kernels' arguments for phase 3 below
     counters = [lm_kernel.pose_lm_batched, flow_joint_kernel.flow_joint_batched,
-                correlation.correlation, regularize.dist_weighted_flow]
+                correlation.correlation, regularize.dist_weighted_flow,
+                roi_align.roi_align_multilevel]
     names = [c.__name__ for c in counters]
     inputs = main_path_inputs(seq, "cuda", N_FRAMES)
     n_tracked = N_FRAMES - 1
@@ -804,7 +1038,7 @@ def main() -> int:
     finally:
         for attr, rec in recorders.items():
             setattr(liteflownet, attr, rec.wrapper)
-    expect = [0, 0, 5 * FLOW_PAIRS, 5 * FLOW_PAIRS]
+    expect = [0, 0, 5 * FLOW_PAIRS, 5 * FLOW_PAIRS, 0]
     check(launches == expect,
           f"flow path: {names} launched {launches} times over {FLOW_PAIRS} "
           f"pairs, not {expect}")
@@ -812,6 +1046,7 @@ def main() -> int:
         check(f.shape == (FLOW_H, FLOW_W, 2) and bool(torch.isfinite(f).all()),
               f"flow of shape {tuple(f.shape)}, finite: "
               f"{bool(torch.isfinite(f).all())}")
+    launches_flow = launches
     steady = times[1:]
     print(f"flow path: {FLOW_PAIRS} pairs {FLOW_W}x{FLOW_H} (net at "
           f"{FLOW_W}x576), launches {launches}, flow |max| "
@@ -820,6 +1055,43 @@ def main() -> int:
           f"(pairs 2-{FLOW_PAIRS}, host clock over torch.cuda.synchronize); "
           f"first pair {1e3 * times[0]:.2f} ms")
     del flows, clip, net
+
+    # (d) the mask path
+    roi_recorder = KernelArgs(roi_heads.roi_align_multilevel, 6)
+    roi_heads.roi_align_multilevel = roi_recorder
+    clip, model = mask_inputs(dev)
+    try:
+        masks, dets, times, launches = run_mask_path(clip, model, counters)
+    finally:
+        roi_heads.roi_align_multilevel = roi_recorder.wrapper
+    expect = [0, 0, 0, 0, 2 * MASK_FRAMES]
+    check(launches == expect,
+          f"mask path: {names} launched {launches} times over {MASK_FRAMES} "
+          f"frames, not {expect}")
+    n_valid = check_masks(masks, dets, "mask path")
+    launches_roi = launches[4]
+    steady = times[1:]
+    print(f"mask path: {MASK_FRAMES} frames {FLOW_W}x{FLOW_H} (detector at "
+          f"800x1088), launches {launches}, valid detections per frame "
+          f"{n_valid}, labelled pixels per frame "
+          f"{[int((m > 0).sum()) for m in masks]}; ms/frame mean "
+          f"{1e3 * np.mean(steady):.2f} median {1e3 * np.median(steady):.2f} "
+          f"(frames 2-{MASK_FRAMES}, host clock over torch.cuda.synchronize);"
+          f" first frame {1e3 * times[0]:.2f} ms")
+    del masks, dets, model
+
+    # the reference ROS node's X-101-32x8d-FPN: one frame after a warm-up
+    model = lifted(MaskRCNN(RESNEXT101_FPN, seed=0, device=dev))
+    masks, dets, times, launches = run_mask_path(clip[:1], model, counters)
+    masks, dets, times2, launches = run_mask_path(clip[1:2], model, counters)
+    check(launches == [0, 0, 0, 0, 2],
+          f"X-101 frame: {names} launched {launches} times, not [0, 0, 0, 0, 2]")
+    n_x101 = check_masks(masks, dets, "X-101 frame")
+    print(f"X-101-32x8d-FPN frame {FLOW_W}x{FLOW_H}: launches {launches}, "
+          f"valid detections {n_x101}; {1e3 * times2[0]:.2f} ms (first frame "
+          f"{1e3 * times[0]:.2f} ms)")
+    frame0 = clip[0].clone()
+    del masks, dets, clip, model
 
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
@@ -854,6 +1126,13 @@ def main() -> int:
         lambda a: (regularize.nbytes(a[0]), regularize.operations(a[0])))
     del recorders, level_calls
     check_whole_net(dev)
+    # ... and those of the mask path's second frame: the box and mask heads
+    frame = [(f"mask path frame 2 {what}", args) for what, (args, _) in
+             zip(("box head", "mask head"), roi_recorder.calls[2:4])]
+    err_roi = max(err_roi, check_roi_align(frame))
+    timing_roi = time_roi_align(frame)
+    del roi_recorder, frame
+    check_whole_detector(dev, frame0)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     entries = [
@@ -870,13 +1149,18 @@ def main() -> int:
         dict(name="correlation", route="cuda",
              source="vido_slam_tpu_torch/csrc/correlation.cu",
              replaces="vido_slam_tpu/ops/correlation.py:154",
-             launches=launches[2], max_abs_err=err_corr,
+             launches=launches_flow[2], max_abs_err=err_corr,
              **dict(zip(keys, timing_corr)), library_ms=None),
         dict(name="dist_weighted_flow", route="cuda",
              source="vido_slam_tpu_torch/csrc/regularize.cu",
              replaces="vido_slam_tpu/ops/regularize.py:146",
-             launches=launches[3], max_abs_err=err_reg,
+             launches=launches_flow[3], max_abs_err=err_reg,
              **dict(zip(keys, timing_reg)), library_ms=None),
+        dict(name="roi_align_multilevel", route="cuda",
+             source="vido_slam_tpu_torch/csrc/roi_align.cu",
+             replaces="vido_slam_tpu/ops/roi_align.py:249",
+             launches=launches_roi, max_abs_err=err_roi,
+             **dict(zip(keys, timing_roi)), library_ms=None),
     ]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

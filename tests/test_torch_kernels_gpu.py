@@ -12,7 +12,8 @@ most 3 inlier flips. Kernel 2 (joint flow + pose): per problem
 |log(T_ref^-1 T)| < 1e-4, inlier sets differing on at most max(3, 1 %) of
 the points, flows of common inliers within 1e-2 px. Kernel 3 (cost
 volume): max error <= 1e-5 max(1, max |plain|). Kernel 4 (regularization
-tail): rtol = atol = 1e-5 element by element."""
+tail): rtol = atol = 1e-5 element by element. Kernel 5 (multilevel
+ROIAlign): max error <= 1e-5 max(1, max |feature|)."""
 
 import numpy as np
 import pytest
@@ -24,7 +25,9 @@ from vido_slam_tpu_torch.estimation.pose import HUBER_DELTA_POSE, RP_THRES
 from vido_slam_tpu_torch.geometry.camera import Camera
 from vido_slam_tpu_torch.geometry.se3 import inverse_se3, log_se3, make_se3
 from vido_slam_tpu_torch.geometry.so3 import exp_so3
-from vido_slam_tpu_torch.ops import correlation, regularize
+from vido_slam_tpu_torch.models.maskrcnn.roi_heads import (POOLER_SCALES,
+                                                          assign_fpn_level)
+from vido_slam_tpu_torch.ops import correlation, regularize, roi_align
 
 torch.set_num_threads(1)
 
@@ -330,3 +333,74 @@ def test_flow_kernels_check_inputs(monkeypatch):
         b, w, b, 3)
     torch.cuda.synchronize()
     assert out.is_cuda
+
+
+# kernel 5: the multilevel ROIAlign, at the heads' two resolutions on the
+# P2-P5 of a 1088x800 image (chip_smoke.MASK_LEVELS), one level at a time,
+# ragged R, C not a multiple of 64, boxes on and past the borders
+
+def _roi_args(R, C, res, seed, level=None, border=False):
+    rng = np.random.RandomState(seed)
+    feats = [torch.tensor(rng.randn(1, C, h, w).astype(np.float32)).cuda()
+             for h, w in chip_smoke.MASK_LEVELS]
+    x1 = rng.uniform(-60, 800, R)
+    y1 = rng.uniform(-60, 1088, R)
+    ww, hh = np.exp(rng.uniform(np.log(0.3), np.log(1500), (2, R)))
+    rois = np.stack([x1, y1, x1 + ww, y1 + hh], 1).astype(np.float32)
+    if border:
+        # boxes along the image's edges: on them, and reaching past them
+        side = rng.uniform(4, 400, R)
+        edge = rng.randint(0, 4, R)
+        rois[:, :2] = np.where(edge[:, None] < 2, -side[:, None] / 2,
+                               [799.0, 1087.0] - side[:, None] / 2)
+        rois[:, 2:] = rois[:, :2] + side[:, None]
+        rois[::3, :2] = 0.0
+        rois[1::3, 2:] = [799.0, 1087.0]
+    rois = torch.tensor(rois).cuda()
+    levels = assign_fpn_level(rois) if level is None \
+        else torch.full((R,), level, dtype=torch.int32).cuda()
+    return feats, rois, levels, POOLER_SCALES, res, 2
+
+
+@pytest.mark.parametrize("R,C,res,level,border", [
+    (1000, 256, 7, None, False),     # the box head
+    (100, 256, 14, None, False),     # the mask head
+    (37, 256, 7, 0, False), (37, 256, 14, 1, False),
+    (37, 256, 7, 2, False), (37, 256, 14, 3, False),
+    (1, 256, 7, None, False),
+    (37, 48, 14, None, False),       # C not a multiple of 64
+    (1000, 5, 7, None, False),
+    (200, 256, 7, None, True), (50, 256, 14, None, True),
+])
+def test_roi_align_kernel_matches_plain(R, C, res, level, border):
+    _need_card()
+    args = _roi_args(R, C, res, seed=R + C + res, level=level, border=border)
+    before = roi_align.roi_align_multilevel.launches
+    got = roi_align.roi_align_multilevel(*args)
+    assert roi_align.roi_align_multilevel.launches == before + 1
+    ref = roi_align.roi_align_multilevel_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (R, C, res, res)
+    scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_roi_align_kernel_checks_inputs(monkeypatch):
+    _need_card()
+    feats, rois, levels, scales, res, s = _roi_args(20, 16, 7, seed=3)
+    with pytest.raises(ValueError):
+        roi_align.roi_align_multilevel(feats, rois.cpu(), levels, scales)
+    with pytest.raises(ValueError):
+        roi_align.roi_align_multilevel(feats, rois, levels.cpu(), scales)
+    with pytest.raises(TypeError):
+        roi_align.roi_align_multilevel([f.half() for f in feats],
+                                       rois.half(), levels, scales)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(roi_align, "roi_align_multilevel_ref", refuse)
+    out = roi_align.roi_align_multilevel(feats, rois, levels.long(), scales,
+                                         14)
+    torch.cuda.synchronize()
+    assert out.is_cuda and out.shape == (20, 16, 14, 14)

@@ -26,10 +26,13 @@ need = {"vido_slam_tpu_torch." + m
         for m in ("estimation.assembly", "estimation.flow_joint",
                   "estimation.flow_joint_kernel", "estimation.lm_kernel",
                   "models.layers", "models.liteflownet", "models.perception",
-                  "ops.correlation", "ops.regularize", "ops.warp")}
+                  "models.maskrcnn.backbone", "models.maskrcnn.model",
+                  "models.maskrcnn.roi_heads", "models.maskrcnn.rpn",
+                  "ops.correlation", "ops.nms", "ops.regularize",
+                  "ops.roi_align", "ops.warp")}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 32 else 0)
+sys.exit(1 if bad or missing or len(names) < 39 else 0)
 """
 
 

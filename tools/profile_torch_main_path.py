@@ -2,6 +2,7 @@
 
     python tools/profile_torch_main_path.py [--frames 24]
     python tools/profile_torch_main_path.py --flow [--frames 9]
+    python tools/profile_torch_main_path.py --mask [--frames 8]
 
 Drives the same System run as chip_smoke.py (KAIST 1280x560 synthetic
 sequence, RGBD, fused window BA), after the kernel build and a short
@@ -19,6 +20,12 @@ perception flow branch over consecutive 1280x560 driving-clip pairs, the
 net at 1280x576) and reports the same for it, per pair: the wall time of
 the encoder and of each level's Matching, Subpixel and Regularization
 (synchronised the same way), and the device trace of an unwrapped run.
+With ``--mask`` it drives chip_smoke.py's mask path (the perception mask
+branch with Mask R-CNN R-50-FPN over 1280x560 driving-clip frames, the
+detector at 1088x800) and reports per frame the wall time of the backbone,
+the FPN, the RPN with its NMS, the box head, the post-processing, the
+mask head and the paste (synchronised the same way), and the device trace
+of an unwrapped run.
 Prints a JSON summary as its last line. Needs a CUDA device.
 """
 
@@ -150,12 +157,79 @@ def profile_flow(n_frames):
     return 0
 
 
+def profile_mask(n_frames):
+    """The mask path: per-stage synchronised wall time per frame, then the
+    device trace of an unwrapped run, after one warm-up run."""
+    from vido_slam_tpu_torch.models import perception
+    from vido_slam_tpu_torch.models.maskrcnn import backbone
+    from vido_slam_tpu_torch.models.maskrcnn import model as mm
+    from vido_slam_tpu_torch.ops import roi_align
+
+    counters = [roi_align.roi_align_multilevel]
+    chip_smoke.MASK_FRAMES = n_frames
+    clip, model = chip_smoke.mask_inputs("cuda")
+    chip_smoke.run_mask_path(clip, model, counters)     # build, warm-up
+    acc = collections.defaultdict(float)
+    methods = {"backbone": backbone.ResNet, "FPN": backbone.FPN}
+    functions = {"RPN + NMS": (mm, "rpn_proposals"),
+                 "box head": (mm, "box_head_forward"),
+                 "postprocess": (mm, "postprocess_detections"),
+                 "mask head": (mm, "mask_head_forward"),
+                 "paste": (perception, "paste_semantic_mask")}
+    originals = {n: c.forward for n, c in methods.items()}
+    for n, c in methods.items():
+        c.forward = (lambda name, fn: lambda self, *a: _wrap(
+            name, lambda *b: fn(self, *b), acc)(*a))(n, originals[n])
+    for n, (mod, attr) in functions.items():
+        originals[n] = getattr(mod, attr)
+        setattr(mod, attr, _wrap(n, originals[n], acc))
+    try:
+        _, _, wrapped, _ = chip_smoke.run_mask_path(clip, model, counters)
+    finally:
+        for n, c in methods.items():
+            c.forward = originals[n]
+        for n, (mod, attr) in functions.items():
+            setattr(mod, attr, originals[n])
+    stage_ms = {k: 1e3 * acc[k] / n_frames
+                for k in list(methods) + list(functions)}
+    (_, _, times, launches), spans, kern, busy_ms = device_trace(
+        lambda: chip_smoke.run_mask_path(clip, model, counters))
+    wall_ms = 1e3 * float(np.sum(times))
+    ours = sum(v for k, v in kern.items() if "roi_align_kernel" in k)
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:15]
+    print(f"mask path, {n_frames} frames: ms/frame under the profiler mean "
+          f"{1e3 * np.mean(times):.2f} median {1e3 * np.median(times):.2f}; "
+          f"wrapped ms/frame {1e3 * np.mean(wrapped):.2f}; launches "
+          f"{launches}; per stage (synchronised):")
+    for k, v in stage_ms.items():
+        print(f"  {k:24s} {v:8.2f} ms")
+    print(f"device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+          f"({100 * busy_ms / wall_ms:.1f} %), {len(spans) / n_frames:.0f} "
+          f"device events per frame; kernel 5 {ours / n_frames:.3f} ms a "
+          f"frame; top by device ms:")
+    for k, v in top:
+        print(f"  {v:9.3f} ms  {k[:90]}")
+    print(json.dumps({
+        "ms_per_frame_mean": 1e3 * float(np.mean(times)),
+        "ms_per_frame_median": 1e3 * float(np.median(times)),
+        "stage_ms": stage_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "device_ms_per_frame": busy_ms / n_frames,
+        "kernel_5_device_ms_per_frame": ours / n_frames,
+        "device_events_per_frame": len(spans) / n_frames,
+        "top_kernels_ms": dict(top),
+    }))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--flow", action="store_true",
                     help="profile the flow path instead of the VO path")
+    ap.add_argument("--mask", action="store_true",
+                    help="profile the mask path instead of the VO path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -163,6 +237,8 @@ def main():
     print(chip_smoke.card_line())
     if args.flow:
         return profile_flow(min(args.frames, 9))
+    if args.mask:
+        return profile_mask(min(args.frames, 8))
     seq = chip_smoke.offline_sequence(args.frames, "cuda")
     inputs = chip_smoke.main_path_inputs(seq, "cuda", args.frames)
     counters = [lm_kernel.pose_lm_batched]

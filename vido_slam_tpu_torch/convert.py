@@ -3,8 +3,9 @@
 numpy arrays (``jax.device_get`` of them), become the port's tensors.
 
 The inputs are read by field name, so any object with the JAX field names
-works; nothing of the JAX package is imported. LiteFlowNet's parameter
-dict carries across the same way (``liteflownet_state_dict_from_numpy``).
+works; nothing of the JAX package is imported. LiteFlowNet's and Mask
+R-CNN's parameter dicts carry across the same way
+(``liteflownet_state_dict_from_numpy``, ``maskrcnn_state_dict_from_numpy``).
 """
 
 from __future__ import annotations
@@ -53,6 +54,26 @@ def liteflownet_state_dict_from_numpy(params) -> dict:
         if a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         out[key] = torch.from_numpy(a.copy())
+    return out
+
+
+def maskrcnn_state_dict_from_numpy(params, device=None) -> dict:
+    """The JAX package's Mask R-CNN parameter dict (numpy arrays) as float32
+    tensors in torch layout on ``device`` (the card unless the caller asks
+    for the CPU), for ``MaskRCNN.load_state_dict(strict=True)``: a 4-D
+    array goes through ``transpose(3, 2, 0, 1)`` (HWIO -> OIHW for a
+    Conv2d; conv5_mask's stored (kh, kw, cout, cin) -> the ConvTranspose2d's
+    (cin, cout, kh, kw)), a 2-D ``*.weight`` (a Linear stored (in, out))
+    through ``.T``; 1-D arrays pass unchanged."""
+    dev = resolve_device(device)
+    out = {}
+    for key, value in params.items():
+        a = np.asarray(value, np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 2 and key.endswith(".weight"):
+            a = a.T
+        out[key] = torch.from_numpy(np.array(a, order="C")).to(dev)
     return out
 
 

@@ -5,11 +5,39 @@ what needs a rule of its own is here."""
 from __future__ import annotations
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """maskrcnn_benchmark's FrozenBatchNorm2d (layers/batch_norm.py): fixed
+    statistics, scale = weight * rsqrt(running_var) with **no** epsilon
+    (backbone.py:50-59: 1e-5 would break checkpoint parity on channels of
+    small variance, so ``nn.BatchNorm2d`` does not serve). Its buffers carry
+    the checkpoint's four keys."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.register_buffer("weight", torch.ones(channels))
+        self.register_buffer("bias", torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = self.weight * torch.rsqrt(self.running_var)
+        shift = self.bias - self.running_mean * inv
+        return x * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+
+
+def max_pool(x: torch.Tensor, k: int = 3, stride: int = 2,
+             padding: int = 1) -> torch.Tensor:
+    """Max pooling whose padding never wins (the JAX package pads with
+    -inf, layers.py:172-180), which is ``F.max_pool2d``'s rule."""
+    return F.max_pool2d(x, k, stride, padding)
 
 
 def deconv_grouped(x: torch.Tensor, w: torch.Tensor, stride: int = 2,

@@ -1,0 +1,241 @@
+"""FPN ROIAlign: the CUDA kernel ``csrc/roi_align.cu`` (counterpart of the
+Pallas ``roi_align_fused_pallas``, ``vido_slam_tpu/ops/roi_align.py``) and
+its plain PyTorch version.
+
+Detectron-1 semantics (maskrcnn_benchmark's ROIAlign, as the JAX package
+computes it): a ROI (x1, y1, x2, y2) in image coordinates is scaled by its
+level's ``spatial_scale``, no half-pixel shift; bin (ph, pw) of an r x r
+grid averages ``sampling_ratio``^2 bilinear samples at
+``y = y1 + (ph + (iy + 0.5) / s) * max(y2 - y1, 1) / r`` (x alike). A
+sample outside [-1, size - 1] contributes 0; an in-range coordinate is
+clamped to [0, size - 1] first. The multilevel form pools ROI i only from
+level ``levels[i]`` of the pyramid.
+
+Features are NCHW, one image: each level (1, C, H_l, W_l). Outputs are
+(R, C, r, r), so the box head flattens them in torch order directly.
+
+``roi_align_multilevel`` runs the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from vido_slam_tpu_torch.utils import cuda_build
+from vido_slam_tpu_torch.utils.device import kernel_device
+
+MAX_LEVELS = 4      # csrc/roi_align.cu: kMaxLevels
+MAX_SAMPLES = 64    # resolution x sampling_ratio per axis: kMaxSamples
+CHUNK = 128         # ROIs per product in the plain version
+
+
+def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b rounded once, on every device. PyTorch multiplies a CUDA
+    tensor by the reciprocal of a Python-number divisor instead, which is
+    one ulp off for b = 7 or 14; near row 270 of P2 one ulp of a sample's
+    position is 3e-5 px, enough to part the plain version from the kernel
+    by 2e-5 of the features' magnitude."""
+    return a / torch.full_like(a, b)
+
+
+def _hat_weights(lo: torch.Tensor, hi: torch.Tensor, size: int, r: int,
+                 s: int) -> torch.Tensor:
+    """(R, r, size) weights of one axis: the bin's s samples' bilinear
+    weights (hat functions), zero for a sample outside [-1, size - 1],
+    averaged. ``lo``/``hi`` are the ROI's scaled start and end (R,); the
+    arithmetic is roi_align.py:54-70's, operation for operation, with the
+    kernel's correctly rounded divisions."""
+    bin_ = true_div(torch.clamp(hi - lo, min=1.0), r)
+    ph = torch.arange(r, dtype=torch.float32, device=lo.device)
+    frac = true_div(torch.arange(s, dtype=torch.float32, device=lo.device)
+                    + 0.5, s)
+    pos = lo[:, None, None] + (ph[None, :, None] + frac[None, None, :]) \
+        * bin_[:, None, None]                                  # (R, r, s)
+    inside = (pos >= -1.0) & (pos <= size - 1.0)
+    p = torch.clamp(pos, 0.0, size - 1.0)
+    ks = torch.arange(size, dtype=torch.float32, device=lo.device)
+    w = torch.clamp(1.0 - (p[..., None] - ks).abs(), min=0.0) \
+        * inside[..., None]
+    return w.sum(2) / s
+
+
+def _level_weights(rois: torch.Tensor, spatial_scale: float, H: int, W: int,
+                   r: int, s: int):
+    """(Ry (R, r, H), Rx (R, r, W)) of ROIs pooled from an H x W level."""
+    x1, y1, x2, y2 = (rois[:, k] * spatial_scale for k in range(4))
+    return _hat_weights(y1, y2, H, r, s), _hat_weights(x1, x2, W, r, s)
+
+
+def roi_align(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
+              resolution: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
+    """Plain single-level ROIAlign: feat (1, C, H, W), rois (R, 4) ->
+    (R, C, r, r). The separable form out = Ry F Rx^T of roi_align.py:40-94,
+    ``CHUNK`` ROIs a product."""
+    _, C, H, W = feat.shape
+    r, R = resolution, rois.shape[0]
+    Ry, Rx = _level_weights(rois, spatial_scale, H, W, r, sampling_ratio)
+    Fy = feat[0].permute(1, 0, 2).reshape(H, C * W)
+    out = feat.new_empty((R, C, r, r))
+    for a in range(0, R, CHUNK):
+        b = min(a + CHUNK, R)
+        t = (Ry[a:b].reshape(-1, H) @ Fy).reshape(b - a, r, C, W)
+        out[a:b] = torch.einsum("bpcw,bqw->bcpq", t, Rx[a:b])
+    return out
+
+
+def roi_align_multilevel_ref(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                             levels: torch.Tensor,
+                             spatial_scales: Sequence[float],
+                             resolution: int = 7,
+                             sampling_ratio: int = 2) -> torch.Tensor:
+    """Plain version of the multilevel pooler (roi_align.py:111-196): the
+    ROIs of each level through ``roi_align`` on that level, put back in
+    order. Levels outside [0, L) clamp, as JAX's gathers do. Reads the
+    level partition back to the host."""
+    C = feats[0].shape[1]
+    r = resolution
+    lv = levels.clamp(0, len(feats) - 1)
+    out = feats[0].new_zeros((rois.shape[0], C, r, r))
+    for level, (f, scale) in enumerate(zip(feats, spatial_scales)):
+        idx = torch.nonzero(lv == level)[:, 0]
+        if idx.numel():
+            out[idx] = roi_align(f, rois[idx], scale, r, sampling_ratio)
+    return out
+
+
+def banded_weights(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                   levels: torch.Tensor, spatial_scales: Sequence[float],
+                   resolution: int = 7, sampling_ratio: int = 2):
+    """The plain version's per-level weights in the banded layout of the
+    Pallas kernel's arguments, as numpy: ``fcat`` (Htot, Wmax, C), the
+    levels stacked along rows in JAX's HWC layout and zero-padded to the
+    widest; ``Ry`` (R, r, Htot), each ROI's weights in its level's row band;
+    ``Rx`` (R, r, Wmax). ``roi_align_fused_pallas(fcat, Ry, Rx, r)`` then
+    computes the function of ``roi_align_multilevel_ref`` (permuted to
+    (R, r, r, C))."""
+    Hs = [f.shape[2] for f in feats]
+    Ws = [f.shape[3] for f in feats]
+    Wmax = max(Ws)
+    offs = np.concatenate([[0], np.cumsum(Hs)])
+    fcat = np.concatenate([np.pad(f[0].permute(1, 2, 0).cpu().numpy(),
+                                  ((0, 0), (0, Wmax - w), (0, 0)))
+                           for f, w in zip(feats, Ws)])
+    r = resolution
+    R = rois.shape[0]
+    Ry = np.zeros((R, r, int(offs[-1])), np.float32)
+    Rx = np.zeros((R, r, Wmax), np.float32)
+    lv = levels.clamp(0, len(feats) - 1).cpu().numpy()
+    for level, scale in enumerate(spatial_scales):
+        idx = np.nonzero(lv == level)[0]
+        ry, rx = _level_weights(rois[torch.from_numpy(idx)].cpu(), scale,
+                                Hs[level], Ws[level], r, sampling_ratio)
+        Ry[idx, :, offs[level]:offs[level + 1]] = ry.numpy()
+        Rx[idx, :, :Ws[level]] = rx.numpy()
+    return fcat, Ry, Rx
+
+
+def operations(rois: torch.Tensor, channels: int, resolution: int,
+               sampling_ratio: int = 2) -> int:
+    """float32 operations of a call, against the kernel's arithmetic: per
+    output and sample a multiply and a multiply-add for each of the two
+    rows (6) and two multiply-adds into the sum (4); per ROI and sample
+    position of either axis the position and weights (12)."""
+    R = rois.shape[0]
+    r, s = resolution, sampling_ratio
+    return R * channels * r * r * s * s * 10 + R * 2 * r * s * 12
+
+
+def nbytes(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+           levels: torch.Tensor, spatial_scales: Sequence[float],
+           resolution: int = 7, sampling_ratio: int = 2) -> int:
+    """Bytes a call must move: the ROIs and levels read, the (R, C, r, r)
+    output written, and every feature texel that a sample of these ROIs
+    weights above zero read once (C channels of 4 B): the union over ROIs
+    of their sampled rows x columns, per level."""
+    C = feats[0].shape[1]
+    R = rois.shape[0]
+    lv = levels.clamp(0, len(feats) - 1)
+    texels = 0
+    for level, (f, scale) in enumerate(zip(feats, spatial_scales)):
+        idx = torch.nonzero(lv == level)[:, 0]
+        if idx.numel():
+            ry, rx = _level_weights(rois[idx], scale, f.shape[2], f.shape[3],
+                                    resolution, sampling_ratio)
+            rows = (ry > 0).any(1).to(torch.float32)       # (n, H)
+            cols = (rx > 0).any(1).to(torch.float32)       # (n, W)
+            texels += int(((rows.T @ cols) > 0).sum())
+    return 4 * (R * C * resolution * resolution + texels * C) + 20 * R
+
+
+_launch_fn = None
+
+
+def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                         levels: torch.Tensor, spatial_scales: Sequence[float],
+                         resolution: int = 7,
+                         sampling_ratio: int = 2) -> torch.Tensor:
+    """(R, C, r, r) ROIAlign of rois (R, 4) float32, each from level
+    ``levels[i]`` (an integer tensor (R,)) of the pyramid ``feats``, up to
+    four contiguous float32 (1, C, H_l, W_l) levels on one device."""
+    global _launch_fn
+    dev = kernel_device("roi_align_multilevel", (*feats, rois))
+    L = len(feats)
+    if not 1 <= L <= MAX_LEVELS or len(spatial_scales) != L:
+        raise ValueError(f"roi_align_multilevel: 1 to {MAX_LEVELS} levels "
+                         f"with one scale each, got {L} and "
+                         f"{len(spatial_scales)}")
+    C = feats[0].shape[1]
+    for f in feats:
+        if f.ndim != 4 or f.shape[0] != 1 or f.shape[1] != C:
+            raise ValueError(f"roi_align_multilevel: levels must be "
+                             f"(1, {C}, H, W), got {tuple(f.shape)}")
+    R = rois.shape[0]
+    if rois.shape != (R, 4) or levels.shape != (R,) or R > 65535:
+        raise ValueError(f"roi_align_multilevel: rois {tuple(rois.shape)} "
+                         f"and levels {tuple(levels.shape)} must be (R, 4) "
+                         f"and (R,) with R <= 65535")
+    if levels.device != dev or levels.is_floating_point():
+        raise ValueError("roi_align_multilevel: levels must be an integer "
+                         "tensor on the features' device")
+    if resolution < 1 or sampling_ratio < 1 \
+            or resolution * sampling_ratio > MAX_SAMPLES:
+        raise ValueError(f"roi_align_multilevel: resolution x sampling_ratio "
+                         f"must be in [1, {MAX_SAMPLES}]")
+    if dev.type == "cpu":
+        return roi_align_multilevel_ref(feats, rois, levels, spatial_scales,
+                                        resolution, sampling_ratio)
+    out = torch.empty((R, C, resolution, resolution), dtype=torch.float32,
+                      device=dev)
+    if R == 0:
+        return out
+    levels = levels.to(torch.int32).contiguous()
+    if _launch_fn is None:
+        fn = cuda_build.load("roi_align").roi_align_launch
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I),
+                       ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float), I,
+                       P, P, P, I, I, I, I, P]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    ptrs = (ctypes.c_void_p * L)(*(f.data_ptr() for f in feats))
+    hs = (ctypes.c_int * L)(*(f.shape[2] for f in feats))
+    ws = (ctypes.c_int * L)(*(f.shape[3] for f in feats))
+    scales = (ctypes.c_float * L)(*(float(x) for x in spatial_scales))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _launch_fn(ptrs, hs, ws, scales, L, rois.data_ptr(),
+                        levels.data_ptr(), out.data_ptr(), R, C, resolution,
+                        sampling_ratio, stream)
+    if rc != 0:
+        raise RuntimeError(f"roi_align kernel launch failed: CUDA error {rc}")
+    roi_align_multilevel.launches += 1
+    return out
+
+
+# kernel launches since the last reset (the wrapper adds one per launch)
+roi_align_multilevel.launches = 0
