@@ -5,7 +5,8 @@
 Phases, each of which fails the run by raising:
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every kernel in ``csrc/`` (one nvcc each, started
-     together) and prints ptxas' register/shared-memory report of each;
+     together) and prints ptxas' report of each kernel (registers, shared
+     memory, stack, spills);
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      same numpy-seeded inputs, laid out at the main paths' shapes as the
      main paths lay them out (kernels 3 and 4 at the five pyramid levels of
@@ -236,22 +237,26 @@ def check_pose_lm(cases, cam) -> float:
 
 
 def time_pose_lm(cases, cam):
-    """Kernel and plain ms of the cases together (CUDA events, mean of 20
-    and of 3 calls after a warm-up) and their bound: (ms, plain_ms,
-    bound_ms, bound_by)."""
+    """Kernel and plain ms of the cases together and their bound: (ms,
+    plain_ms, bound_ms, bound_by). The kernel's ms is its device time
+    (``time_cuda_graph``, 20 calls); beside it is printed the mean of 20
+    calls by CUDA events after a warm-up, which includes the wrappers' host
+    time. The plain version's ms: CUDA events over 3 calls."""
     from vido_slam_tpu_torch.estimation import lm_kernel
 
     ms = plain_ms = 0.0
     nbytes = flops = 0
     for name, args, kw, _ in cases:
-        k_ms = time_cuda(lambda: lm_kernel.pose_lm_batched(*args, cam, **kw),
-                         20)
+        def kernel():
+            return lm_kernel.pose_lm_batched(*args, cam, **kw)
+        k_ms = time_cuda_graph(kernel, 20)
+        ev_ms = time_cuda(kernel, 20)
         p_ms = time_cuda(
             lambda: lm_kernel.pose_lm_batched_ref(*args, cam, **kw), 3)
-        b_, f_ = lm_bound(args, lm_kernel.pose_lm_batched(*args, cam, **kw),
-                          kw["huber_delta"])
-        print(f"pose_lm_batched {name}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.3f} ms, {b_} bytes, {f_} flops")
+        b_, f_ = lm_bound(args, kernel(), kw["huber_delta"])
+        print(f"pose_lm_batched {name}: kernel {k_ms:.4f} ms (graph replay; "
+              f"{ev_ms:.4f} ms by events), plain {p_ms:.3f} ms, {b_} bytes, "
+              f"{f_} flops")
         ms += k_ms
         plain_ms += p_ms
         nbytes += b_
@@ -319,8 +324,8 @@ def check_flow_joint(cases, cam) -> float:
     (name, args). Bars (per problem, those of the JAX parity test
     tests/test_flow_joint.py:190-200): |log(T_ref^-1 T)| < 1e-4, inlier
     sets differing on at most max(3, 1 %) of the points, the flows of
-    common inliers within 1e-2 px. Returns max_abs_err over T and those
-    flows."""
+    common inliers within 1e-2 px; a second launch gives the same bits.
+    Returns max_abs_err over T and those flows."""
     import torch
     from vido_slam_tpu_torch.estimation import flow_joint_kernel as fj
     from vido_slam_tpu_torch.geometry.se3 import inverse_se3, log_se3
@@ -328,8 +333,11 @@ def check_flow_joint(cases, cam) -> float:
     err = 0.0
     for name, args in cases:
         got = fj.flow_joint_batched(*args, cam)
+        again = fj.flow_joint_batched(*args, cam)
         ref = fj.flow_joint_batched_ref(*args, cam)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              (name, "two launches differ"))
         N = args[4].shape[1]
         for b in range(args[4].shape[0]):
             rot = float(torch.linalg.norm(
@@ -351,21 +359,26 @@ def check_flow_joint(cases, cam) -> float:
 
 
 def time_flow_joint(cases, cam):
-    """Kernel and plain ms of the cases together (CUDA events, mean of 20
-    and of 3 calls after a warm-up) and their bound: (ms, plain_ms,
-    bound_ms, bound_by)."""
+    """Kernel and plain ms of the cases together and their bound: (ms,
+    plain_ms, bound_ms, bound_by), timed as ``time_pose_lm`` times kernel
+    1."""
     from vido_slam_tpu_torch.estimation import flow_joint_kernel as fj
 
     ms = plain_ms = 0.0
     nbytes = flops = 0
     for name, args in cases:
-        k_ms = time_cuda(lambda: fj.flow_joint_batched(*args, cam), 20)
+        def kernel():
+            return fj.flow_joint_batched(*args, cam)
+        k_ms = time_cuda_graph(kernel, 20)
+        ev_ms = time_cuda(kernel, 20)
         p_ms = time_cuda(lambda: fj.flow_joint_batched_ref(*args, cam), 3)
-        res = fj.flow_joint_batched(*args, cam)
+        res = kernel()
         b_ = sum(t.numel() * t.element_size() for t in args + tuple(res))
         f_ = fj.operations(args[4], res.num_iters)
-        print(f"flow_joint_batched {name}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.3f} ms, {b_} bytes, {f_} flops")
+        print(f"flow_joint_batched {name}: kernel {k_ms:.4f} ms (graph "
+              f"replay; {ev_ms:.4f} ms by events), plain {p_ms:.3f} ms, "
+              f"{b_} bytes, {f_} flops; plan "
+              f"{fj.launch_plan(*args[4].shape)}")
         ms += k_ms
         plain_ms += p_ms
         nbytes += b_
@@ -383,6 +396,17 @@ CORR_LEVELS = [(64, 288, 640, 2), (64, 144, 320, 2), (96, 72, 160, 1),
                (128, 36, 80, 1), (192, 18, 40, 1)]
 REG_LEVELS = [(7, 288, 640), (5, 144, 320), (5, 72, 160), (3, 36, 80),
               (3, 18, 40)]
+
+
+def flow_level(args) -> str:
+    """'level L' of a recorded cost-volume (f1, f2, stride) or
+    regularization (dc, flow, ...) call, by its shape."""
+    x = args[0]
+    if len(args) == 3:
+        shape = (x.shape[1], x.shape[2], x.shape[3], args[2])
+        return f"level {2 + CORR_LEVELS.index(shape)}"
+    shape = (args[6], x.shape[2], x.shape[3])
+    return f"level {2 + REG_LEVELS.index(shape)}"
 
 
 def correlation_cases(rng, dev):
@@ -417,23 +441,27 @@ def regularize_cases(rng, dev):
 def check_correlation(cases) -> float:
     """correlation against correlation_ref on each case (name, args): max
     |kernel - plain| <= 1e-5 max(1, max |plain|), the bar of the CPU test
-    (atol 1e-5 on unit-normal inputs) relative to the output's magnitude.
-    Returns max_abs_err."""
+    (atol 1e-5 on unit-normal inputs) relative to the output's magnitude;
+    a second launch gives the same bits. Returns max_abs_err."""
     import torch
     from vido_slam_tpu_torch.ops import correlation as corr
 
     err = 0.0
     for name, args in cases:
         got = corr.correlation(*args)
+        again = corr.correlation(*args)
         ref = corr.correlation_ref(*args)
         torch.cuda.synchronize()
         e = float((got - ref).abs().max())
         scale = max(1.0, float(ref.abs().max()))
         check(got.shape == ref.shape and math.isfinite(e)
               and e <= 1e-5 * scale, ("correlation", name, e, scale))
+        check(torch.equal(got, again), ("correlation", name,
+                                        "two launches differ"))
         err = max(err, e)
         print(f"correlation {name}: max error {e:.3e} (bar "
-              f"{1e-5 * scale:.1e})")
+              f"{1e-5 * scale:.1e}); plan "
+              f"{corr.launch_plan(*args[0].shape, args[2])}")
     return err
 
 
@@ -956,7 +984,8 @@ def main() -> int:
     print(f"build of {sorted(logs)}: {time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "ptxas" in line:
+            # each kernel's registers, shared memory, stack and spills
+            if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     # phase 3 on numpy-seeded problems laid out as the main paths lay them
@@ -1111,7 +1140,8 @@ def main() -> int:
     level_calls = {}
     for attr, rec in recorders.items():
         level_calls[attr] = [
-            (f"flow path pair {pair + 1} call {i + 1}", args)
+            (f"flow path pair {pair + 1} call {i + 1} "
+             f"({flow_level(args)})", args)
             for i, (args, _) in enumerate(rec.calls[5 * pair:5 * pair + 5])]
     err_corr = max(err_corr, check_correlation(level_calls["correlation"]))
     err_reg = max(err_reg, check_regularize(level_calls["dist_weighted_flow"]))

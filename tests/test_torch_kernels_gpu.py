@@ -6,14 +6,15 @@ card. Run there with
 (--noconftest: tests/conftest.py configures JAX, which the port's tests
 here do not use.)
 Each test decides inside itself whether a card is present and skips
-without one. Bars: those of chip_smoke.py. Kernel 1 (pose LM): per problem
-|log(T_ref^-1 T)| < 1e-4, |chi2 - chi2_ref| <= 1e-3 max(1, chi2_ref), at
-most 3 inlier flips. Kernel 2 (joint flow + pose): per problem
-|log(T_ref^-1 T)| < 1e-4, inlier sets differing on at most max(3, 1 %) of
-the points, flows of common inliers within 1e-2 px. Kernel 3 (cost
-volume): max error <= 1e-5 max(1, max |plain|). Kernel 4 (regularization
-tail): rtol = atol = 1e-5 element by element. Kernel 5 (multilevel
-ROIAlign): max error <= 1e-5 max(1, max |feature|)."""
+without one. Kernels 2 and 3 must also give the same bits in two
+launches on the same inputs. Bars: those of chip_smoke.py. Kernel 1
+(pose LM): per problem |log(T_ref^-1 T)| < 1e-4, |chi2 - chi2_ref| <=
+1e-3 max(1, chi2_ref), at most 3 inlier flips. Kernel 2 (joint flow +
+pose): per problem |log(T_ref^-1 T)| < 1e-4, inlier sets differing on at
+most max(3, 1 %) of the points, flows of common inliers within 1e-2 px.
+Kernel 3 (cost volume): max error <= 1e-5 max(1, max |plain|). Kernel 4
+(regularization tail): rtol = atol = 1e-5 element by element. Kernel 5
+(multilevel ROIAlign): max error <= 1e-5 max(1, max |feature|)."""
 
 import numpy as np
 import pytest
@@ -195,22 +196,10 @@ def _joint_args(B, N, layout, seed):
     return cam, tuple(a.cuda().contiguous() for a in args)
 
 
-@pytest.mark.parametrize("B,N,layout", [
-    (1, 3000, "camera"),          # the camera solve
-    (8, 4000, "main path"),       # the object batch
-    (3, 300, "main path"),
-    (3, 12000, "main path"),      # too large for shared memory
-])
-def test_flow_joint_kernel_matches_plain(B, N, layout):
-    _need_card()
-    cam, args = _joint_args(B, N, layout, seed=B + N)
-    before = flow_joint_kernel.flow_joint_batched.launches
-    got = flow_joint_kernel.flow_joint_batched(*args, cam)
-    assert flow_joint_kernel.flow_joint_batched.launches == before + 1
-    ref = flow_joint_kernel.flow_joint_batched_ref(*args, cam)
-    torch.cuda.synchronize()
+def _hold_flow_joint(got, ref, args):
+    """Kernel 2 against its plain version: the bars above."""
+    B, N = args[4].shape
     assert torch.isfinite(got.T).all() and torch.isfinite(got.flow).all()
-    assert (got.num_iters >= 1).all()
     np.testing.assert_array_equal(got.num_inliers.cpu().numpy(),
                                   got.inliers.sum(-1).cpu().numpy())
     for b in range(B):
@@ -225,6 +214,108 @@ def test_flow_joint_kernel_matches_plain(B, N, layout):
                 < 1e-2, b
     # the prior set bounds the inliers
     assert not (got.inliers & ~args[4]).any()
+
+
+@pytest.mark.parametrize("B,N,layout", [
+    (1, 3000, "camera"),          # the camera solve
+    (8, 4000, "main path"),       # the object batch
+    (3, 300, "main path"),
+    (3, 12000, "main path"),      # 1,500 points a CTA of 8
+    (1, 40000, "camera"),         # a CTA's share too large for shared memory
+])
+def test_flow_joint_kernel_matches_plain(B, N, layout):
+    _need_card()
+    cam, args = _joint_args(B, N, layout, seed=B + N)
+    plan = flow_joint_kernel.launch_plan(B, N)
+    assert (plan.smem_bytes == 0) == (N == 40000)
+    before = flow_joint_kernel.flow_joint_batched.launches
+    got = flow_joint_kernel.flow_joint_batched(*args, cam)
+    assert flow_joint_kernel.flow_joint_batched.launches == before + 1
+    ref = flow_joint_kernel.flow_joint_batched_ref(*args, cam)
+    torch.cuda.synchronize()
+    assert (got.num_iters >= 1).all()
+    _hold_flow_joint(got, ref, args)
+
+
+@pytest.mark.parametrize("case", [
+    "object with an empty mask",     # the main path's batch, one mask empty
+    "object with 4 points",          # fewer than MIN_EDGES
+    "camera with 200 points",        # fewer than the cluster's threads
+    "N=1",
+])
+def test_flow_joint_kernel_small_problems(case):
+    """Problems with few or no points: the plan's clusters still run them,
+    and one with fewer than MIN_EDGES active points takes no step and counts
+    the plain version's iterations (all rejected: 10 a round)."""
+    _need_card()
+    if case.startswith("object"):
+        cam, args = _joint_args(8, 4000, "main path", seed=41)
+        valid = args[4].clone()
+        if case.endswith("empty mask"):
+            valid[5] = False
+        else:
+            valid[5] &= torch.cumsum(valid[5].int(), 0) <= 4
+        args = args[:4] + (valid,)
+        few = [5]
+    elif case.startswith("camera"):
+        cam, args = _joint_args(1, 3000, "camera", seed=42)
+        keep = torch.zeros_like(args[4])
+        keep[:, ::15] = True
+        args = args[:4] + (args[4] & keep,)
+        assert 100 < int(args[4].sum()) < 2 * 256
+        few = []
+    else:
+        cam, args = _joint_args(2, 1, "main path", seed=43)
+        args = args[:4] + (torch.ones_like(args[4]),)
+        few = [0, 1]
+    got = flow_joint_kernel.flow_joint_batched(*args, cam)
+    ref = flow_joint_kernel.flow_joint_batched_ref(*args, cam)
+    torch.cuda.synchronize()
+    _hold_flow_joint(got, ref, args)
+    for b in few:
+        assert got.num_iters[b].tolist() == ref.num_iters[b].tolist() \
+            == [flow_joint_kernel.ROUND_ITERS] * 4, b
+        assert torch.equal(got.T[b], args[0][b])
+        assert torch.equal(got.flow[b], ref.flow[b])
+
+
+@pytest.mark.parametrize("B,N,layout", [(1, 3000, "camera"),
+                                        (8, 4000, "main path")])
+def test_flow_joint_kernel_is_deterministic(B, N, layout):
+    _need_card()
+    cam, args = _joint_args(B, N, layout, seed=7)
+    a = flow_joint_kernel.flow_joint_batched(*args, cam)
+    b = flow_joint_kernel.flow_joint_batched(*args, cam)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_launchers_refuse_plans_they_cannot_run():
+    """The C launchers check the wrapper's plan and return an error
+    (cudaErrorInvalidValue, 1) instead of launching."""
+    _need_card()
+    f = torch.randn(1, 16, 20, 40, device="cuda")
+    out = torch.empty(1, 49, 20, 40, device="cuda")
+    plan = correlation.launch_plan(1, 16, 20, 40, 1)
+    assert correlation._launch(f, f, 1, plan, out) == 0
+    for bad in (dict(split=16, grid=(plan.grid[0] * 4, 1)),
+                dict(split=32, grid=(plan.grid[0] * 8, 1)),
+                dict(grid=(plan.grid[0] + 1, 1)),
+                dict(smem_bytes=plan.smem_bytes - 4), dict(tile_h=6)):
+        assert correlation._launch(f, f, 1, plan._replace(**bad), out) == 1, \
+            bad
+
+    cam, args = _joint_args(1, 500, "camera", seed=3)
+    out = flow_joint_kernel.empty_batch(1, 500, "cuda")
+    plan = flow_joint_kernel.launch_plan(1, 500)
+    assert flow_joint_kernel._launch(args, cam, 10, plan, out) == 0
+    for bad in (dict(cluster=16), dict(threads=48), dict(threads=512),
+                dict(cap=plan.cap // 2), dict(smem_bytes=plan.smem_bytes + 4),
+                dict(smem_bytes=0)):   # no scratch given
+        assert flow_joint_kernel._launch(args, cam, 10,
+                                         plan._replace(**bad), out) == 1, bad
+    torch.cuda.synchronize()
 
 
 def test_flow_joint_kernel_checks_inputs():
@@ -270,7 +361,10 @@ def test_flow_joint_cuda_tensors_never_reach_the_plain_version(monkeypatch):
     (1, 64, 37, 53, 2),           # odd H and W at stride 2
     (1, 96, 19, 45, 1),
     (2, 64, 144, 320, 2),
-    (2, 8, 13, 7, 1),             # fewer channels than a chunk of 16
+    (2, 8, 13, 7, 1),             # fewer channels than a split of chunks
+    (1, 50, 72, 160, 1),          # C not a multiple of split x chunk
+    (2, 1, 37, 53, 2),            # C = 1, two images
+    (2, 192, 18, 40, 1),          # the level-6 shape, two images
 ])
 def test_correlation_kernel_matches_plain(N, C, H, W, stride):
     _need_card()
@@ -285,6 +379,21 @@ def test_correlation_kernel_matches_plain(N, C, H, W, stride):
     assert got.shape == (N, 49, -(-H // stride), -(-W // stride))
     scale = max(1.0, float(ref.abs().max()))
     assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("level", [0, 4])
+def test_correlation_kernel_is_deterministic(level):
+    _need_card()
+    C, H, W, stride = chip_smoke.CORR_LEVELS[level]
+    rng = np.random.RandomState(level)
+    f1, f2 = (torch.tensor(rng.randn(1, C, H, W).astype(np.float32)).cuda()
+              for _ in range(2))
+    plan = correlation.launch_plan(1, C, H, W, stride)
+    assert plan.split > 1
+    a = correlation.correlation(f1, f2, stride)
+    b = correlation.correlation(f1, f2, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("N,k,H,W", [

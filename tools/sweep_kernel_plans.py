@@ -1,0 +1,153 @@
+"""The launch plans of kernels 2 and 3 swept on one GPU, each against the
+plan its wrapper picks.
+
+    python tools/sweep_kernel_plans.py
+
+Kernel 3, the cost volume (``ops/correlation.py``): at each of the five
+LiteFlowNet levels of a 1280x576 pair (``chip_smoke.CORR_LEVELS``, seeded
+unit-normal inputs), every tile height (4, 8) and channel split (1, 2, 4,
+8). Kernel 2, the joint flow + pose solve
+(``estimation/flow_joint_kernel.py``): chip_smoke.py's seeded camera
+(B=1, N=3000) and object (B=8, N=4000) problems at every cluster size (1,
+2, 4, 8) and block size (64, 128, 256). A plan's ms is device time, 20
+launches captured in a CUDA graph and the replay timed by CUDA events
+(``chip_smoke.time_cuda_graph``); every result is held to chip_smoke.py's
+bars against the plain version, and the wrapper's plan is marked with *.
+Prints a JSON summary as its last line. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from vido_slam_tpu_torch.estimation import (  # noqa: E402
+    flow_joint_kernel as fj)
+from vido_slam_tpu_torch.geometry.camera import Camera  # noqa: E402
+from vido_slam_tpu_torch.geometry.se3 import inverse_se3, log_se3  # noqa: E402
+from vido_slam_tpu_torch.ops import correlation as corr  # noqa: E402
+from vido_slam_tpu_torch.utils import cuda_build  # noqa: E402
+
+
+def sweep_correlation(rng, dev):
+    summary = {}
+    for level, (C, H, W, s) in zip(range(2, 7), chip_smoke.CORR_LEVELS):
+        f1, f2 = (torch.tensor(rng.randn(1, C, H, W).astype(np.float32),
+                               device=dev) for _ in range(2))
+        ref = corr.correlation_ref(f1, f2, s)
+        bar = 1e-5 * max(1.0, float(ref.abs().max()))
+        chosen = corr.launch_plan(1, C, H, W, s)
+        Ho, Wo = -(-H // s), -(-W // s)
+        rows = {}
+        for tile_h in (4, 8):
+            tiles = -(-Wo // corr.TILE_W) * -(-Ho // tile_h)
+            for split in (1, 2, 4, 8):
+                plan = corr.CorrelationPlan(tile_h, split,
+                                            (split * tiles, 1),
+                                            corr.smem_bytes(tile_h))
+                out = torch.empty_like(ref)
+                chip_smoke.check(corr._launch(f1, f2, s, plan, out) == 0,
+                                 ("launch", level, plan))
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                chip_smoke.check(err <= bar, ("correlation", level, plan, err))
+                ms = chip_smoke.time_cuda_graph(
+                    lambda: corr._launch(f1, f2, s, plan, out), 20)
+                mark = "*" if plan == chosen else ""
+                rows[f"{tile_h}x{split}{mark}"] = ms
+                print(f"correlation level {level} C={C} {H}x{W} stride {s}: "
+                      f"tile height {tile_h}, split {split}{mark}: "
+                      f"{split * tiles} CTAs, {ms:.4f} ms, max error "
+                      f"{err:.1e}", flush=True)
+        summary[f"level {level}"] = rows
+    return summary
+
+
+def held(got, ref, valid):
+    """chip_smoke.check_flow_joint's bars: (largest pose error, most inlier
+    flips, largest flow error of common inliers, all within the bars)."""
+    N = valid.shape[1]
+    rot = flips = dflow = 0.0
+    ok = True
+    for b in range(valid.shape[0]):
+        r = float(torch.linalg.norm(log_se3(inverse_se3(ref.T[b]) @ got.T[b])))
+        f = int((got.inliers[b] != ref.inliers[b]).sum())
+        both = got.inliers[b] & ref.inliers[b]
+        d = float((got.flow[b] - ref.flow[b]).abs()[both].max()) \
+            if both.any() else 0.0
+        ok &= math.isfinite(r) and r < 1e-4 and f <= max(3, N // 100) \
+            and d < 1e-2
+        rot, flips, dflow = max(rot, r), max(flips, f), max(dflow, d)
+    return rot, flips, dflow, ok
+
+
+def sweep_flow_joint(rng, dev):
+    c = chip_smoke.OFFLINE_CONFIG
+    cam = Camera.create(fx=c["Camera.fx"], fy=c["Camera.fy"],
+                        cx=c["Camera.cx"], cy=c["Camera.cy"],
+                        width=c["Camera.width"], height=c["Camera.height"],
+                        bf=c["Camera.bf"])
+    Tcw = chip_smoke._pose([0.0, 0.02, 0.0], [0.1, 0.0, -3.0])
+    cases = [("camera B=1 N=3000", chip_smoke.joint_camera_problem(
+                  rng, cam, 3000)),
+             ("objects B=8 N=4000", chip_smoke.joint_object_problems(
+                  rng, cam, 8, 4000, Tcw))]
+    summary = {}
+    for name, args in cases:
+        args = tuple(a.to(dev).contiguous() for a in args)
+        B, N = args[4].shape
+        ref = fj.flow_joint_batched_ref(*args, cam)
+        chosen = fj.launch_plan(B, N)
+        rows = {}
+        for G in (1, 2, 4, 8):
+            cap = -(-N // G)
+            for threads in (64, 128, 256):
+                plan = fj.FlowJointPlan(G, threads, cap, 4 * fj.PLANES * cap,
+                                        0)
+                out = fj.empty_batch(B, N, dev)
+                chip_smoke.check(fj._launch(args, cam, fj.ROUND_ITERS, plan,
+                                            out) == 0, ("launch", name, plan))
+                torch.cuda.synchronize()
+                rot, flips, dflow, ok = held(out, ref, args[4])
+                chip_smoke.check(ok, ("flow_joint", name, plan, rot, flips,
+                                      dflow))
+                ms = chip_smoke.time_cuda_graph(
+                    lambda: fj._launch(args, cam, fj.ROUND_ITERS, plan, out),
+                    20)
+                mark = "*" if plan == chosen else ""
+                rows[f"{G}x{threads}{mark}"] = ms
+                print(f"flow_joint {name}: cluster {G}, {threads} threads"
+                      f"{mark}: {ms:.4f} ms, iterations "
+                      f"{out.num_iters[0].tolist()} (plain "
+                      f"{ref.num_iters[0].tolist()}), pose error {rot:.1e}, "
+                      f"inlier flips {flips}, flow error {dflow:.1e}",
+                      flush=True)
+        summary[name] = rows
+    return summary
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("sweep_kernel_plans: no CUDA device available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = chip_smoke.card_line()
+    print(card)
+    cuda_build.build_all()
+    rng = np.random.RandomState(0)
+    summary = {"card": card, "correlation": sweep_correlation(rng, dev),
+               "flow_joint": sweep_flow_joint(rng, dev)}
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

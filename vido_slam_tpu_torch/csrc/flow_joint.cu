@@ -27,37 +27,59 @@
 // point and does a few hundred flops a point per iteration, so one frame's
 // two calls (B=1, N=3000 and B=8, N=4000) need about a microsecond of bytes
 // or float32 work. The time goes to latency: up to 40 serial, data-dependent
-// iterations, each with two block-wide reductions and a single-thread 6x6
-// solve.
+// iterations, each a reduction over the problem's points and a 6x6 solve.
 //
-// Design: one thread block per problem, so the rounds and iterations run
-// inside the block with no host synchronisation. The point data live in 13
-// planes of N floats: px py pz, ou ov, fmu fmv, the prior set val, the active
-// set, and two pairs of flow planes. One pair holds the current flows, the
-// other the trial flows of the step under test; an accepted step swaps the
-// pair (no copy, no recomputation at commit time), at the price of 8 bytes a
-// point of shared memory: 52 B a point, 156 KB at N=3000 and 208 KB at
-// N=4000, under the 227 KB a block may have. Above ~4,390 points the planes
-// go to a global-memory scratch that the wrapper allocates; the code is the
-// same. Each iteration makes two passes over the points in the prior set:
-// the first sums the 21 entries of S and the 6 of the right-hand side, the
-// second re-linearises at the current state, forms the trial flows and sums
-// the trial cost. Thread 0 does the 6x6 algebra and the accept rule and
-// publishes them through shared memory.
+// Design: the latency of an iteration, cut in four ways.
+// - A thread-block cluster of G CTAs per problem (grid G x B, cluster G x 1;
+//   the wrapper's launch plan sets G <= 8 from B and N), so a problem's
+//   points spread over up to 8 SMs. The partial sums meet through
+//   distributed shared memory (lm_common.cuh :: cluster_sum32: each CTA
+//   stores its sums into every CTA, then one cluster barrier) and are added
+//   in a fixed order, so a launch is deterministic.
+// - The prior set is compacted at load: every CTA scans `valid` (a block
+//   prefix sum of per-thread counts) and keeps the compacted points
+//   [r n / G, (r+1) n / G) of its rank r, in index order, with their original
+//   indices: 13 floats (52 B) a point in shared memory, or in a global
+//   scratch the wrapper allocates when a CTA's share of N does not fit. The
+//   passes touch only the problem's own points (~N/8 of the shared N = 4000
+//   for an object of the batch). Each point stays with one thread, so its
+//   flows and active flag need no barrier.
+// - One pass an iteration: the pass that forms the trial flows at (T, f) also
+//   evaluates the trial cost and accumulates the Schur-reduced system at
+//   (exp(dxi) T, f_trial). On accept that system is the next iteration's; on
+//   reject (T, f) are unchanged and the next step solves the cached system
+//   with the new lambda. The round-start pass sums the cost, the active count
+//   and the first system. An accepted step swaps the current and trial flow
+//   pairs; no copy.
+// - A short serial tail: all 28 sums of a pass in one warp transpose-reduce
+//   (31 shuffles), one __syncthreads and one cluster barrier a pass, and
+//   every thread solves the 6x6 system and takes the accept decision itself
+//   from the cluster sums (identical inputs, identical results), so nothing
+//   is broadcast. The state stays in registers: every array is indexed by
+//   constants, and the points' loads are shared-memory loads (the kernel is
+//   compiled once for shared memory and once for the global scratch).
+// The last round's gate writes flow, chi2 and inliers for all N points: each
+// CTA writes its compacted points and the points outside the prior set in
+// its 1/G of the index range.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lm_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kAcc = 27;  // 21 S (upper triangle, row-major) + 6 rhs
+constexpr int kMaxCluster = kSumMaxBlocks;  // portable cluster size
+constexpr int kMaxThreads = kSumMaxThreads;
 constexpr int kPlanes = 13;
 constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
 constexpr int kSmemReserve = 4096;  // room for the static shared memory
 
-enum Plane { PX, PY, PZ, OU, OV, FMU, FMV, VAL, ACT, FU0, FV0, FU1, FV1 };
+enum Plane { PX, PY, PZ, OU, OV, FMU, FMV, ACT, FU0, FV0, FU1, FV1, IDX };
+// slots of the 32 sums of a pass: cost, active count, the 21 entries of the
+// upper triangle of S (row-major), the 6 of the right-hand side
+enum Sum { COST = 0, COUNT = 1, SYS = 2, RHS = SYS + 21 };
+constexpr int kSys = 27;
 
 struct Params {
   const float* T_init;         // (B, 4, 4)
@@ -74,69 +96,55 @@ struct Params {
   int* ninl_out;               // (B,)
   float* chi2_out;             // (B, N)
   int* iters_out;              // (B, 4) iterations of each round
-  float* scratch;              // (B, kPlanes, N) unless use_smem
+  float* scratch;              // (B, G, kPlanes, cap), or null
   int N;
+  int cap;                     // points a CTA can hold: >= ceil(N / G)
   float fx, fy, cx, cy;
   float sigma_proj, sigma_prior;
   float huber, huber2;         // delta and delta^2 of the Huber kernel
   float thr0, thr_later;       // round-end chi2 gates
   int min_edges, iters;
-  int use_smem;
 };
 
+// A point of the prior set (its sigma_prior weight is the constant one)
 struct Pt {
-  float x, y, z, ou, ov, fmu, fmv, sp, act;  // sp = sigma_prior * val
+  float x, y, z, ou, ov, fmu, fmv, act;
 };
 
-__device__ __forceinline__ Pt load_pt(const Params& p, const float* base,
-                                      int i) {
-  const int N = p.N;
+__device__ __forceinline__ Pt load_pt(const float* base, int cap, int s) {
   Pt q;
-  q.x = base[PX * N + i];
-  q.y = base[PY * N + i];
-  q.z = base[PZ * N + i];
-  q.ou = base[OU * N + i];
-  q.ov = base[OV * N + i];
-  q.fmu = base[FMU * N + i];
-  q.fmv = base[FMV * N + i];
-  q.sp = p.sigma_prior * base[VAL * N + i];
-  q.act = base[ACT * N + i];
+  q.x = base[PX * cap + s];
+  q.y = base[PY * cap + s];
+  q.z = base[PZ * cap + s];
+  q.ou = base[OU * cap + s];
+  q.ov = base[OV * cap + s];
+  q.fmu = base[FMU * cap + s];
+  q.fmv = base[FMV * cap + s];
+  q.act = base[ACT * cap + s];
   return q;
 }
 
 // r1 = obs + f - pi(T X) with the |z| < 1e-6 guard; T is 12 floats (R
-// row-major, then t).
-__device__ __forceinline__ void resid(const Params& p, const float* T,
-                                      const Pt& q, float fu, float fv,
-                                      float& pcx, float& pcy, float& pcz,
-                                      float& iz, float& r1u, float& r1v) {
-  pcx = T[0] * q.x + T[1] * q.y + T[2] * q.z + T[9];
-  pcy = T[3] * q.x + T[4] * q.y + T[5] * q.z + T[10];
-  pcz = T[6] * q.x + T[7] * q.y + T[8] * q.z + T[11];
-  iz = 1.0f / (fabsf(pcz) < 1e-6f ? 1e-6f : pcz);
-  r1u = q.ou + fu - (p.fx * pcx * iz + p.cx);
-  r1v = q.ov + fv - (p.fy * pcy * iz + p.cy);
+// row-major, then t). The kernel divides by multiplying with __fdividef's
+// reciprocal (within 2 ulp, no slow-path branch).
+__device__ __forceinline__ void resid(const Params& p, const float* T, float x,
+                                      float y, float z, float ou, float ov,
+                                      float fu, float fv, float& pcx,
+                                      float& pcy, float& pcz, float& iz,
+                                      float& r1u, float& r1v) {
+  pcx = T[0] * x + T[1] * y + T[2] * z + T[9];
+  pcy = T[3] * x + T[4] * y + T[5] * z + T[10];
+  pcz = T[6] * x + T[7] * y + T[8] * z + T[11];
+  iz = __fdividef(1.0f, fabsf(pcz) < 1e-6f ? 1e-6f : pcz);
+  r1u = ou + fu - (p.fx * pcx * iz + p.cx);
+  r1v = ov + fv - (p.fy * pcy * iz + p.cy);
 }
 
-// One point's share of the cost: the (robust) reprojection term while the
-// point is active with z > 1e-3, plus its prior term.
-__device__ __forceinline__ float point_cost(const Params& p, const float* T,
-                                            const Pt& q, float fu, float fv,
-                                            bool huber) {
-  float pcx, pcy, pcz, iz, r1u, r1v;
-  resid(p, T, q, fu, fv, pcx, pcy, pcz, iz, r1u, r1v);
-  const float c1 = p.sigma_proj * (r1u * r1u + r1v * r1v);
-  float rho = c1;
-  if (huber && !(c1 <= p.huber2))
-    rho = 2.0f * p.huber * sqrtf(fmaxf(c1, 1e-12f)) - p.huber2;
-  const float gate = q.act * (pcz > 1e-3f ? 1.0f : 0.0f);
-  const float r2u = fu - q.fmu, r2v = fv - q.fmv;
-  return rho * gate + q.sp * (r2u * r2u + r2v * r2v);
-}
-
-// The per-point pieces of the Schur-reduced system at (T, f).
+// One point at (T, f): its share of the cost (the robust reprojection term
+// while active with z > 1e-3, plus the prior term) and of the Schur-reduced
+// system.
 struct Lin {
-  float a, v, r1u, r1v, b_fu, b_fv;
+  float cost, a, inv_v, r1u, r1v, b_fu, b_fv;  // inv_v = 1 / v
   float Ju[6], Jv[6];  // d pi / d xi (left perturbation); d r1/d xi = -J
 };
 
@@ -144,12 +152,20 @@ __device__ __forceinline__ void linearize(const Params& p, const float* T,
                                           const Pt& q, float fu, float fv,
                                           bool huber, Lin& L) {
   float pcx, pcy, pcz, iz;
-  resid(p, T, q, fu, fv, pcx, pcy, pcz, iz, L.r1u, L.r1v);
+  resid(p, T, q.x, q.y, q.z, q.ou, q.ov, fu, fv, pcx, pcy, pcz, iz, L.r1u,
+        L.r1v);
   const float chi2 = p.sigma_proj * (L.r1u * L.r1u + L.r1v * L.r1v);
-  float w = 1.0f;
-  if (huber && !(chi2 <= p.huber2)) w = p.huber / sqrtf(fmaxf(chi2, 1e-12f));
-  L.a = q.act * (pcz > 1e-3f ? 1.0f : 0.0f) * (p.sigma_proj * w);
-  L.v = L.a + q.sp + 1e-12f;
+  float w = 1.0f, rho = chi2;
+  if (huber && !(chi2 <= p.huber2)) {
+    const float c = fmaxf(chi2, 1e-12f), r = rsqrtf(c);  // r = 1 / sqrt(c)
+    w = p.huber * r;
+    rho = 2.0f * p.huber * (c * r) - p.huber2;
+  }
+  const float gate = q.act * (pcz > 1e-3f ? 1.0f : 0.0f);
+  const float r2u = fu - q.fmu, r2v = fv - q.fmv;
+  L.cost = rho * gate + p.sigma_prior * (r2u * r2u + r2v * r2v);
+  L.a = gate * (p.sigma_proj * w);
+  L.inv_v = __fdividef(1.0f, L.a + p.sigma_prior + 1e-12f);
   const float az = p.fx * iz, cz = -p.fx * pcx * iz * iz;
   const float ez = p.fy * iz, fz = -p.fy * pcy * iz * iz;
   L.Ju[0] = az;
@@ -164,326 +180,302 @@ __device__ __forceinline__ void linearize(const Params& p, const float* T,
   L.Jv[3] = fz * pcy - ez * pcz;
   L.Jv[4] = -fz * pcx;
   L.Jv[5] = ez * pcx;
-  L.b_fu = L.a * L.r1u + q.sp * (fu - q.fmu);
-  L.b_fv = L.a * L.r1v + q.sp * (fv - q.fmv);
+  L.b_fu = L.a * L.r1u + p.sigma_prior * r2u;
+  L.b_fv = L.a * L.r1v + p.sigma_prior * r2v;
 }
 
-// Block-wide sums of the first K per-thread partials into tot (valid for
-// every thread after the call).
-template <int K>
-__device__ __forceinline__ void block_reduce(const float* acc,
-                                             float (*red)[kAcc], float* tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// Adds the point's cost, its 21 entries of S and its 6 of the right-hand side
+__device__ __forceinline__ void add_point(const Params& p, const Lin& L,
+                                          float (&acc)[32]) {
+  const float av = L.a * L.inv_v;
+  const float coef = av * p.sigma_prior;
+  const float ru = L.a * L.r1u - av * L.b_fu;
+  const float rv = L.a * L.r1v - av * L.b_fv;
+  acc[COST] += L.cost;
+  int idx = SYS;
 #pragma unroll
-  for (int i = 0; i < K; ++i) {
-    float v = acc[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][i] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < K) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
-    tot[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
-
-// Unrolled Cholesky solve of the 6x6 system S x = rhs (S full, row-major),
-// pivots floored as sqrt(max(., 1e-20)) like the Pallas helper.
-__device__ void chol_solve6(const float S[6][6], const float* rhs, float* x) {
-  float L[6][6];
   for (int j = 0; j < 6; ++j) {
-    float s = S[j][j];
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    const float Ljj = sqrtf(fmaxf(s, 1e-20f));
-    L[j][j] = Ljj;
-    for (int i = j + 1; i < 6; ++i) {
-      float s2 = S[i][j];
-      for (int k = 0; k < j; ++k) s2 -= L[i][k] * L[j][k];
-      L[i][j] = s2 / Ljj;
-    }
-  }
-  float y[6];
-  for (int i = 0; i < 6; ++i) {
-    float s = rhs[i];
-    for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-    y[i] = s / L[i][i];
-  }
-  for (int i = 5; i >= 0; --i) {
-    float s = y[i];
-    for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
-    x[i] = s / L[i][i];
+    const float cu = coef * L.Ju[j], cv = coef * L.Jv[j];
+#pragma unroll
+    for (int k = j; k < 6; ++k) acc[idx++] += cu * L.Ju[k] + cv * L.Jv[k];
+    acc[RHS + j] += L.Ju[j] * ru + L.Jv[j] * rv;
   }
 }
 
-// Tn = exp(d) * T with d = [rho, phi]; the series switch of the Pallas
-// _exp_se3_compose (theta^2 < 1e-12).
-__device__ void exp_se3_compose(const float* d, const float* T, float* Tn) {
-  const float w0 = d[3], w1 = d[4], w2 = d[5];
-  const float th2 = w0 * w0 + w1 * w1 + w2 * w2;
-  const float th = sqrtf(fmaxf(th2, 1e-24f));
-  const bool small = th2 < 1e-12f;
-  const float A = small ? 1.0f - th2 / 6.0f : sinf(th) / th;
-  const float B = small ? 0.5f - th2 / 24.0f
-                        : (1.0f - cosf(th)) / fmaxf(th2, 1e-24f);
-  const float C = small ? 1.0f / 6.0f - th2 / 120.0f
-                        : (th - sinf(th)) / fmaxf(th2 * th, 1e-24f);
-  const float h[3][3] = {{0.0f, -w2, w1}, {w2, 0.0f, -w0}, {-w1, w0, 0.0f}};
-  const float h2[3][3] = {{-(w1 * w1 + w2 * w2), w0 * w1, w0 * w2},
-                          {w0 * w1, -(w0 * w0 + w2 * w2), w1 * w2},
-                          {w0 * w2, w1 * w2, -(w0 * w0 + w1 * w1)}};
-  float Rd[3][3], V[3][3];
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      const float I = (i == j) ? 1.0f : 0.0f;
-      Rd[i][j] = I + A * h[i][j] + B * h2[i][j];
-      V[i][j] = I + B * h[i][j] + C * h2[i][j];
-    }
-  for (int i = 0; i < 3; ++i) {
-    const float td = V[i][0] * d[0] + V[i][1] * d[1] + V[i][2] * d[2];
-    for (int j = 0; j < 3; ++j)
-      Tn[3 * i + j] = Rd[i][0] * T[j] + Rd[i][1] * T[3 + j] +
-                      Rd[i][2] * T[6 + j];
-    Tn[9 + i] = Rd[i][0] * T[9] + Rd[i][1] * T[10] + Rd[i][2] * T[11] + td;
-  }
+__device__ __forceinline__ void zero(float (&acc)[32]) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) acc[k] = 0.0f;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// kSmem: the points live in shared memory (else in the global scratch), so
+// their loads compile to shared-memory loads
+template <bool kSmem>
+__global__ void __launch_bounds__(kMaxThreads)
 flow_joint_kernel(const Params p) {
-  extern __shared__ float sm[];  // kPlanes planes of N floats when use_smem
-  __shared__ float sT0[12], sT[12], sTn[12], sdx[6];
-  __shared__ float red[kWarps][kAcc];
-  __shared__ float tot[kAcc];
-  __shared__ int s_run, s_cur;
+  extern __shared__ float sm[];  // kPlanes planes of cap floats if kSmem
+  __shared__ ClusterSum sums;
+  __shared__ int warp_counts[kMaxThreads / 32];
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int N = p.N;
-  float* base = p.use_smem ? sm : p.scratch + (long long)b * kPlanes * N;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int N = p.N, cap = p.cap;
+  float* base =
+      kSmem ? sm : p.scratch + ((long long)b * G + rank) * kPlanes * cap;
+  int* idx = reinterpret_cast<int*>(base + IDX * cap);
+  const unsigned char* valid = p.valid + (long long)b * N;
+  const float* pts = p.pts + b * p.pts_bs;
+  const float* obs = p.obs + b * p.obs_bs;
+  const float* fm = p.fm + b * p.fm_bs;
 
-  if (tid < 12) {
-    const int r = tid < 9 ? tid / 3 : tid - 9;
-    const int c = tid < 9 ? tid % 3 : 3;
-    sT0[tid] = p.T_init[16 * b + 4 * r + c];
+  // compaction: thread t counts the prior set in its run of ~N/nthr
+  // indices; a block prefix sum places each point; this CTA keeps the
+  // compacted points [lo, hi)
+  const int run = (N + nthr - 1) / nthr;
+  const int i0 = min(N, tid * run), i1 = min(N, i0 + run);
+  int cnt = 0;
+  for (int i = i0; i < i1; ++i) cnt += valid[i] != 0;
+  int incl = cnt;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
   }
-  if (tid == 0) s_cur = 0;
-  for (int i = tid; i < N; i += kThreads) {
-    const float* X = p.pts + b * p.pts_bs + 3LL * i;
-    const float* o = p.obs + b * p.obs_bs + 2LL * i;
-    const float* m = p.fm + b * p.fm_bs + 2LL * i;
-    const float val = p.valid[(long long)b * N + i] ? 1.0f : 0.0f;
-    base[PX * N + i] = X[0];
-    base[PY * N + i] = X[1];
-    base[PZ * N + i] = X[2];
-    base[OU * N + i] = o[0];
-    base[OV * N + i] = o[1];
-    base[FMU * N + i] = m[0];
-    base[FMV * N + i] = m[1];
-    base[VAL * N + i] = val;
-    base[ACT * N + i] = val;
-    // both flow pairs start at the measurement (0 outside the prior set),
-    // so the points the passes skip hold the same value in either pair
-    base[FU0 * N + i] = base[FU1 * N + i] = m[0] * val;
-    base[FV0 * N + i] = base[FV1 * N + i] = m[1] * val;
+  if (lane == 31) warp_counts[warp] = incl;
+  __syncthreads();
+  int n = 0, k = incl - cnt;
+  for (int w = 0; w < nwarps; ++w) {
+    const int c = warp_counts[w];
+    n += c;
+    if (w < warp) k += c;
+  }
+  const int lo = (int)((long long)rank * n / G);
+  const int hi = (int)((long long)(rank + 1) * n / G);
+  const int own = hi - lo;
+  for (int i = i0; i < i1 && k < hi; ++i) {
+    if (!valid[i]) continue;
+    if (k >= lo) {
+      const int s = k - lo;
+      base[PX * cap + s] = pts[3LL * i];
+      base[PY * cap + s] = pts[3LL * i + 1];
+      base[PZ * cap + s] = pts[3LL * i + 2];
+      base[OU * cap + s] = obs[2LL * i];
+      base[OV * cap + s] = obs[2LL * i + 1];
+      const float mu = fm[2LL * i], mv = fm[2LL * i + 1];
+      base[FMU * cap + s] = mu;
+      base[FMV * cap + s] = mv;
+      base[ACT * cap + s] = 1.0f;
+      // both flow pairs start at the measurement
+      base[FU0 * cap + s] = base[FU1 * cap + s] = mu;
+      base[FV0 * cap + s] = base[FV1 * cap + s] = mv;
+      idx[s] = i;
+    }
+    ++k;
+  }
+  float T0[12];
+#pragma unroll
+  for (int e = 0; e < 12; ++e) {
+    const int r = e < 9 ? e / 3 : e - 9;
+    const int c = e < 9 ? e % 3 : 3;
+    T0[e] = p.T_init[16 * b + 4 * r + c];
   }
   __syncthreads();
 
-  float acc[kAcc];
-  // state held by thread 0 only
-  float cost = 0.0f, lam = 0.0f;
-  int it = 0;
-  bool enough = false, finite = false;
+  // The state below is every thread's own copy; all threads compute it from
+  // the same cluster sums, so they agree.
+  float acc[32], sys[kSys], T[12], Tn[12], dx[6];
+  int cur = 0;     // the flow pair that holds the current flows
+  int parity = 0;  // cluster_sum32's slot
 
   for (int rnd = 0; rnd < 4; ++rnd) {
     const bool huber = rnd < 3;
+#pragma unroll
+    for (int e = 0; e < 12; ++e) T[e] = T0[e];
 
-    // round start: the pose restarts from T_init; cost and active count
-    if (tid < 12) sT[tid] = sT0[tid];
-    __syncthreads();
+    // round start: cost, active count and the system at (T_init, f)
+    zero(acc);
     {
-      const float* fu = base + (s_cur ? FU1 : FU0) * N;
-      const float* fv = base + (s_cur ? FV1 : FV0) * N;
-      acc[0] = acc[1] = 0.0f;
-      for (int i = tid; i < N; i += kThreads) {
-        if (base[VAL * N + i] == 0.0f) continue;
-        const Pt q = load_pt(p, base, i);
-        acc[0] += point_cost(p, sT, q, fu[i], fv[i], huber);
-        acc[1] += q.act;
-      }
-      block_reduce<2>(acc, red, tot);
-    }
-    if (tid == 0) {
-      cost = tot[0];
-      enough = tot[1] >= (float)p.min_edges;
-      lam = 1e-3f;
-      it = 0;
-      s_run = p.iters > 0;
-    }
-    __syncthreads();
-
-    while (s_run) {
-      const float* fu = base + (s_cur ? FU1 : FU0) * N;
-      const float* fv = base + (s_cur ? FV1 : FV0) * N;
-      float* fu_t = base + (s_cur ? FU0 : FU1) * N;
-      float* fv_t = base + (s_cur ? FV0 : FV1) * N;
-
-      // pass 1: the Schur-reduced system and its right-hand side
-#pragma unroll
-      for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
-      for (int i = tid; i < N; i += kThreads) {
-        if (base[VAL * N + i] == 0.0f) continue;
-        const Pt q = load_pt(p, base, i);
+      const float* fu = base + (cur ? FU1 : FU0) * cap;
+      const float* fv = base + (cur ? FV1 : FV0) * cap;
+      for (int s = tid; s < own; s += nthr) {
+        const Pt q = load_pt(base, cap, s);
         Lin L;
-        linearize(p, sT, q, fu[i], fv[i], huber, L);
-        const float coef = L.a * q.sp / L.v;
-        const float av = L.a / L.v;
-        const float ru = L.a * L.r1u - av * L.b_fu;
-        const float rv = L.a * L.r1v - av * L.b_fv;
-        int idx = 0;
-#pragma unroll
-        for (int j = 0; j < 6; ++j) {
-          const float cu = coef * L.Ju[j], cv = coef * L.Jv[j];
-#pragma unroll
-          for (int k = j; k < 6; ++k) acc[idx++] += cu * L.Ju[k] + cv * L.Jv[k];
-          acc[21 + j] += L.Ju[j] * ru + L.Jv[j] * rv;
-        }
+        linearize(p, T, q, fu[s], fv[s], huber, L);
+        add_point(p, L, acc);
+        acc[COUNT] += q.act;
       }
-      block_reduce<kAcc>(acc, red, tot);
+    }
+    cluster_sum32(acc, sums, parity);
+    float cost = acc[COST];
+    const bool enough = acc[COUNT] >= (float)p.min_edges;
+#pragma unroll
+    for (int e = 0; e < kSys; ++e) sys[e] = acc[SYS + e];
+    float lam = 1e-3f;
+    int it = 0;
+    bool more = p.iters > 0;
 
-      if (tid == 0) {
-        float S[6][6], rhs[6], dx[6];
-        int idx = 0;
+    while (more) {
+      // the step from the system at the current state
+      {
+        float S[6][6], rhs[6];
+        int e = 0;
+#pragma unroll
         for (int j = 0; j < 6; ++j)
-          for (int k = j; k < 6; ++k) {
-            S[j][k] = tot[idx];
-            S[k][j] = tot[idx];
-            ++idx;
+#pragma unroll
+          for (int c = j; c < 6; ++c) {
+            S[j][c] = sys[e];
+            S[c][j] = sys[e];
+            ++e;
           }
+#pragma unroll
         for (int j = 0; j < 6; ++j) {
           S[j][j] += lam * fmaxf(S[j][j], 1e-6f);
-          rhs[j] = tot[21 + j];
+          rhs[j] = sys[21 + j];
         }
         chol_solve6(S, rhs, dx);
-        float sum = 0.0f;
-        for (int j = 0; j < 6; ++j) {
-          sum += dx[j];
-          sdx[j] = dx[j];
-        }
-        finite = isfinite(sum);
-        exp_se3_compose(dx, sT, sTn);
       }
-      __syncthreads();
-
-      // pass 2: the flows' closed-form step and the trial cost
-      acc[0] = 0.0f;
-      for (int i = tid; i < N; i += kThreads) {
-        if (base[VAL * N + i] == 0.0f) continue;
-        const Pt q = load_pt(p, base, i);
-        Lin L;
-        linearize(p, sT, q, fu[i], fv[i], huber, L);
-        float jdu = 0.0f, jdv = 0.0f;
+      float dsum = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 6; ++j) {
-          jdu += L.Ju[j] * sdx[j];
-          jdv += L.Jv[j] * sdx[j];
-        }
-        const float fu_n = fu[i] + (-(L.b_fu - L.a * jdu) / L.v);
-        const float fv_n = fv[i] + (-(L.b_fv - L.a * jdv) / L.v);
-        fu_t[i] = fu_n;
-        fv_t[i] = fv_n;
-        acc[0] += point_cost(p, sTn, q, fu_n, fv_n, huber);
-      }
-      block_reduce<1>(acc, red, tot);
+      for (int j = 0; j < 6; ++j) dsum += dx[j];
+      const bool finite = isfinite(dsum);
+      exp_se3_compose(dx, T, Tn);
 
-      if (tid == 0) {
-        const float c_new = tot[0];
-        const bool ok = (c_new < cost) && finite && enough;
-        bool done = false;
-        if (ok) {
-          done = cost - c_new < 1e-8f * fmaxf(cost, 1.0f);
-          for (int k = 0; k < 12; ++k) sT[k] = sTn[k];
-          s_cur ^= 1;
-          cost = c_new;
-          lam *= 0.5f;
-        } else {
-          lam *= 4.0f;
+      // the one pass: trial flows from the linearisation at (T, f), then the
+      // trial cost and the system at (Tn, f_trial)
+      zero(acc);
+      {
+        const float* fu = base + (cur ? FU1 : FU0) * cap;
+        const float* fv = base + (cur ? FV1 : FV0) * cap;
+        float* fu_t = base + (cur ? FU0 : FU1) * cap;
+        float* fv_t = base + (cur ? FV0 : FV1) * cap;
+        for (int s = tid; s < own; s += nthr) {
+          const Pt q = load_pt(base, cap, s);
+          const float fu0 = fu[s], fv0 = fv[s];
+          Lin L;
+          linearize(p, T, q, fu0, fv0, huber, L);
+          float jdu = 0.0f, jdv = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 6; ++j) {
+            jdu += L.Ju[j] * dx[j];
+            jdv += L.Jv[j] * dx[j];
+          }
+          const float fu_n = fu0 - (L.b_fu - L.a * jdu) * L.inv_v;
+          const float fv_n = fv0 - (L.b_fv - L.a * jdv) * L.inv_v;
+          fu_t[s] = fu_n;
+          fv_t[s] = fv_n;
+          linearize(p, Tn, q, fu_n, fv_n, huber, L);
+          add_point(p, L, acc);
         }
-        ++it;
-        s_run = (it < p.iters) && !done && (lam < 1e6f);
       }
-      __syncthreads();
-    }
+      cluster_sum32(acc, sums, parity);
 
-    // round end: gate the active set at the final pose and flows
-    {
-      const bool last = rnd == 3;
-      const float thr = rnd == 0 ? p.thr0 : p.thr_later;
-      const float* fu = base + (s_cur ? FU1 : FU0) * N;
-      const float* fv = base + (s_cur ? FV1 : FV0) * N;
-      acc[0] = 0.0f;
-      for (int i = tid; i < N; i += kThreads) {
-        const float val = base[VAL * N + i];
-        if (val == 0.0f && !last) continue;
-        const Pt q = load_pt(p, base, i);
-        float pcx, pcy, pcz, iz, r1u, r1v;
-        resid(p, sT, q, fu[i], fv[i], pcx, pcy, pcz, iz, r1u, r1v);
-        const float chi2 = p.sigma_proj * (r1u * r1u + r1v * r1v);
-        const float act =
-            val * (chi2 <= thr ? 1.0f : 0.0f) * (pcz > 1e-3f ? 1.0f : 0.0f);
-        base[ACT * N + i] = act;
-        if (last) {
-          const long long o = (long long)b * N + i;
-          p.chi2_out[o] = chi2;
-          p.inl_out[o] = act > 0.5f;
-          p.flow_out[2 * o] = fu[i];
-          p.flow_out[2 * o + 1] = fv[i];
-          acc[0] += act;
-        }
+      const float c_new = acc[COST];
+      const bool ok = (c_new < cost) && finite && enough;
+      bool done = false;
+      if (ok) {
+        done = cost - c_new < 1e-8f * fmaxf(cost, 1.0f);
+#pragma unroll
+        for (int e = 0; e < 12; ++e) T[e] = Tn[e];
+#pragma unroll
+        for (int e = 0; e < kSys; ++e) sys[e] = acc[SYS + e];
+        cur ^= 1;
+        cost = c_new;
+        lam *= 0.5f;
+      } else {
+        lam *= 4.0f;
       }
-      if (last) block_reduce<1>(acc, red, tot);
-      if (tid == 0) {
-        p.iters_out[4 * b + rnd] = it;
-        if (last) p.ninl_out[b] = (int)tot[0];
-      }
-      __syncthreads();
+      ++it;
+      more = (it < p.iters) && !done && (lam < 1e6f);
     }
+    if (rank == 0 && tid == 0) p.iters_out[4 * b + rnd] = it;
+
+    // round end: gate the active set at the final pose and flows; the last
+    // round writes every point's outputs and counts the inliers
+    const bool last = rnd == 3;
+    const float thr = rnd == 0 ? p.thr0 : p.thr_later;
+    const float* fu = base + (cur ? FU1 : FU0) * cap;
+    const float* fv = base + (cur ? FV1 : FV0) * cap;
+    zero(acc);
+    for (int s = tid; s < own; s += nthr) {
+      const Pt q = load_pt(base, cap, s);
+      float pcx, pcy, pcz, iz, r1u, r1v;
+      resid(p, T, q.x, q.y, q.z, q.ou, q.ov, fu[s], fv[s], pcx, pcy, pcz, iz,
+            r1u, r1v);
+      const float chi2 = p.sigma_proj * (r1u * r1u + r1v * r1v);
+      const float act =
+          (chi2 <= thr ? 1.0f : 0.0f) * (pcz > 1e-3f ? 1.0f : 0.0f);
+      base[ACT * cap + s] = act;
+      if (last) {
+        const long long o = (long long)b * N + idx[s];
+        p.chi2_out[o] = chi2;
+        p.inl_out[o] = act > 0.5f;
+        p.flow_out[2 * o] = fu[s];
+        p.flow_out[2 * o + 1] = fv[s];
+        acc[COUNT] += act;
+      }
+    }
+    if (!last) continue;
+    // the points outside the prior set keep a zero flow and are no inliers
+    const int j0 = (int)((long long)rank * N / G);
+    const int j1 = (int)((long long)(rank + 1) * N / G);
+    for (int i = j0 + tid; i < j1; i += nthr) {
+      if (valid[i]) continue;
+      float pcx, pcy, pcz, iz, r1u, r1v;
+      resid(p, T, pts[3LL * i], pts[3LL * i + 1], pts[3LL * i + 2],
+            obs[2LL * i], obs[2LL * i + 1], 0.0f, 0.0f, pcx, pcy, pcz, iz,
+            r1u, r1v);
+      const long long o = (long long)b * N + i;
+      p.chi2_out[o] = p.sigma_proj * (r1u * r1u + r1v * r1v);
+      p.inl_out[o] = 0;
+      p.flow_out[2 * o] = 0.0f;
+      p.flow_out[2 * o + 1] = 0.0f;
+    }
+    cluster_sum32(acc, sums, parity);
+    if (rank == 0 && tid == 0) p.ninl_out[b] = (int)acc[COUNT];
   }
 
-  if (tid < 16) {
-    const int r = tid / 4, c = tid % 4;
-    float v;
-    if (r == 3) v = (c == 3) ? 1.0f : 0.0f;
-    else v = (c == 3) ? sT[9 + r] : sT[3 * r + c];
-    p.T_out[16 * b + tid] = v;
+  if (rank == 0 && tid == 0) {
+    // constant indices, so that T stays in registers
+    float* To = p.T_out + 16 * b;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) To[4 * r + c] = T[3 * r + c];
+      To[4 * r + 3] = T[9 + r];
+      To[12 + r] = 0.0f;
+    }
+    To[15] = 1.0f;
   }
-}
-
-bool planes_fit_smem(int N) {
-  return (long long)kPlanes * N * (long long)sizeof(float) + kSmemReserve <=
-         kSmemLimit;
 }
 
 }  // namespace
 
-// Floats of global scratch a launch at (B, N) needs: 0 when the planes fit
-// in shared memory.
-extern "C" long long flow_joint_scratch_floats(int B, int N) {
-  return planes_fit_smem(N) ? 0 : (long long)B * kPlanes * N;
-}
-
+// Launches the B problems with the wrapper's plan: clusters of G CTAs of
+// `threads` threads, each holding up to `cap` points, in `smem_bytes` of
+// dynamic shared memory (kPlanes * 4 * cap), or in `scratch` (B * G *
+// kPlanes * cap floats) when smem_bytes is 0. Refuses (cudaErrorInvalidValue)
+// a plan it cannot run; otherwise returns the CUDA error of the launch.
 extern "C" int flow_joint_batched_launch(
     const float* T_init, const float* pts, long long pts_bstride,
     const float* obs, long long obs_bstride, const float* fm,
     long long fm_bstride, const unsigned char* valid, float* T_out,
     float* flow_out, unsigned char* inl_out, int* ninl_out, float* chi2_out,
-    int* iters_out, float* scratch, int B, int N, float fx, float fy,
-    float cx, float cy, float sigma_proj, float sigma_prior, float huber,
-    float huber2, float thr0, float thr_later, int min_edges, int iters,
-    void* stream) {
+    int* iters_out, float* scratch, int B, int N, int G, int threads, int cap,
+    int smem_bytes, float fx, float fy, float cx, float cy, float sigma_proj,
+    float sigma_prior, float huber, float huber2, float thr0, float thr_later,
+    int min_edges, int iters, void* stream) {
+  const bool plan_ok =
+      B >= 0 && B <= 65535 && N >= 0 && G >= 1 && G <= kMaxCluster &&
+      threads >= 32 && threads <= kMaxThreads && threads % 32 == 0 &&
+      cap >= 1 && (long long)cap * G >= N &&
+      (smem_bytes == 0 ? scratch != nullptr
+                       : (long long)smem_bytes == 4LL * kPlanes * cap &&
+                             smem_bytes + kSmemReserve <= kSmemLimit);
+  if (!plan_ok) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
   Params p;
   p.T_init = T_init;
   p.pts = pts;
@@ -501,6 +493,7 @@ extern "C" int flow_joint_batched_launch(
   p.iters_out = iters_out;
   p.scratch = scratch;
   p.N = N;
+  p.cap = cap;
   p.fx = fx;
   p.fy = fy;
   p.cx = cx;
@@ -513,14 +506,24 @@ extern "C" int flow_joint_batched_launch(
   p.thr_later = thr_later;
   p.min_edges = min_edges;
   p.iters = iters;
-  p.use_smem = planes_fit_smem(N) ? 1 : 0;
-  if (!p.use_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const int dyn = p.use_smem ? (int)(kPlanes * (long long)N * sizeof(float))
-                             : 0;
+  auto kernel =
+      smem_bytes > 0 ? flow_joint_kernel<true> : flow_joint_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flow_joint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  if (B > 0)
-    flow_joint_kernel<<<B, kThreads, dyn, (cudaStream_t)stream>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G, B, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

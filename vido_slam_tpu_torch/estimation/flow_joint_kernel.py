@@ -45,6 +45,42 @@ MIN_EDGES = 5              # Optimizer.cc:2794: below this no step is taken
 ROUNDS = 4
 
 
+# The kernel's launch plan (csrc/flow_joint.cu): a cluster of CTAs a problem,
+# each holding its share of the problem's compacted prior set.
+SM_COUNT = 132             # H100 SXM
+MAX_CLUSTER = 8            # portable cluster size
+MAX_THREADS = 256
+MIN_POINTS_PER_CTA = 32    # a CTA gets at least a warp's worth of N
+PLANES = 13                # floats a point keeps (52 B)
+SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
+SMEM_RESERVE = 4096        # room for the static shared memory
+
+
+class FlowJointPlan(NamedTuple):
+    cluster: int         # G CTAs a problem
+    threads: int         # threads a CTA
+    cap: int             # points a CTA can hold: ceil(N / G)
+    smem_bytes: int      # dynamic shared memory a CTA; 0: points in scratch
+    scratch_floats: int  # global scratch the wrapper allocates
+
+
+def launch_plan(B: int, N: int) -> FlowJointPlan:
+    """The largest power-of-two cluster, at most MAX_CLUSTER, that keeps all
+    B clusters on the SMs at once (B G <= SM_COUNT) and a CTA's share of N
+    at least MIN_POINTS_PER_CTA. A CTA's points take 52 B each of shared
+    memory while ceil(N / G) of them fit; beyond, a global scratch."""
+    G = 1
+    while (G < MAX_CLUSTER and 2 * G * B <= SM_COUNT
+           and N >= 2 * G * MIN_POINTS_PER_CTA):
+        G *= 2
+    cap = max(1, -(-N // G))
+    threads = min(MAX_THREADS, -(-cap // 32) * 32)
+    smem = 4 * PLANES * cap
+    if smem + SMEM_RESERVE <= SMEM_LIMIT:
+        return FlowJointPlan(G, threads, cap, smem, 0)
+    return FlowJointPlan(G, threads, cap, 0, B * G * PLANES * cap)
+
+
 class FlowJointBatch(NamedTuple):
     T: torch.Tensor            # (B, 4, 4)
     flow: torch.Tensor         # (B, N, 2)
@@ -56,7 +92,10 @@ class FlowJointBatch(NamedTuple):
 
 # float32 operations of the kernel's arithmetic, an FMA counted as 2, for the
 # roofline bound of chip_smoke.py; every pass but the last gate runs over
-# the points of the prior set only. Per point: the round-start cost and
+# the points of the prior set only. They are itemised as two passes an
+# iteration; the kernel's one pass does the same two linearisations and
+# sums (and the trial cost from the second), so the count and the bound
+# stay comparable across the two designs. Per point: the round-start cost and
 # active count (reprojection residual 29, chi2 4, gate 2, prior term 7,
 # sums 2) ...
 FLOPS_COST = 44
@@ -205,20 +244,42 @@ def flow_joint_batched_ref(T_init, pts3d, obs_last, flow_meas, valid,
                           num_iters=num_iters)
 
 
-def _bind(lib):
-    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-        ctypes.c_longlong
-    fn = lib.flow_joint_batched_launch
-    fn.argtypes = [P, P, LL, P, LL, P, LL, P, P, P, P, P, P, P, P, I, I,
-                   F, F, F, F, F, F, F, F, F, F, I, I, P]
-    fn.restype = ctypes.c_int
-    scratch = lib.flow_joint_scratch_floats
-    scratch.argtypes = [I, I]
-    scratch.restype = LL
-    return fn, scratch
+_launch_fn = None
 
 
-_lib_fns = None
+def _launch(args, cam: Camera, iters: int, plan: FlowJointPlan,
+            out: FlowJointBatch) -> int:
+    """Launches the kernel on the current stream for
+    args = (T_init, pts3d, obs_last, flow_meas, valid) with `plan`, writing
+    into `out`; returns the launcher's CUDA error (cudaErrorInvalidValue for
+    a plan it cannot run), 0 on success."""
+    global _launch_fn
+    if _launch_fn is None:
+        P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+            ctypes.c_longlong
+        fn = cuda_build.load("flow_joint").flow_joint_batched_launch
+        fn.argtypes = [P, P, LL, P, LL, P, LL, P, P, P, P, P, P, P, P, I, I,
+                       I, I, I, I, F, F, F, F, F, F, F, F, F, F, I, I, P]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    T_init, pts3d, obs_last, flow_meas, valid = args
+    B, N = valid.shape
+    dev = T_init.device
+    scratch = (torch.empty((plan.scratch_floats,), dtype=torch.float32,
+                           device=dev) if plan.scratch_floats else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return _launch_fn(
+            T_init.data_ptr(), pts3d.data_ptr(),
+            0 if pts3d.ndim == 2 else N * 3, obs_last.data_ptr(),
+            0 if obs_last.ndim == 2 else N * 2, flow_meas.data_ptr(),
+            0 if flow_meas.ndim == 2 else N * 2, valid.data_ptr(),
+            *(t.data_ptr() for t in out),
+            0 if scratch is None else scratch.data_ptr(), B, N,
+            plan.cluster, plan.threads, plan.cap, plan.smem_bytes,
+            cam.fx, cam.fy, cam.cx, cam.cy, SIGMA_PROJ, SIGMA_PRIOR,
+            HUBER_DELTA, HUBER_DELTA * HUBER_DELTA, RP_THRES_JOINT,
+            CHI2_LATER, MIN_EDGES, int(iters), stream)
 
 
 def flow_joint_batched(T_init, pts3d, obs_last, flow_meas, valid,
@@ -227,7 +288,6 @@ def flow_joint_batched(T_init, pts3d, obs_last, flow_meas, valid,
     """B joint solves. T_init (B, 4, 4); pts3d (B, N, 3) or shared (N, 3);
     obs_last and flow_meas (B, N, 2) or shared (N, 2); valid (B, N) bool,
     the initial inlier set of each problem."""
-    global _lib_fns
     tensors = (T_init, pts3d, obs_last, flow_meas, valid)
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
@@ -243,37 +303,25 @@ def flow_joint_batched(T_init, pts3d, obs_last, flow_meas, valid,
     for name, t in (("obs_last", obs_last), ("flow_meas", flow_meas)):
         _check(name, t, torch.float32, (N, 2) if t.ndim == 2 else (B, N, 2))
     _check("valid", valid, torch.bool, (B, N))
-    dev = T_init.device
-    T_out = torch.empty((B, 4, 4), dtype=torch.float32, device=dev)
-    flow = torch.empty((B, N, 2), dtype=torch.float32, device=dev)
-    inl = torch.empty((B, N), dtype=torch.bool, device=dev)
-    n_inl = torch.empty((B,), dtype=torch.int32, device=dev)
-    chi2 = torch.empty((B, N), dtype=torch.float32, device=dev)
-    its = torch.empty((B, ROUNDS), dtype=torch.int32, device=dev)
-    if _lib_fns is None:
-        _lib_fns = _bind(cuda_build.load("flow_joint"))
-    launch, scratch_floats = _lib_fns
-    n_scratch = scratch_floats(B, N)
-    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=dev)
-               if n_scratch else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            T_init.data_ptr(), pts3d.data_ptr(),
-            0 if pts3d.ndim == 2 else N * 3, obs_last.data_ptr(),
-            0 if obs_last.ndim == 2 else N * 2, flow_meas.data_ptr(),
-            0 if flow_meas.ndim == 2 else N * 2, valid.data_ptr(),
-            T_out.data_ptr(), flow.data_ptr(), inl.data_ptr(),
-            n_inl.data_ptr(), chi2.data_ptr(), its.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), B, N,
-            cam.fx, cam.fy, cam.cx, cam.cy, SIGMA_PROJ, SIGMA_PRIOR,
-            HUBER_DELTA, HUBER_DELTA * HUBER_DELTA, RP_THRES_JOINT,
-            CHI2_LATER, MIN_EDGES, int(iters), stream)
+    out = empty_batch(B, N, T_init.device)
+    rc = _launch(tensors, cam, iters, launch_plan(B, N), out)
     if rc != 0:
         raise RuntimeError(f"flow_joint kernel launch failed: CUDA error {rc}")
     flow_joint_batched.launches += 1
-    return FlowJointBatch(T=T_out, flow=flow, inliers=inl, num_inliers=n_inl,
-                          chi2=chi2, num_iters=its)
+    return out
+
+
+def empty_batch(B: int, N: int, device) -> FlowJointBatch:
+    """Uninitialised outputs of B solves over N points, as the kernel
+    writes them."""
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+    return FlowJointBatch(T=empty((B, 4, 4), torch.float32),
+                          flow=empty((B, N, 2), torch.float32),
+                          inliers=empty((B, N), torch.bool),
+                          num_inliers=empty((B,), torch.int32),
+                          chi2=empty((B, N), torch.float32),
+                          num_iters=empty((B, ROUNDS), torch.int32))
 
 
 # kernel launches since the last reset (the wrapper adds one per launch)

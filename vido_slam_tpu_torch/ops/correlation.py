@@ -15,6 +15,7 @@ CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +25,55 @@ from vido_slam_tpu_torch.utils.device import kernel_device
 
 RADIUS = 3   # displacements -3..3 in each direction: 49 taps
 TAPS = (2 * RADIUS + 1) ** 2
+
+# The kernel's launch plan (csrc/correlation.cu): tiles of TILE_W x tile_h
+# outputs, 2 outputs a thread along x, the channel sum split over a cluster
+# of `split` CTAs.
+SM_COUNT = 132       # H100 SXM
+TILE_W = 32
+HALO_W = TILE_W + 2 * RADIUS  # f2 columns staged for a tile row
+CHUNK = 4            # channels a cp.async stage
+STAGES = 3           # stages in the ring
+MAX_SPLIT = 8        # portable cluster size
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+MIN_CTAS = 128       # a tile height of 8 must reach this many CTAs
+TARGET_CTAS = 2 * SM_COUNT
+
+
+class CorrelationPlan(NamedTuple):
+    tile_h: int             # output rows of a tile (8, or 4 at small levels)
+    split: int              # CTAs of a cluster, each summing C / split
+    grid: Tuple[int, int]   # (split * tiles, N); TILE_W * tile_h / 2 threads
+    smem_bytes: int         # dynamic shared memory a CTA
+
+
+def smem_bytes(tile_h: int) -> int:
+    """A CTA's shared memory: STAGES stages of CHUNK channels of the haloed
+    f2 tile and the f1 tile, or the 49 x tile_h x TILE_W partial sums that
+    reuse them, whichever is larger."""
+    stage = CHUNK * ((tile_h + 2 * RADIUS) * HALO_W + tile_h * TILE_W)
+    return 4 * max(STAGES * stage, TAPS * tile_h * TILE_W)
+
+
+def launch_plan(N: int, C: int, H: int, W: int,
+                stride: int) -> CorrelationPlan:
+    """Tile height 8 where a split of MAX_SPLIT gives it MIN_CTAS CTAs,
+    else 4; then the smallest power-of-two split that reaches TARGET_CTAS,
+    at most MAX_SPLIT and at least CHUNK channels a rank."""
+    Ho, Wo = _out_hw(H, W, stride)
+    tiles_x = -(-Wo // TILE_W)
+
+    def tiles(tile_h):
+        return tiles_x * -(-Ho // tile_h)
+
+    tile_h = 8 if N * tiles(8) * MAX_SPLIT >= MIN_CTAS else 4
+    split = 1
+    while (split < MAX_SPLIT and N * tiles(tile_h) * split < TARGET_CTAS
+           and C >= 2 * split * CHUNK):
+        split *= 2
+    return CorrelationPlan(tile_h=tile_h, split=split,
+                           grid=(split * tiles(tile_h), N),
+                           smem_bytes=smem_bytes(tile_h))
 
 
 def _out_hw(H: int, W: int, stride: int):
@@ -63,11 +113,30 @@ def correlation_ref(f1: torch.Tensor, f2: torch.Tensor,
 _launch_fn = None
 
 
+def _launch(f1: torch.Tensor, f2: torch.Tensor, stride: int,
+            plan: CorrelationPlan, out: torch.Tensor) -> int:
+    """Launches the kernel on the current stream with `plan` into `out`;
+    returns the launcher's CUDA error (cudaErrorInvalidValue for a plan it
+    cannot run), 0 on success."""
+    global _launch_fn
+    if _launch_fn is None:
+        fn = cuda_build.load("correlation").correlation_launch
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P] + [I] * 9 + [P]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    N, C, H, W = f1.shape
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream(f1.device).cuda_stream
+        return _launch_fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), N, C,
+                          H, W, int(stride), plan.tile_h, plan.split,
+                          plan.grid[0], plan.smem_bytes, stream)
+
+
 def correlation(f1: torch.Tensor, f2: torch.Tensor,
                 stride: int = 1) -> torch.Tensor:
     """Cost volume (N, 49, ceil(H/s), ceil(W/s)) of f1, f2 (N, C, H, W),
     contiguous float32 on one device."""
-    global _launch_fn
     dev = kernel_device("correlation", (f1, f2))
     if f1.ndim != 4 or f1.shape != f2.shape:
         raise ValueError(f"correlation: f1 {tuple(f1.shape)} and f2 "
@@ -80,16 +149,7 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
     N, C, H, W = f1.shape
     Ho, Wo = _out_hw(H, W, stride)
     out = torch.empty((N, TAPS, Ho, Wo), dtype=torch.float32, device=dev)
-    if _launch_fn is None:
-        fn = cuda_build.load("correlation").correlation_launch
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, I, I, I, I, P]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _launch_fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), N, C,
-                        H, W, int(stride), stream)
+    rc = _launch(f1, f2, stride, launch_plan(N, C, H, W, int(stride)), out)
     if rc != 0:
         raise RuntimeError(f"correlation kernel launch failed: CUDA error {rc}")
     correlation.launches += 1

@@ -3,8 +3,9 @@ with a plain C interface, bound with ``ctypes``.
 
 At first use every ``csrc/<name>.cu`` that is not built yet becomes
 ``build/lib<name>-<hash>.so``, one ``nvcc`` per source, all started
-together; the hash of the source names the file, so an edited source is
-rebuilt. A failed build raises: there is no fallback.
+together; the hash of the source and of the ``csrc/`` headers it includes
+(``#include "..."``, followed through headers) names the file, so an edited
+source or header is rebuilt. A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict
@@ -46,10 +48,31 @@ def sources() -> list:
                   for f in glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(path: str) -> list:
+    """``path`` and the files it includes by ``#include "..."``, each once,
+    in the order they are first reached."""
+    seen, todo = [], [os.path.abspath(path)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            included = _INCLUDE.findall(f.read())
+        todo += [os.path.join(os.path.dirname(path), h.decode())
+                 for h in included]
+    return seen
+
+
 def library_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha1(f.read() + ARCH.encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha1(ARCH.encode())
+    for path in _with_headers(_source(name)):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build_all() -> Dict[str, str]:
