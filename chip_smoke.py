@@ -11,6 +11,7 @@ Phases, each of which fails the run by raising:
      same numpy-seeded inputs, laid out at the main paths' shapes as the
      main paths lay them out (kernels 3 and 4 at the five pyramid levels of
      a 1280x576 LiteFlowNet pair), with the tolerances stated there;
+     kernels 1, 2, 3 and 5 must give the same bits in a second launch;
   4. the paths: the port's ``System`` (RGBD sensor) tracks a synthetic
      KAIST-calibration sequence (1280x560, two moving vehicles, the bench's
      offline widths) on the card twice: (a) the VO path with the fused
@@ -201,8 +202,9 @@ def check_pose_lm(cases, cam) -> float:
     tests/test_estimation.py:269-309): |log(T_ref^-1 T)| < 1e-4,
     |chi2 - chi2_ref| <= 1e-3 max(1, chi2_ref) (absolute for inliers,
     relative for the few-px outliers), at most 3 valid points on different
-    sides of the 0.01 inlier threshold. Returns max_abs_err over T and the
-    chi2 of valid points with chi2_ref <= 1."""
+    sides of the 0.01 inlier threshold; a second launch gives the same
+    bits. Returns max_abs_err over T and the chi2 of valid points with
+    chi2_ref <= 1."""
     import torch
     from vido_slam_tpu_torch.estimation import lm_kernel
     from vido_slam_tpu_torch.estimation.pose import RP_THRES
@@ -211,8 +213,11 @@ def check_pose_lm(cases, cam) -> float:
     err = 0.0
     for name, args, kw, valid_only in cases:
         got = lm_kernel.pose_lm_batched(*args, cam, **kw)
+        again = lm_kernel.pose_lm_batched(*args, cam, **kw)
         ref = lm_kernel.pose_lm_batched_ref(*args, cam, **kw)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              (name, "two launches differ"))
         valid = args[4]
         held = valid if valid_only else torch.ones_like(valid)
         for b in range(valid.shape[0]):
@@ -232,7 +237,8 @@ def check_pose_lm(cases, cam) -> float:
                   if small.any() else 0.0)
         print(f"pose_lm_batched {name}: valid {valid.sum(-1).tolist()}, "
               f"iters {got.num_iters.tolist()}, plain "
-              f"{ref.num_iters.tolist()}: within the bars")
+              f"{ref.num_iters.tolist()}: within the bars; plan "
+              f"{lm_kernel.launch_plan(*valid.shape)}")
     return err
 
 
@@ -256,7 +262,7 @@ def time_pose_lm(cases, cam):
         b_, f_ = lm_bound(args, kernel(), kw["huber_delta"])
         print(f"pose_lm_batched {name}: kernel {k_ms:.4f} ms (graph replay; "
               f"{ev_ms:.4f} ms by events), plain {p_ms:.3f} ms, {b_} bytes, "
-              f"{f_} flops")
+              f"{f_} flops; plan {lm_kernel.launch_plan(*args[4].shape)}")
         ms += k_ms
         plain_ms += p_ms
         nbytes += b_
@@ -627,26 +633,39 @@ def roi_cases(rng, dev):
     return cases
 
 
+def roi_plan(args):
+    """The launch plan the wrapper picks for roi_align_multilevel(*args)."""
+    from vido_slam_tpu_torch.ops import roi_align
+
+    feats, rois, _, _, r, s = args
+    return roi_align.launch_plan(rois.shape[0], feats[0].shape[1], r, s,
+                                 roi_align.level_sizes(feats))
+
+
 def check_roi_align(cases) -> float:
     """roi_align_multilevel against roi_align_multilevel_ref on each case:
     max |kernel - plain| <= 1e-5 max(1, max |feature|) (the kernel and the
     plain version put every sample at the same float32 position and differ
-    only in the order of 16 weighted sums). Returns max_abs_err."""
+    only in the order of 16 weighted sums); a second launch gives the same
+    bits. Returns max_abs_err."""
     import torch
     from vido_slam_tpu_torch.ops import roi_align
 
     err = 0.0
     for name, args in cases:
         got = roi_align.roi_align_multilevel(*args)
+        again = roi_align.roi_align_multilevel(*args)
         ref = roi_align.roi_align_multilevel_ref(*args)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), ("roi_align_multilevel", name,
+                                        "two launches differ"))
         e = float((got - ref).abs().max())
         scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
         check(got.shape == ref.shape and math.isfinite(e)
               and e <= 1e-5 * scale, ("roi_align_multilevel", name, e, scale))
         err = max(err, e)
         print(f"roi_align_multilevel {name}: max error {e:.3e} (bar "
-              f"{1e-5 * scale:.1e})")
+              f"{1e-5 * scale:.1e}); plan {roi_plan(args)}")
     return err
 
 
@@ -795,7 +814,8 @@ def time_roi_align(cases):
         f_ = roi_align.operations(args[1], args[0][0].shape[1], args[4],
                                   args[5])
         print(f"roi_align_multilevel {name}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, {b_} bytes, {f_} flops")
+              f"{p_ms:.4f} ms, {b_} bytes, {f_} flops; plan "
+              f"{roi_plan(args)}")
         ms += k_ms
         plain_ms += p_ms
         nbytes += b_

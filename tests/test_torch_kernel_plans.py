@@ -1,14 +1,17 @@
-"""The launch plans of kernels 2 and 3 (``flow_joint_kernel.launch_plan``,
-``correlation.launch_plan``), which each wrapper computes in Python and
-the C launcher checks, at the main paths' shapes; and the kernel build's
-hash over the headers a source includes. Runs on the CPU: no kernel is
-built or launched."""
+"""The launch plans of kernels 1, 2, 3 and 5 (``lm_kernel.launch_plan``,
+``flow_joint_kernel.launch_plan``, ``correlation.launch_plan``,
+``roi_align.launch_plan``), which each wrapper computes in Python and the
+C launcher checks, at the main paths' shapes; and the kernel build's hash
+over the headers a source includes. Runs on the CPU: no kernel is built or
+launched."""
 
 import pytest
 
 import chip_smoke
 from vido_slam_tpu_torch.estimation import flow_joint_kernel as fj
+from vido_slam_tpu_torch.estimation import lm_kernel
 from vido_slam_tpu_torch.ops import correlation as corr
+from vido_slam_tpu_torch.ops import roi_align
 from vido_slam_tpu_torch.utils import cuda_build
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
@@ -52,12 +55,12 @@ def test_correlation_channel_split_covers_c_exactly(N, C, H, W, stride):
 def test_flow_joint_plan_at_the_main_path_shapes(B, N):
     plan = fj.launch_plan(B, N)
     assert 1 <= plan.cluster <= 8
-    assert plan.cluster * B <= fj.SM_COUNT       # one wave of clusters
+    assert plan.cluster * B <= lm_kernel.SM_COUNT  # one wave of clusters
     assert plan.cap * plan.cluster >= N > (plan.cap - 1) * plan.cluster
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
     # the compacted points stay in shared memory, 52 B each
     assert plan.smem_bytes == 52 * plan.cap
-    assert plan.smem_bytes + fj.SMEM_RESERVE <= SMEM_LIMIT
+    assert plan.smem_bytes + lm_kernel.SMEM_RESERVE <= SMEM_LIMIT
     assert plan.scratch_floats == 0
     if (B, N) in ((1, 3000), (8, 4000)):
         assert plan.cluster == 8
@@ -84,6 +87,91 @@ def test_flow_joint_compacted_shares_fit_a_cta(B, N):
         assert max(b - a for a, b in zip(bounds, bounds[1:])) <= plan.cap
 
 
+@pytest.mark.parametrize("B,N", [(1, 3000), (8, 4000), (3, 12000), (1, 1)])
+def test_pose_lm_plan_at_the_main_path_shapes(B, N):
+    """Kernel 1: a cluster of up to 8 CTAs a problem, one wave of clusters,
+    the compacted valid points in shared memory, 20 B each; for every
+    valid count n <= N the ranks' shares [r n / G, (r+1) n / G) tile
+    [0, n) and each fits the plan's cap."""
+    plan = lm_kernel.launch_plan(B, N)
+    G = plan.cluster
+    assert 1 <= G <= 8 and G * B <= lm_kernel.SM_COUNT
+    assert plan.cap * G >= N > (plan.cap - 1) * G or N == plan.cap == 1
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    assert plan.smem_bytes == 4 * lm_kernel.PLANES * plan.cap == 20 * plan.cap
+    assert plan.smem_bytes + lm_kernel.SMEM_RESERVE <= SMEM_LIMIT
+    assert plan.scratch_floats == 0
+    assert G == {(1, 3000): 8, (8, 4000): 8, (3, 12000): 8, (1, 1): 1}[B, N]
+    for n in range(N + 1):
+        bounds = [r * n // G for r in range(G + 1)]
+        assert bounds[0] == 0 and bounds[-1] == n
+        assert max(b - a for a, b in zip(bounds, bounds[1:])) <= plan.cap
+
+
+def test_pose_lm_plan_takes_the_global_scratch_beyond_shared_memory():
+    plan = lm_kernel.launch_plan(1, 100000)
+    assert plan.cluster == 8 and plan.smem_bytes == 0
+    assert plan.scratch_floats == 8 * lm_kernel.PLANES * plan.cap
+    assert 4 * lm_kernel.PLANES * plan.cap + lm_kernel.SMEM_RESERVE \
+        > SMEM_LIMIT
+    # kernel 2 keeps its own 13 planes under the same rule
+    assert fj.launch_plan(8, 4000) == lm_kernel.cluster_plan(8, 4000, 13)
+
+
+# the heads of the mask path: P2-P5 of a 1088x800 image at 256 channels
+ROI_HEADS = [(1000, 256, 7, 2), (100, 256, 14, 2)]
+
+
+@pytest.mark.parametrize("R,C,r,s", ROI_HEADS + [
+    (37, 48, 14, 2), (1000, 5, 7, 2), (1, 256, 7, 2), (1000, 200, 7, 2),
+    (300, 37, 14, 2), (50, 256, 7, 1), (50, 256, 14, 4)])
+def test_roi_align_channel_groups_cover_c_exactly(R, C, r, s):
+    plan = roi_align.launch_plan(R, C, r, s, chip_smoke.MASK_LEVELS)
+    groups = -(-C // plan.group)
+    spans = [(g * plan.group, min(C, (g + 1) * plan.group))
+             for g in range(groups)]
+    assert spans[0][0] == 0 and spans[-1][1] == C
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(hi > lo for lo, hi in spans)
+    assert 1 <= plan.group <= C
+    assert plan.threads % 32 == 0
+    assert roi_align.MIN_THREADS <= plan.threads <= roi_align.MAX_THREADS
+    # R = 1000 at 200 channels and R = 300 at 37 leave a ragged last group
+    if (R, C) in ((1000, 200), (300, 37)):
+        assert C % plan.group != 0
+
+
+@pytest.mark.parametrize("R,C,r,s", ROI_HEADS)
+def test_roi_align_plan_fits_the_sample_grids(R, C, r, s):
+    """Each of a block's two buffers holds at least one channel's largest
+    sample grid, (2 r s)^2 texels (no level of P2-P5 is narrower than
+    2 r s), and its r x r bins; the blocks fill two waves of the SMs, and
+    a block computes at most BLOCK_OUTPUTS bins."""
+    plan = roi_align.launch_plan(R, C, r, s, chip_smoke.MASK_LEVELS)
+    half = plan.smem_bytes // 8
+    assert plan.smem_bytes % 8 == 0
+    assert half >= (2 * r * s) ** 2 + r * r
+    assert half == max(roi_align.BUFFER_FLOATS, (2 * r * s) ** 2 + r * r)
+    assert plan.smem_bytes + roi_align.SMEM_RESERVE <= SMEM_LIMIT
+    wave = roi_align.SM_COUNT * roi_align.BLOCKS_PER_SM
+    assert R * -(-C // plan.group) >= 2 * wave
+    assert plan.threads * roi_align.BLOCKS_PER_SM == 2048   # an SM's threads
+    assert plan.group * r * r <= roi_align.BLOCK_OUTPUTS
+    assert (plan.group, plan.threads, plan.smem_bytes) == {
+        7: (32, 256, 24576), 14: (8, 256, 26656)}[r]
+
+
+def test_roi_align_grid_is_capped_by_small_levels():
+    """A pyramid narrower than 2 r s stages at most its own extent."""
+    assert roi_align.grid_lines(7, 2, 40) == 28
+    assert roi_align.grid_lines(7, 2, 20) == 20
+    assert roi_align.smem_bytes(14, 2, [(20, 9), (10, 5)]) \
+        == 8 * roi_align.BUFFER_FLOATS
+    assert roi_align.smem_bytes(14, 2, [(60, 57)]) == 8 * (56 * 56 + 196)
+    few = roi_align.launch_plan(1, 256, 7, 2, chip_smoke.MASK_LEVELS)
+    assert few.group == 1                    # one ROI: 256 blocks
+
+
 def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     """An edit to a header that a source includes (through another header)
     renames the library, so it is rebuilt; an unrelated file does not."""
@@ -108,6 +196,7 @@ def test_kernel_sources_and_their_headers():
     names = {n: [p.rsplit("/", 1)[-1] for p in
                  cuda_build._with_headers(cuda_build._source(n))]
              for n in cuda_build.sources()}
-    assert names["flow_joint"] == ["flow_joint.cu", "lm_common.cuh"]
-    for n in ("pose_lm", "correlation", "regularize", "roi_align"):
+    for n in ("flow_joint", "pose_lm"):
+        assert names[n] == [f"{n}.cu", "lm_common.cuh"]
+    for n in ("correlation", "regularize", "roi_align"):
         assert names[n] == [f"{n}.cu"]

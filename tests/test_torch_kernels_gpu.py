@@ -6,7 +6,7 @@ card. Run there with
 (--noconftest: tests/conftest.py configures JAX, which the port's tests
 here do not use.)
 Each test decides inside itself whether a card is present and skips
-without one. Kernels 2 and 3 must also give the same bits in two
+without one. Kernels 1, 2, 3 and 5 must also give the same bits in two
 launches on the same inputs. Bars: those of chip_smoke.py. Kernel 1
 (pose LM): per problem |log(T_ref^-1 T)| < 1e-4, |chi2 - chi2_ref| <=
 1e-3 max(1, chi2_ref), at most 3 inlier flips. Kernel 2 (joint flow +
@@ -123,14 +123,31 @@ def _object_batch(B, N, seed):
     return cam, tuple(a.cuda().contiguous() for a in args)
 
 
+def _hold_pose_lm(got, ref, valid):
+    """Kernel 1 against its plain version: the bars above, per problem."""
+    assert torch.isfinite(got.T).all()
+    for b in range(valid.shape[0]):
+        err = float(torch.linalg.norm(log_se3(inverse_se3(ref.T[b])
+                                              @ got.T[b])))
+        assert err < 1e-4, (b, err)
+        # absolute 1e-3 for inliers; relative for the few-px outliers,
+        # whose chi2 moves with the last ~1e-6 of the pose
+        tol = 1e-3 * torch.clamp(ref.chi2[b].abs(), min=1.0)
+        assert bool(((got.chi2[b] - ref.chi2[b]).abs() <= tol).all()), b
+        flips = ((got.chi2[b] <= RP_THRES) != (ref.chi2[b] <= RP_THRES)) \
+            & valid[b]
+        assert int(flips.sum()) <= 3, b
+
+
 @pytest.mark.parametrize("B,N,layout,huber", [
     (1, 3000, "own", HUBER_DELTA_POSE),             # the camera solve
     (8, 4000, "main path", None),                   # the object batch
     (8, 4000, "shared points", None),               # per-object observations
     (3, 100, "own", None),
-    (2, 12000, "shared points", HUBER_DELTA_POSE),  # too large for shared
-    (3, 12000, "main path", None),                  # memory
-])
+    (2, 12000, "shared points", HUBER_DELTA_POSE),  # 1,500 points a CTA
+    (3, 12000, "main path", None),
+    (1, 100000, "own", HUBER_DELTA_POSE),           # a CTA's share of N too
+])                                                  # large for shared memory
 def test_pose_lm_kernel_matches_plain(B, N, layout, huber):
     _need_card()
     if layout == "main path":
@@ -138,23 +155,67 @@ def test_pose_lm_kernel_matches_plain(B, N, layout, huber):
     else:
         cam, args = _problems(B, N, layout == "shared points", huber,
                               seed=B * 7 + N)
+    if N == 100000:
+        # the plan sizes a CTA's share by N; ~2,800 of the points are
+        # valid, as the main path's camera solve has them
+        keep = torch.arange(N, device="cuda") % 32 == 0
+        args = args[:4] + (args[4] & keep,)
+    plan = lm_kernel.launch_plan(B, N)
+    assert (plan.smem_bytes == 0) == (N == 100000)
     before = lm_kernel.pose_lm_batched.launches
     got = lm_kernel.pose_lm_batched(*args, cam, huber_delta=huber)
     assert lm_kernel.pose_lm_batched.launches == before + 1
     ref = lm_kernel.pose_lm_batched_ref(*args, cam, huber_delta=huber)
     torch.cuda.synchronize()
-    assert torch.isfinite(got.T).all() and (got.num_iters > 0).all()
-    for b in range(B):
-        err = float(torch.linalg.norm(log_se3(inverse_se3(ref.T[b])
-                                              @ got.T[b])))
-        assert err < 1e-4, (b, err)
-        # absolute 1e-3 for inliers; relative for the few-px outliers,
-        # whose chi2 moves with the last ~1e-6 of the pose
-        tol = 1e-3 * torch.clamp(ref.chi2[b].abs(), min=1.0)
-        assert bool(((got.chi2[b] - ref.chi2[b]).abs() <= tol).all())
-        flips = ((got.chi2[b] <= RP_THRES) != (ref.chi2[b] <= RP_THRES)) \
-            & args[4][b]
-        assert int(flips.sum()) <= 3
+    assert (got.num_iters > 0).all()
+    _hold_pose_lm(got, ref, args[4])
+
+
+@pytest.mark.parametrize("case", [
+    "object with an all-invalid mask",  # the main path's batch, one empty
+    "object with 5 valid points",       # fewer than the 6 of the pose
+    "N=1",
+])
+def test_pose_lm_kernel_small_problems(case):
+    """Problems with few or no valid points: an all-invalid one takes no
+    step (zero cost) and keeps T_init; chi2 still covers every point."""
+    _need_card()
+    if case.startswith("object"):
+        cam, args = _object_batch(8, 4000, seed=41)
+        valid = args[4].clone()
+        if case.endswith("all-invalid mask"):
+            valid[5] = False
+        else:
+            valid[5] &= torch.cumsum(valid[5].int(), 0) <= 5
+            assert int(valid[5].sum()) == 5
+        args = args[:4] + (valid,)
+    else:
+        cam, args = _problems(2, 1, False, None, seed=43)
+        args = args[:4] + (torch.ones_like(args[4]),)
+    got = lm_kernel.pose_lm_batched(*args, cam)
+    ref = lm_kernel.pose_lm_batched_ref(*args, cam)
+    torch.cuda.synchronize()
+    _hold_pose_lm(got, ref, args[4])
+    if case.endswith("all-invalid mask"):
+        assert int(got.num_iters[5]) == int(ref.num_iters[5]) == 0
+        assert torch.equal(got.T[5], args[0][5])
+        assert torch.isfinite(got.chi2[5]).all()
+
+
+@pytest.mark.parametrize("B,N,layout,huber", [
+    (1, 3000, "own", HUBER_DELTA_POSE), (8, 4000, "main path", None)])
+def test_pose_lm_kernel_is_deterministic(B, N, layout, huber):
+    _need_card()
+    if layout == "main path":
+        cam, args = _object_batch(B, N, seed=7)
+    else:
+        cam, args = _problems(B, N, False, huber, seed=7)
+    assert lm_kernel.launch_plan(B, N).cluster == 8
+    a = lm_kernel.pose_lm_batched(*args, cam, huber_delta=huber)
+    b = lm_kernel.pose_lm_batched(*args, cam, huber_delta=huber)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_pose_lm_kernel_checks_inputs():
@@ -305,6 +366,31 @@ def test_launchers_refuse_plans_they_cannot_run():
                 dict(smem_bytes=plan.smem_bytes - 4), dict(tile_h=6)):
         assert correlation._launch(f, f, 1, plan._replace(**bad), out) == 1, \
             bad
+
+    cam, args = _problems(1, 500, False, None, seed=3)
+    out = lm_kernel.empty_batch(1, 500, "cuda")
+    plan = lm_kernel.launch_plan(1, 500)
+    assert lm_kernel._launch(args, cam, plan, out) == 0
+    for bad in (dict(cluster=16), dict(threads=48), dict(threads=512),
+                dict(cap=plan.cap // 2), dict(smem_bytes=plan.smem_bytes + 4),
+                dict(smem_bytes=0)):   # no scratch given
+        assert lm_kernel._launch(args, cam, plan._replace(**bad), out) == 1, \
+            bad
+
+    feats, rois, levels, scales, res, s = _roi_args(20, 16, 7, seed=3)
+    levels = levels.to(torch.int32).contiguous()
+    out = torch.empty(20, 16, 7, 7, device="cuda")
+    plan = roi_align.launch_plan(20, 16, 7, 2, roi_align.level_sizes(feats))
+    assert roi_align._launch(feats, rois, levels, scales, 7, 2, plan,
+                             out) == 0
+    for bad in (dict(group=0), dict(group=17), dict(threads=32),
+                dict(threads=512), dict(threads=100),
+                dict(smem_bytes=plan.smem_bytes + 4),
+                dict(smem_bytes=8 * (28 * 28 + 49) - 8)):  # a grid too big
+        assert roi_align._launch(feats, rois, levels, scales, 7, 2,
+                                 plan._replace(**bad), out) == 1, bad
+    assert roi_align._launch(feats, rois, levels, scales, 7, 5, plan,
+                             out) == 1   # sampling ratio above 4
 
     cam, args = _joint_args(1, 500, "camera", seed=3)
     out = flow_joint_kernel.empty_batch(1, 500, "cuda")
@@ -513,3 +599,72 @@ def test_roi_align_kernel_checks_inputs(monkeypatch):
                                          14)
     torch.cuda.synchronize()
     assert out.is_cuda and out.shape == (20, 16, 14, 14)
+
+
+# kernel 5 at the edges of its staging: the sample grid of a ROI is a
+# contiguous window when its samples lie close, else their own lines
+
+def _edge_rois(case):
+    """(rois, levels) of one edge case at 1088x800, levels forced where the
+    case is about one level."""
+    if case == "whole image on each level":
+        rois = [[0.0, 0.0, 800.0, 1088.0]] * 4
+        return rois, [0, 1, 2, 3]
+    if case == "sub-pixel":
+        return ([[100.2, 200.3, 100.5, 200.6], [0.0, 0.0, 0.3, 0.2],
+                 [799.5, 1087.6, 799.9, 1087.9], [400.0, 500.0, 400.0, 500.0]],
+                [0, 0, 0, 1])
+    if case == "wholly outside":
+        return ([[-500.0, -400.0, -300.0, -200.0],
+                 [900.0, 1200.0, 1000.0, 1300.0],
+                 [-90.0, 300.0, -20.0, 400.0], [300.0, 1100.0, 400.0, 1180.0]],
+                [0, 1, 2, 3])
+    if case == "1500x10 elongated":
+        return ([[-300.0, 500.0, 1200.0, 510.0], [300.0, -200.0, 310.0, 1300.0],
+                 [-300.0, 500.0, 1200.0, 510.0], [300.0, -200.0, 310.0, 1300.0]],
+                [0, 0, 1, 3])
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["whole image on each level", "sub-pixel",
+                                  "wholly outside", "1500x10 elongated"])
+@pytest.mark.parametrize("res", [7, 14])
+def test_roi_align_kernel_edge_rois(case, res):
+    _need_card()
+    rng = np.random.RandomState(res)
+    feats = [torch.tensor(rng.randn(1, 64, h, w).astype(np.float32)).cuda()
+             for h, w in chip_smoke.MASK_LEVELS]
+    rois, levels = _edge_rois(case)
+    rois = torch.tensor(rois, dtype=torch.float32).cuda()
+    levels = torch.tensor(levels, dtype=torch.int32).cuda()
+    args = (feats, rois, levels, POOLER_SCALES, res, 2)
+    got = roi_align.roi_align_multilevel(*args)
+    ref = roi_align.roi_align_multilevel_ref(*args)
+    torch.cuda.synchronize()
+    scale = max(1.0, max(float(f.abs().max()) for f in feats))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    if case == "wholly outside":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("R,C,res", [(1000, 200, 7), (300, 37, 14)])
+def test_roi_align_kernel_channels_not_a_multiple_of_the_group(R, C, res):
+    _need_card()
+    args = _roi_args(R, C, res, seed=R + C)
+    plan = roi_align.launch_plan(R, C, res, 2, chip_smoke.MASK_LEVELS)
+    assert C % plan.group != 0
+    got = roi_align.roi_align_multilevel(*args)
+    ref = roi_align.roi_align_multilevel_ref(*args)
+    torch.cuda.synchronize()
+    scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("R,res", [(1000, 7), (100, 14)])
+def test_roi_align_kernel_is_deterministic(R, res):
+    _need_card()
+    args = _roi_args(R, 256, res, seed=9)
+    a = roi_align.roi_align_multilevel(*args)
+    b = roi_align.roi_align_multilevel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

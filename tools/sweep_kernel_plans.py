@@ -1,19 +1,25 @@
-"""The launch plans of kernels 2 and 3 swept on one GPU, each against the
-plan its wrapper picks.
+"""The launch plans of kernels 1, 2, 3 and 5 swept on one GPU, each
+against the plan its wrapper picks.
 
     python tools/sweep_kernel_plans.py
 
 Kernel 3, the cost volume (``ops/correlation.py``): at each of the five
 LiteFlowNet levels of a 1280x576 pair (``chip_smoke.CORR_LEVELS``, seeded
 unit-normal inputs), every tile height (4, 8) and channel split (1, 2, 4,
-8). Kernel 2, the joint flow + pose solve
-(``estimation/flow_joint_kernel.py``): chip_smoke.py's seeded camera
-(B=1, N=3000) and object (B=8, N=4000) problems at every cluster size (1,
-2, 4, 8) and block size (64, 128, 256). A plan's ms is device time, 20
-launches captured in a CUDA graph and the replay timed by CUDA events
-(``chip_smoke.time_cuda_graph``); every result is held to chip_smoke.py's
-bars against the plain version, and the wrapper's plan is marked with *.
-Prints a JSON summary as its last line. Needs a CUDA device.
+8). Kernels 1 and 2, the pose LM (``estimation/lm_kernel.py``) and the
+joint flow + pose solve (``estimation/flow_joint_kernel.py``):
+chip_smoke.py's seeded camera (B=1, N=3000) and object (B=8, N=4000)
+problems at every cluster size (1, 2, 4, 8) and block size (64, 128,
+256). Kernel 5, the multilevel ROIAlign (``ops/roi_align.py``): the box
+(R=1000, 7x7) and mask (R=100, 14x14) heads of chip_smoke.py's seeded
+1088x800 pyramid and of the mask path's second frame (chip_smoke.py's
+driving clip and seeded R-50-FPN), every channel group (2 to 256) and block
+size (64, 128, 256). A plan's ms is
+device time, 20 launches captured in a CUDA graph and the replay timed by
+CUDA events (``chip_smoke.time_cuda_graph``); every result is held to
+chip_smoke.py's bars against the plain version, and the wrapper's plan is
+marked with *. Prints a JSON summary as its last line. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -30,10 +36,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from vido_slam_tpu_torch.estimation import (  # noqa: E402
-    flow_joint_kernel as fj)
+    flow_joint_kernel as fj, lm_kernel)
+from vido_slam_tpu_torch.estimation.pose import (  # noqa: E402
+    HUBER_DELTA_POSE, OBJ_ITERS, POSE_ITERS, RP_THRES)
 from vido_slam_tpu_torch.geometry.camera import Camera  # noqa: E402
 from vido_slam_tpu_torch.geometry.se3 import inverse_se3, log_se3  # noqa: E402
+from vido_slam_tpu_torch.models.maskrcnn import roi_heads  # noqa: E402
 from vido_slam_tpu_torch.ops import correlation as corr  # noqa: E402
+from vido_slam_tpu_torch.ops import roi_align  # noqa: E402
 from vido_slam_tpu_torch.utils import cuda_build  # noqa: E402
 
 
@@ -89,12 +99,121 @@ def held(got, ref, valid):
     return rot, flips, dflow, ok
 
 
-def sweep_flow_joint(rng, dev):
+def offline_camera():
     c = chip_smoke.OFFLINE_CONFIG
-    cam = Camera.create(fx=c["Camera.fx"], fy=c["Camera.fy"],
-                        cx=c["Camera.cx"], cy=c["Camera.cy"],
-                        width=c["Camera.width"], height=c["Camera.height"],
-                        bf=c["Camera.bf"])
+    return Camera.create(fx=c["Camera.fx"], fy=c["Camera.fy"],
+                         cx=c["Camera.cx"], cy=c["Camera.cy"],
+                         width=c["Camera.width"], height=c["Camera.height"],
+                         bf=c["Camera.bf"])
+
+
+def held_pose_lm(got, ref, valid):
+    """chip_smoke.check_pose_lm's bars: (largest pose error, largest chi2
+    error relative to max(1, chi2_ref), most inlier flips, all within the
+    bars)."""
+    rot = dchi = flips = 0.0
+    ok = True
+    for b in range(valid.shape[0]):
+        r = float(torch.linalg.norm(log_se3(inverse_se3(ref.T[b]) @ got.T[b])))
+        d = float((((got.chi2[b] - ref.chi2[b]).abs()
+                    / torch.clamp(ref.chi2[b].abs(), min=1.0))).max())
+        f = int(((got.chi2[b] <= RP_THRES) != (ref.chi2[b] <= RP_THRES))
+                [valid[b]].sum())
+        ok &= math.isfinite(r) and r < 1e-4 and d < 1e-3 and f <= 3
+        rot, dchi, flips = max(rot, r), max(dchi, d), max(flips, f)
+    return rot, dchi, flips, ok
+
+
+def sweep_pose_lm(rng, dev):
+    cam = offline_camera()
+    Tcw = chip_smoke._pose([0.0, 0.02, 0.0], [0.1, 0.0, -3.0])
+    cases = [("camera B=1 N=3000", chip_smoke.camera_problem(rng, cam, 3000),
+              dict(huber_delta=HUBER_DELTA_POSE, max_iters=POSE_ITERS)),
+             ("objects B=8 N=4000", chip_smoke.object_problems(
+                 rng, cam, 8, 4000, Tcw),
+              dict(huber_delta=None, max_iters=OBJ_ITERS))]
+    summary = {}
+    for name, args, kw in cases:
+        args = tuple(a.to(dev).contiguous() for a in args)
+        B, N = args[4].shape
+        ref = lm_kernel.pose_lm_batched_ref(*args, cam, **kw)
+        chosen = lm_kernel.launch_plan(B, N)
+        rows = {}
+        for G in (1, 2, 4, 8):
+            cap = -(-N // G)
+            for threads in (64, 128, 256):
+                plan = lm_kernel.ClusterPlan(
+                    G, threads, cap, 4 * lm_kernel.PLANES * cap, 0)
+                out = lm_kernel.empty_batch(B, N, dev)
+                chip_smoke.check(lm_kernel._launch(args, cam, plan, out, **kw)
+                                 == 0, ("launch", name, plan))
+                torch.cuda.synchronize()
+                rot, dchi, flips, ok = held_pose_lm(out, ref, args[4])
+                chip_smoke.check(ok, ("pose_lm", name, plan, rot, dchi,
+                                      flips))
+                ms = chip_smoke.time_cuda_graph(
+                    lambda: lm_kernel._launch(args, cam, plan, out, **kw), 20)
+                mark = "*" if plan == chosen else ""
+                rows[f"{G}x{threads}{mark}"] = ms
+                print(f"pose_lm {name}: cluster {G}, {threads} threads{mark}:"
+                      f" {ms:.4f} ms, iterations {out.num_iters.tolist()} "
+                      f"(plain {ref.num_iters.tolist()}), pose error "
+                      f"{rot:.1e}, chi2 error {dchi:.1e}, inlier flips "
+                      f"{flips}", flush=True)
+        summary[name] = rows
+    return summary
+
+
+def mask_frame_calls(dev):
+    """The box and mask heads' ROIAlign arguments of the mask path's second
+    frame, as chip_smoke.py records them."""
+    clip, model = chip_smoke.mask_inputs(dev)
+    recorder = chip_smoke.KernelArgs(roi_heads.roi_align_multilevel, 6)
+    roi_heads.roi_align_multilevel = recorder
+    try:
+        chip_smoke.run_mask_path(clip[:2], model, [])
+    finally:
+        roi_heads.roi_align_multilevel = recorder.wrapper
+    return [(f"mask path frame 2 {what}", args) for what, (args, _) in
+            zip(("box head", "mask head"), recorder.calls[2:4])]
+
+
+def sweep_roi_align(rng, dev):
+    cases = chip_smoke.roi_cases(rng, dev) + mask_frame_calls(dev)
+    summary = {}
+    for name, args in cases:
+        feats, rois, levels, scales, r, s = args
+        R, C = rois.shape[0], feats[0].shape[1]
+        sizes = roi_align.level_sizes(feats)
+        levels = levels.to(torch.int32).contiguous()
+        ref = roi_align.roi_align_multilevel_ref(*args)
+        bar = 1e-5 * max(1.0, max(float(f.abs().max()) for f in feats))
+        chosen = roi_align.launch_plan(R, C, r, s, sizes)
+        smem = roi_align.smem_bytes(r, s, sizes)
+        rows = {}
+        for group in (2, 4, 8, 16, 32, 64, 128, 256):
+            for threads in (64, 128, 256):
+                plan = roi_align.RoiAlignPlan(group, threads, smem)
+                out = torch.empty_like(ref)
+
+                def launch():
+                    return roi_align._launch(feats, rois, levels, scales, r,
+                                             s, plan, out)
+                chip_smoke.check(launch() == 0, ("launch", name, plan))
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                chip_smoke.check(err <= bar, ("roi_align", name, plan, err))
+                ms = chip_smoke.time_cuda_graph(launch, 20)
+                mark = "*" if plan == chosen else ""
+                rows[f"{group}x{threads}{mark}"] = ms
+                print(f"roi_align {name}: group {group}, {threads} threads"
+                      f"{mark}: {ms:.4f} ms, max error {err:.1e}", flush=True)
+        summary[name] = rows
+    return summary
+
+
+def sweep_flow_joint(rng, dev):
+    cam = offline_camera()
     Tcw = chip_smoke._pose([0.0, 0.02, 0.0], [0.1, 0.0, -3.0])
     cases = [("camera B=1 N=3000", chip_smoke.joint_camera_problem(
                   rng, cam, 3000)),
@@ -110,8 +229,8 @@ def sweep_flow_joint(rng, dev):
         for G in (1, 2, 4, 8):
             cap = -(-N // G)
             for threads in (64, 128, 256):
-                plan = fj.FlowJointPlan(G, threads, cap, 4 * fj.PLANES * cap,
-                                        0)
+                plan = lm_kernel.ClusterPlan(G, threads, cap,
+                                             4 * fj.PLANES * cap, 0)
                 out = fj.empty_batch(B, N, dev)
                 chip_smoke.check(fj._launch(args, cam, fj.ROUND_ITERS, plan,
                                             out) == 0, ("launch", name, plan))
@@ -142,9 +261,14 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card)
     cuda_build.build_all()
+    # kernels 2 and 3 draw from one stream, as before kernels 1 and 5 were
+    # swept; kernel 1 gets chip_smoke.py's seeded problems
     rng = np.random.RandomState(0)
-    summary = {"card": card, "correlation": sweep_correlation(rng, dev),
-               "flow_joint": sweep_flow_joint(rng, dev)}
+    summary = {"card": card,
+               "pose_lm": sweep_pose_lm(np.random.RandomState(0), dev),
+               "correlation": sweep_correlation(rng, dev),
+               "flow_joint": sweep_flow_joint(rng, dev),
+               "roi_align": sweep_roi_align(np.random.RandomState(0), dev)}
     print(json.dumps(summary))
     return 0
 

@@ -1,9 +1,8 @@
-// Device helpers of the port's LM kernels: the unrolled 6x6 Cholesky solve
-// and the SE(3) exp-compose step of the Pallas helpers
-// (vido_slam_tpu/estimation/flow_joint_pallas.py :: _chol_solve6,
+// Device helpers of the port's LM kernels (pose_lm.cu, flow_joint.cu): the
+// unrolled 6x6 Cholesky solve and the SE(3) exp-compose step of the Pallas
+// helpers (vido_slam_tpu/estimation/flow_joint_pallas.py :: _chol_solve6,
 // _exp_se3_compose), and a deterministic sum of 32 per-thread values over a
-// thread-block cluster. flow_joint.cu includes it; pose_lm.cu keeps its own
-// IEEE-division copies of the two solver helpers until its redesign.
+// thread-block cluster.
 
 #pragma once
 

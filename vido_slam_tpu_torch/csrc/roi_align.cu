@@ -20,19 +20,34 @@
 // add at most the 74 MB pyramid of a 1088 x 800 image: 0.015-0.037 ms at
 // 3.35 TB/s, against 0.5 GFLOP (0.0075 ms at the float32 rate).
 //
-// Design (a first kernel, right and simple). The TPU kernel's separable
-// form exists to feed the MXU; here a direct bilinear gather per bin computes
-// the same function and reads only the texels the samples touch. The four
-// levels come as four pointers with their sizes (no concatenated copy of
-// the pyramid). Block (x, roi) owns a contiguous run of kPerBlock of the
-// ROI's C * r * r outputs. Its first 2 r s threads compute the ROI's sample
-// rows and columns (two clamped indices and two weights each, the
-// inside-test and the 1/s average folded into the weights) once into shared
-// memory; every channel shares them. Each thread then takes outputs
-// (c, ph, pw) kThreads apart, so a warp writes 32 consecutive floats. The
-// sample positions use round-to-nearest multiplies and adds without FMA
+// Design: a block pools one ROI over a group of channels (grid groups x R;
+// the wrapper's launch plan sets the group, the threads and the shared
+// memory), in three steps.
+// 1. The ROI's sample grid. Warps 0 and 1 work out the n = r s sample rows
+//    and columns (two clamped texel lines and two weights each, the
+//    inside-test and the 1/s average folded into the weights) and the texel
+//    lines to stage: where a ROI's sampled lines span at most the grid's
+//    cap of min(2 n, largest level size) lines, the contiguous window
+//    between its first and last (a small ROI, the common case); else the
+//    2 n lines of its samples, each read once (a large or elongated ROI,
+//    whose samples lie apart; a 1500 x 10 box can span a whole level).
+// 2. The channels, a chunk at a time, through two buffers of shared memory:
+//    while the bins of chunk k are computed from one buffer, chunk k + 1's
+//    grids (staged rows x staged columns a channel, a row of a window being
+//    one contiguous run) arrive by cp.async in the other. A chunk is as many
+//    channels as a buffer holds at this ROI's grid, so a small ROI moves
+//    many channels a chunk and a large one few. A thread owns an output
+//    column (c, pw): it x-interpolates each staged row that its bins'
+//    samples use once (adjacent samples of a window share rows) and combines
+//    the rows along y into the column's r bins, in the buffer.
+// 3. The chunk's outputs go out as one contiguous run of its channels'
+//    r x r bins in (R, C, r, r) order, one streaming store a float.
+// The sample positions use round-to-nearest multiplies and adds without FMA
 // contraction, so a sample lands exactly where the plain version puts it,
-// including at -1 and size - 1.
+// including at -1 and size - 1; only the order of the weighted sums differs.
+
+#include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -40,9 +55,11 @@ namespace {
 
 constexpr int kMaxLevels = 4;
 constexpr int kMaxSamples = 64;          // r * s per axis
-constexpr int kThreads = 256;
-constexpr int kPerThread = 4;
-constexpr int kPerBlock = kThreads * kPerThread;
+constexpr int kMaxRatio = 4;             // sampling ratios 1..4
+constexpr int kMinThreads = 64;          // warps 0 and 1 set up the axes
+constexpr int kMaxThreads = 256;
+constexpr int kSmemLimit = 232448;       // bytes a block may use on sm_90
+constexpr int kSmemReserve = 4096;       // room for the static shared memory
 
 struct Pyramid {
   const float* feat[kMaxLevels];         // (C, h, w) planes, one image
@@ -53,7 +70,7 @@ struct Pyramid {
 };
 
 struct Sample {
-  int i0, i1;                            // clamped texel rows or columns
+  int i0, i1;                            // clamped texel lines; -1 outside
   float w0, w1;                          // their weights, 0 outside
 };
 
@@ -65,7 +82,7 @@ __device__ Sample axis_sample(float lo, float hi, int size, int r, int s,
   const float frac = __fdiv_rn(__fadd_rn((float)i, 0.5f), (float)s);
   const float pos = __fadd_rn(lo, __fmul_rn(__fadd_rn((float)p, frac), bin));
   const float top = (float)(size - 1);
-  Sample out{0, 0, 0.f, 0.f};
+  Sample out{-1, -1, 0.f, 0.f};
   if (pos >= -1.f && pos <= top) {       // false for NaN too
     const float c = fminf(fmaxf(pos, 0.f), top);
     out.i0 = (int)floorf(c);
@@ -77,86 +94,251 @@ __device__ Sample axis_sample(float lo, float hi, int size, int r, int s,
   return out;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One axis of a ROI: the texel lines (rows or columns) staged, and each
+// sample's two slots among them and weights.
+struct Axis {
+  int line[2 * kMaxSamples];
+  int slot0[kMaxSamples], slot1[kMaxSamples];
+  float w0[kMaxSamples], w1[kMaxSamples];
+  int count;                             // lines staged
+};
+
+// Run by one whole warp: the n = r s samples of [lo, hi] on an axis of
+// `size` texels, staged in at most `cap` lines. A sample outside the level
+// points at slot 0 with weight 0.
+__device__ void setup_axis(float lo, float hi, int size, int r, int s,
+                           int cap, Axis& ax) {
+  const int lane = threadIdx.x & 31;
+  const int n = r * s;
+  Sample q[2];
+  int first = INT_MAX, last = -1;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = lane + 32 * h;
+    q[h] = k < n ? axis_sample(lo, hi, size, r, s, k)
+                 : Sample{-1, -1, 0.f, 0.f};
+    if (q[h].i0 >= 0) {
+      first = min(first, q[h].i0);
+      last = max(last, q[h].i1);
+    }
+  }
+  first = __reduce_min_sync(0xffffffffu, first);
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (last < 0) first = last = 0;        // no sample inside: one line
+  const int span = last - first + 1;
+  const bool window = span <= cap;       // else cap == 2 n
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = lane + 32 * h;
+    if (k >= n) continue;
+    const bool in = q[h].i0 >= 0;
+    if (window) {
+      ax.slot0[k] = in ? q[h].i0 - first : 0;
+      ax.slot1[k] = in ? q[h].i1 - first : 0;
+    } else {
+      ax.slot0[k] = 2 * k;
+      ax.slot1[k] = 2 * k + 1;
+      ax.line[2 * k] = in ? q[h].i0 : 0;
+      ax.line[2 * k + 1] = in ? q[h].i1 : 0;
+    }
+    ax.w0[k] = q[h].w0;
+    ax.w1[k] = q[h].w1;
+  }
+  if (window)
+    for (int j = lane; j < span; j += 32) ax.line[j] = first + j;
+  if (lane == 0) ax.count = window ? span : 2 * n;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// The x-interpolation of staged row t at one output column: its kS samples'
+// two texels (slots xa, xb) with their weights
+template <int kS>
+__device__ __forceinline__ float x_interp(const float* t, const int (&xa)[kS],
+                                          const int (&xb)[kS],
+                                          const float (&wa)[kS],
+                                          const float (&wb)[kS]) {
+  float v = 0.f;
+#pragma unroll
+  for (int ix = 0; ix < kS; ++ix)
+    v += fmaf(wb[ix], t[xb[ix]], wa[ix] * t[xa[ix]]);
+  return v;
+}
+
+// Copies the grids of channels [c0, c0 + n) of the level's planes `feat`
+// into grid (one plane of nr x nc floats a channel) by cp.async: a warp
+// copies `per` staged rows at a time, `seg` lanes a row, the row's texels
+// one a lane.
+__device__ __forceinline__ void stage_chunk(const float* feat, size_t chan,
+                                           int W, const Axis& ys,
+                                           const Axis& xs, int c0, int n,
+                                           float* grid) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int nr = ys.count, nc = xs.count;
+  int seg = 32;
+  while (seg > 1 && seg / 2 >= nc) seg >>= 1;
+  const int per = 32 / seg;
+  const int j0 = lane % seg;
+  for (int line = warp * per + lane / seg; line < n * nr;
+       line += nwarps * per) {
+    const int c = line / nr, rs = line - c * nr;
+    const float* src = feat + (c0 + c) * chan + (size_t)ys.line[rs] * W;
+    float* dst = grid + (c * nr + rs) * nc;
+    for (int j = j0; j < nc; j += seg) cp_async4(dst + j, src + xs.line[j]);
+  }
+}
+
+// kS: the sampling ratio s
+template <int kS>
+__global__ void __launch_bounds__(kMaxThreads)
 roi_align_kernel(Pyramid pyr, const float* __restrict__ rois,
                  const int* __restrict__ levels, float* __restrict__ out,
-                 int C, int r, int s) {
-  __shared__ Sample ys[kMaxSamples];
-  __shared__ Sample xs[kMaxSamples];
+                 int C, int r, int group, int rows_cap, int cols_cap,
+                 int half) {
+  extern __shared__ float sm[];  // two buffers of `half` floats: a chunk's
+                                 // grids, then its r x r bins a channel
+  __shared__ Axis ys, xs;
   const int roi = blockIdx.y;
+  const int c0 = blockIdx.x * group;
+  const int ng = min(group, C - c0);
   const int lv = min(max(levels[roi], 0), pyr.levels - 1);
-  const int H = pyr.h[lv], W = pyr.w[lv];
-  const float scale = pyr.scale[lv];
-  const int n = r * s;
-  const int t = threadIdx.x;
-  if (t < 2 * n) {
-    const float* b = rois + 4 * (size_t)roi;
-    if (t < n)
-      ys[t] = axis_sample(__fmul_rn(b[1], scale), __fmul_rn(b[3], scale), H,
-                          r, s, t);
-    else
-      xs[t - n] = axis_sample(__fmul_rn(b[0], scale), __fmul_rn(b[2], scale),
-                              W, r, s, t - n);
-  }
+  // constant indices into the parameter arrays keep them out of local memory
+  const float* feat = lv == 0 ? pyr.feat[0] : lv == 1 ? pyr.feat[1]
+                    : lv == 2 ? pyr.feat[2] : pyr.feat[3];
+  const int H = lv == 0 ? pyr.h[0] : lv == 1 ? pyr.h[1]
+              : lv == 2 ? pyr.h[2] : pyr.h[3];
+  const int W = lv == 0 ? pyr.w[0] : lv == 1 ? pyr.w[1]
+              : lv == 2 ? pyr.w[2] : pyr.w[3];
+  const float scale = lv == 0 ? pyr.scale[0] : lv == 1 ? pyr.scale[1]
+                    : lv == 2 ? pyr.scale[2] : pyr.scale[3];
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5;
+  const float* b = rois + 4 * (size_t)roi;
+  if (warp == 0)
+    setup_axis(__fmul_rn(b[1], scale), __fmul_rn(b[3], scale), H, r, kS,
+               rows_cap, ys);
+  else if (warp == 1)
+    setup_axis(__fmul_rn(b[0], scale), __fmul_rn(b[2], scale), W, r, kS,
+               cols_cap, xs);
   __syncthreads();
 
-  const float* feat = pyr.feat[lv];
-  const int rr = r * r;
-  const int total = C * rr;
-  float* o = out + (size_t)roi * total;
-  const int base = blockIdx.x * kPerBlock;
+  const int nc = xs.count, plane = ys.count * nc, rr = r * r;
+  const int chunk = min(ng, half / (plane + rr));  // >= 1: the plan's check
+  const int nchunks = (ng + chunk - 1) / chunk;
+  const size_t chan = (size_t)H * W;
+  feat += (size_t)c0 * chan;
+  float* dst = out + ((size_t)roi * C + c0) * rr;
+
+  stage_chunk(feat, chan, W, ys, xs, 0, chunk, sm);
+  for (int k = 0; k < nchunks; ++k) {
+    // chunk k has landed, and every thread is done with chunk k - 1's
+    // buffer, which chunk k + 1 takes
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    const int cb = k * chunk, n = min(chunk, ng - cb);
+    if (k + 1 < nchunks)
+      stage_chunk(feat, chan, W, ys, xs, cb + chunk,
+                  min(chunk, ng - cb - chunk), sm + ((k + 1) & 1) * half);
+    const float* grid = sm + (k & 1) * half;
+    float* res = sm + (k & 1) * half + n * plane;
+
+    // the bins, column by column
+    for (int item = tid; item < n * r; item += nthr) {
+      const int c = item / r, pw = item - c * r;
+      int xa[kS], xb[kS];
+      float wa[kS], wb[kS];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int e = base + j * kThreads + t;
-    if (e >= total) break;
-    const int c = e / rr;
-    const int bin = e - c * rr;
-    const int ph = bin / r;
-    const int pw = bin - ph * r;
-    const float* f = feat + (size_t)c * H * W;
-    float acc = 0.f;
-    for (int iy = 0; iy < s; ++iy) {
-      const Sample y = ys[ph * s + iy];
-      const float* row0 = f + (size_t)y.i0 * W;
-      const float* row1 = f + (size_t)y.i1 * W;
-      for (int ix = 0; ix < s; ++ix) {
-        const Sample x = xs[pw * s + ix];
-        const float a = fmaf(x.w1, row0[x.i1], x.w0 * row0[x.i0]);
-        const float b = fmaf(x.w1, row1[x.i1], x.w0 * row1[x.i0]);
-        acc = fmaf(y.w0, a, acc);
-        acc = fmaf(y.w1, b, acc);
+      for (int ix = 0; ix < kS; ++ix) {
+        const int q = pw * kS + ix;
+        xa[ix] = xs.slot0[q];
+        xb[ix] = xs.slot1[q];
+        wa[ix] = xs.w0[q];
+        wb[ix] = xs.w1[q];
+      }
+      const float* g = grid + c * plane;
+      float* o = res + c * rr + pw;
+      int prev = -1;  // the last row x-interpolated, and its value
+      float prev_v = 0.f;
+      for (int ph = 0; ph < r; ++ph) {
+        float acc = 0.f;
+#pragma unroll
+        for (int iy = 0; iy < kS; ++iy) {
+          const int q = ph * kS + iy;
+          const int y0 = ys.slot0[q], y1 = ys.slot1[q];
+          const float v0 =
+              y0 == prev ? prev_v : x_interp(g + y0 * nc, xa, xb, wa, wb);
+          const float v1 =
+              y1 == y0 ? v0 : x_interp(g + y1 * nc, xa, xb, wa, wb);
+          prev = y1;
+          prev_v = v1;
+          acc = fmaf(ys.w0[q], v0, acc);
+          acc = fmaf(ys.w1[q], v1, acc);
+        }
+        o[ph * r] = acc;
       }
     }
-    o[e] = acc;
+    __syncthreads();
+    // the chunk's outputs, contiguous in (R, C, r, r)
+    for (int e = tid; e < n * rr; e += nthr) __stcs(dst + cb * rr + e, res[e]);
   }
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the CUDA error of the launch (0 on success).
-// feats, hs, ws, scales: host arrays of the L levels' device pointers,
-// heights, widths and spatial scales.
+// Launches on `stream` with the wrapper's plan: blocks of `threads` threads
+// pooling one ROI over `group` channels with `smem_bytes` of dynamic shared
+// memory, two buffers that must each hold one channel's largest grid and
+// bins (rows_cap x cols_cap + r x r floats, a cap being min(2 r s, the
+// largest level's height or width)). Refuses (cudaErrorInvalidValue) a plan
+// or arguments it cannot run; otherwise returns the CUDA error of the
+// launch. feats, hs, ws, scales: host arrays of the L levels' device
+// pointers, heights, widths and spatial scales.
 extern "C" int roi_align_launch(const void* const* feats, const int* hs,
                                 const int* ws, const float* scales, int L,
                                 const float* rois, const int* levels,
                                 float* out, int R, int C, int r, int s,
+                                int group, int threads, int smem_bytes,
                                 void* stream) {
   if (L < 1 || L > kMaxLevels || R < 1 || R > 65535 || C < 1 || r < 1 ||
-      s < 1 || r * s > kMaxSamples)
+      s < 1 || s > kMaxRatio || r * s > kMaxSamples)
     return (int)cudaErrorInvalidValue;
   Pyramid pyr{};
   pyr.levels = L;
+  int max_h = 0, max_w = 0;
   for (int l = 0; l < L; ++l) {
     if (hs[l] < 1 || ws[l] < 1) return (int)cudaErrorInvalidValue;
     pyr.feat[l] = static_cast<const float*>(feats[l]);
     pyr.h[l] = hs[l];
     pyr.w[l] = ws[l];
     pyr.scale[l] = scales[l];
+    max_h = hs[l] > max_h ? hs[l] : max_h;
+    max_w = ws[l] > max_w ? ws[l] : max_w;
   }
-  const long long total = (long long)C * r * r;
-  if (total > 2147483647LL - kPerBlock) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((total + kPerBlock - 1) / kPerBlock), R);
-  roi_align_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      pyr, rois, levels, out, C, r, s);
+  const int rows_cap = 2 * r * s < max_h ? 2 * r * s : max_h;
+  const int cols_cap = 2 * r * s < max_w ? 2 * r * s : max_w;
+  const int half = smem_bytes / 8;
+  const bool plan_ok = group >= 1 && group <= C && threads >= kMinThreads &&
+                       threads <= kMaxThreads && threads % 32 == 0 &&
+                       smem_bytes % 8 == 0 &&
+                       half >= rows_cap * cols_cap + r * r &&
+                       smem_bytes + kSmemReserve <= kSmemLimit &&
+                       (long long)C * r * r <= INT_MAX;
+  if (!plan_ok) return (int)cudaErrorInvalidValue;
+  void (*kernel)(Pyramid, const float*, const int*, float*, int, int, int,
+                 int, int, int) =
+      s == 1 ? roi_align_kernel<1>
+      : s == 2 ? roi_align_kernel<2>
+      : s == 3 ? roi_align_kernel<3>
+               : roi_align_kernel<4>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((C + group - 1) / group), R);
+  kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      pyr, rois, levels, out, C, r, group, rows_cap, cols_cap, half);
   return (int)cudaGetLastError();
 }

@@ -26,10 +26,12 @@ from typing import NamedTuple
 import torch
 
 from vido_slam_tpu_torch.estimation.lm_kernel import (
+    ClusterPlan,
     _check,
     _chol_solve6,
     _exp_se3_compose,
     _full_batch,
+    cluster_plan,
 )
 from vido_slam_tpu_torch.geometry.camera import Camera
 from vido_slam_tpu_torch.utils import cuda_build
@@ -44,41 +46,14 @@ ROUND_ITERS = 10           # LM steps per round
 MIN_EDGES = 5              # Optimizer.cc:2794: below this no step is taken
 ROUNDS = 4
 
-
-# The kernel's launch plan (csrc/flow_joint.cu): a cluster of CTAs a problem,
-# each holding its share of the problem's compacted prior set.
-SM_COUNT = 132             # H100 SXM
-MAX_CLUSTER = 8            # portable cluster size
-MAX_THREADS = 256
-MIN_POINTS_PER_CTA = 32    # a CTA gets at least a warp's worth of N
-PLANES = 13                # floats a point keeps (52 B)
-SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
-SMEM_RESERVE = 4096        # room for the static shared memory
+PLANES = 13                # floats a point of the prior set keeps (52 B)
 
 
-class FlowJointPlan(NamedTuple):
-    cluster: int         # G CTAs a problem
-    threads: int         # threads a CTA
-    cap: int             # points a CTA can hold: ceil(N / G)
-    smem_bytes: int      # dynamic shared memory a CTA; 0: points in scratch
-    scratch_floats: int  # global scratch the wrapper allocates
-
-
-def launch_plan(B: int, N: int) -> FlowJointPlan:
-    """The largest power-of-two cluster, at most MAX_CLUSTER, that keeps all
-    B clusters on the SMs at once (B G <= SM_COUNT) and a CTA's share of N
-    at least MIN_POINTS_PER_CTA. A CTA's points take 52 B each of shared
-    memory while ceil(N / G) of them fit; beyond, a global scratch."""
-    G = 1
-    while (G < MAX_CLUSTER and 2 * G * B <= SM_COUNT
-           and N >= 2 * G * MIN_POINTS_PER_CTA):
-        G *= 2
-    cap = max(1, -(-N // G))
-    threads = min(MAX_THREADS, -(-cap // 32) * 32)
-    smem = 4 * PLANES * cap
-    if smem + SMEM_RESERVE <= SMEM_LIMIT:
-        return FlowJointPlan(G, threads, cap, smem, 0)
-    return FlowJointPlan(G, threads, cap, 0, B * G * PLANES * cap)
+def launch_plan(B: int, N: int) -> ClusterPlan:
+    """The kernel's launch plan (``lm_kernel.cluster_plan``): a cluster of
+    CTAs a problem, each holding its share of the problem's compacted prior
+    set, 52 B a point."""
+    return cluster_plan(B, N, PLANES)
 
 
 class FlowJointBatch(NamedTuple):
@@ -247,7 +222,7 @@ def flow_joint_batched_ref(T_init, pts3d, obs_last, flow_meas, valid,
 _launch_fn = None
 
 
-def _launch(args, cam: Camera, iters: int, plan: FlowJointPlan,
+def _launch(args, cam: Camera, iters: int, plan: ClusterPlan,
             out: FlowJointBatch) -> int:
     """Launches the kernel on the current stream for
     args = (T_init, pts3d, obs_last, flow_meas, valid) with `plan`, writing

@@ -22,6 +22,48 @@ import torch
 from vido_slam_tpu_torch.geometry.camera import Camera
 from vido_slam_tpu_torch.utils import cuda_build
 
+# The launch plan of the LM kernels (csrc/pose_lm.cu, csrc/flow_joint.cu): a
+# cluster of CTAs a problem, each holding its share of the problem's
+# compacted points.
+SM_COUNT = 132             # H100 SXM
+MAX_CLUSTER = 8            # portable cluster size
+MAX_THREADS = 256
+MIN_POINTS_PER_CTA = 32    # a CTA gets at least a warp's worth of N
+SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
+SMEM_RESERVE = 4096        # room for the static shared memory
+PLANES = 5                 # floats a valid point keeps in pose_lm.cu (20 B)
+
+
+class ClusterPlan(NamedTuple):
+    cluster: int         # G CTAs a problem
+    threads: int         # threads a CTA
+    cap: int             # points a CTA can hold: ceil(N / G)
+    smem_bytes: int      # dynamic shared memory a CTA; 0: points in scratch
+    scratch_floats: int  # global scratch the wrapper allocates
+
+
+def cluster_plan(B: int, N: int, planes: int) -> ClusterPlan:
+    """The largest power-of-two cluster, at most MAX_CLUSTER, that keeps all
+    B clusters on the SMs at once (B G <= SM_COUNT) and a CTA's share of N
+    at least MIN_POINTS_PER_CTA. A CTA's points take ``planes`` floats each
+    of shared memory while ceil(N / G) of them fit; beyond, a global
+    scratch."""
+    G = 1
+    while (G < MAX_CLUSTER and 2 * G * B <= SM_COUNT
+           and N >= 2 * G * MIN_POINTS_PER_CTA):
+        G *= 2
+    cap = max(1, -(-N // G))
+    threads = min(MAX_THREADS, -(-cap // 32) * 32)
+    smem = 4 * planes * cap
+    if smem + SMEM_RESERVE <= SMEM_LIMIT:
+        return ClusterPlan(G, threads, cap, smem, 0)
+    return ClusterPlan(G, threads, cap, 0, B * G * planes * cap)
+
+
+def launch_plan(B: int, N: int) -> ClusterPlan:
+    """The plan of ``pose_lm_batched`` for B problems of N points."""
+    return cluster_plan(B, N, PLANES)
+
 
 class PoseLMBatch(NamedTuple):
     T: torch.Tensor          # (B, 4, 4)
@@ -39,8 +81,9 @@ FLOPS_CHI2 = 48
 FLOPS_NORMAL_EQS = 167
 # ... and the Huber weight and rho, only when huber_delta is set.
 FLOPS_HUBER = 6
-# Per problem and iteration (thread 0): damping, the 6x6 Cholesky solve,
-# exp-compose and the gain ratio, about.
+# Per problem and iteration: damping, the 6x6 Cholesky solve, exp-compose
+# and the gain ratio, about (counted once, though every thread of the
+# kernel repeats them).
 FLOPS_STEP = 470
 
 
@@ -224,17 +267,55 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _bind(lib):
-    fn = lib.pose_lm_batched_launch
-    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-        ctypes.c_longlong
-    fn.argtypes = [P, P, P, LL, P, LL, P, P, P, P, I, I, F, F, F, F, F, I,
-                   F, F, F, P]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 _launch_fn = None
+
+
+def _launch(args, cam: Camera, plan: ClusterPlan, out: PoseLMBatch, *,
+            huber_delta: Optional[float] = None, max_iters: int = 100,
+            init_lambda: float = 1e-5, gain_tol: float = 1e-9,
+            rel_tol: float = 1e-5) -> int:
+    """Launches the kernel on the current stream for
+    args = (T_init, T_pre, pts3d, obs, valid) with `plan`, writing into
+    `out`; returns the launcher's CUDA error (cudaErrorInvalidValue for a
+    plan it cannot run), 0 on success."""
+    global _launch_fn
+    if _launch_fn is None:
+        P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+            ctypes.c_longlong
+        fn = cuda_build.load("pose_lm").pose_lm_batched_launch
+        fn.argtypes = [P, P, P, LL, P, LL, P, P, P, P, P, I, I, I, I, I, I,
+                       F, F, F, F, F, F, I, F, F, F, P]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    T_init, T_pre, pts3d, obs, valid = args
+    B, N = valid.shape
+    dev = T_init.device
+    scratch = (torch.empty((plan.scratch_floats,), dtype=torch.float32,
+                           device=dev) if plan.scratch_floats else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return _launch_fn(
+            T_init.data_ptr(), T_pre.data_ptr(), pts3d.data_ptr(),
+            0 if pts3d.ndim == 2 else N * 3, obs.data_ptr(),
+            0 if obs.ndim == 2 else N * 2, valid.data_ptr(),
+            *(t.data_ptr() for t in out),
+            0 if scratch is None else scratch.data_ptr(), B, N,
+            plan.cluster, plan.threads, plan.cap, plan.smem_bytes,
+            cam.fx, cam.fy, cam.cx, cam.cy,
+            -1.0 if huber_delta is None else float(huber_delta),
+            # delta^2 rounded to float32 once, as the plain version's
+            # Python-number threshold is
+            0.0 if huber_delta is None else float(huber_delta) ** 2,
+            int(max_iters), init_lambda, gain_tol, rel_tol, stream)
+
+
+def empty_batch(B: int, N: int, device) -> PoseLMBatch:
+    """Uninitialised outputs of B solves over N points, as the kernel
+    writes them."""
+    return PoseLMBatch(
+        T=torch.empty((B, 4, 4), dtype=torch.float32, device=device),
+        chi2=torch.empty((B, N), dtype=torch.float32, device=device),
+        num_iters=torch.empty((B,), dtype=torch.int32, device=device))
 
 
 def pose_lm_batched(T_init, T_pre, pts3d, obs, valid, cam: Camera, *,
@@ -244,7 +325,6 @@ def pose_lm_batched(T_init, T_pre, pts3d, obs, valid, cam: Camera, *,
                     rel_tol: float = 1e-5) -> PoseLMBatch:
     """B LM solves. T_init, T_pre (B, 4, 4); pts3d (B, N, 3) or shared
     (N, 3); obs (B, N, 2) or shared (N, 2); valid (B, N) bool."""
-    global _launch_fn
     tensors = (T_init, T_pre, pts3d, obs, valid)
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
@@ -262,26 +342,14 @@ def pose_lm_batched(T_init, T_pre, pts3d, obs, valid, cam: Camera, *,
            (N, 3) if pts3d.ndim == 2 else (B, N, 3))
     _check("obs", obs, torch.float32, (N, 2) if obs.ndim == 2 else (B, N, 2))
     _check("valid", valid, torch.bool, (B, N))
-    dev = T_init.device
-    T_out = torch.empty((B, 4, 4), dtype=torch.float32, device=dev)
-    chi2 = torch.empty((B, N), dtype=torch.float32, device=dev)
-    its = torch.empty((B,), dtype=torch.int32, device=dev)
-    if _launch_fn is None:
-        _launch_fn = _bind(cuda_build.load("pose_lm"))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _launch_fn(
-            T_init.data_ptr(), T_pre.data_ptr(), pts3d.data_ptr(),
-            0 if pts3d.ndim == 2 else N * 3, obs.data_ptr(),
-            0 if obs.ndim == 2 else N * 2, valid.data_ptr(),
-            T_out.data_ptr(), chi2.data_ptr(), its.data_ptr(), B, N,
-            cam.fx, cam.fy, cam.cx, cam.cy,
-            -1.0 if huber_delta is None else float(huber_delta),
-            int(max_iters), init_lambda, gain_tol, rel_tol, stream)
+    out = empty_batch(B, N, T_init.device)
+    rc = _launch(tensors, cam, launch_plan(B, N), out,
+                 huber_delta=huber_delta, max_iters=max_iters,
+                 init_lambda=init_lambda, gain_tol=gain_tol, rel_tol=rel_tol)
     if rc != 0:
         raise RuntimeError(f"pose_lm kernel launch failed: CUDA error {rc}")
     pose_lm_batched.launches += 1
-    return PoseLMBatch(T=T_out, chi2=chi2, num_iters=its)
+    return out
 
 
 # kernel launches since the last reset (the wrapper adds one per launch)

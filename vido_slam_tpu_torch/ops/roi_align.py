@@ -21,7 +21,7 @@ CPU; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -31,7 +31,67 @@ from vido_slam_tpu_torch.utils.device import kernel_device
 
 MAX_LEVELS = 4      # csrc/roi_align.cu: kMaxLevels
 MAX_SAMPLES = 64    # resolution x sampling_ratio per axis: kMaxSamples
+MAX_RATIO = 4       # sampling ratios 1..4: kMaxRatio
 CHUNK = 128         # ROIs per product in the plain version
+
+# The kernel's launch plan: a block pools one ROI over a group of channels,
+# staging each channel's sample grid in shared memory, a chunk of channels
+# at a time through two buffers.
+SM_COUNT = 132             # H100 SXM
+MIN_THREADS = 64           # warps 0 and 1 set up the two axes
+MAX_THREADS = 256
+THREADS = 256
+# blocks of THREADS an SM holds at most (2048 threads; their shared memory
+# fits it 7-8 times)
+BLOCKS_PER_SM = 8
+BLOCK_OUTPUTS = 2048       # the bins a block computes, at most: 8 a thread
+BUFFER_FLOATS = 3072       # a buffer: 12 KB, or one channel's largest grid
+SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
+SMEM_RESERVE = 4096        # room for the static shared memory
+
+
+class RoiAlignPlan(NamedTuple):
+    group: int       # channels a block
+    threads: int     # threads a block
+    smem_bytes: int  # dynamic shared memory a block: two buffers
+
+
+def grid_lines(resolution: int, sampling_ratio: int, size: int) -> int:
+    """Texel lines (rows or columns) a ROI's sample grid stages on an axis
+    whose largest level has ``size`` of them: two a sample, or the level's
+    whole extent if that is fewer."""
+    return min(2 * resolution * sampling_ratio, size)
+
+
+def smem_bytes(resolution: int, sampling_ratio: int,
+               level_sizes: Sequence[tuple]) -> int:
+    """Dynamic shared memory of a block: two buffers of BUFFER_FLOATS, or
+    of one channel's largest sample grid and its r x r bins if that is
+    more."""
+    rows = grid_lines(resolution, sampling_ratio,
+                      max(h for h, _ in level_sizes))
+    cols = grid_lines(resolution, sampling_ratio,
+                      max(w for _, w in level_sizes))
+    return 8 * max(BUFFER_FLOATS, rows * cols + resolution * resolution)
+
+
+def launch_plan(R: int, C: int, resolution: int, sampling_ratio: int,
+                level_sizes: Sequence[tuple]) -> RoiAlignPlan:
+    """THREADS a block and the largest power-of-two channel group, at most
+    C, whose bins stay within BLOCK_OUTPUTS and that still gives the R ROIs
+    two waves of blocks on the SMs (at least one channel). A block sets up
+    its ROI's sample grid once for all its channels but takes its chunks in
+    turn, so a group of 32 channels at 7 x 7 bins (the box head) or 8 at
+    14 x 14 (the mask head) balances the two. ``level_sizes``: the
+    pyramid's (height, width) pairs."""
+    wave = SM_COUNT * BLOCKS_PER_SM
+    group = 1
+    while (2 * group <= C
+           and 2 * group * resolution * resolution <= BLOCK_OUTPUTS
+           and R * -(-C // (2 * group)) >= 2 * wave):
+        group *= 2
+    return RoiAlignPlan(group, THREADS,
+                        smem_bytes(resolution, sampling_ratio, level_sizes))
 
 
 def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -175,14 +235,49 @@ def nbytes(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 _launch_fn = None
 
 
+def level_sizes(feats: Sequence[torch.Tensor]) -> list:
+    """The (height, width) of each level of (1, C, H, W) features."""
+    return [(f.shape[2], f.shape[3]) for f in feats]
+
+
+def _launch(feats, rois, levels, spatial_scales, resolution, sampling_ratio,
+            plan: RoiAlignPlan, out: torch.Tensor) -> int:
+    """Launches the kernel on the current stream with `plan`, writing into
+    `out`; ``levels`` int32 and contiguous. Returns the launcher's CUDA
+    error (cudaErrorInvalidValue for a plan it cannot run), 0 on
+    success."""
+    global _launch_fn
+    if _launch_fn is None:
+        fn = cuda_build.load("roi_align").roi_align_launch
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I),
+                       ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float), I,
+                       P, P, P, I, I, I, I, I, I, I, P]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    L = len(feats)
+    R, C = rois.shape[0], feats[0].shape[1]
+    ptrs = (ctypes.c_void_p * L)(*(f.data_ptr() for f in feats))
+    hs = (ctypes.c_int * L)(*(f.shape[2] for f in feats))
+    ws = (ctypes.c_int * L)(*(f.shape[3] for f in feats))
+    scales = (ctypes.c_float * L)(*(float(x) for x in spatial_scales))
+    dev = out.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return _launch_fn(ptrs, hs, ws, scales, L, rois.data_ptr(),
+                          levels.data_ptr(), out.data_ptr(), R, C, resolution,
+                          sampling_ratio, plan.group, plan.threads,
+                          plan.smem_bytes, stream)
+
+
 def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                          levels: torch.Tensor, spatial_scales: Sequence[float],
                          resolution: int = 7,
                          sampling_ratio: int = 2) -> torch.Tensor:
     """(R, C, r, r) ROIAlign of rois (R, 4) float32, each from level
     ``levels[i]`` (an integer tensor (R,)) of the pyramid ``feats``, up to
-    four contiguous float32 (1, C, H_l, W_l) levels on one device."""
-    global _launch_fn
+    four contiguous float32 (1, C, H_l, W_l) levels on one device. The
+    kernel takes sampling ratios 1 to MAX_RATIO."""
     dev = kernel_device("roi_align_multilevel", (*feats, rois))
     L = len(feats)
     if not 1 <= L <= MAX_LEVELS or len(spatial_scales) != L:
@@ -209,28 +304,16 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     if dev.type == "cpu":
         return roi_align_multilevel_ref(feats, rois, levels, spatial_scales,
                                         resolution, sampling_ratio)
+    if sampling_ratio > MAX_RATIO:
+        raise ValueError(f"roi_align_multilevel: the kernel takes sampling "
+                         f"ratios 1 to {MAX_RATIO}, got {sampling_ratio}")
     out = torch.empty((R, C, resolution, resolution), dtype=torch.float32,
                       device=dev)
     if R == 0:
         return out
-    levels = levels.to(torch.int32).contiguous()
-    if _launch_fn is None:
-        fn = cuda_build.load("roi_align").roi_align_launch
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I),
-                       ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float), I,
-                       P, P, P, I, I, I, I, P]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
-    ptrs = (ctypes.c_void_p * L)(*(f.data_ptr() for f in feats))
-    hs = (ctypes.c_int * L)(*(f.shape[2] for f in feats))
-    ws = (ctypes.c_int * L)(*(f.shape[3] for f in feats))
-    scales = (ctypes.c_float * L)(*(float(x) for x in spatial_scales))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _launch_fn(ptrs, hs, ws, scales, L, rois.data_ptr(),
-                        levels.data_ptr(), out.data_ptr(), R, C, resolution,
-                        sampling_ratio, stream)
+    plan = launch_plan(R, C, resolution, sampling_ratio, level_sizes(feats))
+    rc = _launch(feats, rois, levels.to(torch.int32).contiguous(),
+                 spatial_scales, resolution, sampling_ratio, plan, out)
     if rc != 0:
         raise RuntimeError(f"roi_align kernel launch failed: CUDA error {rc}")
     roi_align_multilevel.launches += 1

@@ -105,7 +105,9 @@ class System:
         asks for them (not ported)."""
         if not self._initialized:
             raise RuntimeError("call Init or init_from_config first")
-        if imu_measurements:
+        # only an IMU_RGBD system reads the measurements (system.py of the
+        # JAX package); an RGBD system ignores them
+        if self.sensor == Sensor.IMU_RGBD and imu_measurements:
             raise _not_ported("IMU measurements (VIO)", 17)
         cfg = self.config
         if not isinstance(depth_raw, torch.Tensor):

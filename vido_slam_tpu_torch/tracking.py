@@ -371,8 +371,15 @@ class Tracker:
                  n_obj: int = 4000, max_objects: int = 8, seed: int = 0,
                  local_ba: bool = True, ba_max_points: int = 1000,
                  ba_iters: int = 15, use_imu: bool = False,
-                 pipelined: bool = False, joint_flow: bool = False,
-                 fused_ba: bool = False, record: str = "auto", device=None):
+                 imu_max_frames: int = 32, imu_max_segments: int = 64,
+                 imu_init_stride: int = 3, pipelined: bool = False,
+                 joint_flow: bool = False, fused_ba: bool = False,
+                 record: str = "auto", lm_pallas: Optional[bool] = None,
+                 device=None):
+        """The JAX ``Tracker``'s arguments. ``lm_pallas`` picks the JAX
+        package's Pallas or XLA LM, which its tests hold equal; here the
+        CUDA kernel runs either way. The ``imu_*`` arguments shape VIO,
+        which is not ported, and have no effect without it."""
         if pipelined:
             raise _not_ported("pipelined=True", 16)
         if use_imu:
