@@ -5,13 +5,13 @@
 Phases, each of which fails the run by raising:
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every kernel in ``csrc/`` (one nvcc each, started
-     together) and prints ptxas' report of each kernel (registers, shared
-     memory, stack, spills);
+     together) and prints ptxas' report of each kernel (its name,
+     registers, shared memory, stack, spills);
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      same numpy-seeded inputs, laid out at the main paths' shapes as the
      main paths lay them out (kernels 3 and 4 at the five pyramid levels of
      a 1280x576 LiteFlowNet pair), with the tolerances stated there;
-     kernels 1, 2, 3 and 5 must give the same bits in a second launch;
+     every kernel must give the same bits in a second launch;
   4. the paths: the port's ``System`` (RGBD sensor) tracks a synthetic
      KAIST-calibration sequence (1280x560, two moving vehicles, the bench's
      offline widths) on the card twice: (a) the VO path with the fused
@@ -474,13 +474,15 @@ def check_correlation(cases) -> float:
 def check_regularize(cases) -> float:
     """dist_weighted_flow against dist_weighted_flow_ref on each case:
     |kernel - plain| <= 1e-5 + 1e-5 |plain| element by element (the CPU
-    test's rtol = atol = 1e-5). Returns max_abs_err."""
+    test's rtol = atol = 1e-5); a second launch gives the same bits.
+    Returns max_abs_err."""
     import torch
     from vido_slam_tpu_torch.ops import regularize as reg
 
     err = 0.0
     for name, args in cases:
         got = reg.dist_weighted_flow(*args)
+        again = reg.dist_weighted_flow(*args)
         ref = reg.dist_weighted_flow_ref(*args)
         torch.cuda.synchronize()
         diff = (got - ref).abs()
@@ -488,9 +490,12 @@ def check_regularize(cases) -> float:
         e = float(diff.max())
         check(got.shape == ref.shape and ok and math.isfinite(e),
               ("dist_weighted_flow", name, e))
+        check(torch.equal(got, again), ("dist_weighted_flow", name,
+                                        "two launches differ"))
         err = max(err, e)
         print(f"dist_weighted_flow {name}: max error {e:.3e}, within "
-              f"rtol = atol = 1e-5")
+              f"rtol = atol = 1e-5; {reg.copy_width(args[1])}-byte flow "
+              f"copies")
     return err
 
 
@@ -1004,8 +1009,8 @@ def main() -> int:
     print(f"build of {sorted(logs)}: {time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            # each kernel's registers, shared memory, stack and spills
-            if "Used" in line or "spill" in line:
+            # each kernel's name, registers, shared memory, stack, spills
+            if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     # phase 3 on numpy-seeded problems laid out as the main paths lay them

@@ -1,16 +1,18 @@
 """The launch plans of kernels 1, 2, 3 and 5 (``lm_kernel.launch_plan``,
 ``flow_joint_kernel.launch_plan``, ``correlation.launch_plan``,
 ``roi_align.launch_plan``), which each wrapper computes in Python and the
-C launcher checks, at the main paths' shapes; and the kernel build's hash
-over the headers a source includes. Runs on the CPU: no kernel is built or
-launched."""
+C launcher checks, at the main paths' shapes; kernel 4's flow copy width
+(``regularize.copy_width``); and the kernel build's hash over the headers a
+source includes. Runs on the CPU: no kernel is built or launched."""
 
 import pytest
+import torch
 
 import chip_smoke
 from vido_slam_tpu_torch.estimation import flow_joint_kernel as fj
 from vido_slam_tpu_torch.estimation import lm_kernel
 from vido_slam_tpu_torch.ops import correlation as corr
+from vido_slam_tpu_torch.ops import regularize as reg
 from vido_slam_tpu_torch.ops import roi_align
 from vido_slam_tpu_torch.utils import cuda_build
 
@@ -48,6 +50,18 @@ def test_correlation_channel_split_covers_c_exactly(N, C, H, W, stride):
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
     assert all(hi > lo for lo, hi in ranges)
     assert plan.grid[1] == N and plan.split <= C
+
+
+@pytest.mark.parametrize("W", [640, 637])
+def test_regularize_copy_width_follows_the_pointers(W):
+    """Kernel 4's 16-byte flow copies need W % 4 == 0 and a 16-byte aligned
+    flow; a contiguous view at a storage offset of one float is not."""
+    store = torch.zeros(2 * 8 * W + 4)
+    flow = store[:2 * 8 * W].view(1, 2, 8, W)
+    shifted = store[1:2 * 8 * W + 1].view(1, 2, 8, W)
+    assert shifted.is_contiguous()
+    assert reg.copy_width(flow) == (16 if W % 4 == 0 else 4)
+    assert reg.copy_width(shifted) == 4
 
 
 @pytest.mark.parametrize("B,N", [(1, 3000), (8, 4000), (1, 12000),

@@ -6,8 +6,8 @@ card. Run there with
 (--noconftest: tests/conftest.py configures JAX, which the port's tests
 here do not use.)
 Each test decides inside itself whether a card is present and skips
-without one. Kernels 1, 2, 3 and 5 must also give the same bits in two
-launches on the same inputs. Bars: those of chip_smoke.py. Kernel 1
+without one. Every kernel must also give the same bits in two launches on
+the same inputs. Bars: those of chip_smoke.py. Kernel 1
 (pose LM): per problem |log(T_ref^-1 T)| < 1e-4, |chi2 - chi2_ref| <=
 1e-3 max(1, chi2_ref), at most 3 inlier flips. Kernel 2 (joint flow +
 pose): per problem |log(T_ref^-1 T)| < 1e-4, inlier sets differing on at
@@ -505,6 +505,91 @@ def test_regularize_kernel_matches_plain(N, k, H, W):
     torch.cuda.synchronize()
     assert got.shape == (N, 2, H, W)
     assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
+
+
+def _reg_args(N, k, H, W, seed, scale=1.0):
+    """Seeded (dc, flow, wx, bx, wy, by, k) on the card: logits of
+    `scale` times unit-normal, flows of a few px."""
+    rng = np.random.RandomState(seed)
+    K = k * k
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32)).cuda()
+
+    return (t(rng.randn(N, K, H, W) * scale), t(rng.randn(N, 2, H, W) * 3),
+            t(rng.randn(K)), t([0.3]), t(rng.randn(K)), t([-0.2]), k)
+
+
+def _shifted(t):
+    """A contiguous copy of t that starts one float past a 16-byte
+    boundary."""
+    store = torch.empty(t.numel() + 1, device=t.device)
+    store[1:] = t.reshape(-1)
+    return store[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("case", [
+    "peaked level 2",             # dc x 10: one tap takes nearly all
+    "peaked level 5",
+    "all equal",                  # every tap the same weight
+    "ragged width",               # level 2 at 288 x 637: 4-byte copies
+    "storage offset",             # dc and flow one float past 16 bytes
+])
+def test_regularize_kernel_on_hard_inputs(case):
+    _need_card()
+    if case.startswith("peaked"):
+        shape = (7, 288, 640) if case.endswith("2") else (3, 36, 80)
+        args = _reg_args(1, *shape, seed=11, scale=10.0)
+    elif case == "all equal":
+        args = _reg_args(1, 5, 144, 320, seed=12)
+        args = (torch.full_like(args[0], 0.7),) + args[1:]
+    elif case == "ragged width":
+        args = _reg_args(1, 7, 288, 637, seed=13)
+    else:
+        args = _reg_args(1, 7, 288, 640, seed=14)
+        args = (_shifted(args[0]), _shifted(args[1])) + args[2:]
+    assert regularize.copy_width(args[1]) == (
+        4 if case in ("ragged width", "storage offset") else 16)
+    got = regularize.dist_weighted_flow(*args)
+    ref = regularize.dist_weighted_flow_ref(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("level", [0, 4])
+def test_regularize_kernel_is_deterministic(level):
+    _need_card()
+    args = _reg_args(1, *chip_smoke.REG_LEVELS[level], seed=level)
+    a = regularize.dist_weighted_flow(*args)
+    b = regularize.dist_weighted_flow(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_regularize_launcher_refuses_what_it_cannot_run():
+    """Kernel 4's C launcher returns cudaErrorInvalidValue (1) instead of
+    launching for a copy width or window it has no kernel for, and for
+    16-byte flow copies of a flow that is not 16-byte aligned or a W that
+    is not a multiple of 4."""
+    _need_card()
+    args = _reg_args(1, 7, 40, 64, seed=3)
+    dc, flow, wx, bx, wy, by, k = args
+    out = torch.empty((1, 2, 40, 64), device="cuda")
+    assert regularize._launch(dc, flow, wx, bx, wy, by, k, 16, out) == 0
+    assert regularize._launch(dc, flow, wx, bx, wy, by, k, 8, out) == 1
+    assert regularize._launch(dc, flow, wx, bx, wy, by, 9, 4, out) == 1
+    assert regularize._launch(dc, _shifted(flow), wx, bx, wy, by, k, 16,
+                              out) == 1
+    assert regularize._launch(dc, _shifted(flow), wx, bx, wy, by, k, 4,
+                              out) == 0
+    assert regularize._launch(_shifted(dc), flow, wx, bx, wy, by, k, 16,
+                              out) == 0
+    ragged = _reg_args(1, 7, 40, 63, seed=3)
+    out = torch.empty((1, 2, 40, 63), device="cuda")
+    assert regularize._launch(*ragged[:6], k, 16, out) == 1
+    assert regularize._launch(*ragged[:6], k, 4, out) == 0
+    torch.cuda.synchronize()
 
 
 def test_flow_kernels_check_inputs(monkeypatch):

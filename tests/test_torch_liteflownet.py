@@ -112,9 +112,9 @@ def test_correlation_counts_at_kaist_level_2():
 # kernel 4: the regularization tail
 # ---------------------------------------------------------------------------
 
-def _reg_case(rng, N, H, W, k):
+def _reg_case(rng, N, H, W, k, scale=1.0):
     K = k * k
-    return (rng.randn(N, H, W, K).astype(np.float32),
+    return ((rng.randn(N, H, W, K) * scale).astype(np.float32),
             (rng.randn(N, H, W, 2) * 3).astype(np.float32),
             rng.randn(K).astype(np.float32), np.float32(0.3),
             rng.randn(K).astype(np.float32), np.float32(-0.2))
@@ -127,13 +127,21 @@ def _port_reg(dc, flow, wx, bx, wy, by, k):
     return nhwc(out)
 
 
-@pytest.mark.parametrize("N,H,W,k", [
-    (1, 12, 40, 3), (1, 24, 40, 5), (1, 12, 20, 7), (3, 12, 40, 3),
-    (3, 9, 14, 7),
+@pytest.mark.parametrize("N,H,W,k,scale", [
+    pytest.param(*case, 1.0, id="-".join(map(str, case))) for case in (
+        (1, 12, 40, 3), (1, 24, 40, 5), (1, 12, 20, 7), (3, 12, 40, 3),
+        (3, 9, 14, 7))] + [
+    # peaked logits (dc x 10): one tap takes nearly all the weight
+    pytest.param(1, 12, 20, 7, 10.0, id="1-12-20-7-peaked"),
+    # ragged: neither side a multiple of the kernel's 4 x 32 tile, an image
+    # narrower than the window, two images
+    pytest.param(1, 37, 53, 7, 1.0, id="1-37-53-7"),
+    pytest.param(1, 5, 3, 3, 1.0, id="1-5-3-3"),
+    pytest.param(2, 9, 6, 7, 1.0, id="2-9-6-7"),
 ])
-def test_dist_weighted_flow_ref_matches_jax(N, H, W, k):
+def test_dist_weighted_flow_ref_matches_jax(N, H, W, k, scale):
     rng = np.random.RandomState(N * 100 + k)
-    dc, flow, wx, bx, wy, by = _reg_case(rng, N, H, W, k)
+    dc, flow, wx, bx, wy, by = _reg_case(rng, N, H, W, k, scale)
     got = _port_reg(dc, flow, wx, bx, wy, by, k)
     jargs = (jnp.asarray(dc), jnp.asarray(flow[..., 0]),
              jnp.asarray(flow[..., 1]), jnp.asarray(wx), jnp.asarray(bx),
@@ -226,6 +234,26 @@ def test_wrappers_reject_bad_inputs():
             *reg[2:], 3)
     with pytest.raises(ValueError):
         t_reg.dist_weighted_flow(*reg, 5)
+
+
+@pytest.mark.parametrize("bad", ["window 4", "dc taps", "flow shape",
+                                 "wx size", "by size"])
+def test_dist_weighted_flow_rejects_bad_shapes(bad):
+    _, reg = _wrapper_inputs()
+    dc, flow, wx, bx, wy, by = reg
+    k = 3
+    if bad == "window 4":
+        k = 4
+    elif bad == "dc taps":
+        dc = dc[:, :8].contiguous()
+    elif bad == "flow shape":
+        flow = flow[:, :, :9].contiguous()
+    elif bad == "wx size":
+        wx = wx[:8].contiguous()
+    else:
+        by = torch.zeros(2)
+    with pytest.raises(ValueError, match="dist_weighted_flow"):
+        t_reg.dist_weighted_flow(dc, flow, wx, bx, wy, by, k)
 
 
 def test_cuda_entry_points_raise_without_a_card():

@@ -1,25 +1,28 @@
-"""The launch plans of kernels 1, 2, 3 and 5 swept on one GPU, each
-against the plan its wrapper picks.
+"""The launch plans of kernels 1-5 swept on one GPU, each against the plan
+its wrapper picks.
 
-    python tools/sweep_kernel_plans.py
+    python tools/sweep_kernel_plans.py [pose_lm | correlation | flow_joint
+                                        | roi_align | regularize ...]
 
-Kernel 3, the cost volume (``ops/correlation.py``): at each of the five
-LiteFlowNet levels of a 1280x576 pair (``chip_smoke.CORR_LEVELS``, seeded
-unit-normal inputs), every tile height (4, 8) and channel split (1, 2, 4,
-8). Kernels 1 and 2, the pose LM (``estimation/lm_kernel.py``) and the
-joint flow + pose solve (``estimation/flow_joint_kernel.py``):
-chip_smoke.py's seeded camera (B=1, N=3000) and object (B=8, N=4000)
-problems at every cluster size (1, 2, 4, 8) and block size (64, 128,
-256). Kernel 5, the multilevel ROIAlign (``ops/roi_align.py``): the box
-(R=1000, 7x7) and mask (R=100, 14x14) heads of chip_smoke.py's seeded
-1088x800 pyramid and of the mask path's second frame (chip_smoke.py's
-driving clip and seeded R-50-FPN), every channel group (2 to 256) and block
-size (64, 128, 256). A plan's ms is
-device time, 20 launches captured in a CUDA graph and the replay timed by
-CUDA events (``chip_smoke.time_cuda_graph``); every result is held to
-chip_smoke.py's bars against the plain version, and the wrapper's plan is
-marked with *. Prints a JSON summary as its last line. Needs a CUDA
-device.
+(no argument: all five). Kernel 3, the cost volume
+(``ops/correlation.py``): at each of the five LiteFlowNet levels of a
+1280x576 pair (``chip_smoke.CORR_LEVELS``, seeded unit-normal inputs), every
+tile height (4, 8) and channel split (1, 2, 4, 8). Kernels 1 and 2, the
+pose LM (``estimation/lm_kernel.py``) and the joint flow + pose solve
+(``estimation/flow_joint_kernel.py``): chip_smoke.py's seeded camera (B=1,
+N=3000) and object (B=8, N=4000) problems at every cluster size (1, 2, 4,
+8) and block size (64, 128, 256). Kernel 5, the multilevel ROIAlign
+(``ops/roi_align.py``): the box (R=1000, 7x7) and mask (R=100, 14x14) heads
+of chip_smoke.py's seeded 1088x800 pyramid and of the mask path's second
+frame (chip_smoke.py's driving clip and seeded R-50-FPN), every channel
+group (2 to 256) and block size (64, 128, 256). Kernel 4, the
+regularization tail (``ops/regularize.py``): at each of the five levels
+(``chip_smoke.regularize_cases`` from seed 0), 16-byte against 4-byte flow
+copies, seven alternating timings each. A plan's ms is device time, 20
+launches captured in a CUDA graph and the replay timed by CUDA events
+(``chip_smoke.time_cuda_graph``); every result is held to chip_smoke.py's
+bars against the plain version, and the wrapper's plan is marked with *.
+Prints a JSON summary as its last line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,15 +46,22 @@ from vido_slam_tpu_torch.geometry.camera import Camera  # noqa: E402
 from vido_slam_tpu_torch.geometry.se3 import inverse_se3, log_se3  # noqa: E402
 from vido_slam_tpu_torch.models.maskrcnn import roi_heads  # noqa: E402
 from vido_slam_tpu_torch.ops import correlation as corr  # noqa: E402
+from vido_slam_tpu_torch.ops import regularize as reg  # noqa: E402
 from vido_slam_tpu_torch.ops import roi_align  # noqa: E402
 from vido_slam_tpu_torch.utils import cuda_build  # noqa: E402
 
 
-def sweep_correlation(rng, dev):
+def correlation_inputs(rng):
+    """Seeded unit-normal (f1, f2) at each level, as numpy."""
+    return [tuple(rng.randn(1, C, H, W).astype(np.float32) for _ in range(2))
+            for C, H, W, _ in chip_smoke.CORR_LEVELS]
+
+
+def sweep_correlation(inputs, dev):
     summary = {}
-    for level, (C, H, W, s) in zip(range(2, 7), chip_smoke.CORR_LEVELS):
-        f1, f2 = (torch.tensor(rng.randn(1, C, H, W).astype(np.float32),
-                               device=dev) for _ in range(2))
+    for level, (C, H, W, s), pair in zip(range(2, 7), chip_smoke.CORR_LEVELS,
+                                         inputs):
+        f1, f2 = (torch.tensor(a, device=dev) for a in pair)
         ref = corr.correlation_ref(f1, f2, s)
         bar = 1e-5 * max(1.0, float(ref.abs().max()))
         chosen = corr.launch_plan(1, C, H, W, s)
@@ -253,22 +263,75 @@ def sweep_flow_joint(rng, dev):
     return summary
 
 
+def sweep_regularize(rng, dev, rounds=7):
+    """Kernel 4's flow copies, 16 bytes against 4, at each level: `rounds`
+    alternating timings of each, the median kept."""
+    summary = {}
+    for name, args in chip_smoke.regularize_cases(rng, dev):
+        dc, flow, wx, bx, wy, by, k = args
+        ref = reg.dist_weighted_flow_ref(*args)
+        chosen = reg.copy_width(flow)
+        launches = {}
+        for vec in (16, 4):
+            out = torch.empty_like(ref)
+
+            def launch(vec=vec, out=out):
+                return reg._launch(dc, flow, wx, bx, wy, by, k, vec, out)
+            chip_smoke.check(launch() == 0, ("launch", name, vec))
+            torch.cuda.synchronize()
+            diff = (out - ref).abs()
+            chip_smoke.check(bool((diff <= 1e-5 + 1e-5 * ref.abs()).all()),
+                             ("dist_weighted_flow", name, vec,
+                              float(diff.max())))
+            launches[vec] = launch
+        times = {vec: [] for vec in launches}
+        for _ in range(rounds):
+            for vec, launch in launches.items():
+                times[vec].append(chip_smoke.time_cuda_graph(launch, 20))
+        widths = {}
+        for vec, ms in times.items():
+            mark = "*" if vec == chosen else ""
+            widths[f"{vec}B{mark}"] = float(np.median(ms))
+            print(f"dist_weighted_flow {name}: {vec}-byte flow copies{mark}: "
+                  f"median {np.median(ms):.5f} ms of "
+                  f"{' '.join(f'{t:.5f}' for t in ms)}", flush=True)
+        summary[name] = widths
+    return summary
+
+
+SWEEPS = ("pose_lm", "correlation", "flow_joint", "roi_align", "regularize")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("sweep_kernel_plans: no CUDA device available", file=sys.stderr)
         return 1
+    wanted = sys.argv[1:] or list(SWEEPS)
+    unknown = sorted(set(wanted) - set(SWEEPS))
+    if unknown:
+        print(f"sweep_kernel_plans: unknown sweeps {unknown}; choose from "
+              f"{SWEEPS}", file=sys.stderr)
+        return 2
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
     print(card)
     cuda_build.build_all()
-    # kernels 2 and 3 draw from one stream, as before kernels 1 and 5 were
-    # swept; kernel 1 gets chip_smoke.py's seeded problems
+    # kernels 3 and 2 draw from one stream in that order, as before kernels
+    # 1, 4 and 5 were swept; those get chip_smoke.py's seeded cases
     rng = np.random.RandomState(0)
-    summary = {"card": card,
-               "pose_lm": sweep_pose_lm(np.random.RandomState(0), dev),
-               "correlation": sweep_correlation(rng, dev),
-               "flow_joint": sweep_flow_joint(rng, dev),
-               "roi_align": sweep_roi_align(np.random.RandomState(0), dev)}
+    corr_inputs = correlation_inputs(rng) \
+        if {"correlation", "flow_joint"} & set(wanted) else None
+    sweeps = {"pose_lm": lambda: sweep_pose_lm(np.random.RandomState(0), dev),
+              "correlation": lambda: sweep_correlation(corr_inputs, dev),
+              "flow_joint": lambda: sweep_flow_joint(rng, dev),
+              "roi_align": lambda: sweep_roi_align(np.random.RandomState(0),
+                                                   dev),
+              "regularize": lambda: sweep_regularize(
+                  np.random.RandomState(0), dev)}
+    summary = {"card": card}
+    for part in SWEEPS:
+        if part in wanted:
+            summary[part] = sweeps[part]()
     print(json.dumps(summary))
     return 0
 

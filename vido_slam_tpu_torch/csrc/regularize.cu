@@ -12,77 +12,150 @@
 // and sy the same with wy, v and by; the flow is zero outside the image.
 // The output is (N, 2, H, W) = [sx, sy].
 //
-// What bounds it on the card: bytes. It reads K + 2 floats and writes 2 a
-// pixel for ~11 K flops: at level 2 of a 1280x576 pair (288 x 640, K = 49)
-// 36.1 MB of dc, 0.012 ms at 3.35 TB/s.
+// What bounds it on the card: bytes, at every level. It reads K + 2 floats
+// and writes 2 a pixel for ~11 K flops. At the five LiteFlowNet levels of a
+// 1280x576 pair: level 2 (k 7, 288 x 640) 39.1 MB, 0.0117 ms at 3.35 TB/s;
+// level 3 (5, 144 x 320) 5.3 MB, 1.6 us; levels 4-6 1.3, 0.15, 0.04 MB, under
+// half a microsecond each. Level 2 streams dc through the whole card; levels
+// 3-6 fit in one wave of blocks, so their time is the latency of one
+// block's trips to memory.
 //
-// Design (a first kernel, right and simple): one thread per pixel, a block of
-// 32 x 8 pixels with warps along x, so each read of a dc plane is coalesced.
-// The block stages its haloed flow tile, (8 + 2r) x (32 + 2r) of u and of v
-// (zero outside the image), and the K weights of x and y in shared memory.
-// The window side is a template argument, so a thread keeps its K values of
-// -dc^2 in registers: pass 1 takes their max, pass 2 sums the e_t and the two
-// weighted window sums, and the epilogue (acc + b) / sum e writes sx and sy.
-// exp is expf (no fast-math build).
+// Design: one trip to memory a block. A block of 128 threads computes a
+// tile of 4 x 32 pixels, a warp a row and a thread one pixel. Each thread
+// first issues the loads of its pixel's K logits into registers (a warp's
+// load of a tap is one 128-byte line), then the block copies the weights,
+// the biases and its haloed u and v ((4 + 2r) x (32 + 8), zeros outside the
+// image) into shared memory by cp.async: 16 bytes a copy where W % 4 == 0
+// and the flow's base is 16-byte aligned (a 4-float chunk then lies wholly
+// inside or outside the image), else 4 bytes (7 % slower at level 2:
+// tools/sweep_kernel_plans.py regularize). One wait, one barrier, and
+// all of it was in flight at once; the kernel this replaces staged the flow
+// tile, met a barrier and only then loaded the logits.
+// The 4 x 32 tile was the fastest of 2 x 32 (64 threads), 4 x 32, 8 x 32
+// (128 and 256 threads) at level 2 on an H100 and as fast as any at levels
+// 3-6 (PERF.md section 6). Staging the logits in shared
+// memory instead (cp.async tiles, read twice, level 2 through a ring of 1-4
+// stages on a persistent grid) was built and swept: 0.0177-0.0183 ms at
+// level 2, slower than the kernel this replaces (0.0155-0.0164).
+// The register budget is K + 32 a thread (__launch_bounds__): at k = 7, 80
+// registers and 24 warps an SM.
+// The arithmetic of a pixel is the plain version's: -dc^2 is rounded before
+// the max and the subtraction (__fmul_rn, never contracted into an FMA: with
+// peaked logits, |dc^2| ~ 1e3, an FMA would move a near-maximal tap's
+// exponent by ~ulp(1e3) = 6e-5), the sums run in tap order t = 0..K-1 with
+// terms (wx_t e_t) u, and exp is expf (no fast-math build).
+// The grid is one block a tile; the wrapper (ops/regularize.py) picks the
+// copy width and the launcher refuses 16-byte copies it cannot make.
+
+#include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kTX = 32;
-constexpr int kTY = 8;
-constexpr int kThreads = kTX * kTY;
+constexpr int kRows = 4;                   // tile rows: a warp each
+constexpr int kCols = 32;                  // tile columns: a warp's lanes
+constexpr int kThreads = kRows * kCols;    // a thread a pixel
+constexpr int kPad = 4;                    // flow columns staged each side
+constexpr int kFlowCols = kCols + 2 * kPad;
 
-template <int KS>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, or 16 zeros when `in` is false (src-size 0 reads nothing)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+// blocks an SM for at most K + 32 registers a thread
+constexpr int min_blocks(int K) { return 65536 / (kThreads * (K + 32)); }
+
+template <int KS, bool V16>
+__global__ void __launch_bounds__(kThreads, min_blocks(KS * KS))
 dist_weighted_flow_kernel(const float* __restrict__ dc,
                           const float* __restrict__ flow,
                           const float* __restrict__ wx,
                           const float* __restrict__ bx,
                           const float* __restrict__ wy,
                           const float* __restrict__ by,
-                          float* __restrict__ out, int H, int W) {
+                          float* __restrict__ out, int H, int W, int tiles_x,
+                          int tiles_per_image) {
   constexpr int K = KS * KS;
   constexpr int R = (KS - 1) / 2;
-  constexpr int SH = kTY + 2 * R;
-  constexpr int SW = kTX + 2 * R;
-  __shared__ float su[SH][SW];
-  __shared__ float sv[SH][SW];
-  __shared__ float swx[K];
-  __shared__ float swy[K];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTX + tx;
-  const int x = blockIdx.x * kTX + tx;
-  const int y = blockIdx.y * kTY + ty;
+  constexpr int FR = kRows + 2 * R;          // flow rows staged
+  constexpr int FLOW = FR * kFlowCols;
+  static_assert(R <= kPad, "the halo fits the staged columns");
+  __shared__ __align__(16) float sw[(2 * K + 2 + 3) / 4 * 4];  // wx_0, wy_0,
+                                             // ..., bx, by
+  __shared__ __align__(16) float su[2 * FLOW];  // u, then v
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = blockIdx.x / tiles_per_image;
+  const int rem = blockIdx.x - n * tiles_per_image;
+  const int y0 = rem / tiles_x * kRows;
+  const int x0 = (rem - rem / tiles_x * tiles_x) * kCols;
+  const int y = y0 + warp, x = x0 + lane;
+  const bool mine = y < H && x < W;
   const size_t plane = (size_t)H * W;
-  const float* un = flow + (size_t)blockIdx.z * 2 * plane;
-  const float* vn = un + plane;
-  const int y0 = blockIdx.y * kTY - R;
-  const int x0 = blockIdx.x * kTX - R;
-  for (int e = tid; e < SH * SW; e += kThreads) {
-    const int r = e / SW, q = e - r * SW;
-    const int yy = y0 + r, xx = x0 + q;
-    const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
-    const size_t at = in ? (size_t)yy * W + xx : 0;
-    su[r][q] = in ? un[at] : 0.f;
-    sv[r][q] = in ? vn[at] : 0.f;
-  }
-  for (int e = tid; e < K; e += kThreads) {
-    swx[e] = wx[e];
-    swy[e] = wy[e];
-  }
-  __syncthreads();
-  if (y >= H || x >= W) return;
 
-  const float* d = dc + (size_t)blockIdx.z * K * plane + (size_t)y * W + x;
+  // the thread's logits, into registers
   float nd[K];
+  {
+    const float* src = dc + (size_t)n * K * plane +
+                       (mine ? (size_t)y * W + x : 0);
+#pragma unroll
+    for (int t = 0; t < K; ++t) nd[t] = mine ? __ldg(src + t * plane) : 0.f;
+  }
+  // the weights and the haloed flow tile, by cp.async
+  for (int c = tid; c < 2 * K + 2; c += kThreads)
+    cp_async4(sw + c, c < 2 * K ? (c & 1 ? wy : wx) + (c >> 1)
+                      : c == 2 * K ? bx : by, true);
+  const float* u = flow + (size_t)n * 2 * plane;
+  if (V16) {
+    constexpr int kChunks = FR * (kFlowCols / 4);  // a plane's 16-byte chunks
+    for (int c = tid; c < 2 * kChunks; c += kThreads) {
+      const int pl = c >= kChunks;
+      const int e = c - pl * kChunks;
+      const int row = e / (kFlowCols / 4), q = e - row * (kFlowCols / 4);
+      const int fy = y0 - R + row, fx = x0 - kPad + 4 * q;
+      const bool in = fy >= 0 && fy < H && fx >= 0 && fx < W;
+      cp_async16(su + pl * FLOW + row * kFlowCols + 4 * q,
+                 u + pl * plane + (in ? (size_t)fy * W + fx : 0), in);
+    }
+  } else {
+    for (int c = tid; c < 2 * FLOW; c += kThreads) {
+      const int pl = c >= FLOW;
+      const int e = c - pl * FLOW;
+      const int row = e / kFlowCols, q = e - row * kFlowCols;
+      const int fy = y0 - R + row, fx = x0 - kPad + q;
+      const bool in = fy >= 0 && fy < H && fx >= 0 && fx < W;
+      cp_async4(su + c, u + pl * plane + (in ? (size_t)fy * W + fx : 0), in);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if (!mine) return;
+
+  const float2* w2 = reinterpret_cast<const float2*>(sw);
+  const float* fu = su + warp * kFlowCols + lane + kPad - R;
+  const float* fv = fu + FLOW;
   float m = -INFINITY;
 #pragma unroll
   for (int t = 0; t < K; ++t) {
-    const float v = d[t * plane];
-    nd[t] = -(v * v);
+    nd[t] = -__fmul_rn(nd[t], nd[t]);
     m = fmaxf(m, nd[t]);
   }
   float sum = 0.f, ax = 0.f, ay = 0.f;
@@ -91,44 +164,56 @@ dist_weighted_flow_kernel(const float* __restrict__ dc,
 #pragma unroll
     for (int dx = 0; dx < KS; ++dx) {
       const int t = dy * KS + dx;
+      const float2 w = w2[t];
       const float e = expf(nd[t] - m);
+      const int f = dy * kFlowCols + dx;
       sum += e;
-      ax += swx[t] * e * su[ty + dy][tx + dx];
-      ay += swy[t] * e * sv[ty + dy][tx + dx];
+      ax += w.x * e * fu[f];
+      ay += w.y * e * fv[f];
     }
   }
+  const float2 b = w2[K];
   const float inv = 1.f / sum;
-  float* o = out + (size_t)blockIdx.z * 2 * plane + (size_t)y * W + x;
-  o[0] = (ax + bx[0]) * inv;
-  o[plane] = (ay + by[0]) * inv;
+  float* o = out + (size_t)n * 2 * plane + (size_t)y * W + x;
+  o[0] = (ax + b.x) * inv;
+  o[plane] = (ay + b.y) * inv;
 }
 
+using Kernel = void (*)(const float*, const float*, const float*,
+                        const float*, const float*, const float*, float*, int,
+                        int, int, int);
+
 template <int KS>
-void launch(const float* dc, const float* flow, const float* wx,
-            const float* bx, const float* wy, const float* by, float* out,
-            int N, int H, int W, cudaStream_t stream) {
-  const dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY, N);
-  const dim3 block(kTX, kTY);
-  dist_weighted_flow_kernel<KS><<<grid, block, 0, stream>>>(
-      dc, flow, wx, bx, wy, by, out, H, W);
+Kernel pick(bool v16) {
+  return v16 ? dist_weighted_flow_kernel<KS, true>
+             : dist_weighted_flow_kernel<KS, false>;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the CUDA error of the launch (0 on success).
-// k is the window side, one of 3, 5, 7.
+// Launches on `stream`: one block of 128 threads a 4 x 32 tile of each of
+// the N images, flow copies of `vec` bytes (16 or 4). k is the window side,
+// 3, 5 or 7. Refuses (cudaErrorInvalidValue) arguments it cannot run,
+// including 16-byte copies with W % 4 != 0 or a flow base that is not
+// 16-byte aligned; otherwise returns the CUDA error of the launch.
 extern "C" int dist_weighted_flow_launch(const float* dc, const float* flow,
                                          const float* wx, const float* bx,
                                          const float* wy, const float* by,
                                          float* out, int N, int H, int W,
-                                         int k, void* stream) {
-  if (N < 1 || H < 1 || W < 1 || N > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (k) {
-    case 3: launch<3>(dc, flow, wx, bx, wy, by, out, N, H, W, st); break;
-    case 5: launch<5>(dc, flow, wx, bx, wy, by, out, N, H, W, st); break;
-    case 7: launch<7>(dc, flow, wx, bx, wy, by, out, N, H, W, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+                                         int k, int vec, void* stream) {
+  const bool v16 = vec == 16;
+  if (N < 1 || H < 1 || W < 1 || (vec != 4 && !v16) ||
+      (v16 && (W % 4 != 0 || reinterpret_cast<uintptr_t>(flow) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const Kernel kernel = k == 3   ? pick<3>(v16)
+                        : k == 5 ? pick<5>(v16)
+                        : k == 7 ? pick<7>(v16)
+                                 : nullptr;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const long long tiles_x = (W + kCols - 1) / kCols;
+  const long long per_image = tiles_x * ((H + kRows - 1) / kRows);
+  if (N * per_image > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(int)(N * per_image), kThreads, 0, (cudaStream_t)stream>>>(
+      dc, flow, wx, bx, wy, by, out, H, W, (int)tiles_x, (int)per_image);
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,15 @@ FLOPS_TAP = 11
 FLOPS_PIXEL = 5
 
 
+def copy_width(flow: torch.Tensor) -> int:
+    """Bytes a flow copy of the kernel takes: 16 where every 4-float chunk
+    of a row is 16-byte aligned (W % 4 == 0 and the flow's first element
+    16-byte aligned; a contiguous view may start at a storage offset),
+    else 4."""
+    return 16 if flow.shape[-1] % 4 == 0 and flow.data_ptr() % 16 == 0 \
+        else 4
+
+
 def operations(dc: torch.Tensor) -> int:
     N, K, H, W = dc.shape
     return N * H * W * (FLOPS_TAP * K + FLOPS_PIXEL)
@@ -70,11 +79,30 @@ def dist_weighted_flow_ref(dc, flow, wx, bx, wy, by, k: int) -> torch.Tensor:
 _launch_fn = None
 
 
+def _launch(dc, flow, wx, bx, wy, by, k: int, vec: int,
+            out: torch.Tensor) -> int:
+    """Launches the kernel on the current stream with flow copies of `vec`
+    bytes into `out`; returns the launcher's CUDA error
+    (cudaErrorInvalidValue for arguments it cannot run), 0 on success."""
+    global _launch_fn
+    if _launch_fn is None:
+        fn = cuda_build.load("regularize").dist_weighted_flow_launch
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 7 + [I] * 5 + [P]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    N, _, H, W = dc.shape
+    with torch.cuda.device(dc.device):
+        stream = torch.cuda.current_stream(dc.device).cuda_stream
+        return _launch_fn(dc.data_ptr(), flow.data_ptr(), wx.data_ptr(),
+                          bx.data_ptr(), wy.data_ptr(), by.data_ptr(),
+                          out.data_ptr(), N, H, W, int(k), vec, stream)
+
+
 def dist_weighted_flow(dc, flow, wx, bx, wy, by, k: int) -> torch.Tensor:
     """[sx, sy] (N, 2, H, W) of dc (N, K, H, W), flow (N, 2, H, W), wx and
     wy of K elements, bx and by of one (the netScaleX/Y weights and biases
     as they are), all contiguous float32 on one device."""
-    global _launch_fn
     dev = kernel_device("dist_weighted_flow", (dc, flow, wx, bx, wy, by))
     if k not in WINDOWS:
         raise ValueError(f"dist_weighted_flow: window {k} not in {WINDOWS}")
@@ -92,17 +120,7 @@ def dist_weighted_flow(dc, flow, wx, bx, wy, by, k: int) -> torch.Tensor:
     if dev.type == "cpu":
         return dist_weighted_flow_ref(dc, flow, wx, bx, wy, by, k)
     out = torch.empty((N, 2, H, W), dtype=torch.float32, device=dev)
-    if _launch_fn is None:
-        fn = cuda_build.load("regularize").dist_weighted_flow_launch
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _launch_fn(dc.data_ptr(), flow.data_ptr(), wx.data_ptr(),
-                        bx.data_ptr(), wy.data_ptr(), by.data_ptr(),
-                        out.data_ptr(), N, H, W, int(k), stream)
+    rc = _launch(dc, flow, wx, bx, wy, by, k, copy_width(flow), out)
     if rc != 0:
         raise RuntimeError(f"regularize kernel launch failed: CUDA error {rc}")
     dist_weighted_flow.launches += 1
