@@ -39,8 +39,23 @@ Phases, each of which fails the run by raising:
      pixels. Kernel 5 is held against its plain version on seeded pyramids
      and on one frame's arguments; the whole detector on the card against
      the CPU on one frame at 320x256; one frame of the reference ROS
-     node's X-101-32x8d-FPN must launch kernel 5 twice and stay finite;
-  5. summary: a ``{"kernels": [...]}`` JSON line, then the device line.
+     node's X-101-32x8d-FPN must launch kernel 5 twice and stay finite.
+     Then (e) the online path, the JAX bench's ``r50_544x800`` row one
+     frame a call: ``System.AttachPerception`` of the port's
+     ``PerceptionModel`` (MonoDepth2 and LiteFlowNet at 640x192, Mask
+     R-CNN R-50-FPN at 544x800, seeded random weights, class 3 lifted) and
+     ``System.TrackFrames`` over the 23 consecutive pairs of the bench clip
+     (assets/bench_clip_192x640_24.npz) with FAST features and the fused
+     window BA. It must launch kernel 1 twice a tracked frame, kernels 3
+     and 4 five times a call and kernel 5 twice a call ([44, 0, 115, 115,
+     46]), give 23 finite poses, a finite GetFrameOutput, depths in [0,
+     65536] and masks with labelled pixels, and write the result txts; it
+     prints its median ms a frame over calls 4-22 beside the card line.
+     Phase 3 runs again on the kernels' arguments of call 3, and MonoDepth2
+     on the card is held against the CPU on one 192x640 frame;
+  5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
+     its launches on the online path and its device ms on the online
+     call's arguments), then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -699,9 +714,9 @@ def lifted(model):
 
 
 class Detected:
-    """Stands in for ``maskrcnn_inference`` in ``models/perception.py``:
-    passes every call on and keeps each frame's detections (on the
-    device, read after the run)."""
+    """Stands in for a function of ``models/perception.py``
+    (``maskrcnn_inference``, ``perception_forward``): passes every call on
+    and keeps each call's output (on the device, read after the run)."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -851,6 +866,9 @@ class KernelArgs:
         self.wrapper = wrapper
         self.n_args = n_args
         self.calls = []
+        # keeps the arguments only while on (the online path keeps those of
+        # one call)
+        self.on = True
 
     def __call__(self, *args, **kw):
         import torch
@@ -860,7 +878,9 @@ class KernelArgs:
                 return a.clone()
             return [keep(x) for x in a] if isinstance(a, list) else a
 
-        self.calls.append((tuple(keep(a) for a in args[:self.n_args]), kw))
+        if self.on:
+            self.calls.append((tuple(keep(a) for a in args[:self.n_args]),
+                               kw))
         return self.wrapper(*args, **kw)
 
     def frame_calls(self):
@@ -967,18 +987,165 @@ def check_main_path(system, seq, n_frames):
                    for rec in system.map.frames[1:])
     check(with_obj > (n_frames - 1) // 2,
           f"objects tracked on {with_obj} of {n_frames - 1} frames")
+    check_results_written(system, n_frames)
+    return ate, path, with_obj
+
+
+def check_results_written(system, n_frames, with_objects=True):
+    """SaveResultsIJRR2020 writes the four result txts, one refined pose a
+    frame; the object motions' file is empty only where ``with_objects``
+    is False (no object was tracked)."""
     with tempfile.TemporaryDirectory() as d:
         prefix = os.path.join(d, "out_")
         system.SaveResultsIJRR2020(prefix)
         for name in ("obj_mot_rgbd_new.txt", "initial_rgbd_new.txt",
                      "refined_rgbd_new.txt", "cam_pose_gt.txt"):
             path_txt = prefix + name
-            check(os.path.getsize(path_txt) > 0, f"{path_txt} is empty")
+            check(os.path.getsize(path_txt) > 0
+                  or (name.startswith("obj_") and not with_objects),
+                  f"{path_txt} is empty")
         with open(prefix + "refined_rgbd_new.txt") as fh:
             n_lines = len(fh.readlines())
         check(n_lines == n_frames, f"{n_lines} refined poses for {n_frames} "
               f"frames")
-    return ate, path, with_obj
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (e): the online path
+# ---------------------------------------------------------------------------
+
+# the JAX bench's r50_544x800 row (bench.py:49-73, 545-547) one frame a
+# call: the KAIST half calibration at 640x192, UseSampleFeature unset (FAST
+# corners), no IMU; the detector at 544x800 in float32
+ONLINE_CONFIG = {
+    "Camera.width": 640, "Camera.height": 192, "Camera.fx": 408.201,
+    "Camera.fy": 408.69, "Camera.cx": 304.1329, "Camera.cy": 133.344,
+    "Camera.bf": 193.785, "ChooseData": 3, "DepthMapFactor": 500,
+    "WINDOW_SIZE": 20, "MaxTrackPointBG": 3000, "MaxTrackPointOBJ": 800,
+    "Camera.fps": 10,
+}
+ONLINE_H, ONLINE_W = 192, 640
+ONLINE_DETECTOR = (544, 800)
+ONLINE_CLIP = os.path.join("assets", "bench_clip_192x640_24.npz")
+# the call whose kernel arguments phase 3 reruns: a tracked frame outside
+# the timed calls 4-22
+ONLINE_RECORD = 3
+
+
+def online_inputs(dev):
+    """The online path's inputs: the bench clip's 24 frames on ``dev`` (fed
+    as the JAX bench feeds them, as BGR in 0..255), their poses, and the
+    port's PerceptionModel from seed 0 (class 3 lifted) on ``dev``."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn.model import MaskRCNNConfig
+    from vido_slam_tpu_torch.models.perception import PerceptionModel
+
+    clip = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ONLINE_CLIP))
+    frames = torch.tensor(clip["clip"].astype(np.float32), device=dev)
+    h, w = ONLINE_DETECTOR
+    model = PerceptionModel(ONLINE_H, ONLINE_W,
+                            MaskRCNNConfig(input_h=h, input_w=w), seed=0,
+                            device=dev)
+    lifted(model.mask_model)
+    return frames, clip["tcw"], model
+
+
+def run_online_path(frames, tcw, model, counters, recorders):
+    """System.AttachPerception, then System.TrackFrames over the clip's
+    consecutive pairs. The stand-ins in ``recorders`` keep the kernels'
+    arguments of call ONLINE_RECORD only. Returns the system, each call's
+    PerceptionOutput, the host seconds of every call (the first one
+    initialises) and each counter's launches during the run."""
+    import torch
+    from vido_slam_tpu_torch.config import config_from_dict
+    from vido_slam_tpu_torch.models import perception
+    from vido_slam_tpu_torch.system import Sensor, System
+
+    dev = frames.device
+    system = System()
+    system.init_from_config(config_from_dict(ONLINE_CONFIG), Sensor.RGBD,
+                            device=dev, **TRACKER_KW)
+    system.AttachPerception(model)
+    perceived = Detected(perception.perception_forward)
+    perception.perception_forward = perceived
+    try:
+        for c in counters:
+            c.launches = 0
+        times = []
+        for k in range(frames.shape[0] - 1):
+            for r in recorders:
+                r.on = k == ONLINE_RECORD
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            system.TrackFrames(frames[k], frames[k + 1], mTcw_gt=tcw[k])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = [c.launches for c in counters]
+    finally:
+        perception.perception_forward = perceived.fn
+    return system, perceived.outputs, times, launches
+
+
+def check_online_path(system, outputs, n_calls):
+    """n_calls finite poses, a finite GetFrameOutput, each call's depth in
+    [0, 65536], finite (192, 640, 2) flows and (192, 640) uint8 masks with
+    labelled pixels, the result txts written. Returns (frames with a
+    tracked object, labelled pixels per call)."""
+    import torch
+
+    est = system.map.poses
+    check(est.shape == (n_calls, 4, 4) and np.isfinite(est).all(),
+          f"online poses of shape {est.shape}, finite: "
+          f"{np.isfinite(est).all()}")
+    out = system.GetFrameOutput(-1)
+    check(np.isfinite(out.camera_pose).all()
+          and np.isfinite(out.camera_position).all()
+          and all(np.isfinite(o.pose).all() and np.isfinite(o.velocity).all()
+                  and math.isfinite(o.speed_kmh) and math.isfinite(o.yaw)
+                  for o in out.objects), "online GetFrameOutput not finite")
+    check(len(outputs) == n_calls, f"{len(outputs)} perception calls")
+    labelled = []
+    for o in outputs:
+        d = o.depth_u16
+        check(d.shape == (ONLINE_H, ONLINE_W) and bool(torch.isfinite(d).all())
+              and float(d.min()) >= 0.0 and float(d.max()) <= 65536.0,
+              f"online depth_u16 {tuple(d.shape)} in "
+              f"[{float(d.min())}, {float(d.max())}]")
+        check(o.flow.shape == (ONLINE_H, ONLINE_W, 2)
+              and bool(torch.isfinite(o.flow).all()), "online flow")
+        check(o.mask.shape == (ONLINE_H, ONLINE_W)
+              and o.mask.dtype == torch.uint8 and bool((o.mask > 0).any()),
+              f"online mask {tuple(o.mask.shape)} {o.mask.dtype}, labelled "
+              f"pixels {int((o.mask > 0).sum())}")
+        labelled.append(int((o.mask > 0).sum()))
+    with_obj = sum(any(ob.status for ob in rec.objects)
+                   for rec in system.map.frames[1:])
+    check_results_written(system, n_calls, with_objects=with_obj > 0)
+    return with_obj, labelled
+
+
+def check_whole_depth(dev, frame) -> float:
+    """MonoDepth2 on the card against the port on the CPU, same seed-0
+    weights, on one 192x640 frame of the bench clip fed as
+    ``perception_depth`` feeds it (RGB in [0, 1]): max |disp_gpu -
+    disp_cpu| <= 1e-4 (disparities are sigmoids in (0, 1)). Returns the
+    error."""
+    from vido_slam_tpu_torch.models.monodepth2 import (MonoDepth2,
+                                                       monodepth2_disp)
+
+    x = (frame.flip(-1).permute(2, 0, 1)[None] / 255.0).contiguous()
+    got = monodepth2_disp(MonoDepth2(seed=0, device=dev), x).cpu()
+    want = monodepth2_disp(MonoDepth2(seed=0, device="cpu"), x.cpu())
+    err = float((got - want).abs().max())
+    check(got.shape == (1, 1, ONLINE_H, ONLINE_W) and math.isfinite(err)
+          and err <= 1e-4, ("MonoDepth2 GPU vs CPU", err))
+    print(f"MonoDepth2 192x640, card vs CPU: disparity "
+          f"{float(want.min()):.4f}..{float(want.max()):.4f}, max error "
+          f"{err:.3e}")
+    return err
 
 
 def main() -> int:
@@ -999,6 +1166,7 @@ def main() -> int:
     from vido_slam_tpu_torch.utils import cuda_build
     from vido_slam_tpu_torch.utils.device import resolve_device
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     print(card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1147,6 +1315,49 @@ def main() -> int:
     frame0 = clip[0].clone()
     del masks, dets, clip, model
 
+    # (e) the online path: the three nets and the tracker from raw frames;
+    # the stand-ins keep the kernels' arguments of one call
+    sites = {"pose_lm_batched": (pose, 5),
+             "correlation": (liteflownet, 3),
+             "dist_weighted_flow": (liteflownet, 7),
+             "roi_align_multilevel": (roi_heads, 6)}
+    online_recs = {attr: KernelArgs(getattr(module, attr), n)
+                   for attr, (module, n) in sites.items()}
+    for attr, (module, _) in sites.items():
+        setattr(module, attr, online_recs[attr])
+    frames, tcw, model = online_inputs(dev)
+    try:
+        system, outputs, times, launches = run_online_path(
+            frames, tcw, model, counters, list(online_recs.values()))
+    finally:
+        for attr, (module, _) in sites.items():
+            setattr(module, attr, online_recs[attr].wrapper)
+    n_calls = frames.shape[0] - 1
+    expect = [2 * (n_calls - 1), 0, 5 * n_calls, 5 * n_calls, 2 * n_calls]
+    check(launches == expect,
+          f"online path: {names} launched {launches} times over {n_calls} "
+          f"calls, not {expect}")
+    check([len(r.calls) for r in online_recs.values()] == [2, 5, 5, 2],
+          f"online call {ONLINE_RECORD}: kept "
+          f"{[len(r.calls) for r in online_recs.values()]} calls")
+    with_obj, labelled = check_online_path(system, outputs, n_calls)
+    launches_online = launches
+    steady = times[4:]
+    h, w = ONLINE_DETECTOR
+    print(f"online path: {n_calls} calls of System.TrackFrames on the "
+          f"{ONLINE_W}x{ONLINE_H} bench clip (MonoDepth2 and LiteFlowNet at "
+          f"{ONLINE_W}x{ONLINE_H}, Mask R-CNN R-50-FPN at {w}x{h}, FAST "
+          f"features), launches {launches}, objects on {with_obj}/"
+          f"{n_calls - 1} tracked frames, labelled pixels per call "
+          f"{labelled}; ms/frame median {1e3 * np.median(steady):.2f} mean "
+          f"{1e3 * np.mean(steady):.2f} (calls 4-{n_calls - 1}, host clock "
+          f"over torch.cuda.synchronize; first call {1e3 * times[0]:.2f} ms, "
+          f"call {ONLINE_RECORD} keeps the kernels' arguments); card "
+          f"{card_line()}")
+    online_cam = system.tracker.cam
+    frame_online = frames[1].clone()
+    del system, outputs, frames, model
+
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
     calls, k = recorder.frame_calls()
@@ -1188,6 +1399,37 @@ def main() -> int:
     timing_roi = time_roi_align(frame)
     del roi_recorder, frame
     check_whole_detector(dev, frame0)
+    # ... and those of the online path's call ONLINE_RECORD
+    tag = f"online call {ONLINE_RECORD}"
+    frame = [(f"{tag} {what}", args, kw, True) for what, (args, kw) in
+             zip(("camera", "objects"), online_recs["pose_lm_batched"].calls)]
+    err_lm = max(err_lm, check_pose_lm(frame, online_cam))
+    online_timing = {"pose_lm_batched": time_pose_lm(frame, online_cam)}
+    level_calls = {
+        attr: [(f"{tag} call {i + 1} {tuple(args[0].shape)}", args)
+               for i, (args, _) in enumerate(online_recs[attr].calls)]
+        for attr in ("correlation", "dist_weighted_flow")}
+    err_corr = max(err_corr, check_correlation(level_calls["correlation"]))
+    err_reg = max(err_reg, check_regularize(level_calls["dist_weighted_flow"]))
+    online_timing["correlation"] = time_flow_kernel(
+        level_calls["correlation"], correlation.correlation,
+        correlation.correlation_ref,
+        lambda a: (correlation.nbytes(a[0], a[2]),
+                   correlation.operations(a[0], a[2])))
+    online_timing["dist_weighted_flow"] = time_flow_kernel(
+        level_calls["dist_weighted_flow"], regularize.dist_weighted_flow,
+        regularize.dist_weighted_flow_ref,
+        lambda a: (regularize.nbytes(a[0]), regularize.operations(a[0])))
+    frame = [(f"{tag} {what}", args) for what, (args, _) in
+             zip(("box head", "mask head"),
+                 online_recs["roi_align_multilevel"].calls)]
+    err_roi = max(err_roi, check_roi_align(frame))
+    online_timing["roi_align_multilevel"] = time_roi_align(frame)
+    del online_recs, level_calls, frame
+    for name, (ms, plain_ms, bound_ms, bound_by) in online_timing.items():
+        print(f"{name} on {tag}'s arguments: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms by {bound_by}")
+    check_whole_depth(dev, frame_online)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     entries = [
@@ -1217,6 +1459,13 @@ def main() -> int:
              launches=launches_roi, max_abs_err=err_roi,
              **dict(zip(keys, timing_roi)), library_ms=None),
     ]
+    # beside each kernel's own path: its launches on the online path, its
+    # device ms on the online call's arguments and their bound
+    for i, e in enumerate(entries):
+        timing = online_timing.get(e["name"], (None, None, None, None))
+        e["online_launches"] = launches_online[i]
+        e["online_ms"], e["online_bound_ms"] = timing[0], timing[2]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

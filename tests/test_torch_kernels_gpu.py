@@ -440,10 +440,16 @@ def test_flow_joint_cuda_tensors_never_reach_the_plain_version(monkeypatch):
 
 # kernels 3 and 4: LiteFlowNet's cost volume and regularization tail, at
 # the five pyramid levels of a 1280x576 pair (chip_smoke.CORR_LEVELS and
-# REG_LEVELS), a ragged height and width, and two images
+# REG_LEVELS) and of the online path's 640x192 pair (down to 6 x 20 at
+# level 6), a ragged height and width, and two images
+ONLINE_CORR_LEVELS = [(64, 96, 320, 2), (64, 48, 160, 2), (96, 24, 80, 1),
+                      (128, 12, 40, 1), (192, 6, 20, 1)]
+ONLINE_REG_LEVELS = [(7, 96, 320), (5, 48, 160), (5, 24, 80), (3, 12, 40),
+                     (3, 6, 20)]
+
 
 @pytest.mark.parametrize("N,C,H,W,stride", [
-    (1,) + lv for lv in chip_smoke.CORR_LEVELS] + [
+    (1,) + lv for lv in chip_smoke.CORR_LEVELS + ONLINE_CORR_LEVELS] + [
     (1, 64, 37, 53, 2),           # odd H and W at stride 2
     (1, 96, 19, 45, 1),
     (2, 64, 144, 320, 2),
@@ -483,7 +489,7 @@ def test_correlation_kernel_is_deterministic(level):
 
 
 @pytest.mark.parametrize("N,k,H,W", [
-    (1,) + lv for lv in chip_smoke.REG_LEVELS] + [
+    (1,) + lv for lv in chip_smoke.REG_LEVELS + ONLINE_REG_LEVELS] + [
     (1, 7, 37, 53),               # ragged against the 32 x 8 block
     (2, 5, 144, 320),
     (2, 3, 5, 3),                 # smaller than a block and the window

@@ -25,14 +25,14 @@ bad = sorted(m for m in sys.modules
 need = {"vido_slam_tpu_torch." + m
         for m in ("estimation.assembly", "estimation.flow_joint",
                   "estimation.flow_joint_kernel", "estimation.lm_kernel",
-                  "models.layers", "models.liteflownet", "models.perception",
-                  "models.maskrcnn.backbone", "models.maskrcnn.model",
-                  "models.maskrcnn.roi_heads", "models.maskrcnn.rpn",
-                  "ops.correlation", "ops.nms", "ops.regularize",
-                  "ops.roi_align", "ops.warp")}
+                  "models.layers", "models.liteflownet", "models.monodepth2",
+                  "models.perception", "models.maskrcnn.backbone",
+                  "models.maskrcnn.model", "models.maskrcnn.roi_heads",
+                  "models.maskrcnn.rpn", "ops.correlation", "ops.fast",
+                  "ops.nms", "ops.regularize", "ops.roi_align", "ops.warp")}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 39 else 0)
+sys.exit(1 if bad or missing or len(names) < 52 else 0)
 """
 
 

@@ -370,14 +370,11 @@ def test_unported_modes_raise(sequence, kw, what):
 
 
 def test_unported_entry_points_raise(sequence):
-    scene, seq = sequence
-    fr = seq[0]
+    scene, _ = sequence
     t = Tracker(config_from_dict(_cfg_dict(scene, UseSampleFeature=0)),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="FAST"):
-        t.track(fr.depth, fr.flow, fr.mask, image=fr.depth)
-    with pytest.raises(NotImplementedError, match="perception"):
-        t.attach_perception(None, "kaist")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        t.track_frames_pair(None, None, None)
     with pytest.raises(NotImplementedError, match="full-batch"):
         t.run_full_batch()
     with pytest.raises(NotImplementedError, match="VIO"):

@@ -3,6 +3,7 @@
     python tools/profile_torch_main_path.py [--frames 24]
     python tools/profile_torch_main_path.py --flow [--frames 9]
     python tools/profile_torch_main_path.py --mask [--frames 8]
+    python tools/profile_torch_main_path.py --online [--frames 24]
 
 Drives the same System run as chip_smoke.py (KAIST 1280x560 synthetic
 sequence, RGBD, fused window BA), after the kernel build and a short
@@ -26,6 +27,13 @@ detector at 1088x800) and reports per frame the wall time of the backbone,
 the FPN, the RPN with its NMS, the box head, the post-processing, the
 mask head and the paste (synchronised the same way), and the device trace
 of an unwrapped run.
+With ``--online`` it drives chip_smoke.py's online path (System.TrackFrames
+over the 640x192 bench clip: MonoDepth2, LiteFlowNet, Mask R-CNN R-50-FPN
+at 544x800, FAST, the fused window BA) and reports the wall time of the
+depth, flow and mask branches per call, and of FAST, the tracking step,
+its stages and the host's record per tracked call (synchronised the same
+way; the first call's sampling counts in the samplers' rows), and the
+device trace of an unwrapped run.
 Prints a JSON summary as its last line. Needs a CUDA device.
 """
 
@@ -222,6 +230,74 @@ def profile_mask(n_frames):
     return 0
 
 
+def profile_online(n_frames):
+    """The online path: per-stage synchronised wall time, then the device
+    trace of an unwrapped run, after one warm-up run."""
+    from vido_slam_tpu_torch.models import perception
+    from vido_slam_tpu_torch.ops import correlation, regularize, roi_align
+
+    counters = [lm_kernel.pose_lm_batched, correlation.correlation,
+                regularize.dist_weighted_flow, roi_align.roi_align_multilevel]
+    frames, tcw, model = chip_smoke.online_inputs("cuda")
+    frames = frames[:n_frames]
+    n_calls = frames.shape[0] - 1
+    chip_smoke.run_online_path(frames, tcw, model, counters, [])  # warm-up
+    acc = collections.defaultdict(float)
+    branches = ("perception_depth", "perception_flow", "perception_mask")
+    steps = ("fast_score_map", "_track_step") + STAGES
+    sites = [(perception, n) for n in branches] + [(tracking, n)
+                                                   for n in steps]
+    originals = {(m, n): getattr(m, n) for m, n in sites}
+    for (m, n), fn in originals.items():
+        setattr(m, n, _wrap(n, fn, acc))
+    post = tracking.Tracker._post_step
+    tracking.Tracker._post_step = lambda self, *a: _wrap(
+        "_post_step", lambda *b: post(self, *b), acc)(*a)
+    try:
+        _, _, wrapped, _ = chip_smoke.run_online_path(frames, tcw, model,
+                                                      counters, [])
+    finally:
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
+        tracking.Tracker._post_step = post
+    stage_ms = {n: 1e3 * acc[n] / n_calls for n in branches}
+    stage_ms.update({n: 1e3 * acc[n] / (n_calls - 1)
+                     for n in steps + ("_post_step",)})
+    (_, _, times, launches), spans, kern, busy_ms = device_trace(
+        lambda: chip_smoke.run_online_path(frames, tcw, model, counters, []))
+    steady = times[4:]
+    wall_ms = 1e3 * float(np.sum(times))
+    ours = {k: v for k, v in kern.items()
+            if any(n in k for n in ("pose_lm_kernel", "correlation_kernel",
+                                    "dist_weighted_flow_kernel",
+                                    "roi_align_kernel"))}
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:15]
+    print(f"online path, {n_calls} calls: ms/frame under the profiler mean "
+          f"{1e3 * np.mean(steady):.2f} median {1e3 * np.median(steady):.2f} "
+          f"(calls 4-{n_calls - 1}); wrapped ms/frame "
+          f"{1e3 * np.mean(wrapped[1:]):.2f}; launches {launches}; per "
+          f"stage (synchronised; branches a call, the rest a tracked call):")
+    for k, v in stage_ms.items():
+        print(f"  {k:34s} {v:8.2f} ms")
+    print(f"device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+          f"({100 * busy_ms / wall_ms:.1f} %), {len(spans) / n_calls:.0f} "
+          f"device events per call; kernels 1, 3, 4, 5 "
+          f"{sum(ours.values()) / n_calls:.3f} ms a call; top by device ms:")
+    for k, v in top:
+        print(f"  {v:9.3f} ms  {k[:90]}")
+    print(json.dumps({
+        "ms_per_frame_mean": 1e3 * float(np.mean(steady)),
+        "ms_per_frame_median": 1e3 * float(np.median(steady)),
+        "stage_ms": stage_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "device_ms_per_call": busy_ms / n_calls,
+        "kernels_device_ms_per_call": sum(ours.values()) / n_calls,
+        "device_events_per_call": len(spans) / n_calls,
+        "top_kernels_ms": dict(top),
+    }))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=24)
@@ -230,6 +306,8 @@ def main():
                     help="profile the flow path instead of the VO path")
     ap.add_argument("--mask", action="store_true",
                     help="profile the mask path instead of the VO path")
+    ap.add_argument("--online", action="store_true",
+                    help="profile the online path instead of the VO path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -239,6 +317,8 @@ def main():
         return profile_flow(min(args.frames, 9))
     if args.mask:
         return profile_mask(min(args.frames, 8))
+    if args.online:
+        return profile_online(min(args.frames, 24))
     seq = chip_smoke.offline_sequence(args.frames, "cuda")
     inputs = chip_smoke.main_path_inputs(seq, "cuda", args.frames)
     counters = [lm_kernel.pose_lm_batched]

@@ -4,21 +4,23 @@ NVIDIA H100 (sm_90a).
 The port stands alone: it imports torch, numpy, yaml and the standard
 library, never JAX and never ``vido_slam_tpu``. Ported so far: the offline
 path ``System.TrackRGBD`` -> ``Tracker.track`` -> ``_track_step`` (VO with
-either window BA, and the bJoint mode) and the flow and mask branches of
-the perception graph (LiteFlowNet, Mask R-CNN), with all five TPU kernels
-rewritten as CUDA kernels in ``csrc/``: the batched pose LM, the joint
-flow + pose solve, LiteFlowNet's cost volume and its regularization tail,
-and the FPN multilevel ROIAlign.
+either window BA, and the bJoint mode), FAST features, the perception
+graph (MonoDepth2, LiteFlowNet, Mask R-CNN as ``PerceptionModel``) and the
+online path ``System.TrackFrames`` -> ``Tracker.track_frames``, with all
+five TPU kernels rewritten as CUDA kernels in ``csrc/``: the batched pose
+LM, the joint flow + pose solve, LiteFlowNet's cost volume and its
+regularization tail, and the FPN multilevel ROIAlign.
 
 - ``geometry``   : SO(3)/SE(3) and the pinhole camera.
 - ``frontend``   : feature sampling, mask repair, scene flow, object stats.
 - ``estimation`` : RANSAC, the LM kernels and their plain versions, pose
                    estimation, the window BA.
-- ``models``     : LiteFlowNet, Mask R-CNN (``models/maskrcnn``), their
-                   layers and the perception flow and mask branches.
-- ``ops``        : warps and resizing, NMS and box utilities, the
-                   cost-volume, regularization and ROIAlign kernels and
-                   their plain versions.
+- ``models``     : MonoDepth2, LiteFlowNet, Mask R-CNN
+                   (``models/maskrcnn``), their layers and the perception
+                   model.
+- ``ops``        : warps and resizing, FAST corners, NMS and box
+                   utilities, the cost-volume, regularization and ROIAlign
+                   kernels and their plain versions.
 - ``io``         : result writers and the synthetic sequence and clip
                    renderers.
 - ``utils``      : threefry PRNG bit-equal to ``jax.random``, stable order

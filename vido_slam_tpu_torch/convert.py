@@ -3,9 +3,11 @@
 numpy arrays (``jax.device_get`` of them), become the port's tensors.
 
 The inputs are read by field name, so any object with the JAX field names
-works; nothing of the JAX package is imported. LiteFlowNet's and Mask
-R-CNN's parameter dicts carry across the same way
-(``liteflownet_state_dict_from_numpy``, ``maskrcnn_state_dict_from_numpy``).
+works; nothing of the JAX package is imported. MonoDepth2's, LiteFlowNet's
+and Mask R-CNN's parameter dicts carry across the same way
+(``monodepth2_state_dict_from_numpy``, ``liteflownet_state_dict_from_numpy``,
+``maskrcnn_state_dict_from_numpy``), the three together as a
+``PerceptionModel`` (``perception_model_from_numpy``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ import torch
 
 from vido_slam_tpu_torch.frontend.features import FeatureSet
 from vido_slam_tpu_torch.geometry.camera import Camera
+from vido_slam_tpu_torch.models.maskrcnn.model import (RESNET50_FPN,
+                                                       MaskRCNNConfig)
+from vido_slam_tpu_torch.models.perception import PerceptionModel
 from vido_slam_tpu_torch.tracking import TrackState
 from vido_slam_tpu_torch.utils.device import resolve_device
 
@@ -39,6 +44,22 @@ def key_from_numpy(key, device=None) -> torch.Tensor:
     """A raw (2,) uint32 threefry key -> the port's int64 key."""
     return torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64),
                            device=resolve_device(device))
+
+
+def monodepth2_state_dict_from_numpy(params, device=None) -> dict:
+    """The JAX package's MonoDepth2 parameter dict (numpy arrays, conv
+    kernels HWIO) as float32 tensors in torch layout on ``device`` (the
+    card unless the caller asks for the CPU), for
+    ``MonoDepth2.load_state_dict(strict=True)``: a 4-D array goes through
+    ``transpose(3, 2, 0, 1)`` (HWIO -> OIHW); 1-D arrays pass unchanged."""
+    dev = resolve_device(device)
+    out = {}
+    for key, value in params.items():
+        a = np.asarray(value, np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        out[key] = torch.from_numpy(np.array(a, order="C")).to(dev)
+    return out
 
 
 def liteflownet_state_dict_from_numpy(params) -> dict:
@@ -75,6 +96,22 @@ def maskrcnn_state_dict_from_numpy(params, device=None) -> dict:
             a = a.T
         out[key] = torch.from_numpy(np.array(a, order="C")).to(dev)
     return out
+
+
+def perception_model_from_numpy(height: int, width: int, depth_params,
+                                flow_params, mask_params,
+                                mask_cfg: MaskRCNNConfig = RESNET50_FPN,
+                                device=None, **kwargs) -> PerceptionModel:
+    """A ``PerceptionModel`` on ``device`` holding the JAX package's three
+    parameter dicts (numpy arrays): MonoDepth2's, LiteFlowNet's and Mask
+    R-CNN's. ``kwargs`` go to ``PerceptionModel``."""
+    dev = resolve_device(device)
+    return PerceptionModel(
+        height, width, mask_cfg, device=dev,
+        depth_state=monodepth2_state_dict_from_numpy(depth_params, dev),
+        flow_state=liteflownet_state_dict_from_numpy(flow_params),
+        mask_state=maskrcnn_state_dict_from_numpy(mask_params, dev),
+        **kwargs)
 
 
 def camera_from_numpy(cam) -> Camera:

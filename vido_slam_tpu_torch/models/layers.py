@@ -13,24 +13,35 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
 
 
-class FrozenBatchNorm2d(nn.Module):
-    """maskrcnn_benchmark's FrozenBatchNorm2d (layers/batch_norm.py): fixed
-    statistics, scale = weight * rsqrt(running_var) with **no** epsilon
-    (backbone.py:50-59: 1e-5 would break checkpoint parity on channels of
-    small variance, so ``nn.BatchNorm2d`` does not serve). Its buffers carry
-    the checkpoint's four keys."""
+class BatchNorm2d(nn.Module):
+    """``torch.nn.BatchNorm2d`` in eval mode with the JAX package's
+    rounding (layers.py:138-147): ``x * inv + (beta - mean * inv)`` with
+    ``inv = gamma * rsqrt(var + eps)``. Its buffers are exactly the four
+    checkpoint keys (``nn.BatchNorm2d`` adds ``num_batches_tracked``, which
+    a strict load of the JAX dict would miss)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
+        self.eps = eps
         self.register_buffer("weight", torch.ones(channels))
         self.register_buffer("bias", torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = self.weight * torch.rsqrt(self.running_var)
+        inv = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * inv
         return x * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+
+
+class FrozenBatchNorm2d(BatchNorm2d):
+    """maskrcnn_benchmark's FrozenBatchNorm2d (layers/batch_norm.py): fixed
+    statistics, scale = weight * rsqrt(running_var) with **no** epsilon
+    (backbone.py:50-59: 1e-5 would break checkpoint parity on channels of
+    small variance). Its buffers carry the checkpoint's four keys."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=0.0)
 
 
 def max_pool(x: torch.Tensor, k: int = 3, stride: int = 2,

@@ -1,23 +1,55 @@
-"""The flow and mask branches of the perception graph — counterparts of
-the LiteFlowNet and Mask R-CNN parts of
-``vido_slam_tpu/models/perception.py::perception_forward``
-(perception.py:75-76,89-109), the stand-ins for the reference's
-``FlowNetService`` and ``MaskRcnnService``. Depth is not ported yet."""
+"""The perception graph — counterpart of
+``vido_slam_tpu/models/perception.py``: the three ROS GPU services of the
+reference (MonoDepthService, FlowNetService, MaskRcnnService; SURVEY §3.2)
+as three branches on one device, from raw BGR frames to the SLAM inputs.
+
+Service-parity outputs:
+  depth: min-max normalised inverse depth in [0, 65536] at the camera's
+         size (run_mono_depth.py:137-146);
+  flow:  (H, W, 2) float32 flow at the camera's size (run_flow_net.py:85-107);
+  mask:  (H, W) uint8 semantic mask, the sum of instance mask times label
+         index (run_mask_rcnn.py:83-127).
+"""
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
+from vido_slam_tpu_torch.geometry.camera import convert_depth
 from vido_slam_tpu_torch.models.liteflownet import LiteFlowNet
-from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+from vido_slam_tpu_torch.models.maskrcnn.model import (RESNET50_FPN,
+                                                       MaskRCNN,
+                                                       MaskRCNNConfig,
                                                        maskrcnn_inference,
                                                        paste_semantic_mask)
+from vido_slam_tpu_torch.models.monodepth2 import (FEED_HEIGHT, FEED_WIDTH,
+                                                   MonoDepth2,
+                                                   disp_to_uint16_depth,
+                                                   monodepth2_disp)
 from vido_slam_tpu_torch.ops.warp import resize_bilinear
 from vido_slam_tpu_torch.utils.device import resolve_device
 
 
 def ceil32(v: int) -> int:
     return -(-v // 32) * 32
+
+
+def _rgb01(bgr: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) BGR in 0..255 -> (1, 3, H, W) RGB in [0, 1]."""
+    return bgr.flip(-1).permute(2, 0, 1)[None] / 255.0
+
+
+def perception_depth(net: MonoDepth2, cur_bgr: torch.Tensor) -> torch.Tensor:
+    """Depth (H, W) in [0, 65536] of one (H, W, 3) float32 BGR frame in
+    0..255 on the net's device: RGB in [0, 1] resized to the net's
+    640x192 feed, the disparity, and its min-max uint16 form at (H, W)
+    (perception.py:78-85)."""
+    height, width = cur_bgr.shape[0], cur_bgr.shape[1]
+    x = resize_bilinear(_rgb01(cur_bgr), FEED_HEIGHT, FEED_WIDTH)
+    disp = monodepth2_disp(net, x.contiguous())
+    return disp_to_uint16_depth(disp, height, width)[0]
 
 
 def perception_flow(net: LiteFlowNet, prev_bgr: torch.Tensor,
@@ -28,12 +60,8 @@ def perception_flow(net: LiteFlowNet, prev_bgr: torch.Tensor,
     (H, W) and scaled by width / padded width and height / padded height."""
     height, width = prev_bgr.shape[0], prev_bgr.shape[1]
     ph, pw = ceil32(height), ceil32(width)
-
-    def rgb(bgr):
-        x = bgr.flip(-1).permute(2, 0, 1)[None] / 255.0
-        return resize_bilinear(x, ph, pw)
-
-    net_flow = net(rgb(prev_bgr), rgb(cur_bgr))
+    net_flow = net(resize_bilinear(_rgb01(prev_bgr), ph, pw),
+                   resize_bilinear(_rgb01(cur_bgr), ph, pw))
     flow = resize_bilinear(net_flow, height, width)[0]
     scale = torch.tensor([width / pw, height / ph], dtype=flow.dtype,
                          device=flow.device)
@@ -58,3 +86,87 @@ def perception_mask(model: MaskRCNN, cur_bgr, device=None) -> torch.Tensor:
     det = maskrcnn_inference(model, x)
     return paste_semantic_mask(det, cfg.input_h, cfg.input_w, height, width,
                                cfg.mask_threshold)
+
+
+class PerceptionOutput(NamedTuple):
+    depth_u16: torch.Tensor  # (H, W) float32 in [0, 65536] (service mono16)
+    flow: torch.Tensor       # (H, W, 2)
+    mask: torch.Tensor       # (H, W) uint8 semantic labels
+
+
+def perception_forward(depth_net: MonoDepth2, flow_net: LiteFlowNet,
+                       mask_model: MaskRCNN, prev_bgr: torch.Tensor,
+                       cur_bgr: torch.Tensor) -> PerceptionOutput:
+    """The three branches in the JAX package's order (perception.py:62-110)
+    on two (H, W, 3) float32 BGR frames in 0..255 on the nets' device:
+    depth of the current frame, flow from prev to cur, the current frame's
+    semantic mask."""
+    depth_u16 = perception_depth(depth_net, cur_bgr)
+    flow = perception_flow(flow_net, prev_bgr, cur_bgr)
+    mask = perception_mask(mask_model, cur_bgr, device=cur_bgr.device)
+    return PerceptionOutput(depth_u16=depth_u16, flow=flow, mask=mask)
+
+
+class PerceptionModel:
+    """The three networks on one device (the card unless the caller asks
+    for the CPU), each from ``seed`` unless its state dict is given (torch
+    layout; the JAX dicts through ``convert.perception_model_from_numpy``).
+
+    ``use_pallas`` is accepted for the JAX signature: on the card the CUDA
+    kernels run either way. The bf16 options (``compute_dtype``,
+    ``mask_dtype``, ``flow_dtype``) are not ported: the port runs float32
+    with TF32 off."""
+
+    def __init__(self, height: int, width: int,
+                 mask_cfg: MaskRCNNConfig = RESNET50_FPN, seed: int = 0,
+                 depth_state: Optional[dict] = None,
+                 flow_state: Optional[dict] = None,
+                 mask_state: Optional[dict] = None, use_pallas: bool = True,
+                 compute_dtype=None, mask_dtype=None, flow_dtype=None,
+                 device=None):
+        if any(d is not None for d in (compute_dtype, mask_dtype,
+                                       flow_dtype)):
+            raise NotImplementedError(
+                "the bf16 options of PerceptionModel (compute_dtype, "
+                "mask_dtype, flow_dtype) are not ported to "
+                "vido_slam_tpu_torch yet (ROADMAP.md queue 1 item 15b)")
+        self.height = height
+        self.width = width
+        self.mask_cfg = mask_cfg
+        self.use_pallas = use_pallas
+        self.device = resolve_device(device)
+        self.depth_net = MonoDepth2(seed, device=self.device)
+        self.flow_net = LiteFlowNet(seed, device=self.device)
+        self.mask_model = MaskRCNN(mask_cfg, seed, device=self.device)
+        for net, state in ((self.depth_net, depth_state),
+                           (self.flow_net, flow_state),
+                           (self.mask_model, mask_state)):
+            if state is not None:
+                net.load_state_dict(state, strict=True)
+
+    @classmethod
+    def from_pretrained(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "PerceptionModel.from_pretrained (reading checkpoints) is not "
+            "ported to vido_slam_tpu_torch yet (ROADMAP.md queue 1 item 18)")
+
+    def _frame(self, bgr) -> torch.Tensor:
+        return torch.as_tensor(bgr, dtype=torch.float32, device=self.device)
+
+    def __call__(self, prev_bgr, cur_bgr) -> PerceptionOutput:
+        """Two (H, W, 3) BGR frames in 0..255 (tensors or arrays)."""
+        return perception_forward(self.depth_net, self.flow_net,
+                                  self.mask_model, self._frame(prev_bgr),
+                                  self._frame(cur_bgr))
+
+    def make_slam_forward(self, depth_mode: str, depth_map_factor: float,
+                          bf: float, scale: float = 1.0):
+        """A function of (prev_bgr, cur_bgr) giving the SLAM inputs: metric
+        depth (``convert_depth`` of the uint16 depth), the flow and the
+        int32 mask (perception.py:229-246)."""
+        def forward(prev_bgr, cur_bgr):
+            out = self(prev_bgr, cur_bgr)
+            depth = convert_depth(out.depth_u16, depth_mode,
+                                  depth_map_factor, bf, scale=scale)
+            return depth, out.flow, out.mask.to(torch.int32)
+        return forward

@@ -1,6 +1,9 @@
 """Per-frame tracking — Tracking::GrabImageRGBD / Track() (Tracking.cc:283-782,
-1081-1509); counterpart of ``vido_slam_tpu/tracking.py`` for the offline VO
-path: precomputed depth, flow and mask, grid-sampled features.
+1081-1509); counterpart of ``vido_slam_tpu/tracking.py`` for the VO path:
+offline from precomputed depth, flow and mask (``track``), or online from
+raw BGR frames through an attached perception model (``track_frames``);
+background features grid-sampled at random or, with UseSampleFeature=0 and
+a gray image, picked by FAST score.
 
 Each frame ``_track_step`` runs on the tracker's device: mask repair, flow
 propagation of the feature slots, the camera pose, scene flow and object
@@ -53,8 +56,9 @@ from vido_slam_tpu_torch.frontend.sceneflow import (
     scene_flow_world,
     unproject_to_world,
 )
-from vido_slam_tpu_torch.geometry.camera import Camera
+from vido_slam_tpu_torch.geometry.camera import Camera, convert_depth
 from vido_slam_tpu_torch.geometry.se3 import inverse_se3
+from vido_slam_tpu_torch.ops.fast import fast_score_map
 from vido_slam_tpu_torch.slam_map import FrameRecord, ObjectObservation, SlamMap
 from vido_slam_tpu_torch.utils import prng
 from vido_slam_tpu_torch.utils.device import resolve_device
@@ -126,6 +130,14 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
         f"(ROADMAP.md queue 1 item {item})")
 
 
+def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
+    """The online step's gray image of an (H, W, 3) BGR frame:
+    0.299 R + 0.587 G + 0.114 B in that order (tracking.py:1259-1261 of the
+    JAX package). ``System.TrackRGBD`` takes the channel mean instead."""
+    return (0.299 * bgr[..., 2] + 0.587 * bgr[..., 1]
+            + 0.114 * bgr[..., 0])
+
+
 def _select_objects(stats: ObjectStats, max_objects: int):
     """Top-K tracked semantic bins by point count (ties: lower bin)."""
     prio = torch.where(stats.is_tracked, stats.count,
@@ -142,8 +154,12 @@ def _track_step(state: TrackState, depth, flow, mask, cam: Camera, *,
                 height: int, width: int, joint_flow: bool = False,
                 fused_ba: bool = False, ba_window: int = 20,
                 ba_points: int = 1000, ba_iters: int = 10,
-                record_light: bool = False):
-    """One frame; returns (new_state, StepOutputs)."""
+                record_light: bool = False, use_fast: bool = False,
+                gray: Optional[torch.Tensor] = None):
+    """One frame; returns (new_state, StepOutputs). With ``use_fast`` the
+    renewal samples FAST corners of ``gray`` (H, W)."""
+    if use_fast and gray is None:
+        raise ValueError("_track_step: use_fast needs the gray image")
     dev = depth.device
     f32 = torch.float32
     keys = prng.split(state.key, 4)
@@ -261,8 +277,10 @@ def _track_step(state: TrackState, depth, flow, mask, cam: Camera, *,
     obj_inlier_any = torch.any(obj_inl & obj_masks, dim=0)
 
     # 6. renewal
+    score_map = fast_score_map(gray) if use_fast else None
     fresh_bg = sample_background_features(k_fresh, mask, depth, flow,
-                                          n=n_bg, th_depth=th_depth_bg)
+                                          score_map, n=n_bg,
+                                          th_depth=th_depth_bg)
     fresh_obj = sample_object_points(mask, depth, flow, n=n_obj,
                                      th_depth=th_depth_obj)
     renewed_stat, stat_new = renew_features(cur_stat, est.inliers, fresh_bg,
@@ -409,6 +427,10 @@ class Tracker:
         self.joint_flow = joint_flow
         # UseSampleFeature=0 asks for FAST corners on the gray image
         self.use_fast = not config.system.use_sample_feature
+        # attach_perception: (model, depth mode, DepthMapFactor, bf, scale)
+        # and the step's arguments at that time
+        self._attached = None
+        self._frames_kwargs = None
         if record not in ("auto", "full", "light"):
             raise ValueError(f"record must be 'auto', 'full' or 'light', "
                              f"got {record!r}")
@@ -431,7 +453,7 @@ class Tracker:
             joint_flow=self.joint_flow, fused_ba=self.fused_ba,
             ba_window=s.window_size,
             ba_points=self.ba_max_points, ba_iters=self.ba_iters,
-            record_light=self.record_light)
+            record_light=self.record_light, use_fast=self.use_fast)
 
     def _next_key(self):
         keys = prng.split(self.key, 2)
@@ -446,22 +468,26 @@ class Tracker:
         return (put(depth, torch.float32), put(flow, torch.float32),
                 put(mask, torch.int32))
 
-    def _check_image(self, image):
-        if image is not None and self.use_fast:
-            raise _not_ported("FAST features (UseSampleFeature=0 with an "
-                              "image)", 11)
+    def _gray(self, image) -> torch.Tensor:
+        if not isinstance(image, torch.Tensor):
+            image = torch.from_numpy(np.asarray(image, np.float32))
+        return image.to(device=self.device, dtype=torch.float32)
 
     # ------------------------------------------------------------------
     def initialize(self, depth, flow, mask, Tcw_gt=None, timestamp=0.0,
                    image=None):
         """First frame (Tracking::Initialization, Tracking.cc:1512-1580):
-        sample features, pose = identity, record."""
-        self._check_image(image)
+        sample features, pose = identity, record. FAST picks the background
+        features only when it is on and ``image`` (gray) is given."""
         depth, flow, mask = self._inputs(depth, flow, mask)
         s = self.cfg.system
         dev = self.device
+        score_map = None
+        if self.use_fast and image is not None:
+            score_map = fast_score_map(self._gray(image))
         stat = sample_background_features(self._next_key(), mask, depth, flow,
-                                          n=self.n_bg, th_depth=s.th_depth_bg)
+                                          score_map, n=self.n_bg,
+                                          th_depth=s.th_depth_bg)
         obj = sample_object_points(mask, depth, flow, n=self.n_obj,
                                    th_depth=s.th_depth_obj)
         eye4 = torch.eye(4, dtype=torch.float32, device=dev)
@@ -501,22 +527,24 @@ class Tracker:
 
     def track(self, depth, flow, mask, Tcw_gt=None, timestamp=None,
               image=None) -> np.ndarray:
-        """Process one frame; returns the camera pose Tcw (4, 4). Without
-        ``image`` the features are grid-sampled (UseSampleFeature=1), from
-        then on, as in the JAX tracker."""
+        """Process one frame; returns the camera pose Tcw (4, 4). ``image``
+        is the gray frame that FAST reads (UseSampleFeature=0); without it
+        the features are grid-sampled at random, from then on, as in the
+        JAX tracker."""
         if image is None:
             self.use_fast = False
-        self._check_image(image)
         if self.state is None:
             self.initialize(depth, flow, mask, Tcw_gt,
-                            timestamp if timestamp is not None else 0.0)
+                            timestamp if timestamp is not None else 0.0,
+                            image=image)
             return np.eye(4, dtype=np.float32)
         if timestamp is None:
             timestamp = self.frame_id / self.cam.fps
         t_start = time.perf_counter()
         depth, flow, mask = self._inputs(depth, flow, mask)
+        gray = self._gray(image) if self.use_fast else None
         self.state, out = _track_step(self.state, depth, flow, mask, self.cam,
-                                      **self._step_kwargs())
+                                      gray=gray, **self._step_kwargs())
         return self._post_step(out, float(timestamp), Tcw_gt, t_start)
 
     def _post_step(self, out, timestamp, Tcw_gt, t_start):
@@ -538,8 +566,62 @@ class Tracker:
         """Nothing is deferred in the synchronous mode; kept for the
         System API (SaveResultsIJRR2020 calls it)."""
 
-    def attach_perception(self, *args, **kwargs):
-        raise _not_ported("attach_perception (online perception)", 15)
+    # ------------------------------------------------------------------
+    # the online path: raw BGR frames -> perception -> tracking step
+    # ------------------------------------------------------------------
+    def attach_perception(self, model, depth_mode: str,
+                          depth_map_factor: Optional[float] = None,
+                          bf: Optional[float] = None, scale: float = 1.0):
+        """Bind a ``PerceptionModel`` (on the tracker's device); enables
+        ``track_frames``. ``scale`` is the fixed metric scale of the depth
+        conversion (the JAX tracker multiplies in its IMU scale, which
+        stays 1 without VIO). The step's arguments, FAST included, are
+        those of this call (tracking.py:1230-1275)."""
+        if model.device.type != self.device.type:
+            raise ValueError(f"attach_perception: the model is on "
+                             f"{model.device}, the tracker on {self.device}")
+        dm_factor = (depth_map_factor if depth_map_factor is not None
+                     else self.cfg.system.depth_map_factor)
+        bf_ = bf if bf is not None else self.cfg.camera.bf
+        self._attached = (model, depth_mode, dm_factor, bf_, float(scale))
+        self._frames_kwargs = self._step_kwargs()
+
+    def track_frames(self, prev_bgr, cur_bgr, Tcw_gt=None,
+                     timestamp=None) -> np.ndarray:
+        """Process one frame from raw (H, W, 3) BGR frames in 0..255 (prev,
+        cur) through the attached perception model; returns the camera
+        pose Tcw (tracking.py:1301-1352). The first call initialises from
+        the perception alone, without the gray image (grid-random
+        features, as the JAX tracker does)."""
+        if self._attached is None:
+            raise RuntimeError("call attach_perception first")
+        model, mode, dm_factor, bf_, scale = self._attached
+        prev = torch.as_tensor(prev_bgr, dtype=torch.float32,
+                               device=self.device)
+        cur = torch.as_tensor(cur_bgr, dtype=torch.float32,
+                              device=self.device)
+        if self.state is None:
+            depth, flow, mask = model.make_slam_forward(
+                mode, dm_factor, bf_, scale)(prev, cur)
+            self.initialize(depth, flow, mask, Tcw_gt,
+                            timestamp if timestamp is not None else 0.0)
+            return np.eye(4, dtype=np.float32)
+        if timestamp is None:
+            timestamp = self.frame_id / self.cam.fps
+        t_start = time.perf_counter()
+        out = model(prev, cur)
+        depth = convert_depth(out.depth_u16, mode, dm_factor, bf_,
+                              scale=scale)
+        kw = self._frames_kwargs
+        gray = bgr_to_gray(cur) if kw["use_fast"] else None
+        self.state, step = _track_step(self.state, depth, out.flow,
+                                       out.mask.to(torch.int32), self.cam,
+                                       gray=gray, **kw)
+        return self._post_step(step, float(timestamp), Tcw_gt, t_start)
+
+    def track_frames_pair(self, *args, **kwargs):
+        raise _not_ported("track_frames_pair (two frames a program, which "
+                          "needs pipelined=True)", 16)
 
     def run_full_batch(self, *args, **kwargs):
         raise _not_ported("run_full_batch (full-batch BA)", 18)
