@@ -52,10 +52,26 @@ Phases, each of which fails the run by raising:
      65536] and masks with labelled pixels, and write the result txts; it
      prints its median ms a frame over calls 4-22 beside the card line.
      Phase 3 runs again on the kernels' arguments of call 3, and MonoDepth2
-     on the card is held against the CPU on one 192x640 frame;
+     on the card is held against the CPU on one 192x640 frame. Then VIO,
+     with the IMU math on the CPU and the state, step and kernels on the
+     card: (f) the JAX bench's offline VIO row (``kaist_offline_1280x560_
+     vio``) one frame a call: ``Tracker(use_imu=True)`` with the fused
+     window BA over 45 frames of the offline scene (the first 24 are those
+     of (a) and (b)), the analytic 200 Hz IMU of ``driving_imu`` fed before
+     each frame. The init must fire at the JAX package's frame after its
+     attempts (its one-frame-a-call run on the CPU, constants below),
+     scale_vs_gt within 0.01 and the SE(3)-aligned ATE within 0.05 m of
+     it, the state on the card after the rescale, and kernel 1 twice a
+     tracked frame; it prints the init, the scale, the ATEs and its median
+     ms a frame over frames 4-44. (g) phase (e)'s configuration, model and
+     clip as IMU_RGBD through ``System.TrackFrames`` with the IMU up to
+     each frame's timestamp: init attempts from the gate on (>= 10 frames,
+     >= 2 s), each tracked call's depth at base x the IMU scale, finite
+     poses, phase (e)'s launches; it prints its median ms a frame;
   5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
-     call's arguments), then the device line.
+     call's arguments, and its launches on (f) and (g)), then the device
+     line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -1127,6 +1143,216 @@ def check_online_path(system, outputs, n_calls):
     return with_obj, labelled
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (f): offline VIO; (g): online VIO
+# ---------------------------------------------------------------------------
+
+# the JAX bench's kaist_offline_1280x560_vio row (bench.py:185-320, set up
+# at :566-580) one frame a call: 3 + 2 x 20 + 2 frames of the offline scene
+VIO_FRAMES = 45
+VIO_KW = dict(TRACKER_KW, use_imu=True)
+IMU_HZ = 200.0
+# the JAX package's run of that row one frame a call (pipelined=False,
+# fused_ba=True) on the CPU over the same 45 frames, from
+# tools/jax_vio_reference.py (PERF.md section 2): init at frame 20 after 1
+# attempt, imu_scale 1.0008518, scale_vs_gt 1.0011846, SE(3)-aligned ATE
+# 0.0101352 m over the 26.686 m path
+JAX_VIO_INIT_FRAME = 20
+JAX_VIO_ATTEMPTS = 1
+JAX_VIO_SCALE_VS_GT = 1.0011846048430717
+JAX_VIO_ATE_SE3_M = 0.010135213322929059
+
+
+class ImuFeed:
+    """The analytic 200 Hz IMU of ``driving_imu``, fed up to each frame's
+    timestamp as the JAX bench's ``feed_imu`` does (bench.py:217-231)."""
+
+    def __init__(self):
+        self.clock = 0.0
+
+    def samples(self, t_frame):
+        from vido_slam_tpu_torch.io.synthetic import driving_imu
+        from vido_slam_tpu_torch.system import ImuPoint
+
+        ts = np.arange(self.clock + 1.0 / IMU_HZ, t_frame + 1e-9,
+                       1.0 / IMU_HZ)
+        if not len(ts):
+            return []
+        acc, gyro = driving_imu(ts)
+        self.clock = float(ts[-1])
+        return [ImuPoint(a=acc[i], w=gyro[i], t=float(t))
+                for i, t in enumerate(ts)]
+
+
+def state_devices(state):
+    """The device types of every tensor in a TrackState."""
+    import torch
+
+    out, todo = set(), [state]
+    while todo:
+        x = todo.pop()
+        if torch.is_tensor(x):
+            out.add(x.device.type)
+        elif isinstance(x, tuple):
+            todo.extend(x)
+    return out
+
+
+def run_offline_vio(seq, device, counters):
+    """``Tracker(use_imu=True)`` over the frames with metric depth, flow and
+    mask, the IMU fed before each frame, as the JAX bench row drives it.
+    Returns the tracker, the host seconds of every frame, the frame at which
+    the init fired (None if it did not), the state's device types right
+    after it, and each counter's launches during the run."""
+    import torch
+    from vido_slam_tpu_torch.config import config_from_dict
+    from vido_slam_tpu_torch.tracking import Tracker
+
+    tracker = Tracker(config_from_dict(OFFLINE_CONFIG), device=device,
+                      **VIO_KW)
+    feed = ImuFeed()
+    frames = [(torch.as_tensor(fr.depth, device=device),
+               torch.as_tensor(fr.flow, device=device),
+               torch.as_tensor(fr.mask, device=device), fr.Tcw_gt)
+              for fr in seq.frames]
+    for c in counters:
+        c.launches = 0
+    times, init_frame, devices = [], None, None
+    for i, (depth, flow, mask, gt) in enumerate(frames):
+        t = i / 10.0
+        tracker.grab_imu_data(feed.samples(t))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracker.track(depth, flow, mask, Tcw_gt=gt, timestamp=t)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if tracker.imu_initialized and init_frame is None:
+            init_frame, devices = i, state_devices(tracker.state)
+    return (tracker, times, init_frame, devices,
+            [c.launches for c in counters])
+
+
+def vio_accuracy(tracker, seq):
+    """(scale_vs_gt, unaligned ATE, SE(3)- and Sim(3)-aligned ATE, path
+    length), as the JAX bench row computes them (bench.py:266-298)."""
+    from vido_slam_tpu_torch.metrics import (ate_rmse, camera_centers,
+                                             umeyama_alignment)
+
+    est = tracker.map.poses
+    gt = np.stack([fr.Tcw_gt for fr in seq.frames[:len(est)]])
+    c = camera_centers(gt.astype(np.float64))
+    path = float(np.linalg.norm(np.diff(c, axis=0), axis=1).sum())
+    _, _, s_fit = umeyama_alignment(camera_centers(est), camera_centers(gt),
+                                    with_scale=True)
+    return (1.0 / max(s_fit, 1e-9), ate_rmse(est, gt, align=False),
+            ate_rmse(est, gt, align=True, with_scale=False),
+            ate_rmse(est, gt, align=True, with_scale=True), path)
+
+
+def check_offline_vio(tracker, seq, init_frame, devices, launches):
+    """The init fired at the JAX run's frame after its attempts, scale_vs_gt
+    within 0.01 and the SE(3)-aligned ATE within 0.05 m of it, the state on
+    the card after the rescale, kernel 1 twice a tracked frame. Returns
+    vio_accuracy's numbers."""
+    n_tracked = len(seq.frames) - 1
+    check(tracker.imu_initialized, "offline VIO: the IMU init never fired "
+          f"({tracker.imu_init_attempts} attempts)")
+    check(init_frame == JAX_VIO_INIT_FRAME
+          and tracker.imu_init_attempts == JAX_VIO_ATTEMPTS,
+          f"offline VIO: init at frame {init_frame} after "
+          f"{tracker.imu_init_attempts} attempts, the JAX run's at "
+          f"{JAX_VIO_INIT_FRAME} after {JAX_VIO_ATTEMPTS}")
+    acc = vio_accuracy(tracker, seq)
+    check(np.isfinite(tracker.map.poses).all(), "offline VIO: poses")
+    check(abs(acc[0] - JAX_VIO_SCALE_VS_GT) <= 0.01,
+          f"offline VIO: scale_vs_gt {acc[0]}, the JAX run's "
+          f"{JAX_VIO_SCALE_VS_GT}")
+    check(abs(acc[2] - JAX_VIO_ATE_SE3_M) <= 0.05,
+          f"offline VIO: SE(3)-aligned ATE {acc[2]} m, the JAX run's "
+          f"{JAX_VIO_ATE_SE3_M}")
+    check(devices == {"cuda"}, f"offline VIO: state on {devices} after the "
+          f"rescale")
+    check(launches == [2 * n_tracked, 0, 0, 0, 0],
+          f"offline VIO: launches {launches} over {n_tracked} frames")
+    return acc
+
+
+def run_online_vio(frames, tcw, model, counters):
+    """``System`` IMU_RGBD, ``AttachPerception`` and ``TrackFrames`` over the
+    clip's pairs at 10 fps, with the analytic IMU up to each frame's
+    timestamp. Returns the system, the host seconds of every call, the init
+    attempts, whether the init had fired and the IMU scale after each call,
+    the depth scale each tracked call converted at, and the counters'
+    launches."""
+    import torch
+    from vido_slam_tpu_torch import tracking
+    from vido_slam_tpu_torch.config import config_from_dict
+    from vido_slam_tpu_torch.system import Sensor, System
+
+    dev = frames.device
+    system = System()
+    system.init_from_config(config_from_dict(ONLINE_CONFIG), Sensor.IMU_RGBD,
+                            device=dev, **TRACKER_KW)
+    system.AttachPerception(model)
+    convert, scales = tracking.convert_depth, []
+
+    def recording(*args, scale, **kw):
+        scales.append(float(scale))
+        return convert(*args, scale=scale, **kw)
+
+    tracking.convert_depth = recording
+    feed = ImuFeed()
+    try:
+        for c in counters:
+            c.launches = 0
+        times, after = [], []
+        for k in range(frames.shape[0] - 1):
+            t = k / 10.0
+            imu = feed.samples(t)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            system.TrackFrames(frames[k], frames[k + 1], mTcw_gt=tcw[k],
+                               timestamp=t, imu_measurements=imu)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            tr = system.tracker
+            after.append((tr.imu_init_attempts, tr.imu_initialized,
+                          tr.imu_scale))
+        launches = [c.launches for c in counters]
+    finally:
+        tracking.convert_depth = convert
+    return system, times, after, scales, launches
+
+
+def check_online_vio(system, after, scales, launches, expect):
+    """Attempts from the gate on (a call at >= 10 frames and >= 2 s since
+    the first), one a call until the init fires; every tracked call's depth
+    at base (1.0) x the IMU scale the previous call left; finite poses; the
+    online path's launches."""
+    n_calls = len(after)
+    want, n, done = [], 0, False
+    for k in range(n_calls):
+        if not done and k + 1 >= 10 and k / 10.0 >= 2.0:
+            n += 1
+        done = after[k][1]
+        want.append(n)
+    attempts = [a[0] for a in after]
+    check(attempts == want, f"online VIO: attempts {attempts}, not {want}")
+    want_scales = [float(np.float32(1.0 * a[2])) for a in after[:-1]]
+    check(scales == want_scales, f"online VIO: depth scales {scales}, not "
+          f"{want_scales}")
+    est = system.map.poses
+    check(est.shape == (n_calls, 4, 4) and np.isfinite(est).all(),
+          "online VIO: poses")
+    check(launches == expect, f"online VIO: launches {launches}, not "
+          f"{expect}")
+    return attempts
+
+
 def check_whole_depth(dev, frame) -> float:
     """MonoDepth2 on the card against the port on the CPU, same seed-0
     weights, on one 192x640 frame of the bench clip fed as
@@ -1181,8 +1407,9 @@ def main() -> int:
             if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # phase 3 on numpy-seeded problems laid out as the main paths lay them
-    seq = offline_sequence(N_FRAMES, "cuda")
+    # phase 3 on numpy-seeded problems laid out as the main paths lay them;
+    # paths (a) and (b) take the first N_FRAMES frames, (f) all of them
+    seq = offline_sequence(VIO_FRAMES, "cuda")
     cam = seq.scene.cam
     rng = np.random.RandomState(0)
     Tcw = _pose([0.0, 0.02, 0.0], [0.1, 0.0, -3.0])
@@ -1247,6 +1474,29 @@ def main() -> int:
               f"clock over torch.cuda.synchronize)")
         runs[attr] = (recorder, launches[own])
     del inputs, system
+
+    # (f) offline VIO: the JAX bench's offline VIO row one frame a call
+    tracker, times, init_frame, devices, launches = run_offline_vio(
+        seq, "cuda", counters)
+    scale_vs_gt, ate, ate_se3, ate_sim3, length = check_offline_vio(
+        tracker, seq, init_frame, devices, launches)
+    launches_vio = launches
+    steady = times[4:]
+    print(f"offline VIO: {VIO_FRAMES} frames 1280x560, Tracker(use_imu=True,"
+          f" fused_ba=True), analytic {IMU_HZ:.0f} Hz IMU; imu_initialized "
+          f"{tracker.imu_initialized} at frame {init_frame} after "
+          f"{tracker.imu_init_attempts} attempt(s) (JAX: frame "
+          f"{JAX_VIO_INIT_FRAME}, {JAX_VIO_ATTEMPTS}), imu_scale "
+          f"{tracker.imu_scale:.7f}, scale_vs_gt {scale_vs_gt:.7f} (JAX "
+          f"{JAX_VIO_SCALE_VS_GT:.7f}), ATE unaligned {ate:.4f} m, SE(3)-"
+          f"aligned {ate_se3:.5f} m ({100 * ate_se3 / length:.4f} % of "
+          f"{length:.3f} m; JAX {JAX_VIO_ATE_SE3_M:.5f}), Sim(3)-aligned "
+          f"{ate_sim3:.5f} m ({100 * ate_sim3 / length:.4f} %), launches "
+          f"{launches}; ms/frame median {1e3 * np.median(steady):.2f} mean "
+          f"{1e3 * np.mean(steady):.2f} (frames 4-{VIO_FRAMES - 1}, host "
+          f"clock over torch.cuda.synchronize; init frame "
+          f"{1e3 * times[init_frame]:.2f} ms); card {card_line()}")
+    del tracker
 
     # (c) the flow path
     recorders = {attr: KernelArgs(getattr(liteflownet, attr), n)
@@ -1356,7 +1606,25 @@ def main() -> int:
           f"{card_line()}")
     online_cam = system.tracker.cam
     frame_online = frames[1].clone()
-    del system, outputs, frames, model
+    del system, outputs
+
+    # (g) online VIO: phase (e)'s configuration and clip as IMU_RGBD
+    system, times, after, scales, launches = run_online_vio(
+        frames, tcw, model, counters)
+    attempts = check_online_vio(system, after, scales, launches,
+                                launches_online)
+    launches_online_vio = launches
+    steady = times[4:]
+    print(f"online VIO: {n_calls} calls of System.TrackFrames as IMU_RGBD "
+          f"(phase (e)'s configuration, analytic {IMU_HZ:.0f} Hz IMU), "
+          f"attempts after each call {attempts}, imu_initialized "
+          f"{system.tracker.imu_initialized}, imu_scale "
+          f"{system.tracker.imu_scale:.7f}, depth scales of calls 1-"
+          f"{n_calls - 1} {sorted(set(scales))}, launches {launches}; "
+          f"ms/frame median {1e3 * np.median(steady):.2f} mean "
+          f"{1e3 * np.mean(steady):.2f} (calls 4-{n_calls - 1}, host clock "
+          f"over torch.cuda.synchronize); card {card_line()}")
+    del system, frames, model
 
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
@@ -1464,6 +1732,8 @@ def main() -> int:
     for i, e in enumerate(entries):
         timing = online_timing.get(e["name"], (None, None, None, None))
         e["online_launches"] = launches_online[i]
+        e["offline_vio_launches"] = launches_vio[i]
+        e["online_vio_launches"] = launches_online_vio[i]
         e["online_ms"], e["online_bound_ms"] = timing[0], timing[2]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

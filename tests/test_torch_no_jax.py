@@ -24,7 +24,9 @@ bad = sorted(m for m in sys.modules
              or m == "vido_slam_tpu" or m.startswith("vido_slam_tpu."))
 need = {"vido_slam_tpu_torch." + m
         for m in ("estimation.assembly", "estimation.flow_joint",
-                  "estimation.flow_joint_kernel", "estimation.lm_kernel",
+                  "estimation.flow_joint_kernel", "estimation.imu_init",
+                  "estimation.lm", "estimation.lm_kernel",
+                  "imu.preintegration",
                   "models.layers", "models.liteflownet", "models.monodepth2",
                   "models.perception", "models.maskrcnn.backbone",
                   "models.maskrcnn.model", "models.maskrcnn.roi_heads",
@@ -32,7 +34,7 @@ need = {"vido_slam_tpu_torch." + m
                   "ops.nms", "ops.regularize", "ops.roi_align", "ops.warp")}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 52 else 0)
+sys.exit(1 if bad or missing or len(names) < 55 else 0)
 """
 
 

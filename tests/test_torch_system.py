@@ -1,7 +1,9 @@
 """The port's ``System`` and ``Tracker`` take the JAX package's arguments:
 ``lm_pallas`` and the three ``imu_*`` arguments build in both packages; an
 RGBD system given IMU measurements ignores them, as the JAX one does, and
-tracks the same poses; VIO still raises, naming its ROADMAP item."""
+tracks the same poses; an IMU_RGBD system queues them and tracks the JAX
+one's poses (the init's gates stay shut over 3 frames; tests/test_torch_vio.py
+runs the init)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -98,10 +100,30 @@ def test_rgbd_system_ignores_imu_measurements(sequence):
     assert js.tracker._imu_queue == [] and js.scale == 1.0
 
 
-def test_vio_still_raises_naming_its_item(sequence):
+def test_vio_is_accepted_and_runs(sequence):
+    """``Tracker(use_imu=True)`` and an IMU_RGBD ``System`` build; the system
+    queues the measurements and tracks the JAX IMU_RGBD system's poses
+    (1e-3 m, 1e-3 rad) at scale 1, one preintegration a tracked frame."""
     scene, seq = sequence
-    cfg = config_from_dict(_cfg_dict(scene))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Tracker(cfg, device="cpu", use_imu=True, imu_max_frames=32)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        System().init_from_config(cfg, Sensor.IMU_RGBD, device="cpu")
+    d = _cfg_dict(scene)
+    assert Tracker(config_from_dict(d), device="cpu", use_imu=True,
+                   imu_max_frames=32).use_imu
+    js, ts = JSystem(), System()
+    js.init_from_config(j_config_from_dict(d), JSensor.IMU_RGBD,
+                        lm_pallas=False, **JAX_TRACKER_KW)
+    ts.init_from_config(config_from_dict(d), Sensor.IMU_RGBD, device="cpu",
+                        lm_pallas=False, **JAX_TRACKER_KW)
+    for k, fr in enumerate(seq.frames):
+        raw = fr.depth * 100.0
+        imu = _imu(k)
+        Tj = np.asarray(js.TrackRGBD(None, raw, fr.flow, fr.mask,
+                                     mTcw_gt=fr.Tcw_gt, timestamp=0.1 * k,
+                                     imu_measurements=imu))
+        Tt = ts.TrackRGBD(None, raw, fr.flow, fr.mask, mTcw_gt=fr.Tcw_gt,
+                          timestamp=0.1 * k, imu_measurements=imu)
+        assert np.abs(Tj[:3, 3] - Tt[:3, 3]).max() <= 1e-3, k
+        R = Tj[:3, :3].astype(np.float64).T @ Tt[:3, :3]
+        assert np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1)) <= 1e-3, k
+    assert len(ts.tracker._preints) == len(js.tracker._preints) == 2
+    assert len(ts.tracker._imu_queue) == len(js.tracker._imu_queue) > 0
+    assert ts.scale == js.scale == 1.0

@@ -359,14 +359,31 @@ def test_system_defaults_match_jax_system(sequence):
             [(o.status, o.track_id) for o in b.objects], a.frame_id
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(use_imu=True), "use_imu"),
-    (dict(pipelined=True), "pipelined"),
-])
-def test_unported_modes_raise(sequence, kw, what):
+def test_unported_modes_raise(sequence):
     scene, _ = sequence
-    with pytest.raises(NotImplementedError, match=what):
-        Tracker(config_from_dict(_cfg_dict(scene)), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="pipelined.*item 16"):
+        Tracker(config_from_dict(_cfg_dict(scene)), device="cpu",
+                pipelined=True)
+    # VIO with the pipeline too: the pipeline is what is missing
+    with pytest.raises(NotImplementedError, match="item 16"):
+        Tracker(config_from_dict(_cfg_dict(scene)), device="cpu",
+                pipelined=True, use_imu=True)
+
+
+def test_vio_mode_runs(sequence):
+    """``use_imu=True`` builds and tracks: without IMU samples each
+    interval's preintegration is None and the init never fires, so the
+    poses are the VO tracker's to the bit."""
+    scene, seq = sequence
+    cfg = config_from_dict(_cfg_dict(scene))
+    vio = Tracker(cfg, device="cpu", use_imu=True, **TRACKER_KW)
+    vo = Tracker(cfg, device="cpu", **TRACKER_KW)
+    for k, fr in enumerate(seq.frames[:3]):
+        Tv = vio.track(fr.depth, fr.flow, fr.mask, timestamp=0.1 * k)
+        To = vo.track(fr.depth, fr.flow, fr.mask, timestamp=0.1 * k)
+        np.testing.assert_array_equal(Tv, To)
+    assert vio._preints == [None, None]
+    assert not vio.imu_initialized and vio.imu_init_attempts == 0
 
 
 def test_unported_entry_points_raise(sequence):
@@ -377,9 +394,11 @@ def test_unported_entry_points_raise(sequence):
         t.track_frames_pair(None, None, None)
     with pytest.raises(NotImplementedError, match="full-batch"):
         t.run_full_batch()
-    with pytest.raises(NotImplementedError, match="VIO"):
-        System().init_from_config(config_from_dict(_cfg_dict(scene)),
-                                  Sensor.IMU_RGBD, device="cpu")
+    # the IMU_RGBD sensor is ported: it builds a VIO tracker
+    s = System()
+    s.init_from_config(config_from_dict(_cfg_dict(scene)), Sensor.IMU_RGBD,
+                       device="cpu")
+    assert s.tracker.use_imu and s.scale == 1.0
 
 
 def test_bad_arguments_raise(sequence):

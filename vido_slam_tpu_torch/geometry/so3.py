@@ -85,3 +85,21 @@ def right_jacobian_inv_so3(w: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     W2 = W @ W
     return _eye3(W) + 0.5 * W + coeff[..., None, None] * W2
+
+
+def right_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian Jr(w) = I - B hat(w) + C hat(w)^2: (..., 3) ->
+    (..., 3, 3) (ImuTypes.cc IntegratedRotation rightJ)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    _, B, C = _sin_cos_coeffs(theta2)
+    W = hat(w)
+    W2 = W @ W
+    return _eye3(W) - B[..., None, None] * W + C[..., None, None] * W2
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3, 3) onto SO(3) by SVD, a reflection flipped back
+    (ORB-SLAM3 NormalizeRotation)."""
+    u, _, vt = torch.linalg.svd(R)
+    sign = torch.sign(torch.linalg.det(u @ vt))[..., None, None]
+    return torch.cat([u[..., :, :2], u[..., :, 2:] * sign], dim=-1) @ vt

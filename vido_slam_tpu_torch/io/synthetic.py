@@ -241,6 +241,7 @@ DRIVING_V0 = 6.0          # m/s mean forward speed
 DRIVING_V1 = 1.5          # m/s speed oscillation amplitude
 DRIVING_PSI1 = 0.02       # rad yaw oscillation amplitude
 DRIVING_PERIOD = 2.4      # s
+DRIVING_GRAVITY = 9.79    # GRAVITY_VALUE (ImuTypes.h:29); y points down
 
 
 def _yaw_mat(psi: float) -> np.ndarray:
@@ -257,6 +258,24 @@ def driving_pose(t: float) -> np.ndarray:
     Twc[:3, :3] = _yaw_mat(DRIVING_PSI1 * np.sin(w * t))
     Twc[:3, 3] = [0.0, 0.0, s]
     return np.linalg.inv(Twc)
+
+
+def driving_imu(t: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Ideal body-frame IMU of ``driving_pose`` at times t (n,): the
+    accelerometer's specific force R_bw (a_w - g_w) with g_w = (0, +G, 0)
+    (y down) and the gyro's body rate (0, psi'(t), 0), the analytic
+    derivatives of the trajectory. Returns (acc, gyro), (n, 3) float32."""
+    t = np.asarray(t, np.float64)
+    w = 2.0 * np.pi / DRIVING_PERIOD
+    zero = np.zeros_like(t)
+    a_w = np.stack([zero, zero, DRIVING_V1 * w * np.cos(w * t)], -1)
+    psi = DRIVING_PSI1 * np.sin(w * t)
+    g_w = np.array([0.0, DRIVING_GRAVITY, 0.0])
+    acc = np.empty((t.shape[0], 3))
+    for i in range(t.shape[0]):                      # R_bw = R_wb^T
+        acc[i] = _yaw_mat(psi[i]).T @ (a_w[i] - g_w)
+    gyro = np.stack([zero, DRIVING_PSI1 * w * np.cos(w * t), zero], -1)
+    return acc.astype(np.float32), gyro.astype(np.float32)
 
 
 def driving_clip(height: int = 192, width: int = 640, n_frames: int = 24,

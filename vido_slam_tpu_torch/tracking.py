@@ -1,7 +1,7 @@
 """Per-frame tracking — Tracking::GrabImageRGBD / Track() (Tracking.cc:283-782,
-1081-1509); counterpart of ``vido_slam_tpu/tracking.py`` for the VO path:
-offline from precomputed depth, flow and mask (``track``), or online from
-raw BGR frames through an attached perception model (``track_frames``);
+1081-1509); counterpart of ``vido_slam_tpu/tracking.py`` for the VO and VIO
+paths: offline from precomputed depth, flow and mask (``track``), or online
+from raw BGR frames through an attached perception model (``track_frames``);
 background features grid-sampled at random or, with UseSampleFeature=0 and
 a gray image, picked by FAST score.
 
@@ -15,6 +15,12 @@ whose optimized flows move the inlier keypoints. The host then copies the
 outputs it needs in one transfer, does the tracking-id bookkeeping and the
 map records and, by default (``fused_ba=False``, as in the JAX package),
 assembles the window BA from the map records and solves it.
+
+With ``use_imu`` (VIO, Tracking.cc:784-1077) the tracker also queues IMU
+samples, preintegrates each frame interval, and once the gates open runs
+the staged inertial init every frame until it succeeds, then the scale
+refinement every ~10 s; either rescales and gravity-aligns the map and the
+device state.
 """
 
 from __future__ import annotations
@@ -30,6 +36,11 @@ from vido_slam_tpu_torch.estimation.assembly import assemble_static_window
 from vido_slam_tpu_torch.estimation.flow_joint import (
     estimate_camera_pose_joint,
     estimate_object_motions_joint_batched,
+)
+from vido_slam_tpu_torch.estimation.imu_init import (
+    estimate_gravity_direction,
+    initialize_imu,
+    linear_alignment,
 )
 from vido_slam_tpu_torch.estimation.pose import (
     estimate_camera_pose,
@@ -58,6 +69,14 @@ from vido_slam_tpu_torch.frontend.sceneflow import (
 )
 from vido_slam_tpu_torch.geometry.camera import Camera, convert_depth
 from vido_slam_tpu_torch.geometry.se3 import inverse_se3
+from vido_slam_tpu_torch.imu.preintegration import (
+    ImuCalib,
+    compose_preints,
+    init_preintegration,
+    integrate_measurements,
+    prepare_segments,
+    to_numpy,
+)
 from vido_slam_tpu_torch.ops.fast import fast_score_map
 from vido_slam_tpu_torch.slam_map import FrameRecord, ObjectObservation, SlamMap
 from vido_slam_tpu_torch.utils import prng
@@ -66,6 +85,14 @@ from vido_slam_tpu_torch.utils.order import top_k
 from vido_slam_tpu_torch.utils.transfer import to_host
 
 MIN_OBJ_INLIERS = 50  # Tracking.cc:1218
+# The IMU-side math (preintegration, inertial init, scale refinement) runs
+# on the CPU whatever the tracker's device, as the JAX package pins it to
+# its host backend (tracking.py:603-611 there): its problems are a few
+# hundred floats solved by host-driven loops of tiny ops, where every
+# launch and stop test read back from the card would cost more than the
+# arithmetic. The tracker's state, the step, the window BA and the kernels
+# stay on the card; only the rescale after an init touches the state.
+IMU_DEVICE = torch.device("cpu")
 
 
 class TrackState(NamedTuple):
@@ -396,12 +423,12 @@ class Tracker:
                  device=None):
         """The JAX ``Tracker``'s arguments. ``lm_pallas`` picks the JAX
         package's Pallas or XLA LM, which its tests hold equal; here the
-        CUDA kernel runs either way. The ``imu_*`` arguments shape VIO,
-        which is not ported, and have no effect without it."""
+        CUDA kernel runs either way. ``use_imu`` turns VIO on; the
+        ``imu_*`` arguments shape it: the init window in frames, the
+        integration segments an interval, and the stride of the composed
+        init pairs."""
         if pipelined:
             raise _not_ported("pipelined=True", 16)
-        if use_imu:
-            raise _not_ported("use_imu=True (VIO)", 17)
         self.device = resolve_device(device)
         self.cfg = config
         c = config.camera
@@ -442,6 +469,28 @@ class Tracker:
         if self.record_light and local_ba and not self.fused_ba:
             raise ValueError("record='light' needs the fused window BA: the "
                              "host-assembled one reads per-point records")
+        # ---- VIO state (Tracking.cc:112-121, 784-1077) ----
+        self.use_imu = use_imu
+        self.imu_max_frames = imu_max_frames
+        self.imu_max_segments = imu_max_segments
+        # frames per composed preintegration pair of the init's second
+        # candidate (see _try_initialize_imu)
+        self.imu_init_stride = imu_init_stride
+        self.imu_scale = 1.0           # mScale
+        self.imu_initialized = False
+        self.imu_init_attempts = 0     # InitializeIMU runs
+        self.imu_refine_runs = 0       # ScaleRefinement runs
+        self.imu_bias = np.zeros(6, np.float32)
+        self.Rwg: Optional[np.ndarray] = None
+        self._imu_queue: list = []     # pending samples (.a, .w, .t)
+        self._preints: list = []       # one state a consecutive frame pair
+        self._last_ts: Optional[float] = None
+        self._last_scale_refine_t = 0.0
+        if use_imu:
+            i = config.imu
+            self.imu_calib = ImuCalib.from_config(
+                i.Tbc, i.noise_gyro, i.noise_acc, i.gyro_walk, i.acc_walk,
+                i.frequency, device=IMU_DEVICE)
 
     def _step_kwargs(self):
         s = self.cfg.system
@@ -524,6 +573,7 @@ class Tracker:
             obj_label=np.full(self.n_obj, -1, np.int32), obj_3d=o_3d,
             objects=[], timing={}))
         self.frame_id += 1
+        self._last_ts = float(timestamp)
 
     def track(self, depth, flow, mask, Tcw_gt=None, timestamp=None,
               image=None) -> np.ndarray:
@@ -541,6 +591,11 @@ class Tracker:
         if timestamp is None:
             timestamp = self.frame_id / self.cam.fps
         t_start = time.perf_counter()
+        # VIO: preintegrate the inter-frame interval (Tracking.cc:784-887)
+        if self.use_imu and self._last_ts is not None:
+            self._preints.append(
+                self._preintegrate_interval(self._last_ts, float(timestamp)))
+        self._last_ts = float(timestamp)
         depth, flow, mask = self._inputs(depth, flow, mask)
         gray = self._gray(image) if self.use_fast else None
         self.state, out = _track_step(self.state, depth, flow, mask, self.cam,
@@ -560,6 +615,10 @@ class Tracker:
             t0 = time.perf_counter()
             Tcw = self._run_window_ba()
             self.map.lba_time.append(time.perf_counter() - t0)
+        if self.use_imu:
+            # the map, the state and the preintegrations are aligned here
+            self._vio_update(timestamp)
+            Tcw = self.map.frames[-1].Tcw
         return np.asarray(Tcw)
 
     def finish(self):
@@ -573,10 +632,10 @@ class Tracker:
                           depth_map_factor: Optional[float] = None,
                           bf: Optional[float] = None, scale: float = 1.0):
         """Bind a ``PerceptionModel`` (on the tracker's device); enables
-        ``track_frames``. ``scale`` is the fixed metric scale of the depth
-        conversion (the JAX tracker multiplies in its IMU scale, which
-        stays 1 without VIO). The step's arguments, FAST included, are
-        those of this call (tracking.py:1230-1275)."""
+        ``track_frames``. ``scale`` is the base metric scale of the depth
+        conversion; each call converts at base x the live IMU scale
+        (mScale, Tracking.cc:316-319). The step's arguments, FAST included,
+        are those of this call (tracking.py:1230-1275)."""
         if model.device.type != self.device.type:
             raise ValueError(f"attach_perception: the model is on "
                              f"{model.device}, the tracker on {self.device}")
@@ -585,6 +644,11 @@ class Tracker:
         bf_ = bf if bf is not None else self.cfg.camera.bf
         self._attached = (model, depth_mode, dm_factor, bf_, float(scale))
         self._frames_kwargs = self._step_kwargs()
+
+    def _effective_scale(self) -> np.float32:
+        """The depth scale of the next call: the attach-time base times the
+        IMU scale (updated by _vio_update)."""
+        return np.float32(self._attached[4] * self.imu_scale)
 
     def track_frames(self, prev_bgr, cur_bgr, Tcw_gt=None,
                      timestamp=None) -> np.ndarray:
@@ -609,9 +673,13 @@ class Tracker:
         if timestamp is None:
             timestamp = self.frame_id / self.cam.fps
         t_start = time.perf_counter()
+        if self.use_imu:
+            self._preints.append(
+                self._preintegrate_interval(self._last_ts, float(timestamp)))
+        self._last_ts = float(timestamp)
         out = model(prev, cur)
         depth = convert_depth(out.depth_u16, mode, dm_factor, bf_,
-                              scale=scale)
+                              scale=self._effective_scale())
         kw = self._frames_kwargs
         gray = bgr_to_gray(cur) if kw["use_fast"] else None
         self.state, step = _track_step(self.state, depth, out.flow,
@@ -625,6 +693,259 @@ class Tracker:
 
     def run_full_batch(self, *args, **kwargs):
         raise _not_ported("run_full_batch (full-batch BA)", 18)
+
+    # ------------------------------------------------------------------
+    # VIO: IMU queue, preintegration, init and scale refinement
+    # (System.cc:74-75 GrabImuData; Tracking.cc:784-887 PreintegrateIMU;
+    #  :937-1077 InitializeIMU / ScaleRefinement), on IMU_DEVICE
+    # ------------------------------------------------------------------
+    def grab_imu_data(self, measurements) -> None:
+        """Queue raw IMU samples; each has .a (3,), .w (3,), .t seconds."""
+        self._imu_queue.extend(measurements)
+
+    @torch.inference_mode()
+    def _preintegrate_interval(self, t0: float, t1: float):
+        """The queued samples of [t0, t1] preintegrated at the current
+        bias (numpy fields), or None when the queue is empty. Without
+        autograd's bookkeeping the ~200 tiny ops a segment take half the
+        time."""
+        if not self._imu_queue:
+            return None
+        q = self._imu_queue
+        times = np.asarray([m.t for m in q], np.float64)
+        accs = np.asarray([np.asarray(m.a) for m in q], np.float32)
+        gyros = np.asarray([np.asarray(m.w) for m in q], np.float32)
+        a, w, dt = prepare_segments(times, accs, gyros, t0, t1,
+                                    self.imu_max_segments)
+        st = integrate_measurements(
+            init_preintegration(self.imu_bias, device=IMU_DEVICE),
+            torch.from_numpy(a), torch.from_numpy(w), torch.from_numpy(dt),
+            self.imu_calib)
+        # drop consumed samples (keep one before t1 for the boundary)
+        self._imu_queue = [m for m, k in zip(q, times >= t1 - 0.02) if k]
+        return to_numpy(st)
+
+    def _body_pose(self, rec):
+        """(Rwb, twb) of a frame record: Twb = Twc Tcb, in float64."""
+        Tcb = np.linalg.inv(np.asarray(self.cfg.imu.Tbc, np.float64))
+        Twb = np.linalg.inv(np.asarray(rec.Tcw, np.float64)) @ Tcb
+        return Twb[:3, :3], Twb[:3, 3]
+
+    def _body_poses(self):
+        """(Rwb (n, 3, 3), twb (n, 3)) of every frame in the map."""
+        Rwb, twb = zip(*(self._body_pose(rec) for rec in self.map.frames))
+        return np.stack(Rwb), np.stack(twb)
+
+    def _stacked_preints(self, preints):
+        """A list of preintegration states (None: no samples) padded into
+        the fixed (imu_max_frames - 1)-slot arrays ``initialize_imu``
+        takes, and the pair validity."""
+        M = self.imu_max_frames - 1
+        z33 = np.zeros((M, 3, 3), np.float32)
+        out = {
+            "dts": np.zeros(M, np.float32),
+            "dR": np.tile(np.eye(3, dtype=np.float32), (M, 1, 1)),
+            "dV": np.zeros((M, 3), np.float32),
+            "dP": np.zeros((M, 3), np.float32),
+            "JRg": z33.copy(), "JVg": z33.copy(), "JVa": z33.copy(),
+            "JPg": z33.copy(), "JPa": z33.copy(),
+            "C9": np.tile(np.eye(9, dtype=np.float32) * 1e-6, (M, 1, 1)),
+        }
+        pv = np.zeros(M, bool)
+        for i, st in enumerate(preints[:M]):
+            if st is None:
+                continue
+            out["dts"][i] = st.dT
+            for k in ("dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa"):
+                out[k][i] = getattr(st, k)
+            out["C9"][i] = st.C[:9, :9]
+            pv[i] = st.dT > 0
+        return out, pv
+
+    def _composed_pairs(self, idxs):
+        """One preintegration a pair of consecutive window frames, composed
+        from the per-frame ones; None where a sub-pair had no samples. The
+        slice is not bounds-checked, as in the JAX package
+        (tracking.py:874 there)."""
+        pairs = []
+        for a, b in zip(idxs[:-1], idxs[1:]):
+            subs = self._preints[a:b]
+            if any(p is None for p in subs):
+                pairs.append(None)
+                continue
+            st = subs[0]
+            for p in subs[1:]:
+                st = compose_preints(st, p)
+            pairs.append(st)
+        return pairs
+
+    @staticmethod
+    def _window(n: int, K: int, M: int):
+        """Frame indices of the stride-K window ending at frame n - 1."""
+        return list(range(n - 1, -1, -K))[::-1][-M:]
+
+    def _strides(self):
+        return sorted({1, max(1, int(self.imu_init_stride))})
+
+    def _try_initialize_imu(self, timestamp: float) -> None:
+        """InitializeIMU (Tracking.cc:937-1044): needs >= 10 frames and
+        >= 2 s of data; estimates gravity, scale and biases and rescales
+        the map and the state. The reference retries every frame with no
+        upper frame bound (Tracking.cc:1452-1453): past imu_max_frames
+        frames the window slides to the most recent ones.
+
+        Two stride candidates, the larger valid scale wins: consecutive
+        0.1 s pairs make the alignment an errors-in-variables problem whose
+        VO noise pulls the scale toward zero, and composing K pairs into a
+        longer baseline grows the signal ~K^2; when the noise is tiny the
+        stride only costs pairs. The failure is one-sided, so the larger
+        scale is the better-conditioned candidate."""
+        n = len(self.map)
+        if n < 10:
+            return
+        M = self.imu_max_frames
+        if timestamp - self.map.frames[max(0, n - M)].timestamp < 2.0:
+            return
+        Rwb, twb = self._body_poses()
+        self.imu_init_attempts += 1
+        best = None
+        for K in self._strides():
+            cand = self._init_candidate(K, n, M, Rwb, twb)
+            if cand is not None and (best is None
+                                     or float(cand.scale) > float(best.scale)):
+                best = cand
+        if best is None:
+            return
+        scale = float(best.scale)
+        if scale < 0.1:  # Tracking.cc:1008-1012
+            return
+        Rwg = np.asarray(best.Rwg, np.float64)
+        self.Rwg = Rwg
+        self.imu_bias = np.concatenate(
+            [np.asarray(best.bg), np.asarray(best.ba)]).astype(np.float32)
+        if abs(scale - 1.0) > 1e-5:  # Tracking.cc:1016-1020
+            self.map.apply_scaled_rotation(Rwg.T, scale)
+            self.imu_scale *= scale
+            self._rescale_state(scale, Rwg.T)
+        self.imu_initialized = True
+        self._last_scale_refine_t = timestamp
+
+    def _init_candidate(self, K: int, n: int, M: int, Rwb_np, twb_np):
+        """One staged init over the stride-K window (composed
+        preintegrations); None when the window has under 5 frames."""
+        idxs = self._window(n, K, M)
+        n_w = len(idxs)
+        if n_w < 5:
+            return None
+        Rwb = np.tile(np.eye(3, dtype=np.float32), (M, 1, 1))
+        twb = np.zeros((M, 3), np.float32)
+        Rwb[:n_w] = Rwb_np[idxs]
+        twb[:n_w] = twb_np[idxs]
+        pp, pv = self._stacked_preints(self._composed_pairs(idxs))
+        pv[n_w - 1:] = False
+        return initialize_imu(
+            torch.from_numpy(Rwb), torch.from_numpy(twb),
+            **{k: torch.from_numpy(v) for k, v in pp.items()},
+            pair_valid=torch.from_numpy(pv), prior_g=1e2, prior_a=1e9)
+
+    def _rescale_state(self, scale: float, Ryw: np.ndarray) -> None:
+        """Bring the tracker's state into the rescaled, gravity-aligned
+        world — the state side of Map::ApplyScaledRotation (Map.cc:57-120),
+        computed on the state's device (the card), nothing copied to the
+        host. Camera-frame quantities (feature depths, the BA ring's
+        backprojections) scale by s; the pose becomes
+        Tcw' = [Rcw Ryw^T | s tcw]; the ring poses Twc' = [Ryw Rwc |
+        s Ryw twc]; the odometry keeps its rotation and scales its
+        translation; the velocity and the per-bin object motions are
+        dropped and re-seed on the next frame."""
+        st = self.state
+        dev = st.Tcw.device
+        s = torch.tensor(scale, dtype=torch.float32, device=dev)
+        R = torch.as_tensor(np.asarray(Ryw, np.float64), dtype=torch.float32,
+                            device=dev)
+        Tcw = st.Tcw.clone()
+        Tcw[:3, :3] = st.Tcw[:3, :3] @ R.T
+        Tcw[:3, 3] = s * st.Tcw[:3, 3]
+        ba_Twc = st.ba_Twc.clone()
+        ba_Twc[:, :3, :3] = R @ st.ba_Twc[:, :3, :3]
+        ba_Twc[:, :3, 3] = s * (st.ba_Twc[:, :3, 3] @ R.T)
+        ba_odom = st.ba_odom.clone()
+        ba_odom[:, :3, 3] = st.ba_odom[:, :3, 3] * s
+        self.state = st._replace(
+            stat=st.stat._replace(depth=st.stat.depth * s),
+            obj=st.obj._replace(depth=st.obj.depth * s),
+            Tcw=Tcw, has_velocity=torch.zeros_like(st.has_velocity),
+            bin_has_motion=torch.zeros_like(st.bin_has_motion),
+            ba_obs=st.ba_obs * s, ba_Twc=ba_Twc, ba_odom=ba_odom)
+
+    def _try_scale_refinement(self, timestamp: float) -> None:
+        """ScaleRefinement (Tracking.cc:1046-1077), every ~10 s: the
+        stage-B alignment at stride 1 and K, the larger scale wins."""
+        if timestamp - self._last_scale_refine_t < 10.0:
+            return
+
+        def candidate(K):
+            """None unless both frames of every composed pair are in the
+            map."""
+            idxs = self._window(len(self.map), K, self.imu_max_frames)
+            if len(idxs) < 5 or idxs[-1] > len(self._preints):
+                return None
+            pre = self._composed_pairs(idxs)
+            if any(p is None for p in pre):
+                return None
+            Rwb, twb = zip(*(self._body_pose(self.map.frames[i])
+                             for i in idxs))
+
+            def f32(x):
+                return torch.from_numpy(np.asarray(x, np.float32))
+            dV = f32([p.dV for p in pre])
+            pv = torch.tensor([bool(p.dT > 0) for p in pre])
+            Rwb_t = f32(np.stack(Rwb))
+            Rwg0 = estimate_gravity_direction(Rwb_t, dV, pv)
+            _, s, Rwg, _ = linear_alignment(
+                Rwb_t, f32(np.stack(twb)), f32([p.dT for p in pre]), dV,
+                f32([p.dP for p in pre]), pv, Rwg0)
+            return float(s), np.asarray(Rwg)
+
+        self.imu_refine_runs += 1
+        best = None
+        for K in self._strides():
+            c = candidate(K)
+            if c is not None and (best is None or c[0] > best[0]):
+                best = c
+        if best is None:
+            return
+        scale, Rwg = best
+        self._last_scale_refine_t = timestamp
+        if scale < 0.1 or abs(scale - 1.0) <= 1e-5:
+            return
+        Ryw = np.asarray(Rwg, np.float64).T
+        self.map.apply_scaled_rotation(Ryw, scale)
+        self.imu_scale *= scale
+        self._rescale_state(scale, Ryw)
+
+    def _vio_event_due(self, ts) -> bool:
+        """Whether ``_vio_update`` could act at ``ts``: the gates of
+        Tracking.cc:939-949 (>= 10 frames, >= 2 s since the first) until
+        the init succeeds, then one refinement every ~10 s
+        (:1046-1077)."""
+        if ts is None:
+            return False
+        if not self.imu_initialized:
+            return (len(self.map) >= 10
+                    and ts - self.map.frames[0].timestamp >= 2.0)
+        return ts - self._last_scale_refine_t >= 10.0
+
+    @torch.no_grad()
+    def _vio_update(self, timestamp) -> None:
+        """IMU init or scale refinement (Tracking.cc:1452-1480), at a point
+        where every frame is recorded and the state is on the last one."""
+        if not self._vio_event_due(timestamp):
+            return
+        if not self.imu_initialized:
+            self._try_initialize_imu(float(timestamp))
+        else:
+            self._try_scale_refinement(float(timestamp))
 
     # ------------------------------------------------------------------
     def _record_outputs(self, h, timestamp, Tcw_gt, step_time):
