@@ -165,6 +165,31 @@ def test_lm_solve_all_masked_stops_at_once():
     np.testing.assert_array_equal(rt.x.numpy(), x0)
 
 
+def _off_cpu_calls(device):
+    """lm_solve and linear_alignment on tensors on ``device``."""
+    _, a = _arrays(ACCEPTED[0])
+    names = ("Rwb", "twb", "dts", "dV", "dP", "pair_valid")
+
+    def on(x):
+        return torch.from_numpy(np.array(x)).to(device)
+    return {
+        "lm_solve": lambda: lm_solve(lambda x: x[:, None] * 2.0,
+                                     torch.zeros(3, device=device)),
+        "linear_alignment": lambda: T.linear_alignment(
+            *_args(a, names, on), torch.eye(3, device=device)),
+    }
+
+
+@pytest.mark.parametrize("which", ["lm_solve", "linear_alignment"])
+def test_off_cpu_tensors_are_refused(which):
+    """The IMU math runs on the CPU by its device rule; a tensor elsewhere
+    raises instead of being copied to the host and back every iteration
+    (``meta`` tensors stand in for the card's here; on the card,
+    tests/test_torch_vio_gpu.py)."""
+    with pytest.raises(ValueError, match="CPU"):
+        _off_cpu_calls("meta")[which]()
+
+
 # ---------------------------------------------------------------------------
 # the init stages on tests/test_imu.py's problems
 # ---------------------------------------------------------------------------

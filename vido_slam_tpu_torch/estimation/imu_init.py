@@ -25,9 +25,13 @@ import scipy.linalg
 import torch
 
 from vido_slam_tpu_torch.estimation.lm import (cholesky_or_nan, lm_solve,
-                                               lu_solve_trsm)
+                                               lu_solve_trsm, require_cpu)
 from vido_slam_tpu_torch.geometry.so3 import exp_so3, log_so3
 from vido_slam_tpu_torch.imu.preintegration import GRAVITY_VALUE
+
+# LM iterations of initialize_imu's stage-C polish (the JAX package's
+# refine_iters default, which no caller changes)
+REFINE_ITERS = 100
 
 
 class InertialInitResult(NamedTuple):
@@ -61,9 +65,9 @@ def _lapack_solve(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     solution carries rounding error of up to percents, and the inertial
     init's later stages and the tracker's accept decisions follow it: with
     torch's LU the scale moved 1.4 % on tests/test_imu.py's problem."""
-    lu, piv = scipy.linalg.lu_factor(M.detach().cpu().numpy())
-    return torch.from_numpy(lu_solve_trsm(lu, piv, v.detach().cpu().numpy())
-                            ).to(M.device)
+    require_cpu(M, "linear_alignment")
+    lu, piv = scipy.linalg.lu_factor(M.detach().numpy())
+    return torch.from_numpy(lu_solve_trsm(lu, piv, v.detach().numpy()))
 
 
 def estimate_gravity_direction(Rwb: torch.Tensor, dV: torch.Tensor,
@@ -83,8 +87,8 @@ def _bias_corrected(dR, dV, dP, JRg, JVg, JPg, bg):
 
 
 def initialize_imu(Rwb, twb, dts, dR, dV, dP, JRg, JVg, JVa, JPg, JPa, C9,
-                   pair_valid, prior_g: float = 1e2, prior_a: float = 1e9,
-                   refine_iters: int = 100) -> InertialInitResult:
+                   pair_valid, prior_g: float = 1e2, prior_a: float = 1e9
+                   ) -> InertialInitResult:
     """The staged init (each stage starts near its optimum, where the
     reference's single joint LM, Tracking.cc:937-1044, has spurious minima
     started cold): A. gyro bias from rotation-only residuals; B. closed-form
@@ -127,7 +131,7 @@ def initialize_imu(Rwb, twb, dts, dR, dV, dP, JRg, JVg, JVa, JPg, JPa, C9,
     res = inertial_optimization(
         Rwb, twb, dts, dR_b, dV_b, dP_b, JRg, JVg, JVa, JPg, JPa, C9,
         pair_valid, Rwg1, prior_g, prior_a, v_init=U / s_safe,
-        log_s_init=torch.log(s_safe), max_iters=refine_iters)
+        log_s_init=torch.log(s_safe), max_iters=REFINE_ITERS)
     return res._replace(bg=res.bg + bg_A)
 
 
@@ -189,8 +193,7 @@ def linear_alignment(Rwb, twb, dts, dV_b, dP_b, pair_valid, Rwg0):
 def inertial_optimization(Rwb, twb, dts, dR, dV, dP, JRg, JVg, JVa, JPg, JPa,
                           C9, pair_valid, Rwg0, prior_g: float = 1e2,
                           prior_a: float = 1e9, v_init=None, log_s_init=None,
-                          *, max_iters: int = 200,
-                          fix_biases: bool = False) -> InertialInitResult:
+                          *, max_iters: int = 200) -> InertialInitResult:
     """Stage C: the joint LM over velocities, biases, 2 gravity angles and
     the log-scale, camera poses fixed (Optimizer.cc:2336-2620)."""
     N = Rwb.shape[0]
@@ -233,9 +236,6 @@ def inertial_optimization(Rwb, twb, dts, dR, dV, dP, JRg, JVg, JVa, JPg, JPa,
         bg = x[3 * N:3 * N + 3]
         ba = x[3 * N + 3:3 * N + 6]
         dg = x[3 * N + 6:3 * N + 8]
-        if fix_biases:
-            bg = torch.zeros_like(bg)
-            ba = torch.zeros_like(ba)
         return vel, bg, ba, dg, x[3 * N + 8:]
 
     # (1,)-shaped log-scale and rotation vector: forward-mode AD gives a

@@ -38,6 +38,16 @@ def huber_weight(chi2: torch.Tensor, delta: float) -> torch.Tensor:
                        delta / torch.sqrt(safe))
 
 
+def require_cpu(t: torch.Tensor, who: str) -> None:
+    """Refuse a tensor off the CPU: the IMU-side math (this engine, the
+    inertial init's LAPACK solves) runs on the host by design, on explicit
+    ``device="cpu"`` tensors (``tracking.py`` says why), and a card tensor
+    here would mean a host round trip every iteration."""
+    if t.device.type != "cpu":
+        raise ValueError(f"{who} runs on the CPU (the IMU math's device "
+                         f"rule); got a tensor on {t.device}")
+
+
 def cholesky_or_nan(H: torch.Tensor) -> torch.Tensor:
     """Cholesky factor of (a batch of) SPD H; NaN where H is not positive
     definite, as the JAX package's CPU ``cholesky`` gives."""
@@ -63,13 +73,12 @@ def _lapack_cho_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     call) and two BLAS trsm, the second on the transposed factor. NaN where
     H is not positive definite, as JAX gives."""
     try:
-        L = scipy.linalg.cholesky(H.detach().cpu().numpy(), lower=True)
+        L = scipy.linalg.cholesky(H.detach().numpy(), lower=True)
     except np.linalg.LinAlgError:
         return torch.full_like(g, float("nan"))
-    y = scipy.linalg.blas.strsm(1.0, L, g.detach().cpu().numpy()[:, None],
-                                lower=1)
+    y = scipy.linalg.blas.strsm(1.0, L, g.detach().numpy()[:, None], lower=1)
     x = scipy.linalg.blas.strsm(1.0, np.ascontiguousarray(L.T), y, lower=0)
-    return torch.from_numpy(x[:, 0]).to(g.device)
+    return torch.from_numpy(x[:, 0])
 
 
 def _solve_spd(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -135,8 +144,10 @@ def lm_solve(
     when the damping explodes. ``jac_fn`` x -> (N, d, P) replaces autodiff
     (``torch.func.jacfwd``). With ``retract_fn`` (x, delta) ->
     x the state may be any tensor (e.g. a (4, 4) pose), ``tangent_dim``
-    fixes P, and the chart is re-centred every iteration (g2o's oplus)."""
+    fixes P, and the chart is re-centred every iteration (g2o's oplus).
+    CPU tensors only (``require_cpu``)."""
     x0 = torch.as_tensor(x0)
+    require_cpu(x0, "lm_solve")
     if retract_fn is None:
         P = x0.shape[0]
         chart = False

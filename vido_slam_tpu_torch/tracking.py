@@ -924,23 +924,12 @@ class Tracker:
         self.imu_scale *= scale
         self._rescale_state(scale, Ryw)
 
-    def _vio_event_due(self, ts) -> bool:
-        """Whether ``_vio_update`` could act at ``ts``: the gates of
-        Tracking.cc:939-949 (>= 10 frames, >= 2 s since the first) until
-        the init succeeds, then one refinement every ~10 s
-        (:1046-1077)."""
-        if ts is None:
-            return False
-        if not self.imu_initialized:
-            return (len(self.map) >= 10
-                    and ts - self.map.frames[0].timestamp >= 2.0)
-        return ts - self._last_scale_refine_t >= 10.0
-
     @torch.no_grad()
     def _vio_update(self, timestamp) -> None:
         """IMU init or scale refinement (Tracking.cc:1452-1480), at a point
-        where every frame is recorded and the state is on the last one."""
-        if not self._vio_event_due(timestamp):
+        where every frame is recorded and the state is on the last one;
+        each applies its own gate."""
+        if timestamp is None:
             return
         if not self.imu_initialized:
             self._try_initialize_imu(float(timestamp))
