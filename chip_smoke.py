@@ -67,11 +67,30 @@ Phases, each of which fails the run by raising:
      clip as IMU_RGBD through ``System.TrackFrames`` with the IMU up to
      each frame's timestamp: init attempts from the gate on (>= 10 frames,
      >= 2 s), each tracked call's depth at base x the IMU scale, finite
-     poses, phase (e)'s launches; it prints its median ms a frame;
+     poses, phase (e)'s launches; it prints its median ms a frame. (h) the
+     offline demo from files: the port's CLI (``vido_slam_tpu_torch.
+     run_vido.main``) on dataset trees this script writes into a temporary
+     directory with its own PNG writer (the rows' filters cycle through all
+     five types): (h1) a KAIST tree of (a)'s scene at 1280x560 (BayerBG
+     frames, .flo, 16-bit depth by KAIST's rule, masks, timestamps) as VO
+     with FAST features over 24 frames, (h2) the same tree as VIO over (f)'s
+     45 frames with ``driving_imu``'s 200 Hz xsens_imu.csv, (h3) a KITTI tree
+     at 1242x375 with the KITTI tracking camera 2 over 24 frames, ending in
+     the StopFrame full batch at the JAX defaults, (h4) ``--online`` over 8
+     frames of the bench clip as a 640x192 KAIST tree. Each writes a line a
+     frame into its result txts; (h1)-(h3) keep camera ATE of the initial
+     and the refined trajectory under 1 % of the path (SE(3)-aligned for
+     VIO) and launch kernel 1 twice a tracked frame and nothing else; (h2)
+     initializes at (f)'s frame after (f)'s attempts; (h3)'s refined
+     trajectory differs from the initial one; (h4) launches at (e)'s per-call
+     counts; the C++ PNG unfilter is bit-equal to its plain version on a
+     full-size frame. It prints the CLI loop's ms a frame, reading included,
+     with the reading's share, and the full batch's seconds and LM
+     iterations, beside the card line;
   5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
-     call's arguments, and its launches on (f) and (g)), then the device
-     line.
+     call's arguments, its launches on (f) and (g), and on (h1)-(h4)),
+     then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -912,10 +931,10 @@ class KernelArgs:
 # phase 4: main path
 # ---------------------------------------------------------------------------
 
-def offline_sequence(n_frames, device):
-    """The offline bench scene: KAIST calibration, the analytic driving
-    trajectory, two vehicles (one semantic label) driving toward the
-    camera."""
+def offline_sequence(n_frames, device, cfg=OFFLINE_CONFIG):
+    """The offline bench scene: KAIST calibration (or ``cfg``'s camera),
+    the analytic driving trajectory, two vehicles (one semantic label)
+    driving toward the camera."""
     import torch
     from vido_slam_tpu_torch.geometry.camera import Camera
     from vido_slam_tpu_torch.io.synthetic import (Box, SyntheticScene,
@@ -923,7 +942,6 @@ def offline_sequence(n_frames, device):
                                                   driving_pose,
                                                   translation_se3)
 
-    cfg = OFFLINE_CONFIG
     cam = Camera.create(fx=cfg["Camera.fx"], fy=cfg["Camera.fy"],
                         cx=cfg["Camera.cx"], cy=cfg["Camera.cy"],
                         width=cfg["Camera.width"],
@@ -1374,6 +1392,377 @@ def check_whole_depth(dev, frame) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (h): the offline demo from files
+# ---------------------------------------------------------------------------
+
+def write_png(path, img, level=6) -> None:
+    """A PNG of ``img`` as ``cv2.imwrite`` takes it (gray, gray + alpha, BGR
+    or BGRA; uint8 or uint16), row y filtered by type y % 5 (None, Sub, Up,
+    Avg, Paeth), so a reader of the file meets every unfilter path."""
+    import struct
+    import zlib
+
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, C = img.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[C]
+    if C >= 3:  # BGR(A) -> the file's RGB(A)
+        img = np.concatenate([img[..., 2::-1], img[..., 3:]], axis=-1)
+    depth = 16 if img.dtype == np.uint16 else 8
+    rows = np.ascontiguousarray(img.astype(">u2" if depth == 16
+                                           else np.uint8))
+    x = rows.view(np.uint8).reshape(H, -1).astype(np.int32)
+    bpp = C * depth // 8
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kind = np.arange(H) % 5
+    pred = np.select([kind[:, None] == k for k in range(1, 5)],
+                     [a, b, (a + b) >> 1, paeth])
+    body = np.concatenate([kind[:, None].astype(np.uint8),
+                           ((x - pred) & 0xFF).astype(np.uint8)], axis=1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(body.tobytes(), level))
+                + chunk(b"IEND", b""))
+
+
+def mosaic_bayer_bg(bgr):
+    """(H, W, 3) uint8 BGR -> the (H, W) BayerBG frame a KAIST camera
+    records: R at (even, even), B at (odd, odd), G elsewhere."""
+    raw = bgr[..., 1].copy()
+    raw[0::2, 0::2] = bgr[0::2, 0::2, 2]
+    raw[1::2, 1::2] = bgr[1::2, 1::2, 0]
+    return raw
+
+
+def write_config(path, cfg) -> None:
+    """An OpenCV-FileStorage YAML of the flat ``cfg`` dict."""
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\n")
+        for k, v in cfg.items():
+            f.write(f'{k}: "{v}"\n' if isinstance(v, str) else f"{k}: {v}\n")
+
+
+def write_tree(root, kind, frames, png=write_png, imu=None):
+    """A dataset tree in the reference demo's layout under ``root``: each of
+    ``frames`` is (bgr uint8, raw depth uint16, flow (H, W, 2) float32, mask
+    uint8, t seconds). ``kind`` "kaist": image/<19-digit ns stamp>.png
+    BayerBG frames listed by vTimestampsImage.txt, and with ``imu`` (times
+    s, acc, gyro) xsens_imu.csv (stamp ns, gyro cols 8-10, acc 11-13);
+    "kitti": image_02/<10-digit index>.png BGR frames listed by times.txt.
+    flow/<stem>.flo, depth/<stem>.png (16-bit) and mask/<stem>.png beside
+    the image directory. ``png(path, img)`` writes the PNGs. Returns the
+    config entries naming the tree (image_path, and imu_path)."""
+    from vido_slam_tpu_torch.io.datasets import write_flo
+
+    img_dir = os.path.join(root, "image" if kind == "kaist" else "image_02")
+    for d in (img_dir, *(os.path.join(root, s)
+                         for s in ("flow", "depth", "mask"))):
+        os.makedirs(d, exist_ok=True)
+    stamps = []
+    for i, (bgr, depth, flow, mask, t) in enumerate(frames):
+        if kind == "kaist":
+            stamps.append(f"{int(round(t * 1e9)):019d}")
+            stem = stamps[-1]
+            png(os.path.join(img_dir, stem + ".png"), mosaic_bayer_bg(bgr))
+        else:
+            stamps.append(f"{t:.6f}")
+            stem = f"{i:010d}"
+            png(os.path.join(img_dir, stem + ".png"), bgr)
+        write_flo(os.path.join(root, "flow", stem + ".flo"), flow)
+        png(os.path.join(root, "depth", stem + ".png"), depth)
+        png(os.path.join(root, "mask", stem + ".png"), mask)
+    with open(os.path.join(root, "vTimestampsImage.txt" if kind == "kaist"
+                           else "times.txt"), "w") as f:
+        f.write("# timestamp\n" + "".join(s + "\n" for s in stamps))
+    out = {"image_path": img_dir}
+    if imu is not None:
+        times, acc, gyro = imu
+        out["imu_path"] = os.path.join(root, "xsens_imu.csv")
+        with open(out["imu_path"], "w") as f:
+            f.write("# stamp_ns,q,...,gyro x y z,acc x y z\n")
+            for t, a, w in zip(times, acc, gyro):
+                cols = [f"{int(round(t * 1e9))}"] + ["0"] * 7 \
+                    + [repr(float(v)) for v in (*w, *a)]
+                f.write(",".join(cols) + "\n")
+    return out
+
+
+# the KITTI tracking benchmark's camera 2 (its calib files): 1242x375,
+# bf = fx x 0.54 m (the stereo baseline); raw depth = 256 bf / z
+KITTI_CONFIG = {
+    "Camera.width": 1242, "Camera.height": 375, "Camera.fx": 721.5377,
+    "Camera.fy": 721.5377, "Camera.cx": 609.5593, "Camera.cy": 172.854,
+    "Camera.bf": 721.5377 * 0.54, "ChooseData": 2, "DepthMapFactor": 256,
+    "WINDOW_SIZE": 20, "MaxTrackPointBG": 3000, "MaxTrackPointOBJ": 800,
+    "Camera.fps": 10, "UseSampleFeature": 0,
+}
+DEMO_ONLINE_FRAMES = 8
+
+
+def demo_rows(seq, cfg):
+    """The frames of ``seq`` as a dataset stores them: BGR uint8 rendered
+    by ``render_rgb``, raw 16-bit depth by the dataset's rule (metric = bf /
+    (raw / DepthMapFactor), KAIST and KITTI alike; 0 where no surface),
+    flow, uint8 mask, t = k / 10 s."""
+    import torch
+    from vido_slam_tpu_torch.io.synthetic import render_rgb
+
+    dev = torch.device("cuda")
+    f = cfg["DepthMapFactor"] * cfg["Camera.bf"]
+    rows = []
+    for k, fr in enumerate(seq.frames):
+        rgb = render_rgb(seq.scene, torch.as_tensor(fr.Tcw_gt, device=dev),
+                         [torch.as_tensor(p, device=dev)
+                          for p in fr.box_poses])
+        bgr = torch.round(rgb.flip(-1)).to(torch.uint8).cpu().numpy()
+        raw = np.where(fr.depth > 0, np.clip(np.round(
+            f / np.maximum(fr.depth, 1e-6)), 1, 65535), 0)
+        rows.append((bgr, raw.astype(np.uint16), fr.flow,
+                     fr.mask.astype(np.uint8), k / 10.0))
+    return rows
+
+
+class Spy:
+    """Wraps ``owner.attr`` while on: each call passes on, and ``after(self,
+    result, seconds)`` sees it (the card synchronised around it)."""
+
+    def __init__(self, owner, attr, after):
+        self.owner, self.attr, self.after = owner, attr, after
+        self.fn = getattr(owner, attr)
+
+    def __enter__(self):
+        import torch
+
+        fn, after = self.fn, self.after
+
+        def wrapper(obj, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(obj, *args, **kw)
+            torch.cuda.synchronize()
+            after(obj, out, time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+
+
+def run_demo(argv, counters):
+    """The CLI's ``main(argv)`` in this process, the counters zeroed just
+    before; returns its DemoRun, each counter's launches during it, the
+    IMU-initialized flag after each TrackRGBD and each full batch's
+    (seconds, result)."""
+    from vido_slam_tpu_torch import run_vido, system, tracking
+
+    inited, batches = [], []
+    with Spy(system.System, "TrackRGBD", lambda s, out, t: inited.append(
+            s.tracker.imu_initialized)), \
+            Spy(tracking.Tracker, "run_full_batch",
+                lambda s, out, t: batches.append((t, out))):
+        for c in counters:
+            c.launches = 0
+        run = run_vido.main(argv)
+        launches = [c.launches for c in counters]
+    return run, launches, inited, batches
+
+
+def check_demo(run, out_dir, gts, n_frames, launches, expect, aligned=False):
+    """A line a frame in the result txts, the launches as expected, camera
+    ATE of the initial and the refined trajectory under 1 % of the path
+    (SE(3)-aligned for VIO, whose map is gravity-aligned after the init).
+    Returns (ATE initial, ATE refined, path length)."""
+    from vido_slam_tpu_torch.metrics import ate_rmse, camera_centers
+
+    check(launches == expect, f"{out_dir}: launches {launches}, not {expect}")
+    check(len(run.track_s) == n_frames, f"{out_dir}: {len(run.track_s)} "
+          f"frames tracked, not {n_frames}")
+    poses = {}
+    for name in ("initial_rgbd_new.txt", "refined_rgbd_new.txt"):
+        rows = np.loadtxt(os.path.join(out_dir, name), ndmin=2)
+        check(rows.shape == (n_frames, 17) and np.isfinite(rows).all()
+              and (rows[:, 0] == np.arange(n_frames)).all(),
+              f"{out_dir}{name}: {rows.shape} rows")
+        Twc = np.tile(np.eye(4), (n_frames, 1, 1))
+        Twc[:, :3, :] = rows[:, 1:13].reshape(-1, 3, 4)
+        poses[name] = np.linalg.inv(Twc)
+    check(os.path.exists(os.path.join(out_dir, "obj_mot_rgbd_new.txt")),
+          f"{out_dir}: no object motions' file")
+    gt = np.stack(gts[:n_frames]).astype(np.float64)
+    c = camera_centers(gt)
+    path = float(np.linalg.norm(np.diff(c, axis=0), axis=1).sum())
+    ates = [ate_rmse(p, gt, align=aligned, with_scale=False)
+            for p in poses.values()]
+    check(max(ates) < 0.01 * path, f"{out_dir}: camera ATE initial, refined "
+          f"{ates} m over a {path} m path")
+    return ates[0], ates[1], path, poses
+
+
+def demo_ms(run):
+    """(median ms a frame of the CLI loop, reading included, over frames
+    4 on; the reading's median ms; the ratio of the two medians). The
+    last frame of a KITTI run carries the full batch, which the medians
+    leave out."""
+    read, track = np.asarray(run.read_s[4:]), np.asarray(run.track_s[4:])
+    ms, read_ms = 1e3 * float(np.median(read + track)), \
+        1e3 * float(np.median(read))
+    return ms, read_ms, read_ms / ms
+
+
+def check_unfilter(path):
+    """The C++ unfilter bit-equal to its plain version on one written
+    frame's inflated stream. Returns the stream's bytes."""
+    import zlib
+
+    from vido_slam_tpu_torch.io import png
+
+    with open(path, "rb") as f:
+        chunks = list(png._chunks(f.read()))
+    w, h, depth, ctype = (int.from_bytes(chunks[0][1][i:i + n], "big")
+                          for i, n in ((0, 4), (4, 4), (8, 1), (9, 1)))
+    raw = np.frombuffer(zlib.decompress(b"".join(
+        b for t, b in chunks if t == b"IDAT")), np.uint8)
+    bpp = png.CHANNELS[ctype] * depth // 8
+    check(sorted(set(raw[::w * bpp + 1].tolist())) == [0, 1, 2, 3, 4],
+          f"{path}: not every filter type")
+    native = png.unfilter(raw, h, w * bpp, bpp)
+    plain = png.unfilter_plain(raw, h, w * bpp, bpp)
+    check(np.array_equal(native, plain), f"{path}: the C++ unfilter differs "
+          f"from its plain version")
+    return raw.size
+
+
+def run_phase_h(counters, names, seq, vio_init, vio_attempts):
+    """Phase (h), the offline demo from files: the CLI's main() on trees
+    this function writes. Returns each kernel's launches on (h1)-(h4)."""
+    cards = card_line()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        # the KAIST tree of (a)'s scene over (f)'s 45 frames, with the IMU
+        t_imu = np.arange(1, int(round(IMU_HZ * (len(seq.frames) - 1) / 10))
+                          + 1) / IMU_HZ
+        from vido_slam_tpu_torch.io.synthetic import driving_imu
+
+        t0 = time.perf_counter()
+        kaist = write_tree(os.path.join(root, "kaist"), "kaist",
+                           demo_rows(seq, OFFLINE_CONFIG),
+                           imu=(t_imu, *driving_imu(t_imu)))
+        kitti_seq = offline_sequence(N_FRAMES, "cuda", KITTI_CONFIG)
+        kitti = write_tree(os.path.join(root, "kitti"), "kitti",
+                           demo_rows(kitti_seq, KITTI_CONFIG))
+        clip = np.load(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), ONLINE_CLIP))["clip"]
+        zeros = (np.zeros((ONLINE_H, ONLINE_W), np.uint16),
+                 np.zeros((ONLINE_H, ONLINE_W, 2), np.float32),
+                 np.zeros((ONLINE_H, ONLINE_W), np.uint8))
+        online = write_tree(os.path.join(root, "online"), "kaist", [
+            (np.clip(np.round(fr), 0, 255).astype(np.uint8), *zeros, k / 10.0)
+            for k, fr in enumerate(clip[:DEMO_ONLINE_FRAMES])])
+        print(f"(h) trees written in {time.perf_counter() - t0:.1f} s: KAIST "
+              f"1280x560 x {len(seq.frames)} (BayerBG PNG, .flo, 16-bit "
+              f"depth, mask, {t_imu.size} IMU rows), KITTI 1242x375 x "
+              f"{N_FRAMES}, online 640x192 x {DEMO_ONLINE_FRAMES}")
+        first = sorted(os.listdir(kaist["image_path"]))[0]
+        n_bytes = [check_unfilter(os.path.join(kaist["image_path"], first)),
+                   check_unfilter(os.path.join(kitti["image_path"],
+                                               "0000000000.png"))]
+        print(f"(h) C++ PNG unfilter bit-equal to its plain version on a "
+              f"Bayer frame ({n_bytes[0]} bytes) and a KITTI BGR frame "
+              f"({n_bytes[1]} bytes)")
+
+        def cfg_file(name, cfg):
+            path = os.path.join(root, name + ".yaml")
+            write_config(path, cfg)
+            return path
+
+        vo = dict(OFFLINE_CONFIG, UseSampleFeature=0, slam_mode=0, **kaist)
+        gts = [fr.Tcw_gt for fr in seq.frames]
+        for tag, cfg, n, kw in (
+                ("h1", vo, N_FRAMES, {}),
+                ("h2", dict(vo, slam_mode=1), len(seq.frames),
+                 {"aligned": True}),
+                ("h3", dict(KITTI_CONFIG, slam_mode=0, **kitti), N_FRAMES,
+                 {})):
+            d = os.path.join(root, "out_" + tag, "")
+            run, launches, inited, batches = run_demo(
+                [cfg_file(tag, cfg), "--output", d, "--max-frames", str(n),
+                 "--device", "cuda"], counters)
+            want = [2 * (n - 1), 0, 0, 0, 0]
+            truth = [fr.Tcw_gt for fr in kitti_seq.frames] if tag == "h3" \
+                else gts
+            ate0, ate1, path, poses = check_demo(run, d, truth, n, launches,
+                                                 want, **kw)
+            ms, read_ms, share = demo_ms(run)
+            line = (f"({tag}) CLI {'KITTI' if tag == 'h3' else 'KAIST'} "
+                    f"{'VIO' if tag == 'h2' else 'VO'}: {n} frames, launches "
+                    f"{launches}, camera ATE initial {ate0:.5f} m, refined "
+                    f"{ate1:.5f} m over {path:.3f} m"
+                    f"{' (SE(3)-aligned)' if kw else ''}; ms a frame of the "
+                    f"CLI loop median {ms:.2f}, reading {read_ms:.2f} "
+                    f"({100 * share:.1f} % of it)")
+            if tag == "h2":
+                init = inited.index(True) if True in inited else None
+                attempts = run.system.tracker.imu_init_attempts
+                check(init == vio_init and attempts == vio_attempts,
+                      f"(h2): init at frame {init} after {attempts} "
+                      f"attempts, (f)'s at {vio_init} after {vio_attempts}")
+                line += (f"; init at frame {init} after {attempts} "
+                         f"attempt(s), as (f)")
+            if tag == "h3":
+                check(len(batches) == 1, f"(h3): {len(batches)} full batches")
+                secs, res = batches[0]
+                check(not np.allclose(poses["initial_rgbd_new.txt"],
+                                      poses["refined_rgbd_new.txt"],
+                                      rtol=0, atol=1e-7),
+                      "(h3): the refined trajectory is the initial one")
+                line += (f"; StopFrame full batch {secs:.2f} s, "
+                         f"{res.num_iters} LM iterations (15 x 60 CG at "
+                         f"most), cost {float(res.cost):.6f}")
+            print(line + f"; card {cards}")
+            out[tag] = launches
+            del run
+        d = os.path.join(root, "out_h4", "")
+        run, launches, _, _ = run_demo(
+            [cfg_file("h4", dict(ONLINE_CONFIG, **online)), "--output", d,
+             "--online", "--device", "cuda"], counters)
+        n = DEMO_ONLINE_FRAMES
+        want = [2 * (n - 1), 0, 5 * n, 5 * n, 2 * n]
+        check(launches == want, f"(h4): launches {launches}, not {want}")
+        check(len(run.track_s) == n, f"(h4): {len(run.track_s)} frames")
+        for name in ("initial_rgbd_new.txt", "refined_rgbd_new.txt"):
+            rows = np.loadtxt(os.path.join(d, name), ndmin=2)
+            check(rows.shape == (n, 17) and np.isfinite(rows).all(),
+                  f"(h4) {name}: {rows.shape}")
+        ms, read_ms, share = demo_ms(run)
+        print(f"(h4) CLI --online: {n} frames of the bench clip as a 640x192 "
+              f"KAIST tree, launches {launches}; ms a frame median {ms:.2f}, "
+              f"reading {read_ms:.2f} ({100 * share:.1f} % of it); card "
+              f"{cards}")
+        out["h4"] = launches
+        del run
+    return {name: {t: out[t][i] for t in ("h1", "h2", "h3", "h4")}
+            for i, name in enumerate(names)}
+
+
 def main() -> int:
     import torch
 
@@ -1496,6 +1885,7 @@ def main() -> int:
           f"{1e3 * np.mean(steady):.2f} (frames 4-{VIO_FRAMES - 1}, host "
           f"clock over torch.cuda.synchronize; init frame "
           f"{1e3 * times[init_frame]:.2f} ms); card {card_line()}")
+    vio_attempts = tracker.imu_init_attempts
     del tracker
 
     # (c) the flow path
@@ -1626,6 +2016,10 @@ def main() -> int:
           f"over torch.cuda.synchronize); card {card_line()}")
     del system, frames, model
 
+    # (h) the offline demo from files: the CLI on trees written here
+    demo_launches = run_phase_h(counters, names, seq, init_frame,
+                                vio_attempts)
+
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
     calls, k = recorder.frame_calls()
@@ -1734,6 +2128,7 @@ def main() -> int:
         e["online_launches"] = launches_online[i]
         e["offline_vio_launches"] = launches_vio[i]
         e["online_vio_launches"] = launches_online_vio[i]
+        e["demo_launches"] = demo_launches[e["name"]]
         e["online_ms"], e["online_bound_ms"] = timing[0], timing[2]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

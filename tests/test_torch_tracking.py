@@ -392,8 +392,12 @@ def test_unported_entry_points_raise(sequence):
                 device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         t.track_frames_pair(None, None, None)
-    with pytest.raises(NotImplementedError, match="full-batch"):
-        t.run_full_batch()
+    # the full batch is ported (tests/test_torch_full_ba.py); like the JAX
+    # package's it refuses light records
+    light = Tracker(config_from_dict(_cfg_dict(scene)), device="cpu",
+                    fused_ba=True, record="light")
+    with pytest.raises(ValueError, match="record='full'"):
+        light.run_full_batch()
     # the IMU_RGBD sensor is ported: it builds a VIO tracker
     s = System()
     s.init_from_config(config_from_dict(_cfg_dict(scene)), Sensor.IMU_RGBD,

@@ -1,0 +1,226 @@
+"""Dataset IO of the offline demo without cv2 — counterpart of
+``vido_slam_tpu/io/datasets.py`` (the reference's loaders,
+run_vido_slam.cc:14-65, 112-137, and run_vido.cc:195-215):
+
+  - KAIST: the image list from vTimestampsImage.txt (nanosecond stamps ->
+    "<stamp>.png"), xsens_imu.csv (col 0 stamp ns, gyro cols 8-10, acc
+    cols 11-13), and the BayerBG -> BGR demosaic of the raw camera frames;
+  - KITTI: the image list from times.txt (10-digit frame names, .jpg else
+    .png);
+  - Middlebury .flo optical flow (cv::readOpticalFlow);
+  - 16-bit depth PNGs and 8-bit mask PNGs (run_vido_slam.cc:118-122).
+
+Images are read by ``imread`` with the semantics of the ``cv2.imread``
+flags the demo passes, on the port's own PNG decoder (``io/png.py``).
+JPEG is not decoded (ROADMAP.md queue 1 item 10b).
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+
+from vido_slam_tpu_torch.io.png import read_png
+
+FLO_MAGIC = 202021.25
+
+# cv2's values of the imread flags
+IMREAD_GRAYSCALE = 0
+IMREAD_COLOR = 1
+IMREAD_ANYDEPTH = 2
+
+
+def read_flo(path: str) -> np.ndarray:
+    """Middlebury .flo (the format cv::readOpticalFlow parses): magic f32,
+    width i32, height i32, then h*w*2 f32 (u, v) interleaved."""
+    with open(path, "rb") as f:
+        magic = struct.unpack("<f", f.read(4))[0]
+        if abs(magic - FLO_MAGIC) > 1e-3:
+            raise ValueError(f"{path}: bad .flo magic {magic}")
+        w = struct.unpack("<i", f.read(4))[0]
+        h = struct.unpack("<i", f.read(4))[0]
+        data = np.frombuffer(f.read(h * w * 2 * 4), dtype="<f4")
+    return data.reshape(h, w, 2).copy()
+
+
+def write_flo(path: str, flow: np.ndarray) -> None:
+    h, w = flow.shape[:2]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<f", FLO_MAGIC))
+        f.write(struct.pack("<i", w))
+        f.write(struct.pack("<i", h))
+        f.write(np.ascontiguousarray(flow, dtype="<f4").tobytes())
+
+
+def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
+    """``cv2.imread(path, flags)`` for PNG files, bit-equal to it:
+    ``IMREAD_COLOR`` gives (H, W, 3) uint8 BGR (gray replicated, alpha
+    dropped, 16-bit samples cut to their high byte); ``IMREAD_GRAYSCALE``
+    (H, W) uint8 and ``IMREAD_ANYDEPTH`` (H, W) at the file's depth, both
+    from gray (or gray + alpha) files only: cv2 turns colour into gray by
+    libpng's own weights, which this reader does not copy, so it refuses.
+    A missing file gives None, as in cv2; a JPEG raises
+    ``NotImplementedError``."""
+    if not os.path.exists(path):
+        return None
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+        raise NotImplementedError(
+            f"{path}: JPEG decoding without cv2 is not ported to "
+            f"vido_slam_tpu_torch yet (ROADMAP.md queue 1 item 10b); "
+            f"convert the images to PNG")
+    img = read_png(path)
+    px = img.pixels
+    gray = img.color_type in (0, 4)
+    if flags == IMREAD_COLOR:
+        px = px >> 8 if img.bit_depth == 16 else px
+        px = px.astype(np.uint8)
+        if gray:
+            return np.repeat(px[..., :1], 3, axis=-1)
+        return np.ascontiguousarray(px[..., 2::-1])
+    if flags not in (IMREAD_GRAYSCALE, IMREAD_ANYDEPTH):
+        raise ValueError(f"imread flags {flags} are not supported")
+    if not gray:
+        raise ValueError(f"{path}: a colour PNG where a gray image is read")
+    px = px[..., 0]
+    if flags == IMREAD_GRAYSCALE and img.bit_depth == 16:
+        px = (px >> 8).astype(np.uint8)
+    return np.ascontiguousarray(px)
+
+
+def demosaic_bayer_bg2bgr(raw: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(raw, cv2.COLOR_BayerBG2BGR)``, bit-equal on every pixel
+    (the reference demosaics the KAIST stream so, run_vido_slam.cc:114-117).
+    BayerBG: R at (even, even), B at (odd, odd), G elsewhere. Each interior
+    pixel keeps its own colour; a colour missing there is the rounded mean
+    of its nearest samples: (sum of 4 + 2) >> 2 over the four diagonal or
+    the four edge neighbours, (sum of 2 + 1) >> 1 over a horizontal or
+    vertical pair. The border copies its inner neighbour: columns 0 and
+    W-1 of the interior rows, then rows 0 and H-1 whole. An image with
+    fewer than 3 rows or columns comes out zero, as in cv2."""
+    raw = np.asarray(raw)
+    if raw.ndim != 2 or raw.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"a (H, W) uint8 or uint16 Bayer frame, not "
+                         f"{raw.shape} {raw.dtype}")
+    H, W = raw.shape
+    out = np.zeros((H, W, 3), raw.dtype)
+    if H < 3 or W < 3:
+        return out
+    r = raw.astype(np.int32)
+    c = r[1:-1, 1:-1]
+    up, down = r[:-2, 1:-1], r[2:, 1:-1]
+    left, right = r[1:-1, :-2], r[1:-1, 2:]
+    diag = (r[:-2, :-2] + r[:-2, 2:] + r[2:, :-2] + r[2:, 2:] + 2) >> 2
+    cross = (up + down + left + right + 2) >> 2
+    horiz = (left + right + 1) >> 1
+    vert = (up + down + 1) >> 1
+    y = (np.arange(1, H - 1) % 2)[:, None]
+    x = (np.arange(1, W - 1) % 2)[None, :]
+    r_site = (y == 0) & (x == 0)
+    b_site = (y == 1) & (x == 1)
+    g_in_r_row = (y == 0) & (x == 1)   # left/right red, up/down blue
+    g_in_b_row = (y == 1) & (x == 0)   # left/right blue, up/down red
+    sites = [r_site, b_site, g_in_r_row, g_in_b_row]
+    blue = np.select(sites, [diag, c, vert, horiz])
+    green = np.where(r_site | b_site, cross, c)
+    red = np.select(sites, [c, diag, horiz, vert])
+    out[1:-1, 1:-1] = np.stack([blue, green, red], axis=-1)
+    out[1:-1, 0] = out[1:-1, 1]
+    out[1:-1, -1] = out[1:-1, -2]
+    out[0] = out[1]
+    out[-1] = out[-2]
+    return out
+
+
+class KaistFrame(NamedTuple):
+    image_path: str
+    timestamp: float
+
+
+def load_kaist_image_list(image_dir: str) -> List[KaistFrame]:
+    """LoadKaistImg (run_vido_slam.cc:47-65): stamps from
+    <image_dir>/../vTimestampsImage.txt (first line skipped), image file
+    name = the stamp's first 19 characters + .png."""
+    time_file = os.path.join(image_dir, "..", "vTimestampsImage.txt")
+    frames = []
+    with open(time_file) as f:
+        lines = f.read().splitlines()[1:]
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        stamp = line.split()[0]
+        name = stamp[:19] + ".png" if len(stamp) >= 19 else stamp + ".png"
+        frames.append(KaistFrame(image_path=os.path.join(image_dir, name),
+                                 timestamp=float(stamp) / 1e9))
+    return frames
+
+
+def load_kitti_image_list(image_dir: str) -> List[KaistFrame]:
+    """LoadKittiImg (run_vido.cc:195-215): stamps in seconds from
+    <image_dir>/../times.txt (first line skipped), 10-digit zero-padded
+    frame names, .jpg as in the reference, else .png where only that
+    exists."""
+    time_file = os.path.join(image_dir, "..", "times.txt")
+    with open(time_file) as f:
+        lines = f.read().splitlines()[1:]
+    times = [float(line.split()[0]) for line in lines if line.strip()]
+    frames = []
+    for i, t in enumerate(times):
+        base = os.path.join(image_dir, f"{i:010d}")
+        path = base + ".jpg"
+        if not os.path.exists(path) and os.path.exists(base + ".png"):
+            path = base + ".png"
+        frames.append(KaistFrame(image_path=path, timestamp=t))
+    return frames
+
+
+def load_kaist_imu(csv_path: str):
+    """LoadIMU (run_vido_slam.cc:14-45): xsens_imu.csv, stamp ns in col 0,
+    gyro cols 8-10, acc cols 11-13. Returns (times_s, acc (N, 3), gyro
+    (N, 3))."""
+    times, accs, gyros = [], [], []
+    with open(csv_path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split(",")
+            if len(parts) < 14:
+                continue
+            times.append(float(parts[0]) / 1e9)
+            gyros.append([float(parts[8]), float(parts[9]), float(parts[10])])
+            accs.append([float(parts[11]), float(parts[12]), float(parts[13])])
+    return (np.asarray(times), np.asarray(accs, np.float32),
+            np.asarray(gyros, np.float32))
+
+
+def load_depth_png(path: str) -> np.ndarray:
+    """A 16-bit depth PNG -> float32 raw values (metric later, per
+    dataset)."""
+    d = imread(path, IMREAD_ANYDEPTH)
+    if d is None:
+        raise FileNotFoundError(path)
+    return d.astype(np.float32)
+
+
+def load_mask_png(path: str) -> np.ndarray:
+    """A mask PNG -> int32 labels (8-bit, as cv2's IMREAD_GRAYSCALE)."""
+    m = imread(path, IMREAD_GRAYSCALE)
+    if m is None:
+        raise FileNotFoundError(path)
+    return m.astype(np.int32)
+
+
+def sibling_input_paths(image_path: str) -> Tuple[str, str, str]:
+    """The offline demo reads flow, depth and mask as siblings of the image
+    (run_vido_slam.cc:118-122): <stem>.flo, <stem>.png and <stem>.png in
+    flow/, depth/ and mask/ beside the image directory."""
+    d, name = os.path.split(image_path)
+    stem = os.path.splitext(name)[0]
+    root = os.path.dirname(d)
+    return (os.path.join(root, "flow", stem + ".flo"),
+            os.path.join(root, "depth", stem + ".png"),
+            os.path.join(root, "mask", stem + ".png"))

@@ -1,0 +1,171 @@
+"""PNG decoding without cv2 — what the offline demo needs of cv2's PNG
+reader (libpng), for the port's dataset readers (``io/datasets.py``).
+
+Supported: colour types 0 (gray), 2 (RGB), 4 (gray + alpha) and 6 (RGBA)
+at bit depths 8 and 16, not interlaced, filter method 0 with its five row
+filters; ``zlib`` inflates the IDAT stream and every chunk's CRC is
+checked. 16-bit samples are big-endian in the file. Anything else (palette
+images, bit depths 1-4, Adam7 interlace, a bad CRC or a short stream)
+raises ``ValueError``: nothing is guessed. Ancillary chunks (gAMA, sBIT,
+tRNS, text) are skipped; they change no sample value of the modes the
+readers support (cv2 applies no gamma, and drops alpha where the readers
+do).
+
+The row unfilter is a host C++ function (``csrc/png_unfilter.cpp``, built
+at first use, bound by ctypes): Avg and Paeth are sequential along a row,
+and a Python loop would take seconds on a 1280x560 frame.
+``unfilter_plain`` is its plain version, for the tests.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import zlib
+from typing import NamedTuple
+
+import numpy as np
+
+from vido_slam_tpu_torch.utils import host_build
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
+
+
+class PngImage(NamedTuple):
+    pixels: np.ndarray   # (H, W, C) uint8 or uint16, the file's channel order
+    color_type: int
+    bit_depth: int
+
+
+def _chunks(data: bytes):
+    """(type, payload) of each chunk up to IEND, CRCs checked."""
+    if data[:8] != SIGNATURE:
+        raise ValueError("not a PNG file (bad signature)")
+    pos = 8
+    while True:
+        if pos + 12 > len(data):
+            raise ValueError("PNG ends before IEND")
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if len(body) != n or zlib.crc32(kind + body) != crc:
+            raise ValueError(f"PNG chunk {kind!r} is truncated or fails "
+                             f"its CRC")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + n
+
+
+def unfilter(filtered: np.ndarray, height: int, rowbytes: int,
+             bpp: int) -> np.ndarray:
+    """Reconstruct ``height`` rows of ``rowbytes`` bytes from the inflated
+    stream (each row led by its filter-type byte), ``bpp`` bytes a pixel,
+    with the host C++ unfilter. Returns (height, rowbytes) uint8."""
+    src = np.ascontiguousarray(filtered, np.uint8).reshape(-1)
+    if src.size != height * (rowbytes + 1):
+        raise ValueError(f"PNG image data holds {src.size} bytes, not "
+                         f"{height * (rowbytes + 1)}")
+    out = np.empty((height, rowbytes), np.uint8)
+    lib = host_build.load("png_unfilter")
+    fn = lib.png_unfilter
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64]
+    rc = fn(src.ctypes.data, out.ctypes.data, height, rowbytes, bpp)
+    if rc != 0:
+        raise ValueError(f"PNG row {-rc - 1} has filter type "
+                         f"{src[(-rc - 1) * (rowbytes + 1)]}, not 0-4")
+    return out
+
+
+def unfilter_plain(filtered: np.ndarray, height: int, rowbytes: int,
+                   bpp: int) -> np.ndarray:
+    """The plain version of ``unfilter``: numpy for None, Sub (a cumulative
+    sum of each of the ``bpp`` interleaved byte lanes) and Up, a Python
+    loop along the row for Avg and Paeth."""
+    src = np.asarray(filtered, np.uint8).reshape(-1)
+    if src.size != height * (rowbytes + 1):
+        raise ValueError(f"PNG image data holds {src.size} bytes, not "
+                         f"{height * (rowbytes + 1)}")
+    rows = src.reshape(height, rowbytes + 1)
+    out = np.zeros((height, rowbytes), np.uint8)
+    prev = np.zeros(rowbytes, np.uint8)
+    for y in range(height):
+        kind, line = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:
+            cur = line.copy()
+        elif kind == 1:
+            cur = np.zeros(rowbytes, np.uint8)
+            for lane in range(min(bpp, rowbytes)):
+                cur[lane::bpp] = np.cumsum(line[lane::bpp], dtype=np.uint64) \
+                    .astype(np.uint8)
+        elif kind == 2:
+            cur = line + prev
+        elif kind in (3, 4):
+            cur = bytearray(rowbytes)
+            up = prev.tolist()
+            for i, x in enumerate(line.tolist()):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc
+                                                            else c)
+                cur[i] = (x + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"PNG row {y} has filter type {kind}, not 0-4")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def decode_png(data: bytes, *, plain: bool = False) -> PngImage:
+    """Decode a PNG held in memory; ``plain`` takes the plain unfilter."""
+    header, idat = None, []
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    width, height, depth, ctype, comp, filt, interlace = header
+    if ctype not in CHANNELS:
+        raise ValueError(f"PNG colour type {ctype} is not supported "
+                         f"(gray, RGB, gray + alpha, RGBA only)")
+    if depth not in (8, 16):
+        raise ValueError(f"PNG bit depth {depth} is not supported (8, 16)")
+    if interlace != 0:
+        raise ValueError("interlaced PNGs are not supported")
+    if comp != 0 or filt != 0:
+        raise ValueError(f"PNG compression/filter method {comp}/{filt}")
+    if width == 0 or height == 0:
+        raise ValueError("PNG of zero size")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate: {e}") from None
+    channels = CHANNELS[ctype]
+    bpp = channels * depth // 8
+    rowbytes = width * bpp
+    fn = unfilter_plain if plain else unfilter
+    rows = fn(np.frombuffer(raw, np.uint8), height, rowbytes, bpp)
+    if depth == 16:
+        pixels = rows.view(">u2").astype(np.uint16)
+    else:
+        pixels = rows
+    return PngImage(pixels.reshape(height, width, channels), ctype, depth)
+
+
+def read_png(path: str, *, plain: bool = False) -> PngImage:
+    """Decode a PNG file."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), plain=plain)

@@ -141,7 +141,9 @@ class System:
             self.tracker.map.frames[-1].obj_gt = np.asarray(vObjPose_gt)
         if (nImage is not None and len(self.tracker.map) >= nImage
                 and cfg.system.choose_data == 2):
+            # KITTI StopFrame: the full batch over the whole trajectory
             self.tracker.run_full_batch()
+            Verbose.print_mess("FullBatchOptimization done (StopFrame)")
         return Tcw
 
     def _grab_imu(self, imu_measurements) -> None:

@@ -32,11 +32,15 @@ import numpy as np
 import torch
 
 from vido_slam_tpu_torch.config import Config
-from vido_slam_tpu_torch.estimation.assembly import assemble_static_window
+from vido_slam_tpu_torch.estimation.assembly import (
+    assemble_full_problem,
+    assemble_static_window,
+)
 from vido_slam_tpu_torch.estimation.flow_joint import (
     estimate_camera_pose_joint,
     estimate_object_motions_joint_batched,
 )
+from vido_slam_tpu_torch.estimation.full_ba import solve_full_ba
 from vido_slam_tpu_torch.estimation.imu_init import (
     estimate_gravity_direction,
     initialize_imu,
@@ -691,8 +695,39 @@ class Tracker:
         raise _not_ported("track_frames_pair (two frames a program, which "
                           "needs pipelined=True)", 16)
 
-    def run_full_batch(self, *args, **kwargs):
-        raise _not_ported("run_full_batch (full-batch BA)", 18)
+    def run_full_batch(self, max_frames: int = 64, max_static: int = 2000,
+                       cg_iters: int = 60, max_iters: int = 15):
+        """FullBatchOptimization (Optimizer.cc:1235-2178) on the tracker's
+        device: the whole-sequence BA with object motions and dynamic
+        points. The results go to the refined slots (map.refined_poses,
+        map.refined_motions; vmCameraPose_RF / vmRigidMotion_RF,
+        Optimizer.cc:2116-2133); the records keep their initial poses.
+        The problem spans the last min(len(map), max_frames) records
+        without the JAX package's front padding to ``max_frames``: a pad
+        frame is pinned and carries no valid edge, so it changes nothing
+        but the work of every eager CG product."""
+        if self.record_light:
+            raise ValueError(
+                "run_full_batch needs per-point FrameRecords; construct the "
+                "Tracker with record='full' (auto picks it for KITTI mode)")
+        prob, stat, motion_ids = assemble_full_problem(
+            self.map, self.cam, min(len(self.map), max_frames), max_static,
+            self.max_objects, device=self.device)
+        res = solve_full_ba(prob, max_iters=max_iters, cg_iters=cg_iters)
+        Twc, H, mv = to_host((res.Twc, res.H, prob.motion_valid))
+        pad, n = stat.pad, len(stat.frame_ids)
+        self.map.refined_poses = np.stack(
+            [np.linalg.inv(Twc[pad + i]).astype(np.float32)
+             for i in range(n)])
+        refined: dict = {}
+        for fi in range(n):
+            f = pad + fi
+            for k in range(self.max_objects):
+                tid = int(motion_ids[f, k])
+                if tid >= 0 and mv[f, k]:
+                    refined.setdefault(tid, {})[stat.frame_ids[fi]] = H[f, k]
+        self.map.refined_motions = refined
+        return res
 
     # ------------------------------------------------------------------
     # VIO: IMU queue, preintegration, init and scale refinement
