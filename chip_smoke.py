@@ -86,11 +86,27 @@ Phases, each of which fails the run by raising:
      counts; the C++ PNG unfilter is bit-equal to its plain version on a
      full-size frame. It prints the CLI loop's ms a frame, reading included,
      with the reading's share, and the full batch's seconds and LM
-     iterations, beside the card line;
+     iterations, beside the card line. (i) weights and sessions in and
+     out: (i1) (a)'s VO configuration tracks 3 frames, ``save_session``
+     writes the session (a System on the CPU loads it too, the same
+     state), ``load_session`` restores it into a fresh System on the card
+     twice, and each tracks the other 21 frames: kernel 1
+     twice a frame, the two resumes bit-equal, the poses within 0.05 of
+     (a)'s unbroken run (the JAX package's bar); (i2) (e)'s seeded
+     ``PerceptionModel`` written as ``depth``/``flow``/``mask`` bundles by
+     ``save_torch_state_dict`` and rebuilt by
+     ``PerceptionModel.from_pretrained`` on the card: weights and one
+     pair's outputs bit-equal, then 5 ``System.TrackFrames`` calls at (e)'s
+     per-call launches; (i3) one frame of the GroupNorm R-50-FPN
+     (``ResNetConfig(norm="gn")``) at 1088x800, kernel 5 held against its
+     plain version on that frame's arguments; and the single-problem
+     ``estimate_object_motion`` and ``estimate_object_motion_joint`` on one
+     object of 4000 points, kernels 1 and 2 at B=1, each held against its
+     plain version;
   5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
-     call's arguments, its launches on (f) and (g), and on (h1)-(h4)),
-     then the device line.
+     call's arguments, its launches on (f) and (g), on (h1)-(h4) and on
+     (i1)-(i3) and the B=1 calls), then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -1763,6 +1779,260 @@ def run_phase_h(counters, names, seq, vio_init, vio_attempts):
             for i, name in enumerate(names)}
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (i): weights and sessions in and out
+# ---------------------------------------------------------------------------
+
+RESUME_AT = 3        # (i1): frames tracked before the session is saved
+PRETRAINED_CALLS = 5  # (i2): System.TrackFrames calls on the reloaded model
+
+
+def run_session_resume(seq, unbroken, counters, names):
+    """(i1): (a)'s VO configuration through System.TrackRGBD for RESUME_AT
+    frames, ``save_session`` (it loads on the CPU as well), then twice
+    ``load_session`` into a fresh System on the card and the rest of the
+    frames. The resumed poses stay
+    within 0.05 of (a)'s unbroken run (the JAX package's bar: the tracker's
+    own key is not saved) and the two resumes are bit-equal. Returns the
+    first resume's launches."""
+    import torch
+    from vido_slam_tpu_torch.config import config_from_dict
+    from vido_slam_tpu_torch.system import Sensor, System
+    from vido_slam_tpu_torch.utils.checkpoint import load_session, save_session
+
+    def system():
+        s = System()
+        s.init_from_config(config_from_dict(OFFLINE_CONFIG), Sensor.RGBD,
+                           device="cuda", **TRACKER_KW)
+        return s
+
+    inputs = main_path_inputs(seq, "cuda", N_FRAMES)
+    first = system()
+    for raw, flow, mask, gt in inputs[:RESUME_AT]:
+        first.TrackRGBD(None, raw, flow, mask, mTcw_gt=gt)
+    poses, launches, times = [], [], []
+    with tempfile.TemporaryDirectory() as d:
+        snap = os.path.join(d, "session.pkl")
+        save_session(snap, first.tracker)
+        size = os.path.getsize(snap)
+        # the payload is numpy: a session saved on the card loads on the CPU
+        on_cpu = System()
+        on_cpu.init_from_config(config_from_dict(OFFLINE_CONFIG),
+                                Sensor.RGBD, device="cpu", **TRACKER_KW)
+        load_session(snap, on_cpu.tracker)
+        check(state_devices(on_cpu.tracker.state) == {"cpu"}
+              and torch.equal(on_cpu.tracker.state.Tcw,
+                              first.tracker.state.Tcw.cpu())
+              and np.array_equal(on_cpu.map.poses, first.map.poses),
+              "(i1): the session saved on the card differs on the CPU")
+        for _ in range(2):
+            resumed = system()
+            load_session(snap, resumed.tracker)
+            check(state_devices(resumed.tracker.state) == {"cuda"},
+                  f"(i1): the resumed state lies on "
+                  f"{state_devices(resumed.tracker.state)}")
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for raw, flow, mask, gt in inputs[RESUME_AT:]:
+                resumed.TrackRGBD(None, raw, flow, mask, mTcw_gt=gt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append([c.launches for c in counters])
+            poses.append(resumed.map.poses)
+    n = N_FRAMES - RESUME_AT
+    want = [2 * n, 0, 0, 0, 0]
+    check(launches[0] == want and launches[1] == want,
+          f"(i1): {names} launched {launches}, not {want} each")
+    check(poses[0].shape == unbroken.shape and np.isfinite(poses[0]).all(),
+          f"(i1): resumed poses {poses[0].shape}")
+    check(np.array_equal(poses[0], poses[1]),
+          "(i1): two resumes of one snapshot differ")
+    gap = float(np.abs(poses[0] - unbroken).max())
+    check(gap < 0.05, f"(i1): resumed poses {gap} from the unbroken run")
+    print(f"(i1) session resume, VO 1280x560: {RESUME_AT} frames, "
+          f"save_session ({size} bytes; it loads on the CPU too), "
+          f"load_session into a fresh System on the card twice, {n} frames "
+          f"each: launches {launches[0]}, poses "
+          f"within {gap:.3e} of (a)'s unbroken run (bar 0.05), the two "
+          f"resumes bit-equal; {1e3 * np.mean(times) / n:.2f} ms a frame")
+    return launches[0]
+
+
+def run_pretrained(dev, counters, names):
+    """(i2): the online configuration's seeded PerceptionModel written as
+    ``depth``/``flow``/``mask`` bundles (``save_torch_state_dict``, the JAX
+    layout), rebuilt by ``PerceptionModel.from_pretrained`` on the card:
+    bit-equal weights and outputs on one pair, then System.TrackFrames over
+    PRETRAINED_CALLS calls. Returns their launches."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn.model import MaskRCNNConfig
+    from vido_slam_tpu_torch.models.perception import PerceptionModel
+    from vido_slam_tpu_torch.utils.checkpoint import save_torch_state_dict
+
+    frames, tcw, model = online_inputs(dev)
+    h, w = ONLINE_DETECTOR
+    nets = {"depth": "depth_net", "flow": "flow_net", "mask": "mask_model"}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for bundle, attr in nets.items():
+            save_torch_state_dict(os.path.join(d, bundle),
+                                  getattr(model, attr).state_dict())
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        loaded = PerceptionModel.from_pretrained(
+            d, ONLINE_H, ONLINE_W, MaskRCNNConfig(input_h=h, input_w=w),
+            device=dev)
+        secs = time.perf_counter() - t0
+    for attr in nets.values():
+        a, b = getattr(model, attr).state_dict(), \
+            getattr(loaded, attr).state_dict()
+        check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
+              f"(i2): {attr} reloaded differs")
+    want, got = model(frames[0], frames[1]), loaded(frames[0], frames[1])
+    for field in ("depth_u16", "flow", "mask"):
+        check(torch.equal(getattr(want, field), getattr(got, field)),
+              f"(i2): {field} of the reloaded model differs")
+    del model
+    system, outputs, times, launches = run_online_path(
+        frames[:PRETRAINED_CALLS + 1], tcw, loaded, counters, [])
+    n = PRETRAINED_CALLS
+    expect = [2 * (n - 1), 0, 5 * n, 5 * n, 2 * n]
+    check(launches == expect,
+          f"(i2): {names} launched {launches} times over {n} calls, not "
+          f"{expect}")
+    check(np.isfinite(system.map.poses).all() and len(system.map) == n,
+          f"(i2): {len(system.map)} poses")
+    print(f"(i2) PerceptionModel.from_pretrained, online {ONLINE_W}x"
+          f"{ONLINE_H} with Mask R-CNN at {w}x{h}: bundles of {size} bytes "
+          f"written and read in {secs:.2f} s, weights and one pair's depth, "
+          f"flow and mask bit-equal to the seeded model's; {n} calls of "
+          f"System.TrackFrames, launches {launches}")
+    return launches
+
+
+def run_gn_detector(dev, counters, names):
+    """(i3): the GroupNorm R-50-FPN (``ResNetConfig(norm="gn")``, seed 0,
+    class 3 lifted) on one driving-clip frame at 1280x560, the detector at
+    1088x800 after a warm-up frame: kernel 5 twice, held against its plain
+    version on that frame's arguments. Returns (launches, max_abs_err)."""
+    import torch
+    from vido_slam_tpu_torch.io.synthetic import driving_clip
+    from vido_slam_tpu_torch.models.maskrcnn import roi_heads
+    from vido_slam_tpu_torch.models.maskrcnn.backbone import ResNetConfig
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           MaskRCNNConfig)
+
+    c = OFFLINE_CONFIG
+    clip = driving_clip(height=FLOW_H, width=FLOW_W, n_frames=2,
+                        fx=c["Camera.fx"], fy=c["Camera.fy"], device=dev)
+    model = lifted(MaskRCNN(MaskRCNNConfig(resnet=ResNetConfig(norm="gn")),
+                            seed=0, device=dev))
+    run_mask_path(clip[:1], model, counters)
+    recorder = KernelArgs(roi_heads.roi_align_multilevel, 6)
+    roi_heads.roi_align_multilevel = recorder
+    try:
+        masks, dets, times, launches = run_mask_path(clip[1:], model,
+                                                     counters)
+    finally:
+        roi_heads.roi_align_multilevel = recorder.wrapper
+    check(launches == [0, 0, 0, 0, 2],
+          f"(i3): {names} launched {launches} times, not [0, 0, 0, 0, 2]")
+    # random GN weights give boxes but (unlike (d)'s) rarely an area that
+    # the paste fills: the mask is checked for its shape, not its pixels
+    (mask,), (det,) = masks, dets
+    n_valid = int(det.valid.sum())
+    check(mask.shape == (FLOW_H, FLOW_W) and mask.dtype == torch.uint8
+          and n_valid > 0 and bool(torch.isfinite(det.boxes).all())
+          and bool(torch.isfinite(det.masks28).all()),
+          f"(i3): mask {tuple(mask.shape)} {mask.dtype}, {n_valid} valid "
+          f"detections")
+    err = check_roi_align([(f"GN detector frame {what}", args)
+                           for what, (args, _) in
+                           zip(("box head", "mask head"), recorder.calls)])
+    print(f"(i3) GroupNorm R-50-FPN frame {FLOW_W}x{FLOW_H} (detector at "
+          f"800x1088): launches {launches}, valid detections {n_valid}, "
+          f"labelled pixels {int((mask > 0).sum())}; "
+          f"{1e3 * times[0]:.2f} ms")
+    return launches, err
+
+
+def run_single_object(seq, counters, names):
+    """The single-problem object estimators on one object of the offline
+    camera (4000 points, one mask): ``estimate_object_motion`` (kernel 1,
+    B=1, T_pre = Tcw) and ``estimate_object_motion_joint`` (kernel 2, B=1),
+    each launch held against its plain version. Returns (their launches,
+    kernel 1's and kernel 2's max_abs_err)."""
+    import torch
+    from vido_slam_tpu_torch.estimation import flow_joint, pose
+    from vido_slam_tpu_torch.estimation.pose import OBJ_ITERS
+    from vido_slam_tpu_torch.geometry.se3 import inverse_se3
+    from vido_slam_tpu_torch.utils import prng
+
+    cam = seq.scene.cam
+    rng = np.random.RandomState(1)
+    Tcw = _pose([0.0, 0.02, 0.0], [0.1, 0.0, -3.0]).cuda()
+    M0, X, obs_last, fm, masks = (t.cuda() for t in joint_object_problems(
+        rng, cam, 1, 4000, Tcw.cpu()))
+    cur_uv = obs_last + fm
+    H_mm = inverse_se3(Tcw) @ M0[0]
+    key = prng.PRNGKey(5, "cuda")
+    recorders = {attr: KernelArgs(getattr(module, attr))
+                 for attr, module in (("pose_lm_batched", pose),
+                                      ("flow_joint_batched", flow_joint))}
+    for attr, module in (("pose_lm_batched", pose),
+                         ("flow_joint_batched", flow_joint)):
+        setattr(module, attr, recorders[attr])
+    try:
+        for c in counters:
+            c.launches = 0
+        est = pose.estimate_object_motion(key, Tcw, X, cur_uv, masks[0], cam,
+                                          H_mm, True)
+        est_j, flow = flow_joint.estimate_object_motion_joint(
+            key, Tcw, X, obs_last, cur_uv, masks[0], cam, H_mm, True)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+    finally:
+        pose.pose_lm_batched = recorders["pose_lm_batched"].wrapper
+        flow_joint.flow_joint_batched = recorders["flow_joint_batched"].wrapper
+    check(launches == [1, 1, 0, 0, 0],
+          f"B=1 object estimators: {names} launched {launches}, not "
+          f"[1, 1, 0, 0, 0]")
+    for what, e in (("estimate_object_motion", est),
+                    ("estimate_object_motion_joint", est_j)):
+        check(bool(torch.isfinite(e.T).all()) and int(e.num_inliers) > 100,
+              f"{what}: {int(e.num_inliers)} inliers")
+    (args, kw), = recorders["pose_lm_batched"].calls
+    err_lm = check_pose_lm([("estimate_object_motion B=1", args, kw, True)],
+                           cam)
+    check(kw["max_iters"] == OBJ_ITERS and args[0].shape[0] == 1,
+          f"estimate_object_motion: {tuple(args[0].shape)}, {kw}")
+    (args, _), = recorders["flow_joint_batched"].calls
+    err_fj = check_flow_joint([("estimate_object_motion_joint B=1", args)],
+                              cam)
+    print(f"(i) single-problem object estimators on {int(masks.sum())} "
+          f"points: launches {launches}; estimate_object_motion "
+          f"{int(est.num_inliers)} inliers, estimate_object_motion_joint "
+          f"{int(est_j.num_inliers)} inliers")
+    return launches, err_lm, err_fj
+
+
+def run_phase_i(dev, counters, names, seq, unbroken):
+    """Phase (i), weights and sessions in and out. Returns each kernel's
+    launches on (i1)-(i3) and the B=1 calls, and the errors of kernels 1, 2
+    and 5 against their plain versions there."""
+    t0 = time.perf_counter()
+    out = {"i1": run_session_resume(seq, unbroken, counters, names),
+           "i2": run_pretrained(dev, counters, names)}
+    out["i3"], err_roi = run_gn_detector(dev, counters, names)
+    out["b1"], err_lm, err_fj = run_single_object(seq, counters, names)
+    print(f"(i) {time.perf_counter() - t0:.1f} s; card {card_line()}")
+    launches = {name: {t: out[t][i] for t in ("i1", "i2", "i3", "b1")}
+                for i, name in enumerate(names)}
+    return launches, {"pose_lm_batched": err_lm, "flow_joint_batched": err_fj,
+                      "roi_align_multilevel": err_roi}
+
+
 def main() -> int:
     import torch
 
@@ -1862,6 +2132,8 @@ def main() -> int:
               f"{1e3 * np.median(steady):.2f} (frames 4-{n_tracked}, host "
               f"clock over torch.cuda.synchronize)")
         runs[attr] = (recorder, launches[own])
+        if attr == "pose_lm_batched":
+            vo_poses = system.map.poses
     del inputs, system
 
     # (f) offline VIO: the JAX bench's offline VIO row one frame a call
@@ -2020,6 +2292,10 @@ def main() -> int:
     demo_launches = run_phase_h(counters, names, seq, init_frame,
                                 vio_attempts)
 
+    # (i) weights and sessions in and out
+    phase_i_launches, phase_i_err = run_phase_i(dev, counters, names, seq,
+                                                vo_poses)
+
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
     calls, k = recorder.frame_calls()
@@ -2129,6 +2405,10 @@ def main() -> int:
         e["offline_vio_launches"] = launches_vio[i]
         e["online_vio_launches"] = launches_online_vio[i]
         e["demo_launches"] = demo_launches[e["name"]]
+        e["weights_sessions_launches"] = phase_i_launches[e["name"]]
+        if e["name"] in phase_i_err:
+            e["max_abs_err"] = max(e["max_abs_err"],
+                                   phase_i_err[e["name"]])
         e["online_ms"], e["online_bound_ms"] = timing[0], timing[2]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -233,3 +233,49 @@ def test_online_mode_is_track_frames(tmp_path, scene_frames, monkeypatch):
     np.testing.assert_array_equal(run.system.map.poses, system.map.poses)
     assert np.loadtxt(out + "initial_rgbd_new.txt").shape == (2, 17)
 
+
+
+def test_corrupt_image_is_skipped_as_in_the_jax_demo(tmp_path, scene_frames,
+                                                     capsys):
+    """A frame whose PNG is cut in half (cv2.imread gives None) is skipped
+    by both CLIs with the same "skip missing" line, and both write the same
+    result rows over the frames left (within the tracker's bar)."""
+    import demo.run_vido as jax_demo
+
+    cfg = _tree(tmp_path, scene_frames, "kaist")
+    img_dir = os.path.join(os.path.dirname(cfg), "image")
+    bad = os.path.join(img_dir, sorted(os.listdir(img_dir))[2])
+    with open(bad, "rb") as f:
+        data = f.read()
+    with open(bad, "wb") as f:
+        f.write(data[:len(data) // 2])
+    assert cv2.imread(bad, cv2.IMREAD_GRAYSCALE) is None
+    port_out = str(tmp_path / "port") + "/"
+    jax_out = str(tmp_path / "jax") + "/"
+    capsys.readouterr()
+    run = port_main([cfg, "--output", port_out, "--device", "cpu",
+                     "--max-frames", "5"])
+    port_said = capsys.readouterr().out
+    argv = sys.argv
+    sys.argv = ["run_vido.py", cfg, "--output", jax_out, "--max-frames", "5"]
+    try:
+        jax_demo.main()
+    finally:
+        sys.argv = argv
+    jax_said = capsys.readouterr().out
+    assert f"skip missing {bad}" in port_said.splitlines()
+    assert f"skip missing {bad}" in jax_said.splitlines()
+    assert len(run.track_s) == 4
+    for name in ("initial_rgbd_new.txt", "obj_mot_rgbd_new.txt"):
+        p = np.loadtxt(port_out + name, ndmin=2)
+        j = np.loadtxt(jax_out + name, ndmin=2)
+        assert p.shape == j.shape, name
+    ip, tp = _poses(port_out + "initial_rgbd_new.txt")
+    ij, tj = _poses(jax_out + "initial_rgbd_new.txt")
+    np.testing.assert_array_equal(ip, [0, 1, 2, 3])
+    np.testing.assert_array_equal(ip, ij)
+    _within_bar(tp, tj)
+    mp = np.loadtxt(port_out + "obj_mot_rgbd_new.txt", ndmin=2)
+    mj = np.loadtxt(jax_out + "obj_mot_rgbd_new.txt", ndmin=2)
+    np.testing.assert_array_equal(mp[:, :2], mj[:, :2])
+    _within_bar(mp[:, 2:14].reshape(-1, 3, 4), mj[:, 2:14].reshape(-1, 3, 4))

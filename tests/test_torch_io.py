@@ -161,7 +161,7 @@ def test_bad_filter_type_raises(plain):
         fn(stream, 3, 4, 1)
 
 
-def _png_bytes(ihdr, body=b"\x00\x00", plte=None, crc_ok=True):
+def _png_bytes(ihdr, body=b"\x00\x00", plte=None, crc_ok=True, idat=None):
     def chunk(tag, data, ok=True):
         crc = zlib.crc32(tag + data) ^ (0 if ok else 1)
         return struct.pack(">I", len(data)) + tag + data + struct.pack(
@@ -170,7 +170,8 @@ def _png_bytes(ihdr, body=b"\x00\x00", plte=None, crc_ok=True):
                                 crc_ok)
     if plte is not None:
         out += chunk(b"PLTE", plte)
-    return out + chunk(b"IDAT", zlib.compress(body)) + chunk(b"IEND", b"")
+    idat = zlib.compress(body) if idat is None else idat
+    return out + chunk(b"IDAT", idat) + chunk(b"IEND", b"")
 
 
 @pytest.mark.parametrize("data,what", [
@@ -182,11 +183,65 @@ def _png_bytes(ihdr, body=b"\x00\x00", plte=None, crc_ok=True):
     (b"GIF89a" + bytes(20), "signature"),
 ], ids=["palette", "interlace", "depth1", "crc", "short", "not_png"])
 def test_unsupported_png_raises(tmp_path, data, what):
+    """The decoder names what it refuses. ``imread`` answers as cv2 does:
+    None where cv2 gives None (the bytes are no decodable PNG), and raises
+    where cv2 decodes a mode the port lacks (item 10b), so that no frame is
+    skipped silently."""
     path = str(tmp_path / "u.png")
     with open(path, "wb") as f:
         f.write(data)
     with pytest.raises(ValueError, match=what):
-        td.imread(path, td.IMREAD_COLOR)
+        png.decode_png(data)
+    if cv2.imread(path, cv2.IMREAD_COLOR) is None:
+        assert td.imread(path, td.IMREAD_COLOR) is None
+    else:
+        with pytest.raises(ValueError, match=what):
+            td.imread(path, td.IMREAD_COLOR)
+
+
+def _corrupt(kind):
+    """Bytes cv2.imread gives None for, made from a PNG cv2 wrote."""
+    ok, enc = cv2.imencode(".png", _image("gray16", 24, 40, 3))
+    enc = bytearray(enc.tobytes())
+    if kind == "half":
+        return bytes(enc[:len(enc) // 2])
+    if kind == "no_iend":
+        return bytes(enc[:-12])
+    if kind == "crc":
+        enc[41] ^= 0xFF     # a byte of the first IDAT chunk's payload
+        return bytes(enc)
+    if kind == "not_png":
+        return b"this is no image\n" * 40
+    if kind == "empty":
+        return b""
+    if kind == "inflate":
+        return _png_bytes((1, 1, 8, 0, 0, 0, 0), idat=b"garbage!")
+    if kind == "filter":
+        return _png_bytes((1, 1, 8, 0, 0, 0, 0), body=b"\x07\x00")
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["half", "no_iend", "crc", "not_png",
+                                  "empty", "inflate", "filter"])
+@pytest.mark.parametrize("flags", [td.IMREAD_COLOR, td.IMREAD_GRAYSCALE,
+                                   td.IMREAD_ANYDEPTH])
+def test_undecodable_png_is_none_as_cv2(tmp_path, kind, flags):
+    """A file that is no decodable PNG gives None, as cv2.imread gives on
+    the same bytes; the depth and mask readers then raise
+    FileNotFoundError, as the JAX package's do."""
+    path = str(tmp_path / "c.png")
+    with open(path, "wb") as f:
+        f.write(_corrupt(kind))
+    assert cv2.imread(path, flags) is None
+    assert td.imread(path, flags) is None
+    with pytest.raises(png.CorruptPng):
+        png.read_png(path)
+    for port_fn, jax_fn in ((td.load_depth_png, jd.load_depth_png),
+                            (td.load_mask_png, jd.load_mask_png)):
+        with pytest.raises(FileNotFoundError):
+            jax_fn(path)
+        with pytest.raises(FileNotFoundError):
+            port_fn(path)
 
 
 def test_cv2_bilevel_png_refused(tmp_path):

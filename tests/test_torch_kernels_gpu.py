@@ -759,3 +759,94 @@ def test_roi_align_kernel_is_deterministic(R, res):
     b = roi_align.roi_align_multilevel(*args)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase (i): the single-problem object estimators (kernels 1
+# and 2 at B=1) and kernel 5 on the GroupNorm detector's arguments
+# ---------------------------------------------------------------------------
+
+def _recording(monkeypatch, module, attr):
+    """Stand in for ``module.attr`` with chip_smoke's argument recorder."""
+    rec = chip_smoke.KernelArgs(getattr(module, attr))
+    monkeypatch.setattr(module, attr, rec)
+    return rec
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_single_object_estimators_launch_b1_kernels(monkeypatch, seed):
+    """estimate_object_motion (kernel 1, B=1, T_pre = Tcw) and
+    estimate_object_motion_joint (kernel 2, B=1) on one object of chip_smoke's
+    object layout: one launch each, each held against its plain version."""
+    _need_card()
+    from vido_slam_tpu_torch.estimation import flow_joint, pose
+    from vido_slam_tpu_torch.utils import prng
+
+    cam = _cam()
+    rng = np.random.RandomState(seed)
+    Tcw = chip_smoke._pose([0.0, 0.02, 0.0], [0.1, 0.0, -3.0])
+    M0, X, obs_last, fm, masks = (t.cuda() for t in
+                                  chip_smoke.joint_object_problems(
+                                      rng, cam, 1, 4000, Tcw))
+    Tcw = Tcw.cuda()
+    H_mm = inverse_se3(Tcw) @ M0[0]
+    key = prng.PRNGKey(seed, "cuda")
+    lm_rec = _recording(monkeypatch, pose, "pose_lm_batched")
+    fj_rec = _recording(monkeypatch, flow_joint, "flow_joint_batched")
+    counts = (lm_kernel.pose_lm_batched.launches,
+              flow_joint_kernel.flow_joint_batched.launches)
+    est = pose.estimate_object_motion(key, Tcw, X, obs_last + fm, masks[0],
+                                      cam, H_mm, True)
+    est_j, flow = flow_joint.estimate_object_motion_joint(
+        key, Tcw, X, obs_last, obs_last + fm, masks[0], cam, H_mm, True)
+    torch.cuda.synchronize()
+    assert lm_kernel.pose_lm_batched.launches == counts[0] + 1
+    assert flow_joint_kernel.flow_joint_batched.launches == counts[1] + 1
+    assert int(est.num_inliers) > 100 and int(est_j.num_inliers) > 100
+    assert flow.shape == (4000, 2)
+    (args, kw), = lm_rec.calls
+    assert args[0].shape == (1, 4, 4) and kw["huber_delta"] is None
+    got = lm_kernel.pose_lm_batched(*args, cam, **kw)
+    ref = lm_kernel.pose_lm_batched_ref(*args, cam, **kw)
+    _hold_pose_lm(got, ref, args[4])
+    (args, _), = fj_rec.calls
+    assert args[0].shape == (1, 4, 4)
+    got = flow_joint_kernel.flow_joint_batched(*args, cam)
+    ref = flow_joint_kernel.flow_joint_batched_ref(*args, cam)
+    _hold_flow_joint(got, ref, args)
+
+
+def test_roi_align_kernel_on_the_gn_detector(monkeypatch):
+    """Kernel 5 on the arguments the GroupNorm R-50-FPN (seed 0, class 3
+    lifted) gives it on one 1280x560 driving-clip frame: both heads. (Its
+    random weights give boxes too thin for the paste to fill: the mask is
+    held to its shape only.)"""
+    _need_card()
+    from vido_slam_tpu_torch.io.synthetic import driving_clip
+    from vido_slam_tpu_torch.models.maskrcnn import roi_heads
+    from vido_slam_tpu_torch.models.maskrcnn.backbone import ResNetConfig
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           MaskRCNNConfig)
+    from vido_slam_tpu_torch.models.perception import perception_mask
+
+    c = chip_smoke.OFFLINE_CONFIG
+    frame = driving_clip(height=560, width=1280, n_frames=1,
+                         fx=c["Camera.fx"], fy=c["Camera.fy"],
+                         device="cuda")[0]
+    model = chip_smoke.lifted(MaskRCNN(
+        MaskRCNNConfig(resnet=ResNetConfig(norm="gn")), seed=0,
+        device="cuda"))
+    rec = chip_smoke.KernelArgs(roi_heads.roi_align_multilevel, 6)
+    monkeypatch.setattr(roi_heads, "roi_align_multilevel", rec)
+    mask = perception_mask(model, frame, device="cuda")
+    torch.cuda.synchronize()
+    assert mask.shape == (560, 1280) and mask.dtype == torch.uint8
+    assert [a[0][1].shape[0] for a in rec.calls] == [1000, 100]
+    for args, _ in rec.calls:
+        got = roi_align.roi_align_multilevel(*args)
+        again = roi_align.roi_align_multilevel(*args)
+        ref = roi_align.roi_align_multilevel_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
+        assert float((got - ref).abs().max()) <= 1e-5 * scale

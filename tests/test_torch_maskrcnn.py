@@ -230,8 +230,10 @@ def test_fpn_matches_jax_features(model, image, jax_run):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="14b"):
-        tb.ResNet(tb.ResNetConfig(norm="gn"))
+    """Deformable stages wait for item 19; GroupNorm is ported
+    (tests/test_torch_maskrcnn_variants.py) and another norm is refused."""
+    with pytest.raises(ValueError, match="frozen_bn"):
+        tb.ResNet(tb.ResNetConfig(norm="sync_bn"))
     with pytest.raises(NotImplementedError, match="19"):
         tb.ResNet(tb.ResNetConfig(stage_with_dcn=(False, True, True, True)))
 

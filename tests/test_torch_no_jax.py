@@ -33,11 +33,12 @@ need = {"vido_slam_tpu_torch." + m
                   "models.layers", "models.liteflownet", "models.monodepth2",
                   "models.perception", "models.maskrcnn.backbone",
                   "models.maskrcnn.model", "models.maskrcnn.roi_heads",
-                  "models.maskrcnn.rpn", "ops.correlation", "ops.fast",
+                  "models.maskrcnn.rpn", "models.maskrcnn.c2_loading",
+                  "ops.orb", "utils.checkpoint", "ops.correlation", "ops.fast",
                   "ops.nms", "ops.regularize", "ops.roi_align", "ops.warp")}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 62 else 0)
+sys.exit(1 if bad or missing or len(names) < 65 else 0)
 """
 
 

@@ -97,8 +97,6 @@ def test_unported_options_raise():
     for kw in ("compute_dtype", "mask_dtype", "flow_dtype"):
         with pytest.raises(NotImplementedError, match="item 15b"):
             PerceptionModel(H, W, device="cpu", **{kw: torch.bfloat16})
-    with pytest.raises(NotImplementedError, match="item 18"):
-        PerceptionModel.from_pretrained("weights", H, W)
     ts = System()
     ts.init_from_config(config_from_dict(CFG), Sensor.RGBD, device="cpu",
                         **TRACKER_KW)

@@ -7,7 +7,10 @@ works; nothing of the JAX package is imported. MonoDepth2's, LiteFlowNet's
 and Mask R-CNN's parameter dicts carry across the same way
 (``monodepth2_state_dict_from_numpy``, ``liteflownet_state_dict_from_numpy``,
 ``maskrcnn_state_dict_from_numpy``), the three together as a
-``PerceptionModel`` (``perception_model_from_numpy``).
+``PerceptionModel`` (``perception_model_from_numpy``). The other way,
+``convert_state_dict`` writes a torch state_dict in the JAX layout (the
+JAX package's ``models/layers.py::convert_state_dict``), as the bundles of
+``utils/checkpoint.py`` hold it.
 """
 
 from __future__ import annotations
@@ -44,6 +47,28 @@ def key_from_numpy(key, device=None) -> torch.Tensor:
     """A raw (2,) uint32 threefry key -> the port's int64 key."""
     return torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64),
                            device=resolve_device(device))
+
+
+def convert_tensor(key: str, t) -> np.ndarray:
+    """A torch tensor (or array) in the JAX package's layout, as numpy
+    (``models/layers.py::convert_tensor`` there): a 4-D weight goes through
+    ``transpose(2, 3, 1, 0)`` (a Conv2d's OIHW -> HWIO; a ConvTranspose2d's
+    (in, out / groups, kh, kw) -> (kh, kw, out / groups, in)), a 2-D
+    ``*weight`` (a Linear's (out, in)) through ``.T``; others pass
+    unchanged. The ``*_state_dict_from_numpy`` functions below invert it."""
+    a = np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                   else t)
+    if a.ndim == 4:
+        return a.transpose(2, 3, 1, 0)
+    if a.ndim == 2 and key.endswith("weight"):
+        return a.T
+    return a
+
+
+def convert_state_dict(sd) -> dict:
+    """A torch state_dict as the JAX package's parameter dict of numpy
+    arrays (``convert_tensor`` of each entry)."""
+    return {k: convert_tensor(k, v) for k, v in sd.items()}
 
 
 def monodepth2_state_dict_from_numpy(params, device=None) -> dict:

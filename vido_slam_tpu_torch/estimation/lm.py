@@ -9,7 +9,9 @@ The JAX ``lax.while_loop`` is a host loop here that reads the stop test
 each iteration: the problems it serves are tiny and run on the CPU
 (``tracking.py`` says why). The iteration is the JAX one: g2o's Levenberg
 policy with Marquardt-scaled damping, one linearisation an iteration, the
-gain-ratio accept/reject with ``ni`` doubling.
+gain-ratio accept/reject with ``ni`` doubling. ``gn_solve`` and
+``dogleg_solve`` are g2o's other two algorithms on the same interface;
+nothing in the tracker calls them.
 """
 
 from __future__ import annotations
@@ -236,3 +238,134 @@ def lm_solve(
         it += 1
     _, _, chi2, _, final_cost = block_stats(x)
     return LMResult(x=x, cost=final_cost, chi2=chi2, num_iters=it, lam=lam)
+
+
+def gn_solve(residual_fn, x0, mask=None, weights=None, *, max_iters: int = 20,
+             huber_delta: Optional[float] = None, rel_tol: float = 1e-6,
+             jac_fn=None, retract_fn=None,
+             tangent_dim: Optional[int] = None) -> LMResult:
+    """Plain Gauss-Newton, g2o's OptimizationAlgorithmGaussNewton:
+    undamped normal-equation steps; stop when a step does not improve the
+    cost, on a relative improvement below ``rel_tol``, or on NaN.
+    ``lm_solve``'s interface; CPU tensors only."""
+    return _lm_like(residual_fn, x0, mask, weights, max_iters=max_iters,
+                    huber_delta=huber_delta, rel_tol=rel_tol, jac_fn=jac_fn,
+                    retract_fn=retract_fn, tangent_dim=tangent_dim,
+                    algorithm="gn")
+
+
+def dogleg_solve(residual_fn, x0, mask=None, weights=None, *,
+                 max_iters: int = 50, huber_delta: Optional[float] = None,
+                 rel_tol: float = 1e-6, trust_radius: float = 1.0,
+                 jac_fn=None, retract_fn=None,
+                 tangent_dim: Optional[int] = None) -> LMResult:
+    """Powell's Dogleg, g2o's OptimizationAlgorithmDogleg: the Cauchy
+    point, the Gauss-Newton step or their blend inside a trust region whose
+    radius follows the gain ratio. ``lm_solve``'s interface plus the first
+    ``trust_radius``; CPU tensors only. ``LMResult.lam`` is the final
+    radius."""
+    return _lm_like(residual_fn, x0, mask, weights, max_iters=max_iters,
+                    huber_delta=huber_delta, rel_tol=rel_tol, jac_fn=jac_fn,
+                    retract_fn=retract_fn, tangent_dim=tangent_dim,
+                    algorithm="dogleg", trust_radius=trust_radius)
+
+
+def _lm_like(residual_fn, x0, mask, weights, *, max_iters, huber_delta,
+             rel_tol, jac_fn, retract_fn, tangent_dim, algorithm,
+             trust_radius: float = 1.0) -> LMResult:
+    """The GN / Dogleg iteration of the JAX package's ``_lm_like``
+    (lm.py:316-427) as a host loop. Its cost is sum(chi2 * w_robust), not
+    ``lm_solve``'s sum of rho."""
+    x0 = torch.as_tensor(x0)
+    require_cpu(x0, algorithm + "_solve")
+    if retract_fn is None:
+        P = x0.shape[0]
+
+        def retract_fn(x, d):
+            return x + d
+    else:
+        if tangent_dim is None:
+            raise ValueError(f"{algorithm}_solve: tangent_dim is required "
+                             f"with retract_fn")
+        P = tangent_dim
+    if jac_fn is None:
+        def jac_fn(x):
+            return torch.func.jacfwd(lambda d: residual_fn(retract_fn(x, d)))(
+                torch.zeros(P, dtype=torch.float32))
+
+    def stats(x):
+        r = residual_fn(x)
+        if weights is None:
+            w_info = torch.ones_like(r)
+        else:
+            w_info = weights if weights.ndim == r.ndim else weights[..., None]
+        chi2 = torch.sum(r * r * w_info, dim=-1)
+        w_rob = (torch.ones_like(chi2) if huber_delta is None
+                 else huber_weight(chi2, huber_delta))
+        if mask is not None:
+            w_rob = torch.where(mask, w_rob, torch.zeros_like(w_rob))
+        return r, w_info, chi2, w_rob, torch.sum(chi2 * w_rob)
+
+    def normal_eqs(x):
+        r, w_info, chi2, w_rob, cost = stats(x)
+        J = jac_fn(x)
+        Jw = J * (w_info * w_rob[..., None])[..., None]
+        return (torch.einsum("ndp,ndq->pq", Jw, J),
+                torch.einsum("ndp,nd->p", Jw, r), cost)
+
+    H, g, cost = normal_eqs(x0)
+    eye = torch.eye(H.shape[0], dtype=H.dtype)
+    floor0 = 1e-12 * torch.clamp(torch.max(torch.abs(H)), min=1e-20)
+
+    def step(H, g, radius):
+        Hd = H + floor0 * eye
+        d_gn = _solve_spd(Hd, -g)
+        if algorithm == "gn":
+            return d_gn
+        gHg = torch.dot(g, Hd @ g)
+        alpha = torch.dot(g, g) / torch.clamp(gHg, min=1e-20)
+        d_sd = -alpha * g                           # the Cauchy point
+        n_gn = torch.linalg.norm(d_gn)
+        n_sd = torch.linalg.norm(d_sd)
+        diff = d_gn - d_sd
+        a = torch.dot(diff, diff)
+        b = 2.0 * torch.dot(d_sd, diff)
+        c = torch.dot(d_sd, d_sd) - radius * radius
+        disc = torch.sqrt(torch.clamp(b * b - 4 * a * c, min=0.0))
+        beta = (-b + disc) / torch.clamp(2 * a, min=1e-20)
+        d_mix = d_sd + torch.clamp(beta, 0.0, 1.0) * diff
+        return torch.where(
+            n_gn <= radius, d_gn,
+            torch.where(n_sd >= radius,
+                        d_sd * (radius / torch.clamp(n_sd, min=1e-20)), d_mix))
+
+    x = x0
+    radius = torch.tensor(trust_radius, dtype=torch.float32)
+    done = bool(cost <= 1e-20)
+    it = 0
+    while it < max_iters and not done:
+        delta = step(H, g, radius)
+        bad = bool(torch.isnan(delta).any())
+        if bad:
+            delta = torch.zeros_like(delta)
+        x_new = retract_fn(x, delta)
+        H_new, g_new, cost_new = normal_eqs(x_new)
+        accept = bool(cost_new < cost) and not bad
+        if algorithm == "dogleg":
+            # the model reduction of cost = sum(w r^2): -(2 g.d + d'H d)
+            pred = -(2.0 * torch.dot(g, delta) + torch.dot(delta, H @ delta))
+            rho = (cost - cost_new) / torch.clamp(pred, min=1e-20)
+            if bool(rho > 0.75):
+                radius = torch.maximum(radius, 3.0 * torch.linalg.norm(delta))
+            elif bool(rho < 0.25):
+                radius = radius * 0.5
+            done = bool(radius < 1e-12)
+        else:
+            done = not accept
+        if accept:
+            done = done or bool(cost - cost_new
+                                < rel_tol * torch.clamp(cost, min=1e-20))
+            x, cost, H, g = x_new, cost_new, H_new, g_new
+        it += 1
+    _, _, chi2, _, final_cost = stats(x)
+    return LMResult(x=x, cost=final_cost, chi2=chi2, num_iters=it, lam=radius)

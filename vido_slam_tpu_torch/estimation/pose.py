@@ -60,15 +60,26 @@ def estimate_camera_pose(key, pts3d_world, obs_uv, valid, cam: Camera,
     return pose_optimization(T_init, pts3d_world, obs_uv, init_inl, cam)
 
 
-def estimate_object_motions_batched(keys, Tcw, pts3d_world, obs_uv, masks,
-                                    cam: Camera, H_motion_model,
-                                    has_motion_model,
-                                    obs_pc: Optional[torch.Tensor] = None,
-                                    num_hypotheses: int = 500):
-    """All K object motions at once: keys (K, 2), masks (K, N),
-    H_motion_model (K, 4, 4), has_motion_model (K,). RANSAC solves for
-    M = Tcw H; the winner becomes H = Tcw^-1 M and the K LM refines run as
-    one batched solve. Returns (H (K, 4, 4), inliers (K, N), counts (K,))."""
+def object_motion_optimization(H_init, Tcw, pts3d_world, obs_uv, valid,
+                               cam: Camera,
+                               max_iters: int = OBJ_ITERS) -> PoseEstimate:
+    """LM refine of one rigid object's world-frame motion H (X_cur = H
+    X_pre) through P = K Tcw, without a robust kernel: a B=1 call of the
+    batched LM."""
+    pb = pose_lm_batched(
+        H_init[None].contiguous(), Tcw[None].contiguous(),
+        pts3d_world.contiguous(), obs_uv.contiguous(),
+        valid[None].contiguous(), cam, huber_delta=None, max_iters=max_iters)
+    inl = (pb.chi2[0] <= RP_THRES) & valid
+    return PoseEstimate(T=pb.T[0], inliers=inl, num_inliers=inl.sum(),
+                        chi2=pb.chi2[0])
+
+
+def _object_motions(keys, Tcw, pts3d_world, obs_uv, masks, cam: Camera,
+                    H_motion_model, has_motion_model, obs_pc,
+                    num_hypotheses: int):
+    """RANSAC against the motion model for each of K objects, then their K
+    LM refines as one batched solve: (the batch's result, inliers (K, N))."""
     K = masks.shape[0]
     rr = pnp_ransac(keys, pts3d_world, obs_uv, masks, cam, obs_pc,
                     num_hypotheses=num_hypotheses)
@@ -85,5 +96,33 @@ def estimate_object_motions_batched(keys, Tcw, pts3d_world, obs_uv, masks,
         H_init.contiguous(), Tcw.expand(K, 4, 4).contiguous(),
         pts3d_world.contiguous(), obs_uv.contiguous(),
         init_inl.contiguous(), cam, huber_delta=None, max_iters=OBJ_ITERS)
-    inl = (pb.chi2 <= RP_THRES) & init_inl
+    return pb, (pb.chi2 <= RP_THRES) & init_inl
+
+
+def estimate_object_motions_batched(keys, Tcw, pts3d_world, obs_uv, masks,
+                                    cam: Camera, H_motion_model,
+                                    has_motion_model,
+                                    obs_pc: Optional[torch.Tensor] = None,
+                                    num_hypotheses: int = 500):
+    """All K object motions at once: keys (K, 2), masks (K, N),
+    H_motion_model (K, 4, 4), has_motion_model (K,). RANSAC solves for
+    M = Tcw H; the winner becomes H = Tcw^-1 M and the K LM refines run as
+    one batched solve. Returns (H (K, 4, 4), inliers (K, N), counts (K,))."""
+    pb, inl = _object_motions(keys, Tcw, pts3d_world, obs_uv, masks, cam,
+                              H_motion_model, has_motion_model, obs_pc,
+                              num_hypotheses)
     return pb.T, inl, inl.sum(dim=-1)
+
+
+def estimate_object_motion(key, Tcw, pts3d_world, obs_uv, valid, cam: Camera,
+                           H_motion_model, has_motion_model,
+                           obs_pc: Optional[torch.Tensor] = None,
+                           num_hypotheses: int = 500) -> PoseEstimate:
+    """One object's motion (Tracking.cc:1213, 2030-2162): the B=1 case of
+    ``estimate_object_motions_batched``, with the LM's chi2."""
+    has = torch.as_tensor(has_motion_model, device=Tcw.device)
+    pb, inl = _object_motions(key[None], Tcw, pts3d_world, obs_uv,
+                              valid[None], cam, H_motion_model[None],
+                              has[None], obs_pc, num_hypotheses)
+    return PoseEstimate(T=pb.T[0], inliers=inl[0],
+                        num_inliers=inl[0].sum(), chi2=pb.chi2[0])

@@ -17,7 +17,8 @@ from typing import NamedTuple
 import torch
 
 from vido_slam_tpu_torch.estimation.lm import huber_weight
-from vido_slam_tpu_torch.geometry.se3 import exp_se3, inverse_se3, log_se3
+from vido_slam_tpu_torch.geometry.se3 import (adjoint_se3, exp_se3,
+                                              inverse_se3, log_se3)
 from vido_slam_tpu_torch.geometry.so3 import hat
 
 # Optimizer.cc:190-196, 214
@@ -47,13 +48,6 @@ def _ad(xi: torch.Tensor) -> torch.Tensor:
                       torch.cat([torch.zeros_like(P), P], -1)], -2)
 
 
-def _adjoint(T: torch.Tensor) -> torch.Tensor:
-    """SE(3) adjoint for [rho, phi]: [[R, hat(t) R], [0, R]]."""
-    R, t = T[:, :3, :3], T[:, :3, 3]
-    return torch.cat([torch.cat([R, hat(t) @ R], -1),
-                      torch.cat([torch.zeros_like(R), R], -1)], -2)
-
-
 def _odom_jac(r_od, M):
     """Jacobians (E, 6, 6) of r = log(M^-1 exp(-dp) A^-1 B exp(dc)) at
     zero, given r = xi there: dr/ddc = Jr^-1(xi), dr/ddp = -Jl^-1(xi)
@@ -65,7 +59,7 @@ def _odom_jac(r_od, M):
     a2 = a @ a
     eye = torch.eye(6, dtype=r_od.dtype, device=r_od.device)
     base = eye + a2 / 12.0 - (a2 @ a2) / 720.0
-    Ja = -(base - 0.5 * a) @ _adjoint(inverse_se3(M))
+    Ja = -(base - 0.5 * a) @ adjoint_se3(inverse_se3(M))
     return Ja, base + 0.5 * a
 
 

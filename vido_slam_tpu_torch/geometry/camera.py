@@ -20,7 +20,7 @@ class Camera(NamedTuple):
     fy: float
     cx: float
     cy: float
-    dist: Tuple[float, ...]   # k1, k2, p1, p2, k3 (parsed, not applied)
+    dist: Tuple[float, ...]   # k1, k2, p1, p2, k3 (parsed; see distort)
     width: int
     height: int
     bf: float
@@ -35,6 +35,12 @@ class Camera(NamedTuple):
                    dist=dist, width=int(width), height=int(height),
                    bf=_f32(bf), fps=float(fps))
 
+    @property
+    def K(self) -> torch.Tensor:
+        """The (3, 3) float32 intrinsic matrix, on the CPU."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
+                             [0.0, 0.0, 1.0]], dtype=torch.float32)
+
     def project(self, pts_cam: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
         """Camera-frame points (..., 3) -> pixels (..., 2), no distortion;
         |z| < eps is replaced by eps."""
@@ -48,6 +54,18 @@ class Camera(NamedTuple):
         x = (uv[..., 0] - self.cx) * depth / self.fx
         y = (uv[..., 1] - self.cy) * depth / self.fy
         return torch.stack([x, y, depth], dim=-1)
+
+    def distort(self, xy_norm: torch.Tensor) -> torch.Tensor:
+        """Radial-tangential distortion (k1, k2, p1, p2, k3) of normalised
+        coordinates (..., 2). The tracker never applies it: it works on
+        rectified pixels, as the reference does."""
+        k1, k2, p1, p2, k3 = self.dist[:5]
+        x, y = xy_norm[..., 0], xy_norm[..., 1]
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        return torch.stack([xd, yd], dim=-1)
 
     def in_bounds(self, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
         u, v = uv[..., 0], uv[..., 1]

@@ -65,3 +65,11 @@ def log_se3(T: torch.Tensor) -> torch.Tensor:
     Vinv = right_jacobian_inv_so3(-phi)
     rho = (Vinv @ t[..., None])[..., 0]
     return torch.cat([rho, phi], dim=-1)
+
+
+def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint of SE(3), (..., 4, 4) -> (..., 6, 6), acting on [rho, phi]:
+    [[R, hat(t) R], [0, R]]."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    return torch.cat([torch.cat([R, hat(t) @ R], -1),
+                      torch.cat([torch.zeros_like(R), R], -1)], -2)

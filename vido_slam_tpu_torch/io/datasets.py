@@ -23,7 +23,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from vido_slam_tpu_torch.io.png import read_png
+from vido_slam_tpu_torch.io.png import CorruptPng, read_png
 
 FLO_MAGIC = 202021.25
 
@@ -62,8 +62,11 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
     (H, W) uint8 and ``IMREAD_ANYDEPTH`` (H, W) at the file's depth, both
     from gray (or gray + alpha) files only: cv2 turns colour into gray by
     libpng's own weights, which this reader does not copy, so it refuses.
-    A missing file gives None, as in cv2; a JPEG raises
-    ``NotImplementedError``."""
+    A missing file, or one that is no decodable PNG (``io/png.py``'s
+    ``CorruptPng``: bad signature, truncation, CRC, inflate), gives None,
+    as in cv2. A JPEG raises ``NotImplementedError``, and a valid PNG of a
+    mode the decoder lacks raises ``ValueError``: cv2 decodes both, so
+    returning None would skip a frame silently."""
     if not os.path.exists(path):
         return None
     if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
@@ -71,7 +74,10 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
             f"{path}: JPEG decoding without cv2 is not ported to "
             f"vido_slam_tpu_torch yet (ROADMAP.md queue 1 item 10b); "
             f"convert the images to PNG")
-    img = read_png(path)
+    try:
+        img = read_png(path)
+    except CorruptPng:
+        return None
     px = img.pixels
     gray = img.color_type in (0, 4)
     if flags == IMREAD_COLOR:

@@ -4,9 +4,13 @@ reader (libpng), for the port's dataset readers (``io/datasets.py``).
 Supported: colour types 0 (gray), 2 (RGB), 4 (gray + alpha) and 6 (RGBA)
 at bit depths 8 and 16, not interlaced, filter method 0 with its five row
 filters; ``zlib`` inflates the IDAT stream and every chunk's CRC is
-checked. 16-bit samples are big-endian in the file. Anything else (palette
-images, bit depths 1-4, Adam7 interlace, a bad CRC or a short stream)
-raises ``ValueError``: nothing is guessed. Ancillary chunks (gAMA, sBIT,
+checked. 16-bit samples are big-endian in the file. Bytes that are no
+decodable PNG (a bad signature, a short stream, a bad CRC, an invalid
+IHDR, data that does not inflate or falls short of the image, a bad row
+filter) raise ``CorruptPng``, where libpng fails and ``cv2.imread``
+returns None. Valid PNGs of the other modes (palette images, bit depths
+1-4, Adam7 interlace, surplus image data) raise a plain ``ValueError``:
+cv2 decodes those, and nothing is guessed. Ancillary chunks (gAMA, sBIT,
 tRNS, text) are skipped; they change no sample value of the modes the
 readers support (cv2 applies no gamma, and drops alpha where the readers
 do).
@@ -30,6 +34,13 @@ from vido_slam_tpu_torch.utils import host_build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
+# colour type -> the bit depths the PNG standard allows for it
+VALID_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+                4: (8, 16), 6: (8, 16)}
+
+
+class CorruptPng(ValueError):
+    """The bytes are no decodable PNG (libpng fails on them too)."""
 
 
 class PngImage(NamedTuple):
@@ -41,22 +52,32 @@ class PngImage(NamedTuple):
 def _chunks(data: bytes):
     """(type, payload) of each chunk up to IEND, CRCs checked."""
     if data[:8] != SIGNATURE:
-        raise ValueError("not a PNG file (bad signature)")
+        raise CorruptPng("not a PNG file (bad signature)")
     pos = 8
     while True:
         if pos + 12 > len(data):
-            raise ValueError("PNG ends before IEND")
+            raise CorruptPng("PNG ends before IEND")
         n, = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
+        if pos + 12 + n > len(data):
+            raise CorruptPng(f"PNG chunk {kind!r} is truncated")
         body = data[pos + 8:pos + 8 + n]
         crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if len(body) != n or zlib.crc32(kind + body) != crc:
-            raise ValueError(f"PNG chunk {kind!r} is truncated or fails "
-                             f"its CRC")
+        if zlib.crc32(kind + body) != crc:
+            raise CorruptPng(f"PNG chunk {kind!r} fails its CRC")
         yield kind, body
         if kind == b"IEND":
             return
         pos += 12 + n
+
+
+def _check_size(size: int, height: int, rowbytes: int) -> None:
+    """Too little image data is corrupt; libpng decodes surplus data with
+    a warning, which this reader refuses."""
+    need = height * (rowbytes + 1)
+    if size != need:
+        kind = CorruptPng if size < need else ValueError
+        raise kind(f"PNG image data holds {size} bytes, not {need}")
 
 
 def unfilter(filtered: np.ndarray, height: int, rowbytes: int,
@@ -65,9 +86,7 @@ def unfilter(filtered: np.ndarray, height: int, rowbytes: int,
     stream (each row led by its filter-type byte), ``bpp`` bytes a pixel,
     with the host C++ unfilter. Returns (height, rowbytes) uint8."""
     src = np.ascontiguousarray(filtered, np.uint8).reshape(-1)
-    if src.size != height * (rowbytes + 1):
-        raise ValueError(f"PNG image data holds {src.size} bytes, not "
-                         f"{height * (rowbytes + 1)}")
+    _check_size(src.size, height, rowbytes)
     out = np.empty((height, rowbytes), np.uint8)
     lib = host_build.load("png_unfilter")
     fn = lib.png_unfilter
@@ -76,7 +95,7 @@ def unfilter(filtered: np.ndarray, height: int, rowbytes: int,
                    ctypes.c_int64, ctypes.c_int64]
     rc = fn(src.ctypes.data, out.ctypes.data, height, rowbytes, bpp)
     if rc != 0:
-        raise ValueError(f"PNG row {-rc - 1} has filter type "
+        raise CorruptPng(f"PNG row {-rc - 1} has filter type "
                          f"{src[(-rc - 1) * (rowbytes + 1)]}, not 0-4")
     return out
 
@@ -87,9 +106,7 @@ def unfilter_plain(filtered: np.ndarray, height: int, rowbytes: int,
     sum of each of the ``bpp`` interleaved byte lanes) and Up, a Python
     loop along the row for Avg and Paeth."""
     src = np.asarray(filtered, np.uint8).reshape(-1)
-    if src.size != height * (rowbytes + 1):
-        raise ValueError(f"PNG image data holds {src.size} bytes, not "
-                         f"{height * (rowbytes + 1)}")
+    _check_size(src.size, height, rowbytes)
     rows = src.reshape(height, rowbytes + 1)
     out = np.zeros((height, rowbytes), np.uint8)
     prev = np.zeros(rowbytes, np.uint8)
@@ -121,7 +138,8 @@ def unfilter_plain(filtered: np.ndarray, height: int, rowbytes: int,
                 cur[i] = (x + pred) & 0xFF
             cur = np.frombuffer(bytes(cur), np.uint8)
         else:
-            raise ValueError(f"PNG row {y} has filter type {kind}, not 0-4")
+            raise CorruptPng(f"PNG row {y} has filter type {kind}, "
+                             f"not 0-4")
         out[y] = cur
         prev = out[y]
     return out
@@ -131,13 +149,16 @@ def decode_png(data: bytes, *, plain: bool = False) -> PngImage:
     """Decode a PNG held in memory; ``plain`` takes the plain unfilter."""
     header, idat = None, []
     for kind, body in _chunks(data):
-        if kind == b"IHDR":
+        if header is None:
+            if kind != b"IHDR" or len(body) != 13:
+                raise CorruptPng("PNG does not start with a valid IHDR")
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
-    if header is None:
-        raise ValueError("PNG without an IHDR chunk")
     width, height, depth, ctype, comp, filt, interlace = header
+    if depth not in VALID_DEPTHS.get(ctype, ()) or width == 0 \
+            or height == 0 or comp != 0 or filt != 0 or interlace > 1:
+        raise CorruptPng(f"PNG IHDR is invalid: {header}")
     if ctype not in CHANNELS:
         raise ValueError(f"PNG colour type {ctype} is not supported "
                          f"(gray, RGB, gray + alpha, RGBA only)")
@@ -145,14 +166,10 @@ def decode_png(data: bytes, *, plain: bool = False) -> PngImage:
         raise ValueError(f"PNG bit depth {depth} is not supported (8, 16)")
     if interlace != 0:
         raise ValueError("interlaced PNGs are not supported")
-    if comp != 0 or filt != 0:
-        raise ValueError(f"PNG compression/filter method {comp}/{filt}")
-    if width == 0 or height == 0:
-        raise ValueError("PNG of zero size")
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
-        raise ValueError(f"PNG image data does not inflate: {e}") from None
+        raise CorruptPng(f"PNG image data does not inflate: {e}") from None
     channels = CHANNELS[ctype]
     bpp = channels * depth // 8
     rowbytes = width * bpp

@@ -317,3 +317,12 @@ def driving_clip(height: int = 192, width: int = 640, n_frames: int = 24,
     if return_poses:
         return clip, np.stack(Tcws).astype(np.float32)
     return clip
+
+
+def depth_noise(rng: np.random.RandomState, z: np.ndarray) -> np.ndarray:
+    """The reference's optional depth noise (Frame.cc:714, 841, 868):
+    z + N(0, sigma) with sigma = z^2 / (725 * 0.5) * 0.15. The shipped
+    pipeline reads depth without it (addnoise=0); this is for robustness
+    studies, not the tracking path."""
+    sigma = z * z / (725.0 * 0.5) * 0.15
+    return z + rng.randn(*z.shape).astype(z.dtype) * sigma

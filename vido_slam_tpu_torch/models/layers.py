@@ -44,6 +44,28 @@ class FrozenBatchNorm2d(BatchNorm2d):
         super().__init__(channels, eps=0.0)
 
 
+class GroupNorm(nn.Module):
+    """``torch.nn.GroupNorm(num_groups, C, eps, affine=True)``, the
+    counterpart of the JAX package's ``layers.group_norm``
+    (layers.py:150-170): per sample and group of C / G consecutive
+    channels, normalised over (C / G, H, W). maskrcnn_benchmark's GN
+    checkpoints use 32 groups and eps 1e-5. Its state is ``weight`` and
+    ``bias`` as buffers, like the other norms here: no running
+    statistics."""
+
+    def __init__(self, channels: int, num_groups: int = 32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(channels))
+        self.register_buffer("bias", torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                            self.eps)
+
+
 def max_pool(x: torch.Tensor, k: int = 3, stride: int = 2,
              padding: int = 1) -> torch.Tensor:
     """Max pooling whose padding never wins (the JAX package pads with

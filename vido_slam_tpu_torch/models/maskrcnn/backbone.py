@@ -5,9 +5,11 @@ modeling/backbone/{resnet.py,fpn.py}).
 Bottlenecks follow the checkpoint configs: a grouped 3x3 for ResNeXt
 (``num_groups`` x ``width_per_group``, ``nn.Conv2d(groups=...)``), the
 stride on the 1x1 or the 3x3 by ``stride_in_1x1``, FrozenBatchNorm (no
-epsilon) everywhere. The FPN adds 1x1 laterals to the nearest-upsampled
-coarser map, 3x3 output convs, and P6 as every other pixel of P5
-(LastLevelMaxPool with kernel 1, stride 2).
+epsilon) everywhere, or GroupNorm (32 groups, eps 1e-5) for the GN
+checkpoints (``ResNetConfig(norm="gn")``, maskrcnn_benchmark's
+BottleneckWithGN / StemWithGN). The FPN adds 1x1 laterals to the
+nearest-upsampled coarser map, 3x3 output convs, and P6 as every other
+pixel of P5 (LastLevelMaxPool with kernel 1, stride 2).
 
 Module and buffer names equal maskrcnn_benchmark's state_dict keys
 ("backbone.body.stem.conv1.weight", "backbone.fpn.fpn_inner1.weight", ...)
@@ -22,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vido_slam_tpu_torch.models.layers import FrozenBatchNorm2d, max_pool
+from vido_slam_tpu_torch.models.layers import (FrozenBatchNorm2d, GroupNorm,
+                                               max_pool)
 
 
 class ResNetConfig(NamedTuple):
@@ -38,14 +41,17 @@ class ResNetConfig(NamedTuple):
 
 
 def _check_supported(cfg: ResNetConfig) -> None:
-    if cfg.norm != "frozen_bn":
-        raise NotImplementedError(
-            f"ResNet norm {cfg.norm!r}: only frozen_bn is ported (GroupNorm "
-            f"waits, ROADMAP queue 1 item 14b)")
+    if cfg.norm not in ("frozen_bn", "gn"):
+        raise ValueError(f"ResNet norm {cfg.norm!r}: 'frozen_bn' or 'gn'")
     if any(cfg.stage_with_dcn):
         raise NotImplementedError(
             "deformable conv stages (stage_with_dcn) are not ported "
             "(ROADMAP queue 1 item 19)")
+
+
+def _norm(channels: int, norm: str) -> nn.Module:
+    return GroupNorm(channels) if norm == "gn" else \
+        FrozenBatchNorm2d(channels)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
@@ -54,21 +60,22 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
 
 
 class Bottleneck(nn.Module):
-    """BottleneckWithFixedBatchNorm (resnet.py): 1x1, grouped 3x3, 1x1, with
-    a 1x1 + FrozenBN projection when the shape changes."""
+    """BottleneckWithFixedBatchNorm or BottleneckWithGN (resnet.py): 1x1,
+    grouped 3x3, 1x1, with a 1x1 + norm projection when the shape
+    changes."""
 
     def __init__(self, cin: int, planes: int, cout: int, stride: int,
-                 groups: int, stride_in_1x1: bool):
+                 groups: int, stride_in_1x1: bool, norm: str = "frozen_bn"):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = _conv(cin, planes, 1, s1)
-        self.bn1 = FrozenBatchNorm2d(planes)
+        self.bn1 = _norm(planes, norm)
         self.conv2 = _conv(planes, planes, 3, s3, 1, groups)
-        self.bn2 = FrozenBatchNorm2d(planes)
+        self.bn2 = _norm(planes, norm)
         self.conv3 = _conv(planes, cout, 1)
-        self.bn3 = FrozenBatchNorm2d(cout)
+        self.bn3 = _norm(cout, norm)
         self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
-                                        FrozenBatchNorm2d(cout)) \
+                                        _norm(cout, norm)) \
             if cin != cout or stride != 1 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,10 +87,10 @@ class Bottleneck(nn.Module):
 
 
 class Stem(nn.Module):
-    def __init__(self):
+    def __init__(self, norm: str = "frozen_bn"):
         super().__init__()
         self.conv1 = _conv(3, 64, 7, 2, 3)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.bn1 = _norm(64, norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
@@ -96,7 +103,7 @@ class ResNet(nn.Module):
     def __init__(self, cfg: ResNetConfig):
         super().__init__()
         _check_supported(cfg)
-        self.stem = Stem()
+        self.stem = Stem(cfg.norm)
         width = cfg.num_groups * cfg.width_per_group
         cin = 64
         for si, nblocks in enumerate(cfg.stage_blocks):
@@ -105,7 +112,8 @@ class ResNet(nn.Module):
             self.add_module(f"layer{si + 1}", nn.Sequential(*(
                 Bottleneck(cin if b == 0 else cout, planes, cout,
                            stride if b == 0 else 1, cfg.num_groups,
-                           cfg.stride_in_1x1) for b in range(nblocks))))
+                           cfg.stride_in_1x1, cfg.norm)
+                for b in range(nblocks))))
             cin = cout
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
@@ -158,7 +166,8 @@ def init_resnet_fpn_params(generator: torch.Generator,
     torch layouts, drawn from ``generator`` as the JAX package's
     ``init_resnet_fpn_params`` draws them (not its numbers: another
     generator): convs N(0, 1 / fan_in), zero FPN biases, FrozenBN at unit
-    weight and variance, zero bias and mean."""
+    weight and variance, zero bias and mean; GroupNorm at unit weight and
+    zero bias, without running statistics."""
     _check_supported(cfg)
     p: Dict[str, torch.Tensor] = {}
 
@@ -172,8 +181,9 @@ def init_resnet_fpn_params(generator: torch.Generator,
     def add_bn(name, c):
         p[name + ".weight"] = torch.ones(c)
         p[name + ".bias"] = torch.zeros(c)
-        p[name + ".running_mean"] = torch.zeros(c)
-        p[name + ".running_var"] = torch.ones(c)
+        if cfg.norm != "gn":
+            p[name + ".running_mean"] = torch.zeros(c)
+            p[name + ".running_var"] = torch.ones(c)
 
     pre = "backbone.body"
     add_conv(f"{pre}.stem.conv1", 3, 64, 7)

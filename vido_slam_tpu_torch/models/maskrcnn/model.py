@@ -10,7 +10,8 @@ Every stage has a fixed shape: 1000 proposals, 100 detections, validity
 masks throughout. ``MaskRCNN``'s ``state_dict()`` keys equal
 maskrcnn_benchmark's names and the JAX parameter dict's, so either loads
 with ``load_state_dict(strict=True)`` (the JAX dict through
-``convert.maskrcnn_state_dict_from_numpy``). Inference only, float32.
+``convert.maskrcnn_state_dict_from_numpy``), and a Detectron caffe2
+checkpoint through ``MaskRCNN.load_c2``. Inference only, float32.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from vido_slam_tpu_torch.models.maskrcnn.roi_heads import (
     postprocess_detections)
 from vido_slam_tpu_torch.models.maskrcnn.rpn import (
     ANCHOR_SIZES, ANCHOR_STRIDES, RPNHead, generate_cell_anchors,
-    grid_anchors, level_candidates, nms_levels, select_over_all_levels)
+    grid_anchors, level_candidates, nms_levels, rpn_head_concat,
+    select_over_all_levels)
 from vido_slam_tpu_torch.utils.device import resolve_device
 
 
@@ -37,6 +39,9 @@ class MaskRCNNConfig(NamedTuple):
     input_w: int = 800
     confidence_threshold: float = 0.8   # run_mask_rcnn.py:42
     mask_threshold: float = 0.5
+    # the RPN head over all levels in one pass (rpn_head_concat); the JAX
+    # package reads this from VIDO_RPN_CONCAT at trace time
+    rpn_concat: bool = False
 
 
 RESNET50_FPN = MaskRCNNConfig()
@@ -79,6 +84,25 @@ class MaskRCNN(nn.Module):
         self.to(resolve_device(device))
         self._anchors: Dict[tuple, torch.Tensor] = {}
 
+    def load_c2(self, path_or_blobs, conv_body: str):
+        """Load a Detectron caffe2 checkpoint (a pickle's path, or its blob
+        dict) through ``c2_loading``: translate the blob names for
+        ``conv_body`` ("R-50-FPN", "R-101-FPN"; X-101-32x8d rides R-101),
+        align them onto this model's keys and load the result strictly.
+        Returns (filled, unmatched) as the JAX loader gives them: model
+        keys that kept this model's values, and blobs that fit no key."""
+        from vido_slam_tpu_torch.models.maskrcnn import c2_loading
+
+        blobs = (c2_loading.load_c2_pickle(path_or_blobs)
+                 if isinstance(path_or_blobs, str) else path_or_blobs)
+        state = c2_loading.translate_c2_blobs(
+            blobs, conv_body, stage_with_dcn=self.cfg.resnet.stage_with_dcn)
+        current = {k: v.detach().cpu() for k, v in self.state_dict().items()}
+        aligned, filled, unmatched = c2_loading.align_c2_to_model(state,
+                                                                  current)
+        self.load_state_dict(aligned, strict=True)
+        return filled, unmatched
+
     def anchors(self, level: int, height: int, width: int,
                 device: torch.device) -> torch.Tensor:
         """(H*W*A, 4) float32 anchors of a pyramid level, made once per
@@ -100,9 +124,10 @@ def rpn_proposals(model: MaskRCNN, feats: List[torch.Tensor]):
     valid): each level's candidates, one NMS batched over the levels (each
     level's ``select_proposals_level``), the global top 1000."""
     H, W = model.cfg.input_h, model.cfg.input_w
+    heads = (rpn_head_concat(model.rpn.head, feats) if model.cfg.rpn_concat
+             else [model.rpn.head(f) for f in feats])
     per_level = []
-    for li, f in enumerate(feats):
-        logits, deltas = model.rpn.head(f)
+    for li, (f, (logits, deltas)) in enumerate(zip(feats, heads)):
         anchors = model.anchors(li, f.shape[2], f.shape[3], f.device)
         per_level.append(level_candidates(logits, deltas, anchors, H, W))
     boxes, scores, valid = nms_levels(*(torch.stack(x)

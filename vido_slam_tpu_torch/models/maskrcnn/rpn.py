@@ -92,6 +92,29 @@ class RPNHead(nn.Module):
         return logits, deltas
 
 
+def rpn_head_concat(head: RPNHead, feats: List[torch.Tensor]):
+    """``head`` over all levels in one pass (rpn.py:84-110): the levels
+    (1, C, H_l, W_l) stacked along rows, widths zero-padded to the widest,
+    one zero row after each level so that the 3x3 conv sees each level's
+    own zero padding; the three convs run once and each level's rows and
+    columns are cut back out. Equal to ``head`` level by level up to the
+    convolutions' summation order. Returns [(objectness, deltas)] as
+    ``RPNHead.forward`` gives them."""
+    w_max = max(f.shape[3] for f in feats)
+    fcat = torch.cat([F.pad(f, (0, w_max - f.shape[3], 0, 1))
+                      for f in feats], dim=2)
+    t = F.relu(head.conv(fcat))
+    logits, deltas = head.cls_logits(t)[0], head.bbox_pred(t)[0]
+    out, row = [], 0
+    for f in feats:
+        h, w = f.shape[2], f.shape[3]
+        lg = logits[:, row:row + h, :w].permute(1, 2, 0).reshape(-1)
+        dl = deltas[:, row:row + h, :w].permute(1, 2, 0).reshape(-1, 4)
+        out.append((lg, dl))
+        row += h + 1
+    return out
+
+
 def _topk_padded(scores: torch.Tensor, k: int):
     """top_k of k entries; with fewer than k scores the rest are -inf
     slots whose index clamps to the last score (rpn.py:121-126)."""

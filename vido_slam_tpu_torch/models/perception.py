@@ -110,7 +110,8 @@ def perception_forward(depth_net: MonoDepth2, flow_net: LiteFlowNet,
 class PerceptionModel:
     """The three networks on one device (the card unless the caller asks
     for the CPU), each from ``seed`` unless its state dict is given (torch
-    layout; the JAX dicts through ``convert.perception_model_from_numpy``).
+    layout; the JAX dicts through ``convert.perception_model_from_numpy``,
+    bundles on disk through ``from_pretrained``).
 
     ``use_pallas`` is accepted for the JAX signature: on the card the CUDA
     kernels run either way. The bf16 options (``compute_dtype``,
@@ -145,10 +146,36 @@ class PerceptionModel:
                 net.load_state_dict(state, strict=True)
 
     @classmethod
-    def from_pretrained(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "PerceptionModel.from_pretrained (reading checkpoints) is not "
-            "ported to vido_slam_tpu_torch yet (ROADMAP.md queue 1 item 18)")
+    def from_pretrained(cls, weights_dir: str, height: int, width: int,
+                        mask_cfg: MaskRCNNConfig = RESNET50_FPN, **kw):
+        """Build from a directory of ``depth``, ``flow`` and ``mask``
+        bundles in the JAX package's layout (``tools/convert_weights.py``'s
+        output as ``.npz``; ``utils/checkpoint.py``), loaded with
+        ``strict=True``: a bundle whose keys or shapes do not fit its net
+        raises, naming them. A missing bundle keeps that net's seeded
+        init. ``kw`` goes to the constructor (``seed``, ``device``,
+        ``use_pallas``)."""
+        import os
+
+        from vido_slam_tpu_torch import convert
+        from vido_slam_tpu_torch.utils.checkpoint import load_params
+
+        def maybe(name):
+            base = os.path.join(weights_dir, name)
+            if os.path.exists(base + ".npz") or os.path.exists(base):
+                return {k: v.numpy() for k, v in load_params(base).items()}
+            return None
+
+        dev = resolve_device(kw.pop("device", None))
+        depth, flow, mask = maybe("depth"), maybe("flow"), maybe("mask")
+        return cls(
+            height, width, mask_cfg, device=dev,
+            depth_state=None if depth is None else
+            convert.monodepth2_state_dict_from_numpy(depth, dev),
+            flow_state=None if flow is None else
+            convert.liteflownet_state_dict_from_numpy(flow),
+            mask_state=None if mask is None else
+            convert.maskrcnn_state_dict_from_numpy(mask, dev), **kw)
 
     def _frame(self, bgr) -> torch.Tensor:
         return torch.as_tensor(bgr, dtype=torch.float32, device=self.device)
