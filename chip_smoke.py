@@ -6,7 +6,8 @@ Phases, each of which fails the run by raising:
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every kernel in ``csrc/`` (one nvcc each, started
      together) and prints ptxas' report of each kernel (its name,
-     registers, shared memory, stack, spills);
+     registers, shared memory, stack, spills), then the host C++ helpers
+     (the PNG unfilter and the JPEG decoder);
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      same numpy-seeded inputs, laid out at the main paths' shapes as the
      main paths lay them out (kernels 3 and 4 at the five pyramid levels of
@@ -102,11 +103,32 @@ Phases, each of which fails the run by raising:
      plain version on that frame's arguments; and the single-problem
      ``estimate_object_motion`` and ``estimate_object_motion_joint`` on one
      object of 4000 points, kernels 1 and 2 at B=1, each held against its
-     plain version;
+     plain version. (j) bf16 perception: (j1) (e)'s online cell with
+     ``mask_dtype=torch.bfloat16`` (the JAX bench's default) over the same
+     23 calls: (e)'s launches, finite poses, the detections' validity and
+     labels equal to the float32 detector's on the same frames except
+     where a detection lies within a bf16 margin of a threshold
+     (``match_detections``), kernel 5's bf16 build held against its bf16
+     plain version on call 3's arguments; (j2) one call each with
+     ``flow_dtype`` and ``compute_dtype`` bf16: kernels 3 and 4's bf16
+     builds against their plain versions at every level, the flow within
+     the JAX package's bf16 bar of the float32 flow, the depth within
+     BF16_DEPTH_BAR; it prints the bf16 and the float32 ms a frame and
+     each bf16 build's device ms, launches and bound beside the float32
+     build's on the same values. (k) JPEG frames: the fixtures under
+     tests/data/jpeg (every sampling layout, a restart interval, optimised
+     tables, gray, 24 KITTI frames of (h3)'s scene written by cv2 at
+     quality 95) decoded bit-equal to cv2's committed arrays by the C++
+     decoder and its plain version, then the CLI on (h3)'s KITTI
+     configuration over a tree of those .jpg frames: ATE under 1 %, the
+     StopFrame full batch, kernel 1 twice a tracked frame; it prints the
+     decode's ms a frame beside the PNG reading's;
   5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
-     call's arguments, its launches on (f) and (g), on (h1)-(h4) and on
-     (i1)-(i3) and the B=1 calls), then the device line.
+     call's arguments, its launches on (f) and (g), on (h1)-(h4), on
+     (i1)-(i3) and the B=1 calls and on (k), and its bf16 build's
+     launches, device ms, plain ms and bound in (j) beside the float32
+     build's device ms on the same values), then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -823,6 +845,75 @@ def check_masks(masks, dets, what) -> list:
     return n_valid
 
 
+def box_iou(a, b) -> np.ndarray:
+    """(len(a), len(b)) IoUs of x1y1x2y2 boxes, +1 pixel convention (the
+    detector's)."""
+    lo = np.maximum(a[:, None, :2], b[None, :, :2])
+    hi = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(hi - lo + 1, 0, None), -1)
+
+    def area(z):
+        return (z[:, 2] - z[:, 0] + 1) * (z[:, 3] - z[:, 1] + 1)
+    return inter / (area(a)[:, None] + area(b)[None] - inter)
+
+
+# Where two detectors' outputs differ slot by slot (the detections come
+# sorted by score, so validity differs in the count of valid slots, and a
+# label where the order differs), the detection at that slot must lie
+# within a bf16 margin of a threshold: its score within SCORE_MARGIN of the
+# confidence threshold or of the lowest kept score of its class (the
+# per-class and per-image top-k cuts rank candidates by score; where the
+# scores lie within a bf16 step of each other, as random weights with a
+# lifted class give them, the cut among them is a tie), or its IoU with
+# another kept box within IOU_MARGIN of the box head's NMS threshold.
+NMS_IOU = 0.5
+IOU_MARGIN = 0.1
+SCORE_MARGIN = 2.0 ** -7   # a bf16 step just below 1
+
+
+def match_detections(a: dict, b: dict, confidence: float) -> dict:
+    """Two detectors' outputs on one frame (numpy "boxes", "scores",
+    "labels", "valid"): the slots whose validity or label differ, each
+    explained when its detection lies within a bf16 margin of a threshold
+    (the margins above); and, as a measure of the boxes, the valid
+    detections matched one to one in score order by label and IoU >= 0.9.
+    Returns the counts and the unexplained slots (output, slot, score,
+    largest IoU with another valid detection of its output)."""
+    a, b = ({k: np.asarray(d[k], bool if k == "valid" else None)
+             for k in ("boxes", "scores", "labels", "valid")} for d in (a, b))
+    ia, ib = np.nonzero(a["valid"])[0], np.nonzero(b["valid"])[0]
+    iou = box_iou(a["boxes"][ia], b["boxes"][ib])
+    iou[a["labels"][ia][:, None] != b["labels"][ib][None]] = 0.0
+    used = set()
+    for k in np.argsort(-a["scores"][ia], kind="stable"):
+        cand = [j for j in np.argsort(-iou[k], kind="stable")
+                if j not in used and iou[k, j] >= 0.9]
+        if cand:
+            used.add(cand[0])
+    differ = np.nonzero((a["valid"] != b["valid"])
+                        | (a["valid"] & (a["labels"] != b["labels"])))[0]
+    unexplained = []
+    for name, det in (("a", a), ("b", b)):
+        for i in differ:
+            if not det["valid"][i]:
+                continue
+            others = [j for j in np.nonzero(det["valid"])[0] if j != i]
+            near = float(box_iou(det["boxes"][i:i + 1],
+                                 det["boxes"][others]).max()) if others \
+                else 0.0
+            score, label = float(det["scores"][i]), det["labels"][i]
+            lowest = min(float(d["scores"][d["valid"]
+                                           & (d["labels"] == label)].min(
+                                               initial=np.inf))
+                         for d in (a, b))
+            if abs(near - NMS_IOU) > IOU_MARGIN \
+                    and abs(score - confidence) > SCORE_MARGIN \
+                    and abs(score - lowest) > SCORE_MARGIN:
+                unexplained.append((name, int(i), score, near))
+    return {"valid": (len(ia), len(ib)), "slots_differ": len(differ),
+            "boxes_matched": len(used), "unexplained": unexplained}
+
+
 def check_whole_detector(dev, frame) -> float:
     """The whole detector on the card (kernel 5) against the port on the
     CPU (plain version), same seed-0 weights, on one driving-clip frame
@@ -1082,10 +1173,11 @@ ONLINE_CLIP = os.path.join("assets", "bench_clip_192x640_24.npz")
 ONLINE_RECORD = 3
 
 
-def online_inputs(dev):
+def online_inputs(dev, **options):
     """The online path's inputs: the bench clip's 24 frames on ``dev`` (fed
     as the JAX bench feeds them, as BGR in 0..255), their poses, and the
-    port's PerceptionModel from seed 0 (class 3 lifted) on ``dev``."""
+    port's PerceptionModel from seed 0 (class 3 lifted) on ``dev``, with
+    the dtype ``options`` (``mask_dtype`` ...) given."""
     import torch
     from vido_slam_tpu_torch.models.maskrcnn.model import MaskRCNNConfig
     from vido_slam_tpu_torch.models.perception import PerceptionModel
@@ -1096,7 +1188,7 @@ def online_inputs(dev):
     h, w = ONLINE_DETECTOR
     model = PerceptionModel(ONLINE_H, ONLINE_W,
                             MaskRCNNConfig(input_h=h, input_w=w), seed=0,
-                            device=dev)
+                            device=dev, **options)
     lifted(model.mask_model)
     return frames, clip["tcw"], model
 
@@ -1475,16 +1567,18 @@ def write_config(path, cfg) -> None:
             f.write(f'{k}: "{v}"\n' if isinstance(v, str) else f"{k}: {v}\n")
 
 
-def write_tree(root, kind, frames, png=write_png, imu=None):
+def write_tree(root, kind, frames, png=write_png, imu=None, jpg=None):
     """A dataset tree in the reference demo's layout under ``root``: each of
     ``frames`` is (bgr uint8, raw depth uint16, flow (H, W, 2) float32, mask
     uint8, t seconds). ``kind`` "kaist": image/<19-digit ns stamp>.png
     BayerBG frames listed by vTimestampsImage.txt, and with ``imu`` (times
     s, acc, gyro) xsens_imu.csv (stamp ns, gyro cols 8-10, acc 11-13);
-    "kitti": image_02/<10-digit index>.png BGR frames listed by times.txt.
-    flow/<stem>.flo, depth/<stem>.png (16-bit) and mask/<stem>.png beside
-    the image directory. ``png(path, img)`` writes the PNGs. Returns the
-    config entries naming the tree (image_path, and imu_path)."""
+    "kitti": image_02/<10-digit index>.png BGR frames listed by times.txt,
+    or <10-digit index>.jpg written by ``jpg(path, bgr)`` where it is
+    given. flow/<stem>.flo, depth/<stem>.png (16-bit) and mask/<stem>.png
+    beside the image directory. ``png(path, img)`` writes the PNGs.
+    Returns the config entries naming the tree (image_path, and
+    imu_path)."""
     from vido_slam_tpu_torch.io.datasets import write_flo
 
     img_dir = os.path.join(root, "image" if kind == "kaist" else "image_02")
@@ -1500,7 +1594,10 @@ def write_tree(root, kind, frames, png=write_png, imu=None):
         else:
             stamps.append(f"{t:.6f}")
             stem = f"{i:010d}"
-            png(os.path.join(img_dir, stem + ".png"), bgr)
+            if jpg is None:
+                png(os.path.join(img_dir, stem + ".png"), bgr)
+            else:
+                jpg(os.path.join(img_dir, stem + ".jpg"), bgr)
         write_flo(os.path.join(root, "flow", stem + ".flo"), flow)
         png(os.path.join(root, "depth", stem + ".png"), depth)
         png(os.path.join(root, "mask", stem + ".png"), mask)
@@ -2033,6 +2130,371 @@ def run_phase_i(dev, counters, names, seq, unbroken):
                       "roi_align_multilevel": err_roi}
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (j): bf16 perception; (k): JPEG frames (ROADMAP.md items 15b, 10b)
+# ---------------------------------------------------------------------------
+
+# (j2): the bf16 depth's largest deviation from the float32 depth, as a
+# share of the uint16 depth's 65536 range: the bf16 disparity moves by a
+# few bf16 steps (2^-9 at 0.5), which the min-max normalisation magnifies
+# by the inverse of the disparity's range (0.0135 on the CPU, frame 1 of
+# the bench clip, seed 0)
+BF16_DEPTH_BAR = 0.05
+# (j2): the JAX package's bar for bf16 flow against f32
+# (tests/test_liteflownet.py:54-64): max |diff| / max(|f32|, 1)
+BF16_FLOW_BAR = 0.02
+
+
+def bf16_bar(ref):
+    """The bar of a bf16 build against its plain version, elementwise: one
+    bf16 step at |ref| plus 1e-5 of max(1, max |ref|), the float32 builds'
+    bar. Both compute in float32 and round to bf16 where the JAX package
+    rounds; only the order of the float32 sums differs, by at most the
+    float32 bar (it matters where a sum cancels), and two float32 values
+    that close round to bf16 values at most one step further apart."""
+    import torch
+    r = ref.float().abs()
+    step = torch.exp2(torch.floor(torch.log2(r.clamp(min=2.0 ** -126))) - 7)
+    return step + 1e-5 * max(1.0, float(r.max()))
+
+
+def check_bf16_kernel(name, kernel, plain, args) -> float:
+    """A bf16 build against its bf16 plain version on ``args``: two
+    launches give the same bits, and each output lies within ``bf16_bar``
+    of the plain version's. Returns max |kernel - plain|."""
+    import torch
+
+    got, again, ref = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    check(got.dtype == ref.dtype == torch.bfloat16
+          and got.shape == ref.shape, (name, got.dtype, tuple(got.shape)))
+    check(torch.equal(got, again), (name, "two launches differ"))
+    d = (got.float() - ref.float()).abs()
+    check(bool((d <= bf16_bar(ref)).all()),
+          (name, "further from the plain version than the bar",
+           float(d.max())))
+    print(f"{kernel.__name__} bf16 {name}: max error {float(d.max()):.3e}, "
+          f"{int((d > 0).sum())} of {d.numel()} outputs differ from the "
+          f"plain version, all within one bf16 step plus 1e-5 of "
+          f"max(1, max |out|)")
+    return float(d.max())
+
+
+def to_f32(args):
+    """``args`` with every bf16 tensor (in lists too) as float32."""
+    import torch
+
+    def conv(a):
+        if torch.is_tensor(a):
+            return a.float() if a.dtype == torch.bfloat16 else a
+        return [conv(x) for x in a] if isinstance(a, list) else a
+    return tuple(conv(a) for a in args)
+
+
+def time_bf16(cases, kernel, plain, count):
+    """The bf16 build's device ms over ``cases`` (a graph replay of 20
+    calls each), its plain version's, their bound (``count(args)``: bytes,
+    flops) and the float32 build's device ms on the same values:
+    (ms, plain_ms, bound_ms, bound_by, f32_ms)."""
+    ms, plain_ms, f32_ms = 0.0, 0.0, 0.0
+    nbytes = flops = 0
+    for name, args in cases:
+        k_ms = time_cuda_graph(lambda: kernel(*args), 20)
+        f_args = to_f32(args)
+        f_ms = time_cuda_graph(lambda: kernel(*f_args), 20)
+        p_ms = time_cuda(lambda: plain(*args), 3)
+        b_, f_ = count(args)
+        print(f"{kernel.__name__} bf16 {name}: kernel {k_ms:.4f} ms (float32 "
+              f"build on the same values {f_ms:.4f}), plain {p_ms:.4f} ms, "
+              f"{b_} bytes, {f_} flops")
+        ms += k_ms
+        plain_ms += p_ms
+        f32_ms += f_ms
+        nbytes += b_
+        flops += f_
+    return (ms, plain_ms) + bound(nbytes, flops) + (f32_ms,)
+
+
+def detections(d) -> dict:
+    """A detector output as numpy, its floating fields float32."""
+    import torch
+    return {k: getattr(d, k).float().cpu().numpy()
+            if torch.is_floating_point(getattr(d, k))
+            else getattr(d, k).cpu().numpy()
+            for k in ("boxes", "scores", "labels", "valid")}
+
+
+def run_phase_j(dev, counters, names, f32_ms):
+    """Phase (j), bf16 perception: (j1) the online cell with the JAX
+    bench's default ``mask_dtype=torch.bfloat16`` over the bench clip,
+    its detections held to the float32 detector's, kernel 5's bf16 build
+    to its plain version on call ONLINE_RECORD's arguments; (j2) one call
+    with ``flow_dtype`` and one with ``compute_dtype`` bf16 against the
+    float32 model, kernels 3 and 4's bf16 builds against their plain
+    versions at every level. ``f32_ms``: (e)'s median ms a frame. Returns
+    {kernel: (bf16 launches, max error, (ms, plain_ms, bound_ms, bound_by,
+    f32_ms))} for kernels 3-5."""
+    import torch
+    from vido_slam_tpu_torch.models import liteflownet, perception
+    from vido_slam_tpu_torch.models.maskrcnn import roi_heads
+    from vido_slam_tpu_torch.models.maskrcnn.model import MaskRCNNConfig
+    from vido_slam_tpu_torch.models.perception import PerceptionModel
+    from vido_slam_tpu_torch.ops import correlation, regularize, roi_align
+
+    bf = torch.bfloat16
+    cards = card_line()
+    out = {}
+    t0 = time.perf_counter()
+    # (j1) the online cell, the detector in bf16
+    frames, tcw, model = online_inputs(dev, mask_dtype=bf)
+    check(next(model.mask_model.parameters()).dtype == bf
+          and next(model.flow_net.parameters()).dtype == torch.float32,
+          "(j1): mask_dtype did not cast the detector alone")
+    rec = KernelArgs(roi_heads.roi_align_multilevel, 6)
+    detected = Detected(perception.maskrcnn_inference)
+    roi_heads.roi_align_multilevel = rec
+    perception.maskrcnn_inference = detected
+    try:
+        system, outputs, times, launches = run_online_path(
+            frames, tcw, model, counters, [rec])
+    finally:
+        roi_heads.roi_align_multilevel = rec.wrapper
+        perception.maskrcnn_inference = detected.fn
+    n_calls = frames.shape[0] - 1
+    expect = [2 * (n_calls - 1), 0, 5 * n_calls, 5 * n_calls, 2 * n_calls]
+    check(launches == expect, f"(j1): {names} launched {launches}, not "
+          f"{expect}")
+    with_obj, labelled = check_online_path(system, outputs, n_calls)
+    bf16_dets = [detections(d) for d in detected.outputs]
+    del system, outputs, detected
+    # the float32 detector on the same frames
+    h, w = ONLINE_DETECTOR
+    cfg = MaskRCNNConfig(input_h=h, input_w=w)
+    f32_model = lifted(PerceptionModel(ONLINE_H, ONLINE_W, cfg, seed=0,
+                                       device=dev).mask_model)
+    detected = Detected(perception.maskrcnn_inference)
+    perception.maskrcnn_inference = detected
+    try:
+        for k in range(n_calls):
+            perception.perception_mask(f32_model, frames[k + 1], device=dev)
+    finally:
+        perception.maskrcnn_inference = detected.fn
+    f32_dets = [detections(d) for d in detected.outputs]
+    del f32_model, detected
+    conf = model.mask_cfg.confidence_threshold
+    matched = differ = valid = 0
+    for k, (a, b) in enumerate(zip(bf16_dets, f32_dets)):
+        r = match_detections(a, b, conf)
+        check(not r["unexplained"], (f"(j1) call {k}: validity or labels "
+                                     f"differ from the float32 detector's "
+                                     f"outside the bf16 margins", r))
+        matched += r["boxes_matched"]
+        differ += r["slots_differ"]
+        valid += sum(r["valid"])
+    steady = times[4:]
+    ms = 1e3 * float(np.median(steady))
+    print(f"(j1) online cell, mask_dtype=torch.bfloat16 (the JAX bench's "
+          f"default): {n_calls} calls, launches {launches} (as (e)), objects "
+          f"on {with_obj}/{n_calls - 1} tracked frames, labelled pixels per "
+          f"call {labelled}; detections against the float32 detector on the "
+          f"same frames ({valid} valid in both together): validity or label "
+          f"differ in {differ} slots, each within a bf16 margin of a "
+          f"threshold (a score within {SCORE_MARGIN} of the confidence "
+          f"threshold or of its class's lowest kept score, or an IoU within "
+          f"{IOU_MARGIN} of NMS {NMS_IOU}); {matched} boxes matched (label, "
+          f"IoU >= 0.9); ms/frame median bf16 {ms:.2f}, float32 (e) "
+          f"{f32_ms:.2f} in this call (calls 4-{n_calls - 1}); card {cards}")
+    cases = [(f"(j1) call {ONLINE_RECORD} {what}", args) for what, (args, _)
+             in zip(("box head", "mask head"), rec.calls)]
+    err = max(check_bf16_kernel(n, roi_align.roi_align_multilevel,
+                                roi_align.roi_align_multilevel_ref, a)
+              for n, a in cases)
+    timing = time_bf16(cases, roi_align.roi_align_multilevel,
+                       roi_align.roi_align_multilevel_ref,
+                       lambda a: (roi_align.nbytes(*a),
+                                  roi_align.operations_bf16(*a)))
+    roi = [launches[4], err, timing]
+    del rec, cases, model
+
+    # (j2) one call each with flow_dtype and with compute_dtype bf16
+    prev, cur = frames[0], frames[1]
+    ref = PerceptionModel(ONLINE_H, ONLINE_W, cfg, seed=0, device=dev)
+    want = ref(prev, cur)
+    del ref
+    recs = {attr: KernelArgs(getattr(liteflownet, attr), n)
+            for attr, n in (("correlation", 3), ("dist_weighted_flow", 7))}
+    flow_model = PerceptionModel(ONLINE_H, ONLINE_W, cfg, seed=0, device=dev,
+                                 flow_dtype=bf)
+    for attr, r in recs.items():
+        setattr(liteflownet, attr, r)
+    try:
+        for c in counters:
+            c.launches = 0
+        got = flow_model(prev, cur)
+        launches_flow = [c.launches for c in counters]
+    finally:
+        for attr, r in recs.items():
+            setattr(liteflownet, attr, r.wrapper)
+    del flow_model
+    check(launches_flow == [0, 0, 5, 5, 2], f"(j2) flow_dtype: launches "
+          f"{launches_flow}, not [0, 0, 5, 5, 2]")
+    check(got.flow.dtype == torch.float32, "(j2): bf16 flow not float32")
+    scale = max(1.0, float(want.flow.abs().max()))
+    flow_err = float((got.flow - want.flow).abs().max()) / scale
+    check(math.isfinite(flow_err) and flow_err < BF16_FLOW_BAR,
+          f"(j2): bf16 flow {flow_err} of max(|flow|, 1) from float32")
+    for attr, r in recs.items():
+        check(all(a[0].dtype == bf for a, _ in r.calls),
+              f"(j2): {attr} was not given bf16 tensors")
+    kernels = {"correlation": (correlation.correlation,
+                               correlation.correlation_ref,
+                               lambda a: (correlation.nbytes(a[0], a[2]),
+                                          correlation.operations(a[0],
+                                                                 a[2]))),
+               "dist_weighted_flow": (regularize.dist_weighted_flow,
+                                      regularize.dist_weighted_flow_ref,
+                                      lambda a: (regularize.nbytes(a[0]),
+                                                 regularize.operations(
+                                                     a[0])))}
+    for i, (attr, (kernel, plain, count)) in enumerate(kernels.items()):
+        cases = [(f"(j2) level {6 - k} {tuple(args[0].shape)}", args)
+                 for k, (args, _) in enumerate(recs[attr].calls)]
+        err = max(check_bf16_kernel(n, kernel, plain, a) for n, a in cases)
+        out[attr] = [launches_flow[2 + i], err,
+                     time_bf16(cases, kernel, plain, count)]
+    del recs
+    comp_model = PerceptionModel(ONLINE_H, ONLINE_W, cfg, seed=0, device=dev,
+                                 compute_dtype=bf)
+    for c in counters:
+        c.launches = 0
+    comp = comp_model(prev, cur)
+    launches_comp = [c.launches for c in counters]
+    del comp_model
+    check(launches_comp == [0, 0, 5, 5, 2], f"(j2) compute_dtype: launches "
+          f"{launches_comp}, not [0, 0, 5, 5, 2]")
+    depth_diff = (comp.depth_u16 - want.depth_u16).abs() / 65536
+    depth_err = float(depth_diff.max())
+    check(math.isfinite(depth_err) and depth_err <= BF16_DEPTH_BAR,
+          f"(j2): bf16 depth {depth_err} of the range from float32")
+    roi[0] += launches_comp[4]
+    out["roi_align_multilevel"] = roi
+    print(f"(j2) one call of the bench clip's pair 1: flow_dtype bf16 "
+          f"launches {launches_flow} (kernels 3 and 4 in bf16), flow within "
+          f"{flow_err:.3e} of max(|f32 flow|, 1) = {scale:.4f} (bar "
+          f"{BF16_FLOW_BAR}, the JAX package's); compute_dtype bf16 launches "
+          f"{launches_comp} (kernel 5 in bf16), depth within "
+          f"{depth_err:.5f} of the 65536 range (bar {BF16_DEPTH_BAR}, "
+          f"mean {float(depth_diff.mean()):.5f}); "
+          f"(j) {time.perf_counter() - t0:.1f} s; card {cards}")
+    for name, (n, err, t) in out.items():
+        print(f"(j) {name} bf16 build: {n} launches, device ms {t[0]:.4f} "
+              f"(float32 build {t[4]:.4f} on the same values), plain "
+              f"{t[1]:.3f} ms, bound {t[2]:.6f} ms by {t[3]}, max error "
+              f"{err:.3e}")
+    return out
+
+
+JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")
+
+
+def run_phase_k(counters, names):
+    """Phase (k), JPEG frames: the committed fixtures (written by cv2,
+    tools/make_jpeg_fixtures.py) decoded bit-equal to cv2's committed
+    arrays by the C++ path and its plain version, then the CLI on (h3)'s
+    KITTI configuration over a tree of the committed 1242x375 .jpg frames
+    (ATE under 1 %, the StopFrame full batch, kernel 1 twice a tracked
+    frame). Returns each kernel's launches on the CLI run."""
+    import hashlib
+    import shutil
+
+    from vido_slam_tpu_torch.io import datasets, jpeg
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        JPEG_FIXTURES)
+    cards = card_line()
+    t0 = time.perf_counter()
+    ref = np.load(os.path.join(root, "layouts.npz"))
+    names_l = sorted(n for n in ref.files if not n.endswith("_gray"))
+    check(len(names_l) == 7, f"(k): layout fixtures {names_l}")
+    for name in names_l:
+        with open(os.path.join(root, "layouts", name + ".jpg"), "rb") as f:
+            data = f.read()
+        for gray, key in ((False, name), (True, name + "_gray")):
+            for plain in (False, True):
+                got = jpeg.decode_jpeg(data, gray=gray, plain=plain)
+                check(got.shape == ref[key].shape
+                      and np.array_equal(got, ref[key]),
+                      f"(k) {name} gray={gray} plain={plain}: not cv2's")
+    kitti = np.load(os.path.join(root, "kitti.npz"))
+    files = sorted(os.listdir(os.path.join(root, "kitti")))
+    check(len(files) == len(kitti["sha256"]) == N_FRAMES,
+          f"(k): {len(files)} KITTI frames")
+    jpg_s, png_s = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, fname in enumerate(files):
+            path = os.path.join(root, "kitti", fname)
+            t1 = time.perf_counter()
+            img = datasets.imread(path)
+            jpg_s.append(time.perf_counter() - t1)
+            check(hashlib.sha256(img.tobytes()).hexdigest()
+                  == kitti["sha256"][k], f"(k) {fname}: not cv2's decode")
+            if k == 0:
+                check(np.array_equal(img, kitti["frame0"]),
+                      f"(k) {fname}: not cv2's array")
+                with open(path, "rb") as f:
+                    check(np.array_equal(jpeg.decode_jpeg(f.read(),
+                                                          plain=True), img),
+                          f"(k) {fname}: C++ path and plain version differ")
+            png_path = os.path.join(tmp, f"{k:010d}.png")
+            write_png(png_path, img)
+            t1 = time.perf_counter()
+            datasets.imread(png_path)
+            png_s.append(time.perf_counter() - t1)
+        print(f"(k) fixtures: 7 layouts (4:4:4, 4:2:2, 4:2:0, 4:4:0, a "
+              f"restart interval, optimised tables, gray) bit-equal to cv2's "
+              f"arrays in colour and gray, C++ and plain; {N_FRAMES} KITTI "
+              f"1242x375 frames bit-equal to cv2 (SHA-256), frame 0 C++ = "
+              f"plain; decode ms a frame median "
+              f"{1e3 * np.median(jpg_s):.2f}, the same frames as PNG "
+              f"(write_png) {1e3 * np.median(png_s):.2f}; card {cards}")
+
+        kitti_seq = offline_sequence(N_FRAMES, "cuda", KITTI_CONFIG)
+
+        def copy_jpg(path, bgr):
+            shutil.copy(os.path.join(root, "kitti", os.path.basename(path)),
+                        path)
+        tree = write_tree(os.path.join(tmp, "kitti"), "kitti",
+                          demo_rows(kitti_seq, KITTI_CONFIG), jpg=copy_jpg)
+        check(sorted(os.listdir(tree["image_path"])) == files,
+              "(k): the tree's frames are not the fixtures")
+        cfg = os.path.join(tmp, "k.yaml")
+        write_config(cfg, dict(KITTI_CONFIG, slam_mode=0, **tree))
+        d = os.path.join(tmp, "out_k", "")
+        run, launches, _, batches = run_demo(
+            [cfg, "--output", d, "--max-frames", str(N_FRAMES), "--device",
+             "cuda"], counters)
+        want = [2 * (N_FRAMES - 1), 0, 0, 0, 0]
+        ate0, ate1, path, poses = check_demo(
+            run, d, [fr.Tcw_gt for fr in kitti_seq.frames], N_FRAMES,
+            launches, want)
+        check(len(batches) == 1, f"(k): {len(batches)} full batches")
+        check(not np.allclose(poses["initial_rgbd_new.txt"],
+                              poses["refined_rgbd_new.txt"], rtol=0,
+                              atol=1e-7),
+              "(k): the refined trajectory is the initial one")
+        secs, res = batches[0]
+        ms, read_ms, share = demo_ms(run)
+        print(f"(k) CLI KITTI VO on the committed .jpg frames: {N_FRAMES} "
+              f"frames, launches {launches}, camera ATE initial {ate0:.5f} m, "
+              f"refined {ate1:.5f} m over {path:.3f} m; StopFrame full batch "
+              f"{secs:.2f} s, {res.num_iters} LM iterations; ms a frame of "
+              f"the CLI loop median {ms:.2f}, reading {read_ms:.2f} "
+              f"({100 * share:.1f} % of it); (k) "
+              f"{time.perf_counter() - t0:.1f} s; card {cards}")
+        del run
+    return dict(zip(names, launches))
+
+
 def main() -> int:
     import torch
 
@@ -2048,7 +2510,7 @@ def main() -> int:
     from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
                                                            RESNEXT101_FPN)
     from vido_slam_tpu_torch.ops import correlation, regularize, roi_align
-    from vido_slam_tpu_torch.utils import cuda_build
+    from vido_slam_tpu_torch.utils import cuda_build, host_build
     from vido_slam_tpu_torch.utils.device import resolve_device
 
     t_start = time.perf_counter()
@@ -2060,6 +2522,11 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
     print(f"build of {sorted(logs)}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    host = [os.path.basename(host_build.build(name))
+            for name in ("png_unfilter", "jpeg_decode")]
+    print(f"host build of the PNG unfilter and the JPEG decoder {host}: "
+          f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             # each kernel's name, registers, shared memory, stack, spills
@@ -2255,6 +2722,7 @@ def main() -> int:
     with_obj, labelled = check_online_path(system, outputs, n_calls)
     launches_online = launches
     steady = times[4:]
+    online_ms = 1e3 * float(np.median(steady))
     h, w = ONLINE_DETECTOR
     print(f"online path: {n_calls} calls of System.TrackFrames on the "
           f"{ONLINE_W}x{ONLINE_H} bench clip (MonoDepth2 and LiteFlowNet at "
@@ -2288,6 +2756,10 @@ def main() -> int:
           f"over torch.cuda.synchronize); card {card_line()}")
     del system, frames, model
 
+    # (j) bf16 perception: the online cell with the JAX bench's default
+    # mask_dtype, and one call each with flow_dtype and compute_dtype
+    bf16 = run_phase_j(dev, counters, names, online_ms)
+
     # (h) the offline demo from files: the CLI on trees written here
     demo_launches = run_phase_h(counters, names, seq, init_frame,
                                 vio_attempts)
@@ -2295,6 +2767,10 @@ def main() -> int:
     # (i) weights and sessions in and out
     phase_i_launches, phase_i_err = run_phase_i(dev, counters, names, seq,
                                                 vo_poses)
+
+    # (k) JPEG frames: the committed fixtures, and the CLI on a KITTI tree
+    # of the committed .jpg frames
+    jpeg_launches = run_phase_k(counters, names)
 
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
@@ -2410,6 +2886,13 @@ def main() -> int:
             e["max_abs_err"] = max(e["max_abs_err"],
                                    phase_i_err[e["name"]])
         e["online_ms"], e["online_bound_ms"] = timing[0], timing[2]
+        e["jpeg_cli_launches"] = jpeg_launches[e["name"]]
+        # the bf16 build (phase (j)): its launches there, its device ms on
+        # the arguments (j) gave it, the float32 build's on the same values
+        n, err, t = bf16.get(e["name"], (None, None, (None,) * 5))
+        e.update(bf16_launches=n, bf16_max_abs_err=err, bf16_ms=t[0],
+                 bf16_plain_ms=t[1], bf16_bound_ms=t[2], bf16_bound_by=t[3],
+                 f32_ms_same_values=t[4])
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

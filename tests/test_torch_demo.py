@@ -60,8 +60,9 @@ def _cv2_png(path, img):
     assert cv2.imwrite(path, img)
 
 
-def _tree(tmp_path, scene_frames, kind, vio=False):
-    """Write the tree and its config; returns the config's path."""
+def _tree(tmp_path, scene_frames, kind, vio=False, jpg=None):
+    """Write the tree and its config (KITTI frames as JPEG by ``jpg(path,
+    bgr)`` where it is given); returns the config's path."""
     scene, frames = scene_frames
     cam = scene.cam
     f, bf = FACTOR[kind], float(cam.bf)
@@ -83,7 +84,7 @@ def _tree(tmp_path, scene_frames, kind, vio=False):
     root = str(tmp_path / kind)
     entries = chip_smoke.write_tree(
         root, kind, rows, png=_cv2_png if kind == "kaist" else
-        chip_smoke.write_png, imu=imu)
+        chip_smoke.write_png, imu=imu, jpg=jpg)
     cfg = {"Camera.width": W, "Camera.height": H,
            "Camera.fx": float(cam.fx), "Camera.fy": float(cam.fy),
            "Camera.cx": float(cam.cx), "Camera.cy": float(cam.cy),

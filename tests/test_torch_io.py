@@ -70,7 +70,7 @@ def _write_cv2(path, img, level, filt):
 
 def _check_reads(path, kind):
     """Every read of ``path`` in the port (both unfilters) against cv2 and
-    the JAX readers; colour files refused where a gray image is read."""
+    the JAX readers."""
     ref = {flag: cv2.imread(path, flag) for flag in
            (cv2.IMREAD_GRAYSCALE, cv2.IMREAD_COLOR, cv2.IMREAD_ANYDEPTH)}
     assert (td.IMREAD_GRAYSCALE, td.IMREAD_COLOR, td.IMREAD_ANYDEPTH) == (
@@ -91,10 +91,11 @@ def _check_reads(path, kind):
                                       jd.load_mask_png(path))
         assert td.load_mask_png(path).dtype == np.int32
         assert td.load_depth_png(path).dtype == np.float32
-    else:
+    else:   # libpng's rgb_to_gray weights, as cv2 sets them
         for flag in (td.IMREAD_GRAYSCALE, td.IMREAD_ANYDEPTH):
-            with pytest.raises(ValueError, match="colour PNG"):
-                td.imread(path, flag)
+            got = td.imread(path, flag)
+            assert got.dtype == ref[flag].dtype
+            np.testing.assert_array_equal(got, ref[flag])
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -175,21 +176,31 @@ def _png_bytes(ihdr, body=b"\x00\x00", plte=None, crc_ok=True, idat=None):
 
 
 @pytest.mark.parametrize("data,what", [
-    (_png_bytes((1, 1, 8, 3, 0, 0, 0), plte=b"\x00\x00\x00"), "colour type 3"),
-    (_png_bytes((1, 1, 8, 0, 0, 0, 1)), "interlaced"),
-    (_png_bytes((8, 1, 1, 0, 0, 0, 0)), "bit depth 1"),
+    (_png_bytes((1, 1, 8, 3, 0, 0, 0), plte=b"\x00\x00\x00"), None),
+    (_png_bytes((1, 1, 8, 0, 0, 0, 1)), None),
+    (_png_bytes((8, 1, 1, 0, 0, 0, 0)), None),
     (_png_bytes((1, 1, 8, 0, 0, 0, 0), crc_ok=False), "CRC"),
     (_png_bytes((3, 1, 8, 0, 0, 0, 0)), "holds 2 bytes, not 4"),
     (b"GIF89a" + bytes(20), "signature"),
-], ids=["palette", "interlace", "depth1", "crc", "short", "not_png"])
+    (_png_bytes((1, 1, 8, 0, 0, 0, 0), body=bytes(5)), "holds 5 bytes, not 2"),
+], ids=["palette", "interlace", "depth1", "crc", "short", "not_png",
+        "surplus"])
 def test_unsupported_png_raises(tmp_path, data, what):
     """The decoder names what it refuses. ``imread`` answers as cv2 does:
     None where cv2 gives None (the bytes are no decodable PNG), and raises
-    where cv2 decodes a mode the port lacks (item 10b), so that no frame is
-    skipped silently."""
+    where cv2 decodes what the port refuses (surplus image data), so that
+    no frame is skipped silently. The palette, interlaced and 1-bit
+    images, refused before, decode as cv2's."""
     path = str(tmp_path / "u.png")
     with open(path, "wb") as f:
         f.write(data)
+    if what is None:
+        png.decode_png(data)
+        for flag in (td.IMREAD_COLOR, td.IMREAD_GRAYSCALE,
+                     td.IMREAD_ANYDEPTH):
+            np.testing.assert_array_equal(td.imread(path, flag),
+                                          cv2.imread(path, flag))
+        return
     with pytest.raises(ValueError, match=what):
         png.decode_png(data)
     if cv2.imread(path, cv2.IMREAD_COLOR) is None:
@@ -245,18 +256,136 @@ def test_undecodable_png_is_none_as_cv2(tmp_path, kind, flags):
 
 
 def test_cv2_bilevel_png_refused(tmp_path):
+    """cv2's bilevel writer (a 1-bit gray PNG), refused before, reads as
+    cv2 reads it."""
     path = str(tmp_path / "b.png")
     cv2.imwrite(path, (_image("gray8", 9, 16, 0) > 127).astype(np.uint8)
                 * 255, [cv2.IMWRITE_PNG_BILEVEL, 1])
-    with pytest.raises(ValueError, match="bit depth 1"):
-        td.imread(path, td.IMREAD_GRAYSCALE)
+    assert _header(path)[2] == 1
+    for flag in (td.IMREAD_GRAYSCALE, td.IMREAD_COLOR, td.IMREAD_ANYDEPTH):
+        np.testing.assert_array_equal(td.imread(path, flag),
+                                      cv2.imread(path, flag))
 
 
 def test_jpeg_raises_naming_item_10b(tmp_path):
+    """A KITTI frame as the reference names it (``.jpg``), refused before,
+    decodes bit-equal to cv2 (io/jpeg.py; tests/test_torch_jpeg.py holds
+    the decoder to cv2 at length), and a ``.jpg`` holding PNG bytes reads
+    as the PNG: the format follows the signature, as in cv2."""
     path = str(tmp_path / "0000000000.jpg")
     cv2.imwrite(path, _image("bgr8", 16, 16, 0))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        td.imread(path, td.IMREAD_COLOR)
+    png_path = str(tmp_path / "0000000001.jpg")
+    _write_cv2(png_path, _image("bgr8", 16, 16, 1), 3, None)
+    for p in (path, png_path):
+        for flag in (td.IMREAD_COLOR, td.IMREAD_GRAYSCALE,
+                     td.IMREAD_ANYDEPTH):
+            ref = cv2.imread(p, flag)
+            got = td.imread(p, flag)
+            assert got.dtype == ref.dtype
+            np.testing.assert_array_equal(got, ref)
+
+
+def _header(path):
+    with open(path, "rb") as f:
+        return struct.unpack(">IIBBBBB", list(png._chunks(f.read()))[0][1])
+
+
+def _pack_rows(samples, depth):
+    """(h, n) samples of ``depth`` bits -> (h, rowbytes) packed bytes."""
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8)
+    if depth == 8:
+        return samples.astype(np.uint8)
+    per = 8 // depth
+    h, n = samples.shape
+    s = np.concatenate([samples, np.zeros((h, -n % per), samples.dtype)], 1)
+    shifts = np.arange(8 - depth, -1, -depth)
+    return (s.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8)
+
+
+def _filtered(rows, bpp, first):
+    """Rows filtered by types first, first + 1, ... (mod 5)."""
+    out, prev = [], np.zeros(rows.shape[1], np.int64)
+    for i, r in enumerate(rows.astype(np.int64)):
+        kind = (first + i) % 5
+        a = np.concatenate([np.zeros(bpp, np.int64), r[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        p = a + prev - c
+        pa, pb, pc = abs(p - a), abs(p - prev), abs(p - c)
+        pred = [0, a, prev, (a + prev) >> 1,
+                np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, prev, c))][kind]
+        out.append(bytes([kind]) + ((r - pred) & 255).astype(np.uint8)
+                   .tobytes())
+        prev = r
+    return b"".join(out)
+
+
+def write_png_mode(path, samples, depth, ctype, plte=None, trns=None,
+                   interlace=0):
+    """A PNG of any mode from (h, w, c) samples (palette indices for
+    colour type 3), each pass's rows through every filter type."""
+    h, w, c = samples.shape
+    bits = depth * c
+    raw = b""
+    for k, (x0, y0, dx, dy) in enumerate(png.ADAM7 if interlace
+                                         else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            raw += _filtered(_pack_rows(sub.reshape(sub.shape[0], -1), depth),
+                             max(1, bits // 8), k)
+
+    def chunk(tag, data):
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(
+            ">I", zlib.crc32(tag + data))
+    data = png.SIGNATURE + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    for tag, body in ((b"PLTE", plte), (b"tRNS", trns)):
+        if body is not None:
+            data += chunk(tag, body)
+    with open(path, "wb") as f:
+        f.write(data + chunk(b"IDAT", zlib.compress(raw)) +
+                chunk(b"IEND", b""))
+
+
+MODES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1),
+         (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["flat", "adam7"])
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: f"type{m[0]}_{m[1]}")
+def test_every_png_mode_bit_equal_to_cv2(tmp_path, mode, interlace):
+    """Each colour type at each bit depth, flat and Adam7-interlaced, with
+    and without tRNS, at sizes that leave passes empty: IMREAD_COLOR,
+    GRAYSCALE (colour through libpng's rgb_to_gray) and ANYDEPTH equal
+    cv2's; both unfilters agree. A palette shorter than the indices reads
+    past entries as black, as libpng's zero-filled palette does."""
+    ctype, depth = mode
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    rng = np.random.RandomState(ctype * 100 + depth * 2 + interlace)
+    for size in ((13, 17), (1, 1), (9, 3), (40, 33)):
+        for trns in (False, True):
+            samples = rng.randint(0, 1 << depth, size + (channels,))
+            plte = tr = None
+            if ctype == 3:
+                n = rng.randint(1, min(1 << depth, 256) + 1)
+                plte = rng.randint(0, 256, 3 * n).astype(np.uint8).tobytes()
+                tr = bytes(rng.randint(0, 256, max(1, n // 2))
+                           .astype(np.uint8)) if trns else None
+            elif trns and ctype in (0, 2):
+                tr = struct.pack(">" + "H" * channels,
+                                 *map(int, samples[0, 0]))
+            path = str(tmp_path / f"m{size[0]}_{trns}.png")
+            write_png_mode(path, samples, depth, ctype, plte, tr, interlace)
+            for flag in (td.IMREAD_COLOR, td.IMREAD_GRAYSCALE,
+                         td.IMREAD_ANYDEPTH):
+                ref = cv2.imread(path, flag)
+                got = td.imread(path, flag)
+                assert got.dtype == ref.dtype and got.shape == ref.shape
+                np.testing.assert_array_equal(got, ref)
+            np.testing.assert_array_equal(
+                png.read_png(path).pixels,
+                png.read_png(path, plain=True).pixels)
 
 
 def test_missing_image_is_none(tmp_path):

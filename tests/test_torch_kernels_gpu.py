@@ -850,3 +850,109 @@ def test_roi_align_kernel_on_the_gn_detector(monkeypatch):
         assert torch.equal(got, again)
         scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
         assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+# the bf16 builds of kernels 3, 4 and 5 (the bf16 perception options)
+# against their bf16 plain versions: both compute in float32 from bf16
+# inputs and round to bf16 where the JAX package does; only the order of
+# the float32 sums differs, by at most the float32 builds' bar (1e-5 of
+# the output's scale, where a sum cancels), which moves a rounding to bf16
+# by at most one bf16 step beyond it
+
+def _within_bf16_ulp(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert got.shape == ref.shape
+    d = (got.float() - ref.float()).abs()
+    bar = chip_smoke.bf16_bar(ref)
+    assert bool((d <= bar).all()), float((d - bar).max())
+
+
+@pytest.mark.parametrize("N,C,H,W,stride", [
+    (1,) + lv for lv in chip_smoke.CORR_LEVELS + ONLINE_CORR_LEVELS] + [
+    (1, 64, 37, 53, 2), (2, 8, 13, 7, 1), (2, 1, 37, 53, 2)])
+def test_correlation_bf16_build_matches_plain(N, C, H, W, stride):
+    _need_card()
+    rng = np.random.RandomState(C + H + W + stride)
+    f1, f2 = (torch.tensor(rng.randn(N, C, H, W).astype(np.float32)).cuda()
+              .to(torch.bfloat16) for _ in range(2))
+    before = correlation.correlation.launches
+    got = correlation.correlation(f1, f2, stride)
+    assert correlation.correlation.launches == before + 1
+    again = correlation.correlation(f1, f2, stride)
+    ref = correlation.correlation_ref(f1, f2, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("N,k,H,W", [
+    (1,) + lv for lv in chip_smoke.REG_LEVELS + ONLINE_REG_LEVELS] + [
+    (1, 7, 37, 53), (2, 3, 5, 3)])
+def test_regularize_bf16_build_matches_plain(N, k, H, W):
+    _need_card()
+    args = tuple(a.to(torch.bfloat16) if torch.is_tensor(a) else a
+                 for a in _reg_args(N, k, H, W, seed=N + k + H + W))
+    before = regularize.dist_weighted_flow.launches
+    got = regularize.dist_weighted_flow(*args)
+    assert regularize.dist_weighted_flow.launches == before + 1
+    ref = regularize.dist_weighted_flow_ref(*args)
+    torch.cuda.synchronize()
+    _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("R,C,res,level,border", [
+    (1000, 256, 7, None, False), (100, 256, 14, None, False),
+    (37, 256, 7, 0, False), (37, 256, 14, 1, False),
+    (37, 256, 7, 2, False), (37, 256, 14, 3, False),
+    (37, 48, 14, None, False), (200, 256, 7, None, True),
+])
+def test_roi_align_bf16_build_matches_plain(R, C, res, level, border):
+    _need_card()
+    feats, rois, levels, scales, res, s = _roi_args(R, C, res, seed=R + res,
+                                                    level=level,
+                                                    border=border)
+    feats = [f.to(torch.bfloat16) for f in feats]
+    before = roi_align.roi_align_multilevel.launches
+    got = roi_align.roi_align_multilevel(feats, rois, levels, scales, res, s)
+    assert roi_align.roi_align_multilevel.launches == before + 1
+    again = roi_align.roi_align_multilevel(feats, rois, levels, scales, res,
+                                           s)
+    ref = roi_align.roi_align_multilevel_ref(feats, rois, levels, scales,
+                                             res, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _within_bf16_ulp(got, ref)
+
+
+def test_kernel_wrappers_refuse_mixed_and_half_dtypes_on_the_card():
+    """float16, or float32 beside bf16, raises before any launch; nothing
+    is cast quietly."""
+    _need_card()
+    f = torch.randn(1, 8, 10, 12, device="cuda")
+    launches = (correlation.correlation.launches,
+                regularize.dist_weighted_flow.launches,
+                roi_align.roi_align_multilevel.launches)
+    with pytest.raises(TypeError):
+        correlation.correlation(f, f.to(torch.bfloat16), 1)
+    with pytest.raises(TypeError):
+        correlation.correlation(f.half(), f.half(), 1)
+    w, b = torch.randn(9, device="cuda"), torch.zeros(1, device="cuda")
+    dc = torch.randn(1, 9, 10, 12, device="cuda")
+    flow = f[:, :2].contiguous()
+    with pytest.raises(TypeError):
+        regularize.dist_weighted_flow(dc.to(torch.bfloat16),
+                                      flow.to(torch.bfloat16), w, b, w, b, 3)
+    with pytest.raises(TypeError):
+        regularize.dist_weighted_flow(*(t.half() for t in
+                                        (dc, flow, w, b, w, b)), 3)
+    feats, rois, levels, scales, _, _ = _roi_args(20, 16, 7, seed=3)
+    with pytest.raises(TypeError):
+        roi_align.roi_align_multilevel(
+            [feats[0].to(torch.bfloat16)] + feats[1:], rois, levels, scales)
+    with pytest.raises(TypeError):
+        roi_align.roi_align_multilevel([x.to(torch.bfloat16) for x in feats],
+                                       rois.to(torch.bfloat16), levels,
+                                       scales)
+    assert (correlation.correlation.launches,
+            regularize.dist_weighted_flow.launches,
+            roi_align.roi_align_multilevel.launches) == launches

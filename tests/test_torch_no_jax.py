@@ -27,6 +27,7 @@ need = {"vido_slam_tpu_torch." + m
         for m in ("estimation.assembly", "estimation.flow_joint",
                   "estimation.flow_joint_kernel", "estimation.full_ba",
                   "estimation.imu_init", "io.datasets", "io.gt_poses",
+                  "io.jpeg",
                   "io.png", "run_vido", "utils.host_build", "viz",
                   "estimation.lm", "estimation.lm_kernel",
                   "imu.preintegration",

@@ -94,9 +94,12 @@ def test_system_track_frames(model, frames):
 
 
 def test_unported_options_raise():
+    """TrackFramesPair (item 16) raises naming its item. The dtype options
+    are ported (tests/test_torch_bf16.py); a dtype other than float32 or
+    bfloat16 raises."""
     for kw in ("compute_dtype", "mask_dtype", "flow_dtype"):
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            PerceptionModel(H, W, device="cpu", **{kw: torch.bfloat16})
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            PerceptionModel(H, W, device="cpu", **{kw: torch.float16})
     ts = System()
     ts.init_from_config(config_from_dict(CFG), Sensor.RGBD, device="cpu",
                         **TRACKER_KW)

@@ -83,6 +83,14 @@ def test_resize_weights_match_jax_when_growing_and_shrinking(shape):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+def test_resize_weights_take_the_callers_device():
+    """The weights had a CPU default device, so a caller on the card that
+    left it out got CPU weights; the device is now required."""
+    with pytest.raises(TypeError):
+        to.resize_weights(10, 5)
+    assert to.resize_weights(10, 5, "cpu").shape == (5, 10)
+
+
 def test_orientation_matches_jax():
     xx = np.tile(np.arange(64, dtype=np.float32), (64, 1))
     for img in (xx, xx.T.copy(), textured(96, 96, seed=3)):

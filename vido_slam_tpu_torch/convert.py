@@ -71,56 +71,71 @@ def convert_state_dict(sd) -> dict:
     return {k: convert_tensor(k, v) for k, v in sd.items()}
 
 
-def monodepth2_state_dict_from_numpy(params, device=None) -> dict:
+def _param(value, dtype, transpose, device) -> torch.Tensor:
+    """One JAX parameter (a numpy array, float32 or ml_dtypes' bfloat16)
+    as a torch tensor in ``dtype``: None keeps a bf16 array bf16 (exactly:
+    it is widened to float32 and narrowed back) and makes the rest float32;
+    ``torch.bfloat16`` casts float32 values round-to-nearest-even, as
+    ``jnp.astype(bfloat16)`` does. ``transpose(a)`` gives the torch
+    layout."""
+    a = np.asarray(value)
+    bf16 = a.dtype.name == "bfloat16"
+    t = torch.from_numpy(np.array(transpose(a.astype(np.float32)),
+                                  order="C"))
+    if dtype is None and bf16:
+        dtype = torch.bfloat16
+    return t.to(device=device, dtype=dtype or torch.float32)
+
+
+def _oihw(a):
+    return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+
+
+def monodepth2_state_dict_from_numpy(params, device=None,
+                                     dtype=None) -> dict:
     """The JAX package's MonoDepth2 parameter dict (numpy arrays, conv
-    kernels HWIO) as float32 tensors in torch layout on ``device`` (the
-    card unless the caller asks for the CPU), for
+    kernels HWIO) as tensors in torch layout on ``device`` (the card unless
+    the caller asks for the CPU), for
     ``MonoDepth2.load_state_dict(strict=True)``: a 4-D array goes through
-    ``transpose(3, 2, 0, 1)`` (HWIO -> OIHW); 1-D arrays pass unchanged."""
+    ``transpose(3, 2, 0, 1)`` (HWIO -> OIHW); 1-D arrays pass unchanged.
+    float32, or bf16 for bf16 arrays or ``dtype=torch.bfloat16``
+    (``_param``)."""
     dev = resolve_device(device)
-    out = {}
-    for key, value in params.items():
-        a = np.asarray(value, np.float32)
-        if a.ndim == 4:
-            a = a.transpose(3, 2, 0, 1)
-        out[key] = torch.from_numpy(np.array(a, order="C")).to(dev)
-    return out
+    return {key: _param(value, dtype, _oihw, dev)
+            for key, value in params.items()}
 
 
-def liteflownet_state_dict_from_numpy(params) -> dict:
+def liteflownet_state_dict_from_numpy(params, dtype=None) -> dict:
     """The JAX package's LiteFlowNet parameter dict (numpy arrays, conv
-    kernels HWIO) as float32 CPU tensors in torch layout, for
+    kernels HWIO) as CPU tensors in torch layout, for
     ``LiteFlowNet.load_state_dict(strict=True)``: a 4-D array goes through
     ``transpose(3, 2, 0, 1)``, the inverse of ``layers.convert_tensor``
     (HWIO -> OIHW for a Conv2d, (kh, kw, 1, C) -> (C, 1, kh, kw) for the
-    grouped ConvTranspose2d); 1-D arrays pass unchanged."""
-    out = {}
-    for key, value in params.items():
-        a = np.asarray(value, np.float32)
-        if a.ndim == 4:
-            a = a.transpose(3, 2, 0, 1)
-        out[key] = torch.from_numpy(a.copy())
-    return out
+    grouped ConvTranspose2d); 1-D arrays pass unchanged. float32, or bf16
+    for bf16 arrays or ``dtype=torch.bfloat16`` (``_param``)."""
+    return {key: _param(value, dtype, _oihw, "cpu")
+            for key, value in params.items()}
 
 
-def maskrcnn_state_dict_from_numpy(params, device=None) -> dict:
-    """The JAX package's Mask R-CNN parameter dict (numpy arrays) as float32
+def maskrcnn_state_dict_from_numpy(params, device=None, dtype=None) -> dict:
+    """The JAX package's Mask R-CNN parameter dict (numpy arrays) as
     tensors in torch layout on ``device`` (the card unless the caller asks
     for the CPU), for ``MaskRCNN.load_state_dict(strict=True)``: a 4-D
     array goes through ``transpose(3, 2, 0, 1)`` (HWIO -> OIHW for a
     Conv2d; conv5_mask's stored (kh, kw, cout, cin) -> the ConvTranspose2d's
     (cin, cout, kh, kw)), a 2-D ``*.weight`` (a Linear stored (in, out))
-    through ``.T``; 1-D arrays pass unchanged."""
+    through ``.T``; 1-D arrays pass unchanged. float32, or bf16 for bf16
+    arrays or ``dtype=torch.bfloat16`` (``_param``)."""
     dev = resolve_device(device)
-    out = {}
-    for key, value in params.items():
-        a = np.asarray(value, np.float32)
-        if a.ndim == 4:
-            a = a.transpose(3, 2, 0, 1)
-        elif a.ndim == 2 and key.endswith(".weight"):
-            a = a.T
-        out[key] = torch.from_numpy(np.array(a, order="C")).to(dev)
-    return out
+
+    def layout(key):
+        def fn(a):
+            if a.ndim == 2 and key.endswith(".weight"):
+                return a.T
+            return _oihw(a)
+        return fn
+    return {key: _param(value, dtype, layout(key), dev)
+            for key, value in params.items()}
 
 
 def perception_model_from_numpy(height: int, width: int, depth_params,
@@ -128,8 +143,9 @@ def perception_model_from_numpy(height: int, width: int, depth_params,
                                 mask_cfg: MaskRCNNConfig = RESNET50_FPN,
                                 device=None, **kwargs) -> PerceptionModel:
     """A ``PerceptionModel`` on ``device`` holding the JAX package's three
-    parameter dicts (numpy arrays): MonoDepth2's, LiteFlowNet's and Mask
-    R-CNN's. ``kwargs`` go to ``PerceptionModel``."""
+    parameter dicts (numpy arrays, float32 or bf16): MonoDepth2's,
+    LiteFlowNet's and Mask R-CNN's. ``kwargs`` go to ``PerceptionModel``
+    (its dtype options cast the nets as they cast seeded ones)."""
     dev = resolve_device(device)
     return PerceptionModel(
         height, width, mask_cfg, device=dev,

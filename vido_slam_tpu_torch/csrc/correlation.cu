@@ -47,8 +47,22 @@
 // - No tensor cores: the parity bar is 1e-5 of the output's scale in float32,
 //   and TF32 keeps about 3 decimal digits; 3xTF32 (three TF32 products per
 //   FMA) would keep float32 accuracy and is left for later.
+//
+// The bf16 build (LiteFlowNet with flow_dtype bf16): f1, f2 and the output
+// are bf16, the arithmetic float32, as the JAX package computes it on bf16
+// inputs (correlation.py:51, 120-125: each product cast to float32 before
+// the sum, which XLA leaves unrounded; a bf16 x bf16 product is exact in
+// float32). It keeps the float32 build's plan: the staged tiles are
+// converted to float as they are stored, so the shared memory, the tile
+// plan and the arithmetic are the float32 build's, and only the loads from
+// device memory (2 bytes a value, by plain loads: cp.async copies 4 bytes
+// at least) and the output's stores change. The bytes it must move halve:
+// level 2 of a 1280x576 pair 16.3 MB, 0.0049 ms at 3.35 TB/s, beside the
+// same 0.0043 ms of float32 operations. A plan re-derived for 2-byte
+// staging (twice the channels a stage) is left for a later PR.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,11 +113,12 @@ __device__ __forceinline__ float2 lds2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-template <int TY>
+// T: the element type, float or __nv_bfloat16
+template <typename T, int TY>
 __global__ void __launch_bounds__(Tile<TY>::threads)
-correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                   float* __restrict__ out, int C, int H, int W, int s,
-                   int Ho, int Wo, int tiles_x) {
+correlation_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
+                   T* __restrict__ out, int C, int H, int W, int s, int Ho,
+                   int Wo, int tiles_x) {
   using Geo = Tile<TY>;
   constexpr int NT = Geo::threads;
   extern __shared__ __align__(16) float sm[];
@@ -121,8 +136,8 @@ correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   const int nch = (int)((long long)(rank + 1) * C / G) - c_lo;
   const int nchunks = (nch + kCC - 1) / kCC;
   const size_t plane = (size_t)H * W;
-  const float* f1r = f1 + ((size_t)blockIdx.y * C + c_lo) * plane;
-  const float* f2r = f2 + ((size_t)blockIdx.y * C + c_lo) * plane;
+  const T* f1r = f1 + ((size_t)blockIdx.y * C + c_lo) * plane;
+  const T* f2r = f2 + ((size_t)blockIdx.y * C + c_lo) * plane;
 
   // this thread's copies of a channel, e = tid + k NT of the channel's flat
   // run: the offset in the source plane, -1 outside the image (zero fill)
@@ -152,10 +167,16 @@ correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
       for (int q = 0; q < Geo::copies; ++q) {
         const int e = tid + q * NT;
         if (e < Geo::chan_floats) {
-          const float* src = (e < Geo::f2_floats ? f2r : f1r) + at;
-          cp_async4(dst + 4u * (c * Geo::chan_floats + e),
-                    src + (src_off[q] < 0 ? 0 : src_off[q]),
-                    src_off[q] >= 0);
+          const T* src = (e < Geo::f2_floats ? f2r : f1r) + at;
+          if constexpr (sizeof(T) == 4) {
+            cp_async4(dst + 4u * (c * Geo::chan_floats + e),
+                      reinterpret_cast<const float*>(src) +
+                          (src_off[q] < 0 ? 0 : src_off[q]),
+                      src_off[q] >= 0);
+          } else {
+            sm[(k % kStages) * Geo::stage_floats + c * Geo::chan_floats + e] =
+                src_off[q] >= 0 ? __bfloat162float(src[src_off[q]]) : 0.f;
+          }
         }
       }
     }
@@ -218,7 +239,7 @@ correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   const int e_hi = (int)((long long)(rank + 1) * E4 / G);
   const float inv_c = 1.f / (float)C;
   const size_t oplane = (size_t)Ho * Wo;
-  float* outn = out + (size_t)blockIdx.y * kTaps * oplane;
+  T* outn = out + (size_t)blockIdx.y * kTaps * oplane;
   for (int e = e_lo + tid; e < e_hi; e += NT) {
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int r = 0; r < G; ++r) {
@@ -234,20 +255,28 @@ correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
     const int t = e / (kTX / 4 * TY);
     const int i = oy0 + row, j = ox0 + col;
     if (i >= Ho) continue;
-    float* o = outn + t * oplane + (size_t)i * Wo + j;
+    T* o = outn + t * oplane + (size_t)i * Wo + j;
     const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
 #pragma unroll
-    for (int x = 0; x < 4; ++x)
-      if (j + x < Wo) o[x] = vals[x] * inv_c;
+    for (int x = 0; x < 4; ++x) {
+      if (j + x >= Wo) continue;
+      if constexpr (sizeof(T) == 4)
+        o[x] = vals[x] * inv_c;
+      else
+        o[x] = __float2bfloat16_rn(vals[x] * inv_c);
+    }
   }
   cluster.sync();  // no CTA leaves while another reads its partial sums
 }
 
-template <int TY>
-int launch(const float* f1, const float* f2, float* out, int N, int C, int H,
+template <typename T, int TY>
+int launch(const void* f1v, const void* f2v, void* outv, int N, int C, int H,
            int W, int s, int Ho, int Wo, int tiles_x, int G, int grid_x,
            int smem_bytes, cudaStream_t stream) {
-  auto kernel = correlation_kernel<TY>;
+  auto kernel = correlation_kernel<T, TY>;
+  const T* f1 = static_cast<const T*>(f1v);
+  const T* f2 = static_cast<const T*>(f2v);
+  T* out = static_cast<T*>(outv);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -273,15 +302,16 @@ int launch(const float* f1, const float* f2, float* out, int N, int C, int H,
 
 // Launches on `stream` with the wrapper's plan: tiles of 32 x tile_h
 // outputs, the channels split over clusters of `split` CTAs, grid_x = split
-// * tiles, `smem_bytes` of dynamic shared memory. Refuses
+// * tiles, `smem_bytes` of dynamic shared memory; the bf16 build where
+// `bf16` is 1 (f1, f2 and out bf16), else the float32 one. Refuses
 // (cudaErrorInvalidValue) a plan it cannot run; otherwise returns the CUDA
 // error of the launch (0 on success).
-extern "C" int correlation_launch(const float* f1, const float* f2,
-                                  float* out, int N, int C, int H, int W,
-                                  int s, int tile_h, int split, int grid_x,
-                                  int smem_bytes, void* stream) {
+extern "C" int correlation_launch(const void* f1, const void* f2, void* out,
+                                  int N, int C, int H, int W, int s,
+                                  int tile_h, int split, int grid_x,
+                                  int smem_bytes, int bf16, void* stream) {
   if (N < 1 || C < 1 || H < 1 || W < 1 || s < 1 || N > 65535 ||
-      (long long)H * W * s > 0x7fffffffLL)
+      (bf16 != 0 && bf16 != 1) || (long long)H * W * s > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int Ho = (H + s - 1) / s, Wo = (W + s - 1) / s;
   const int tiles_x = (Wo + kTX - 1) / kTX;
@@ -294,8 +324,15 @@ extern "C" int correlation_launch(const float* f1, const float* f2,
       smem_bytes != need || smem_bytes > kSmemLimit)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return tile_h == 8 ? launch<8>(f1, f2, out, N, C, H, W, s, Ho, Wo, tiles_x,
-                                 split, grid_x, smem_bytes, st)
-                     : launch<4>(f1, f2, out, N, C, H, W, s, Ho, Wo, tiles_x,
-                                 split, grid_x, smem_bytes, st);
+  using B = __nv_bfloat16;
+  if (bf16)
+    return tile_h == 8 ? launch<B, 8>(f1, f2, out, N, C, H, W, s, Ho, Wo,
+                                      tiles_x, split, grid_x, smem_bytes, st)
+                       : launch<B, 4>(f1, f2, out, N, C, H, W, s, Ho, Wo,
+                                      tiles_x, split, grid_x, smem_bytes, st);
+  return tile_h == 8 ? launch<float, 8>(f1, f2, out, N, C, H, W, s, Ho, Wo,
+                                        tiles_x, split, grid_x, smem_bytes, st)
+                     : launch<float, 4>(f1, f2, out, N, C, H, W, s, Ho, Wo,
+                                        tiles_x, split, grid_x, smem_bytes,
+                                        st);
 }

@@ -46,10 +46,21 @@
 // terms (wx_t e_t) u, and exp is expf (no fast-math build).
 // The grid is one block a tile; the wrapper (ops/regularize.py) picks the
 // copy width and the launcher refuses 16-byte copies it cannot make.
+//
+// The bf16 build (LiteFlowNet with flow_dtype bf16; the Pallas kernel's
+// arithmetic on bf16 inputs, regularize.py:37-62): every input and the
+// output are bf16, all arithmetic float32, the same as the float32 build's
+// after the loads. Only the loads and stores change: a thread converts its
+// logits as it loads them, and the block stages the weights and the haloed
+// flow tile converted to float by plain 2-byte loads (cp.async copies 4
+// bytes at least), so the shared memory and the arithmetic are the float32
+// build's. It moves half the bytes: level 2 of a 1280x576 pair 19.6 MB,
+// 0.0058 ms at 3.35 TB/s.
 
 #include <climits>
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -83,16 +94,28 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 // blocks an SM for at most K + 32 registers a thread
 constexpr int min_blocks(int K) { return 65536 / (kThreads * (K + 32)); }
 
-template <int KS, bool V16>
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// T: the element type (float, or __nv_bfloat16 with plain loads; V16 is
+// then false)
+template <typename T, int KS, bool V16>
 __global__ void __launch_bounds__(kThreads, min_blocks(KS * KS))
-dist_weighted_flow_kernel(const float* __restrict__ dc,
-                          const float* __restrict__ flow,
-                          const float* __restrict__ wx,
-                          const float* __restrict__ bx,
-                          const float* __restrict__ wy,
-                          const float* __restrict__ by,
-                          float* __restrict__ out, int H, int W, int tiles_x,
+dist_weighted_flow_kernel(const T* __restrict__ dc,
+                          const T* __restrict__ flow,
+                          const T* __restrict__ wx,
+                          const T* __restrict__ bx,
+                          const T* __restrict__ wy,
+                          const T* __restrict__ by,
+                          T* __restrict__ out, int H, int W, int tiles_x,
                           int tiles_per_image) {
+  constexpr bool kF32 = sizeof(T) == 4;
   constexpr int K = KS * KS;
   constexpr int R = (KS - 1) / 2;
   constexpr int FR = kRows + 2 * R;          // flow rows staged
@@ -113,17 +136,33 @@ dist_weighted_flow_kernel(const float* __restrict__ dc,
   // the thread's logits, into registers
   float nd[K];
   {
-    const float* src = dc + (size_t)n * K * plane +
-                       (mine ? (size_t)y * W + x : 0);
+    const T* src = dc + (size_t)n * K * plane +
+                   (mine ? (size_t)y * W + x : 0);
 #pragma unroll
-    for (int t = 0; t < K; ++t) nd[t] = mine ? __ldg(src + t * plane) : 0.f;
+    for (int t = 0; t < K; ++t)
+      nd[t] = mine ? to_float(__ldg(src + t * plane)) : 0.f;
   }
-  // the weights and the haloed flow tile, by cp.async
-  for (int c = tid; c < 2 * K + 2; c += kThreads)
-    cp_async4(sw + c, c < 2 * K ? (c & 1 ? wy : wx) + (c >> 1)
-                      : c == 2 * K ? bx : by, true);
-  const float* u = flow + (size_t)n * 2 * plane;
-  if (V16) {
+  // the weights and the haloed flow tile, by cp.async (float32) or by plain
+  // loads converted to float (bf16)
+  for (int c = tid; c < 2 * K + 2; c += kThreads) {
+    const T* src = c < 2 * K ? (c & 1 ? wy : wx) + (c >> 1)
+                             : c == 2 * K ? bx : by;
+    if constexpr (kF32)
+      cp_async4(sw + c, reinterpret_cast<const float*>(src), true);
+    else
+      sw[c] = to_float(*src);
+  }
+  const T* u = flow + (size_t)n * 2 * plane;
+  if constexpr (!kF32) {
+    for (int c = tid; c < 2 * FLOW; c += kThreads) {
+      const int pl = c >= FLOW;
+      const int e = c - pl * FLOW;
+      const int row = e / kFlowCols, q = e - row * kFlowCols;
+      const int fy = y0 - R + row, fx = x0 - kPad + q;
+      const bool in = fy >= 0 && fy < H && fx >= 0 && fx < W;
+      su[c] = in ? to_float(u[pl * plane + (size_t)fy * W + fx]) : 0.f;
+    }
+  } else if (V16) {
     constexpr int kChunks = FR * (kFlowCols / 4);  // a plane's 16-byte chunks
     for (int c = tid; c < 2 * kChunks; c += kThreads) {
       const int pl = c >= kChunks;
@@ -132,7 +171,9 @@ dist_weighted_flow_kernel(const float* __restrict__ dc,
       const int fy = y0 - R + row, fx = x0 - kPad + 4 * q;
       const bool in = fy >= 0 && fy < H && fx >= 0 && fx < W;
       cp_async16(su + pl * FLOW + row * kFlowCols + 4 * q,
-                 u + pl * plane + (in ? (size_t)fy * W + fx : 0), in);
+                 reinterpret_cast<const float*>(u) + pl * plane +
+                     (in ? (size_t)fy * W + fx : 0),
+                 in);
     }
   } else {
     for (int c = tid; c < 2 * FLOW; c += kThreads) {
@@ -141,7 +182,10 @@ dist_weighted_flow_kernel(const float* __restrict__ dc,
       const int row = e / kFlowCols, q = e - row * kFlowCols;
       const int fy = y0 - R + row, fx = x0 - kPad + q;
       const bool in = fy >= 0 && fy < H && fx >= 0 && fx < W;
-      cp_async4(su + c, u + pl * plane + (in ? (size_t)fy * W + fx : 0), in);
+      cp_async4(su + c,
+                reinterpret_cast<const float*>(u) + pl * plane +
+                    (in ? (size_t)fy * W + fx : 0),
+                in);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -174,46 +218,65 @@ dist_weighted_flow_kernel(const float* __restrict__ dc,
   }
   const float2 b = w2[K];
   const float inv = 1.f / sum;
-  float* o = out + (size_t)n * 2 * plane + (size_t)y * W + x;
-  o[0] = (ax + b.x) * inv;
-  o[plane] = (ay + b.y) * inv;
+  T* o = out + (size_t)n * 2 * plane + (size_t)y * W + x;
+  store(o, (ax + b.x) * inv);
+  store(o + plane, (ay + b.y) * inv);
 }
 
-using Kernel = void (*)(const float*, const float*, const float*,
-                        const float*, const float*, const float*, float*, int,
-                        int, int, int);
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, const T*, const T*,
+                        const T*, T*, int, int, int, int);
 
 template <int KS>
-Kernel pick(bool v16) {
-  return v16 ? dist_weighted_flow_kernel<KS, true>
-             : dist_weighted_flow_kernel<KS, false>;
+Kernel<float> pick(bool v16) {
+  return v16 ? dist_weighted_flow_kernel<float, KS, true>
+             : dist_weighted_flow_kernel<float, KS, false>;
 }
 
-}  // namespace
-
-// Launches on `stream`: one block of 128 threads a 4 x 32 tile of each of
-// the N images, flow copies of `vec` bytes (16 or 4). k is the window side,
-// 3, 5 or 7. Refuses (cudaErrorInvalidValue) arguments it cannot run,
-// including 16-byte copies with W % 4 != 0 or a flow base that is not
-// 16-byte aligned; otherwise returns the CUDA error of the launch.
-extern "C" int dist_weighted_flow_launch(const float* dc, const float* flow,
-                                         const float* wx, const float* bx,
-                                         const float* wy, const float* by,
-                                         float* out, int N, int H, int W,
-                                         int k, int vec, void* stream) {
-  const bool v16 = vec == 16;
-  if (N < 1 || H < 1 || W < 1 || (vec != 4 && !v16) ||
-      (v16 && (W % 4 != 0 || reinterpret_cast<uintptr_t>(flow) % 16 != 0)))
-    return (int)cudaErrorInvalidValue;
-  const Kernel kernel = k == 3   ? pick<3>(v16)
-                        : k == 5 ? pick<5>(v16)
-                        : k == 7 ? pick<7>(v16)
-                                 : nullptr;
+template <typename T>
+int launch(Kernel<T> kernel, const void* dc, const void* flow, const void* wx,
+           const void* bx, const void* wy, const void* by, void* out, int N,
+           int H, int W, void* stream) {
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const long long tiles_x = (W + kCols - 1) / kCols;
   const long long per_image = tiles_x * ((H + kRows - 1) / kRows);
   if (N * per_image > INT_MAX) return (int)cudaErrorInvalidValue;
   kernel<<<(int)(N * per_image), kThreads, 0, (cudaStream_t)stream>>>(
-      dc, flow, wx, bx, wy, by, out, H, W, (int)tiles_x, (int)per_image);
+      static_cast<const T*>(dc), static_cast<const T*>(flow),
+      static_cast<const T*>(wx), static_cast<const T*>(bx),
+      static_cast<const T*>(wy), static_cast<const T*>(by),
+      static_cast<T*>(out), H, W, (int)tiles_x, (int)per_image);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches on `stream`: one block of 128 threads a 4 x 32 tile of each of
+// the N images. vec 16 or 4: the float32 build with flow copies of that
+// many bytes; vec 2: the bf16 build (every pointer bf16). k is the window
+// side, 3, 5 or 7. Refuses (cudaErrorInvalidValue) arguments it cannot run,
+// including 16-byte copies with W % 4 != 0 or a flow base that is not
+// 16-byte aligned; otherwise returns the CUDA error of the launch.
+extern "C" int dist_weighted_flow_launch(const void* dc, const void* flow,
+                                         const void* wx, const void* bx,
+                                         const void* wy, const void* by,
+                                         void* out, int N, int H, int W,
+                                         int k, int vec, void* stream) {
+  const bool v16 = vec == 16;
+  if (N < 1 || H < 1 || W < 1 || (vec != 4 && vec != 2 && !v16) ||
+      (v16 && (W % 4 != 0 || reinterpret_cast<uintptr_t>(flow) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (vec == 2) {
+    using B = __nv_bfloat16;
+    const Kernel<B> kernel = k == 3   ? dist_weighted_flow_kernel<B, 3, false>
+                             : k == 5 ? dist_weighted_flow_kernel<B, 5, false>
+                             : k == 7 ? dist_weighted_flow_kernel<B, 7, false>
+                                      : nullptr;
+    return launch(kernel, dc, flow, wx, bx, wy, by, out, N, H, W, stream);
+  }
+  const Kernel<float> kernel = k == 3   ? pick<3>(v16)
+                               : k == 5 ? pick<5>(v16)
+                               : k == 7 ? pick<7>(v16)
+                                        : nullptr;
+  return launch(kernel, dc, flow, wx, bx, wy, by, out, N, H, W, stream);
 }

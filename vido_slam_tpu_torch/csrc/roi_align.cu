@@ -45,10 +45,32 @@
 // The sample positions use round-to-nearest multiplies and adds without FMA
 // contraction, so a sample lands exactly where the plain version puts it,
 // including at -1 and size - 1; only the order of the weighted sums differs.
+//
+// The bf16 build (the detector with mask_dtype or compute_dtype bf16, the
+// JAX bench's default) computes the Pallas kernel's function on bf16
+// features as the JAX package rounds it (roi_align.py:166-168, 236, 246):
+// the weights Ry, Rx rounded to bf16 (each row's or column's weight summed
+// over the bin's samples and divided by s in float32 first; a row's hat
+// taken at the sample's clamped position plus the level's first row in the
+// row-stacked pyramid, against the row's index there, as roi_align.py:
+// 154-168 computes it); t = Ry F, the y-contraction, summed in
+// float32 and rounded to bf16; out = t Rx^T summed in float32 and rounded
+// to bf16. A gather that kept t in float32 would differ from JAX by about a
+// bf16 ulp, so the rounding of t is kept. Design (correct first, not yet
+// fast): a block pools one ROI over a group of channels; its first warps
+// set up each bin's rows and columns (at most 2 s each, ascending) with
+// their bf16 weights in shared memory, and each thread computes whole
+// outputs (c, ph, pw): for each of the bin's columns the y-contraction over
+// the bin's rows, rounded to bf16, then the x-contraction, reading the
+// features straight from device memory (2 s x 2 s loads an output, most of
+// them from L1 and L2: neighbouring outputs share rows and columns). Every
+// product of two bf16 values is exact in float32, so only the order of the
+// sums (ascending rows and columns here) can part it from the plain version.
 
 #include <climits>
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -287,7 +309,160 @@ roi_align_kernel(Pyramid pyr, const float* __restrict__ rois,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 build
+// ---------------------------------------------------------------------------
+
+constexpr int kBinTaps = 2 * kMaxRatio;  // lines a bin's samples weight
+
+struct BinAxis {
+  int line[kMaxSamples][kBinTaps];  // a bin's texel lines, ascending
+  float w[kMaxSamples][kBinTaps];   // their weights, rounded to bf16
+  int n[kMaxSamples];
+};
+
+// Bin p of an axis of `size` texels: the lines its s samples weight and the
+// plain version's weight of each,
+//   bf16(sum_i max(0, 1 - |(c_i + off) - (line + off)|) / s)
+// over the samples i inside [-1, size - 1] (c_i clamped to [0, size - 1];
+// off: the level's first row in the stacked pyramid, 0 for columns).
+__device__ void setup_bin(float lo, float hi, int size, int off, int r,
+                          int s, int p, BinAxis& ax) {
+  const float bin = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1.f), (float)r);
+  const float top = (float)(size - 1);
+  float c[kMaxRatio];
+  bool in[kMaxRatio];
+  int cand[kBinTaps];
+  int n = 0;
+  for (int i = 0; i < s; ++i) {
+    const float frac = __fdiv_rn(__fadd_rn((float)i, 0.5f), (float)s);
+    const float pos =
+        __fadd_rn(lo, __fmul_rn(__fadd_rn((float)p, frac), bin));
+    in[i] = pos >= -1.f && pos <= top;  // false for NaN too
+    c[i] = fminf(fmaxf(pos, 0.f), top);
+    if (!in[i]) continue;
+    const int h0 = (int)floorf(c[i]);
+    for (int h = h0; h <= min(h0 + 1, size - 1); ++h) {
+      bool seen = false;
+      for (int j = 0; j < n; ++j) seen |= cand[j] == h;
+      if (!seen) cand[n++] = h;
+    }
+  }
+  for (int a = 1; a < n; ++a)  // ascending
+    for (int j = a; j > 0 && cand[j - 1] > cand[j]; --j) {
+      const int t = cand[j];
+      cand[j] = cand[j - 1];
+      cand[j - 1] = t;
+    }
+  for (int j = 0; j < n; ++j) {
+    float sum = 0.f;
+    for (int i = 0; i < s; ++i) {
+      const float d =
+          __fsub_rn(__fadd_rn(c[i], (float)off), (float)(cand[j] + off));
+      const float hat = fmaxf(__fsub_rn(1.f, fabsf(d)), 0.f);
+      sum = __fadd_rn(sum, in[i] ? hat : 0.f);
+    }
+    ax.line[p][j] = cand[j];
+    ax.w[p][j] =
+        __bfloat162float(__float2bfloat16_rn(__fdiv_rn(sum, (float)s)));
+  }
+  ax.n[p] = n;
+}
+
+struct PyramidBf16 {
+  const __nv_bfloat16* feat[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int row0[kMaxLevels];  // the level's first row in the stacked pyramid
+  float scale[kMaxLevels];
+  int levels;
+};
+
+__global__ void __launch_bounds__(kMaxThreads)
+roi_align_bf16_kernel(PyramidBf16 pyr, const float* __restrict__ rois,
+                      const int* __restrict__ levels,
+                      __nv_bfloat16* __restrict__ out, int C, int r, int s,
+                      int group) {
+  __shared__ BinAxis ys, xs;
+  const int roi = blockIdx.y;
+  const int c0 = blockIdx.x * group;
+  const int ng = min(group, C - c0);
+  const int lv = min(max(levels[roi], 0), pyr.levels - 1);
+  const __nv_bfloat16* feat = lv == 0 ? pyr.feat[0] : lv == 1 ? pyr.feat[1]
+                            : lv == 2 ? pyr.feat[2] : pyr.feat[3];
+  const int H = lv == 0 ? pyr.h[0] : lv == 1 ? pyr.h[1]
+              : lv == 2 ? pyr.h[2] : pyr.h[3];
+  const int W = lv == 0 ? pyr.w[0] : lv == 1 ? pyr.w[1]
+              : lv == 2 ? pyr.w[2] : pyr.w[3];
+  const float scale = lv == 0 ? pyr.scale[0] : lv == 1 ? pyr.scale[1]
+                    : lv == 2 ? pyr.scale[2] : pyr.scale[3];
+  const int row0 = lv == 0 ? pyr.row0[0] : lv == 1 ? pyr.row0[1]
+                 : lv == 2 ? pyr.row0[2] : pyr.row0[3];
+  const float* b = rois + 4 * (size_t)roi;
+  const int tid = threadIdx.x;
+  if (tid < r)
+    setup_bin(__fmul_rn(b[1], scale), __fmul_rn(b[3], scale), H, row0, r, s,
+              tid, ys);
+  else if (tid < 2 * r)
+    setup_bin(__fmul_rn(b[0], scale), __fmul_rn(b[2], scale), W, 0, r, s,
+              tid - r, xs);
+  __syncthreads();
+
+  const int rr = r * r;
+  const size_t chan = (size_t)H * W;
+  __nv_bfloat16* dst = out + ((size_t)roi * C + c0) * rr;
+  for (int e = tid; e < ng * rr; e += blockDim.x) {
+    const int c = e / rr, pq = e - c * rr;
+    const int p = pq / r, q = pq - p * r;
+    const __nv_bfloat16* f = feat + (size_t)(c0 + c) * chan;
+    float acc = 0.f;
+    for (int j = 0; j < xs.n[q]; ++j) {
+      const int x = xs.line[q][j];
+      float t = 0.f;  // Ry F at (ph, x), rounded to bf16
+      for (int i = 0; i < ys.n[p]; ++i)
+        t = fmaf(ys.w[p][i],
+                 __bfloat162float(f[(size_t)ys.line[p][i] * W + x]), t);
+      acc = fmaf(xs.w[q][j], __bfloat162float(__float2bfloat16_rn(t)), acc);
+    }
+    dst[e] = __float2bfloat16_rn(acc);
+  }
+}
+
 }  // namespace
+
+// The bf16 build: blocks of `threads` threads pooling one ROI over `group`
+// channels, no dynamic shared memory. feats: the L levels' bf16 planes;
+// rois float32; out (R, C, r, r) bf16. Refuses (cudaErrorInvalidValue)
+// arguments it cannot run; otherwise returns the CUDA error of the launch.
+extern "C" int roi_align_bf16_launch(const void* const* feats, const int* hs,
+                                     const int* ws, const float* scales,
+                                     int L, const float* rois,
+                                     const int* levels, void* out, int R,
+                                     int C, int r, int s, int group,
+                                     int threads, void* stream) {
+  if (L < 1 || L > kMaxLevels || R < 1 || R > 65535 || C < 1 || r < 1 ||
+      s < 1 || s > kMaxRatio || r * s > kMaxSamples || 2 * r > threads ||
+      group < 1 || group > C || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || (long long)C * r * r > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  PyramidBf16 pyr{};
+  pyr.levels = L;
+  long long row = 0;
+  for (int l = 0; l < L; ++l) {
+    if (hs[l] < 1 || ws[l] < 1) return (int)cudaErrorInvalidValue;
+    pyr.feat[l] = static_cast<const __nv_bfloat16*>(feats[l]);
+    pyr.h[l] = hs[l];
+    pyr.w[l] = ws[l];
+    pyr.row0[l] = (int)row;
+    pyr.scale[l] = scales[l];
+    row += hs[l];
+  }
+  if (row > (1 << 24)) return (int)cudaErrorInvalidValue;  // exact floats
+  const dim3 grid((unsigned)((C + group - 1) / group), R);
+  roi_align_bf16_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      pyr, rois, levels, static_cast<__nv_bfloat16*>(out), C, r, s, group);
+  return (int)cudaGetLastError();
+}
 
 // Launches on `stream` with the wrapper's plan: blocks of `threads` threads
 // pooling one ROI over `group` channels with `smem_bytes` of dynamic shared

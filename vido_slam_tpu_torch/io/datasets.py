@@ -11,8 +11,8 @@ run_vido_slam.cc:14-65, 112-137, and run_vido.cc:195-215):
   - 16-bit depth PNGs and 8-bit mask PNGs (run_vido_slam.cc:118-122).
 
 Images are read by ``imread`` with the semantics of the ``cv2.imread``
-flags the demo passes, on the port's own PNG decoder (``io/png.py``).
-JPEG is not decoded (ROADMAP.md queue 1 item 10b).
+flags the demo passes, on the port's own PNG and JPEG decoders
+(``io/png.py``, ``io/jpeg.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from vido_slam_tpu_torch.io.png import CorruptPng, read_png
+from vido_slam_tpu_torch.io import jpeg, png
 
 FLO_MAGIC = 202021.25
 
@@ -55,42 +55,66 @@ def write_flo(path: str, flow: np.ndarray) -> None:
         f.write(np.ascontiguousarray(flow, dtype="<f4").tobytes())
 
 
+# signatures of the other formats cv2 decodes, which imread refuses
+OTHER_FORMATS = ((b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                 (b"RIFF", "WebP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
+                 (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"#?RADIANCE", "HDR"),
+                 (b"\x76\x2f\x31\x01", "OpenEXR"))
+
+
+def rgb_to_gray(px: np.ndarray) -> np.ndarray:
+    """libpng's ``png_set_rgb_to_gray`` as cv2 sets it (red 0.299, green
+    0.587, fixed point: 9797, 19234 and 3737 / 32768): truncated at 8
+    bits, rounded at 16, on (..., 3) RGB samples."""
+    v = px[..., :3].astype(np.int64)
+    s = 9797 * v[..., 0] + 19234 * v[..., 1] + 3737 * v[..., 2]
+    if px.dtype == np.uint16:
+        return ((s + 16384) >> 15).astype(np.uint16)
+    return (s >> 15).astype(np.uint8)
+
+
 def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
-    """``cv2.imread(path, flags)`` for PNG files, bit-equal to it:
-    ``IMREAD_COLOR`` gives (H, W, 3) uint8 BGR (gray replicated, alpha
-    dropped, 16-bit samples cut to their high byte); ``IMREAD_GRAYSCALE``
-    (H, W) uint8 and ``IMREAD_ANYDEPTH`` (H, W) at the file's depth, both
-    from gray (or gray + alpha) files only: cv2 turns colour into gray by
-    libpng's own weights, which this reader does not copy, so it refuses.
-    A missing file, or one that is no decodable PNG (``io/png.py``'s
-    ``CorruptPng``: bad signature, truncation, CRC, inflate), gives None,
-    as in cv2. A JPEG raises ``NotImplementedError``, and a valid PNG of a
-    mode the decoder lacks raises ``ValueError``: cv2 decodes both, so
-    returning None would skip a frame silently."""
+    """``cv2.imread(path, flags)`` for PNG and JPEG files, bit-equal to it,
+    the format told by the file's signature as cv2 tells it (not by the
+    extension). ``IMREAD_COLOR`` gives (H, W, 3) uint8 BGR (gray
+    replicated, alpha dropped, 16-bit samples cut to their high byte);
+    ``IMREAD_GRAYSCALE`` (H, W) uint8 and ``IMREAD_ANYDEPTH`` (H, W) at the
+    file's depth (8 for a JPEG), colour turned gray by libpng's weights
+    (``rgb_to_gray``) or, for a JPEG, libjpeg's Y plane. A JPEG's EXIF
+    orientation is applied, as cv2 applies it. A missing file, or one that
+    is no decodable image (``CorruptPng``, ``CorruptJpeg``: a bad
+    signature, truncation before the image, CRC, inflate), gives None, as
+    in cv2. A valid file of a mode or format the decoders lack raises
+    ``ValueError``: cv2 decodes it, so returning None would skip a frame
+    silently."""
     if not os.path.exists(path):
         return None
-    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
-        raise NotImplementedError(
-            f"{path}: JPEG decoding without cv2 is not ported to "
-            f"vido_slam_tpu_torch yet (ROADMAP.md queue 1 item 10b); "
-            f"convert the images to PNG")
+    if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE, IMREAD_ANYDEPTH):
+        raise ValueError(f"imread flags {flags} are not supported")
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == jpeg.SIGNATURE:
+        try:
+            return jpeg.decode_jpeg(data, gray=flags != IMREAD_COLOR)
+        except jpeg.CorruptJpeg:
+            return None
+    for sig, name in OTHER_FORMATS:
+        if data.startswith(sig):
+            raise ValueError(f"{path}: {name} images are not supported "
+                             f"(PNG and JPEG only)")
     try:
-        img = read_png(path)
-    except CorruptPng:
+        img = png.decode_png(data)
+    except png.CorruptPng:
         return None
     px = img.pixels
-    gray = img.color_type in (0, 4)
+    gray = px.shape[-1] < 3
     if flags == IMREAD_COLOR:
         px = px >> 8 if img.bit_depth == 16 else px
         px = px.astype(np.uint8)
         if gray:
             return np.repeat(px[..., :1], 3, axis=-1)
         return np.ascontiguousarray(px[..., 2::-1])
-    if flags not in (IMREAD_GRAYSCALE, IMREAD_ANYDEPTH):
-        raise ValueError(f"imread flags {flags} are not supported")
-    if not gray:
-        raise ValueError(f"{path}: a colour PNG where a gray image is read")
-    px = px[..., 0]
+    px = px[..., 0] if gray else rgb_to_gray(px)
     if flags == IMREAD_GRAYSCALE and img.bit_depth == 16:
         px = (px >> 8).astype(np.uint8)
     return np.ascontiguousarray(px)

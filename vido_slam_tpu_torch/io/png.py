@@ -1,19 +1,23 @@
 """PNG decoding without cv2 — what the offline demo needs of cv2's PNG
 reader (libpng), for the port's dataset readers (``io/datasets.py``).
 
-Supported: colour types 0 (gray), 2 (RGB), 4 (gray + alpha) and 6 (RGBA)
-at bit depths 8 and 16, not interlaced, filter method 0 with its five row
-filters; ``zlib`` inflates the IDAT stream and every chunk's CRC is
-checked. 16-bit samples are big-endian in the file. Bytes that are no
-decodable PNG (a bad signature, a short stream, a bad CRC, an invalid
-IHDR, data that does not inflate or falls short of the image, a bad row
+Every mode of the PNG standard: colour types 0 (gray), 2 (RGB), 3
+(palette), 4 (gray + alpha) and 6 (RGBA) at their bit depths, with or
+without Adam7 interlace, filter method 0 with its five row filters;
+``zlib`` inflates the IDAT stream and every chunk's CRC is checked. The
+samples come out as libpng's expansions give them to cv2: 16-bit samples
+big-endian in the file, gray of 1, 2 or 4 bits scaled to 8 (x 255, 85,
+17), palette indices replaced by their PLTE colours (indices past the
+palette give black, libpng's zero-filled palette), interlaced passes put
+in place. Bytes that are no decodable PNG (a bad signature, a short
+stream, a bad CRC, an invalid IHDR, a palette image without a valid PLTE,
+data that does not inflate or falls short of the image, a bad row
 filter) raise ``CorruptPng``, where libpng fails and ``cv2.imread``
-returns None. Valid PNGs of the other modes (palette images, bit depths
-1-4, Adam7 interlace, surplus image data) raise a plain ``ValueError``:
-cv2 decodes those, and nothing is guessed. Ancillary chunks (gAMA, sBIT,
-tRNS, text) are skipped; they change no sample value of the modes the
-readers support (cv2 applies no gamma, and drops alpha where the readers
-do).
+returns None. Surplus image data, which libpng decodes with a warning,
+raises a plain ``ValueError``: nothing is guessed. Ancillary chunks (gAMA,
+sBIT, tRNS, text) are skipped; they change no sample value that the
+readers return (cv2 applies no gamma, and drops alpha, tRNS's included,
+where the readers do).
 
 The row unfilter is a host C++ function (``csrc/png_unfilter.cpp``, built
 at first use, bound by ctypes): Avg and Paeth are sequential along a row,
@@ -43,10 +47,16 @@ class CorruptPng(ValueError):
     """The bytes are no decodable PNG (libpng fails on them too)."""
 
 
+# Adam7: (x0, y0, dx, dy) of the seven passes
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
 class PngImage(NamedTuple):
-    pixels: np.ndarray   # (H, W, C) uint8 or uint16, the file's channel order
+    pixels: np.ndarray   # (H, W, C) uint8 or uint16, the file's channel
+    #                      order (RGB for a palette image)
     color_type: int
-    bit_depth: int
+    bit_depth: int       # 8 or 16: the samples' depth after expansion
 
 
 def _chunks(data: bytes):
@@ -145,9 +155,24 @@ def unfilter_plain(filtered: np.ndarray, height: int, rowbytes: int,
     return out
 
 
+def _samples(rows: np.ndarray, width: int, depth: int,
+             channels: int) -> np.ndarray:
+    """Unpack (h, rowbytes) unfiltered rows into (h, width, channels)
+    samples: big-endian 16-bit words, bytes, or 1-4-bit fields packed from
+    the high bits of each byte."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, width, channels)
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    fields = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return fields.reshape(h, -1)[:, :width, None]
+
+
 def decode_png(data: bytes, *, plain: bool = False) -> PngImage:
     """Decode a PNG held in memory; ``plain`` takes the plain unfilter."""
-    header, idat = None, []
+    header, idat, palette = None, [], None
     for kind, body in _chunks(data):
         if header is None:
             if kind != b"IHDR" or len(body) != 13:
@@ -155,31 +180,49 @@ def decode_png(data: bytes, *, plain: bool = False) -> PngImage:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE" and not idat:
+            palette = body
     width, height, depth, ctype, comp, filt, interlace = header
     if depth not in VALID_DEPTHS.get(ctype, ()) or width == 0 \
             or height == 0 or comp != 0 or filt != 0 or interlace > 1:
         raise CorruptPng(f"PNG IHDR is invalid: {header}")
-    if ctype not in CHANNELS:
-        raise ValueError(f"PNG colour type {ctype} is not supported "
-                         f"(gray, RGB, gray + alpha, RGBA only)")
-    if depth not in (8, 16):
-        raise ValueError(f"PNG bit depth {depth} is not supported (8, 16)")
-    if interlace != 0:
-        raise ValueError("interlaced PNGs are not supported")
+    if ctype == 3 and (palette is None or len(palette) % 3
+                       or not 3 <= len(palette) <= 768):
+        raise CorruptPng("PNG palette image without a valid PLTE")
     try:
-        raw = zlib.decompress(b"".join(idat))
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     except zlib.error as e:
         raise CorruptPng(f"PNG image data does not inflate: {e}") from None
-    channels = CHANNELS[ctype]
-    bpp = channels * depth // 8
-    rowbytes = width * bpp
+    channels = 1 if ctype == 3 else CHANNELS[ctype]
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(height - y0) // dy), -(-(width - x0) // dx))
+             for x0, y0, dx, dy in passes]
+    need = sum(h * (-(-w * bits // 8) + 1) for h, w in sizes if h and w)
+    if raw.size != need:
+        kind = CorruptPng if raw.size < need else ValueError
+        raise kind(f"PNG image data holds {raw.size} bytes, not {need}")
     fn = unfilter_plain if plain else unfilter
-    rows = fn(np.frombuffer(raw, np.uint8), height, rowbytes, bpp)
-    if depth == 16:
-        pixels = rows.view(">u2").astype(np.uint16)
-    else:
-        pixels = rows
-    return PngImage(pixels.reshape(height, width, channels), ctype, depth)
+    out = np.empty((height, width, channels),
+                   np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (x0, y0, dx, dy), (h, w) in zip(passes, sizes):
+        if not (h and w):
+            continue
+        rowbytes = -(-w * bits // 8)
+        size = h * (rowbytes + 1)
+        rows = fn(raw[pos:pos + size], h, rowbytes, bpp)
+        pos += size
+        out[y0::dy, x0::dx] = _samples(rows, w, depth, channels)
+    if ctype == 3:
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette) // 3] = np.frombuffer(palette, np.uint8) \
+            .reshape(-1, 3)
+        out = table[out[..., 0]]
+    elif depth < 8:
+        out = out * np.uint8(255 // ((1 << depth) - 1))
+    return PngImage(out, ctype, 16 if depth == 16 else 8)
 
 
 def read_png(path: str, *, plain: bool = False) -> PngImage:

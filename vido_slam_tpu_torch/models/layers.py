@@ -1,12 +1,51 @@
 """NCHW building blocks of the port's networks with the semantics of
-``vido_slam_tpu/models/layers.py``. Convolutions are ``torch.nn.Conv2d``;
-what needs a rule of its own is here."""
+``vido_slam_tpu/models/layers.py``. What needs a rule of its own is here.
+
+The networks run in their parameters' dtype, float32 or bfloat16 (the
+perception options ``compute_dtype``, ``mask_dtype``, ``flow_dtype``): as
+in the JAX package (layers.py:40-43), an activation that reaches a
+convolution or a linear layer in another dtype is cast to its weights'
+dtype there (``Conv2d``, ``ConvTranspose2d``, ``Linear``,
+``deconv_grouped``), and GroupNorm takes its statistics in float32."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+NET_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def net_dtype(dtype, what: str):
+    """``dtype`` checked as a network's compute dtype: None (float32),
+    float32 or bfloat16; anything else raises."""
+    if dtype is None or dtype in NET_DTYPES:
+        return dtype
+    raise TypeError(f"{what}: the networks run in float32 or bfloat16, not "
+                    f"{dtype}")
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose input follows its weights' dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose input follows its weights' dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose input follows its weights' dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
@@ -62,8 +101,13 @@ class GroupNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x, self.num_groups, self.weight, self.bias,
-                            self.eps)
+        if x.dtype == torch.float32:
+            return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                                self.eps)
+        # statistics and normalisation in float32, the affine in x's dtype
+        xn = F.group_norm(x.float(), self.num_groups, eps=self.eps)
+        return xn.to(x.dtype) * self.weight.view(1, -1, 1, 1) \
+            + self.bias.view(1, -1, 1, 1)
 
 
 def max_pool(x: torch.Tensor, k: int = 3, stride: int = 2,
@@ -78,8 +122,8 @@ def deconv_grouped(x: torch.Tensor, w: torch.Tensor, stride: int = 2,
     """``torch.nn.ConvTranspose2d(C, C, k, stride, padding, groups=C,
     bias=False)`` with its (C, 1, k, k) weight. The JAX package flips the
     kernel only because it writes the transpose as a dilated correlation."""
-    return F.conv_transpose2d(x, w, stride=stride, padding=padding,
-                              groups=x.shape[1])
+    return F.conv_transpose2d(x.to(w.dtype), w, stride=stride,
+                              padding=padding, groups=x.shape[1])
 
 
 def unfold_channels(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -26,7 +26,8 @@ from typing import Dict, List
 import torch
 import torch.nn as nn
 
-from vido_slam_tpu_torch.models.layers import deconv_grouped, leaky_relu
+from vido_slam_tpu_torch.models.layers import (Conv2d, deconv_grouped,
+                                               leaky_relu)
 from vido_slam_tpu_torch.ops.correlation import correlation
 from vido_slam_tpu_torch.ops.regularize import dist_weighted_flow
 from vido_slam_tpu_torch.ops.warp import backwarp, resize_bilinear
@@ -53,7 +54,7 @@ def _seq(*convs, last_act: bool = True) -> nn.Sequential:
     ``last_act`` is False."""
     mods = []
     for cin, cout, k, stride, pad in convs:
-        mods += [nn.Conv2d(cin, cout, k, stride, pad), nn.LeakyReLU(0.1)]
+        mods += [Conv2d(cin, cout, k, stride, pad), nn.LeakyReLU(0.1)]
     return nn.Sequential(*(mods if last_act else mods[:-1]))
 
 
@@ -141,18 +142,21 @@ class Regularization(nn.Module):
                             (64, 64, 3, 1, 1), (64, 32, 3, 1, 1),
                             (32, 32, 3, 1, 1))
         if level >= 5:
-            self.netDist = nn.Sequential(nn.Conv2d(32, dch, k, 1, r))
+            self.netDist = nn.Sequential(Conv2d(32, dch, k, 1, r))
         else:   # separable k x 1 then 1 x k
             self.netDist = nn.Sequential(
-                nn.Conv2d(32, dch, (k, 1), 1, (r, 0)),
-                nn.Conv2d(dch, dch, (1, k), 1, (0, r)))
-        self.netScaleX = nn.Conv2d(dch, 1, 1, 1, 0)
-        self.netScaleY = nn.Conv2d(dch, 1, 1, 1, 0)
+                Conv2d(32, dch, (k, 1), 1, (r, 0)),
+                Conv2d(dch, dch, (1, k), 1, (0, r)))
+        self.netScaleX = Conv2d(dch, 1, 1, 1, 0)
+        self.netScaleY = Conv2d(dch, 1, 1, 1, 0)
 
     def forward(self, im1, im2, feat1, flow):
         diff = im1 - backwarp(im2, flow * FLT_BACKWARP[self.level])
         diff = torch.sqrt(torch.sum(diff * diff, dim=1, keepdim=True))
-        flow_mean = flow.mean(dim=(2, 3), keepdim=True)
+        # the image-wide mean in float32 whatever the net's dtype
+        # (liteflownet.py:130-132)
+        flow_mean = flow.float().mean(dim=(2, 3), keepdim=True) \
+            .to(flow.dtype)
         x = torch.cat([diff, flow - flow_mean, self.netFeat(feat1)], 1)
         d = self.netDist(self.netMain(x))
         return dist_weighted_flow(
@@ -164,7 +168,10 @@ class Regularization(nn.Module):
 class LiteFlowNet(nn.Module):
     """The network with its parameters from ``init_liteflownet_params`` of
     ``seed``, on ``device`` (the card unless the caller asks for the CPU).
-    Load other parameters with ``load_state_dict``."""
+    Load other parameters with ``load_state_dict``. It computes in its
+    parameters' dtype: ``.to(torch.bfloat16)`` runs the pyramid in bf16
+    (kernels 3 and 4 in their bf16 builds), with the warp coordinates and
+    the flow mean in float32 and the flow returned in float32."""
 
     def __init__(self, seed: int = 0, device=None):
         super().__init__()
@@ -186,12 +193,13 @@ class LiteFlowNet(nn.Module):
         """first, second: (N, 3, H, W) RGB in [0, 1], H and W multiples of
         32. Returns the flow (N, 2, H/2, W/2) times 20
         (flow_net/src/layers.py:313); the caller resizes and rescales it."""
-        mean1 = torch.tensor(MEAN_FIRST, device=first.device)
-        mean2 = torch.tensor(MEAN_SECOND, device=first.device)
+        dt = self.netFeatures.netOne[0].weight.dtype
+        mean1 = torch.tensor(MEAN_FIRST, dtype=dt, device=first.device)
+        mean2 = torch.tensor(MEAN_SECOND, dtype=dt, device=first.device)
         # contiguous NCHW from here on, whatever the callers' strides: the
         # kernels take contiguous tensors only
-        first = (first - mean1.view(1, 3, 1, 1)).contiguous()
-        second = (second - mean2.view(1, 3, 1, 1)).contiguous()
+        first = (first.to(dt) - mean1.view(1, 3, 1, 1)).contiguous()
+        second = (second.to(dt) - mean2.view(1, 3, 1, 1)).contiguous()
         feats1 = self.netFeatures(first)
         feats2 = self.netFeatures(second)
         im1, im2 = [first], [second]
@@ -206,7 +214,7 @@ class LiteFlowNet(nn.Module):
             flow = self.netMatching[mi](f1, f2, flow)
             flow = self.netSubpixel[mi](f1, f2, flow)
             flow = self.netRegularization[mi](im1[li], im2[li], f1, flow)
-        return flow * 20.0
+        return flow.float() * 20.0
 
 
 def liteflownet_forward(module: LiteFlowNet, first: torch.Tensor,

@@ -24,8 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vido_slam_tpu_torch.models.layers import (FrozenBatchNorm2d, GroupNorm,
-                                               max_pool)
+from vido_slam_tpu_torch.models.layers import (Conv2d, FrozenBatchNorm2d,
+                                               GroupNorm, max_pool)
 
 
 class ResNetConfig(NamedTuple):
@@ -55,8 +55,8 @@ def _norm(channels: int, norm: str) -> nn.Module:
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
-          groups: int = 1, bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride, padding, groups=groups, bias=bias)
+          groups: int = 1, bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, k, stride, padding, groups=groups, bias=bias)
 
 
 class Bottleneck(nn.Module):

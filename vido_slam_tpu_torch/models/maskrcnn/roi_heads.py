@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vido_slam_tpu_torch.models.layers import (Conv2d, ConvTranspose2d,
+                                               Linear)
 from vido_slam_tpu_torch.ops.nms import (box_area, clip_boxes, decode_boxes,
                                          nms)
 from vido_slam_tpu_torch.ops.roi_align import roi_align_multilevel, true_div
@@ -66,11 +68,11 @@ class BoxHead(nn.Module):
     def __init__(self, channels: int = 256):
         super().__init__()
         self.feature_extractor = nn.Module()
-        self.feature_extractor.fc6 = nn.Linear(channels * 7 * 7, 1024)
-        self.feature_extractor.fc7 = nn.Linear(1024, 1024)
+        self.feature_extractor.fc6 = Linear(channels * 7 * 7, 1024)
+        self.feature_extractor.fc7 = Linear(1024, 1024)
         self.predictor = nn.Module()
-        self.predictor.cls_score = nn.Linear(1024, NUM_CLASSES)
-        self.predictor.bbox_pred = nn.Linear(1024, NUM_CLASSES * 4)
+        self.predictor.cls_score = Linear(1024, NUM_CLASSES)
+        self.predictor.bbox_pred = Linear(1024, NUM_CLASSES * 4)
 
 
 class MaskHead(nn.Module):
@@ -82,11 +84,11 @@ class MaskHead(nn.Module):
         self.feature_extractor = nn.Module()
         for i in range(1, 5):
             setattr(self.feature_extractor, f"mask_fcn{i}",
-                    nn.Conv2d(channels, channels, 3, 1, 1))
+                    Conv2d(channels, channels, 3, 1, 1))
         self.predictor = nn.Module()
-        self.predictor.conv5_mask = nn.ConvTranspose2d(channels, channels, 2,
-                                                       2, 0)
-        self.predictor.mask_fcn_logits = nn.Conv2d(channels, NUM_CLASSES, 1)
+        self.predictor.conv5_mask = ConvTranspose2d(channels, channels, 2,
+                                                    2, 0)
+        self.predictor.mask_fcn_logits = Conv2d(channels, NUM_CLASSES, 1)
 
 
 def box_head_forward(head: BoxHead, feats: List[torch.Tensor],

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vido_slam_tpu_torch.models.layers import Conv2d
 from vido_slam_tpu_torch.ops.nms import (clip_boxes, decode_boxes, nms,
                                          remove_small_boxes)
 from vido_slam_tpu_torch.utils.order import top_k
@@ -78,9 +79,9 @@ class RPNHead(nn.Module):
 
     def __init__(self, channels: int = 256, num_anchors: int = 3):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, 1, 1)
-        self.cls_logits = nn.Conv2d(channels, num_anchors, 1)
-        self.bbox_pred = nn.Conv2d(channels, num_anchors * 4, 1)
+        self.conv = Conv2d(channels, channels, 3, 1, 1)
+        self.cls_logits = Conv2d(channels, num_anchors, 1)
+        self.bbox_pred = Conv2d(channels, num_anchors * 4, 1)
 
     def forward(self, feat: torch.Tensor):
         """One level (1, C, H, W) -> (objectness (H*W*A,), deltas

@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vido_slam_tpu_torch.models.layers import BatchNorm2d, max_pool
+from vido_slam_tpu_torch.models.layers import BatchNorm2d, Conv2d, max_pool
 from vido_slam_tpu_torch.ops.warp import resize_bilinear
 from vido_slam_tpu_torch.utils.device import resolve_device
 
@@ -42,14 +42,14 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, stride: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, cout, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(cout)
-        self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(cout, cout, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(cout)
         self.downsample = None
         if cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout))
+                Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -61,7 +61,7 @@ class BasicBlock(nn.Module):
 class ResNet18Encoder(nn.Module):
     def __init__(self):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         for li in range(1, 5):
             cin, cout = NUM_CH_ENC[li - 1], NUM_CH_ENC[li]
@@ -70,7 +70,10 @@ class ResNet18Encoder(nn.Module):
                 BasicBlock(cin, cout, stride), BasicBlock(cout, cout, 1)))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x (N, 3, H, W) RGB in [0, 1] -> the five features."""
+        """x (N, 3, H, W) RGB in [0, 1] -> the five features, in the
+        parameters' dtype (the input cast to it first, as the JAX package
+        casts the net's input)."""
+        x = x.to(self.conv1.weight.dtype)
         x = F.relu(self.bn1(self.conv1((x - 0.45) / 0.225)))
         feats = [x]
         x = max_pool(x, 3, 2, 1)
@@ -86,7 +89,7 @@ class Conv3x3(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 3)
+        self.conv = Conv2d(cin, cout, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.pad(x, (1, 1, 1, 1), mode="reflect"))

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from vido_slam_tpu_torch.geometry.camera import convert_depth
+from vido_slam_tpu_torch.models.layers import net_dtype
 from vido_slam_tpu_torch.models.liteflownet import LiteFlowNet
 from vido_slam_tpu_torch.models.maskrcnn.model import (RESNET50_FPN,
                                                        MaskRCNN,
@@ -45,10 +46,11 @@ def perception_depth(net: MonoDepth2, cur_bgr: torch.Tensor) -> torch.Tensor:
     """Depth (H, W) in [0, 65536] of one (H, W, 3) float32 BGR frame in
     0..255 on the net's device: RGB in [0, 1] resized to the net's
     640x192 feed, the disparity, and its min-max uint16 form at (H, W)
-    (perception.py:78-85)."""
+    (perception.py:78-85), the disparity taken to float32 first whatever
+    the net's dtype."""
     height, width = cur_bgr.shape[0], cur_bgr.shape[1]
     x = resize_bilinear(_rgb01(cur_bgr), FEED_HEIGHT, FEED_WIDTH)
-    disp = monodepth2_disp(net, x.contiguous())
+    disp = monodepth2_disp(net, x.contiguous()).float()
     return disp_to_uint16_depth(disp, height, width)[0]
 
 
@@ -74,7 +76,8 @@ def perception_mask(model: MaskRCNN, cur_bgr, device=None) -> torch.Tensor:
     the CPU), where ``model`` must lie: RGB kept at raw 0..255 values
     (predictor.py:283-286 of the reference), resized bilinearly to the
     model's input size, the detector, and the detections pasted back at
-    (H, W) (perception.py:97-109)."""
+    (H, W) (perception.py:97-109), every floating field taken to float32
+    first whatever the detector's dtype."""
     dev = resolve_device(device)
     if next(model.parameters()).device.type != dev.type:
         raise ValueError(f"perception_mask: the model is not on {dev}")
@@ -84,6 +87,8 @@ def perception_mask(model: MaskRCNN, cur_bgr, device=None) -> torch.Tensor:
     x = resize_bilinear(frame.flip(-1).permute(2, 0, 1)[None], cfg.input_h,
                         cfg.input_w).contiguous()
     det = maskrcnn_inference(model, x)
+    det = det._replace(**{k: v.float() for k, v in det._asdict().items()
+                          if v.is_floating_point()})
     return paste_semantic_mask(det, cfg.input_h, cfg.input_w, height, width,
                                cfg.mask_threshold)
 
@@ -114,9 +119,15 @@ class PerceptionModel:
     bundles on disk through ``from_pretrained``).
 
     ``use_pallas`` is accepted for the JAX signature: on the card the CUDA
-    kernels run either way. The bf16 options (``compute_dtype``,
-    ``mask_dtype``, ``flow_dtype``) are not ported: the port runs float32
-    with TF32 off."""
+    kernels run either way. The dtype options are the JAX package's
+    (perception.py:126-175): ``compute_dtype`` casts the depth net and the
+    detector, ``mask_dtype`` the detector only (after ``compute_dtype``),
+    ``flow_dtype`` LiteFlowNet only; None keeps float32 (TF32 off), and
+    ``torch.bfloat16`` is the other dtype the networks and kernels 3, 4
+    and 5 take. A net cast to bf16 computes in bf16 where JAX does, with
+    the same places pinned to float32 (the warp coordinates, LiteFlowNet's
+    flow mean and output, GroupNorm statistics, the RPN and box decoding,
+    the disparity and the detections before the paste)."""
 
     def __init__(self, height: int, width: int,
                  mask_cfg: MaskRCNNConfig = RESNET50_FPN, seed: int = 0,
@@ -125,12 +136,10 @@ class PerceptionModel:
                  mask_state: Optional[dict] = None, use_pallas: bool = True,
                  compute_dtype=None, mask_dtype=None, flow_dtype=None,
                  device=None):
-        if any(d is not None for d in (compute_dtype, mask_dtype,
-                                       flow_dtype)):
-            raise NotImplementedError(
-                "the bf16 options of PerceptionModel (compute_dtype, "
-                "mask_dtype, flow_dtype) are not ported to "
-                "vido_slam_tpu_torch yet (ROADMAP.md queue 1 item 15b)")
+        compute_dtype, mask_dtype, flow_dtype = (
+            net_dtype(d, f"PerceptionModel {name}") for d, name in (
+                (compute_dtype, "compute_dtype"), (mask_dtype, "mask_dtype"),
+                (flow_dtype, "flow_dtype")))
         self.height = height
         self.width = width
         self.mask_cfg = mask_cfg
@@ -144,6 +153,11 @@ class PerceptionModel:
                            (self.mask_model, mask_state)):
             if state is not None:
                 net.load_state_dict(state, strict=True)
+        for net, dtype in ((self.depth_net, compute_dtype),
+                           (self.mask_model, mask_dtype or compute_dtype),
+                           (self.flow_net, flow_dtype)):
+            if dtype is not None:
+                net.to(dtype)
 
     @classmethod
     def from_pretrained(cls, weights_dir: str, height: int, width: int,
@@ -154,7 +168,8 @@ class PerceptionModel:
         ``strict=True``: a bundle whose keys or shapes do not fit its net
         raises, naming them. A missing bundle keeps that net's seeded
         init. ``kw`` goes to the constructor (``seed``, ``device``,
-        ``use_pallas``)."""
+        ``use_pallas`` and the dtype options, which cast the loaded
+        weights as they cast the seeded ones)."""
         import os
 
         from vido_slam_tpu_torch import convert

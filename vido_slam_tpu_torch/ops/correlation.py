@@ -8,8 +8,18 @@ For f1, f2 (N, C, H, W) and a stride s, channel (p+3)*7+(o+3) of the
 outside the image. Every offset is a multiple of s, so only the stride
 phase (rows and columns at multiples of s) of either input is read.
 
+In bfloat16 (LiteFlowNet with ``flow_dtype=torch.bfloat16``) the inputs and
+the output are bf16 and the arithmetic float32: a bf16 x bf16 product is
+exact in float32, the channel sum runs in float32, and the mean is rounded
+to bf16 once. That is what the JAX package's ``correlation`` and
+``correlation_pallas`` return on the CPU for bf16 inputs: the Pallas body
+casts each bf16 product to float32 (correlation.py:120-125), and XLA
+keeps the product unrounded (measured: rounding it in bf16 changes 45 of 96
+outputs of a 64-channel tap, keeping it none).
+
 ``correlation`` runs the plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel (its float32 or its bf16 build) or
+raises.
 """
 
 from __future__ import annotations
@@ -21,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from vido_slam_tpu_torch.utils import cuda_build
-from vido_slam_tpu_torch.utils.device import kernel_device
+from vido_slam_tpu_torch.utils.device import FLOAT_DTYPES, kernel_device
 
 RADIUS = 3   # displacements -3..3 in each direction: 49 taps
 TAPS = (2 * RADIUS + 1) ** 2
@@ -81,8 +91,9 @@ def _out_hw(H: int, W: int, stride: int):
 
 
 def operations(f1: torch.Tensor, stride: int) -> int:
-    """float32 operations of a call: a multiply-add (2) per channel, tap
-    and output, and the 1/C scale per tap and output."""
+    """float32 operations of a call (bf16 inputs too: their arithmetic is
+    float32): a multiply-add (2) per channel, tap and output, and the 1/C
+    scale per tap and output."""
     N, C, H, W = f1.shape
     Ho, Wo = _out_hw(H, W, stride)
     return N * Ho * Wo * TAPS * (2 * C + 1)
@@ -90,24 +101,25 @@ def operations(f1: torch.Tensor, stride: int) -> int:
 
 def nbytes(f1: torch.Tensor, stride: int) -> int:
     """Bytes a call must move: the stride phase of f1 and f2 read once, the
-    cost volume written once."""
+    cost volume written once, at the inputs' element size."""
     N, C, H, W = f1.shape
     Ho, Wo = _out_hw(H, W, stride)
-    return 4 * N * Ho * Wo * (2 * C + TAPS)
+    return f1.element_size() * N * Ho * Wo * (2 * C + TAPS)
 
 
 def correlation_ref(f1: torch.Tensor, f2: torch.Tensor,
                     stride: int = 1) -> torch.Tensor:
     """Plain version: 49 shifted products of the stride phases, each
-    averaged over the channels."""
-    f1s = f1[:, :, ::stride, ::stride]
-    f2s = f2[:, :, ::stride, ::stride]
+    averaged over the channels, in float32 (bf16 inputs converted, the
+    output rounded back to their dtype)."""
+    f1s = f1[:, :, ::stride, ::stride].float()
+    f2s = f2[:, :, ::stride, ::stride].float()
     Ho, Wo = f1s.shape[2], f1s.shape[3]
     r = RADIUS
     f2p = F.pad(f2s, (r, r, r, r))
     taps = [(f1s * f2p[:, :, r + p:r + p + Ho, r + o:r + o + Wo]).mean(1)
             for p in range(-r, r + 1) for o in range(-r, r + 1)]
-    return torch.stack(taps, 1)
+    return torch.stack(taps, 1).to(f1.dtype)
 
 
 _launch_fn = None
@@ -122,7 +134,7 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, stride: int,
     if _launch_fn is None:
         fn = cuda_build.load("correlation").correlation_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P] + [I] * 9 + [P]
+        fn.argtypes = [P, P, P] + [I] * 10 + [P]
         fn.restype = ctypes.c_int
         _launch_fn = fn
     N, C, H, W = f1.shape
@@ -130,14 +142,16 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, stride: int,
         stream = torch.cuda.current_stream(f1.device).cuda_stream
         return _launch_fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), N, C,
                           H, W, int(stride), plan.tile_h, plan.split,
-                          plan.grid[0], plan.smem_bytes, stream)
+                          plan.grid[0], plan.smem_bytes,
+                          int(f1.dtype == torch.bfloat16), stream)
 
 
 def correlation(f1: torch.Tensor, f2: torch.Tensor,
                 stride: int = 1) -> torch.Tensor:
     """Cost volume (N, 49, ceil(H/s), ceil(W/s)) of f1, f2 (N, C, H, W),
-    contiguous float32 on one device."""
-    dev = kernel_device("correlation", (f1, f2))
+    contiguous float32 or bfloat16 (both one dtype, the output's) on one
+    device."""
+    dev = kernel_device("correlation", (f1, f2), FLOAT_DTYPES)
     if f1.ndim != 4 or f1.shape != f2.shape:
         raise ValueError(f"correlation: f1 {tuple(f1.shape)} and f2 "
                          f"{tuple(f2.shape)} must be one (N, C, H, W) shape")
@@ -148,7 +162,7 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
         return correlation_ref(f1, f2, stride)
     N, C, H, W = f1.shape
     Ho, Wo = _out_hw(H, W, stride)
-    out = torch.empty((N, TAPS, Ho, Wo), dtype=torch.float32, device=dev)
+    out = torch.empty((N, TAPS, Ho, Wo), dtype=f1.dtype, device=dev)
     rc = _launch(f1, f2, stride, launch_plan(N, C, H, W, int(stride)), out)
     if rc != 0:
         raise RuntimeError(f"correlation kernel launch failed: CUDA error {rc}")

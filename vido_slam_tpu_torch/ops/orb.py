@@ -102,13 +102,13 @@ def _moment_kernel() -> torch.Tensor:
 _MOMENTS = _moment_kernel()
 
 
-def resize_weights(in_size: int, out_size: int,
-                   device=None) -> torch.Tensor:
+def resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     """(out, in) float32 weights of ``jax.image.resize``'s "linear" method
-    along one axis (``compute_weight_mat`` there): the triangle kernel at
-    the half-pixel sample positions, widened by in / out when the axis
-    shrinks (its antialiasing), normalised per output, and zero for an
-    output whose sample lies outside the input."""
+    along one axis (``compute_weight_mat`` there) on ``device`` (the
+    image's; no default, so that they never land on the CPU unasked): the
+    triangle kernel at the half-pixel sample positions, widened by in / out
+    when the axis shrinks (its antialiasing), normalised per output, and
+    zero for an output whose sample lies outside the input."""
     f32 = dict(dtype=torch.float32, device=device)
     inv_scale = 1.0 / (out_size / in_size)
     kernel_scale = torch.tensor(max(inv_scale, 1.0), **f32)

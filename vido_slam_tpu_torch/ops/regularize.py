@@ -13,8 +13,15 @@ and sy the same with wy, v and by: the exp-normalised, distance-weighted
 k x k filter of the flow (zero padded, r = (k-1)//2), i.e. the 1x1
 netScaleX/netScaleY convolutions of the unfolded flow.
 
+In bfloat16 (LiteFlowNet with ``flow_dtype=torch.bfloat16``) every input
+and the result are bf16 and all arithmetic is float32, as the JAX
+package's ``dist_weighted_flow`` and its Pallas kernel compute it
+(regularize.py:37-62, 188): the inputs are converted, and (sx, sy) rounded
+to bf16 once.
+
 ``dist_weighted_flow`` runs the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises.
+for CUDA tensors it launches the kernel (its float32 or its bf16 build) or
+raises.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from vido_slam_tpu_torch.models.layers import unfold_channels
 from vido_slam_tpu_torch.utils import cuda_build
-from vido_slam_tpu_torch.utils.device import kernel_device
+from vido_slam_tpu_torch.utils.device import FLOAT_DTYPES, kernel_device
 
 WINDOWS = (3, 5, 7)   # the kernel's window sides, LiteFlowNet's
 
@@ -38,10 +45,12 @@ FLOPS_PIXEL = 5
 
 
 def copy_width(flow: torch.Tensor) -> int:
-    """Bytes a flow copy of the kernel takes: 16 where every 4-float chunk
-    of a row is 16-byte aligned (W % 4 == 0 and the flow's first element
-    16-byte aligned; a contiguous view may start at a storage offset),
-    else 4."""
+    """Bytes a flow copy of the float32 build takes: 16 where every 4-float
+    chunk of a row is 16-byte aligned (W % 4 == 0 and the flow's first
+    element 16-byte aligned; a contiguous view may start at a storage
+    offset), else 4. The bf16 build loads its flow by plain loads: 2."""
+    if flow.dtype == torch.bfloat16:
+        return 2
     return 16 if flow.shape[-1] % 4 == 0 and flow.data_ptr() % 16 == 0 \
         else 4
 
@@ -53,13 +62,16 @@ def operations(dc: torch.Tensor) -> int:
 
 def nbytes(dc: torch.Tensor) -> int:
     """Bytes a call must move: dc, the flow, the weights and biases read
-    once, the (N, 2, H, W) result written once."""
+    once, the (N, 2, H, W) result written once, at dc's element size."""
     N, K, H, W = dc.shape
-    return 4 * (N * H * W * (K + 2 + 2) + 2 * K + 2)
+    return dc.element_size() * (N * H * W * (K + 2 + 2) + 2 * K + 2)
 
 
 def dist_weighted_flow_ref(dc, flow, wx, bx, wy, by, k: int) -> torch.Tensor:
-    """Plain version: returns (N, 2, H, W) = [sx, sy]."""
+    """Plain version: returns (N, 2, H, W) = [sx, sy], computed in float32
+    (bf16 inputs converted, the result rounded back to their dtype)."""
+    dt = dc.dtype
+    dc, flow, wx, bx, wy, by = (t.float() for t in (dc, flow, wx, bx, wy, by))
     d1 = -(dc * dc)
     e = torch.exp(d1 - d1.max(dim=1, keepdim=True).values)
     inv = 1.0 / e.sum(1)
@@ -73,7 +85,7 @@ def dist_weighted_flow_ref(dc, flow, wx, bx, wy, by, k: int) -> torch.Tensor:
         accy = accy + wy[ch] * e[:, ch] * ufy[:, ch]
     sx = (accx + bx.reshape(())) * inv
     sy = (accy + by.reshape(())) * inv
-    return torch.stack([sx, sy], 1)
+    return torch.stack([sx, sy], 1).to(dt)
 
 
 _launch_fn = None
@@ -102,8 +114,10 @@ def _launch(dc, flow, wx, bx, wy, by, k: int, vec: int,
 def dist_weighted_flow(dc, flow, wx, bx, wy, by, k: int) -> torch.Tensor:
     """[sx, sy] (N, 2, H, W) of dc (N, K, H, W), flow (N, 2, H, W), wx and
     wy of K elements, bx and by of one (the netScaleX/Y weights and biases
-    as they are), all contiguous float32 on one device."""
-    dev = kernel_device("dist_weighted_flow", (dc, flow, wx, bx, wy, by))
+    as they are), all contiguous float32 or all bfloat16 (the output's
+    dtype) on one device."""
+    dev = kernel_device("dist_weighted_flow", (dc, flow, wx, bx, wy, by),
+                        FLOAT_DTYPES)
     if k not in WINDOWS:
         raise ValueError(f"dist_weighted_flow: window {k} not in {WINDOWS}")
     if dc.ndim != 4 or dc.shape[1] != k * k:
@@ -119,7 +133,7 @@ def dist_weighted_flow(dc, flow, wx, bx, wy, by, k: int) -> torch.Tensor:
                          "bx, by one")
     if dev.type == "cpu":
         return dist_weighted_flow_ref(dc, flow, wx, bx, wy, by, k)
-    out = torch.empty((N, 2, H, W), dtype=torch.float32, device=dev)
+    out = torch.empty((N, 2, H, W), dtype=dc.dtype, device=dev)
     rc = _launch(dc, flow, wx, bx, wy, by, k, copy_width(flow), out)
     if rc != 0:
         raise RuntimeError(f"regularize kernel launch failed: CUDA error {rc}")

@@ -14,8 +14,17 @@ level ``levels[i]`` of the pyramid.
 Features are NCHW, one image: each level (1, C, H_l, W_l). Outputs are
 (R, C, r, r), so the box head flattens them in torch order directly.
 
+In bfloat16 (the detector with ``mask_dtype`` or ``compute_dtype``
+``torch.bfloat16``) the features and the output are bf16 and the ROIs stay
+float32, as in the JAX package, whose bf16 path rounds three times
+(roi_align.py:166-168, 236, 246): the weights Ry, Rx to bf16, the
+y-contraction t = Ry F (summed in float32) to bf16, and the output (t Rx^T
+summed in float32) to bf16. The plain version and the kernel's bf16 build
+both do.
+
 ``roi_align_multilevel`` runs the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+CPU; for CUDA tensors it launches the kernel (its float32 or its bf16
+build) or raises.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import numpy as np
 import torch
 
 from vido_slam_tpu_torch.utils import cuda_build
-from vido_slam_tpu_torch.utils.device import kernel_device
+from vido_slam_tpu_torch.utils.device import FLOAT_DTYPES, kernel_device
 
 MAX_LEVELS = 4      # csrc/roi_align.cu: kMaxLevels
 MAX_SAMPLES = 64    # resolution x sampling_ratio per axis: kMaxSamples
@@ -48,6 +57,12 @@ BLOCK_OUTPUTS = 2048       # the bins a block computes, at most: 8 a thread
 BUFFER_FLOATS = 3072       # a buffer: 12 KB, or one channel's largest grid
 SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
 SMEM_RESERVE = 4096        # room for the static shared memory
+
+
+# the bf16 build's plan: a block of BF16_THREADS pools one ROI over a group
+# of channels whose bins number about BF16_OUTPUTS
+BF16_THREADS = 256
+BF16_OUTPUTS = 1024
 
 
 class RoiAlignPlan(NamedTuple):
@@ -94,6 +109,14 @@ def launch_plan(R: int, C: int, resolution: int, sampling_ratio: int,
                         smem_bytes(resolution, sampling_ratio, level_sizes))
 
 
+def launch_plan_bf16(C: int, resolution: int) -> RoiAlignPlan:
+    """The bf16 build's plan: BF16_THREADS a block, a group of channels of
+    at most BF16_OUTPUTS bins (at least one channel); no dynamic shared
+    memory."""
+    group = max(1, min(C, BF16_OUTPUTS // (resolution * resolution)))
+    return RoiAlignPlan(group, BF16_THREADS, 0)
+
+
 def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
     """a / b rounded once, on every device. PyTorch multiplies a CUDA
     tensor by the reciprocal of a Python-number divisor instead, which is
@@ -104,12 +127,16 @@ def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
 
 
 def _hat_weights(lo: torch.Tensor, hi: torch.Tensor, size: int, r: int,
-                 s: int) -> torch.Tensor:
+                 s: int, offset: int = 0) -> torch.Tensor:
     """(R, r, size) weights of one axis: the bin's s samples' bilinear
     weights (hat functions), zero for a sample outside [-1, size - 1],
     averaged. ``lo``/``hi`` are the ROI's scaled start and end (R,); the
     arithmetic is roi_align.py:54-70's, operation for operation, with the
-    kernel's correctly rounded divisions."""
+    kernel's correctly rounded divisions. ``offset``: the level's first row
+    in the JAX package's row-stacked pyramid, added to the clamped sample
+    position and to the texel index before the hat is taken, as
+    roi_align.py:154-168 does (it moves the float32 rounding of the
+    weights); 0 gives the per-level weights of the float32 build."""
     bin_ = true_div(torch.clamp(hi - lo, min=1.0), r)
     ph = torch.arange(r, dtype=torch.float32, device=lo.device)
     frac = true_div(torch.arange(s, dtype=torch.float32, device=lo.device)
@@ -117,33 +144,45 @@ def _hat_weights(lo: torch.Tensor, hi: torch.Tensor, size: int, r: int,
     pos = lo[:, None, None] + (ph[None, :, None] + frac[None, None, :]) \
         * bin_[:, None, None]                                  # (R, r, s)
     inside = (pos >= -1.0) & (pos <= size - 1.0)
-    p = torch.clamp(pos, 0.0, size - 1.0)
-    ks = torch.arange(size, dtype=torch.float32, device=lo.device)
+    p = torch.clamp(pos, 0.0, size - 1.0) + float(offset)
+    ks = torch.arange(offset, offset + size, dtype=torch.float32,
+                      device=lo.device)
     w = torch.clamp(1.0 - (p[..., None] - ks).abs(), min=0.0) \
         * inside[..., None]
     return w.sum(2) / s
 
 
 def _level_weights(rois: torch.Tensor, spatial_scale: float, H: int, W: int,
-                   r: int, s: int):
-    """(Ry (R, r, H), Rx (R, r, W)) of ROIs pooled from an H x W level."""
+                   r: int, s: int, row_offset: int = 0):
+    """(Ry (R, r, H), Rx (R, r, W)) of ROIs pooled from an H x W level
+    (``_hat_weights``' ``offset`` for the rows)."""
     x1, y1, x2, y2 = (rois[:, k] * spatial_scale for k in range(4))
-    return _hat_weights(y1, y2, H, r, s), _hat_weights(x1, x2, W, r, s)
+    return (_hat_weights(y1, y2, H, r, s, row_offset),
+            _hat_weights(x1, x2, W, r, s))
 
 
 def roi_align(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
-              resolution: int = 7, sampling_ratio: int = 2) -> torch.Tensor:
+              resolution: int = 7, sampling_ratio: int = 2,
+              row_offset: int = 0) -> torch.Tensor:
     """Plain single-level ROIAlign: feat (1, C, H, W), rois (R, 4) ->
     (R, C, r, r). The separable form out = Ry F Rx^T of roi_align.py:40-94,
-    ``CHUNK`` ROIs a product."""
+    ``CHUNK`` ROIs a product, in float32; for bf16 features Ry, Rx (with
+    the level's ``row_offset``), t = Ry F and the output rounded to
+    bf16."""
     _, C, H, W = feat.shape
     r, R = resolution, rois.shape[0]
-    Ry, Rx = _level_weights(rois, spatial_scale, H, W, r, sampling_ratio)
-    Fy = feat[0].permute(1, 0, 2).reshape(H, C * W)
+    bf16 = feat.dtype == torch.bfloat16
+    Ry, Rx = _level_weights(rois.float(), spatial_scale, H, W, r,
+                            sampling_ratio, row_offset if bf16 else 0)
+
+    def rounded(x):
+        return x.to(torch.bfloat16).float() if bf16 else x
+    Ry, Rx = rounded(Ry), rounded(Rx)
+    Fy = feat[0].float().permute(1, 0, 2).reshape(H, C * W)
     out = feat.new_empty((R, C, r, r))
     for a in range(0, R, CHUNK):
         b = min(a + CHUNK, R)
-        t = (Ry[a:b].reshape(-1, H) @ Fy).reshape(b - a, r, C, W)
+        t = rounded(Ry[a:b].reshape(-1, H) @ Fy).reshape(b - a, r, C, W)
         out[a:b] = torch.einsum("bpcw,bqw->bcpq", t, Rx[a:b])
     return out
 
@@ -155,16 +194,19 @@ def roi_align_multilevel_ref(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                              sampling_ratio: int = 2) -> torch.Tensor:
     """Plain version of the multilevel pooler (roi_align.py:111-196): the
     ROIs of each level through ``roi_align`` on that level, put back in
-    order. Levels outside [0, L) clamp, as JAX's gathers do. Reads the
-    level partition back to the host."""
+    order (bf16: with the level's first row in the stacked pyramid). Levels
+    outside [0, L) clamp, as JAX's gathers do. Reads the level partition
+    back to the host."""
     C = feats[0].shape[1]
     r = resolution
     lv = levels.clamp(0, len(feats) - 1)
     out = feats[0].new_zeros((rois.shape[0], C, r, r))
+    row = 0
     for level, (f, scale) in enumerate(zip(feats, spatial_scales)):
         idx = torch.nonzero(lv == level)[:, 0]
         if idx.numel():
-            out[idx] = roi_align(f, rois[idx], scale, r, sampling_ratio)
+            out[idx] = roi_align(f, rois[idx], scale, r, sampling_ratio, row)
+        row += f.shape[2]
     return out
 
 
@@ -201,13 +243,44 @@ def banded_weights(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 def operations(rois: torch.Tensor, channels: int, resolution: int,
                sampling_ratio: int = 2) -> int:
-    """float32 operations of a call, against the kernel's arithmetic: per
-    output and sample a multiply and a multiply-add for each of the two
-    rows (6) and two multiply-adds into the sum (4); per ROI and sample
-    position of either axis the position and weights (12)."""
+    """float32 operations of a call of the float32 build, against its
+    arithmetic: per output and sample a multiply and a multiply-add for
+    each of the two rows (6) and two multiply-adds into the sum (4); per
+    ROI and sample position of either axis the position and weights
+    (12)."""
     R = rois.shape[0]
     r, s = resolution, sampling_ratio
     return R * channels * r * r * s * s * 10 + R * 2 * r * s * 12
+
+
+def _bin_lines(feats, rois, levels, spatial_scales, resolution,
+               sampling_ratio):
+    """Per ROI the number of texel rows (R, r) and columns (R, r) that
+    each bin's samples weight, at the ROI's level."""
+    lv = levels.clamp(0, len(feats) - 1)
+    R, r = rois.shape[0], resolution
+    ny = torch.zeros((R, r), dtype=torch.int64, device=rois.device)
+    nx = torch.zeros_like(ny)
+    for level, (f, scale) in enumerate(zip(feats, spatial_scales)):
+        idx = torch.nonzero(lv == level)[:, 0]
+        if idx.numel():
+            ry, rx = _level_weights(rois[idx].float(), scale, f.shape[2],
+                                    f.shape[3], r, sampling_ratio)
+            ny[idx] = (ry > 0).sum(2)
+            nx[idx] = (rx > 0).sum(2)
+    return ny, nx
+
+
+def operations_bf16(feats, rois, levels, spatial_scales, resolution=7,
+                    sampling_ratio=2) -> int:
+    """float32 operations of a call of the bf16 build on these ROIs: per
+    output and weighted column a multiply-add per weighted row (2 each)
+    and one into the output (2)."""
+    ny, nx = _bin_lines(feats, rois, levels, spatial_scales, resolution,
+                        sampling_ratio)
+    C = feats[0].shape[1]
+    per_roi = (nx.sum(1) * (2 * ny.sum(1) + 2 * resolution)).sum()
+    return int(C * per_roi)
 
 
 def nbytes(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -215,8 +288,9 @@ def nbytes(feats: Sequence[torch.Tensor], rois: torch.Tensor,
            resolution: int = 7, sampling_ratio: int = 2) -> int:
     """Bytes a call must move: the ROIs and levels read, the (R, C, r, r)
     output written, and every feature texel that a sample of these ROIs
-    weights above zero read once (C channels of 4 B): the union over ROIs
-    of their sampled rows x columns, per level."""
+    weights above zero read once (C channels at the features' element
+    size): the union over ROIs of their sampled rows x columns, per
+    level."""
     C = feats[0].shape[1]
     R = rois.shape[0]
     lv = levels.clamp(0, len(feats) - 1)
@@ -229,10 +303,12 @@ def nbytes(feats: Sequence[torch.Tensor], rois: torch.Tensor,
             rows = (ry > 0).any(1).to(torch.float32)       # (n, H)
             cols = (rx > 0).any(1).to(torch.float32)       # (n, W)
             texels += int(((rows.T @ cols) > 0).sum())
-    return 4 * (R * C * resolution * resolution + texels * C) + 20 * R
+    size = feats[0].element_size()
+    return size * (R * C * resolution * resolution + texels * C) + 20 * R
 
 
 _launch_fn = None
+_launch_bf16_fn = None
 
 
 def level_sizes(feats: Sequence[torch.Tensor]) -> list:
@@ -246,15 +322,21 @@ def _launch(feats, rois, levels, spatial_scales, resolution, sampling_ratio,
     `out`; ``levels`` int32 and contiguous. Returns the launcher's CUDA
     error (cudaErrorInvalidValue for a plan it cannot run), 0 on
     success."""
-    global _launch_fn
-    if _launch_fn is None:
-        fn = cuda_build.load("roi_align").roi_align_launch
+    global _launch_fn, _launch_bf16_fn
+    bf16 = out.dtype == torch.bfloat16
+    if (_launch_bf16_fn if bf16 else _launch_fn) is None:
+        lib = cuda_build.load("roi_align")
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I),
-                       ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float), I,
-                       P, P, P, I, I, I, I, I, I, I, P]
-        fn.restype = ctypes.c_int
-        _launch_fn = fn
+        head = [ctypes.POINTER(P), ctypes.POINTER(I), ctypes.POINTER(I),
+                ctypes.POINTER(ctypes.c_float), I, P, P, P]
+        if bf16:
+            _launch_bf16_fn = lib.roi_align_bf16_launch
+            _launch_bf16_fn.argtypes = head + [I] * 6 + [P]
+            _launch_bf16_fn.restype = ctypes.c_int
+        else:
+            _launch_fn = lib.roi_align_launch
+            _launch_fn.argtypes = head + [I] * 7 + [P]
+            _launch_fn.restype = ctypes.c_int
     L = len(feats)
     R, C = rois.shape[0], feats[0].shape[1]
     ptrs = (ctypes.c_void_p * L)(*(f.data_ptr() for f in feats))
@@ -262,12 +344,14 @@ def _launch(feats, rois, levels, spatial_scales, resolution, sampling_ratio,
     ws = (ctypes.c_int * L)(*(f.shape[3] for f in feats))
     scales = (ctypes.c_float * L)(*(float(x) for x in spatial_scales))
     dev = out.device
+    args = (ptrs, hs, ws, scales, L, rois.data_ptr(), levels.data_ptr(),
+            out.data_ptr(), R, C, resolution, sampling_ratio, plan.group,
+            plan.threads)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        return _launch_fn(ptrs, hs, ws, scales, L, rois.data_ptr(),
-                          levels.data_ptr(), out.data_ptr(), R, C, resolution,
-                          sampling_ratio, plan.group, plan.threads,
-                          plan.smem_bytes, stream)
+        if bf16:
+            return _launch_bf16_fn(*args, stream)
+        return _launch_fn(*args, plan.smem_bytes, stream)
 
 
 def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -276,9 +360,18 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                          sampling_ratio: int = 2) -> torch.Tensor:
     """(R, C, r, r) ROIAlign of rois (R, 4) float32, each from level
     ``levels[i]`` (an integer tensor (R,)) of the pyramid ``feats``, up to
-    four contiguous float32 (1, C, H_l, W_l) levels on one device. The
-    kernel takes sampling ratios 1 to MAX_RATIO."""
-    dev = kernel_device("roi_align_multilevel", (*feats, rois))
+    four contiguous (1, C, H_l, W_l) levels on one device, all float32 or
+    all bfloat16 (the output's dtype; the ROIs stay float32, as in the JAX
+    package). The kernel takes sampling ratios 1 to MAX_RATIO."""
+    dev = kernel_device("roi_align_multilevel", feats, FLOAT_DTYPES)
+    if rois.device != dev:
+        raise ValueError("roi_align_multilevel: all tensors must be on the "
+                         "CPU or all on one CUDA device")
+    if not rois.is_contiguous():
+        raise ValueError("roi_align_multilevel: inputs must be contiguous")
+    if rois.dtype != torch.float32:
+        raise TypeError(f"roi_align_multilevel: rois must be float32, got "
+                        f"{rois.dtype}")
     L = len(feats)
     if not 1 <= L <= MAX_LEVELS or len(spatial_scales) != L:
         raise ValueError(f"roi_align_multilevel: 1 to {MAX_LEVELS} levels "
@@ -307,11 +400,13 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     if sampling_ratio > MAX_RATIO:
         raise ValueError(f"roi_align_multilevel: the kernel takes sampling "
                          f"ratios 1 to {MAX_RATIO}, got {sampling_ratio}")
-    out = torch.empty((R, C, resolution, resolution), dtype=torch.float32,
+    out = torch.empty((R, C, resolution, resolution), dtype=feats[0].dtype,
                       device=dev)
     if R == 0:
         return out
-    plan = launch_plan(R, C, resolution, sampling_ratio, level_sizes(feats))
+    plan = launch_plan_bf16(C, resolution) \
+        if out.dtype == torch.bfloat16 else \
+        launch_plan(R, C, resolution, sampling_ratio, level_sizes(feats))
     rc = _launch(feats, rois, levels.to(torch.int32).contiguous(),
                  spatial_scales, resolution, sampling_ratio, plan, out)
     if rc != 0:

@@ -45,20 +45,23 @@ def grid_sample(img: torch.Tensor, x: torch.Tensor,
 def backwarp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Warp x (N, C, H, W) backward by flow (N, 2, H, W) [fx, fy]: the
     reference's normalised-grid backwarp, which displaces by f * W/(W-1)
-    and f * H/(H-1) pixels."""
+    and f * H/(H-1) pixels. The sample coordinates and the interpolation
+    are float32 whatever x's dtype, and the result is in x's dtype, so a
+    bf16 net stays bf16 through its warps (warp.py:76-81)."""
     N, _, H, W = flow.shape
     ii = torch.arange(W, dtype=torch.float32, device=flow.device)
     jj = torch.arange(H, dtype=torch.float32, device=flow.device)
-    sx = ii[None, None, :] + flow[:, 0] * (W / (W - 1.0))
-    sy = jj[None, :, None] + flow[:, 1] * (H / (H - 1.0))
-    return grid_sample(x, sx, sy)
+    sx = ii[None, None, :] + flow[:, 0].float() * (W / (W - 1.0))
+    sy = jj[None, :, None] + flow[:, 1].float() * (H / (H - 1.0))
+    return grid_sample(x, sx, sy).to(x.dtype)
 
 
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """NCHW bilinear resize equal to ``jax.image.resize(method="bilinear")``:
     half-pixel centres, and an antialiasing (triangle) filter along a side
     that shrinks, which ``F.interpolate`` applies only with
-    ``antialias=True``."""
+    ``antialias=True``. A bf16 image is resized in float32 and rounded
+    back once."""
     shrinks = height < x.shape[2] or width < x.shape[3]
-    return F.interpolate(x, size=(height, width), mode="bilinear",
-                         align_corners=False, antialias=shrinks)
+    return F.interpolate(x.float(), size=(height, width), mode="bilinear",
+                         align_corners=False, antialias=shrinks).to(x.dtype)

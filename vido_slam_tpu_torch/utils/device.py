@@ -22,19 +22,31 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def kernel_device(what: str, tensors) -> torch.device:
+# the dtypes of the kernels that have a bfloat16 build (kernels 3, 4, 5)
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_device(what: str, tensors,
+                  dtypes=(torch.float32,)) -> torch.device:
     """The one device of a kernel wrapper's inputs, which must all be
-    contiguous float32 tensors on the CPU or all on one CUDA device.
+    contiguous tensors of one dtype among ``dtypes`` (float32 unless the
+    kernel has other builds), on the CPU or all on one CUDA device.
     Raises ``ValueError`` for mixed devices or a non-contiguous tensor and
-    ``TypeError`` for another dtype."""
+    ``TypeError`` for another dtype or a mix of dtypes: nothing is cast
+    quietly."""
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{what}: all tensors must be on the CPU or all on "
                          f"one CUDA device")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: expected float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: expected "
+                            f"{' or '.join(str(d) for d in dtypes)}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
+    if len({t.dtype for t in tensors}) != 1:
+        raise TypeError(f"{what}: all inputs must have one dtype, got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
     dev = tensors[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {dev}")
