@@ -2495,6 +2495,316 @@ def run_phase_k(counters, names):
     return dict(zip(names, launches))
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (l): the pipelined paths (ROADMAP.md item 16)
+# ---------------------------------------------------------------------------
+
+# timing as bench.py:435-450 does it: each call on the host clock with no
+# synchronisation between calls, one synchronize after the last; the
+# offline and online single-frame runs time calls 4-23 / 4-22, the pair
+# runs calls 3-11 (frames 5-22), a call's time over 2 a frame
+TIMED_FROM = 4
+PAIR_TIMED_FROM = 3
+# the call whose host syncs are counted (outside the timed calls)
+SYNC_CALL = 2
+
+
+def count_syncs(fn):
+    """``fn()`` under CUDA's sync debug mode "warn": returns its result and
+    the host syncs it made, counted by call site (file:line)."""
+    import collections
+    import warnings
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return out, sites
+
+
+def sites_text(sites) -> str:
+    return ", ".join(f"{s} x{n}" for s, n in sorted(
+        sites.items(), key=lambda x: -x[1]))
+
+
+def run_calls(calls, timed_from, per_call=1):
+    """Each call in turn, the one at SYNC_CALL under ``count_syncs``. Returns
+    the median host ms a frame of the calls from ``timed_from`` on (no
+    synchronisation between calls), their end-to-end ms a frame (to a
+    synchronize after the last call and the closing call ``calls[-1]``,
+    which is not timed alone) and the sync sites of SYNC_CALL."""
+    import torch
+
+    *calls, close = calls
+    times, sites = [], None
+    t_from = None
+    for k, call in enumerate(calls):
+        if k == timed_from:
+            t_from = time.perf_counter()
+        t0 = time.perf_counter()
+        if k == SYNC_CALL:
+            _, sites = count_syncs(call)
+        else:
+            call()
+        times.append(time.perf_counter() - t0)
+    close()
+    torch.cuda.synchronize()
+    n_frames = (len(calls) - timed_from) * per_call
+    return (1e3 * float(np.median(times[timed_from:])) / per_call,
+            1e3 * (time.perf_counter() - t_from) / n_frames, sites)
+
+
+def run_offline_pipelined(inputs, counters, kw):
+    """System.TrackRGBD over the offline frames with ``kw`` as
+    ``run_calls`` times it, ``finish()`` closing. Returns the system, the
+    two ms a frame, the sync sites and the launches."""
+    from vido_slam_tpu_torch.config import config_from_dict
+    from vido_slam_tpu_torch.system import Sensor, System
+
+    system = System()
+    system.init_from_config(config_from_dict(OFFLINE_CONFIG), Sensor.RGBD,
+                            device=inputs[0][0].device, **kw)
+    for c in counters:
+        c.launches = 0
+    calls = [lambda a=a: system.TrackRGBD(None, a[0], a[1], a[2],
+                                          mTcw_gt=a[3]) for a in inputs]
+    ms, e2e, sites = run_calls(calls + [system.tracker.finish], TIMED_FROM)
+    return system, ms, e2e, sites, [c.launches for c in counters]
+
+
+def run_online_single(frames, tcw, model, counters):
+    """Phase (e)'s run again, timed as ``run_calls`` does."""
+    from vido_slam_tpu_torch.config import config_from_dict
+    from vido_slam_tpu_torch.system import Sensor, System
+
+    system = System()
+    system.init_from_config(config_from_dict(ONLINE_CONFIG), Sensor.RGBD,
+                            device=frames.device, **TRACKER_KW)
+    system.AttachPerception(model)
+    for c in counters:
+        c.launches = 0
+    calls = [lambda k=k: system.TrackFrames(frames[k], frames[k + 1],
+                                            mTcw_gt=tcw[k])
+             for k in range(frames.shape[0] - 1)]
+    ms, e2e, sites = run_calls(calls + [system.tracker.finish], TIMED_FROM)
+    return system, ms, e2e, sites, [c.launches for c in counters]
+
+
+def run_online_pairs(frames, tcw, model, counters, sensor):
+    """System.TrackFramesPair at odd offsets, as the JAX bench runs its
+    online rows: (f0, f1, f2) initialises, (f1, f2, f3), (f3, f4, f5), ...
+    process frames 1-22; IMU_RGBD feeds the analytic IMU up to each pair's
+    second frame before the call. Returns the system, the two ms a frame,
+    the sync sites of the call that processes frames 3 and 4, the
+    launches, after each call (init attempts, initialized, IMU scale), the
+    pre-dispatch check's answer at each call and each depth conversion's
+    scale."""
+    from vido_slam_tpu_torch import tracking
+    from vido_slam_tpu_torch.config import config_from_dict
+    from vido_slam_tpu_torch.system import Sensor, System
+
+    system = System()
+    system.init_from_config(config_from_dict(ONLINE_CONFIG), sensor,
+                            device=frames.device, pipelined=True,
+                            **TRACKER_KW)
+    system.AttachPerception(model)
+    tr = system.tracker
+    due, scales, after = [], [], []
+    check_due = tr._vio_event_due
+
+    def recording_due(ts):
+        due.append(check_due(ts))
+        return due[-1]
+
+    tr._vio_event_due = recording_due
+    convert = tracking.convert_depth
+
+    def recording(*args, scale, **kw):
+        scales.append(float(scale))
+        return convert(*args, scale=scale, **kw)
+
+    feed = ImuFeed() if sensor == Sensor.IMU_RGBD else None
+
+    def pair(i):
+        imu = None if feed is None else feed.samples(
+            0.0 if i == 0 else (i + 1) / 10.0)
+        gt = None if i == 0 else (tcw[i], tcw[i + 1])
+        system.TrackFramesPair(frames[i], frames[i + 1], frames[i + 2],
+                               mTcw_gt=gt, imu_measurements=imu)
+        after.append((tr.imu_init_attempts, tr.imu_initialized,
+                      tr.imu_scale))
+
+    tracking.convert_depth = recording
+    try:
+        for c in counters:
+            c.launches = 0
+        starts = [0] + list(range(1, frames.shape[0] - 2, 2))
+        calls = [lambda i=i: pair(i) for i in starts]
+        ms, e2e, sites = run_calls(calls + [tr.finish], PAIR_TIMED_FROM,
+                                   per_call=2)
+        launches = [c.launches for c in counters]
+    finally:
+        tracking.convert_depth = convert
+    return system, ms, e2e, sites, launches, after, due, scales
+
+
+def check_vio_pairs(after, due, scales):
+    """The pre-dispatch check holds at a pair call exactly where the init's
+    gates are open on the frames before it (>= 10 frames, >= 2 s since
+    the first) and the init has not fired; each such call makes one
+    attempt; each pair converts its depth at the scale its own update
+    left. Returns the number of calls that paid the sync."""
+    want_due, done = [], False
+    for j in range(1, len(after)):
+        last_ts, n = (2 * j - 2) / 10.0, 2 * j - 1
+        want_due.append(not done and n >= 10 and last_ts >= 2.0)
+        done = after[j][1]
+    check(due == want_due, f"(l4): pre-dispatch checks {due}, not "
+          f"{want_due}")
+    attempts = [a[0] for a in after]
+    want = [0] + list(np.cumsum(want_due))
+    check(attempts == [int(x) for x in want],
+          f"(l4): attempts {attempts}, not {want}")
+    want_scales = [float(np.float32(a[2])) for a in after[1:] for _ in "AB"]
+    check(scales == want_scales, f"(l4): depth scales {scales}, not "
+          f"{want_scales}")
+    return sum(due)
+
+
+def same_records(a, b) -> bool:
+    """Each record's object statuses and track ids equal."""
+    return [[(o.status, o.track_id) for o in f.objects] for f in a] == \
+        [[(o.status, o.track_id) for o in f.objects] for f in b]
+
+
+def ms_text(ms) -> str:
+    """Median and end-to-end ms a frame of each run, in run order."""
+    return ", ".join(f"{m:.2f}/{e:.2f}" for m, e in ms)
+
+
+def run_phase_l(seq, counters, names, ref, dev="cuda"):
+    """Phase (l): the pipelined paths against the same configuration's
+    synchronous run in this call, timed in turns (synchronous, pipelined,
+    pipelined, synchronous) where both are timed. ``ref`` holds the earlier
+    phases' runs: (a)'s records and launches, (b)'s ATE and launches, (e)'s
+    poses and launches, (g)'s launches, and (e)'s frames, poses and model.
+    Returns each kernel's launches in (l1)-(l4)."""
+    from vido_slam_tpu_torch.system import Sensor
+
+    cards = card_line()
+    out = {}
+    inputs = main_path_inputs(seq, dev, N_FRAMES)
+    n_tracked = N_FRAMES - 1
+    # (l1) offline VO, the fused BA, pipelined beside synchronous
+    ms = {False: [], True: []}
+    for pipelined in (False, True, True, False):
+        system, ms_, e2e, sites, launches = run_offline_pipelined(
+            inputs, counters, dict(TRACKER_KW, pipelined=pipelined))
+        ms[pipelined].append((ms_, e2e))
+        check(launches == ref["a_launches"], f"(l1) pipelined={pipelined}: "
+              f"{names} launched {launches} times, (a) {ref['a_launches']}")
+        if not pipelined:
+            sites_s = sites
+            continue
+        ate, length, with_obj = check_main_path(system, seq, N_FRAMES)
+        d = float(np.abs(system.map.poses - ref["a_poses"]).max())
+        check(d <= 1e-5 and same_records(system.map.frames, ref["a_frames"]),
+              f"(l1): poses {d} from (a)'s, or other object records")
+        out["l1"], sites_p = launches, sites
+    del system
+    print(f"(l1) offline VO pipelined, fused window BA: {N_FRAMES} frames "
+          f"1280x560, ATE {ate:.4f} m ({100 * ate / length:.3f} %), objects "
+          f"on {with_obj}/{n_tracked}, launches {out['l1']}; poses "
+          f"{'bit-equal to' if d == 0.0 else f'within {d:.3g} of'} (a)'s; "
+          f"ms/frame median/end to end, pipelined {ms_text(ms[True])}, "
+          f"synchronous {ms_text(ms[False])} (run in turns synchronous, "
+          f"pipelined, pipelined, synchronous; frames {TIMED_FROM}-"
+          f"{n_tracked}, host clock, no synchronize between calls); card "
+          f"{cards}")
+    print(f"(l1) host syncs in frame {SYNC_CALL}: pipelined "
+          f"{sum(sites_p.values())} ({sites_text(sites_p)}); synchronous "
+          f"{sum(sites_s.values())} ({sites_text(sites_s)})")
+    # (l2) bJoint at the host-assembled BA, pipelined
+    system, ms_, e2e, _, launches = run_offline_pipelined(
+        inputs, counters, dict(JOINT_KW, pipelined=True))
+    check(launches == ref["b_launches"], f"(l2): {names} launched "
+          f"{launches} times, (b) {ref['b_launches']}")
+    out["l2"] = launches
+    check(len(system.map) == N_FRAMES, f"(l2): {len(system.map)} records "
+          f"after finish()")
+    ate, length, with_obj = check_main_path(system, seq, N_FRAMES)
+    check(ate <= max(2.5 * ref["b_ate"], 0.05),
+          f"(l2): ATE {ate} against (b)'s {ref['b_ate']}")
+    print(f"(l2) bJoint pipelined, host-assembled window BA: ATE {ate:.4f} m "
+          f"({100 * ate / length:.3f} %; (b) {ref['b_ate']:.4f}), objects on "
+          f"{with_obj}/{n_tracked}, launches {launches}; ms/frame median "
+          f"{ms_:.2f}, end to end {e2e:.2f}")
+    del system, inputs
+    # (l3) the online row as the bench runs it: pairs, beside (e) again
+    frames, tcw, model = ref["frames"], ref["tcw"], ref["model"]
+    n_frames = frames.shape[0] - 1
+    ms = {False: [], True: []}
+    for pairs in (False, True, True, False):
+        if not pairs:
+            system, ms_, e2e, sites_s, launches = run_online_single(
+                frames, tcw, model, counters)
+            ms[False].append((ms_, e2e))
+            check(launches == ref["e_launches"], f"(l3) (e) again: "
+                  f"launches {launches}")
+            continue
+        system, ms_, e2e, sites_p, launches, _, _, _ = run_online_pairs(
+            frames, tcw, model, counters, Sensor.RGBD)
+        ms[True].append((ms_, e2e))
+        check(launches == ref["e_launches"], f"(l3): {names} launched "
+              f"{launches} times, (e) {ref['e_launches']}")
+        out["l3"] = launches
+        est = system.map.poses
+        check(est.shape == (n_frames, 4, 4) and np.isfinite(est).all(),
+              f"(l3): poses of shape {est.shape} after finish()")
+        d = float(np.abs(est - ref["e_poses"]).max())
+        check(d <= 5e-3, f"(l3): poses {d} from (e)'s")
+        check([f.timestamp for f in system.map.frames]
+              == [k / 10.0 for k in range(n_frames)], "(l3): timestamps")
+    del system
+    print(f"(l3) online pairs (System.TrackFramesPair, pipelined, fused "
+          f"window BA): {n_frames} records after finish(), launches "
+          f"{out['l3']}, poses "
+          f"{'bit-equal to' if d == 0.0 else f'within {d:.3g} of'} (e)'s; "
+          f"ms/frame median/end to end, pairs {ms_text(ms[True])} (a call "
+          f"over 2; frames {2 * PAIR_TIMED_FROM - 1}-{n_frames - 1}), (e) one "
+          f"frame a call {ms_text(ms[False])} (calls {TIMED_FROM}-"
+          f"{n_frames - 1}); run in turns (e), pairs, pairs, (e); host clock, "
+          f"no synchronize between calls; card {cards}")
+    print(f"(l3) host syncs: the pair call of frames 3-4 "
+          f"{sum(sites_p.values())} ({sites_text(sites_p)}); (e) call "
+          f"{SYNC_CALL} {sum(sites_s.values())} ({sites_text(sites_s)})")
+    # (l4) online VIO in pairs
+    system, ms_, e2e, _, launches, after, due, scales = run_online_pairs(
+        frames, tcw, model, counters, Sensor.IMU_RGBD)
+    check(launches == ref["g_launches"], f"(l4): {names} launched "
+          f"{launches} times, (g) {ref['g_launches']}")
+    out["l4"] = launches
+    paid = check_vio_pairs(after, due, scales)
+    check(system.map.poses.shape == (n_frames, 4, 4)
+          and np.isfinite(system.map.poses).all(), "(l4): poses")
+    print(f"(l4) online VIO pairs: attempts after each call "
+          f"{[a[0] for a in after]}, imu_initialized "
+          f"{system.tracker.imu_initialized}, imu_scale "
+          f"{system.tracker.imu_scale:.7f}, {paid} of {len(after) - 1} pair "
+          f"calls paid the pre-dispatch sync, launches {launches}; ms/frame "
+          f"median {ms_:.2f}, end to end {e2e:.2f}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2601,6 +2911,10 @@ def main() -> int:
         runs[attr] = (recorder, launches[own])
         if attr == "pose_lm_batched":
             vo_poses = system.map.poses
+            ref_l = dict(a_poses=vo_poses, a_frames=system.map.frames,
+                         a_launches=launches)
+        else:
+            ref_l.update(b_ate=ate, b_launches=launches)
     del inputs, system
 
     # (f) offline VIO: the JAX bench's offline VIO row one frame a call
@@ -2736,6 +3050,7 @@ def main() -> int:
           f"{card_line()}")
     online_cam = system.tracker.cam
     frame_online = frames[1].clone()
+    ref_l.update(e_poses=system.map.poses, e_launches=launches)
     del system, outputs
 
     # (g) online VIO: phase (e)'s configuration and clip as IMU_RGBD
@@ -2754,7 +3069,12 @@ def main() -> int:
           f"ms/frame median {1e3 * np.median(steady):.2f} mean "
           f"{1e3 * np.mean(steady):.2f} (calls 4-{n_calls - 1}, host clock "
           f"over torch.cuda.synchronize); card {card_line()}")
-    del system, frames, model
+    del system
+
+    # (l) the pipelined paths, each beside its synchronous run in this call
+    ref_l.update(g_launches=launches, frames=frames, tcw=tcw, model=model)
+    pipelined_launches = run_phase_l(seq, counters, names, ref_l)
+    del ref_l, frames, model
 
     # (j) bf16 perception: the online cell with the JAX bench's default
     # mask_dtype, and one call each with flow_dtype and compute_dtype
@@ -2887,6 +3207,12 @@ def main() -> int:
                                    phase_i_err[e["name"]])
         e["online_ms"], e["online_bound_ms"] = timing[0], timing[2]
         e["jpeg_cli_launches"] = jpeg_launches[e["name"]]
+        # (l1) offline VO, (l2) bJoint, (l3) online pairs, (l4) online VIO
+        # pairs, all pipelined
+        for cell, key in (("l1", "pipelined_vo"), ("l2", "pipelined_joint"),
+                          ("l3", "pipelined_pairs"),
+                          ("l4", "pipelined_vio_pairs")):
+            e[f"{key}_launches"] = pipelined_launches[cell][i]
         # the bf16 build (phase (j)): its launches there, its device ms on
         # the arguments (j) gave it, the float32 build's on the same values
         n, err, t = bf16.get(e["name"], (None, None, (None,) * 5))

@@ -956,3 +956,62 @@ def test_kernel_wrappers_refuse_mixed_and_half_dtypes_on_the_card():
     assert (correlation.correlation.launches,
             regularize.dist_weighted_flow.launches,
             roi_align.roi_align_multilevel.launches) == launches
+
+
+def _transfer_tree():
+    """A StepOutputs-like tree: float, int16 and bool leaves, a nested
+    tuple, an empty leaf and a scalar."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return (torch.randn(300, 2, device="cuda", generator=g),
+            (torch.arange(7, dtype=torch.int16, device="cuda"),
+             torch.rand(1001, device="cuda", generator=g) > 0.5),
+            torch.zeros(0, 3, device="cuda"),
+            torch.tensor(5, dtype=torch.int32, device="cuda"))
+
+
+def _leaves_equal(a, b):
+    if isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _leaves_equal(x, y)
+
+
+@pytest.mark.parametrize("in_flight", [1, 2, 4])
+def test_async_host_copy_matches_to_host(in_flight):
+    """``to_host_async`` gives ``to_host``'s arrays, through pinned buffers,
+    one a copy in flight, each back in its pool once read and reused by
+    the next copies of the same size."""
+    _need_card()
+    from vido_slam_tpu_torch.utils import transfer
+
+    tree = _transfer_tree()
+    want = transfer.to_host(tree)
+    copies = [transfer.to_host_async(tree) for _ in range(in_flight)]
+    bufs = [c._buf for c in copies]
+    assert all(b.is_pinned() for b in bufs)
+    assert len({b.data_ptr() for b in bufs}) == in_flight
+    for c in copies:
+        got = c.get()
+        _leaves_equal(got, want)
+        assert c.get() is got
+    again = [transfer.to_host_async(tree) for _ in range(in_flight)]
+    assert {c._buf.data_ptr() for c in again} <= {b.data_ptr() for b in bufs}
+    for c in again:
+        _leaves_equal(c.get(), want)
+
+
+def test_async_host_copy_survives_later_work():
+    """The copy reads the step's outputs as they were when it was enqueued:
+    later work on the stream that overwrites them does not reach it."""
+    _need_card()
+    from vido_slam_tpu_torch.utils import transfer
+
+    x = torch.randn(1 << 20, device="cuda")
+    want = x.cpu().numpy()
+    c = transfer.to_host_async((x,))
+    for _ in range(20):
+        x.mul_(2.0)
+    np.testing.assert_array_equal(c.get()[0], want)

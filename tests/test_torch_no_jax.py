@@ -36,7 +36,8 @@ need = {"vido_slam_tpu_torch." + m
                   "models.maskrcnn.model", "models.maskrcnn.roi_heads",
                   "models.maskrcnn.rpn", "models.maskrcnn.c2_loading",
                   "ops.orb", "utils.checkpoint", "ops.correlation", "ops.fast",
-                  "ops.nms", "ops.regularize", "ops.roi_align", "ops.warp")}
+                  "ops.nms", "ops.regularize", "ops.roi_align", "ops.warp",
+                  "system", "tracking", "utils.transfer")}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 65 else 0)

@@ -9,9 +9,11 @@ Bars: exact. ``track_frames`` equals, bit for bit, ``track`` on
 ``make_slam_forward``'s outputs with the online step's gray image (FAST on,
 UseSampleFeature=0): the first frame initialises from the perception alone
 without the gray image, later frames take 0.299 R + 0.587 G + 0.114 B of the
-current frame. The unported options raise ``NotImplementedError`` naming
-their ROADMAP item; ``TrackFrames`` before ``AttachPerception`` and
+current frame. ``TrackFramesPair`` refuses a tracker without the pipeline;
+``TrackFrames`` before ``AttachPerception`` and
 ``AttachPerception`` before ``Init`` raise ``RuntimeError``."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -94,16 +96,18 @@ def test_system_track_frames(model, frames):
 
 
 def test_unported_options_raise():
-    """TrackFramesPair (item 16) raises naming its item. The dtype options
-    are ported (tests/test_torch_bf16.py); a dtype other than float32 or
-    bfloat16 raises."""
+    """TrackFramesPair is ported (tests/test_torch_pipelined.py) and
+    refuses a tracker without the pipeline, as the JAX package asserts.
+    The dtype options are ported (tests/test_torch_bf16.py); a dtype other
+    than float32 or bfloat16 raises."""
     for kw in ("compute_dtype", "mask_dtype", "flow_dtype"):
         with pytest.raises(TypeError, match="float32 or bfloat16"):
             PerceptionModel(H, W, device="cpu", **{kw: torch.float16})
     ts = System()
     ts.init_from_config(config_from_dict(CFG), Sensor.RGBD, device="cpu",
                         **TRACKER_KW)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    ts.AttachPerception(SimpleNamespace(device=torch.device("cpu")))
+    with pytest.raises(ValueError, match="pipelined=True, fused_ba=True"):
         ts.TrackFramesPair(None, None, None)
     with pytest.raises(RuntimeError, match="Init"):
         System().AttachPerception(None)

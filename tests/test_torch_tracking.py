@@ -12,6 +12,7 @@ track ids; the port's two window-BA modes stay within the JAX package's
 fused-vs-host bar (tests/test_tracking_e2e.py:189-193)."""
 
 import os
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -360,14 +361,17 @@ def test_system_defaults_match_jax_system(sequence):
 
 
 def test_unported_modes_raise(sequence):
+    """The pipelined modes are ported (tests/test_torch_pipelined.py):
+    ``pipelined=True`` builds a pipelined tracker, except VIO with the
+    host-assembled window BA, which runs unpipelined as in the JAX
+    package (tracking.py:568 there)."""
     scene, _ = sequence
-    with pytest.raises(NotImplementedError, match="pipelined.*item 16"):
-        Tracker(config_from_dict(_cfg_dict(scene)), device="cpu",
-                pipelined=True)
-    # VIO with the pipeline too: the pipeline is what is missing
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Tracker(config_from_dict(_cfg_dict(scene)), device="cpu",
-                pipelined=True, use_imu=True)
+    cfg = config_from_dict(_cfg_dict(scene))
+    assert Tracker(cfg, device="cpu", pipelined=True).pipelined
+    assert not Tracker(cfg, device="cpu", pipelined=True,
+                       use_imu=True).pipelined
+    assert Tracker(cfg, device="cpu", pipelined=True, use_imu=True,
+                   fused_ba=True).pipelined
 
 
 def test_vio_mode_runs(sequence):
@@ -390,7 +394,12 @@ def test_unported_entry_points_raise(sequence):
     scene, _ = sequence
     t = Tracker(config_from_dict(_cfg_dict(scene, UseSampleFeature=0)),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # two frames a call needs a perception model, the pipeline and the
+    # fused BA, as the JAX package asserts
+    with pytest.raises(RuntimeError, match="attach_perception"):
+        t.track_frames_pair(None, None, None)
+    t.attach_perception(SimpleNamespace(device=torch.device("cpu")), "kaist")
+    with pytest.raises(ValueError, match="pipelined=True, fused_ba=True"):
         t.track_frames_pair(None, None, None)
     # the full batch is ported (tests/test_torch_full_ba.py); like the JAX
     # package's it refuses light records

@@ -2,8 +2,9 @@
 counterpart of ``vido_slam_tpu/system.py``: Init / init_from_config,
 TrackRGBD with an RGBD or IMU_RGBD sensor (offline: depth, flow and mask
 given; IMU samples as ``ImuPoint``s or, in TrackRGBDWithIMUArray, as rows),
-AttachPerception and TrackFrames (online: raw BGR frames through the three
-networks), GetFrameOutput and SaveResultsIJRR2020. An IMU_RGBD system
+AttachPerception, TrackFrames and TrackFramesPair (online: raw BGR frames
+through the three networks, one or two frames a call), GetFrameOutput and
+SaveResultsIJRR2020. An IMU_RGBD system
 queues the samples in the tracker before the visual update (System.cc:
 51-78). Depth preprocessing (raw value -> metric, per dataset, at the
 current IMU scale) happens here for TrackRGBD, as in
@@ -22,7 +23,7 @@ import torch
 from vido_slam_tpu_torch.config import Config, load_config
 from vido_slam_tpu_torch.geometry.camera import convert_depth
 from vido_slam_tpu_torch.io.results import save_results_ijrr2020
-from vido_slam_tpu_torch.tracking import Tracker, _not_ported
+from vido_slam_tpu_torch.tracking import Tracker
 from vido_slam_tpu_torch.utils.verbose import Verbose
 
 
@@ -114,8 +115,9 @@ class System:
                   vObjPose_gt: Optional[Sequence] = None,
                   timestamp: Optional[float] = None,
                   imu_measurements=None,
-                  nImage: Optional[int] = None) -> np.ndarray:
-        """Process one frame; returns Tcw (4, 4). ``depth_raw`` is the raw
+                  nImage: Optional[int] = None):
+        """Process one frame; returns Tcw (4, 4), pipelined as the state's
+        device tensor (``Tracker.track``). ``depth_raw`` is the raw
         network/stereo value, converted at the current IMU scale; ``im``
         (its channel mean) feeds FAST when the config asks for it
         (UseSampleFeature=0). Only an IMU_RGBD system reads
@@ -141,7 +143,10 @@ class System:
             self.tracker.map.frames[-1].obj_gt = np.asarray(vObjPose_gt)
         if (nImage is not None and len(self.tracker.map) >= nImage
                 and cfg.system.choose_data == 2):
-            # KITTI StopFrame: the full batch over the whole trajectory
+            # KITTI StopFrame: the full batch over the whole trajectory.
+            # Pipelined, the map lags a frame, so this never fires on the
+            # last frame, as in the JAX package
+            self.tracker.finish()
             self.tracker.run_full_batch()
             Verbose.print_mess("FullBatchOptimization done (StopFrame)")
         return Tcw
@@ -152,7 +157,7 @@ class System:
 
     def TrackRGBDWithIMUArray(self, im, depth_raw, flow, masksem, mTcw_gt,
                               timestamp, imu_rows=None,
-                              nImage: Optional[int] = None) -> np.ndarray:
+                              nImage: Optional[int] = None):
         """The TrackRGBD VIO overload (System.h:98-100) with the IMU samples
         as an (N, 7) float64 array of rows (ax, ay, az, wx, wy, wz, t), as
         the native C ABI passes them."""
@@ -198,9 +203,10 @@ class System:
             cfg.system.depth_map_factor, cfg.camera.bf, scale=1.0)
 
     def TrackFrames(self, prev_bgr, cur_bgr, mTcw_gt=None, timestamp=None,
-                    imu_measurements=None) -> np.ndarray:
+                    imu_measurements=None):
         """One frame from raw (H, W, 3) BGR frames in 0..255 (prev, cur)
-        through perception and tracking; returns Tcw (4, 4). The depth
+        through perception and tracking; returns Tcw (4, 4), pipelined as
+        the state's device tensor. The depth
         converts at the IMU scale; an RGBD system ignores
         ``imu_measurements``, as ``TrackRGBD`` does."""
         if not self._initialized:
@@ -211,9 +217,19 @@ class System:
         self.scale = self.tracker.imu_scale
         return Tcw
 
-    def TrackFramesPair(self, *args, **kwargs):
-        raise _not_ported("TrackFramesPair (two frames a program, which "
-                          "needs pipelined=True)", 16)
+    def TrackFramesPair(self, f0, f1, f2, mTcw_gt=None,
+                        imu_measurements=None, timestamps=None):
+        """Two frames a call (``Tracker.track_frames_pair``; needs
+        ``pipelined=True, fused_ba=True``); returns the state's device
+        tensor Tcw. ``timestamps``: the two frames' (tA, tB), to pass
+        wherever the IMU samples carry a real clock."""
+        if not self._initialized:
+            raise RuntimeError("call Init or init_from_config first")
+        self._grab_imu(imu_measurements)
+        Tcw = self.tracker.track_frames_pair(f0, f1, f2, Tcw_gt=mTcw_gt,
+                                             timestamps=timestamps)
+        self.scale = self.tracker.imu_scale
+        return Tcw
 
     def SaveResultsIJRR2020(self, filename: str) -> None:
         self.tracker.finish()

@@ -21,6 +21,18 @@ samples, preintegrates each frame interval, and once the gates open runs
 the staged inertial init every frame until it succeeds, then the scale
 refinement every ~10 s; either rescales and gravity-aligns the map and the
 device state.
+
+With ``pipelined`` (tracking.py:561-575 of the JAX package) the host
+records frame t-1 while the device computes frame t: each call enqueues
+the step, starts the copy of its outputs to pinned host memory, then
+records the previous frame from its finished copy. Records lag one frame
+(two with ``track_frames_pair``) until ``finish()``, and the call returns
+the device tensor ``state.Tcw`` without waiting for it (``np.asarray`` of
+a ``cuda`` tensor fails: call ``.cpu()``). With the fused window BA the
+pipelined run computes what the synchronous one does. With the
+host-assembled one, the window BA runs over the map up to frame t-1 and
+its pose correction lands on frame t's device pose, so it is its own mode
+(the JAX package's pipelined one), not the synchronous mode a frame late.
 """
 
 from __future__ import annotations
@@ -86,7 +98,7 @@ from vido_slam_tpu_torch.slam_map import FrameRecord, ObjectObservation, SlamMap
 from vido_slam_tpu_torch.utils import prng
 from vido_slam_tpu_torch.utils.device import resolve_device
 from vido_slam_tpu_torch.utils.order import top_k
-from vido_slam_tpu_torch.utils.transfer import to_host
+from vido_slam_tpu_torch.utils.transfer import to_host, to_host_async
 
 MIN_OBJ_INLIERS = 50  # Tracking.cc:1218
 # The IMU-side math (preintegration, inertial init, scale refinement) runs
@@ -153,12 +165,6 @@ class StepOutputs(NamedTuple):
     ba_slots: torch.Tensor         # (P,) int16
     ba_point_ok: torch.Tensor      # (P,)
     ba_nframes: torch.Tensor
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to vido_slam_tpu_torch yet "
-        f"(ROADMAP.md queue 1 item {item})")
 
 
 def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
@@ -430,9 +436,9 @@ class Tracker:
         CUDA kernel runs either way. ``use_imu`` turns VIO on; the
         ``imu_*`` arguments shape it: the init window in frames, the
         integration segments an interval, and the stride of the composed
-        init pairs."""
-        if pipelined:
-            raise _not_ported("pipelined=True", 16)
+        init pairs. ``pipelined`` records each frame during the next call
+        (module docstring); VIO with the host-assembled window BA runs
+        unpipelined, as in the JAX package."""
         self.device = resolve_device(device)
         self.cfg = config
         c = config.camera
@@ -451,6 +457,14 @@ class Tracker:
         # fused: the window BA runs inside the step over device rings;
         # otherwise it is assembled from the map records after each frame
         self.fused_ba = fused_ba and local_ba
+        # VIO's map rewrite would race the host-assembled BA in flight
+        self.pipelined = pipelined and (not use_imu or self.fused_ba)
+        # pipelined: the previous frame's (HostCopy, timestamp, Tcw_gt,
+        # step seconds), the window BA in flight (problem, result), and
+        # track_frames_pair's two frames a call
+        self._pending = None
+        self._pending_ba = None
+        self._pending_q: list = []
         self.ba_max_points = ba_max_points
         self.ba_iters = ba_iters
         # the reference's bJoint: joint flow+pose solves instead of LM on
@@ -580,11 +594,14 @@ class Tracker:
         self._last_ts = float(timestamp)
 
     def track(self, depth, flow, mask, Tcw_gt=None, timestamp=None,
-              image=None) -> np.ndarray:
-        """Process one frame; returns the camera pose Tcw (4, 4). ``image``
-        is the gray frame that FAST reads (UseSampleFeature=0); without it
-        the features are grid-sampled at random, from then on, as in the
-        JAX tracker."""
+              image=None):
+        """Process one frame; returns the camera pose Tcw (4, 4), a numpy
+        array or, pipelined, the state's device tensor. ``image`` is the
+        gray frame that FAST reads (UseSampleFeature=0); without it the
+        features are grid-sampled at random, from then on, as in the JAX
+        tracker. The default timestamp is frame_id / fps, where pipelined
+        frame_id does not count the frame in flight: frames 1 and 2 both
+        get 1 / fps there, as in the JAX package."""
         if image is None:
             self.use_fast = False
         if self.state is None:
@@ -596,9 +613,11 @@ class Tracker:
             timestamp = self.frame_id / self.cam.fps
         t_start = time.perf_counter()
         # VIO: preintegrate the inter-frame interval (Tracking.cc:784-887)
-        if self.use_imu and self._last_ts is not None:
-            self._preints.append(
-                self._preintegrate_interval(self._last_ts, float(timestamp)))
+        if self.use_imu:
+            self._vio_sync_before_dispatch()
+            if self._last_ts is not None:
+                self._preints.append(self._preintegrate_interval(
+                    self._last_ts, float(timestamp)))
         self._last_ts = float(timestamp)
         depth, flow, mask = self._inputs(depth, flow, mask)
         gray = self._gray(image) if self.use_fast else None
@@ -606,7 +625,31 @@ class Tracker:
                                       gray=gray, **self._step_kwargs())
         return self._post_step(out, float(timestamp), Tcw_gt, t_start)
 
+    def _vio_sync_before_dispatch(self) -> None:
+        """Pipelined VIO: where the init or the scale refinement could act
+        (``_vio_event_due``), record what is in flight and run it before
+        the next dispatch, whose depth and state its rescale changes
+        (tracking.py:1090-1097, 1324-1333)."""
+        if self.pipelined and self._vio_event_due(self._last_ts):
+            self._finalize_pending_ba()
+            self._process_pending()
+            self._vio_update(self._last_ts)
+
     def _post_step(self, out, timestamp, Tcw_gt, t_start):
+        if self.pipelined:
+            # the copy of this frame's outputs rides right behind its step;
+            # then the previous window BA is folded into the map and the
+            # previous frame recorded while the device works on this one
+            copy = to_host_async(out)
+            self._finalize_pending_ba()
+            self._process_pending()
+            self._pending = (copy, timestamp,
+                             None if Tcw_gt is None else np.asarray(Tcw_gt),
+                             time.perf_counter() - t_start)
+            if self.local_ba and not self.fused_ba and len(self.map) >= 3:
+                self._dispatch_window_ba()
+            # a host copy of the pose would wait for all the work in flight
+            return self.state.Tcw
         h = to_host(out)
         self._record_outputs(h, timestamp, Tcw_gt,
                              time.perf_counter() - t_start)
@@ -626,8 +669,79 @@ class Tracker:
         return np.asarray(Tcw)
 
     def finish(self):
-        """Nothing is deferred in the synchronous mode; kept for the
-        System API (SaveResultsIJRR2020 calls it)."""
+        """Record what the pipeline holds: the frames in flight and the
+        window BA in flight, then, with the host-assembled BA, one more
+        window BA over the whole map (tracking.py:1447-1456). Nothing is
+        deferred in the synchronous mode."""
+        self._drain_pending_q()
+        self._finalize_pending_ba()
+        if self.pipelined:
+            self._process_pending()
+            if self.local_ba and not self.fused_ba and len(self.map) >= 3:
+                self._dispatch_window_ba()
+                self._finalize_pending_ba()
+
+    def _process_pending(self):
+        if self._pending is None:
+            return
+        copy, ts, tgt, dt = self._pending
+        self._pending = None
+        h = copy.get()
+        self._record_outputs(h, ts, tgt, dt)
+        if self.fused_ba:
+            self._apply_fused_ba(h)
+
+    def _drain_pending_q(self):
+        for copy, ts, tgt, dt in self._pending_q:
+            h = copy.get()
+            self._record_outputs(h, ts, tgt, dt)
+            self._apply_fused_ba(h)
+        self._pending_q = []
+
+    def _dispatch_window_ba(self):
+        """Solve the window BA over the recorded map (up to the previous
+        frame) and correct the state's pose on the device by the change
+        the BA made to that frame: Tcw <- Tcw Twc0[-1] inv(Twc[-1])
+        (tracking.py:1468-1488). The map takes the result in
+        ``_finalize_pending_ba``."""
+        W = self.cfg.system.window_size
+        prob = assemble_static_window(self.map, self.cam, W,
+                                      self.ba_max_points)
+        frame_valid = np.zeros(W, bool)
+        frame_valid[prob.pad:] = True
+        res = self._solve_window(prob, frame_valid)
+        Twc0_last = torch.from_numpy(prob.Twc0[-1].astype(np.float32)).to(
+            self.device)
+        corr = Twc0_last @ inverse_se3(res.Twc[-1])
+        self.state = self.state._replace(Tcw=self.state.Tcw @ corr)
+        self._pending_ba = (prob, res)
+
+    def _finalize_pending_ba(self):
+        if self._pending_ba is None:
+            return
+        prob, res = self._pending_ba
+        self._pending_ba = None
+        Twc, X = to_host((res.Twc, res.points))
+        self._apply_ba_writeback(prob, Twc, X)
+
+    def _apply_ba_writeback(self, prob, Twc, X):
+        """The window BA's poses and points into the records of the frames
+        it was assembled from, found by frame id: the map may have grown
+        since (tracking.py:1498-1519)."""
+        idx = {f.frame_id: f for f in self.map.frames}
+        for i, fid in enumerate(prob.frame_ids):
+            rec = idx.get(fid)
+            if rec is not None:
+                rec.Tcw = np.linalg.inv(Twc[prob.pad + i]).astype(np.float32)
+        for wi in range(prob.pad, self.cfg.system.window_size):
+            rec = idx.get(prob.frame_ids[wi - prob.pad])
+            if rec is None:
+                continue
+            sl = prob.slots[wi]
+            m = (sl >= 0) & prob.point_valid
+            p3d = np.array(rec.stat_3d)
+            p3d[sl[m]] = X[m]
+            rec.stat_3d = p3d
 
     # ------------------------------------------------------------------
     # the online path: raw BGR frames -> perception -> tracking step
@@ -654,46 +768,113 @@ class Tracker:
         IMU scale (updated by _vio_update)."""
         return np.float32(self._attached[4] * self.imu_scale)
 
-    def track_frames(self, prev_bgr, cur_bgr, Tcw_gt=None,
-                     timestamp=None) -> np.ndarray:
+    def track_frames(self, prev_bgr, cur_bgr, Tcw_gt=None, timestamp=None):
         """Process one frame from raw (H, W, 3) BGR frames in 0..255 (prev,
         cur) through the attached perception model; returns the camera
-        pose Tcw (tracking.py:1301-1352). The first call initialises from
-        the perception alone, without the gray image (grid-random
-        features, as the JAX tracker does)."""
-        if self._attached is None:
-            raise RuntimeError("call attach_perception first")
-        model, mode, dm_factor, bf_, scale = self._attached
-        prev = torch.as_tensor(prev_bgr, dtype=torch.float32,
-                               device=self.device)
-        cur = torch.as_tensor(cur_bgr, dtype=torch.float32,
-                              device=self.device)
+        pose Tcw, a numpy array or, pipelined, the state's device tensor
+        (tracking.py:1301-1352). The first call initialises from the
+        perception alone, without the gray image (grid-random features, as
+        the JAX tracker does). The default timestamp counts the frames in
+        flight."""
+        prev, cur = self._frames(prev_bgr, cur_bgr)
         if self.state is None:
-            depth, flow, mask = model.make_slam_forward(
-                mode, dm_factor, bf_, scale)(prev, cur)
-            self.initialize(depth, flow, mask, Tcw_gt,
-                            timestamp if timestamp is not None else 0.0)
+            self._initialize_from_frames(prev, cur, Tcw_gt, timestamp)
             return np.eye(4, dtype=np.float32)
         if timestamp is None:
-            timestamp = self.frame_id / self.cam.fps
+            n_inflight = ((1 if self._pending is not None else 0)
+                          + len(self._pending_q))
+            timestamp = (self.frame_id + n_inflight) / self.cam.fps
         t_start = time.perf_counter()
         if self.use_imu:
+            self._vio_sync_before_dispatch()
             self._preints.append(
                 self._preintegrate_interval(self._last_ts, float(timestamp)))
         self._last_ts = float(timestamp)
+        step = self._frames_step(prev, cur, self._effective_scale())
+        return self._post_step(step, float(timestamp), Tcw_gt, t_start)
+
+    def _frames(self, *bgr):
+        if self._attached is None:
+            raise RuntimeError("call attach_perception first")
+        return [torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                for x in bgr]
+
+    def _initialize_from_frames(self, prev, cur, Tcw_gt, timestamp):
+        model, mode, dm_factor, bf_, scale = self._attached
+        depth, flow, mask = model.make_slam_forward(
+            mode, dm_factor, bf_, scale)(prev, cur)
+        self.initialize(depth, flow, mask, Tcw_gt,
+                        timestamp if timestamp is not None else 0.0)
+
+    def _frames_step(self, prev, cur, scale):
+        """Perception of (prev, cur), the depth at ``scale`` and the step;
+        advances the state and returns the step's outputs."""
+        model, mode, dm_factor, bf_, _ = self._attached
         out = model(prev, cur)
         depth = convert_depth(out.depth_u16, mode, dm_factor, bf_,
-                              scale=self._effective_scale())
+                              scale=scale)
         kw = self._frames_kwargs
         gray = bgr_to_gray(cur) if kw["use_fast"] else None
         self.state, step = _track_step(self.state, depth, out.flow,
                                        out.mask.to(torch.int32), self.cam,
                                        gray=gray, **kw)
-        return self._post_step(step, float(timestamp), Tcw_gt, t_start)
+        return step
 
-    def track_frames_pair(self, *args, **kwargs):
-        raise _not_ported("track_frames_pair (two frames a program, which "
-                          "needs pipelined=True)", 16)
+    def track_frames_pair(self, f0, f1, f2, Tcw_gt=None, timestamps=None):
+        """Two frames a call, the transitions f0 -> f1 and f1 -> f2, one
+        after the other as in ``track_frames`` (tracking.py:1354-1444);
+        needs the pipelined fused-BA configuration. The first call only
+        initialises frame 0 from (f0, f1); later calls chain at odd offsets
+        ((f1, f2, f3), (f3, f4, f5), ...), each processing two frames, and
+        return the state's device tensor Tcw. Records lag up to two frames
+        until ``finish()``. ``Tcw_gt``: an optional (gtA, gtB);
+        ``timestamps``: the two frames' (tA, tB), which VIO needs where
+        the camera clock is not index / fps."""
+        if self._attached is None:
+            raise RuntimeError("call attach_perception first")
+        if not (self.pipelined and self.fused_ba):
+            raise ValueError(
+                "track_frames_pair requires pipelined=True, fused_ba=True")
+        prev, mid, cur = self._frames(f0, f1, f2)
+        if self.state is None:
+            self._initialize_from_frames(prev, mid, None, 0.0)
+            return np.eye(4, dtype=np.float32)
+        vio_ts = None
+        if self.use_imu:
+            # the sync point before the dispatch, only where an IMU event
+            # could act: its rescale feeds this pair's depth
+            if self._vio_event_due(self._last_ts):
+                self._drain_pending_q()
+                self._vio_update(self._last_ts)
+            if timestamps is not None:
+                tsA, tsB = float(timestamps[0]), float(timestamps[1])
+            else:
+                base0 = self.frame_id + len(self._pending_q)
+                tsA, tsB = base0 / self.cam.fps, (base0 + 1) / self.cam.fps
+            vio_ts = (self._last_ts, tsA, tsB)
+        t_start = time.perf_counter()
+        scale = self._effective_scale()
+        outA = self._frames_step(prev, mid, scale)
+        outB = self._frames_step(mid, cur, scale)
+        if vio_ts is not None:
+            t_prev, tA, tB = vio_ts
+            self._preints.append(self._preintegrate_interval(t_prev, tA))
+            self._preints.append(self._preintegrate_interval(tA, tB))
+        copies = to_host_async(outA), to_host_async(outB)
+        # record the previous pair while this one computes
+        self._drain_pending_q()
+        base = self.frame_id
+        if timestamps is not None:
+            recA, recB = float(timestamps[0]), float(timestamps[1])
+        else:
+            recA, recB = base / self.cam.fps, (base + 1) / self.cam.fps
+        gts = (None, None) if Tcw_gt is None else Tcw_gt
+        dt = time.perf_counter() - t_start
+        for copy, ts, gt in zip(copies, (recA, recB), gts):
+            self._pending_q.append(
+                (copy, ts, None if gt is None else np.asarray(gt), dt))
+        self._last_ts = recB
+        return self.state.Tcw
 
     def run_full_batch(self, max_frames: int = 64, max_static: int = 2000,
                        cg_iters: int = 60, max_iters: int = 15):
@@ -971,6 +1152,24 @@ class Tracker:
         else:
             self._try_scale_refinement(float(timestamp))
 
+    def _vio_event_due(self, ts) -> bool:
+        """Whether ``_vio_update`` at timestamp ``ts`` could act: the gates
+        of Tracking.cc:939-949 and :1046-1077, counting the frames in
+        flight (tracking.py:1203-1222). The pipelined VIO paths pay their
+        sync before the dispatch only where this holds: every frame from
+        the 10-frame, 2-s mark until the init succeeds, then once per
+        ~10 s for the scale refinement."""
+        if ts is None:
+            return False
+        if not self.imu_initialized:
+            n = len(self.map) + len(self._pending_q) \
+                + (1 if self._pending is not None else 0)
+            if n < 10:
+                return False
+            t0 = self.map.frames[0].timestamp if len(self.map) else 0.0
+            return ts - t0 >= 2.0
+        return ts - self._last_scale_refine_t >= 10.0
+
     # ------------------------------------------------------------------
     def _record_outputs(self, h, timestamp, Tcw_gt, step_time):
         bin_track_id, _ = self.object_tracker.assign_ids(h.stats)
@@ -1031,6 +1230,16 @@ class Tracker:
             recs[-1].stat_3d = p3d
         return recs[-1].Tcw
 
+    def _solve_window(self, prob, frame_valid):
+        """The assembled window problem solved on the tracker's device."""
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+        return solve_window_ba(
+            put(prob.Twc0), put(prob.odom), put(prob.odom_valid),
+            put(prob.X0), put(prob.obs), put(prob.obs_valid),
+            put(prob.point_valid), put(frame_valid), max_iters=self.ba_iters)
+
     def _run_window_ba(self) -> np.ndarray:
         """Assemble the static window BA from the map records, solve it on
         the tracker's device and write it back (Tracking.cc:1431-1447 ->
@@ -1042,24 +1251,9 @@ class Tracker:
                                       self.ba_max_points)
         frame_valid = np.zeros(W, bool)
         frame_valid[prob.pad:] = True
-
-        def put(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
-        res = solve_window_ba(
-            put(prob.Twc0), put(prob.odom), put(prob.odom_valid),
-            put(prob.X0), put(prob.obs), put(prob.obs_valid),
-            put(prob.point_valid), put(frame_valid), max_iters=self.ba_iters)
+        res = self._solve_window(prob, frame_valid)
         # the next frame tracks from the refined pose, on the device
         self.state = self.state._replace(Tcw=inverse_se3(res.Twc[-1]))
         Twc, X = to_host((res.Twc, res.points))
-        recs = self.map.frames[len(self.map) - (W - prob.pad):]
-        for i, rec in enumerate(recs):
-            rec.Tcw = np.linalg.inv(Twc[prob.pad + i]).astype(np.float32)
-        for wi in range(prob.pad, W):
-            sl = prob.slots[wi]
-            m = (sl >= 0) & prob.point_valid
-            p3d = np.array(recs[wi - prob.pad].stat_3d)
-            p3d[sl[m]] = X[m]
-            recs[wi - prob.pad].stat_3d = p3d
-        return recs[-1].Tcw
+        self._apply_ba_writeback(prob, Twc, X)
+        return self.map.frames[-1].Tcw

@@ -19,6 +19,10 @@ the tracker's own PRNG key (``Tracker.key``) is not saved, so a resumed
 tracker draws from ``PRNGKey(seed)`` again; the IMU pair states
 (``_preints``), the last frame's timestamp (``_last_ts``), the pending
 IMU samples, ``Rwg`` and the init's attempt count are not saved either.
+Nor is what a pipelined tracker holds in flight: its state runs a frame
+(two with ``track_frames_pair``) ahead of the saved map, whose records
+lack the pending frames and any window BA in flight; call ``finish()``
+first for a session whose map and state agree.
 """
 
 from __future__ import annotations
