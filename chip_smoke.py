@@ -122,13 +122,32 @@ Phases, each of which fails the run by raising:
      decoder and its plain version, then the CLI on (h3)'s KITTI
      configuration over a tree of those .jpg frames: ATE under 1 %, the
      StopFrame full batch, kernel 1 twice a tracked frame; it prints the
-     decode's ms a frame beside the PNG reading's;
+     decode's ms a frame beside the PNG reading's. (m) the detector
+     families, from seed 0 with random weights: (m1)
+     ``PerceptionModel(mask_cfg=RESNEXT101_FPN_DCN)`` (class 3 lifted,
+     seeded non-zero offset convs) through ``perception_mask`` over 3
+     frames of the driving clip at 1280x560, the detector at 1088x800:
+     kernel 5 twice a frame, labelled pixels in every mask, its ms a frame
+     beside a plain X-101-32x8d frame's, and the DCN detector on the card
+     against the CPU at 320x256; (m2) ``fbnet_inference`` ("default",
+     class 3 lifted) at 1088x800 over 3 frames: kernel 5 once a frame (the
+     one-level pooler), held against its plain version on the last frame's
+     arguments and timed there, and the five archs' trunks on the card
+     against the CPU at 320x256; (m3) ``retinanet_inference`` (R-50-FPN,
+     classes 3 and 7 lifted) at 1088x800: no launch, and the card against
+     the CPU at 320x256; (m4) the keypoint head on (d)'s R-50-FPN P2-P5 and
+     its 100 detections, then ``keypoints_from_heatmaps``: kernel 5 once,
+     held against its plain version and timed, heatmaps card against CPU;
+     (m5) ``roi_pool`` 7x7 over those 100 boxes on P4: the card's bits
+     equal the CPU's. Each part prints its ms beside the card line;
   5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
      call's arguments, its launches on (f) and (g), on (h1)-(h4), on
      (i1)-(i3) and the B=1 calls and on (k), and its bf16 build's
      launches, device ms, plain ms and bound in (j) beside the float32
-     build's device ms on the same values), then the device line.
+     build's device ms on the same values; its launches in (m1)-(m4), and
+     kernel 5's device ms, plain ms and bound at the FBNet and keypoint
+     shapes), then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -914,24 +933,28 @@ def match_detections(a: dict, b: dict, confidence: float) -> dict:
             "boxes_matched": len(used), "unexplained": unexplained}
 
 
-def check_whole_detector(dev, frame) -> float:
+def check_whole_detector(dev, frame, resnet=None, prepare=lifted,
+                         what="whole detector") -> float:
     """The whole detector on the card (kernel 5) against the port on the
-    CPU (plain version), same seed-0 weights, on one driving-clip frame
-    resized to 320x256 and scaled to 0..1: FPN features and the box head's
-    logits (on the CPU's proposals) within 1e-4 of their largest
-    magnitude; the (560, 1280) semantic masks equal on at least 99 % of
-    the pixels (the discrete selections may part on float noise). Returns
-    the largest relative error."""
+    CPU (plain version), same seed-0 weights (the R-50-FPN unless
+    ``resnet`` is given; ``prepare`` applied on each device), on one
+    driving-clip frame resized to 320x256 and scaled to 0..1: FPN features
+    and the box head's logits (on the CPU's proposals) within 1e-4 of their
+    largest magnitude; the (560, 1280) semantic masks equal on at least
+    99 % of the pixels (the discrete selections may part on float noise).
+    Returns the largest relative error."""
     import torch
     from vido_slam_tpu_torch.models.maskrcnn import model as mm
+    from vido_slam_tpu_torch.models.maskrcnn.backbone import ResNetConfig
     from vido_slam_tpu_torch.models.maskrcnn.roi_heads import box_head_forward
     from vido_slam_tpu_torch.ops.warp import resize_bilinear
 
-    cfg = mm.MaskRCNNConfig(input_h=320, input_w=256)
+    cfg = mm.MaskRCNNConfig(resnet=resnet or ResNetConfig(), input_h=320,
+                            input_w=256)
     x = (resize_bilinear(frame.permute(2, 0, 1)[None], 320, 256)
          / 255.0).contiguous()
     dev = str(dev)
-    nets = {d: lifted(mm.MaskRCNN(cfg, seed=0, device=d))
+    nets = {d: prepare(mm.MaskRCNN(cfg, seed=0, device=d))
             for d in (dev, "cpu")}
     xs = {dev: x, "cpu": x.cpu()}
     with torch.no_grad():
@@ -943,7 +966,7 @@ def check_whole_detector(dev, frame) -> float:
     for name, got, want in [(f"P{i + 2}", feats[dev][i].cpu(),
                              feats["cpu"][i]) for i in range(5)]             + [("box logits", logits[dev], logits["cpu"])]:
         e = float((got - want).abs().max())             / max(1.0, float(want.abs().max()))
-        check(math.isfinite(e) and e <= 1e-4, ("whole detector", name, e))
+        check(math.isfinite(e) and e <= 1e-4, (what, name, e))
         rel = max(rel, e)
     sem = {}
     for d in nets:
@@ -952,8 +975,8 @@ def check_whole_detector(dev, frame) -> float:
         sem[d + " valid"] = int(det.valid.sum())
     agree = float((sem[dev] == sem["cpu"]).float().mean())
     check(agree >= 0.99 and bool((sem["cpu"] > 0).any()),
-          ("whole detector semantic masks", agree))
-    print(f"whole detector 320x256, card (kernel) vs CPU (plain): largest "
+          (what, "semantic masks", agree))
+    print(f"{what} 320x256, card (kernel) vs CPU (plain): largest "
           f"error {rel:.3e} of the magnitude (FPN P2-P6, box logits); valid "
           f"detections {sem[dev + ' valid']} and {sem['cpu valid']}; semantic "
           f"masks agree on {100 * agree:.4f} % of the pixels")
@@ -2496,6 +2519,332 @@ def run_phase_k(counters, names):
 
 
 # ---------------------------------------------------------------------------
+# phase 4 (m): the detector families (ROADMAP.md item 19)
+# ---------------------------------------------------------------------------
+
+DCN_FRAMES = 3
+# the DCN offset convs' weights N(0, (gain^2) / fan_in): offsets of about
+# 1-2 px on the driving clip's raw 0..255 frames (the init's are zero)
+DCN_OFFSET_GAIN = 0.02
+FAMILY_FRAMES = 3
+FAMILY_INPUT = (1088, 800)  # (height, width) of the detectors' input
+FAMILY_CHECK = (320, 256)   # (height, width) of the card-against-CPU checks
+# FBNet's image scale: at init the net has no bias, so its outputs scale
+# with the image; on 0..1 images the random RPN's boxes collapse onto the
+# border (tests/test_torch_fbnet.py)
+FBNET_IMAGE_SCALE = 0.01
+# RetinaNet: classes 3 (anchors 0-4) and 7 (anchors 5-8) lifted over the
+# prior bias, which leaves every random-weight score under the threshold
+RETINA_LIFTED = [(a, 2) for a in range(5)] + [(a, 6) for a in range(5, 9)]
+
+
+def deformed(model, seed=0):
+    """``model`` with its DCN offset convs drawn from ``seed`` (weights
+    N(0, DCN_OFFSET_GAIN^2 / fan_in), zero bias) instead of the init's
+    zeros, so that the sampling really deforms."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn.backbone import DFConv2d
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, DFConv2d):
+                w = mod.offset.weight
+                w.copy_(torch.randn(w.shape, generator=g)
+                        * (DCN_OFFSET_GAIN / w[0].numel() ** 0.5))
+    return model
+
+
+def launches_of(counters, fn):
+    """(fn's result, each counter's launches during fn())."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    return out, [c.launches for c in counters]
+
+
+def frame_at(frame, h, w, scale):
+    """(1, 3, h, w) contiguous RGB of an (H, W, 3) BGR 0..255 frame,
+    resized bilinearly and multiplied by ``scale``."""
+    from vido_slam_tpu_torch.ops.warp import resize_bilinear
+
+    return (resize_bilinear(frame.flip(-1).permute(2, 0, 1)[None], h, w)
+            * scale).contiguous()
+
+
+def timed_frames(frames, fn):
+    """ms of fn(x) for each x, host clock over torch.cuda.synchronize;
+    returns (outputs, ms list)."""
+    import torch
+
+    outs, ms = [], []
+    for x in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn(x))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return outs, ms
+
+
+def close_rel(got, want):
+    """max |got - want| over max(1, max |want|), both moved to the CPU."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def run_dcn_detector(dev, counters, names, clip, card):
+    """(m1): ``PerceptionModel(mask_cfg=RESNEXT101_FPN_DCN)`` (seed 0,
+    class 3 lifted, offset convs by ``deformed``) through
+    ``perception_mask`` over DCN_FRAMES frames of the driving clip at
+    1280x560 after a warm-up frame (kernel 5 twice a frame, labelled
+    pixels in every mask), a plain X-101-32x8d frame timed in the same
+    call, and the DCN detector on the card held against the CPU at
+    320x256. Returns (launches, largest relative error)."""
+    from vido_slam_tpu_torch.models.maskrcnn.model import (
+        RESNEXT101_FPN, RESNEXT101_FPN_DCN, MaskRCNN)
+    from vido_slam_tpu_torch.models.perception import PerceptionModel
+
+    model = PerceptionModel(FLOW_H, FLOW_W, mask_cfg=RESNEXT101_FPN_DCN,
+                            device=dev)
+    mask_model = lifted(deformed(model.mask_model))
+    run_mask_path(clip[:1], mask_model, counters)
+    masks, dets, times, launches = run_mask_path(clip[1:1 + DCN_FRAMES],
+                                                 mask_model, counters)
+    check(launches == [0, 0, 0, 0, 2 * DCN_FRAMES],
+          f"(m1): {names} launched {launches} times over {DCN_FRAMES} "
+          f"frames, not [0, 0, 0, 0, {2 * DCN_FRAMES}]")
+    n_valid = check_masks(masks, dets, "(m1) DCN frame")
+    del model, mask_model, masks, dets
+    x101 = lifted(MaskRCNN(RESNEXT101_FPN, seed=0, device=dev))
+    run_mask_path(clip[:1], x101, counters)
+    _, _, x_times, _ = run_mask_path(clip[1:1 + DCN_FRAMES], x101, counters)
+    del x101
+    rel = check_whole_detector(
+        dev, clip[0], RESNEXT101_FPN_DCN.resnet,
+        lambda m: lifted(deformed(m)), "(m1) X-101-32x8d-DCN detector")
+    dcn_ms = 1e3 * float(np.median(times))
+    x_ms = 1e3 * float(np.median(x_times))
+    print(f"(m1) X-101-32x8d-FPN-DCN ({FLOW_W}x{FLOW_H}, detector at "
+          f"{RESNEXT101_FPN_DCN.input_w}x{RESNEXT101_FPN_DCN.input_h}, "
+          f"offset convs at gain {DCN_OFFSET_GAIN}): launches "
+          f"{launches}, valid detections {n_valid}; ms/frame median "
+          f"{dcn_ms:.2f} ({[round(1e3 * t, 2) for t in times]}) against the "
+          f"plain X-101-32x8d-FPN's {x_ms:.2f} "
+          f"({[round(1e3 * t, 2) for t in x_times]}) in this call, "
+          f"{dcn_ms / x_ms:.2f}x; card {card}")
+    return launches, rel
+
+
+def run_fbnet(dev, counters, names, clip, card):
+    """(m2): ``fbnet_inference`` of the "default" arch (seed 0, class 3
+    lifted) at 1088x800 on FAMILY_FRAMES clip frames after a warm-up:
+    kernel 5 once a frame (the one-level pooler), held against its plain
+    version on the last frame's arguments and timed there; then every
+    arch's trunk on the card against the CPU at 320x256 (within 1e-4 of
+    its magnitude). Returns (launches, max_abs_err, timing)."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn import fbnet
+
+    model = fbnet.FBNet("default", device=dev)
+    with torch.no_grad():
+        model.bbox.cls_score.bias[3] = MASK_LIFT
+    fh, fw = FAMILY_INPUT
+    frames = [frame_at(clip[k], fh, fw, FBNET_IMAGE_SCALE / 255.0)
+              for k in range(1, 1 + FAMILY_FRAMES)]
+    fbnet.fbnet_inference(model, frames[0], fh, fw)
+    recorder = KernelArgs(fbnet.roi_align_multilevel, 6)
+    fbnet.roi_align_multilevel = recorder
+    try:
+        (dets, ms), launches = launches_of(counters, lambda: timed_frames(
+            frames, lambda x: fbnet.fbnet_inference(model, x, fh, fw)))
+    finally:
+        fbnet.roi_align_multilevel = recorder.wrapper
+    check(launches == [0, 0, 0, 0, FAMILY_FRAMES],
+          f"(m2): {names} launched {launches} times over {FAMILY_FRAMES} "
+          f"frames, not once a frame")
+    for d in dets:
+        check(bool(torch.isfinite(d.boxes).all()) and int(d.valid.sum()) > 0,
+              f"(m2): {int(d.valid.sum())} valid detections, finite boxes "
+              f"{bool(torch.isfinite(d.boxes).all())}")
+    case = [(f"(m2) FBNet pooler frame {FAMILY_FRAMES} (one level "
+             f"{tuple(recorder.calls[-1][0][0][0].shape)}, R=200 6x6)",
+             recorder.calls[-1][0])]
+    err = check_roi_align(case)
+    timing = time_roi_align(case)
+    rel = 0.0
+    h, w = FAMILY_CHECK
+    x = frame_at(clip[0], h, w, FBNET_IMAGE_SCALE / 255.0)
+    for arch in fbnet.MODEL_ARCH:
+        nets = {d: fbnet.FBNet(arch, device=d) for d in (dev, "cpu")}
+        with torch.no_grad():
+            t = {d: fbnet.fbnet_trunk(nets[d], x.to(d)) for d in nets}
+        e = close_rel(t[dev], t["cpu"])
+        check(math.isfinite(e) and e <= 1e-4, ("(m2) FBNet trunk", arch, e))
+        rel = max(rel, e)
+    print(f"(m2) FBNet default at {fw}x{fh}: launches {launches} over "
+          f"{FAMILY_FRAMES} frames after a warm-up, valid detections "
+          f"{[int(d.valid.sum()) for d in dets]}, labels "
+          f"{sorted(set(dets[-1].labels[dets[-1].valid].tolist()))}; "
+          f"ms/frame median {np.median(ms):.2f} ({[round(t, 2) for t in ms]});"
+          f" the five trunks card vs CPU at {w}x{h}: largest error {rel:.3e} "
+          f"of the magnitude; card {card}")
+    return launches, err, timing
+
+
+def run_retinanet(dev, counters, names, clip, card):
+    """(m3): ``retinanet_inference`` (R-50-FPN, seed 0, RETINA_LIFTED) at
+    1088x800 on FAMILY_FRAMES clip frames (0..1) after a warm-up: no
+    kernel launch, finite detections of the lifted classes; at 320x256
+    the FPN and the head's outputs on the card within 1e-4 of the CPU's,
+    the detections' validity and labels equal and boxes within 5e-3 px.
+    Returns the launches."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn import retinanet
+
+    def make(d):
+        m = retinanet.RetinaNet(device=d)
+        with torch.no_grad():
+            for a, c in RETINA_LIFTED:
+                m.rpn.head.cls_logits.bias[a * 80 + c] = MASK_LIFT
+        return m
+
+    model = make(dev)
+    fh, fw = FAMILY_INPUT
+    frames = [frame_at(clip[k], fh, fw, 1 / 255.0)
+              for k in range(1, 1 + FAMILY_FRAMES)]
+    retinanet.retinanet_inference(model, frames[0], fh, fw)
+    (dets, ms), launches = launches_of(counters, lambda: timed_frames(
+        frames, lambda x: retinanet.retinanet_inference(model, x, fh, fw)))
+    check(launches == [0] * 5, f"(m3): {names} launched {launches} times")
+    for d in dets:
+        check(bool(torch.isfinite(d.boxes).all()) and int(d.valid.sum()) > 0
+              and set(d.labels[d.valid].tolist()) <= {3, 7},
+              f"(m3): {int(d.valid.sum())} valid detections, labels "
+              f"{set(d.labels[d.valid].tolist())}")
+    del model
+    h, w = FAMILY_CHECK
+    x = frame_at(clip[0], h, w, 1 / 255.0)
+    nets = {d: make(d) for d in (dev, "cpu")}
+    with torch.no_grad():
+        feats = {d: nets[d].backbone(x.to(d)) for d in nets}
+        heads = {d: nets[d].rpn.head(feats["cpu"][1].to(d)) for d in nets}
+    rel = max([close_rel(a, b) for a, b in zip(feats[dev], feats["cpu"])]
+              + [close_rel(a, b) for a, b in zip(heads[dev], heads["cpu"])])
+    check(math.isfinite(rel) and rel <= 1e-4, ("(m3) RetinaNet", rel))
+    out = {d: retinanet.retinanet_inference(nets[d], x.to(d), h, w)
+           for d in nets}
+    a, b = out[dev], out["cpu"]
+    v = b.valid
+    box_err = float((a.boxes.cpu() - b.boxes).abs()[v].max())
+    check(torch.equal(a.valid.cpu(), v) and torch.equal(a.labels.cpu(),
+                                                        b.labels)
+          and box_err <= 5e-3,
+          ("(m3) RetinaNet detections card vs CPU", int(a.valid.sum()),
+           int(v.sum()), box_err))
+    print(f"(m3) RetinaNet R-50-FPN at {fw}x{fh}: launches {launches}, valid "
+          f"detections {[int(d.valid.sum()) for d in dets]}; ms/frame median "
+          f"{np.median(ms):.2f} ({[round(t, 2) for t in ms]}); card vs CPU at "
+          f"{w}x{h}: FPN and head within {rel:.3e} of the magnitude, "
+          f"{int(v.sum())} detections equal, boxes within {box_err:.3e} px; "
+          f"card {card}")
+    return launches
+
+
+def run_keypoints_and_roi_pool(dev, counters, names, clip, card):
+    """(m4): the keypoint head (seed 0) on (d)'s R-50-FPN P2-P5 and its
+    100 detections of one clip frame, then ``keypoints_from_heatmaps``:
+    kernel 5 once, held against its plain version and timed; the heatmaps
+    on the card within 1e-4 of the CPU's on the same features and boxes.
+    (m5): ``roi_pool`` 7x7 over those 100 boxes on P4 (stride 16): the
+    card's bits equal the CPU's. Returns (launches, max_abs_err,
+    timing)."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn import keypoint_head, roi_heads
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           RESNET50_FPN,
+                                                           maskrcnn_inference)
+    from vido_slam_tpu_torch.ops.roi_pool import roi_pool
+
+    detector = lifted(MaskRCNN(RESNET50_FPN, seed=0, device=dev))
+    x = frame_at(clip[1], *FAMILY_INPUT, 1.0)
+    with torch.no_grad():
+        feats = detector.backbone(x)[:4]
+    boxes = maskrcnn_inference(detector, x).boxes.contiguous()
+    del detector
+    head = keypoint_head.KeypointHead(device=dev)
+
+    def keypoints():
+        hm = keypoint_head.keypoint_head_forward(head, feats, boxes)
+        return hm, keypoint_head.keypoints_from_heatmaps(hm, boxes)
+
+    keypoints()
+    recorder = KernelArgs(roi_heads.roi_align_multilevel, 6)
+    roi_heads.roi_align_multilevel = recorder
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (hm, kps), launches = launches_of(counters, keypoints)
+        torch.cuda.synchronize()
+        kp_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        roi_heads.roi_align_multilevel = recorder.wrapper
+    check(launches == [0, 0, 0, 0, 1],
+          f"(m4): {names} launched {launches} times, not [0, 0, 0, 0, 1]")
+    check(tuple(hm.shape) == (100, 17, 56, 56)
+          and bool(torch.isfinite(kps.xy).all()),
+          f"(m4): heatmaps {tuple(hm.shape)}, finite keypoints "
+          f"{bool(torch.isfinite(kps.xy).all())}")
+    case = [("(m4) keypoint head (P2-P5, R=100 14x14)", recorder.calls[0][0])]
+    err = check_roi_align(case)
+    timing = time_roi_align(case)
+    cpu_head = keypoint_head.KeypointHead(device="cpu")
+    hm_cpu = keypoint_head.keypoint_head_forward(
+        cpu_head, [f.cpu() for f in feats], boxes.cpu())
+    rel = close_rel(hm, hm_cpu)
+    check(math.isfinite(rel) and rel <= 1e-4, ("(m4) heatmaps", rel))
+    # (m5) ROIPool on P4
+    pooled, launches_pool = launches_of(
+        counters, lambda: roi_pool(feats[2], boxes, 1.0 / 16, 7))
+    pool_ms = time_cuda(lambda: roi_pool(feats[2], boxes, 1.0 / 16, 7), 5)
+    pooled_cpu = roi_pool(feats[2].cpu(), boxes.cpu(), 1.0 / 16, 7)
+    check(launches_pool == [0] * 5 and torch.equal(pooled.cpu(), pooled_cpu),
+          ("(m5) roi_pool card vs CPU", launches_pool,
+           float((pooled.cpu() - pooled_cpu).abs().max())))
+    print(f"(m4) keypoint head on (d)'s R-50-FPN frame (P2-P5 of "
+          f"{FAMILY_INPUT[1]}x{FAMILY_INPUT[0]}, 100 detections): launches "
+          f"{launches}, heatmaps card vs CPU within "
+          f"{rel:.3e} of the magnitude, {kp_ms:.2f} ms (host clock over "
+          f"torch.cuda.synchronize); (m5) roi_pool 7x7 over the 100 boxes on "
+          f"P4 {tuple(feats[2].shape)}: card bit-equal to CPU, "
+          f"{pool_ms:.3f} ms (events over 5 calls); card {card}")
+    return launches, err, timing
+
+
+def run_phase_m(dev, counters, names):
+    """Phase (m), the detector families: (m1)-(m5) above. Returns kernel
+    5's launches by part, its largest error against the plain version,
+    and the FBNet-shape and keypoint-shape timings."""
+    from vido_slam_tpu_torch.io.synthetic import driving_clip
+
+    t0 = time.perf_counter()
+    card = card_line()
+    c = OFFLINE_CONFIG
+    clip = driving_clip(height=FLOW_H, width=FLOW_W, n_frames=1 + DCN_FRAMES,
+                        fx=c["Camera.fx"], fy=c["Camera.fy"], device=dev)
+    m1, rel_dcn = run_dcn_detector(dev, counters, names, clip, card)
+    m2, err_fb, timing_fb = run_fbnet(dev, counters, names, clip, card)
+    m3 = run_retinanet(dev, counters, names, clip, card)
+    m4, err_kp, timing_kp = run_keypoints_and_roi_pool(dev, counters, names,
+                                                       clip, card)
+    print(f"phase (m): {time.perf_counter() - t0:.1f} s")
+    launches = {part: dict(zip(names, n)) for part, n in
+                (("m1", m1), ("m2", m2), ("m3", m3), ("m4", m4))}
+    return launches, max(err_fb, err_kp), {"fbnet": timing_fb,
+                                           "keypoint": timing_kp}
+
+
+# ---------------------------------------------------------------------------
 # phase 4 (l): the pipelined paths (ROADMAP.md item 16)
 # ---------------------------------------------------------------------------
 
@@ -3092,6 +3441,11 @@ def main() -> int:
     # of the committed .jpg frames
     jpeg_launches = run_phase_k(counters, names)
 
+    # (m) the detector families: the DCN X-101, FBNet, RetinaNet, the
+    # keypoint head and ROIPool
+    family_launches, family_err, family_timing = run_phase_m(dev, counters,
+                                                             names)
+
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
     calls, k = recorder.frame_calls()
@@ -3219,6 +3573,16 @@ def main() -> int:
         e.update(bf16_launches=n, bf16_max_abs_err=err, bf16_ms=t[0],
                  bf16_plain_ms=t[1], bf16_bound_ms=t[2], bf16_bound_by=t[3],
                  f32_ms_same_values=t[4])
+        # phase (m): the launches of (m1) DCN (3 frames), (m2) FBNet (3
+        # frames), (m3) RetinaNet, (m4) the keypoint head
+        e["detector_families_launches"] = {
+            part: n[e["name"]] for part, n in family_launches.items()}
+        if e["name"] == "roi_align_multilevel":
+            e["max_abs_err"] = max(e["max_abs_err"], family_err)
+            for shape, t in family_timing.items():
+                e.update({f"{shape}_ms": t[0], f"{shape}_plain_ms": t[1],
+                          f"{shape}_bound_ms": t[2],
+                          f"{shape}_bound_by": t[3]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -761,6 +761,73 @@ def test_roi_align_kernel_is_deterministic(R, res):
     assert torch.equal(a, b)
 
 
+# kernel 5 at the detector families' shapes (chip_smoke.py phase (m)):
+# FBNet's pooler, one level (the stride-16 trunk of 1088x800, 68x50) at
+# 6x6 over 200 ROIs with every registered arch's trunk width; the keypoint
+# head, P2-P5 at 14x14 over 100 ROIs
+
+@pytest.mark.parametrize("C", [96, 128, 88, 56])
+def test_roi_align_kernel_at_the_fbnet_pooler(C):
+    _need_card()
+    rng = np.random.RandomState(C)
+    trunk = torch.tensor(rng.randn(1, C, 68, 50).astype(np.float32)).cuda()
+    x1 = rng.uniform(-20, 800, 200)
+    y1 = rng.uniform(-20, 1088, 200)
+    ww, hh = np.exp(rng.uniform(np.log(0.5), np.log(1100), (2, 200)))
+    rois = torch.tensor(np.stack([x1, y1, x1 + ww, y1 + hh], 1)
+                        .astype(np.float32)).cuda()
+    levels = torch.zeros(200, dtype=torch.int32).cuda()
+    args = ([trunk], rois, levels, (1.0 / 16,), 6, 2)
+    before = roi_align.roi_align_multilevel.launches
+    got = roi_align.roi_align_multilevel(*args)
+    again = roi_align.roi_align_multilevel(*args)
+    assert roi_align.roi_align_multilevel.launches == before + 2
+    ref = roi_align.roi_align_multilevel_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (200, C, 6, 6) and torch.equal(got, again)
+    scale = max(1.0, float(trunk.abs().max()))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_roi_align_kernel_at_the_keypoint_head():
+    _need_card()
+    args = _roi_args(100, 256, 14, seed=17)
+    got = roi_align.roi_align_multilevel(*args)
+    ref = roi_align.roi_align_multilevel_ref(*args)
+    torch.cuda.synchronize()
+    scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_detector_families_pool_through_kernel_5(monkeypatch):
+    """FBNet's box head and the keypoint head on the card launch kernel 5
+    once each and never its plain version; ROIPool gives the CPU's
+    bits."""
+    _need_card()
+    from vido_slam_tpu_torch.models.maskrcnn import fbnet, keypoint_head
+    from vido_slam_tpu_torch.ops.roi_pool import roi_pool
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(roi_align, "roi_align_multilevel_ref", refuse)
+    before = roi_align.roi_align_multilevel.launches
+    model = fbnet.FBNet("default", device="cuda")
+    det = fbnet.fbnet_inference(model, torch.rand(1, 3, 128, 160,
+                                                  device="cuda"), 128, 160)
+    assert roi_align.roi_align_multilevel.launches == before + 1
+    head = keypoint_head.KeypointHead(device="cuda")
+    feats, rois, _, _, _, _ = _roi_args(100, 256, 14, seed=5)
+    hm = keypoint_head.keypoint_head_forward(head, feats, rois)
+    torch.cuda.synchronize()
+    assert roi_align.roi_align_multilevel.launches == before + 2
+    assert hm.shape == (100, 17, 56, 56) and bool(torch.isfinite(hm).all())
+    assert det.boxes.is_cuda
+    pooled = roi_pool(feats[2], rois, 1.0 / 16, 7)
+    assert torch.equal(pooled.cpu(), roi_pool(feats[2].cpu(), rois.cpu(),
+                                              1.0 / 16, 7))
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py phase (i): the single-problem object estimators (kernels 1
 # and 2 at B=1) and kernel 5 on the GroupNorm detector's arguments

@@ -230,12 +230,21 @@ def test_fpn_matches_jax_features(model, image, jax_run):
 
 
 def test_unported_configs_raise():
-    """Deformable stages wait for item 19; GroupNorm is ported
+    """Deformable stages are ported (tests/test_torch_dcn_roipool.py), in
+    float32: in bf16 they wait for item 19c. GroupNorm is ported
     (tests/test_torch_maskrcnn_variants.py) and another norm is refused."""
+    from vido_slam_tpu_torch.ops.deform_conv import deform_conv2d
+
     with pytest.raises(ValueError, match="frozen_bn"):
         tb.ResNet(tb.ResNetConfig(norm="sync_bn"))
-    with pytest.raises(NotImplementedError, match="19"):
-        tb.ResNet(tb.ResNetConfig(stage_with_dcn=(False, True, True, True)))
+    with torch.device("meta"):
+        net = tb.ResNet(tb.ResNetConfig(stage_with_dcn=(False, True, True,
+                                                        True)))
+    assert isinstance(net.layer2[0].conv2, tb.DFConv2d)
+    assert not isinstance(net.layer1[0].conv2, tb.DFConv2d)
+    with pytest.raises(NotImplementedError, match="19c"):
+        deform_conv2d(torch.zeros(1, 4, 6, 6, dtype=torch.bfloat16),
+                      torch.zeros(1, 18, 6, 6), torch.zeros(4, 4, 3, 3))
 
 
 # ---------------------------------------------------------------------------

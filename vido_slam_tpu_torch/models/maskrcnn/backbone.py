@@ -7,9 +7,13 @@ Bottlenecks follow the checkpoint configs: a grouped 3x3 for ResNeXt
 stride on the 1x1 or the 3x3 by ``stride_in_1x1``, FrozenBatchNorm (no
 epsilon) everywhere, or GroupNorm (32 groups, eps 1e-5) for the GN
 checkpoints (``ResNetConfig(norm="gn")``, maskrcnn_benchmark's
-BottleneckWithGN / StemWithGN). The FPN adds 1x1 laterals to the
-nearest-upsampled coarser map, 3x3 output convs, and P6 as every other
-pixel of P5 (LastLevelMaxPool with kernel 1, stride 2).
+BottleneckWithGN / StemWithGN). In the stages of ``stage_with_dcn`` the
+3x3 is deformable (``DFConv2d``, maskrcnn_benchmark's layers/misc.py): a
+plain 3x3 offset conv feeding ``ops/deform_conv.py``; with
+``with_modulated_dcn`` (DCNv2) one 27-channel conv gives the 18 offsets
+and the 9 mask logits, whose sigmoid modulates the taps. The FPN adds 1x1
+laterals to the nearest-upsampled coarser map, 3x3 output convs, and P6
+as every other pixel of P5 (LastLevelMaxPool with kernel 1, stride 2).
 
 Module and buffer names equal maskrcnn_benchmark's state_dict keys
 ("backbone.body.stem.conv1.weight", "backbone.fpn.fpn_inner1.weight", ...)
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 
 from vido_slam_tpu_torch.models.layers import (Conv2d, FrozenBatchNorm2d,
                                                GroupNorm, max_pool)
+from vido_slam_tpu_torch.ops.deform_conv import deform_conv2d
 
 
 class ResNetConfig(NamedTuple):
@@ -43,10 +48,6 @@ class ResNetConfig(NamedTuple):
 def _check_supported(cfg: ResNetConfig) -> None:
     if cfg.norm not in ("frozen_bn", "gn"):
         raise ValueError(f"ResNet norm {cfg.norm!r}: 'frozen_bn' or 'gn'")
-    if any(cfg.stage_with_dcn):
-        raise NotImplementedError(
-            "deformable conv stages (stage_with_dcn) are not ported "
-            "(ROADMAP queue 1 item 19)")
 
 
 def _norm(channels: int, norm: str) -> nn.Module:
@@ -59,18 +60,57 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
     return Conv2d(cin, cout, k, stride, padding, groups=groups, bias=bias)
 
 
+class DeformConv(nn.Module):
+    """The deformable 3x3 of ``DFConv2d``: its weight (cout, cin / groups,
+    3, 3), no bias."""
+
+    def __init__(self, cin: int, cout: int, stride: int, groups: int):
+        super().__init__()
+        self.stride = stride
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, 3, 3))
+
+    def forward(self, x, offsets, mask=None):
+        return deform_conv2d(x, offsets, self.weight, stride=self.stride,
+                             padding=1, mask=mask, groups=self.groups)
+
+
+class DFConv2d(nn.Module):
+    """maskrcnn_benchmark's DFConv2d (layers/misc.py:114-190, the JAX
+    package's ``_dcn_conv2``): ``offset``, a plain 3x3 conv with bias at the
+    block's stride, gives 18 offsets, or with ``modulated`` 18 offsets and 9
+    mask logits (sigmoided); ``conv`` is the deformable 3x3. State-dict
+    names ``conv2.offset.{weight,bias}`` and ``conv2.conv.weight``."""
+
+    def __init__(self, cin: int, cout: int, stride: int, groups: int,
+                 modulated: bool):
+        super().__init__()
+        self.modulated = modulated
+        self.offset = _conv(cin, 27 if modulated else 18, 3, stride, 1,
+                            bias=True)
+        self.conv = DeformConv(cin, cout, stride, groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        om = self.offset(x)
+        if self.modulated:
+            return self.conv(x, om[:, :18], torch.sigmoid(om[:, 18:27]))
+        return self.conv(x, om)
+
+
 class Bottleneck(nn.Module):
     """BottleneckWithFixedBatchNorm or BottleneckWithGN (resnet.py): 1x1,
-    grouped 3x3, 1x1, with a 1x1 + norm projection when the shape
-    changes."""
+    grouped 3x3 (deformable with ``dcn``), 1x1, with a 1x1 + norm
+    projection when the shape changes."""
 
     def __init__(self, cin: int, planes: int, cout: int, stride: int,
-                 groups: int, stride_in_1x1: bool, norm: str = "frozen_bn"):
+                 groups: int, stride_in_1x1: bool, norm: str = "frozen_bn",
+                 dcn: bool = False, modulated_dcn: bool = False):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = _conv(cin, planes, 1, s1)
         self.bn1 = _norm(planes, norm)
-        self.conv2 = _conv(planes, planes, 3, s3, 1, groups)
+        self.conv2 = DFConv2d(planes, planes, s3, groups, modulated_dcn) \
+            if dcn else _conv(planes, planes, 3, s3, 1, groups)
         self.bn2 = _norm(planes, norm)
         self.conv3 = _conv(planes, cout, 1)
         self.bn3 = _norm(cout, norm)
@@ -112,7 +152,8 @@ class ResNet(nn.Module):
             self.add_module(f"layer{si + 1}", nn.Sequential(*(
                 Bottleneck(cin if b == 0 else cout, planes, cout,
                            stride if b == 0 else 1, cfg.num_groups,
-                           cfg.stride_in_1x1, cfg.norm)
+                           cfg.stride_in_1x1, cfg.norm,
+                           cfg.stage_with_dcn[si], cfg.with_modulated_dcn)
                 for b in range(nblocks))))
             cin = cout
 
@@ -167,7 +208,8 @@ def init_resnet_fpn_params(generator: torch.Generator,
     ``init_resnet_fpn_params`` draws them (not its numbers: another
     generator): convs N(0, 1 / fan_in), zero FPN biases, FrozenBN at unit
     weight and variance, zero bias and mean; GroupNorm at unit weight and
-    zero bias, without running statistics."""
+    zero bias, without running statistics; a DCN stage's offset conv at
+    zero (its blocks start as plain convolutions), drawing nothing."""
     _check_supported(cfg)
     p: Dict[str, torch.Tensor] = {}
 
@@ -196,7 +238,15 @@ def init_resnet_fpn_params(generator: torch.Generator,
             q = f"{pre}.layer{si + 1}.{b}"
             add_conv(f"{q}.conv1", cin if b == 0 else cout, planes, 1)
             add_bn(f"{q}.bn1", planes)
-            add_conv(f"{q}.conv2", planes, planes, 3, groups=cfg.num_groups)
+            if cfg.stage_with_dcn[si]:
+                oc = 27 if cfg.with_modulated_dcn else 18
+                p[f"{q}.conv2.offset.weight"] = torch.zeros(oc, planes, 3, 3)
+                p[f"{q}.conv2.offset.bias"] = torch.zeros(oc)
+                add_conv(f"{q}.conv2.conv", planes, planes, 3,
+                         groups=cfg.num_groups)
+            else:
+                add_conv(f"{q}.conv2", planes, planes, 3,
+                         groups=cfg.num_groups)
             add_bn(f"{q}.bn2", planes)
             add_conv(f"{q}.conv3", planes, cout, 1)
             add_bn(f"{q}.bn3", cout)

@@ -49,6 +49,10 @@ RESNET50_FPN = MaskRCNNConfig()
 RESNEXT101_FPN = MaskRCNNConfig(resnet=ResNetConfig(
     stage_blocks=(3, 4, 23, 3), num_groups=32, width_per_group=8,
     stride_in_1x1=False))
+# its deformable variant (STAGE_WITH_DCN): modulated deformable 3x3s in
+# stages 3-5, as the DCN model-zoo checkpoints have them
+RESNEXT101_FPN_DCN = MaskRCNNConfig(resnet=RESNEXT101_FPN.resnet._replace(
+    stage_with_dcn=(False, True, True, True), with_modulated_dcn=True))
 
 
 class MaskRCNNOutput(NamedTuple):
@@ -89,8 +93,10 @@ class MaskRCNN(nn.Module):
         dict) through ``c2_loading``: translate the blob names for
         ``conv_body`` ("R-50-FPN", "R-101-FPN"; X-101-32x8d rides R-101),
         align them onto this model's keys and load the result strictly.
-        Returns (filled, unmatched) as the JAX loader gives them: model
-        keys that kept this model's values, and blobs that fit no key."""
+        A DCN model's deformable 3x3s take the ``conv2`` blobs; its offset
+        convs have none. Returns (filled, unmatched) as the JAX loader
+        gives them: model keys that kept this model's values (the offset
+        convs), and blobs that fit no key."""
         from vido_slam_tpu_torch.models.maskrcnn import c2_loading
 
         blobs = (c2_loading.load_c2_pickle(path_or_blobs)

@@ -24,3 +24,11 @@ def top_k(x: torch.Tensor, k: int):
     broken toward the lower index."""
     vals, idx = torch.sort(_sortable(x), dim=-1, descending=True, stable=True)
     return vals[..., :k].to(x.dtype), idx[..., :k]
+
+
+def argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the largest entry along the last dim, the first one among
+    equal maxima (``jnp.argmax``'s rule)."""
+    idx = torch.arange(x.shape[-1], device=x.device)
+    return torch.where(x == x.amax(-1, keepdim=True), idx,
+                       x.shape[-1]).amin(-1)
