@@ -139,7 +139,28 @@ Phases, each of which fails the run by raising:
      its 100 detections, then ``keypoints_from_heatmaps``: kernel 5 once,
      held against its plain version and timed, heatmaps card against CPU;
      (m5) ``roi_pool`` 7x7 over those 100 boxes on P4: the card's bits
-     equal the CPU's. Each part prints its ms beside the card line;
+     equal the CPU's. Each part prints its ms beside the card line. (n)
+     training: (n1) the detector CLI ``python -m
+     vido_slam_tpu_torch.train_maskrcnn --synthetic --batch 2 --input-h
+     544 --input-w 800 --lr 1e-3 --iters 6`` in-process (R-50-FPN, random
+     init): kernel 5 forward and its backward kernel 5b twice an image a
+     step (24 each), finite losses, ``model_final.npz`` reloads into the
+     detector bit-equal, s/it; (n2) kernel 5 against its plain version
+     on the last step's four calls, and kernel 5b against the autograd of
+     kernel 5's plain version (max error <= 1e-5 max |plain gradient|:
+     atomics add in a run-to-run order) on those calls with the step's
+     grad_out and with N(0, 1) grad_out, and at (d)'s inference shapes,
+     timed as a CUDA-graph replay, with its bound; (n3) one detector step
+     at 128x160 (one block a stage) on the card against the CPU, three
+     times: with the card's own discrete decisions, the CPU's proposals,
+     and all the CPU's decisions (proposals, relu sides, max-pool
+     winners; ``StepTape``): loss parts within 1e-4 relative each, every
+     key's gradient within 1e-3 of its max |g| with the CPU's decisions
+     and within 1e-2 with the card's own (near-ties the card's rounding
+     decides otherwise, printed); (n4)
+     ``make_selfsup_train_step`` at 640x192, batch 4 of three consecutive
+     bench-clip frames, 5 Adam steps (finite losses, the first within 1e-4
+     relative of the CPU's), then one supervised ``make_train_step``;
   5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
      call's arguments, its launches on (f) and (g), on (h1)-(h4), on
@@ -147,7 +168,9 @@ Phases, each of which fails the run by raising:
      launches, device ms, plain ms and bound in (j) beside the float32
      build's device ms on the same values; its launches in (m1)-(m4), and
      kernel 5's device ms, plain ms and bound at the FBNet and keypoint
-     shapes), then the device line.
+     shapes; its launches in (n1); kernel 5b's entry: its launches in
+     (n1), its device ms, plain ms and bound on a training step's
+     calls and at the inference shapes), then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -157,6 +180,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1040,7 +1064,7 @@ class KernelArgs:
 
         def keep(a):
             if torch.is_tensor(a):
-                return a.clone()
+                return a.detach().clone()
             return [keep(x) for x in a] if isinstance(a, list) else a
 
         if self.on:
@@ -2845,6 +2869,542 @@ def run_phase_m(dev, counters, names):
 
 
 # ---------------------------------------------------------------------------
+# phase 4 (n): training (ROADMAP.md items 19b and 20)
+# ---------------------------------------------------------------------------
+
+TRAIN_ITERS = 6
+TRAIN_INPUT = (544, 800)     # (height, width): the JAX CLI's default input
+TRAIN_CHECK = (128, 160)     # the card-against-CPU detector step
+DEPTH_STEPS = 5
+DEPTH_BATCH = 4
+# (n3)'s bars on each key's gradient, card against CPU, over the key's
+# max |g|. A step takes discrete decisions on rounded values: the RPN's
+# top-k and NMS order proposals by score, the stem's max pool picks a
+# winner, each relu a side. Where two candidates lie a few ulps apart the
+# card's float32 sums can order them otherwise than the CPU's, and one
+# such decision moves the gradient by far more than its rounding: at
+# TRAIN_CHECK the card swaps two proposals whose scores are 2 ulps apart
+# and one max-pool winner, 4.5e-3 of a key's max (StepTape replays the
+# CPU's decisions and finds them). So the card's own step is held within
+# GRAD_BAR_CARD, and the step with all the CPU's decisions within the CPU
+# tests' GRAD_BAR.
+GRAD_BAR_CARD = 1e-2
+GRAD_BAR = 1e-3
+
+
+class GradArgs(KernelArgs):
+    """A ``KernelArgs`` that also keeps the gradient that reaches each
+    recorded call's output in the backward pass (kernel 5b's grad_out)."""
+
+    def __init__(self, wrapper, n_args=6):
+        super().__init__(wrapper, n_args)
+        self.grads = {}
+
+    def __call__(self, *args, **kw):
+        out = super().__call__(*args, **kw)
+        if self.on and out.requires_grad:
+            i = len(self.calls) - 1
+            out.register_hook(
+                lambda g, i=i: self.grads.__setitem__(i, g.clone()))
+        return out
+
+
+def roi_grads_plain(args, g):
+    """The plain gradient of kernel 5's output ``g`` with respect to the
+    features: the autograd of roi_align_multilevel_ref on the same
+    tensors."""
+    import torch
+    from vido_slam_tpu_torch.ops import roi_align
+
+    feats, rois, levels, scales, r, s = args
+    fs = [f.detach().clone().requires_grad_() for f in feats]
+    with torch.enable_grad():
+        out = roi_align.roi_align_multilevel_ref(fs, rois, levels, scales, r,
+                                                 s)
+        return torch.autograd.grad(out, fs, g, allow_unused=True,
+                                   materialize_grads=True)
+
+
+def check_roi_backward(cases, timed=True):
+    """Kernel 5b against the autograd of kernel 5's plain version on each
+    (name, forward args, grad_out) case: the plain gradient is not all
+    zero and the max error <= 1e-5 max |plain gradient| (atomics add in a
+    run-to-run order: a bar, not the bits; measured against the gradient
+    itself, so a trainer's small gradients are held as tightly as random
+    ones). Returns max_abs_err and, when ``timed``, (ms, plain_ms,
+    bound_ms, bound_by) with the kernel timed as a CUDA-graph replay of 20
+    calls and the plain version by events over 3."""
+    import torch
+    from vido_slam_tpu_torch.ops import roi_align
+
+    err = ms = plain_ms = 0.0
+    nbytes = flops = 0
+    for name, args, g in cases:
+        feats, rois, levels, scales, r, s = args
+        shapes = roi_align.level_sizes(feats)
+        lv = levels.to(torch.int32).contiguous()
+
+        def kernel():
+            return roi_align.roi_align_multilevel_backward(
+                g, shapes, rois, lv, scales, r, s)
+        got = kernel()
+        ref = roi_grads_plain(args, g)
+        torch.cuda.synchronize()
+        e = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        gmax = max(float(b.abs().max()) for b in ref)
+        check(gmax > 0 and math.isfinite(e) and e <= 1e-5 * gmax,
+              ("roi_align_multilevel_backward", name, e, gmax))
+        err = max(err, e)
+        line = (f"roi_align_multilevel_backward {name}: max error {e:.3e} "
+                f"(bar {1e-5 * gmax:.1e}: {e / gmax:.2e} of the gradient's "
+                f"max {gmax:.3e})")
+        if not timed:
+            print(line)
+            continue
+        k_ms = time_cuda_graph(kernel, 20)
+        p_ms = time_cuda(lambda: roi_grads_plain(args, g), 3)
+        R, C = rois.shape[0], feats[0].shape[1]
+        b_ = roi_align.backward_nbytes(shapes, R, C, r)
+        f_ = roi_align.backward_operations(R, C, r, s)
+        print(f"{line}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, {b_} "
+              f"bytes, {f_} flops")
+        ms += k_ms
+        plain_ms += p_ms
+        nbytes += b_
+        flops += f_
+    if not timed:
+        return err
+    return err, (ms, plain_ms) + bound(nbytes, flops)
+
+
+def train_detector_cli(out_dir, counters, names):
+    """(n1): ``python -m vido_slam_tpu_torch.train_maskrcnn`` in-process on
+    the card: R-50-FPN, --synthetic, batch 2, TRAIN_INPUT, lr 1e-3,
+    TRAIN_ITERS iterations, a log line each; kernel 5 forward and 5b
+    backward twice an image a step. Returns (final state, log lines, the
+    host seconds of each iteration, launches)."""
+    from vido_slam_tpu_torch import train_maskrcnn
+
+    h, w = TRAIN_INPUT
+    lines, stamps = [], []
+
+    def log(line):
+        stamps.append(time.perf_counter())
+        lines.append(line)
+        print(f"  {line}")
+
+    argv = ["--synthetic", "--batch", "2", "--input-h", str(h), "--input-w",
+            str(w), "--lr", "1e-3", "--iters", str(TRAIN_ITERS),
+            "--log-period", "1", "--checkpoint-period", "100000", "--out",
+            out_dir]
+    t0 = time.perf_counter()
+    final, launches = launches_of(counters,
+                                  lambda: train_maskrcnn.main(argv, log))
+    expect = [0, 0, 0, 0, 2 * 2 * TRAIN_ITERS, 2 * 2 * TRAIN_ITERS]
+    check(launches == expect,
+          f"(n1) detector training: {names} launched {launches} times over "
+          f"{TRAIN_ITERS} steps of 2 images, not {expect}")
+    check(len(lines) == TRAIN_ITERS, f"(n1) {len(lines)} log lines")
+    secs = np.diff([t0] + stamps)
+    return final, lines, secs, launches
+
+
+class StepTape:
+    """One detector step's discrete decisions, recorded or replayed: the
+    proposals ``select_over_all_levels`` keeps, the side of zero each
+    relu's input takes (its gradient mask: 1 above, 1/2 at, 0 below) and
+    the input that wins each window of the stem's max pool. A step that
+    replays another's tape (``replay``) takes that step's proposals
+    (``proposals=True``), and with ``units=True`` computes each relu as
+    ``x * mask`` and each max-pool window as its taped winner: the same
+    values wherever both steps decide alike, the taped step's gradient
+    where this step's rounding falls the other way. Every step's tape also
+    keeps its own decisions, FPN levels and the gradient that reaches each
+    ROIAlign call's output."""
+
+    def __init__(self, replay=None, proposals=False, units=False):
+        self.replay = replay
+        self.use_proposals = proposals
+        self.use_units = units
+        self.masks, self.sites, self.winners = [], [], []
+        self.proposals, self.levels = [], []
+        self.pooled_grads = {}
+
+    def relu(self, x):
+        import torch
+        from vido_slam_tpu_torch.models.layers import relu
+
+        f = sys._getframe(1)
+        self.sites.append(f"{os.path.basename(f.f_code.co_filename)}:"
+                          f"{f.f_lineno}")
+        # twice the mask, in a byte
+        self.masks.append((2 * (x > 0) + (x == 0)).to(torch.uint8).cpu())
+        if self.replay is None or not self.use_units:
+            return relu(x)
+        m = self.replay.masks[len(self.masks) - 1].to(x.device, x.dtype)
+        return x * (0.5 * m)
+
+    def max_pool(self, x, k, stride, padding):
+        import torch.nn.functional as F
+
+        out, idx = F.max_pool2d(x, k, stride, padding, return_indices=True)
+        self.winners.append(idx.cpu())
+        if self.replay is None or not self.use_units:
+            return out
+        idx = self.replay.winners[len(self.winners) - 1].to(x.device)
+        return x.flatten(2).gather(2, idx.flatten(2)).view_as(out)
+
+    def patch(self):
+        """Installs the tape in the detector's modules; returns the undo."""
+        from vido_slam_tpu_torch.models.maskrcnn import (backbone, losses,
+                                                         roi_heads, rpn)
+
+        saved = [(m, "relu", m.relu) for m in (backbone, rpn, roi_heads,
+                                               losses)]
+        saved += [(backbone, "max_pool", backbone.max_pool),
+                  (losses, "select_over_all_levels",
+                   losses.select_over_all_levels),
+                  (roi_heads, "roi_align_multilevel",
+                   roi_heads.roi_align_multilevel)]
+        select, pool = saved[-2][2], saved[-1][2]
+
+        def taped_select(*args):
+            out = select(*args)
+            if self.replay is not None and self.use_proposals:
+                out = tuple(t.to(out[0].device)
+                            for t in self.replay.proposals[len(self.proposals)])
+            self.proposals.append(tuple(t.detach().cpu() for t in out))
+            return out
+
+        def taped_pool(feats, rois, levels, *args):
+            out = pool(feats, rois, levels, *args)
+            i = len(self.levels)
+            self.levels.append(levels.cpu())
+            if out.requires_grad:
+                out.register_hook(lambda g: self.pooled_grads.__setitem__(
+                    i, g.detach().cpu()))
+            return out
+
+        for m, name, _ in saved[:4]:
+            setattr(m, name, self.relu)
+        backbone.max_pool = self.max_pool
+        losses.select_over_all_levels = taped_select
+        roi_heads.roi_align_multilevel = taped_pool
+
+        def undo():
+            for m, name, fn in saved:
+                setattr(m, name, fn)
+        return undo
+
+
+def detector_step(where, cfg, image, boxes, masks, tape):
+    """One detector step of ``check_detector_step`` on ``where`` with the
+    tape installed: (loss parts, each key's gradient on the CPU)."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn import losses
+    from vido_slam_tpu_torch.models.maskrcnn.model import MaskRCNN
+    from vido_slam_tpu_torch.parallel.train import (compute_grads,
+                                                    trainable_state)
+    from vido_slam_tpu_torch.utils import prng
+
+    G = boxes.shape[0]
+    model = MaskRCNN(cfg, seed=0, device=where)
+    state = trainable_state(model)
+    tg = losses.DetectionTargets(
+        boxes=torch.tensor(boxes, device=where),
+        labels=torch.tensor([3, 7] + [0] * (G - 2), device=where),
+        masks=torch.tensor(masks, device=where),
+        valid=torch.arange(G, device=where) < 2)
+    undo = tape.patch()
+    try:
+        parts = losses.maskrcnn_loss(model, torch.tensor(image, device=where),
+                                     tg, prng.PRNGKey(5, device=where))
+        compute_grads(sum(parts.values()), state)
+    finally:
+        undo()
+    return ({k: float(v.detach()) for k, v in parts.items()},
+            {k: v.grad.cpu() for k, v in state.items()})
+
+
+def step_gaps(ref, run):
+    """(the loss parts' largest relative difference, each key's gradient
+    difference over its max |g|) of a step against the reference step."""
+    (p0, g0), (p1, g1) = ref, run
+    parts = max(abs(p1[k] - p0[k]) / max(abs(p0[k]), 1e-3) for k in p0)
+    grads = {k: float((g1[k] - g0[k]).abs().max())
+             / max(float(g0[k].abs().max()), 1e-30) for k in g0}
+    return parts, grads
+
+
+def tape_differences(cpu, card):
+    """Text: where a card step decides otherwise than the CPU's: relu
+    inputs on the other side of zero by call site, max-pool windows won by
+    another input, proposals that are not the CPU's (by more than 1e-3 px
+    or in validity; the first four with their scores, and the CPU's
+    nearest row to the card's box), ROIs at another FPN level by ROIAlign
+    call, and each ROIAlign call's output gradient apart over its max."""
+    import collections
+
+    flips = collections.Counter()
+    for site, a, b in zip(cpu.sites, cpu.masks, card.masks):
+        n = int((a != b).sum())
+        if n:
+            flips[site] += n
+    winners = sum(int((a != b).sum()) for a, b in zip(cpu.winners,
+                                                      card.winners))
+    (bc, sc, vc), (bd, sd, vd) = cpu.proposals[0], card.proposals[0]
+    rows = ((bc - bd).abs().amax(1) > 1e-3) | (vc != vd)
+    moved = []
+    for i in rows.nonzero()[:4, 0].tolist():
+        j = int((bc - bd[i]).abs().amax(1).argmin())
+        moved.append(f"row {i}: CPU {bc[i].tolist()} score {float(sc[i]):.9g}"
+                     f", card {bd[i].tolist()} score {float(sd[i]):.9g} (the "
+                     f"CPU's row {j})")
+    levels = [int((a != b).sum()) for a, b in zip(cpu.levels, card.levels)]
+    pooled = [float((card.pooled_grads[i] - g).abs().max())
+              / max(float(g.abs().max()), 1e-30)
+              for i, g in sorted(cpu.pooled_grads.items())]
+    return (f"relu inputs on the other side of 0 by site {dict(flips)} (of "
+            f"{sum(int(m.numel()) for m in cpu.masks)} over "
+            f"{len(cpu.masks)} calls), {winners} max-pool windows won by "
+            f"another input, {int(rows.sum())} of {bc.shape[0]} proposals "
+            f"not the CPU's {moved}, ROIs at another FPN level {levels} "
+            f"(box, mask head), the pooled features' gradient apart by "
+            + ", ".join(f"{x:.2e}" for x in pooled)
+            + " of its max (box, mask head)")
+
+
+def check_detector_step(dev):
+    """(n3): one detector step at TRAIN_CHECK (the CPU tests' one block a
+    stage, two objects, a 0..1 image) on the CPU and three times on the
+    card (``StepTape``): with its own decisions, with the CPU's proposals,
+    and with all of the CPU's decisions (proposals, relu sides, max-pool
+    winners). Prints where each card step decides otherwise and its gaps.
+    Checks: every step's loss parts within 1e-4 relative of the CPU's
+    (the CPU tests' bar); with all of the CPU's decisions each key's
+    gradient within the CPU tests' 1e-3 of its max |g|, with its own
+    within GRAD_BAR_CARD. Returns (the loss parts' largest relative gap,
+    each step's largest gradient gap)."""
+    from vido_slam_tpu_torch.models.maskrcnn.backbone import ResNetConfig
+    from vido_slam_tpu_torch.models.maskrcnn.model import MaskRCNNConfig
+
+    h, w = TRAIN_CHECK
+    cfg = MaskRCNNConfig(resnet=ResNetConfig(stage_blocks=(1, 1, 1, 1)),
+                         input_h=h, input_w=w)
+    G = 6
+    boxes = np.zeros((G, 4), np.float32)
+    boxes[0] = [30, 30, 80, 90]
+    boxes[1] = [100, 20, 140, 60]
+    masks = np.zeros((G, h // 2, w // 2), np.float32)
+    masks[0, 15:45, 15:40] = 1.0
+    masks[1, 10:30, 50:70] = 1.0
+    image = np.random.RandomState(1).uniform(0, 1, (1, 3, h, w)).astype(
+        np.float32)
+    cpu_tape = StepTape()
+    ref = detector_step("cpu", cfg, image, boxes, masks, cpu_tape)
+    gaps = {}
+    for name, kw in (("own", {}), ("the CPU's proposals",
+                                   dict(proposals=True)),
+                     ("all the CPU's", dict(proposals=True, units=True))):
+        tape = StepTape(cpu_tape, **kw)
+        run = detector_step(dev, cfg, image, boxes, masks, tape)
+        e_parts, rel = step_gaps(ref, run)
+        worst = sorted(rel, key=rel.get, reverse=True)[:3]
+        gaps[name] = (e_parts, rel[worst[0]])
+        print(f"(n3) card with {name} decisions: "
+              + tape_differences(cpu_tape, tape)
+              + f"; loss parts {e_parts:.2e} relative to the CPU's ("
+              + ", ".join(f"{k} {run[0][k]:.7f}/{ref[0][k]:.7f}"
+                          for k in ref[0])
+              + "); gradients " + ", ".join(
+                  f"{k} {rel[k]:.2e} (max |g| "
+                  f"{float(ref[1][k].abs().max()):.3e})" for k in worst))
+    for name, (e_parts, _) in gaps.items():
+        check(e_parts <= 1e-4, f"(n3) loss parts with {name} decisions: "
+              f"{e_parts:.2e} relative")
+    same = gaps["all the CPU's"][1]
+    check(same <= GRAD_BAR, f"(n3) gradients with all the CPU's decisions: "
+          f"{same:.2e} of a key's max |g|")
+    check(gaps["own"][1] <= GRAD_BAR_CARD, f"(n3) gradients with the card's "
+          f"own decisions: {gaps['own'][1]:.2e} of a key's max |g|")
+    return max(e for e, _ in gaps.values()), {k: g for k, (_, g) in
+                                               gaps.items()}
+
+
+def depth_batches(dev):
+    """(n4)'s self-supervised batch: DEPTH_BATCH samples of three
+    consecutive frames (prev, centre, next) of the bench clip at 640x192,
+    RGB in [0, 1], with MonoDepth2's KITTI intrinsics (trainer.py's K)
+    scaled to the frame."""
+    import torch
+    from vido_slam_tpu_torch.models.monodepth2_train import SelfSupBatch
+
+    clip = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ONLINE_CLIP))["clip"]
+    rgb = clip[..., ::-1].astype(np.float32) / 255.0
+    H, W = rgb.shape[1:3]
+    K = np.array([[0.58 * W, 0, 0.5 * W, 0], [0, 1.92 * H, 0.5 * H, 0],
+                  [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+
+    def frames(offset):
+        x = rgb[offset:offset + DEPTH_BATCH].transpose(0, 3, 1, 2)
+        return torch.tensor(np.ascontiguousarray(x), device=dev)
+    Ks = torch.tensor(np.broadcast_to(K, (DEPTH_BATCH, 4, 4)).copy(),
+                      device=dev)
+    return SelfSupBatch(color=frames(1), prev=frames(0), next=frames(2),
+                        K=Ks, inv_K=torch.linalg.inv(Ks))
+
+
+def train_depth(dev, counters, names):
+    """(n4): ``make_selfsup_train_step`` at 640x192, batch DEPTH_BATCH,
+    DEPTH_STEPS Adam steps (finite losses; the first step's loss within
+    1e-4 relative of the port's on the CPU), then one supervised
+    ``make_train_step``. Returns (losses, the steady steps' seconds, the
+    first loss's relative error against the CPU, the supervised loss)."""
+    import torch
+    from vido_slam_tpu_torch.models.monodepth2 import MonoDepth2
+    from vido_slam_tpu_torch.models.monodepth2_train import (
+        SelfSupModel, make_selfsup_train_step, selfsup_loss)
+    from vido_slam_tpu_torch.parallel.train import (init_train_state,
+                                                    make_train_step)
+    from vido_slam_tpu_torch.utils import prng
+
+    batch = depth_batches(dev)
+    with torch.no_grad():
+        cpu_loss, _ = selfsup_loss(
+            SelfSupModel(seed=0, device="cpu"),
+            type(batch)(*(x.cpu() if x is not None else None
+                          for x in batch)), prng.PRNGKey(0))
+    model = SelfSupModel(seed=0, device=dev)
+    step = make_selfsup_train_step(model, lr=1e-4)
+    losses, secs = [], []
+    key = prng.PRNGKey(0, device=dev)
+
+    def run():
+        for i in range(DEPTH_STEPS):
+            k = key if i == 0 else prng.fold_in(key, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch, k)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    _, launches = launches_of(counters, run)
+    check(launches == [0] * len(counters),
+          f"(n4) depth training: {names} launched {launches} times")
+    rel = abs(losses[0] - float(cpu_loss)) / abs(float(cpu_loss))
+    check(all(math.isfinite(x) for x in losses) and rel <= 1e-4,
+          f"(n4) self-supervised losses {losses}, first against the CPU's "
+          f"{float(cpu_loss):.7f}: {rel:.2e} relative")
+    net = MonoDepth2(seed=0, device=dev)
+    state = init_train_state(net, lr=1e-4)
+    target = 1.0 / torch.linspace(2.0, 80.0, 192, device=dev)[:, None] \
+        .expand(DEPTH_BATCH, 192, 640)
+    state, sup = make_train_step()(state, {"image": batch.color,
+                                           "target": target})
+    check(state.step == 1 and math.isfinite(float(sup)),
+          f"(n4) supervised step: loss {float(sup)}")
+    return losses, secs[1:], rel, float(sup)
+
+
+def run_phase_n(dev, counters, names):
+    """Phase (n), training: (n1) the detector CLI at full width, (n2)
+    kernels 5 and 5b against their plain versions on one step's arguments
+    and 5b at phase (d)'s inference shapes, (n3) a detector step card
+    against CPU, (n4) MonoDepth2's self-supervised and supervised steps.
+    Returns (kernel 5's and 5b's launches in (n1), 5b's max error, 5b's
+    timing on the step, 5b's timing at the inference shapes, kernel 5's
+    timing and max error on the step)."""
+    import torch
+    from vido_slam_tpu_torch import convert
+    from vido_slam_tpu_torch.models.maskrcnn import roi_heads
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           MaskRCNNConfig)
+    from vido_slam_tpu_torch.utils.checkpoint import load_params
+
+    t0 = time.perf_counter()
+    card = card_line()
+    rec = GradArgs(roi_heads.roi_align_multilevel)
+    roi_heads.roi_align_multilevel = rec
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            final, lines, secs, launches = train_detector_cli(
+                out_dir, counters, names)
+            saved = load_params(os.path.join(out_dir, "model_final"))
+    finally:
+        roi_heads.roi_align_multilevel = rec.wrapper
+    loss_re = re.compile(r"loss ([0-9.naif+-]+) ")
+    train_losses = [float(loss_re.search(x).group(1)) for x in lines]
+    check(all(math.isfinite(x) for x in train_losses),
+          f"(n1) losses {train_losses}")
+    h, w = TRAIN_INPUT
+    reloaded = MaskRCNN(MaskRCNNConfig(input_h=h, input_w=w), device=dev)
+    reloaded.load_state_dict(convert.maskrcnn_state_dict_from_numpy(
+        {k: v.numpy() for k, v in saved.items()}, device=dev), strict=True)
+    same = all(torch.equal(reloaded.state_dict()[k].cpu(), v.cpu())
+               for k, v in final.items())
+    check(same, "(n1) model_final reloads into the detector bit-equal")
+    s_it = float(np.median(secs[1:]))
+    print(f"(n1) detector training, R-50-FPN {w}x{h}, synthetic batch 2, lr "
+          f"1e-3: losses {train_losses}, launches {launches} (kernel 5 and "
+          f"5b), s/it median {s_it:.3f} over iterations 2-{TRAIN_ITERS} "
+          f"(first {secs[0]:.2f} s; host clock between log lines), "
+          f"model_final reloads bit-equal; card {card}")
+    # (n2) kernel 5b on the last step's four calls (two images, box and
+    # mask heads), then at phase (d)'s inference shapes
+    n = len(rec.calls)
+    step_cases = [(f"training step {TRAIN_ITERS} image {1 + (i - n + 4) // 2}"
+                   f" {'box' if i % 2 == 0 else 'mask'} head",
+                   rec.calls[i][0], rec.grads[i]) for i in range(n - 4, n)]
+    del rec
+    fwd_cases = [(name, ([f.detach() for f in args[0]],) + tuple(args[1:]))
+                 for name, args, _ in step_cases]
+    err_fwd = check_roi_align(fwd_cases)
+    fwd_ms = time_roi_align(fwd_cases)
+    err, step_timing = check_roi_backward(step_cases)
+    # the trainer's grad_out is zero outside the sampled ROIs and small:
+    # the same calls again with a grad_out of N(0, 1) on every element
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err = max(err, check_roi_backward(
+        [(f"{name}, grad_out N(0, 1)", args,
+          torch.randn(g.shape, generator=gen, device=dev))
+         for name, args, g in step_cases], timed=False))
+    rng = np.random.RandomState(7)
+    infer_cases = []
+    for name, args in roi_cases(rng, dev):
+        R, C, r = args[1].shape[0], args[0][0].shape[1], args[4]
+        infer_cases.append((name, args,
+                            torch.randn(R, C, r, r, device=dev)))
+    e2, infer_timing = check_roi_backward(infer_cases)
+    err = max(err, e2)
+    share = (fwd_ms[0] + step_timing[0]) / 2 / (1e3 * s_it)
+    print(f"(n2) kernel 5b on a step's four calls: {step_timing[0]:.4f} ms "
+          f"(plain {step_timing[1]:.3f} ms, bound {step_timing[2]:.6f} ms "
+          f"by {step_timing[3]}), kernel 5 on the same calls "
+          f"{fwd_ms[0]:.4f} ms; kernels 5 and 5b per image a step "
+          f"{(fwd_ms[0] + step_timing[0]) / 2:.4f} ms, "
+          f"{100 * 2 * share:.3f} % of a {1e3 * s_it:.1f} ms step; at "
+          f"(d)'s inference shapes {infer_timing[0]:.4f} ms (bound "
+          f"{infer_timing[2]:.6f} ms)")
+    # (n3) one detector step, card against CPU
+    e_parts, e_grads = check_detector_step(dev)
+    print(f"(n3) detector step {TRAIN_CHECK[1]}x{TRAIN_CHECK[0]} card against "
+          f"CPU: loss parts {e_parts:.2e} relative (bar 1e-4), gradients "
+          f"over a key's max |g|: " + ", ".join(
+              f"{k} decisions {g:.2e}" for k, g in e_grads.items())
+          + f" (bars {GRAD_BAR_CARD:.0e} on the card's own, {GRAD_BAR:.0e} "
+          f"on the CPU's)")
+    # (n4) MonoDepth2
+    d_losses, d_secs, rel, sup = train_depth(dev, counters, names)
+    print(f"(n4) MonoDepth2 self-supervised, 640x192 batch {DEPTH_BATCH}, "
+          f"{DEPTH_STEPS} Adam steps: losses {d_losses}, first against the "
+          f"CPU {rel:.2e} relative, s/it median {np.median(d_secs):.3f} "
+          f"(steps 2-{DEPTH_STEPS}, host clock over torch.cuda.synchronize);"
+          f" supervised step loss {sup:.6f}; card {card}")
+    print(f"phase (n): {time.perf_counter() - t0:.1f} s")
+    return launches, err, step_timing, infer_timing, fwd_ms, err_fwd
+
+
+# ---------------------------------------------------------------------------
 # phase 4 (l): the pipelined paths (ROADMAP.md item 16)
 # ---------------------------------------------------------------------------
 
@@ -3446,6 +4006,13 @@ def main() -> int:
     family_launches, family_err, family_timing = run_phase_m(dev, counters,
                                                              names)
 
+    # (n) training: the detector CLI (kernels 5 and 5b), a detector step
+    # card against CPU, MonoDepth2's self-supervised and supervised steps
+    counters_n = counters + [roi_align.roi_align_multilevel_backward]
+    train_launches, err_5b, timing_5b, infer_5b, train_fwd, err_train = \
+        run_phase_n(dev, counters_n, [c.__name__ for c in counters_n])
+    err_roi = max(err_roi, err_train)
+
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
     calls, k = recorder.frame_calls()
@@ -3583,6 +4150,20 @@ def main() -> int:
                 e.update({f"{shape}_ms": t[0], f"{shape}_plain_ms": t[1],
                           f"{shape}_bound_ms": t[2],
                           f"{shape}_bound_by": t[3]})
+        e["training_launches"] = train_launches[i]
+        if e["name"] == "roi_align_multilevel":
+            e.update(training_step_ms=train_fwd[0],
+                     training_step_bound_ms=train_fwd[2])
+    entries.append(dict(
+        name="roi_align_multilevel_backward", route="cuda",
+        source="vido_slam_tpu_torch/csrc/roi_align_backward.cu",
+        replaces="vido_slam_tpu/ops/roi_align.py:112 (XLA autodiff of "
+                 "roi_align_multilevel; no Pallas kernel)",
+        launches=train_launches[5], max_abs_err=err_5b,
+        **dict(zip(keys, timing_5b)), library_ms=None,
+        training_launches=train_launches[5],
+        inference_shapes_ms=infer_5b[0],
+        inference_shapes_bound_ms=infer_5b[2]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ pose): per problem |log(T_ref^-1 T)| < 1e-4, inlier sets differing on at
 most max(3, 1 %) of the points, flows of common inliers within 1e-2 px.
 Kernel 3 (cost volume): max error <= 1e-5 max(1, max |plain|). Kernel 4
 (regularization tail): rtol = atol = 1e-5 element by element. Kernel 5
-(multilevel ROIAlign): max error <= 1e-5 max(1, max |feature|)."""
+(multilevel ROIAlign): max error <= 1e-5 max(1, max |feature|). Kernel
+5b (its backward, atomics: no bit-equal second launch): max error <=
+1e-5 max |plain gradient|. Kernels 1-4 refuse a CUDA input that
+asks for a gradient."""
 
 import numpy as np
 import pytest
@@ -1082,3 +1085,107 @@ def test_async_host_copy_survives_later_work():
     for _ in range(20):
         x.mul_(2.0)
     np.testing.assert_array_equal(c.get()[0], want)
+
+
+# kernel 5b: the gradient of kernel 5 with respect to the features, the
+# backward kernel against the autograd of the plain version on the same
+# CUDA tensors. Atomics sum in a run-to-run order, so the bar is 1e-5 of
+# max |plain gradient| over the levels, not the bits.
+
+def _roi_grads_plain(feats, rois, levels, scales, res, s, g):
+    fs = [f.detach().clone().requires_grad_() for f in feats]
+    out = roi_align.roi_align_multilevel_ref(fs, rois, levels, scales, res, s)
+    return torch.autograd.grad(out, fs, g, allow_unused=True,
+                               materialize_grads=True)
+
+
+@pytest.mark.parametrize("R,C,res,level,border", [
+    (1000, 256, 7, None, False),     # the box head
+    (64, 256, 14, None, False),      # the mask head of the trainer
+    (100, 256, 14, None, False),     # the mask head at inference
+    (37, 256, 7, 0, False), (37, 48, 14, 3, False),
+    (1, 256, 7, None, False), (200, 256, 7, None, True),
+    (50, 5, 14, None, True),
+])
+def test_roi_align_backward_matches_plain(R, C, res, level, border):
+    _need_card()
+    feats, rois, levels, scales, res, s = _roi_args(
+        R, C, res, seed=R + C + res + 1, level=level, border=border)
+    g = torch.randn(R, C, res, res, device="cuda")
+    before = roi_align.roi_align_multilevel_backward.launches
+    got = roi_align.roi_align_multilevel_backward(
+        g, roi_align.level_sizes(feats), rois, levels.to(torch.int32),
+        scales, res, s)
+    assert roi_align.roi_align_multilevel_backward.launches == before + 1
+    ref = _roi_grads_plain(feats, rois, levels, scales, res, s, g)
+    torch.cuda.synchronize()
+    assert [a.shape for a in got] == [b.shape for b in ref]
+    gmax = max(float(b.abs().max()) for b in ref)
+    assert gmax > 0
+    assert max(float((a - b).abs().max()) for a, b in zip(got, ref)) <= \
+        1e-5 * gmax
+
+
+def test_roi_align_output_carries_a_grad_fn_on_the_card(monkeypatch):
+    """On CUDA the pooled features keep their graph: backward launches
+    kernel 5b once and the plain version is never called; the ROIs and
+    the bf16 build refuse a gradient."""
+    _need_card()
+    feats, rois, levels, scales, res, s = _roi_args(40, 32, 7, seed=11)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    leaves = [f.clone().requires_grad_() for f in feats]
+    g = torch.randn(40, 32, 7, 7, device="cuda")
+    ref = _roi_grads_plain(feats, rois, levels, scales, res, s, g)
+    monkeypatch.setattr(roi_align, "roi_align_multilevel_ref", refuse)
+    f0 = roi_align.roi_align_multilevel.launches
+    b0 = roi_align.roi_align_multilevel_backward.launches
+    out = roi_align.roi_align_multilevel(leaves, rois, levels, scales, res, s)
+    assert out.grad_fn is not None
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert roi_align.roi_align_multilevel.launches == f0 + 1
+    assert roi_align.roi_align_multilevel_backward.launches == b0 + 1
+    gmax = max(float(r.abs().max()) for r in ref)
+    assert gmax > 0
+    assert max(float((leaf.grad - r).abs().max())
+               for leaf, r in zip(leaves, ref)) <= 1e-5 * gmax
+    with pytest.raises(RuntimeError, match="ROIs"):
+        roi_align.roi_align_multilevel(leaves, rois.clone().requires_grad_(),
+                                       levels, scales, res, s)
+    bf = [f.to(torch.bfloat16).requires_grad_() for f in feats]
+    out = roi_align.roi_align_multilevel(bf, rois, levels, scales, res, s)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        out.float().sum().backward()
+
+
+def test_kernels_without_backward_refuse_a_gradient():
+    """Kernels 1-4 have no backward (nor have their Pallas counterparts):
+    a CUDA input that asks for a gradient raises while autograd records,
+    and the same call runs under no_grad."""
+    _need_card()
+    f = torch.randn(1, 8, 10, 12, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        correlation.correlation(f, f.detach(), 1)
+    w = torch.randn(9, device="cuda")
+    b = torch.zeros(1, device="cuda")
+    dc = torch.randn(1, 9, 10, 12, device="cuda")
+    flow = f[:, :2].detach().contiguous().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        regularize.dist_weighted_flow(dc, flow, w, b, w, b, 3)
+    cam, args = _problems(2, 300, False, None, seed=5)
+    grad_args = (args[0].clone().requires_grad_(),) + args[1:]
+    with pytest.raises(RuntimeError, match="no backward"):
+        lm_kernel.pose_lm_batched(*grad_args, cam)
+    cam2, jargs = _joint_args(2, 300, "main path", seed=6)
+    jgrad = (jargs[0].clone().requires_grad_(),) + tuple(jargs[1:])
+    with pytest.raises(RuntimeError, match="no backward"):
+        flow_joint_kernel.flow_joint_batched(*jgrad, cam2)
+    with torch.no_grad():
+        assert correlation.correlation(f, f, 1).is_cuda
+        assert regularize.dist_weighted_flow(dc, flow, w, b, w, b, 3).is_cuda
+        lm_kernel.pose_lm_batched(*grad_args, cam)
+        flow_joint_kernel.flow_joint_batched(*jgrad, cam2)
+    torch.cuda.synchronize()

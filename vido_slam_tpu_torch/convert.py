@@ -7,7 +7,9 @@ works; nothing of the JAX package is imported. MonoDepth2's, LiteFlowNet's
 and Mask R-CNN's parameter dicts carry across the same way
 (``monodepth2_state_dict_from_numpy``, ``liteflownet_state_dict_from_numpy``,
 ``maskrcnn_state_dict_from_numpy``), the three together as a
-``PerceptionModel`` (``perception_model_from_numpy``). The other way,
+``PerceptionModel`` (``perception_model_from_numpy``); the first also
+carries the pose nets' and the self-supervised trainer's dicts
+(``PoseDecoder``, ``PoseCNN``, ``monodepth2_train.SelfSupModel``). The other way,
 ``convert_state_dict`` writes a torch state_dict in the JAX layout (the
 JAX package's ``models/layers.py::convert_state_dict``), as the bundles of
 ``utils/checkpoint.py`` hold it.

@@ -35,6 +35,7 @@ from vido_slam_tpu_torch.estimation.lm_kernel import (
 )
 from vido_slam_tpu_torch.geometry.camera import Camera
 from vido_slam_tpu_torch.utils import cuda_build
+from vido_slam_tpu_torch.utils.device import refuse_grad
 
 # Reference constants (Optimizer.cc:2624-2625, 2663-2666, 2690-2693, 2745)
 RP_THRES_JOINT = 0.04      # round-0 chi2 gate and Huber delta^2
@@ -271,6 +272,7 @@ def flow_joint_batched(T_init, pts3d, obs_last, flow_meas, valid,
     if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError("flow_joint_batched: all tensors must be on the CPU "
                          "or all on one CUDA device")
+    refuse_grad("flow_joint_batched", tensors)
     B, N = valid.shape
     _check("T_init", T_init, torch.float32, (B, 4, 4))
     _check("pts3d", pts3d, torch.float32,

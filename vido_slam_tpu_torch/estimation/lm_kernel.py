@@ -21,6 +21,7 @@ import torch
 
 from vido_slam_tpu_torch.geometry.camera import Camera
 from vido_slam_tpu_torch.utils import cuda_build
+from vido_slam_tpu_torch.utils.device import refuse_grad
 
 # The launch plan of the LM kernels (csrc/pose_lm.cu, csrc/flow_joint.cu): a
 # cluster of CTAs a problem, each holding its share of the problem's
@@ -335,6 +336,7 @@ def pose_lm_batched(T_init, T_pre, pts3d, obs, valid, cam: Camera, *,
     if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError("pose_lm_batched: all tensors must be on the CPU or "
                          "all on one CUDA device")
+    refuse_grad("pose_lm_batched", tensors)
     B, N = valid.shape
     _check("T_init", T_init, torch.float32, (B, 4, 4))
     _check("T_pre", T_pre, torch.float32, (B, 4, 4))

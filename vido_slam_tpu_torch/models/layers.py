@@ -48,6 +48,15 @@ class Linear(nn.Linear):
         return super().forward(x.to(self.weight.dtype))
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's relu, ``jnp.maximum(x, 0)`` (layers.py:187-188):
+    the value of ``F.relu``, but a gradient of one half at exactly 0, where
+    both frameworks split a tie of ``maximum`` (``F.relu``'s is 0). An
+    all-zero pooled ROI meets that tie in the box head, so the trainers'
+    gradients follow JAX's only with this relu."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
 

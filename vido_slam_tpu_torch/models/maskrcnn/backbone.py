@@ -29,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vido_slam_tpu_torch.models.layers import (Conv2d, FrozenBatchNorm2d,
-                                               GroupNorm, max_pool)
+                                               GroupNorm, max_pool, relu)
 from vido_slam_tpu_torch.ops.deform_conv import deform_conv2d
 
 
@@ -119,11 +119,11 @@ class Bottleneck(nn.Module):
             if cin != cout or stride != 1 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = relu(self.bn1(self.conv1(x)))
+        out = relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        return relu(out + identity)
 
 
 class Stem(nn.Module):
@@ -133,7 +133,7 @@ class Stem(nn.Module):
         self.bn1 = _norm(64, norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        return max_pool(relu(self.bn1(self.conv1(x))), 3, 2, 1)
 
 
 class ResNet(nn.Module):

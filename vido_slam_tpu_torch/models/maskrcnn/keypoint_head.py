@@ -8,6 +8,9 @@ channels with ReLU, ``ConvTranspose2d(512, 17, 4, 2, 1)`` to 28x28, and a
 x2 bilinear resize (half-pixel centres, as ``jax.image.resize``'s
 "linear" upward) to (R, 17, 56, 56) heatmap logits.
 
+``keypoints_to_heatmap`` and ``keypoint_loss`` are the training targets
+and loss (library functions: no trainer calls them).
+
 ``keypoints_from_heatmaps`` takes each keypoint's argmax on the fixed
 56x56 grid (the first cell on ties, as ``jnp.argmax``) and maps the cell
 centre into the box, as the JAX package does; the reference resizes each
@@ -104,6 +107,45 @@ def keypoints_from_heatmaps(logits: torch.Tensor,
                                 dim=-1)[..., 0]
     return KeypointOutput(xy=torch.stack([x, y], -1), logits=best,
                           probs=prob)
+
+
+def keypoints_to_heatmap(kp_xy: torch.Tensor, kp_vis: torch.Tensor,
+                         rois: torch.Tensor):
+    """keypoints_to_heat_map (structures/keypoint.py:154-188;
+    keypoint_head.py:100-121 of the JAX package): kp_xy (R, 17, 2)
+    image-space keypoints, kp_vis (R, 17) bool, rois (R, 4) -> (the linear
+    56x56 cell of each keypoint, int32, 0 where invalid; valid (R, 17)).
+    A keypoint on the box's far edge lands in the last cell."""
+    x0, y0 = rois[:, 0][:, None], rois[:, 1][:, None]
+    sx = HEATMAP / torch.clamp(rois[:, 2][:, None] - x0, min=1e-3)
+    sy = HEATMAP / torch.clamp(rois[:, 3][:, None] - y0, min=1e-3)
+    x = torch.floor((kp_xy[..., 0] - x0) * sx)
+    y = torch.floor((kp_xy[..., 1] - y0) * sy)
+    last = torch.tensor(HEATMAP - 1, dtype=x.dtype, device=x.device)
+    x = torch.where(kp_xy[..., 0] == rois[:, 2][:, None], last, x)
+    y = torch.where(kp_xy[..., 1] == rois[:, 3][:, None], last, y)
+    in_map = (x >= 0) & (y >= 0) & (x < HEATMAP) & (y < HEATMAP)
+    valid = in_map & kp_vis
+    lin = (y * HEATMAP + x).to(torch.int32)
+    return torch.where(valid, lin, 0), valid
+
+
+def keypoint_loss(logits: torch.Tensor, kp_xy: torch.Tensor,
+                  kp_vis: torch.Tensor, rois: torch.Tensor,
+                  roi_valid: torch.Tensor) -> torch.Tensor:
+    """Softmax cross entropy over the 3136 cells of each visible keypoint
+    of a valid ROI, averaged over them (loss.py:145-169;
+    keypoint_head.py:124-141 of the JAX package). logits (R, 17, 56, 56).
+    A library function: no trainer calls it."""
+    target, valid = keypoints_to_heatmap(kp_xy, kp_vis, rois)
+    valid = valid & roi_valid[:, None]
+    R = logits.shape[0]
+    flat = logits.reshape(R * NUM_KEYPOINTS, -1)
+    lse = torch.logsumexp(flat, -1)
+    picked = torch.take_along_dim(flat, target.reshape(-1, 1).long(),
+                                  dim=-1)[:, 0]
+    m = valid.reshape(-1).to(flat.dtype)
+    return torch.sum((lse - picked) * m) / torch.clamp(m.sum(), min=1.0)
 
 
 def init_keypoint_params(generator: torch.Generator,

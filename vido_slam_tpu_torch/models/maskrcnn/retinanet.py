@@ -51,6 +51,8 @@ INFERENCE_TH = 0.05
 NMS_TH = 0.4
 DETECTIONS = 100
 PRIOR_PROB = 0.01
+LOSS_ALPHA = 0.25
+LOSS_GAMMA = 2.0
 
 
 def retina_cell_anchors(level: int) -> np.ndarray:
@@ -168,6 +170,21 @@ def retinanet_inference(model: RetinaNet, image: torch.Tensor, input_h: int,
     kidx, kok = nms(boxes + off, scores, valid, NMS_TH, DETECTIONS)
     return RetinaNetOutput(boxes=boxes[kidx], scores=scores[kidx],
                            labels=labels[kidx], valid=kok)
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets_onehot: torch.Tensor,
+                       alpha: float = LOSS_ALPHA,
+                       gamma: float = LOSS_GAMMA) -> torch.Tensor:
+    """The element-wise sigmoid focal loss (retinanet/loss.py
+    SigmoidFocalLoss; retinanet.py:136-145 of the JAX package): the
+    numerically stable binary cross entropy, weighted by alpha_t and
+    (1 - p_t)^gamma. A library function: no trainer calls it."""
+    p = torch.sigmoid(logits)
+    ce = torch.clamp(logits, min=0) - logits * targets_onehot \
+        + torch.log1p(torch.exp(-logits.abs()))
+    p_t = p * targets_onehot + (1 - p) * (1 - targets_onehot)
+    a_t = alpha * targets_onehot + (1 - alpha) * (1 - targets_onehot)
+    return a_t * ((1 - p_t) ** gamma) * ce
 
 
 def init_retinanet_params(generator: torch.Generator,

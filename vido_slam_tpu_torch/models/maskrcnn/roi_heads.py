@@ -21,10 +21,9 @@ from typing import List, NamedTuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from vido_slam_tpu_torch.models.layers import (Conv2d, ConvTranspose2d,
-                                               Linear)
+                                               Linear, relu)
 from vido_slam_tpu_torch.ops.nms import (box_area, clip_boxes, decode_boxes,
                                          nms)
 from vido_slam_tpu_torch.ops.roi_align import roi_align_multilevel, true_div
@@ -98,7 +97,7 @@ def box_head_forward(head: BoxHead, feats: List[torch.Tensor],
     package transposes first, roi_heads.py:80)."""
     x = pooled_features(feats, rois, 7).flatten(1)
     fe, pr = head.feature_extractor, head.predictor
-    x = F.relu(fe.fc7(F.relu(fe.fc6(x))))
+    x = relu(fe.fc7(relu(fe.fc6(x))))
     return pr.cls_score(x), pr.bbox_pred(x).reshape(-1, NUM_CLASSES, 4)
 
 
@@ -147,8 +146,8 @@ def mask_head_forward(head: MaskHead, feats: List[torch.Tensor],
     x = pooled_features(feats, det.boxes, 14)
     fe, pr = head.feature_extractor, head.predictor
     for i in range(1, 5):
-        x = F.relu(getattr(fe, f"mask_fcn{i}")(x))
-    x = F.relu(pr.conv5_mask(x))
+        x = relu(getattr(fe, f"mask_fcn{i}")(x))
+    x = relu(pr.conv5_mask(x))
     probs = torch.sigmoid(pr.mask_fcn_logits(x))               # (D, 81, 28, 28)
     return probs[torch.arange(probs.shape[0], device=probs.device),
                  det.labels]

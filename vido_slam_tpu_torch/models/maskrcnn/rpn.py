@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vido_slam_tpu_torch.models.layers import Conv2d
+from vido_slam_tpu_torch.models.layers import Conv2d, relu
 from vido_slam_tpu_torch.ops.nms import (clip_boxes, decode_boxes, nms,
                                          remove_small_boxes)
 from vido_slam_tpu_torch.utils.order import top_k
@@ -87,7 +87,7 @@ class RPNHead(nn.Module):
         """One level (1, C, H, W) -> (objectness (H*W*A,), deltas
         (H*W*A, 4)) in the anchors' location-major order (rpn.py:75-81,
         107-108)."""
-        t = F.relu(self.conv(feat))
+        t = relu(self.conv(feat))
         logits = self.cls_logits(t)[0].permute(1, 2, 0).reshape(-1)
         deltas = self.bbox_pred(t)[0].permute(1, 2, 0).reshape(-1, 4)
         return logits, deltas
@@ -104,7 +104,7 @@ def rpn_head_concat(head: RPNHead, feats: List[torch.Tensor]):
     w_max = max(f.shape[3] for f in feats)
     fcat = torch.cat([F.pad(f, (0, w_max - f.shape[3], 0, 1))
                       for f in feats], dim=2)
-    t = F.relu(head.conv(fcat))
+    t = relu(head.conv(fcat))
     logits, deltas = head.cls_logits(t)[0], head.bbox_pred(t)[0]
     out, row = [], 0
     for f in feats:

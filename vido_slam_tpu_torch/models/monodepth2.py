@@ -15,8 +15,13 @@ mono_depth2/src/networks/{resnet_encoder.py,depth_decoder.py}, layers.py).
 the JAX parameter dict's: ``encoder.<torchvision key>`` for the encoder,
 ``decoder.<n>.conv.conv.*`` for the ten ConvBlocks and ``decoder.<10+s>.conv.*``
 for the dispconvs, so either loads with ``load_state_dict(strict=True)``
-(the JAX dict through ``convert.monodepth2_state_dict_from_numpy``). The
-pose networks serve only training and are not ported.
+(the JAX dict through ``convert.monodepth2_state_dict_from_numpy``).
+
+The pose networks of the self-supervised trainer (pose_decoder.py,
+pose_cnn.py; monodepth2.py:195-275 of the JAX package) are ``PoseDecoder``
+and ``PoseCNN``, keyed as the JAX dicts below their prefix (``convs.
+squeeze``, ``convs.pose.<i>``; ``convs.<i>``, ``pose_conv``); the same
+converter carries their parameters across.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vido_slam_tpu_torch.models.layers import BatchNorm2d, Conv2d, max_pool
+from vido_slam_tpu_torch.models.layers import (BatchNorm2d, Conv2d, max_pool,
+                                               relu)
 from vido_slam_tpu_torch.ops.warp import resize_bilinear
 from vido_slam_tpu_torch.utils.device import resolve_device
 
@@ -52,16 +58,20 @@ class BasicBlock(nn.Module):
                 Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
+        out = relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        return relu(out + identity)
 
 
 class ResNet18Encoder(nn.Module):
-    def __init__(self):
+    """The ResNet-18 trunk; ``num_input_images`` frames stacked on the
+    channels (2: the pose encoder, resnet_encoder.py's
+    ResNetMultiImageInput)."""
+
+    def __init__(self, num_input_images: int = 1):
         super().__init__()
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3 * num_input_images, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         for li in range(1, 5):
             cin, cout = NUM_CH_ENC[li - 1], NUM_CH_ENC[li]
@@ -70,11 +80,12 @@ class ResNet18Encoder(nn.Module):
                 BasicBlock(cin, cout, stride), BasicBlock(cout, cout, 1)))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x (N, 3, H, W) RGB in [0, 1] -> the five features, in the
+        """x (N, 3 * num_input_images, H, W) RGB in [0, 1] -> the five
+        features, in the
         parameters' dtype (the input cast to it first, as the JAX package
         casts the net's input)."""
         x = x.to(self.conv1.weight.dtype)
-        x = F.relu(self.bn1(self.conv1((x - 0.45) / 0.225)))
+        x = relu(self.bn1(self.conv1((x - 0.45) / 0.225)))
         feats = [x]
         x = max_pool(x, 3, 2, 1)
         for li in range(1, 5):
@@ -188,6 +199,103 @@ def disp_to_depth(disp: torch.Tensor, min_depth: float = 0.1,
     max_disp = 1.0 / min_depth
     scaled = min_disp + (max_disp - min_disp) * disp
     return scaled, 1.0 / scaled
+
+
+# ---------------------------------------------------------------------------
+# pose networks (the self-supervised trainer's)
+# ---------------------------------------------------------------------------
+
+class PoseDecoder(nn.Module):
+    """PoseDecoder (pose_decoder.py:14-54): each input's last feature
+    squeezed by a 1x1 conv and relu, concatenated, three convs, the mean
+    over the map -> 0.01-scaled (axisangle, translation), each
+    (N, num_frames, 1, 3)."""
+
+    def __init__(self, num_input_features: int = 1, num_frames: int = 1):
+        super().__init__()
+        self.num_frames = num_frames
+        self.convs = nn.Module()
+        self.convs.squeeze = Conv2d(NUM_CH_ENC[-1], 256, 1)
+        self.convs.pose = nn.ModuleList([
+            Conv2d(num_input_features * 256, 256, 3, 1, 1),
+            Conv2d(256, 256, 3, 1, 1), Conv2d(256, 6 * num_frames, 1)])
+
+    def forward(self, feats_last: List[torch.Tensor]):
+        out = torch.cat([relu(self.convs.squeeze(f)) for f in feats_last], 1)
+        for i, conv in enumerate(self.convs.pose):
+            out = conv(out)
+            if i != 2:
+                out = relu(out)
+        out = 0.01 * out.mean((2, 3)).reshape(-1, self.num_frames, 1, 6)
+        return out[..., :3], out[..., 3:]
+
+
+POSE_CNN_SPECS = [(7, 2, 3), (5, 2, 2)] + [(3, 2, 1)] * 5   # (k, stride, pad)
+POSE_CNN_CHANNELS = [16, 32, 64, 128, 256, 256, 256]
+
+
+class PoseCNN(nn.Module):
+    """PoseCNN (pose_cnn.py:14-50): seven strided convs with relu over the
+    frames stacked on the channels, a 1x1 pose conv, the mean over the map
+    -> 0.01-scaled (axisangle, translation), each
+    (N, num_input_frames - 1, 1, 3)."""
+
+    def __init__(self, num_input_frames: int = 2):
+        super().__init__()
+        self.num_input_frames = num_input_frames
+        chans = [3 * num_input_frames] + POSE_CNN_CHANNELS
+        self.convs = nn.ModuleList([
+            Conv2d(chans[i], chans[i + 1], k, s, pd)
+            for i, (k, s, pd) in enumerate(POSE_CNN_SPECS)])
+        self.pose_conv = Conv2d(256, 6 * (num_input_frames - 1), 1)
+
+    def forward(self, x: torch.Tensor):
+        for conv in self.convs:
+            x = relu(conv(x))
+        out = 0.01 * self.pose_conv(x).mean((2, 3)).reshape(
+            -1, self.num_input_frames - 1, 1, 6)
+        return out[..., :3], out[..., 3:]
+
+
+def init_pose_decoder_params(generator: torch.Generator,
+                             num_input_features: int = 1,
+                             num_frames: int = 1,
+                             prefix: str = "pose_decoder"
+                             ) -> Dict[str, torch.Tensor]:
+    """``PoseDecoder``'s parameters under ``prefix``, drawn from
+    ``generator`` as the JAX package's ``init_pose_decoder_params`` draws
+    them (not its numbers): weights N(0, 1/fan_in), zero biases."""
+    p: Dict[str, torch.Tensor] = {}
+
+    def add(name, cin, cout, k):
+        p[f"{prefix}.{name}.weight"] = torch.randn(
+            (cout, cin, k, k), generator=generator) / (cin * k * k) ** 0.5
+        p[f"{prefix}.{name}.bias"] = torch.zeros(cout)
+
+    add("convs.squeeze", NUM_CH_ENC[-1], 256, 1)
+    add("convs.pose.0", num_input_features * 256, 256, 3)
+    add("convs.pose.1", 256, 256, 3)
+    add("convs.pose.2", 256, 6 * num_frames, 1)
+    return p
+
+
+def init_pose_cnn_params(generator: torch.Generator,
+                         num_input_frames: int = 2, prefix: str = "pose_cnn"
+                         ) -> Dict[str, torch.Tensor]:
+    """``PoseCNN``'s parameters under ``prefix`` (weights N(0, 1/fan_in),
+    zero biases)."""
+    p: Dict[str, torch.Tensor] = {}
+    chans = [3 * num_input_frames] + POSE_CNN_CHANNELS
+
+    def add(name, cin, cout, k):
+        p[f"{prefix}.{name}.weight"] = torch.randn(
+            (cout, cin, k, k), generator=generator) / (cin * k * k) ** 0.5
+        p[f"{prefix}.{name}.bias"] = torch.zeros(cout)
+
+    for i, (k, _, _) in enumerate(POSE_CNN_SPECS):
+        add(f"convs.{i}", chans[i], chans[i + 1], k)
+    add("pose_conv", 256, 6 * (num_input_frames - 1), 1)
+    return p
 
 
 # ---------------------------------------------------------------------------

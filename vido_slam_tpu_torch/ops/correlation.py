@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from vido_slam_tpu_torch.utils import cuda_build
-from vido_slam_tpu_torch.utils.device import FLOAT_DTYPES, kernel_device
+from vido_slam_tpu_torch.utils.device import (FLOAT_DTYPES, kernel_device,
+                                              refuse_grad)
 
 RADIUS = 3   # displacements -3..3 in each direction: 49 taps
 TAPS = (2 * RADIUS + 1) ** 2
@@ -152,6 +153,7 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
     contiguous float32 or bfloat16 (both one dtype, the output's) on one
     device."""
     dev = kernel_device("correlation", (f1, f2), FLOAT_DTYPES)
+    refuse_grad("correlation", (f1, f2))
     if f1.ndim != 4 or f1.shape != f2.shape:
         raise ValueError(f"correlation: f1 {tuple(f1.shape)} and f2 "
                          f"{tuple(f2.shape)} must be one (N, C, H, W) shape")

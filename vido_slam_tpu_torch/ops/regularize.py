@@ -32,7 +32,8 @@ import torch
 
 from vido_slam_tpu_torch.models.layers import unfold_channels
 from vido_slam_tpu_torch.utils import cuda_build
-from vido_slam_tpu_torch.utils.device import FLOAT_DTYPES, kernel_device
+from vido_slam_tpu_torch.utils.device import (FLOAT_DTYPES, kernel_device,
+                                              refuse_grad)
 
 WINDOWS = (3, 5, 7)   # the kernel's window sides, LiteFlowNet's
 
@@ -118,6 +119,7 @@ def dist_weighted_flow(dc, flow, wx, bx, wy, by, k: int) -> torch.Tensor:
     dtype) on one device."""
     dev = kernel_device("dist_weighted_flow", (dc, flow, wx, bx, wy, by),
                         FLOAT_DTYPES)
+    refuse_grad("dist_weighted_flow", (dc, flow, wx, bx, wy, by))
     if k not in WINDOWS:
         raise ValueError(f"dist_weighted_flow: window {k} not in {WINDOWS}")
     if dc.ndim != 4 or dc.shape[1] != k * k:

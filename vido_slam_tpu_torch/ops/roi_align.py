@@ -24,7 +24,10 @@ both do.
 
 ``roi_align_multilevel`` runs the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel (its float32 or its bf16
-build) or raises.
+build) or raises. It is differentiable with respect to the features: on
+CUDA its backward launches the backward kernel ``csrc/roi_align_backward.cu``
+(float32; the JAX package differentiates its XLA ROIAlign instead), whose
+plain version is the autograd of ``roi_align_multilevel_ref``.
 """
 
 from __future__ import annotations
@@ -307,6 +310,23 @@ def nbytes(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     return size * (R * C * resolution * resolution + texels * C) + 20 * R
 
 
+def backward_nbytes(level_shapes: Sequence[tuple], R: int, C: int,
+                   resolution: int) -> int:
+    """Bytes the backward must move: grad_out (R, C, r, r) and the ROIs and
+    levels read once, each level's whole float32 gradient (C, H_l, W_l)
+    written once."""
+    texels = sum(h * w for h, w in level_shapes)
+    return 4 * (R * C * resolution * resolution + C * texels) + 20 * R
+
+
+def backward_operations(R: int, C: int, resolution: int,
+                        sampling_ratio: int = 2) -> int:
+    """float32 operations of the backward: per output element and sample
+    the four corner products and their adds (8), plus the row weight's
+    product (1)."""
+    return R * C * resolution * resolution * sampling_ratio ** 2 * 9
+
+
 _launch_fn = None
 _launch_bf16_fn = None
 
@@ -354,15 +374,10 @@ def _launch(feats, rois, levels, spatial_scales, resolution, sampling_ratio,
         return _launch_fn(*args, plan.smem_bytes, stream)
 
 
-def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
-                         levels: torch.Tensor, spatial_scales: Sequence[float],
-                         resolution: int = 7,
-                         sampling_ratio: int = 2) -> torch.Tensor:
-    """(R, C, r, r) ROIAlign of rois (R, 4) float32, each from level
-    ``levels[i]`` (an integer tensor (R,)) of the pyramid ``feats``, up to
-    four contiguous (1, C, H_l, W_l) levels on one device, all float32 or
-    all bfloat16 (the output's dtype; the ROIs stay float32, as in the JAX
-    package). The kernel takes sampling ratios 1 to MAX_RATIO."""
+def _check_args(feats, rois, levels, spatial_scales, resolution,
+                sampling_ratio) -> torch.device:
+    """The one device of a call's tensors, after checking the arguments as
+    both the kernel and its plain version take them."""
     dev = kernel_device("roi_align_multilevel", feats, FLOAT_DTYPES)
     if rois.device != dev:
         raise ValueError("roi_align_multilevel: all tensors must be on the "
@@ -394,26 +409,150 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
             or resolution * sampling_ratio > MAX_SAMPLES:
         raise ValueError(f"roi_align_multilevel: resolution x sampling_ratio "
                          f"must be in [1, {MAX_SAMPLES}]")
-    if dev.type == "cpu":
-        return roi_align_multilevel_ref(feats, rois, levels, spatial_scales,
-                                        resolution, sampling_ratio)
-    if sampling_ratio > MAX_RATIO:
+    if dev.type == "cuda" and sampling_ratio > MAX_RATIO:
         raise ValueError(f"roi_align_multilevel: the kernel takes sampling "
                          f"ratios 1 to {MAX_RATIO}, got {sampling_ratio}")
+    if rois.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("roi_align_multilevel: no gradient flows to the "
+                           "ROIs (the detector pools detached proposals); "
+                           "pass rois.detach()")
+    return dev
+
+
+def _forward(feats, rois, levels, spatial_scales, resolution,
+             sampling_ratio) -> torch.Tensor:
+    """One launch of kernel 5 (its float32 or bf16 build) on CUDA tensors;
+    ``levels`` int32 and contiguous."""
+    R, C = rois.shape[0], feats[0].shape[1]
     out = torch.empty((R, C, resolution, resolution), dtype=feats[0].dtype,
-                      device=dev)
+                      device=rois.device)
     if R == 0:
         return out
     plan = launch_plan_bf16(C, resolution) \
         if out.dtype == torch.bfloat16 else \
         launch_plan(R, C, resolution, sampling_ratio, level_sizes(feats))
-    rc = _launch(feats, rois, levels.to(torch.int32).contiguous(),
-                 spatial_scales, resolution, sampling_ratio, plan, out)
+    rc = _launch(feats, rois, levels, spatial_scales, resolution,
+                 sampling_ratio, plan, out)
     if rc != 0:
         raise RuntimeError(f"roi_align kernel launch failed: CUDA error {rc}")
     roi_align_multilevel.launches += 1
     return out
 
 
-# kernel launches since the last reset (the wrapper adds one per launch)
+_backward_fn = None
+
+
+def _launch_backward(grads, rois, levels, spatial_scales, resolution,
+                     sampling_ratio, grad_out) -> int:
+    """Launches the backward kernel (``csrc/roi_align_backward.cu``) on the
+    current stream, adding into the zeroed level gradients ``grads``
+    ((1, C, H_l, W_l) float32). Returns the launcher's CUDA error, 0 on
+    success."""
+    global _backward_fn
+    if _backward_fn is None:
+        lib = cuda_build.load("roi_align_backward")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn = lib.roi_align_backward_launch
+        fn.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I),
+                       ctypes.POINTER(I), ctypes.POINTER(ctypes.c_float), I,
+                       P, P, P, I, I, I, I, P]
+        fn.restype = ctypes.c_int
+        _backward_fn = fn
+    L = len(grads)
+    R, C = rois.shape[0], grads[0].shape[1]
+    dev = grad_out.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return _backward_fn(
+            (ctypes.c_void_p * L)(*(g.data_ptr() for g in grads)),
+            (ctypes.c_int * L)(*(g.shape[2] for g in grads)),
+            (ctypes.c_int * L)(*(g.shape[3] for g in grads)),
+            (ctypes.c_float * L)(*(float(x) for x in spatial_scales)), L,
+            rois.data_ptr(), levels.data_ptr(), grad_out.data_ptr(), R, C,
+            resolution, sampling_ratio, stream)
+
+
+def roi_align_multilevel_backward(grad_out: torch.Tensor,
+                                  level_shapes: Sequence[tuple],
+                                  rois: torch.Tensor, levels: torch.Tensor,
+                                  spatial_scales: Sequence[float],
+                                  resolution: int = 7,
+                                  sampling_ratio: int = 2) -> list:
+    """The gradient of the float32 ``roi_align_multilevel`` with respect to
+    each level: grad_out (R, C, r, r) -> one (1, C, H_l, W_l) tensor a
+    level of ``level_shapes`` ((H_l, W_l) pairs). One launch of the
+    backward kernel on CUDA tensors (``levels`` int32 and contiguous). The
+    CPU never reaches it: there ``roi_align_multilevel`` is the plain
+    version, which has its own autograd."""
+    if grad_out.device.type != "cuda":
+        raise ValueError("roi_align_multilevel_backward: the backward kernel "
+                         "takes CUDA tensors; on the CPU differentiate "
+                         "roi_align_multilevel's plain version")
+    C = grad_out.shape[1]
+    grads = [torch.zeros((1, C, h, w), device=grad_out.device)
+             for h, w in level_shapes]
+    if rois.shape[0] == 0:
+        return grads
+    rc = _launch_backward(grads, rois, levels, spatial_scales, resolution,
+                          sampling_ratio, grad_out.contiguous())
+    if rc != 0:
+        raise RuntimeError(f"roi_align backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    roi_align_multilevel_backward.launches += 1
+    return grads
+
+
+class _RoiAlignFunction(torch.autograd.Function):
+    """Kernel 5 with the backward kernel as its gradient (CUDA tensors
+    only); the ROIs and levels take no gradient."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, spatial_scales, resolution,
+                sampling_ratio, *feats):
+        ctx.save_for_backward(rois, levels)
+        ctx.meta = ([(f.shape[2], f.shape[3]) for f in feats],
+                    spatial_scales, resolution, sampling_ratio,
+                    feats[0].dtype)
+        return _forward(feats, rois, levels, spatial_scales, resolution,
+                        sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois, levels = ctx.saved_tensors
+        shapes, scales, r, s, dtype = ctx.meta
+        if dtype != torch.float32:
+            raise NotImplementedError(
+                "roi_align_multilevel: the bf16 build has no backward; "
+                "train in float32, as the JAX package does")
+        grads = roi_align_multilevel_backward(grad_out, shapes, rois, levels,
+                                              scales, r, s)
+        return (None, None, None, None, None, *grads)
+
+
+def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                         levels: torch.Tensor, spatial_scales: Sequence[float],
+                         resolution: int = 7,
+                         sampling_ratio: int = 2) -> torch.Tensor:
+    """(R, C, r, r) ROIAlign of rois (R, 4) float32, each from level
+    ``levels[i]`` (an integer tensor (R,)) of the pyramid ``feats``, up to
+    four contiguous (1, C, H_l, W_l) levels on one device, all float32 or
+    all bfloat16 (the output's dtype; the ROIs stay float32, as in the JAX
+    package). The kernel takes sampling ratios 1 to MAX_RATIO.
+
+    Differentiable with respect to the features: on the CPU through the
+    plain version's own autograd, on CUDA through the backward kernel
+    (float32 only; the bf16 build raises on a backward). The ROIs take no
+    gradient: a call with ``rois.requires_grad`` raises."""
+    dev = _check_args(feats, rois, levels, spatial_scales, resolution,
+                      sampling_ratio)
+    if dev.type == "cpu":
+        return roi_align_multilevel_ref(feats, rois, levels, spatial_scales,
+                                        resolution, sampling_ratio)
+    return _RoiAlignFunction.apply(
+        rois, levels.to(torch.int32).contiguous(), tuple(spatial_scales),
+        resolution, sampling_ratio, *feats)
+
+
+# kernel launches since the last reset (each wrapper adds one per launch)
 roi_align_multilevel.launches = 0
+roi_align_multilevel_backward.launches = 0

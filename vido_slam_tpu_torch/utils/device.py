@@ -26,6 +26,18 @@ def resolve_device(device=None) -> torch.device:
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def refuse_grad(what: str, tensors) -> None:
+    """Raises for CUDA tensors that ask for a gradient while autograd
+    records: the kernel has no backward (nor has its Pallas counterpart:
+    ``pallas_call`` has no VJP), and a result detached from the graph
+    would leave its inputs without a gradient. The plain versions on the
+    CPU keep their own autograd."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad and t.device.type == "cuda" for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward; call it "
+                           f"under torch.no_grad() or on detached tensors")
+
+
 def kernel_device(what: str, tensors,
                   dtypes=(torch.float32,)) -> torch.device:
     """The one device of a kernel wrapper's inputs, which must all be
