@@ -161,6 +161,31 @@ Phases, each of which fails the run by raising:
      ``make_selfsup_train_step`` at 640x192, batch 4 of three consecutive
      bench-clip frames, 5 Adam steps (finite losses, the first within 1e-4
      relative of the CPU's), then one supervised ``make_train_step``;
+     (o) the depth data pipeline and the single-device evaluation paths:
+     (o1) ``MonoSequenceDataset`` at 640x192 (seed 0) over the committed
+     KITTI frames (tests/data/jpeg/kitti, 1242x375 JPEG) and over the
+     bench clip written as 1280x384 PNGs (each pixel repeated), each
+     drawn as one epoch of batches of 4 onto the card: the batch count and
+     the jitter draws printed, the epoch's first batch built on the CPU
+     bit-equal to the card's, then three steps of (n4)'s self-supervised
+     trainer on the KITTI batches (finite losses, no kernel launched);
+     (o2) ``multi_sequence_tracking`` at the JAX defaults (n_bg 800, n_obj
+     500, ba_points 400, ba_iters 5) over two 24-frame sequences of the
+     offline scene (frames 0-23 and 21-44 of (f)'s) at 1280x560: kernel 1
+     twice a tracked frame a sequence (92) and nothing else, one frame's
+     calls held against the plain version, each sequence within 1e-5 of a
+     ``Tracker(seed=s, fused_ba=True)`` on the card and its ATE under 1 %
+     of its path; (o3) ``evaluate_sequences`` on 8 numpy-seeded window
+     problems at the tracker's size (W 20, P 1000): each within 1e-5 of
+     ``solve_window_ba`` alone, ATE under 0.01 m; (o4)
+     ``sharded_coco_evaluation`` of (d)'s R-50-FPN at 1088x800 (class 3's
+     bias at EVAL_LIFT, where no two scores tie) over 4 frames of the
+     driving clip (scaled to 0..1), the ground truth the same frames'
+     detections from the port on the CPU, pasted at 1280x560: kernel 5
+     twice an image (8) and nothing else, held against its plain version
+     on the first image's calls, bbox and segm mAP/AP50 printed, both
+     AP50s and ``detection_ap50`` at least 0.9. Each part prints its host-clock
+     seconds (ending in ``torch.cuda.synchronize``);
   5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
      call's arguments, its launches on (f) and (g), on (h1)-(h4), on
@@ -168,9 +193,10 @@ Phases, each of which fails the run by raising:
      launches, device ms, plain ms and bound in (j) beside the float32
      build's device ms on the same values; its launches in (m1)-(m4), and
      kernel 5's device ms, plain ms and bound at the FBNet and keypoint
-     shapes; its launches in (n1); kernel 5b's entry: its launches in
-     (n1), its device ms, plain ms and bound on a training step's
-     calls and at the inference shapes), then the device line.
+     shapes; its launches in (n1) and in (o1), (o2) and (o4); kernel 5b's
+     entry: its launches in (n1), its device ms, plain ms and bound on a
+     training step's calls and at the inference shapes), then the device
+     line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -820,12 +846,12 @@ def mask_inputs(dev):
     return clip, model
 
 
-def lifted(model):
-    """``model`` with class 3's score bias at MASK_LIFT."""
+def lifted(model, lift=MASK_LIFT):
+    """``model`` with class 3's score bias at ``lift``."""
     import torch
 
     with torch.no_grad():
-        model.roi_heads.box.predictor.cls_score.bias[3] = MASK_LIFT
+        model.roi_heads.box.predictor.cls_score.bias[3] = lift
     return model
 
 
@@ -3714,6 +3740,353 @@ def run_phase_l(seq, counters, names, ref, dev="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase (o): the depth data pipeline and the single-device evaluation paths
+# ---------------------------------------------------------------------------
+
+MONO_SIZE = (192, 640)   # (height, width): MonoDepth2's training input
+MONO_BATCH = 4
+MONO_STEPS = 3
+# the JAX defaults of multi_sequence_tracking (parallel/slam_eval.py:143)
+MULTI_KW = dict(n_bg=800, n_obj=500, max_objects=4, ba_points=400,
+                ba_iters=5)
+WINDOW_PROBLEMS = 8
+WINDOW_SHAPE = (20, 1000)   # (W, P): the tracker's window and BA points
+EVAL_FRAMES = 4
+# (o4)'s class 3 bias: scores of 0.97-0.98, none equal. At MASK_LIFT every
+# score is exactly 1.0, so the box head's NMS keeps boxes in proposal order,
+# and ulps in the RPN's scores reorder it: on the CPU alone a 1e-6 relative
+# change of the input takes AP50 against the unchanged run to 0.88, and
+# to 1.0 at this lift
+EVAL_LIFT = 8.0
+
+
+def host_timed(fn, dev="cuda"):
+    """(fn(), host seconds), ending in torch.cuda.synchronize on a card."""
+    import torch
+
+    card = torch.device(dev).type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if card:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_batch(a, b) -> bool:
+    """Every field of two SelfSupBatches equal to the bit (None alike)."""
+    import torch
+
+    return all(x is y if x is None or y is None
+               else torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def run_depth_pipeline(dev, counters, names, tmp, mono_size=MONO_SIZE):
+    """(o1): one epoch of MonoSequenceDataset batches over the KITTI JPEGs
+    and over the bench clip as PNGs, on ``dev``, the first batch again on
+    the CPU; then MONO_STEPS self-supervised steps on the KITTI batches.
+    Returns the launches of the steps."""
+    import torch
+    from vido_slam_tpu_torch.data import mono_dataset
+    from vido_slam_tpu_torch.models.monodepth2_train import (
+        SelfSupModel, make_selfsup_train_step)
+    from vido_slam_tpu_torch.utils import prng
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    clip = np.load(os.path.join(root, ONLINE_CLIP))["clip"]
+    png_dir = os.path.join(tmp, "clip_png")
+    os.makedirs(png_dir)
+    for k, frame in enumerate(clip):
+        write_png(os.path.join(png_dir, f"{k:06d}.png"),
+                  np.repeat(np.repeat(frame, 2, 0), 2, 1), level=1)
+    sources = {
+        "KITTI JPEG 1242x375": os.path.join(root, JPEG_FIXTURES, "kitti"),
+        "bench clip PNG 1280x384": png_dir}
+    draws = []
+    sample = mono_dataset.sample_jitter_params
+
+    def recorded(rng):
+        draws.append(sample(rng))
+        return draws[-1]
+    mono_dataset.sample_jitter_params = recorded
+    batches = {}
+    try:
+        for name, path in sources.items():
+            draws.clear()
+            ds = mono_dataset.MonoSequenceDataset(path, *mono_size, seed=0)
+            got, secs = host_timed(
+                lambda: list(ds.epoch_batches(MONO_BATCH, device=dev)), dev)
+            n_draws = len(draws)
+            first_cpu = next(mono_dataset.MonoSequenceDataset(
+                path, *mono_size, seed=0).epoch_batches(MONO_BATCH,
+                                                        device="cpu"))
+            b = got[0]
+            check(len(got) == len(ds) // MONO_BATCH
+                  and tuple(b.color.shape) == (MONO_BATCH, 3) + mono_size
+                  and b.color.device.type == torch.device(dev).type
+                  and all(bool(((x >= 0) & (x <= 1)).all())
+                          for x in (b.color, b.color_aug)),
+                  (f"(o1) {name}: {len(got)} batches of "
+                   f"{tuple(b.color.shape)} on {b.color.device}"))
+            check(same_batch(b, first_cpu),
+                  f"(o1) {name}: the CPU's first batch differs from the "
+                  f"card's")
+            text = ", ".join("(%.4f, %.4f, %.4f, %+.4f)" % d
+                             for d in draws[:n_draws])
+            print(f"(o1) {name}: {len(ds)} triplets, {len(got)} batches of "
+                  f"{MONO_BATCH} at {mono_size[1]}x{mono_size[0]} on "
+                  f"{b.color.device} in {secs:.3f} s "
+                  f"({1e3 * secs / len(got):.1f} ms a batch, host numpy), "
+                  f"{n_draws} jittered items, draws (b, c, s, h) [{text}]; "
+                  f"the first batch built on the CPU bit-equal")
+            batches[name] = got
+    finally:
+        mono_dataset.sample_jitter_params = sample
+    model = SelfSupModel(seed=0, device=dev)
+    step = make_selfsup_train_step(model, lr=1e-4)
+    key = prng.PRNGKey(0, device=dev)
+    kitti = batches["KITTI JPEG 1242x375"]
+
+    def train():
+        return [float(step(b, key if i == 0 else prng.fold_in(key, i)))
+                for i, b in enumerate(kitti[:MONO_STEPS])]
+    (losses, secs), launches = launches_of(
+        counters, lambda: host_timed(train, dev))
+    check(launches == [0] * len(counters)
+          and all(math.isfinite(x) for x in losses),
+          f"(o1) self-supervised steps: losses {losses}, {names} launched "
+          f"{launches} times")
+    print(f"(o1) MonoDepth2 self-supervised trainer, {MONO_STEPS} steps on "
+          f"the KITTI batches: losses {[round(x, 6) for x in losses]}, "
+          f"launches {launches}, {secs:.3f} s")
+    return launches
+
+
+def run_multi_sequence(seq, counters, names, n_frames=N_FRAMES,
+                       dev="cuda", kw=MULTI_KW):
+    """(o2): multi_sequence_tracking over two n_frames sequences of the
+    offline scene (its first and its last n_frames frames) on ``dev``.
+    Returns (launches, kernel 1's max error on one frame's calls)."""
+    import torch
+    from vido_slam_tpu_torch.config import config_from_dict
+    from vido_slam_tpu_torch.estimation import pose
+    from vido_slam_tpu_torch.metrics import ate_rmse, camera_centers
+    from vido_slam_tpu_torch.parallel.slam_eval import multi_sequence_tracking
+    from vido_slam_tpu_torch.tracking import Tracker
+
+    cfg = config_from_dict(OFFLINE_CONFIG)
+    starts = (0, len(seq.frames) - n_frames)
+    seqs = [seq.frames[s:s + n_frames] for s in starts]
+
+    def stacked(field, dtype):
+        return torch.stack([torch.stack([torch.as_tensor(getattr(f, field),
+                                                         device=dev)
+                                         for f in fr]) for fr in seqs]
+                           ).to(dtype)
+    depths, flows = stacked("depth", torch.float32), stacked("flow",
+                                                             torch.float32)
+    masks = stacked("mask", torch.int32)
+    recorder = KernelArgs(pose.pose_lm_batched)
+    pose.pose_lm_batched = recorder
+    try:
+        (res, secs), launches = launches_of(counters, lambda: host_timed(
+            lambda: multi_sequence_tracking(cfg, depths, flows, masks,
+                                            **kw, device=dev), dev))
+    finally:
+        pose.pose_lm_batched = recorder.wrapper
+    S, T = len(seqs), n_frames
+    expect = [2 * S * (T - 1), 0, 0, 0, 0]
+    check(launches == expect,
+          f"(o2) multi_sequence_tracking: {names} launched {launches} "
+          f"times, not {expect}")
+    err = 0.0
+    if torch.device(dev).type == "cuda":
+        calls, k = recorder.frame_calls()
+        err = check_pose_lm(
+            [(f"(o2) call pair {k} {what}", args, kw_, True)
+             for what, (args, kw_) in zip(("camera", "objects"), calls)],
+            seq.scene.cam)
+    tracker_kw = dict(n_bg=kw["n_bg"], n_obj=kw["n_obj"],
+                      max_objects=kw["max_objects"], local_ba=True,
+                      fused_ba=True, ba_max_points=kw["ba_points"],
+                      ba_iters=kw["ba_iters"])
+    report = []
+    for s, frames in enumerate(seqs):
+        tracker = Tracker(cfg, seed=s, device=dev, **tracker_kw)
+        poses = np.stack([np.asarray(tracker.track(f.depth, f.flow, f.mask))
+                          for f in frames])
+        tracker.finish()
+        est = res.Tcw[s].cpu().numpy()
+        diff = float(np.abs(est - poses).max())
+        gt = np.stack([f.Tcw_gt for f in frames]).astype(np.float64)
+        gt = gt @ np.linalg.inv(gt[0])
+        ate = ate_rmse(est, gt, align=False)
+        c = camera_centers(gt)
+        path = float(np.linalg.norm(np.diff(c, axis=0), axis=1).sum())
+        check(np.isfinite(est).all() and diff <= 1e-5 and ate < 0.01 * path,
+              f"(o2) sequence {s}: {diff} from its Tracker, ATE {ate} m over "
+              f"{path} m")
+        report.append(f"sequence {s} (frames {starts[s]}-"
+                      f"{starts[s] + T - 1}): ATE {ate:.4f} m over "
+                      f"{path:.2f} m ({100 * ate / path:.3f} %), "
+                      f"{diff:.2e} from Tracker(seed={s}), inliers at the "
+                      f"last frame {int(res.n_inliers[s, -1])}")
+    print(f"(o2) multi_sequence_tracking S={S} T={T} at "
+          f"{seq.scene.cam.width}x{seq.scene.cam.height} ({kw}): launches "
+          f"{launches}, {secs:.3f} s ({1e3 * secs / (S * (T - 1)):.2f} ms "
+          f"a tracked frame); " + "; ".join(report))
+    return launches, err
+
+
+def window_problems(rng, S, W, P, noise=0.005):
+    """S consistent window problems laid out as tests/test_parallel.py's
+    ``make_problem`` lays them: forward motion of (0.05, 0, 0.4) m and 0.02
+    rad of yaw a frame, P points 8-16 m ahead, camera-frame observations
+    with ``noise`` m of noise, the poses after the first perturbed by
+    N(0, 0.01^2) twists and the points by 0.02 m, all numpy-seeded.
+    Returns the BatchedWindowProblem fields and the true poses, on the
+    CPU."""
+    import torch
+    from vido_slam_tpu_torch.geometry.se3 import (exp_se3, inverse_se3,
+                                                  make_se3)
+    from vido_slam_tpu_torch.geometry.so3 import exp_so3
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32))
+    step = make_se3(exp_so3(t([0.0, 0.02, 0.0])), t([0.05, 0.0, 0.4]))
+    fields = {k: [] for k in ("Twc0", "odom", "odom_valid", "X0", "obs",
+                              "obs_valid", "point_valid", "frame_valid")}
+    gts = []
+    for _ in range(S):
+        Twc = [torch.eye(4)]
+        for _ in range(W - 1):
+            Twc.append(Twc[-1] @ step)
+        Twc = torch.stack(Twc)
+        X = t(rng.uniform(-4, 4, (P, 3)) + [0.0, 0.0, 12.0])
+        Tcw = inverse_se3(Twc)
+        obs = torch.einsum("wij,pj->wpi", Tcw[:, :3, :3], X) \
+            + Tcw[:, None, :3, 3] + t(rng.normal(0, noise, (W, P, 3)))
+        Twc0 = Twc @ exp_se3(t(rng.normal(0, 0.01, (W, 6))))
+        Twc0[0] = Twc[0]
+        fields["Twc0"].append(Twc0)
+        fields["odom"].append(inverse_se3(Twc[:-1]) @ Twc[1:])
+        fields["odom_valid"].append(torch.ones(W - 1, dtype=torch.bool))
+        fields["X0"].append(X + t(rng.normal(0, 0.02, (P, 3))))
+        fields["obs"].append(obs)
+        fields["obs_valid"].append(torch.ones(W, P, dtype=torch.bool))
+        fields["point_valid"].append(torch.ones(P, dtype=torch.bool))
+        fields["frame_valid"].append(torch.ones(W, dtype=torch.bool))
+        gts.append(Twc)
+    return ({k: torch.stack(v) for k, v in fields.items()},
+            torch.stack(gts))
+
+
+def run_window_evaluation(dev="cuda", S=WINDOW_PROBLEMS, shape=WINDOW_SHAPE):
+    """(o3): evaluate_sequences on S window problems on ``dev``, each held
+    against solve_window_ba alone."""
+    from vido_slam_tpu_torch.estimation.window_ba import solve_window_ba
+    from vido_slam_tpu_torch.parallel.eval import (BatchedWindowProblem,
+                                                   evaluate_sequences)
+
+    fields, gt = window_problems(np.random.RandomState(16), S, *shape)
+    probs = BatchedWindowProblem(**{k: v.to(dev) for k, v in fields.items()})
+    (res, ate), secs = host_timed(
+        lambda: evaluate_sequences(probs, gt.to(dev), device=dev), dev)
+    diff = 0.0
+    for s in range(S):
+        ref = solve_window_ba(*(x[s] for x in probs), max_iters=15)
+        diff = max(diff, float((res.Twc[s] - ref.Twc).abs().max()),
+                   float((res.points[s] - ref.points).abs().max()))
+    ate = ate.cpu().numpy()
+    check(diff <= 1e-5 and bool((ate < 0.01).all()),
+          f"(o3) evaluate_sequences: {diff} from solve_window_ba, ATE {ate}")
+    print(f"(o3) evaluate_sequences: {S} problems W={shape[0]} "
+          f"P={shape[1]}, ATE {np.round(ate, 6).tolist()} m, iterations "
+          f"{res.num_iters.tolist()}, {diff:.2e} from solve_window_ba alone; "
+          f"{secs:.3f} s")
+
+
+def run_coco_evaluation(dev, counters, names, n_frames=EVAL_FRAMES):
+    """(o4): sharded_coco_evaluation of (d)'s detector over n_frames clip
+    frames on ``dev``, the ground truth the port's CPU detections. Returns
+    (launches, kernel 5's max error on the first image's calls)."""
+    import torch
+    from vido_slam_tpu_torch.models.maskrcnn import roi_heads
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           RESNET50_FPN)
+    from vido_slam_tpu_torch.parallel import eval as peval
+
+    clip, model = mask_inputs(dev)
+    model = lifted(model, EVAL_LIFT)
+    h, w = model.cfg.input_h, model.cfg.input_w
+    # 0..1 frames, as the parity tests feed the random detector: on raw
+    # 0..255 frames it saturates and most of its boxes collapse to no area,
+    # which no IoU can match
+    images = torch.cat([frame_at(clip[k], h, w, 1.0 / 255.0)
+                        for k in range(n_frames)])
+    out_hw = tuple(clip.shape[1:3])
+    cpu_model = lifted(MaskRCNN(RESNET50_FPN, seed=0, device="cpu"),
+                       EVAL_LIFT)
+    cpu_out, cpu_secs = host_timed(lambda: peval.sharded_detection_inference(
+        cpu_model, images.cpu(), device="cpu"), "cpu")
+    del cpu_model
+    gts = [{k: p[k] for k in ("boxes", "labels", "masks")} for p in
+           peval.predictions_from_output(cpu_out, (h, w), out_hw)]
+    recorder = KernelArgs(roi_heads.roi_align_multilevel, 6)
+    roi_heads.roi_align_multilevel = recorder
+    try:
+        (scores, secs), launches = launches_of(counters, lambda: host_timed(
+            lambda: peval.sharded_coco_evaluation(model, images, gts,
+                                                  out_hw=out_hw,
+                                                  device=dev), dev))
+    finally:
+        roi_heads.roi_align_multilevel = recorder.wrapper
+    expect = [0, 0, 0, 0, 2 * n_frames]
+    check(launches == expect,
+          f"(o4) sharded_coco_evaluation: {names} launched {launches} times,"
+          f" not {expect}")
+    err = 0.0
+    if torch.device(dev).type == "cuda":
+        err = check_roi_align([(f"(o4) image 1 {what}", args) for what,
+                               (args, _) in zip(("box head", "mask head"),
+                                                recorder.calls[:2])])
+    out, infer_secs = host_timed(lambda: peval.sharded_detection_inference(
+        model, images, device=dev), dev)
+    ap50 = peval.detection_ap50(out.boxes, out.scores, out.valid,
+                                cpu_out.boxes, cpu_out.valid)
+    b, m = scores["bbox"], scores["segm"]
+    check(min(b["AP50"], m["AP50"], ap50) >= 0.9,
+          f"(o4) card against CPU: bbox AP50 {b['AP50']}, segm AP50 "
+          f"{m['AP50']}, detection_ap50 {ap50}")
+    n_valid = cpu_out.valid.sum(1).tolist()
+    print(f"(o4) sharded_coco_evaluation: R-50-FPN {w}x{h} over {n_frames} "
+          f"clip frames pasted at {out_hw[1]}x{out_hw[0]}, ground truth the "
+          f"CPU's detections ({n_valid} a frame, {cpu_secs:.2f} s on the "
+          f"CPU): bbox mAP {b['mAP']:.4f} AP50 {b['AP50']:.4f}, segm mAP "
+          f"{m['mAP']:.4f} AP50 {m['AP50']:.4f}, detection_ap50 {ap50:.4f}; "
+          f"launches {launches}; {secs:.3f} s with the paste and the "
+          f"scoring, inference alone {1e3 * infer_secs / n_frames:.1f} ms "
+          f"an image")
+    return launches, err
+
+
+def run_phase_o(dev, counters, names, seq):
+    """Phase (o). Returns each part's launches ({part: launches}) and the
+    max errors of kernels 1 and 5 held there."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        depth_launches = run_depth_pipeline(dev, counters, names, tmp)
+    multi_launches, err_lm = run_multi_sequence(seq, counters, names)
+    run_window_evaluation()
+    coco_launches, err_roi = run_coco_evaluation(dev, counters, names)
+    print(f"phase (o): {time.perf_counter() - t0:.1f} s; card "
+          f"{card_line()}")
+    return ({"o1": depth_launches, "o2": multi_launches,
+             "o4": coco_launches}, err_lm, err_roi)
+
+
 def main() -> int:
     import torch
 
@@ -4013,12 +4386,16 @@ def main() -> int:
         run_phase_n(dev, counters_n, [c.__name__ for c in counters_n])
     err_roi = max(err_roi, err_train)
 
+    # (o) the depth data pipeline and the single-device evaluation paths
+    eval_launches, err_lm_o, err_roi_o = run_phase_o(dev, counters, names,
+                                                     seq)
+
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
     calls, k = recorder.frame_calls()
     frame = [(f"main path frame {k} {what}", args, kw, True)
              for what, (args, kw) in zip(("camera", "objects"), calls)]
-    err_lm = max(err_lm, check_pose_lm(frame, cam))
+    err_lm = max(err_lm, err_lm_o, check_pose_lm(frame, cam))
     timing_lm = time_pose_lm(frame, cam)
     recorder, launches_fj = runs["flow_joint_batched"]
     calls, k = recorder.frame_calls()
@@ -4151,6 +4528,12 @@ def main() -> int:
                           f"{shape}_bound_ms": t[2],
                           f"{shape}_bound_by": t[3]})
         e["training_launches"] = train_launches[i]
+        # phase (o): (o1) the depth trainer on the dataset's batches, (o2)
+        # multi_sequence_tracking, (o4) sharded_coco_evaluation
+        e["evaluation_launches"] = {part: n[i] for part, n in
+                                    eval_launches.items()}
+        if e["name"] == "roi_align_multilevel":
+            e["max_abs_err"] = max(e["max_abs_err"], err_roi_o)
         if e["name"] == "roi_align_multilevel":
             e.update(training_step_ms=train_fwd[0],
                      training_step_bound_ms=train_fwd[2])

@@ -1189,3 +1189,74 @@ def test_kernels_without_backward_refuse_a_gradient():
         lm_kernel.pose_lm_batched(*grad_args, cam)
         flow_joint_kernel.flow_joint_batched(*jgrad, cam2)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase (o): kernel 1 under multi_sequence_tracking and kernel
+# 5 under sharded_detection_inference
+# ---------------------------------------------------------------------------
+
+def test_multi_sequence_tracking_launches_kernel_1(monkeypatch):
+    """Two 6-frame sequences of the offline scene at 1280x560 at the JAX
+    defaults: kernel 1 twice a tracked frame a sequence, never its plain
+    version, and one frame's calls held against the plain version."""
+    _need_card()
+    from vido_slam_tpu_torch.config import config_from_dict
+    from vido_slam_tpu_torch.estimation import pose
+    from vido_slam_tpu_torch.parallel.slam_eval import multi_sequence_tracking
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    seq = chip_smoke.offline_sequence(9, "cuda")
+    frames = [seq.frames[:6], seq.frames[3:9]]
+
+    def stacked(field):
+        return torch.stack([torch.stack([torch.as_tensor(getattr(f, field))
+                                         for f in fr]) for fr in frames])
+    rec = _recording(monkeypatch, pose, "pose_lm_batched")
+    monkeypatch.setattr(lm_kernel, "pose_lm_batched_ref", refuse)
+    before = lm_kernel.pose_lm_batched.launches
+    res = multi_sequence_tracking(
+        config_from_dict(chip_smoke.OFFLINE_CONFIG), stacked("depth"),
+        stacked("flow"), stacked("mask").to(torch.int32),
+        **chip_smoke.MULTI_KW, device="cuda")
+    torch.cuda.synchronize()
+    assert lm_kernel.pose_lm_batched.launches == before + 2 * 2 * 5
+    assert res.Tcw.is_cuda and bool(torch.isfinite(res.Tcw).all())
+    monkeypatch.undo()
+    (cam_args, cam_kw), (obj_args, obj_kw) = rec.calls[2:4]
+    for args, kw in ((cam_args, cam_kw), (obj_args, obj_kw)):
+        got = lm_kernel.pose_lm_batched(*args, seq.scene.cam, **kw)
+        ref = lm_kernel.pose_lm_batched_ref(*args, seq.scene.cam, **kw)
+        _hold_pose_lm(got, ref, args[4])
+
+
+def test_detection_inference_launches_kernel_5(monkeypatch):
+    """``sharded_detection_inference`` of the R-50-FPN (class 3 lifted) at
+    320x256 on two 0..1 frames: kernel 5 twice an image, each call held
+    against the plain version; the outputs stacked with a leading 2."""
+    _need_card()
+    from vido_slam_tpu_torch.models.maskrcnn import roi_heads
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           MaskRCNNConfig)
+    from vido_slam_tpu_torch.parallel.eval import sharded_detection_inference
+
+    model = chip_smoke.lifted(MaskRCNN(MaskRCNNConfig(input_h=320,
+                                                      input_w=256),
+                                       seed=0, device="cuda"))
+    rec = chip_smoke.KernelArgs(roi_heads.roi_align_multilevel, 6)
+    monkeypatch.setattr(roi_heads, "roi_align_multilevel", rec)
+    images = torch.rand(2, 3, 320, 256, generator=torch.Generator()
+                        .manual_seed(3)).cuda()
+    before = roi_align.roi_align_multilevel.launches
+    out = sharded_detection_inference(model, images, device="cuda")
+    torch.cuda.synchronize()
+    assert roi_align.roi_align_multilevel.launches == before + 4
+    assert tuple(out.boxes.shape) == (2, 100, 4) and out.valid.any()
+    for args, _ in rec.calls:
+        got = roi_align.roi_align_multilevel(*args)
+        ref = roi_align.roi_align_multilevel_ref(*args)
+        torch.cuda.synchronize()
+        scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
+        assert float((got - ref).abs().max()) <= 1e-5 * scale

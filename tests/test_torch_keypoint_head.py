@@ -163,3 +163,37 @@ def test_planted_maximum_and_ties_take_the_first_cell():
     assert got.logits.eq(10.0).all()
     np.testing.assert_allclose(got.probs.numpy(), np.asarray(want.probs),
                                atol=1e-6, rtol=0)
+
+
+def test_head_gradient_on_an_all_zero_roi_matches_jax_grad():
+    """The head's parameter gradients where every pooled value is 0 (zero
+    features, zero conv biases): each relu meets an exact 0, where JAX's
+    ``jnp.maximum(x, 0)`` passes half the gradient. Every key within 1e-4
+    of its max |g|."""
+    p = jk.init_keypoint_params(jax.random.PRNGKey(1))
+    p = {k: np.array(v) for k, v in p.items()}
+    for k in p:
+        if "conv_fcn" in k and k.endswith("bias"):
+            p[k][:] = 0.0
+    feats = [np.zeros((H // s, W // s, 256), np.float32)
+             for s in (4, 8, 16, 32)]
+    boxes = np.asarray([[10.0, 12.0, 60.0, 70.0], [40.0, 30.0, 150.0, 120.0]],
+                       np.float32)
+    wts = np.random.RandomState(6).uniform(-1, 1, (2, 56, 56, 17)).astype(
+        np.float32)
+    want = jax.jit(jax.grad(lambda q: jnp.sum(jk.keypoint_head_forward(
+        q, [jnp.asarray(f) for f in feats], jnp.asarray(boxes)) * wts)))(
+        {k: jnp.asarray(v) for k, v in p.items()})
+    head = port_head(p)
+    out = tk.keypoint_head_logits(head, [nchw(f[None]) for f in feats],
+                                  torch.from_numpy(boxes))
+    (out * nchw(wts)).sum().backward()
+    got = convert.convert_state_dict(
+        {PREFIX + k: v.grad for k, v in head.named_parameters()})
+    assert set(got) == set(want)
+    assert np.abs(np.asarray(
+        want[PREFIX + "feature_extractor.conv_fcn1.bias"])).max() > 0
+    for k, g in got.items():
+        w = np.asarray(want[k])
+        err = float(np.abs(g - w).max())
+        assert err <= 1e-4 * float(np.abs(w).max()) or err == 0.0, (k, err)

@@ -42,10 +42,12 @@ need = {"vido_slam_tpu_torch." + m
                   "system", "tracking", "utils.transfer",
                   "models.maskrcnn.losses", "models.monodepth2_train",
                   "parallel.train", "data.coco", "data.samplers",
-                  "train_maskrcnn", "utils.prng")}
+                  "train_maskrcnn", "utils.prng", "data.image_ops",
+                  "data.mono_dataset", "data.kitti_utils", "data.coco_eval",
+                  "parallel.eval", "parallel.slam_eval")}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 78 else 0)
+sys.exit(1 if bad or missing or len(names) < 84 else 0)
 """
 
 

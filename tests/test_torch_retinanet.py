@@ -116,3 +116,23 @@ def test_entry_points_take_the_card_unless_asked():
                  lambda: init_dcn_offsets((1, 18, 4, 4))):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
+
+
+def test_sigmoid_focal_loss_gradient_at_zero_matches_jax_grad():
+    """The focal loss's gradient where a logit is exactly 0, for targets 1
+    and 0, and at random logits: JAX's ``jnp.maximum(x, 0)`` splits the
+    tie (gradient 1/2), so the port's must too. Within 1e-6."""
+    rng = np.random.RandomState(5)
+    logits = rng.normal(0, 3, (64, 80)).astype(np.float32)
+    logits[:, :8] = 0.0
+    onehot = (rng.uniform(0, 1, (64, 80)) > 0.8).astype(np.float32)
+    onehot[0, :4] = 1.0
+    onehot[0, 4:8] = 0.0
+    weights = rng.uniform(0.5, 1.5, (64, 80)).astype(np.float32)
+    want = jax.grad(lambda x: jnp.sum(jr.sigmoid_focal_loss(
+        x, jnp.asarray(onehot)) * weights))(jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_(True)
+    (tr.sigmoid_focal_loss(x, torch.from_numpy(onehot))
+     * torch.from_numpy(weights)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=0)

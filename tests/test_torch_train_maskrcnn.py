@@ -357,3 +357,32 @@ def test_keypoint_targets_and_loss_match_jax():
                            torch.from_numpy(vis), torch.from_numpy(rois),
                            torch.from_numpy(roi_valid))
     close(got, want, 1e-6)
+
+
+def test_keypoint_targets_of_integer_keypoints_in_integer_boxes_equal_jax():
+    """Integer keypoints in integer boxes of every width 1-399: a cell is
+    floor((kp - x0) * 56 / w), so one rounding more than JAX's (the
+    reciprocal times 56) moves a keypoint into the next cell at some
+    widths. The targets must equal JAX's cell for cell."""
+    from vido_slam_tpu.models.maskrcnn import keypoint_head as jk
+    from vido_slam_tpu_torch.models.maskrcnn import keypoint_head as tk
+    rng = np.random.RandomState(4)
+    R = 399
+    w = np.arange(1, R + 1)
+    h = rng.randint(1, 400, R)
+    x0 = rng.randint(0, 300, R)
+    y0 = rng.randint(0, 300, R)
+    rois = np.stack([x0, y0, x0 + w, y0 + h], 1).astype(np.float32)
+    kp = np.stack([
+        x0[:, None] + np.floor(rng.uniform(0, 1, (R, 17)) * (w[:, None] + 1)),
+        y0[:, None] + np.floor(rng.uniform(0, 1, (R, 17)) * (h[:, None] + 1)),
+    ], -1).astype(np.float32)
+    vis = rng.uniform(0, 1, (R, 17)) > 0.1
+    jt_, jv = jk.keypoints_to_heatmap(jnp.asarray(kp), jnp.asarray(vis),
+                                      jnp.asarray(rois))
+    tt_, tv = tk.keypoints_to_heatmap(torch.from_numpy(kp),
+                                      torch.from_numpy(vis),
+                                      torch.from_numpy(rois))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tt_.numpy(), np.asarray(jt_))
+    assert np.asarray(jv).sum() > 0.8 * R * 17

@@ -9,9 +9,10 @@ the IMU preintegration and the staged inertial init), FAST features, the
 perception graph (MonoDepth2, LiteFlowNet, Mask R-CNN as
 ``PerceptionModel``) and the online path ``System.TrackFrames`` ->
 ``Tracker.track_frames``, the offline demo from files (``run_vido``, the
-dataset readers without cv2, the KITTI StopFrame full batch), and weights
+dataset readers without cv2, the KITTI StopFrame full batch), weights
 and sessions in and out (``.npz`` bundles, ``from_pretrained``, the
-Detectron caffe2 loader, session resume). All five TPU kernels are
+Detectron caffe2 loader, session resume), training, the depth data
+pipeline and the single-device evaluation paths. All five TPU kernels are
 rewritten as CUDA kernels in ``csrc/``: the batched pose LM, the joint
 flow + pose solve, LiteFlowNet's cost volume and its regularization tail,
 and the FPN multilevel ROIAlign.
@@ -33,6 +34,13 @@ and the FPN multilevel ROIAlign.
 - ``utils``      : threefry PRNG bit-equal to ``jax.random``, stable order
                    helpers, device choice, the kernel and host builds,
                    checkpoints and sessions.
+- ``data``       : the COCO detection dataset and samplers, the depth
+                   data pipeline (``MonoSequenceDataset``; PIL's LANCZOS
+                   and matplotlib's HSV in ``image_ops``), the KITTI
+                   velodyne ground truth and the COCO evaluation.
+- ``parallel``   : the trainers' steps and loops, and the evaluation paths
+                   on one device (batched window BAs, detection inference
+                   and COCO scoring, multi-sequence tracking).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -11,12 +11,12 @@ Reference semantics kept:
   - xywh -> xyxy box conversion (BoxList(mode="xywh").convert("xyxy"):
     x2 = x + max(w - 1, 0)).
 
-Images are read by the port's ``io/datasets.py::imread`` (8-bit PNG and
-baseline JPEG, as cv2 reads them, turned from BGR to RGB) where the JAX
-package uses PIL, and ``.npy`` images are loaded as they are. ``imread``
-refuses progressive, arithmetic, lossless and 12-bit JPEGs (``ValueError``)
-that PIL decodes: re-encode such files as baseline JPEG or PNG. A 16-bit
-PNG reads as its high bytes, as cv2 reads it, where PIL clips.
+Images are read by the port's ``io/datasets.py::read_rgb_pil``, bit-equal
+to the JAX package's ``Image.open(path).convert("RGB")`` on PNG and
+baseline JPEG (no EXIF orientation applied, a 16-bit gray PNG clipped at
+255), and ``.npy`` images are loaded as they are. The JPEG decoder refuses
+progressive, arithmetic, lossless and 12-bit JPEGs (``ValueError``) that
+PIL decodes: re-encode such files as baseline JPEG or PNG.
 
 Fixed-shape deltas of the JAX package: every sample is FIXED SHAPE — the image is resized with
 a preserved aspect ratio onto a static (input_h, input_w) canvas (the
@@ -33,7 +33,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from vido_slam_tpu_torch.io.datasets import imread
+from vido_slam_tpu_torch.io.datasets import read_rgb_pil
 
 # caffe2 / Detectron preprocessing (reference config defaults:
 # PIXEL_MEAN [102.9801, 115.9465, 122.7717], BGR, no std scaling)
@@ -164,11 +164,7 @@ class CocoDetectionDataset:
         if path.endswith(".npy"):
             img = np.load(path)
         else:
-            img = imread(path)
-            if img is None:
-                raise FileNotFoundError(f"{path}: missing or not a "
-                                        f"decodable image")
-            img = img[..., ::-1]
+            img = read_rgb_pil(path)
         return img.astype(np.float32)
 
     def aspect_ratio(self, idx: int) -> float:

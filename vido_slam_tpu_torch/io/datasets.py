@@ -12,7 +12,8 @@ run_vido_slam.cc:14-65, 112-137, and run_vido.cc:195-215):
 
 Images are read by ``imread`` with the semantics of the ``cv2.imread``
 flags the demo passes, on the port's own PNG and JPEG decoders
-(``io/png.py``, ``io/jpeg.py``).
+(``io/png.py``, ``io/jpeg.py``); the data pipelines, which the JAX
+package reads through PIL, read by ``read_rgb_pil`` on the same decoders.
 """
 
 from __future__ import annotations
@@ -118,6 +119,33 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
     if flags == IMREAD_GRAYSCALE and img.bit_depth == 16:
         px = (px >> 8).astype(np.uint8)
     return np.ascontiguousarray(px)
+
+
+def read_rgb_pil(path: str) -> np.ndarray:
+    """``np.asarray(Image.open(path).convert("RGB"))`` for PNG and JPEG
+    files, bit-equal to PIL: (H, W, 3) uint8 RGB. It reads as ``imread``
+    reads colour (gray replicated, alpha dropped, palette expanded, 16-bit
+    RGB cut to its high byte) but for two things PIL does otherwise: a
+    JPEG's EXIF orientation is not applied, and a 16-bit gray PNG (PIL's
+    ``I;16``) is clipped at 255. A missing or undecodable file raises, as
+    ``Image.open`` does."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == jpeg.SIGNATURE:
+        return np.ascontiguousarray(
+            jpeg.decode_jpeg(data, exif_orientation=False)[..., ::-1])
+    if not data.startswith(png.SIGNATURE):
+        raise ValueError(f"{path}: PNG and JPEG images only")
+    img = png.decode_png(data)
+    px = img.pixels
+    if img.bit_depth == 16:
+        # gray opens as PIL's I;16, which clips; the other modes keep the
+        # high byte
+        px = np.minimum(px, 255) if px.shape[-1] == 1 else px >> 8
+    px = px.astype(np.uint8)
+    if px.shape[-1] < 3:
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
 
 
 def demosaic_bayer_bg2bgr(raw: np.ndarray) -> np.ndarray:

@@ -487,12 +487,13 @@ def ycc_to_bgr_plain(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([b, g, r], -1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes, *, gray: bool = False,
-                plain: bool = False) -> np.ndarray:
+def decode_jpeg(data: bytes, *, gray: bool = False, plain: bool = False,
+                exif_orientation: bool = True) -> np.ndarray:
     """Decode a JPEG held in memory, as ``cv2.imread`` does with
     ``IMREAD_COLOR`` ((H, W, 3) uint8 BGR) or, with ``gray``,
-    ``IMREAD_GRAYSCALE`` ((H, W) uint8), the EXIF orientation applied.
-    ``plain`` runs steps 2 and 3 in numpy."""
+    ``IMREAD_GRAYSCALE`` ((H, W) uint8), the EXIF orientation applied
+    unless ``exif_orientation`` is False (PIL's ``Image.open`` applies
+    none). ``plain`` runs steps 2 and 3 in numpy."""
     scan = parse(data)
     frame = scan.frame
     lay = layout(frame)
@@ -509,4 +510,4 @@ def decode_jpeg(data: bytes, *, gray: bool = False,
         img = np.repeat(planes[0][..., None], 3, axis=-1)
     else:
         img = conv(*planes)
-    return orient(img, scan.orientation)
+    return orient(img, scan.orientation) if exif_orientation else img

@@ -27,9 +27,8 @@ from typing import Dict, List, NamedTuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from vido_slam_tpu_torch.models.layers import Conv2d, ConvTranspose2d
+from vido_slam_tpu_torch.models.layers import Conv2d, ConvTranspose2d, relu
 from vido_slam_tpu_torch.models.maskrcnn import roi_heads
 from vido_slam_tpu_torch.ops.roi_align import true_div
 from vido_slam_tpu_torch.ops.warp import resize_bilinear
@@ -76,17 +75,24 @@ class KeypointHead(nn.Module):
         self.to(resolve_device(device))
 
 
-@torch.no_grad()
-def keypoint_head_forward(head: KeypointHead, feats: List[torch.Tensor],
-                          boxes: torch.Tensor) -> torch.Tensor:
+def keypoint_head_logits(head: KeypointHead, feats: List[torch.Tensor],
+                         boxes: torch.Tensor) -> torch.Tensor:
     """P2..P5 (each (1, C, H, W)) and boxes (R, 4) in input-image
-    coordinates -> (R, 17, 56, 56) heatmap logits."""
+    coordinates -> (R, 17, 56, 56) heatmap logits, differentiable (the
+    relu's gradient at 0 is JAX's one half)."""
     x = roi_heads.pooled_features(feats, boxes, POOL)
     fe = head.feature_extractor
     for i in range(1, CONV_LAYERS + 1):
-        x = F.relu(getattr(fe, f"conv_fcn{i}")(x))
+        x = relu(getattr(fe, f"conv_fcn{i}")(x))
     x = head.predictor.kps_score_lowres(x)                  # (R, 17, 28, 28)
     return resize_bilinear(x, HEATMAP, HEATMAP)
+
+
+@torch.no_grad()
+def keypoint_head_forward(head: KeypointHead, feats: List[torch.Tensor],
+                          boxes: torch.Tensor) -> torch.Tensor:
+    """``keypoint_head_logits`` for inference: no graph is recorded."""
+    return keypoint_head_logits(head, feats, boxes)
 
 
 def keypoints_from_heatmaps(logits: torch.Tensor,
@@ -117,8 +123,12 @@ def keypoints_to_heatmap(kp_xy: torch.Tensor, kp_vis: torch.Tensor,
     56x56 cell of each keypoint, int32, 0 where invalid; valid (R, 17)).
     A keypoint on the box's far edge lands in the last cell."""
     x0, y0 = rois[:, 0][:, None], rois[:, 1][:, None]
-    sx = HEATMAP / torch.clamp(rois[:, 2][:, None] - x0, min=1e-3)
-    sy = HEATMAP / torch.clamp(rois[:, 3][:, None] - y0, min=1e-3)
+    # one rounding, as JAX's: a Python number over a tensor would be the
+    # reciprocal times 56, which moves a cell at some integer widths
+    w = torch.clamp(rois[:, 2][:, None] - x0, min=1e-3)
+    h = torch.clamp(rois[:, 3][:, None] - y0, min=1e-3)
+    sx = torch.full_like(w, HEATMAP) / w
+    sy = torch.full_like(h, HEATMAP) / h
     x = torch.floor((kp_xy[..., 0] - x0) * sx)
     y = torch.floor((kp_xy[..., 1] - y0) * sy)
     last = torch.tensor(HEATMAP - 1, dtype=x.dtype, device=x.device)

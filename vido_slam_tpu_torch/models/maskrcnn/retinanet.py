@@ -31,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vido_slam_tpu_torch.models.layers import Conv2d
+from vido_slam_tpu_torch.models.layers import Conv2d, relu
 from vido_slam_tpu_torch.models.maskrcnn.backbone import (
     Backbone, ResNetConfig, init_resnet_fpn_params)
 from vido_slam_tpu_torch.models.maskrcnn.rpn import (generate_cell_anchors,
@@ -178,10 +178,13 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets_onehot: torch.Tensor,
     """The element-wise sigmoid focal loss (retinanet/loss.py
     SigmoidFocalLoss; retinanet.py:136-145 of the JAX package): the
     numerically stable binary cross entropy, weighted by alpha_t and
-    (1 - p_t)^gamma. A library function: no trainer calls it."""
+    (1 - p_t)^gamma. At a logit of exactly 0 the gradient is JAX's: its
+    relu passes one half there and its abs passes 1 (``torch.abs`` passes
+    0). A library function: no trainer calls it."""
     p = torch.sigmoid(logits)
-    ce = torch.clamp(logits, min=0) - logits * targets_onehot \
-        + torch.log1p(torch.exp(-logits.abs()))
+    abs_logits = torch.where(logits >= 0, logits, -logits)
+    ce = relu(logits) - logits * targets_onehot \
+        + torch.log1p(torch.exp(-abs_logits))
     p_t = p * targets_onehot + (1 - p) * (1 - targets_onehot)
     a_t = alpha * targets_onehot + (1 - alpha) * (1 - targets_onehot)
     return a_t * ((1 - p_t) ** gamma) * ce

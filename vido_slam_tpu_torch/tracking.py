@@ -418,6 +418,38 @@ def _track_step(state: TrackState, depth, flow, mask, cam: Camera, *,
     return new_state, outputs
 
 
+def initial_state(k_sample: torch.Tensor, k_state: torch.Tensor, cam: Camera,
+                  depth, flow, mask, *, n_bg: int, n_obj: int, window: int,
+                  th_depth_bg: float, th_depth_obj: float,
+                  score_map: Optional[torch.Tensor] = None) -> TrackState:
+    """The device state after the first frame (Tracking::Initialization,
+    Tracking.cc:1512-1580): features sampled with ``k_sample`` (FAST's
+    ``score_map`` picks the background ones where given), identity poses,
+    the window rings holding frame 0, ``k_state`` as the state's key."""
+    dev = depth.device
+    stat = sample_background_features(k_sample, mask, depth, flow, score_map,
+                                      n=n_bg, th_depth=th_depth_bg)
+    obj = sample_object_points(mask, depth, flow, n=n_obj,
+                               th_depth=th_depth_obj)
+    eye4 = torch.eye(4, dtype=torch.float32, device=dev)
+    ba_obs = torch.zeros(window, n_bg, 3, device=dev)
+    ba_obs[-1] = cam.backproject(stat.uv, stat.depth)
+    ba_obs_valid = torch.zeros(window, n_bg, dtype=torch.bool, device=dev)
+    ba_obs_valid[-1] = stat.valid
+    return TrackState(
+        stat=stat, obj=obj, Tcw=eye4, velocity=eye4,
+        has_velocity=torch.zeros((), dtype=torch.bool, device=dev),
+        bin_motion=eye4.expand(MAX_SEM, 4, 4).clone(),
+        bin_has_motion=torch.zeros(MAX_SEM, dtype=torch.bool, device=dev),
+        last_mask=mask, last_flow=flow, ba_obs=ba_obs,
+        ba_obs_valid=ba_obs_valid, ba_age=stat.valid.to(torch.int32),
+        ba_Twc=eye4.expand(window, 4, 4).clone(),
+        ba_odom=eye4.expand(window, 4, 4).clone(),
+        ba_odom_valid=torch.zeros(window, dtype=torch.bool, device=dev),
+        ba_nframes=torch.ones((), dtype=torch.int32, device=dev),
+        key=k_state)
+
+
 class Tracker:
     """VO front-end orchestrator (System owns one). Runs on ``device``
     (default ``cuda``; asking for it without a card raises)."""
@@ -548,33 +580,17 @@ class Tracker:
         features only when it is on and ``image`` (gray) is given."""
         depth, flow, mask = self._inputs(depth, flow, mask)
         s = self.cfg.system
-        dev = self.device
         score_map = None
         if self.use_fast and image is not None:
             score_map = fast_score_map(self._gray(image))
-        stat = sample_background_features(self._next_key(), mask, depth, flow,
-                                          score_map, n=self.n_bg,
-                                          th_depth=s.th_depth_bg)
-        obj = sample_object_points(mask, depth, flow, n=self.n_obj,
-                                   th_depth=s.th_depth_obj)
-        eye4 = torch.eye(4, dtype=torch.float32, device=dev)
-        W = s.window_size
-        ba_obs = torch.zeros(W, self.n_bg, 3, device=dev)
-        ba_obs[-1] = self.cam.backproject(stat.uv, stat.depth)
-        ba_obs_valid = torch.zeros(W, self.n_bg, dtype=torch.bool, device=dev)
-        ba_obs_valid[-1] = stat.valid
-        self.state = TrackState(
-            stat=stat, obj=obj, Tcw=eye4, velocity=eye4,
-            has_velocity=torch.zeros((), dtype=torch.bool, device=dev),
-            bin_motion=eye4.expand(MAX_SEM, 4, 4).clone(),
-            bin_has_motion=torch.zeros(MAX_SEM, dtype=torch.bool, device=dev),
-            last_mask=mask, last_flow=flow, ba_obs=ba_obs,
-            ba_obs_valid=ba_obs_valid, ba_age=stat.valid.to(torch.int32),
-            ba_Twc=eye4.expand(W, 4, 4).clone(),
-            ba_odom=eye4.expand(W, 4, 4).clone(),
-            ba_odom_valid=torch.zeros(W, dtype=torch.bool, device=dev),
-            ba_nframes=torch.ones((), dtype=torch.int32, device=dev),
-            key=self._next_key())
+        k_sample = self._next_key()
+        self.state = initial_state(
+            k_sample, self._next_key(), self.cam, depth, flow, mask,
+            n_bg=self.n_bg, n_obj=self.n_obj, window=s.window_size,
+            th_depth_bg=s.th_depth_bg, th_depth_obj=s.th_depth_obj,
+            score_map=score_map)
+        stat, obj = self.state.stat, self.state.obj
+        eye4 = self.state.Tcw
         h = to_host((stat.uv, stat.depth, stat.valid,
                      unproject_to_world(self.cam, stat.uv, stat.depth, eye4),
                      obj.uv, obj.depth, obj.valid, obj.sem,
