@@ -185,7 +185,33 @@ Phases, each of which fails the run by raising:
      twice an image (8) and nothing else, held against its plain version
      on the first image's calls, bbox and segm mAP/AP50 printed, both
      AP50s and ``detection_ap50`` at least 0.9. Each part prints its host-clock
-     seconds (ending in ``torch.cuda.synchronize``);
+     seconds (ending in ``torch.cuda.synchronize``). (p) the multi-device
+     paths (``parallel/mesh.py``) on an NCCL group of one rank in this
+     process: (p1) (n1)'s detector steps (3, the CLI's SGD at lr 1e-3) on
+     ``make_mesh(1)`` and twice without a mesh: kernels 5 and 5b 12
+     launches each in all three, the first loss equal to the bit, its
+     gradients within 5b's 1e-5 of a key's max, the final state within
+     max(1e-6, twice the two runs without the mesh apart: 5b's atomics and
+     cuDNN part two runs on the saturated random detector); (p2) (n4)'s
+     self-supervised steps on the mesh, the first loss equal to the bit;
+     (p3) (o2)'s sequences on the mesh: [92, 0, 0, 0, 0], within 1e-6 of
+     (o2); (p4) (o4)'s frames on the mesh: 8 launches, (o4)'s AP50s; (p5)
+     ``dryrun_multichip(1)``; and, in processes of their own while the
+     card works, ``python -m vido_slam_tpu_torch.parallel.dryrun 8
+     --device cpu`` (8 gloo ranks, mesh (dp 4, tp 2)) and the training
+     CLI under ``python -m torch.distributed.run --standalone`` on 4 gloo
+     ranks (``--dp 2 --tp 2 --device cpu``, 64x96) and on 1 NCCL rank
+     (``--dp 1 --tp 1``, 544x800), 2 iterations each: exit 0, the dry
+     run's line, two log lines and a model_final that reloads. (q)
+     ``python -m vido_slam_tpu_torch.infer_nets`` in-process on the card
+     against the same CLI with ``--device cpu``: ``depth`` over the 24
+     committed KITTI JPEGs (the disparity within 1e-4 of its max), ``flow``
+     on their first pair (kernels 3 and 4, 5 launches each; within 1e-3
+     of max(|flow|, 1)), ``detector`` for FBNet (kernel 5 once),
+     RetinaNet (none) and Mask R-CNN (kernel 5 twice; its random init
+     gives an inverted box, which both devices refuse to draw after the
+     JSON, as the JAX CLI does) on a bench-clip frame, the detections held
+     by ``match_detections``;
   5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
      call's arguments, its launches on (f) and (g), on (h1)-(h4), on
@@ -193,10 +219,10 @@ Phases, each of which fails the run by raising:
      launches, device ms, plain ms and bound in (j) beside the float32
      build's device ms on the same values; its launches in (m1)-(m4), and
      kernel 5's device ms, plain ms and bound at the FBNet and keypoint
-     shapes; its launches in (n1) and in (o1), (o2) and (o4); kernel 5b's
-     entry: its launches in (n1), its device ms, plain ms and bound on a
-     training step's calls and at the inference shapes), then the device
-     line.
+     shapes; its launches in (n1) and in (o1), (o2) and (o4), in (p1),
+     (p3) and (p4) and in (q); kernel 5b's entry: its launches in (n1) and
+     (p1), its device ms, plain ms and bound on a training step's calls
+     and at the inference shapes), then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -3868,7 +3894,8 @@ def run_multi_sequence(seq, counters, names, n_frames=N_FRAMES,
                        dev="cuda", kw=MULTI_KW):
     """(o2): multi_sequence_tracking over two n_frames sequences of the
     offline scene (its first and its last n_frames frames) on ``dev``.
-    Returns (launches, kernel 1's max error on one frame's calls)."""
+    Returns (launches, kernel 1's max error on one frame's calls, the
+    result, its inputs (cfg, depths, flows, masks))."""
     import torch
     from vido_slam_tpu_torch.config import config_from_dict
     from vido_slam_tpu_torch.estimation import pose
@@ -3937,7 +3964,7 @@ def run_multi_sequence(seq, counters, names, n_frames=N_FRAMES,
           f"{seq.scene.cam.width}x{seq.scene.cam.height} ({kw}): launches "
           f"{launches}, {secs:.3f} s ({1e3 * secs / (S * (T - 1)):.2f} ms "
           f"a tracked frame); " + "; ".join(report))
-    return launches, err
+    return launches, err, res, (cfg, depths, flows, masks)
 
 
 def window_problems(rng, S, W, P, noise=0.005):
@@ -4011,7 +4038,8 @@ def run_window_evaluation(dev="cuda", S=WINDOW_PROBLEMS, shape=WINDOW_SHAPE):
 def run_coco_evaluation(dev, counters, names, n_frames=EVAL_FRAMES):
     """(o4): sharded_coco_evaluation of (d)'s detector over n_frames clip
     frames on ``dev``, the ground truth the port's CPU detections. Returns
-    (launches, kernel 5's max error on the first image's calls)."""
+    (launches, kernel 5's max error on the first image's calls, the run:
+    model, images, gts, out_hw and scores)."""
     import torch
     from vido_slam_tpu_torch.models.maskrcnn import roi_heads
     from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
@@ -4069,22 +4097,444 @@ def run_coco_evaluation(dev, counters, names, n_frames=EVAL_FRAMES):
           f"launches {launches}; {secs:.3f} s with the paste and the "
           f"scoring, inference alone {1e3 * infer_secs / n_frames:.1f} ms "
           f"an image")
-    return launches, err
+    return launches, err, dict(model=model, images=images, gts=gts,
+                               out_hw=out_hw, scores=scores)
 
 
 def run_phase_o(dev, counters, names, seq):
-    """Phase (o). Returns each part's launches ({part: launches}) and the
-    max errors of kernels 1 and 5 held there."""
+    """Phase (o). Returns each part's launches ({part: launches}), the
+    max errors of kernels 1 and 5 held there, and (o2)'s and (o4)'s runs
+    for phase (p) ({"o2": (result, inputs), "o4": run})."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         depth_launches = run_depth_pipeline(dev, counters, names, tmp)
-    multi_launches, err_lm = run_multi_sequence(seq, counters, names)
+    multi_launches, err_lm, multi, multi_inputs = run_multi_sequence(
+        seq, counters, names)
     run_window_evaluation()
-    coco_launches, err_roi = run_coco_evaluation(dev, counters, names)
+    coco_launches, err_roi, coco = run_coco_evaluation(dev, counters, names)
     print(f"phase (o): {time.perf_counter() - t0:.1f} s; card "
           f"{card_line()}")
     return ({"o1": depth_launches, "o2": multi_launches,
-             "o4": coco_launches}, err_lm, err_roi)
+             "o4": coco_launches}, err_lm, err_roi,
+            {"o2": (multi, multi_inputs), "o4": coco})
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (p): the multi-device paths; (q): the inference CLI
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3       # (p1): detector steps at (n1)'s shapes, each way
+MESH_DEPTH_STEPS = 2
+MESH_BAR = 1e-6      # (p): the mesh at world size 1 against one device
+GRAD_BAR_5B = 1e-5   # kernel 5b's bar (atomics): of a key's max |g|
+BACKGROUND_TIMEOUT = 600.0
+# the gloo runs of (p), each in processes of its own while the card works:
+# the dry run on 8 ranks, and the CLI on 4 as dp 2 x tp 2 at the CPU
+# tests' size; and the CLI under torchrun on one NCCL rank at (n1)'s size
+CLI_ARGS = ["--synthetic", "--iters", "2", "--batch", "2", "--lr", "1e-3",
+            "--log-period", "1"]
+
+
+def start_background(tmp):
+    """Start (p)'s three runs in processes of their own, their output in
+    files under ``tmp``. Returns {name: (process, log path, out dir)}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node"]
+    cli = ["-m", "vido_slam_tpu_torch.train_maskrcnn"] + CLI_ARGS
+    h, w = TRAIN_INPUT
+    runs = {
+        "dryrun_multichip(8, device='cpu')": [
+            sys.executable, "-m", "vido_slam_tpu_torch.parallel.dryrun", "8",
+            "--device", "cpu"],
+        "CLI on 4 gloo ranks, dp 2 x tp 2, 64x96": torchrun + ["4"] + cli + [
+            "--dp", "2", "--tp", "2", "--device", "cpu", "--input-h", "64",
+            "--input-w", "96", "--out", os.path.join(tmp, "cli_gloo")],
+        f"CLI on 1 NCCL rank, dp 1 x tp 1, {w}x{h}": torchrun + ["1"] + cli
+        + ["--dp", "1", "--tp", "1", "--input-h", str(h), "--input-w",
+           str(w), "--out", os.path.join(tmp, "cli_nccl")],
+    }
+    out = {}
+    for i, (name, argv) in enumerate(runs.items()):
+        log = os.path.join(tmp, f"background_{i}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(argv, cwd=root, env=env, stdout=f,
+                                    stderr=subprocess.STDOUT)
+        out[name] = (proc, log, argv[-1] if argv[-2] == "--out" else None,
+                     time.perf_counter())
+    return out
+
+
+def finish_background(runs):
+    """Wait for (p)'s background runs (each killed past its time) and hold
+    them: exit code 0, the dry run's JAX line with mesh (dp 4, tp 2), each
+    CLI's two log lines (rank 0's) and a model_final bundle that reloads."""
+    import torch
+    from vido_slam_tpu_torch import convert
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           MaskRCNNConfig)
+    from vido_slam_tpu_torch.utils.checkpoint import load_params
+
+    failed = []
+    for name, (proc, log, out_dir, t0) in runs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, BACKGROUND_TIMEOUT
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        secs = time.perf_counter() - t0
+        with open(log) as f:
+            text = f.read()
+        if rc != 0:
+            failed.append(f"{name}: exit {rc}\n{text[-3000:]}")
+            continue
+        if out_dir is None:
+            line = next((x for x in text.splitlines()
+                         if x.startswith("dryrun_multichip ok")), "")
+            check("mesh={'dp': 4, 'tp': 2}" in line,
+                  f"(p) {name}: no dry-run line in\n{text[-2000:]}")
+            print(f"(p) {name}: {line} ({secs:.1f} s)")
+            continue
+        logs = re.findall(r"^iter \d+/2 .*$", text, re.M)
+        check(len(logs) == 2, f"(p) {name}: log lines {logs}")
+        saved = load_params(os.path.join(out_dir, "model_final"))
+        h, w = (64, 96) if "gloo" in out_dir else TRAIN_INPUT
+        model = MaskRCNN(MaskRCNNConfig(input_h=h, input_w=w), device="cpu")
+        model.load_state_dict(convert.maskrcnn_state_dict_from_numpy(
+            {k: v.numpy() for k, v in saved.items()}, device="cpu"),
+            strict=True)
+        check(all(bool(torch.isfinite(v).all()) for v in saved.values()),
+              f"(p) {name}: non-finite weights")
+        print(f"(p) {name}: {logs[-1].strip()}; model_final reloads "
+              f"({secs:.1f} s)")
+    check(not failed, "(p) background runs failed:\n" + "\n".join(failed))
+
+
+def state_gap(a: dict, b: dict) -> float:
+    """Largest |a - b| of a key over that key's max |b| (1e-30 floor)."""
+    return max(float((a[k].float() - v.float()).abs().max())
+               / max(float(v.float().abs().max()), 1e-30)
+               for k, v in b.items())
+
+
+def mesh_detector_steps(dev, mesh, counters):
+    """(p1): MESH_STEPS detector steps at (n1)'s shapes (R-50-FPN, the CLI's
+    synthetic batches of 2, the CLI's SGD solver at lr 1e-3 and its key
+    schedule), with ``mesh`` (or on one device without). Returns (losses,
+    the first step's gradients, the final state, launches)."""
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           MaskRCNNConfig)
+    from vido_slam_tpu_torch.parallel.train import (
+        make_detection_optimizer, make_detection_train_step, sharded_leaves,
+        trainable_state)
+    from vido_slam_tpu_torch.train_maskrcnn import synthetic_batches
+    from vido_slam_tpu_torch.utils import prng
+
+    h, w = TRAIN_INPUT
+    model = MaskRCNN(MaskRCNNConfig(input_h=h, input_w=w), seed=0,
+                     device=dev)
+    whole = trainable_state(model)
+    params = whole if mesh is None else sharded_leaves(whole, mesh)
+    step = make_detection_train_step(
+        model, opt=make_detection_optimizer(params, base_lr=1e-3), mesh=mesh,
+        params=params)
+    batches = synthetic_batches(MESH_STEPS, 2, h, w, 32, seed=0)
+    first = {}
+
+    def run():
+        key, losses = prng.PRNGKey(0), []
+        for b in batches:
+            key, k = prng.split(key)
+            losses.append(float(step(b, k)))
+            if not first:
+                first.update({k: v.grad.clone() for k, v in whole.items()})
+        return losses
+    losses, launches = launches_of(counters, run)
+    return losses, first, {k: v.detach() for k, v in
+                           model.state_dict().items()}, launches
+
+
+def run_phase_p(dev, counters, names, o_runs):
+    """Phase (p), the multi-device paths on one card: an NCCL process
+    group of one rank and ``make_mesh(1)``; (p1) the mesh detector step at
+    (n1)'s shapes against the step without a mesh (kernels 5 and 5b 12
+    times each); (p2) the mesh self-supervised step at (n4)'s shapes;
+    (p3) the mesh ``multi_sequence_tracking`` on (o2)'s sequences; (p4)
+    the mesh ``sharded_coco_evaluation`` on (o4)'s frames; (p5)
+    ``dryrun_multichip(1)`` on the card. Returns each part's launches."""
+    import torch
+    import torch.distributed as dist
+    from vido_slam_tpu_torch.models.monodepth2_train import (
+        SelfSupModel, make_selfsup_train_step)
+    from vido_slam_tpu_torch.parallel import eval as peval
+    from vido_slam_tpu_torch.parallel.dryrun import dryrun_multichip
+    from vido_slam_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from vido_slam_tpu_torch.parallel.slam_eval import multi_sequence_tracking
+    from vido_slam_tpu_torch.utils import prng
+
+    t0 = time.perf_counter()
+    launches = {}
+    init_distributed(dev)
+    try:
+        mesh = make_mesh(1)
+        check(mesh.device.type == torch.device(dev).type,
+              f"(p) {mesh} over {dist.get_backend()}")
+        # (p1): twice without the mesh (the card's own spread: kernel 5b
+        # adds with atomics, cuDNN's backward may too), once with it
+        runs = [mesh_detector_steps(dev, None, counters) for _ in range(2)]
+        (losses, grads, state, n), secs = host_timed(
+            lambda: mesh_detector_steps(dev, mesh, counters), dev)
+        (ref_losses, ref_grads, ref_state, ref_n), again = runs
+        expect = [0, 0, 0, 0, 4 * MESH_STEPS, 4 * MESH_STEPS]
+        check(n == ref_n == again[3] == expect,
+              f"(p1) mesh detector steps: {names} launched {n} times (one "
+              f"device {ref_n}, {again[3]}), not {expect}")
+        grad_gap = state_gap(grads, ref_grads)
+        spread = state_gap(again[2], ref_state)
+        gap = state_gap(state, ref_state)
+        check(losses[0] == ref_losses[0] == again[0][0]
+              and grad_gap <= GRAD_BAR_5B
+              and gap <= max(MESH_BAR, 2 * spread)
+              and all(math.isfinite(x) for x in losses),
+              f"(p1) mesh steps {losses} against {ref_losses} and "
+              f"{again[0]}: first gradients {grad_gap:.2e} of a key's max, "
+              f"final state {gap:.2e} (two runs without the mesh "
+              f"{spread:.2e})")
+        launches["p1"] = n
+        h, w = TRAIN_INPUT
+        print(f"(p1) mesh {mesh.shape} {dist.get_backend()} detector steps, "
+              f"R-50-FPN {w}x{h} batch 2, SGD lr 1e-3: losses {losses}, "
+              f"launches {n}; without the mesh {ref_losses} and "
+              f"{again[0]}: the first loss equal to the bit, its gradients "
+              f"{grad_gap:.2e} of a key's max (bar {GRAD_BAR_5B:.0e}), the "
+              f"final state {gap:.2e} of a key's max, two runs without the "
+              f"mesh {spread:.2e} (bar max({MESH_BAR:.0e}, twice that)); "
+              f"{secs:.2f} s")
+        del state, ref_state, runs, grads, ref_grads
+        # (p2)
+        batch = depth_batches(dev)
+        key = prng.PRNGKey(0, device=dev)
+        runs = []
+        for m in (None, mesh):
+            step = make_selfsup_train_step(SelfSupModel(seed=0, device=dev),
+                                           lr=1e-4, mesh=m)
+            runs.append(launches_of(counters, lambda: [
+                float(step(batch, key if i == 0 else prng.fold_in(key, i)))
+                for i in range(MESH_DEPTH_STEPS)]))
+        (ref, _), (d_losses, n) = runs
+        gap = abs(d_losses[0] - ref[0]) / abs(ref[0])
+        check(n == [0] * len(counters) and gap <= MESH_BAR
+              and all(math.isfinite(x) for x in d_losses),
+              f"(p2) mesh self-supervised steps: losses {d_losses} against "
+              f"{ref}, launches {n}")
+        print(f"(p2) mesh self-supervised steps, 640x192 batch "
+              f"{DEPTH_BATCH}: losses {d_losses} (one device {ref}; the "
+              f"first {gap:.2e} relative), launches {n}")
+        # (p3)
+        res, (cfg, depths, flows, masks) = o_runs["o2"]
+        (got, secs), n = launches_of(counters, lambda: host_timed(
+            lambda: multi_sequence_tracking(cfg, depths, flows, masks,
+                                            **MULTI_KW, mesh=mesh), dev))
+        S, T = depths.shape[:2]
+        expect = [2 * S * (T - 1), 0, 0, 0, 0, 0]
+        gap = max(float((getattr(got, f) - getattr(res, f)).abs().max())
+                  for f in ("Tcw", "ba_Twc"))
+        check(n == expect and gap <= MESH_BAR
+              and torch.equal(got.n_inliers, res.n_inliers),
+              f"(p3) mesh multi_sequence_tracking: launches {n} (not "
+              f"{expect}), {gap:.2e} from (o2)")
+        launches["p3"] = n
+        print(f"(p3) mesh multi_sequence_tracking on (o2)'s {S} sequences: "
+              f"launches {n}, {gap:.2e} from (o2); {secs:.3f} s")
+        # (p4)
+        run = o_runs["o4"]
+        (scores, secs), n = launches_of(counters, lambda: host_timed(
+            lambda: peval.sharded_coco_evaluation(
+                run["model"], run["images"], run["gts"],
+                out_hw=run["out_hw"], mesh=mesh), dev))
+        B = run["images"].shape[0]
+        expect = [0, 0, 0, 0, 2 * B, 0]
+        same = all(scores[t]["AP50"] == run["scores"][t]["AP50"]
+                   for t in ("bbox", "segm"))
+        check(n == expect and same,
+              f"(p4) mesh sharded_coco_evaluation: launches {n} (not "
+              f"{expect}), AP50 {[scores[t]['AP50'] for t in scores]} "
+              f"against (o4)'s {[run['scores'][t]['AP50'] for t in scores]}")
+        launches["p4"] = n
+        print(f"(p4) mesh sharded_coco_evaluation on (o4)'s {B} frames: "
+              f"bbox AP50 {scores['bbox']['AP50']:.4f}, segm AP50 "
+              f"{scores['segm']['AP50']:.4f} (as (o4)), launches {n}; "
+              f"{secs:.3f} s")
+        # (p5)
+        out, secs = host_timed(lambda: dryrun_multichip(1, device=dev), dev)
+        check(out["det_batch"] == 1
+              and out["ba_cost"][1] < 0.1 * out["ba_cost"][0],
+              f"(p5) dryrun_multichip(1): {out}")
+        print(f"(p5) dryrun_multichip(1) on the card: {out}; {secs:.2f} s")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase (p): {time.perf_counter() - t0:.1f} s; card {card_line()}")
+    return launches
+
+
+INFER_FRAME = 0      # the bench-clip frame of (q)'s detectors
+DEPTH_BAR = 1e-4     # (q): of the disparity's max, card against CPU
+FLOW_BAR = 1e-3      # (q): of max(|flow|, 1)
+DETECTOR_THRESHOLDS = {"fbnet": 0.05, "retinanet": 0.05, "maskrcnn": 0.8}
+
+
+def quiet(fn):
+    """fn() with its standard output dropped (the CLIs print a line an
+    image)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def json_detections(path) -> dict:
+    """A detections JSON as match_detections' slots."""
+    with open(path) as f:
+        dets = json.load(f)["detections"]
+    return {"boxes": np.asarray([d["box"] for d in dets],
+                                np.float64).reshape(-1, 4),
+            "scores": np.asarray([d["score"] for d in dets], np.float64),
+            "labels": np.asarray([d["label"] for d in dets], np.int64),
+            "valid": np.ones(len(dets), bool)}
+
+
+def padded(d: dict, n: int) -> dict:
+    k = n - len(d["valid"])
+    return {"boxes": np.pad(d["boxes"], ((0, k), (0, 0))),
+            "scores": np.pad(d["scores"], (0, k)),
+            "labels": np.pad(d["labels"], (0, k)),
+            "valid": np.pad(d["valid"], (0, k))}
+
+
+def run_phase_q(dev, counters, names, tmp):
+    """Phase (q), ``python -m vido_slam_tpu_torch.infer_nets`` (in-process)
+    on the card, each output held against the same CLI with ``--device
+    cpu``: ``depth`` over the 24 committed KITTI frames (1242x375, PIL's
+    LANCZOS down to 640x192), ``flow`` on their first pair (kernels 3 and
+    4, 5 launches each), ``detector`` for each family on bench-clip frame
+    INFER_FRAME written as a PNG. Returns each part's launches."""
+    from vido_slam_tpu_torch import infer_nets
+    from vido_slam_tpu_torch.io.datasets import read_flo
+    from vido_slam_tpu_torch.io.png import write_png
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    kitti = os.path.join(root, JPEG_FIXTURES, "kitti")
+    frames = sorted(os.listdir(kitti))
+
+    def both(argv, part):
+        """The CLI on the card (its launches and seconds), then on the CPU.
+        Returns the two output directories."""
+        outs = []
+        for d in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"{part}_{d}")
+            extra = [] if d == "cuda" else ["--device", "cpu"]
+            (_, secs), n = launches_of(counters, lambda: host_timed(
+                lambda: quiet(lambda: infer_nets.main(
+                    argv + ["--out", out] + extra)), d))
+            if d == "cuda":
+                launches[part], seconds[part] = n, secs
+            outs.append(out)
+        return outs
+    launches, seconds = {}, {}
+    # depth
+    card, cpu = both(["depth", "--images", kitti], "depth")
+    gap = 0.0
+    for name in frames:
+        stem = os.path.splitext(name)[0]
+        a = np.load(os.path.join(card, f"{stem}_disp.npy"))
+        b = np.load(os.path.join(cpu, f"{stem}_disp.npy"))
+        check(a.shape == b.shape == (375, 1242) and np.isfinite(a).all(),
+              f"(q) depth {name}: {a.shape}")
+        gap = max(gap, float(np.abs(a - b).max()) / float(np.abs(b).max()))
+        check(os.path.exists(os.path.join(card, f"{stem}_disp.png")),
+              f"(q) depth {name}: no PNG")
+    check(gap <= DEPTH_BAR and launches["depth"] == [0] * len(counters),
+          f"(q) depth: card against CPU {gap:.2e} of the max, launches "
+          f"{launches['depth']}")
+    print(f"(q) depth over {len(frames)} KITTI frames: card against CPU "
+          f"{gap:.2e} of the disparity's max (bar {DEPTH_BAR:.0e}), "
+          f"{1e3 * seconds['depth'] / len(frames):.1f} ms a frame (reading "
+          f"and LANCZOS on the host included)")
+    # flow
+    card, cpu = both(["flow", "--first", os.path.join(kitti, frames[0]),
+                      "--second", os.path.join(kitti, frames[1])], "flow")
+    a = read_flo(os.path.join(card, "flow.flo"))
+    b = read_flo(os.path.join(cpu, "flow.flo"))
+    gap = float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+    expect = [0, 0, 5, 5, 0]
+    check(a.shape == (375, 1242, 2) and gap <= FLOW_BAR
+          and launches["flow"] == expect,
+          f"(q) flow: {a.shape}, card against CPU {gap:.2e}, launches "
+          f"{launches['flow']} (not {expect})")
+    print(f"(q) flow on KITTI frames {frames[0]}, {frames[1]}: |max| "
+          f"{float(np.abs(b).max()):.4f} px, card against CPU {gap:.2e} of "
+          f"max(|flow|, 1) (bar {FLOW_BAR:.0e}), launches {launches['flow']},"
+          f" {seconds['flow']:.3f} s")
+    # the detectors on a clip frame
+    clip = np.load(os.path.join(root, ONLINE_CLIP))["clip"]
+    image = os.path.join(tmp, "clip_frame.png")
+    write_png(image, np.ascontiguousarray(clip[INFER_FRAME][..., ::-1]))
+    expects = {"fbnet": [0, 0, 0, 0, 1], "retinanet": [0] * 5,
+               "maskrcnn": [0, 0, 0, 0, 2]}
+    for family, expect in expects.items():
+        argv = ["detector", "--family", family, "--image", image]
+        refusals = []
+        if family == "maskrcnn":
+            # its random init gives a box with x1 < x0 or y1 < y0 on every
+            # clip frame: after the JSON, the drawing refuses it on either
+            # device, as Pillow refuses it in the JAX CLI
+            for d in ("cuda", "cpu"):
+                def call():
+                    try:
+                        quiet(lambda: infer_nets.main(
+                            argv + ["--out", os.path.join(
+                                tmp, f"{family}_{d}")]
+                            + ([] if d == "cuda" else ["--device", "cpu"])))
+                    except ValueError as e:
+                        return str(e)
+                    return None
+                msg, n = launches_of(counters, call)
+                refusals.append(msg)
+                if d == "cuda":
+                    launches[family] = n
+            check(refusals[0] is not None and refusals[0] == refusals[1],
+                  f"(q) maskrcnn: refusals {refusals}")
+            card = os.path.join(tmp, f"{family}_cuda")
+            cpu = os.path.join(tmp, f"{family}_cpu")
+        else:
+            card, cpu = both(argv, family)
+            check(os.path.exists(os.path.join(card,
+                                              f"{family}_annotated.png")),
+                  f"(q) {family}: no annotated PNG")
+        a = json_detections(os.path.join(card, f"{family}_detections.json"))
+        b = json_detections(os.path.join(cpu, f"{family}_detections.json"))
+        n = max(len(a["valid"]), len(b["valid"]))
+        m = match_detections(padded(a, n), padded(b, n),
+                             DETECTOR_THRESHOLDS[family])
+        check(not m["unexplained"] and launches[family] == expect,
+              f"(q) {family}: {m}, launches {launches[family]} (not "
+              f"{expect})")
+        print(f"(q) detector {family} on clip frame {INFER_FRAME} (640x192): "
+              f"card {m['valid'][0]} detections, CPU {m['valid'][1]}, boxes "
+              f"matched {m['boxes_matched']}, slots differing "
+              f"{m['slots_differ']} (each within a margin), launches "
+              f"{launches[family]}"
+              + (f"; both refuse the drawing: {refusals[0]}" if refusals
+                 else ""))
+    print(f"phase (q): {time.perf_counter() - t0:.1f} s; card {card_line()}")
+    return launches
 
 
 def main() -> int:
@@ -4387,8 +4837,21 @@ def main() -> int:
     err_roi = max(err_roi, err_train)
 
     # (o) the depth data pipeline and the single-device evaluation paths
-    eval_launches, err_lm_o, err_roi_o = run_phase_o(dev, counters, names,
-                                                     seq)
+    eval_launches, err_lm_o, err_roi_o, o_runs = run_phase_o(
+        dev, counters, names, seq)
+
+    # (p) the multi-device paths on NCCL at world size 1, with the gloo
+    # runs in processes of their own; (q) the inference CLI on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        background = start_background(tmp)
+        try:
+            mesh_launches = run_phase_p(dev, counters_n,
+                                        [c.__name__ for c in counters_n],
+                                        o_runs)
+            del o_runs
+            infer_launches = run_phase_q(dev, counters, names, tmp)
+        finally:
+            finish_background(background)
 
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
@@ -4528,6 +4991,13 @@ def main() -> int:
                           f"{shape}_bound_ms": t[2],
                           f"{shape}_bound_by": t[3]})
         e["training_launches"] = train_launches[i]
+        # phase (p): (p1) the mesh detector steps, (p3) the mesh
+        # multi_sequence_tracking, (p4) the mesh sharded_coco_evaluation;
+        # phase (q): the inference CLI's flow and detectors
+        e["multi_device_launches"] = {part: n[i] for part, n in
+                                      mesh_launches.items()}
+        e["infer_nets_launches"] = {part: n[i] for part, n in
+                                    infer_launches.items()}
         # phase (o): (o1) the depth trainer on the dataset's batches, (o2)
         # multi_sequence_tracking, (o4) sharded_coco_evaluation
         e["evaluation_launches"] = {part: n[i] for part, n in
@@ -4545,6 +5015,8 @@ def main() -> int:
         launches=train_launches[5], max_abs_err=err_5b,
         **dict(zip(keys, timing_5b)), library_ms=None,
         training_launches=train_launches[5],
+        multi_device_launches={part: n[5] for part, n in
+                               mesh_launches.items()},
         inference_shapes_ms=infer_5b[0],
         inference_shapes_bound_ms=infer_5b[2]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -1260,3 +1260,58 @@ def test_detection_inference_launches_kernel_5(monkeypatch):
         torch.cuda.synchronize()
         scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
         assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase (p): the mesh detector step on one NCCL rank
+# ---------------------------------------------------------------------------
+
+def test_mesh_detector_step_on_one_nccl_rank_equals_the_step_without():
+    """The tiny detector (one block a stage, 64 FPN channels) at 64x96: one
+    SGD step of two 0..1 images on a mesh of one NCCL rank, against the
+    same step without a mesh on the card: kernels 5 and 5b launched 4
+    times each in both, the loss equal to the bit (a one-rank all-reduce
+    is the identity), every key's gradient within kernel 5b's bar of 1e-5
+    of its max |g| (5b adds with atomics: not the bits)."""
+    _need_card()
+    import torch.distributed as dist
+    from vido_slam_tpu_torch.models.maskrcnn.backbone import ResNetConfig
+    from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
+                                                           MaskRCNNConfig)
+    from vido_slam_tpu_torch.parallel import mesh as pmesh
+    from vido_slam_tpu_torch.parallel import train as pt
+    from vido_slam_tpu_torch.parallel.dryrun import (TINY_DETECTOR,
+                                                     detector_batch)
+    from vido_slam_tpu_torch.utils import prng
+
+    cfg = MaskRCNNConfig(resnet=ResNetConfig(**TINY_DETECTOR), input_h=64,
+                         input_w=96)
+    batch = detector_batch(2)
+    batch["image"] = batch["image"] / 255.0
+    counters = (roi_align.roi_align_multilevel,
+                roi_align.roi_align_multilevel_backward)
+    own = not dist.is_initialized()
+    if own:
+        pmesh.init_distributed("cuda")
+    try:
+        mesh = pmesh.make_mesh(1)
+        assert mesh.device.type == "cuda" and dist.get_backend() == "nccl"
+        runs = []
+        for m in (None, mesh):
+            model = MaskRCNN(cfg, seed=4, device="cuda")
+            step = pt.make_detection_train_step(model, lr=1e-3, mesh=m)
+            before = [c.launches for c in counters]
+            loss = float(step(batch, prng.PRNGKey(6)))
+            torch.cuda.synchronize()
+            runs.append((loss, {k: v.grad.clone() for k, v in
+                                pt.trainable_state(model).items()},
+                         [c.launches - b for c, b in zip(counters, before)]))
+    finally:
+        if own:
+            dist.destroy_process_group()
+    (ref, ref_grads, ref_n), (loss, grads, n) = runs
+    assert ref_n == n == [4, 4]
+    assert loss == ref
+    for k, g in ref_grads.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        assert float((grads[k] - g).abs().max()) <= 1e-5 * scale, k

@@ -7,11 +7,14 @@ the port through its own PNG reader, JAX through PIL); the samplers and
 the synthetic batches of both CLIs equal. The port's CLI on the CPU
 (the full R-50-FPN at 64x96, two iterations of one image) writes
 checkpoints in the JAX layout that reload and resume, runs on the card
-unless given ``--device cpu``, and refuses ``--dp``/``--tp`` (item 21).
+unless given ``--device cpu``, and refuses a ``--dp``/``--tp`` that is not
+the world size (naming torchrun outside it) or a batch that dp does not
+divide.
 """
 
 import json
 import os
+import subprocess
 import sys
 
 import re
@@ -182,11 +185,56 @@ def test_cli_writes_and_reloads_checkpoints(tmp_path):
         assert torch.equal(again[k], v), k
 
 
-def test_cli_device_and_mesh_options():
-    with pytest.raises(NotImplementedError, match="item 21"):
+def test_cli_on_a_dp2_tp2_mesh_under_torchrun(tmp_path):
+    from vido_slam_tpu_torch.models.maskrcnn.model import (
+        MaskRCNNConfig, init_maskrcnn_params)
+
+    args = ["--synthetic", "--iters", "2", "--batch", "2", "--input-h", "64",
+            "--input-w", "96", "--lr", "1e-3", "--log-period", "1",
+            "--device", "cpu"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env.update(PYTHONPATH=root, OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "vido_slam_tpu_torch.train_maskrcnn",
+         *args, "--dp", "2", "--tp", "2", "--out", str(tmp_path / "mesh")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    assert run.returncode == 0, run.stderr[-4000:]
+    assert len(re.findall(r"^iter \d/2 ", run.stdout, re.M)) == 2, run.stdout
+    assert sorted(os.listdir(tmp_path / "mesh")) == ["model_final.npz"]
+    lines = []
+    cli.main(args + ["--out", str(tmp_path / "one")], log_fn=lines.append)
+    mesh = load_params(str(tmp_path / "mesh" / "model_final"))
+    one = load_params(str(tmp_path / "one" / "model_final"))
+    init = convert.convert_state_dict(init_maskrcnn_params(
+        torch.Generator().manual_seed(0),
+        MaskRCNNConfig(input_h=64, input_w=96)))
+    assert set(mesh) == set(one) == set(init)
+    for k, v in one.items():
+        v = v.numpy()
+        bar = 1e-5 * np.abs(v - init[k]).max() \
+            + 2 * np.spacing(np.abs(v)).max()
+        assert np.abs(mesh[k].numpy() - v).max() <= bar, k
+
+
+def test_cli_device_and_mesh_options(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(["--synthetic", "--dp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(["--synthetic", "--tp", "2", "--device", "cpu"])
+    # under torchrun's variables the checks come before the process group
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(ValueError, match="needs 6 ranks, but the world has "
+                                         "4$"):
+        cli.main(["--synthetic", "--dp", "3", "--tp", "2", "--device",
+                  "cpu"])
+    with pytest.raises(ValueError, match="--batch 3 not divisible by dp=2"):
+        cli.main(["--synthetic", "--tp", "2", "--batch", "3", "--device",
+                  "cpu"])
+    monkeypatch.delenv("WORLD_SIZE")
     assert cli.parse_args(["--synthetic"]).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -16,6 +16,11 @@ within 1e-5 wherever JAX's gradient exceeds 1e-6 in magnitude; Adam's
 first step is -lr g / (|g| + 1e-8), which turns the float32 noise of a
 gradient near 1e-8 into a step of either sign, so elsewhere the bar is
 2 lr. The optimizer alone, on JAX's gradient, within 1e-6.
+
+The step on a dp 2 mesh of two gloo ranks (``parallel/mesh.py::spawn``;
+each rank takes one row of the batch and its rows of the automasking
+noise drawn over the whole batch) meets the loss and gradient bars above
+against the same JAX reference on the whole batch.
 """
 
 import jax
@@ -28,6 +33,7 @@ import torch
 from vido_slam_tpu.models import monodepth2_train as jtr
 from vido_slam_tpu_torch import convert
 from vido_slam_tpu_torch.models import monodepth2_train as ttr
+from vido_slam_tpu_torch.parallel import mesh as tmesh
 from vido_slam_tpu_torch.parallel import train as tt
 from vido_slam_tpu_torch.utils import prng
 
@@ -170,3 +176,52 @@ def test_selfsup_train_step_matches_jax(params, batch, jax_ref):
         close(got[k], v, 1e-6)
 
 
+
+
+def test_selfsup_loss_of_rows_draws_the_whole_batch_noise(params, batch):
+    """The rows of a batch with ``rows=(first, N)`` add the noise rows of
+    the whole batch's draw: their losses average to the whole batch's (the
+    loss is a mean over equal rows). On still frames the identity
+    reprojection loss is 0 and the minimum takes the noise itself, so a
+    row's own draw would move the loss by far more than the rounding."""
+    m = t_model(params)
+    b = t_batch(dict(batch, prev=batch["color"], next=batch["color"]))
+
+    def row(i):
+        return type(b)(*(None if x is None else x[i:i + 1] for x in b))
+    key = prng.PRNGKey(7)
+    with torch.no_grad():
+        whole = float(ttr.selfsup_loss(m, b, key)[0])
+        cut = np.mean([float(ttr.selfsup_loss(m, row(i), key,
+                                              rows=(i, N))[0])
+                       for i in range(N)])
+        own = np.mean([float(ttr.selfsup_loss(m, row(i), key)[0])
+                       for i in range(N)])
+    assert abs(cut - whole) <= 1e-6 * whole, (cut, whole)
+    # measured: 0.0 and 2.5e-4 relative
+    assert abs(own - whole) > 1e-5 * whole, (own, whole)
+
+
+def mesh_step_rank(params, batch):
+    """One self-supervised step on a dp 2 mesh: the dp-mean loss and the
+    reduced gradient (JAX layout)."""
+    mesh = tmesh.make_mesh(dp=2)
+    m = t_model(params)
+    loss = ttr.make_selfsup_train_step(m, lr=LR, mesh=mesh)(
+        t_batch(batch), prng.PRNGKey(7))
+    return float(loss), convert.convert_state_dict(
+        {k: v.grad for k, v in tt.trainable_state(m).items()})
+
+
+def test_selfsup_step_on_a_dp_2_mesh_matches_jax(params, batch, jax_ref):
+    for loss, got in tmesh.spawn(mesh_step_rank, 2, params, batch):
+        assert abs(loss - jax_ref["loss"]) <= 1e-4 * jax_ref["loss"]
+        want = jax_ref["grads"]
+        assert set(got) == set(want)
+        bad = []
+        for k in want:
+            scale = float(np.abs(want[k]).max())
+            err = float(np.abs(got[k] - want[k]).max())
+            if err > 1e-3 * scale + 1e-12:
+                bad.append((k, err, scale))
+        assert not bad, bad

@@ -51,20 +51,27 @@ def key_from_numpy(key, device=None) -> torch.Tensor:
                            device=resolve_device(device))
 
 
+def jax_axes(key: str, ndim: int) -> tuple:
+    """The torch dim of each dim of a tensor's JAX layout: a 4-D weight's
+    JAX layout is ``transpose(2, 3, 1, 0)`` of the torch one (a Conv2d's
+    OIHW -> HWIO; a ConvTranspose2d's (in, out / groups, kh, kw) -> (kh,
+    kw, out / groups, in)), a 2-D ``*weight`` (a Linear's (out, in)) is
+    transposed, others keep their dims."""
+    if ndim == 4:
+        return (2, 3, 1, 0)
+    if ndim == 2 and key.endswith("weight"):
+        return (1, 0)
+    return tuple(range(ndim))
+
+
 def convert_tensor(key: str, t) -> np.ndarray:
     """A torch tensor (or array) in the JAX package's layout, as numpy
-    (``models/layers.py::convert_tensor`` there): a 4-D weight goes through
-    ``transpose(2, 3, 1, 0)`` (a Conv2d's OIHW -> HWIO; a ConvTranspose2d's
-    (in, out / groups, kh, kw) -> (kh, kw, out / groups, in)), a 2-D
-    ``*weight`` (a Linear's (out, in)) through ``.T``; others pass
-    unchanged. The ``*_state_dict_from_numpy`` functions below invert it."""
+    (``models/layers.py::convert_tensor`` there), its dims permuted by
+    ``jax_axes``. The ``*_state_dict_from_numpy`` functions below invert
+    it."""
     a = np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
                    else t)
-    if a.ndim == 4:
-        return a.transpose(2, 3, 1, 0)
-    if a.ndim == 2 and key.endswith("weight"):
-        return a.T
-    return a
+    return a.transpose(jax_axes(key, a.ndim))
 
 
 def convert_state_dict(sd) -> dict:

@@ -19,6 +19,14 @@ vendored code's torch 0.4.1 default), not ``F.grid_sample``.
 What is trained is the whole state of ``SelfSupModel``, BatchNorm
 statistics included, as JAX's Adam updates its whole parameter dict
 (``parallel/train.py::trainable_state``).
+
+On a (dp, tp) mesh the step is ``parallel/train.py``'s scheme: each dp
+rank takes its rows of the global batch (the ``*_aug`` frames too), and
+the automasking noise is drawn over the global batch's shape and cut
+into the same rows, as JAX draws it inside its global program. The
+BatchNorms run on their running statistics (``layers.BatchNorm2d``, as
+``models/monodepth2.py:39-46`` of the JAX package), so no batch statistic
+crosses ranks: a SyncBatchNorm would change the function.
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ from vido_slam_tpu_torch.models.monodepth2 import (
     DepthDecoder, PoseDecoder, ResNet18Encoder, disp_to_depth,
     init_monodepth2_params, init_pose_decoder_params)
 from vido_slam_tpu_torch.ops.warp import resize_bilinear
+from vido_slam_tpu_torch.parallel.mesh import Mesh, dp_mean, shard_batch
 from vido_slam_tpu_torch.parallel.train import (compute_grads,
-                                                make_optimizer,
+                                                make_optimizer, mesh_update,
+                                                sharded_leaves,
                                                 trainable_state)
 from vido_slam_tpu_torch.utils import prng
 from vido_slam_tpu_torch.utils.device import resolve_device
@@ -245,11 +255,13 @@ def selfsup_loss(model: SelfSupModel, batch: SelfSupBatch,
                  scales: Tuple[int, ...] = (0, 1, 2, 3),
                  min_depth: float = 0.1, max_depth: float = 100.0,
                  disparity_smoothness: float = 1e-3,
-                 automasking: bool = True
+                 automasking: bool = True,
+                 rows: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The total self-supervised loss and an aux dict (each scale's loss,
     the full-resolution depth), as monodepth2_train.py:209-294 of the JAX
-    package computes them."""
+    package computes them. ``rows`` = (first, B): the batch is rows
+    first.. of a global batch of B, whose noise is drawn whole and cut."""
     N, _, H, W = batch.color.shape
     cur_in = batch.color if batch.color_aug is None else batch.color_aug
     prev_in = batch.prev if batch.prev_aug is None else batch.prev_aug
@@ -264,7 +276,10 @@ def selfsup_loss(model: SelfSupModel, batch: SelfSupBatch,
     if automasking:
         ident = torch.stack([reprojection_loss(src, batch.color)
                              for src, _ in sources], 1)       # (N, S, H, W)
-        ident = ident + prng.normal(key.to(ident.device), ident.shape) * 1e-5
+        first, total = (0, N) if rows is None else rows
+        noise = prng.normal(key.to(ident.device),
+                            (total,) + tuple(ident.shape[1:]))
+        ident = ident + noise[first:first + N] * 1e-5
 
     total = 0.0
     aux: Dict[str, torch.Tensor] = {}
@@ -290,17 +305,29 @@ def selfsup_loss(model: SelfSupModel, batch: SelfSupBatch,
 
 
 def make_selfsup_train_step(model: SelfSupModel, lr: float = 1e-4,
-                            **loss_kw):
+                            mesh: Optional[Mesh] = None, **loss_kw):
     """(batch, key) -> loss: one Adam step (1e-4, trainer.py:91) of
-    ``selfsup_loss`` over the model's whole state, in place."""
-    params = trainable_state(model)
+    ``selfsup_loss`` over the model's whole state, in place. On a
+    ``mesh`` (monodepth2_train.py:302-335 of the JAX package) the batch is
+    the global one and the loss the dp mean."""
+    whole = trainable_state(model)
+    params = whole if mesh is None else sharded_leaves(whole, mesh)
     opt = make_optimizer(params, lr)
 
     def step(batch: SelfSupBatch, key: torch.Tensor) -> torch.Tensor:
-        loss, _ = selfsup_loss(model, batch, key, **loss_kw)
-        compute_grads(loss, params)
-        opt.step()
-        return loss.detach()
+        if mesh is None:
+            loss, _ = selfsup_loss(model, batch, key, **loss_kw)
+            compute_grads(loss, whole)
+            opt.step()
+            return loss.detach()
+        B = batch.color.shape[0]
+        local = shard_batch(batch, mesh)
+        loss, _ = selfsup_loss(model, local, key,
+                               rows=(mesh.dp_rank * (B // mesh.dp), B),
+                               **loss_kw)
+        compute_grads(loss, whole)
+        mesh_update(opt, whole, params, mesh)
+        return dp_mean(loss.detach(), mesh)
 
     return step
 

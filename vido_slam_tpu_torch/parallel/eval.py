@@ -1,14 +1,18 @@
-"""Batched evaluation on one device — the single-device half of
-``vido_slam_tpu/parallel/eval.py``.
+"""Batched evaluation — counterpart of ``vido_slam_tpu/parallel/eval.py``.
 
 The JAX package stacks S window problems into one vmapped program and
 shards it over a mesh's ``dp`` axis; detection inference and COCO scoring
 shard the image batch the same way. Here each function takes a ``device``
-(``cuda`` unless the caller passes ``"cpu"``) where JAX takes a mesh, and
-runs the batch on it one item after another: each window problem keeps
-its own LM stop, as JAX's vmapped ``while_loop`` freezes a finished
-problem while the others iterate. The names are the JAX package's, so
-that the process-group form can sit beside them.
+(``cuda`` unless the caller passes ``"cpu"``) and runs the batch on it one
+item after another: each window problem keeps its own LM stop, as JAX's
+vmapped ``while_loop`` freezes a finished problem while the others
+iterate. Given a ``mesh`` (``parallel/mesh.py``; its device is then the
+one used), each dp rank runs its rows of the batch with that same code
+and the results are all-gathered over the dp group, so every rank holds
+the whole stacked result, as JAX replicates it and as the reference's
+``_accumulate_predictions_from_multiple_gpus`` gathers it. The tp ranks of
+one dp row compute the same rows; the gather takes them once. dp must
+divide the batch (``shard_batch``), as JAX's sharding requires.
 
 On the card, ``sharded_detection_inference`` runs kernel 5 (the FPN
 multilevel ROIAlign) twice an image, and ``sharded_window_ba`` runs the
@@ -18,7 +22,7 @@ dicts and the AP are host numpy, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,6 +32,8 @@ from vido_slam_tpu_torch.estimation.window_ba import (WindowBAResult,
                                                       solve_window_ba)
 from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNNOutput,
                                                        maskrcnn_inference)
+from vido_slam_tpu_torch.parallel.mesh import (Mesh, gather_batch,
+                                               shard_batch)
 from vido_slam_tpu_torch.utils.device import resolve_device
 
 
@@ -48,10 +54,15 @@ _FLOAT_FIELDS = ("Twc0", "odom", "X0", "obs")
 
 
 def sharded_window_ba(probs: BatchedWindowProblem, max_iters: int = 15,
-                      device=None) -> WindowBAResult:
+                      device=None, mesh: Optional[Mesh] = None
+                      ) -> WindowBAResult:
     """Solve S window problems on ``device``, each by ``solve_window_ba``
-    with its own stop. Returns the stacked result: Twc (S, W, 4, 4),
-    points (S, P, 3), cost (S,), num_iters (S,) int32."""
+    with its own stop; on a ``mesh``, S/dp of them a dp rank. Returns the
+    stacked result: Twc (S, W, 4, 4), points (S, P, 3), cost (S,),
+    num_iters (S,) int32."""
+    if mesh is not None:
+        return gather_batch(sharded_window_ba(
+            shard_batch(probs, mesh), max_iters, mesh.device), mesh)
     dev = resolve_device(device)
     probs = BatchedWindowProblem(**{
         k: torch.as_tensor(v, device=dev, dtype=torch.float32
@@ -69,11 +80,13 @@ def sharded_window_ba(probs: BatchedWindowProblem, max_iters: int = 15,
 
 
 def evaluate_sequences(probs: BatchedWindowProblem, gt_Twc,
-                       max_iters: int = 15, device=None):
-    """The S solves and each sequence's ATE RMSE against the ground-truth
-    camera-to-world poses (S, W, 4, 4). Returns (result, ate (S,))."""
-    dev = resolve_device(device)
-    res = sharded_window_ba(probs, max_iters, dev)
+                       max_iters: int = 15, device=None,
+                       mesh: Optional[Mesh] = None):
+    """The S solves (``sharded_window_ba``) and each sequence's ATE RMSE
+    against the ground-truth camera-to-world poses (S, W, 4, 4). Returns
+    (result, ate (S,))."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    res = sharded_window_ba(probs, max_iters, dev, mesh)
     c_est = res.Twc[..., :3, 3]
     c_gt = torch.as_tensor(gt_Twc, device=dev, dtype=torch.float32)[
         ..., :3, 3]
@@ -91,11 +104,17 @@ def evaluate_sequences(probs: BatchedWindowProblem, gt_Twc,
 # package's gathered batch
 # ---------------------------------------------------------------------------
 
-def sharded_detection_inference(model, images, device=None
+def sharded_detection_inference(model, images, device=None,
+                                mesh: Optional[Mesh] = None
                                 ) -> MaskRCNNOutput:
     """Mask R-CNN inference (``maskrcnn_inference``) on B preprocessed
     images (B, 3, H, W), one image a call on ``device``, where ``model``
-    must already be. Returns a MaskRCNNOutput with a leading B."""
+    must already be; on a ``mesh``, B/dp images a dp rank (dp must divide
+    B, parallel/eval.py:95 of the JAX package). Returns a MaskRCNNOutput
+    with a leading B."""
+    if mesh is not None:
+        return gather_batch(sharded_detection_inference(
+            model, shard_batch(images, mesh), mesh.device), mesh)
     images = torch.as_tensor(images, device=resolve_device(device),
                              dtype=torch.float32)
     outs = [maskrcnn_inference(model, images[b:b + 1].contiguous())
@@ -190,13 +209,15 @@ def predictions_from_output(out, in_hw, out_hw=None, with_masks=True):
 
 
 def sharded_coco_evaluation(model, images, ground_truth, out_hw=None,
-                            iou_types=("bbox", "segm"), device=None):
-    """The reference's eval loop (engine/inference.py:11-86) on one device:
-    ``sharded_detection_inference`` over the batch, the prediction dicts,
-    and the FULL COCO protocol (``data/coco_eval.compute_map``) for each
-    iou_type. Returns {iou_type: metrics dict} with mAP/AP50/AP75,
+                            iou_types=("bbox", "segm"), device=None,
+                            mesh: Optional[Mesh] = None):
+    """The reference's eval loop (engine/inference.py:11-86):
+    ``sharded_detection_inference`` over the batch (on a ``mesh``, dp
+    sharded and gathered), the prediction dicts, and the FULL COCO protocol
+    (``data/coco_eval.compute_map``) for each iou_type on the gathered
+    predictions. Returns {iou_type: metrics dict} with mAP/AP50/AP75,
     APsmall..AR100."""
-    out = sharded_detection_inference(model, images, device)
+    out = sharded_detection_inference(model, images, device, mesh)
     cfg = model.cfg
     preds = predictions_from_output(
         out, (cfg.input_h, cfg.input_w), out_hw,

@@ -1,4 +1,4 @@
-"""Multi-sequence SLAM tracking on one device — the single-device half of
+"""Multi-sequence SLAM tracking — counterpart of
 ``vido_slam_tpu/parallel/slam_eval.py`` (SURVEY §2.4's multi-sequence
 KAIST evaluation on the SLAM side).
 
@@ -12,16 +12,24 @@ is ``Tracker.initialize``/``_next_key``'s, so sequence s equals a
 ``Tracker(seed=seeds[s], local_ba=True, fused_ba=True)`` on its frames.
 On the card the camera and object solves run kernel 1 (the batched pose
 LM), twice a tracked frame a sequence.
+
+Given a ``mesh`` (``parallel/mesh.py``), S is padded to a multiple of dp by
+repeating the last sequence and its seed (slam_eval.py:171-182 of the JAX
+package), each dp rank tracks its contiguous block of sequences, and the
+results are all-gathered and the pads cut off. Sequence s draws from
+``PRNGKey(seeds[s])`` on whichever rank it lands.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from vido_slam_tpu_torch.config import Config
 from vido_slam_tpu_torch.geometry.camera import Camera
+from vido_slam_tpu_torch.parallel.mesh import Mesh, gather_batch, shard_batch
 from vido_slam_tpu_torch.tracking import TrackState, _track_step, initial_state
 from vido_slam_tpu_torch.utils import prng
 from vido_slam_tpu_torch.utils.device import resolve_device
@@ -61,12 +69,31 @@ def multi_sequence_tracking(
     ba_points: int = 400,
     ba_iters: int = 5,
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> MultiSeqResult:
     """Track S sequences on ``device``, one after another. Frame 0
     initialises; frames 1..T-1 step. Inputs may be numpy arrays or tensors
     on any device: each frame is moved to ``device`` as it is tracked. The
     JAX package pads S to a multiple of its mesh's dp size by replicating
-    the last sequence; one device needs no padding."""
+    the last sequence; one device needs no padding. On a ``mesh`` the
+    sequences are spread over its dp ranks (see the module's note) and
+    every rank returns all S results."""
+    if mesh is not None:
+        S = depths.shape[0]
+        seeds = np.arange(S) if seeds is None else np.asarray(seeds)
+        Sp = -(-S // mesh.dp) * mesh.dp
+
+        def padded(x):
+            idx = np.minimum(np.arange(Sp), S - 1)
+            return x[torch.as_tensor(idx)] if isinstance(x, torch.Tensor) \
+                else np.asarray(x)[idx]
+        local = shard_batch([padded(x) for x in (depths, flows, masks,
+                                                 seeds)], mesh)
+        res = multi_sequence_tracking(
+            cfg, *local[:3], seeds=local[3], n_bg=n_bg, n_obj=n_obj,
+            max_objects=max_objects, ba_points=ba_points, ba_iters=ba_iters,
+            device=mesh.device)
+        return MultiSeqResult(*(x[:S] for x in gather_batch(res, mesh)))
     dev = resolve_device(device)
     s = cfg.system
     c = cfg.camera

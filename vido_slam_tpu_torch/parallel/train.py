@@ -1,7 +1,6 @@
 """Training steps and loops for the perception networks — counterpart of
-``vido_slam_tpu/parallel/train.py`` in one process on one device (the
-JAX package's (dp, tp) mesh, its gradient psum and its sharded
-parameters are item 21, ``torch.distributed``).
+``vido_slam_tpu/parallel/train.py``, on one device or, given a ``mesh``
+(``parallel/mesh.py``), over a (dp, tp) process mesh.
 
 - The supervised depth step: ``depth_loss`` (L1 between MonoDepth2's
   disparity and a target inverse depth) under Adam (``make_optimizer``:
@@ -23,6 +22,27 @@ tensor that the loss does not reach gets a zero gradient, as under
 
 Entry points take the device of the model they are given; the models
 themselves default to the card (``device="cpu"`` for the CPU).
+
+On a mesh, a step computes what the JAX package's GSPMD program computes
+(train.py:70-91, 185-199) with the forms of ``vido_slam_tpu_torch``'s
+single-device step:
+
+- each dp rank takes its rows of the global batch (``shard_batch``), and
+  the per-image keys are the rows of ``split(key, B)`` over the global B;
+- each tp rank keeps and updates only its ``param_spec`` shard of every
+  trainable tensor, and its optimizer's state has the same shards; the
+  forward runs with the whole tensors, all-gathered over the tp group
+  after each update (so the model always holds the current weights);
+- the gradient is the dp mean of the ranks' local mean-loss gradients
+  (equal shard sizes: the global mean), summed over the dp group and
+  divided by dp; each rank then updates its slice. Adam and
+  ``DetectionSGD`` are elementwise, so the sharded update equals the
+  whole one;
+- the loss returned is the dp mean, JAX's global loss.
+
+tp is computed by gathering the weights, not by splitting each conv's
+output channels and gathering the activations: the numbers are the same
+and it is the least code; tp ranks of one dp row repeat the same rows.
 """
 
 from __future__ import annotations
@@ -40,6 +60,9 @@ import torch.nn as nn
 from vido_slam_tpu_torch.models.maskrcnn.losses import (DetectionTargets,
                                                         total_loss)
 from vido_slam_tpu_torch.models.maskrcnn.model import MaskRCNN
+from vido_slam_tpu_torch.parallel.mesh import (Mesh, dp_mean, gather_params,
+                                               param_spec, shard_batch,
+                                               shard_params)
 from vido_slam_tpu_torch.utils import prng
 from vido_slam_tpu_torch.utils.checkpoint import save_torch_state_dict
 from vido_slam_tpu_torch.utils.device import resolve_device
@@ -68,11 +91,46 @@ def compute_grads(loss: torch.Tensor,
             v.grad = torch.zeros_like(v)
 
 
+def mesh_update(opt: torch.optim.Optimizer, whole: Dict[str, torch.Tensor],
+                shards: Dict[str, torch.Tensor], mesh: Mesh) -> None:
+    """One optimizer step on a mesh, after ``compute_grads`` into the whole
+    tensors ``whole``: their gradients become the dp mean (one all-reduce
+    over the dp group), each shard of ``shards`` (which ``opt`` holds)
+    takes its slice, ``opt`` steps, and the shards are gathered back into
+    ``whole``."""
+    if mesh.dp > 1:
+        flat = torch.cat([v.grad.reshape(-1) for v in whole.values()])
+        flat = dp_mean(flat, mesh)
+        at = 0
+        for v in whole.values():
+            v.grad = flat[at:at + v.numel()].view(v.shape)
+            at += v.numel()
+    for k, s in shards.items():
+        g = whole[k].grad
+        d = param_spec(k, g, mesh.tp)
+        if d is not None:
+            n = g.shape[d] // mesh.tp
+            g = g.narrow(d, mesh.tp_rank * n, n)
+        s.grad = g.contiguous()
+    opt.step()
+    gather_params(shards, mesh, whole)
+
+
+def sharded_leaves(whole: Dict[str, torch.Tensor],
+                   mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The optimizer's tensors on a mesh: leaves holding this rank's
+    shards."""
+    return {k: v.requires_grad_(True)
+            for k, v in shard_params(whole, mesh).items()}
+
+
 # ---------------------------------------------------------------------------
 # the supervised depth step
 # ---------------------------------------------------------------------------
 
 class TrainState(NamedTuple):
+    """``params`` are what ``opt`` holds: the trainable state itself, or on
+    a mesh this rank's shards of it."""
     model: nn.Module
     params: Dict[str, torch.Tensor]
     opt: torch.optim.Optimizer
@@ -93,20 +151,35 @@ def make_optimizer(params: Dict[str, torch.Tensor],
                             eps=1e-8)
 
 
-def init_train_state(net: nn.Module, lr: float = 1e-4) -> TrainState:
+def init_train_state(net: nn.Module, lr: float = 1e-4,
+                     mesh: Optional[Mesh] = None) -> TrainState:
+    """The trainable state of ``net`` under Adam; on a ``mesh`` the
+    optimizer holds this rank's shards (``net`` on the mesh's device)."""
     params = trainable_state(net)
+    if mesh is not None:
+        params = sharded_leaves(params, mesh)
     return TrainState(net, params, make_optimizer(params, lr), 0)
 
 
-def make_train_step(loss_fn: Callable = depth_loss):
+def make_train_step(loss_fn: Callable = depth_loss,
+                    mesh: Optional[Mesh] = None):
     """(state, batch) -> (state, loss): one optimizer step of ``loss_fn``
-    over the state's model, in place."""
+    over the state's model, in place. On a ``mesh`` (the state's, from
+    ``init_train_state(..., mesh=mesh)``) the batch is the global one:
+    each dp rank takes its rows and the loss is the dp mean."""
 
     def step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
-        loss = loss_fn(state.model, batch)
-        compute_grads(loss, state.params)
-        state.opt.step()
-        return state._replace(step=state.step + 1), loss.detach()
+        if mesh is None:
+            loss = loss_fn(state.model, batch)
+            compute_grads(loss, state.params)
+            state.opt.step()
+            return state._replace(step=state.step + 1), loss.detach()
+        whole = trainable_state(state.model)
+        loss = loss_fn(state.model, shard_batch(batch, mesh))
+        compute_grads(loss, whole)
+        mesh_update(state.opt, whole, state.params, mesh)
+        return (state._replace(step=state.step + 1),
+                dp_mean(loss.detach(), mesh))
 
     return step
 
@@ -210,32 +283,48 @@ def detection_batch(batch, device) -> Tuple[torch.Tensor, DetectionTargets]:
         valid=torch.as_tensor(t["valid"], dtype=torch.bool, device=device))
 
 
-def detection_loss(model: MaskRCNN, batch, key: torch.Tensor) -> torch.Tensor:
+def detection_loss(model: MaskRCNN, batch, key: torch.Tensor,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The mean over the batch's images of ``total_loss``, image b drawn
-    from ``split(key, B)[b]`` (train.py:166-183)."""
+    from ``split(key, B)[b]`` (train.py:166-183). On a ``mesh``, the mean
+    over this dp rank's rows of the global batch, each with its row of
+    the global split."""
     dev = next(model.parameters()).device
+    keys = prng.split(key.to(dev), batch["image"].shape[0])
+    if mesh is not None:
+        batch, keys = shard_batch((batch, keys), mesh)
     images, tg = detection_batch(batch, dev)
-    keys = prng.split(key.to(dev), images.shape[0])
     losses = [total_loss(model, images[b:b + 1],
                          DetectionTargets(*(x[b] for x in tg)), keys[b])
               for b in range(images.shape[0])]
     return torch.stack(losses).mean()
 
 
-def make_detection_train_step(model: MaskRCNN, lr: float = 1e-4,
-                              opt: Optional[torch.optim.Optimizer] = None):
+def make_detection_train_step(
+        model: MaskRCNN, lr: float = 1e-4,
+        opt: Optional[torch.optim.Optimizer] = None,
+        mesh: Optional[Mesh] = None,
+        params: Optional[Dict[str, torch.Tensor]] = None):
     """(batch, key) -> loss: one optimizer step of ``detection_loss`` over
     ``model``'s trainable state, in place. ``opt`` overrides the default
-    Adam (pass ``make_detection_optimizer(trainable_state(model))`` for
-    the reference's SGD solver); it must hold ``trainable_state(model)``."""
-    params = trainable_state(model)
+    Adam (pass ``make_detection_optimizer(params)`` for the reference's
+    SGD solver); it must hold ``params``: ``trainable_state(model)``, or on
+    a ``mesh`` this rank's shards of it (``shard_params``; made here when
+    not given). On a mesh the batch and key are the global ones and the
+    loss is the dp mean."""
+    whole = trainable_state(model)
+    if params is None:
+        params = whole if mesh is None else sharded_leaves(whole, mesh)
     opt = opt if opt is not None else make_optimizer(params, lr)
 
     def step(batch, key) -> torch.Tensor:
-        loss = detection_loss(model, batch, key)
-        compute_grads(loss, params)
-        opt.step()
-        return loss.detach()
+        loss = detection_loss(model, batch, key, mesh)
+        compute_grads(loss, whole)
+        if mesh is None:
+            opt.step()
+            return loss.detach()
+        mesh_update(opt, whole, params, mesh)
+        return dp_mean(loss.detach(), mesh)
 
     return step
 
@@ -256,6 +345,7 @@ def run_detection_training(
     seed: int = 0,
     start_iter: int = 0,
     log_fn: Callable[[str], None] = print,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """The reference training loop (engine/trainer.py do_train): the batches
     through the detector's step under the SGD solver, a log line every
@@ -269,13 +359,22 @@ def run_detection_training(
     ``init_maskrcnn_params`` or ``convert.maskrcnn_state_dict_from_numpy``
     give it); ``device``: where to train (None: the card). A sequence of
     batches is cycled; an iterator is read as it comes. Returns the final
-    state dict (detached)."""
+    state dict (detached).
+
+    On a ``mesh`` (``device`` is then the mesh's) the batches are the
+    global ones; only rank 0 logs, with the global loss, and writes the
+    checkpoints, from the tensors ``gather_params`` keeps whole."""
+    if mesh is not None:
+        device = mesh.device
     model = MaskRCNN(cfg, device=resolve_device(device))
     model.load_state_dict(params, strict=True)
     state = trainable_state(model)
+    if mesh is not None:
+        state = sharded_leaves(state, mesh)
     opt = make_detection_optimizer(state, base_lr=base_lr,
                                    warmup_iters=warmup_iters, steps=lr_steps)
-    step = make_detection_train_step(model, opt=opt)
+    step = make_detection_train_step(model, opt=opt, mesh=mesh, params=state)
+    lead = mesh is None or mesh.rank == 0
     sched = warmup_multistep_schedule(base_lr, warmup_iters=warmup_iters,
                                       steps=lr_steps)
 
@@ -291,7 +390,7 @@ def run_detection_training(
         key, k = prng.split(key)
         loss = step(batch, k)
         window.append(float(loss))
-        if (i + 1) % log_period == 0 or i + 1 == num_iters:
+        if lead and ((i + 1) % log_period == 0 or i + 1 == num_iters):
             done = i + 1 - start_iter
             rate = (time.perf_counter() - t0) / max(done, 1)
             eta_s = rate * (num_iters - (i + 1))
@@ -299,11 +398,11 @@ def run_detection_training(
                    f"(median {float(np.median(window)):.4f})  "
                    f"lr {float(sched(i)):.6f}  "
                    f"{rate:.2f} s/it  eta {eta_s / 60:.1f} min")
-        if output_dir and (i + 1) % checkpoint_period == 0:
+        if lead and output_dir and (i + 1) % checkpoint_period == 0:
             save_torch_state_dict(
                 os.path.join(output_dir, f"model_{i + 1:07d}"),
                 model.state_dict())
-    if output_dir:
+    if lead and output_dir:
         save_torch_state_dict(os.path.join(output_dir, "model_final"),
                               model.state_dict())
     return {k: v.detach() for k, v in model.state_dict().items()}

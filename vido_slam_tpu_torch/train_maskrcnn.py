@@ -2,9 +2,12 @@
 reference's tools/train_net.py: the model, the SGD solver and the
 WarmupMultiStepLR schedule, the loader, the engine/trainer.py loop).
 
-One process on one device: the card unless given ``--device cpu``.
-``--dp``/``--tp`` other than 1 (the JAX package's mesh) raise
-``NotImplementedError``: multi-device training is ROADMAP item 21.
+One process on one device (the card unless given ``--device cpu``), or
+under torchrun one process a rank on a (dp, tp) mesh (``parallel/mesh.py``:
+NCCL on the cards, a card a rank; gloo with ``--device cpu``). ``--dp 0``
+means the world size over ``--tp``; dp x tp must be the world size, and
+dp must divide ``--batch`` (the global batch). Rank 0 logs and writes the
+checkpoints.
 
 Data: a COCO-format dataset (``--ann-file``/``--image-root``, read by
 ``data/coco.py``: 8-bit PNG, baseline JPEG or ``.npy`` images) or
@@ -20,6 +23,10 @@ Examples:
       --batch 4 --lr 1e-3 --input-h 128 --input-w 160 --out det_ckpt
   python -m vido_slam_tpu_torch.train_maskrcnn --ann-file ann.json \\
       --image-root imgs/ --iters 180000 --batch 8
+  # 4 ranks as dp 2 x tp 2 (one card a rank; --device cpu for gloo)
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+      -m vido_slam_tpu_torch.train_maskrcnn --synthetic --dp 2 --tp 2 \\
+      --batch 4 --iters 20 --lr 1e-3 --out det_ckpt
 """
 
 from __future__ import annotations
@@ -44,9 +51,9 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=2,
                     help="images per step (SOLVER.IMS_PER_BATCH)")
     ap.add_argument("--dp", type=int, default=0,
-                    help="data-parallel size: 0 or 1 (more: item 21)")
+                    help="data-parallel size (0: the world size / tp)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size: 1 (more: item 21)")
+                    help="tensor-parallel size")
     ap.add_argument("--lr", type=float, default=0.01, help="SOLVER.BASE_LR")
     ap.add_argument("--warmup-iters", type=int, default=500)
     ap.add_argument("--lr-steps", type=int, nargs="*",
@@ -109,26 +116,44 @@ def coco_batches(ds, batch: int, seed: int):
 
 
 def main(argv=None, log_fn=print):
-    """Runs the CLI; returns the final state dict."""
+    """Runs the CLI; returns the final state dict. Under torchrun
+    (``WORLD_SIZE`` set) it starts the process group and ends it."""
     args = parse_args(argv)
-    if args.dp not in (0, 1) or args.tp != 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --tp {args.tp}: the port trains on one device; "
-            f"multi-device training is ROADMAP item 21")
+    import torch.distributed as dist
+
     from vido_slam_tpu_torch import convert
     from vido_slam_tpu_torch.models.maskrcnn.model import (
         MaskRCNNConfig, init_maskrcnn_params)
+    from vido_slam_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from vido_slam_tpu_torch.parallel.train import run_detection_training
     from vido_slam_tpu_torch.utils.checkpoint import load_params
     from vido_slam_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    torchrun = "WORLD_SIZE" in os.environ
+    world = int(os.environ["WORLD_SIZE"]) if torchrun else 1
+    dp = args.dp or max(world // args.tp, 1)
+    if dp * args.tp != world:
+        raise ValueError(
+            f"--dp {dp} --tp {args.tp} needs {dp * args.tp} ranks, but the "
+            f"world has {world}" + ("" if torchrun else
+                                    ": run it under torchrun, python -m "
+                                    "torch.distributed.run --nproc-per-node "
+                                    f"{dp * args.tp} -m "
+                                    "vido_slam_tpu_torch.train_maskrcnn ..."))
+    if args.batch % dp:
+        raise ValueError(f"--batch {args.batch} not divisible by dp={dp}")
+    mesh = None
+    if torchrun:
+        device = init_distributed(device)
+        mesh = make_mesh(world, dp=dp, tp=args.tp, device=device)
     cfg = MaskRCNNConfig(input_h=args.input_h, input_w=args.input_w)
     if args.resume:
         params = convert.maskrcnn_state_dict_from_numpy(
             {k: v.numpy() for k, v in load_params(args.resume).items()},
             device="cpu")
-        log_fn(f"resumed {len(params)} tensors from {args.resume}")
+        if mesh is None or mesh.rank == 0:
+            log_fn(f"resumed {len(params)} tensors from {args.resume}")
     else:
         params = init_maskrcnn_params(torch.Generator().manual_seed(args.seed),
                                       cfg)
@@ -149,13 +174,18 @@ def main(argv=None, log_fn=print):
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    return run_detection_training(
-        params, batches, device, cfg,
-        num_iters=args.iters, base_lr=args.lr,
-        warmup_iters=args.warmup_iters, lr_steps=tuple(args.lr_steps),
-        checkpoint_period=args.checkpoint_period, log_period=args.log_period,
-        output_dir=args.out or None, seed=args.seed,
-        start_iter=args.start_iter, log_fn=log_fn)
+    try:
+        return run_detection_training(
+            params, batches, device, cfg,
+            num_iters=args.iters, base_lr=args.lr,
+            warmup_iters=args.warmup_iters, lr_steps=tuple(args.lr_steps),
+            checkpoint_period=args.checkpoint_period,
+            log_period=args.log_period, output_dir=args.out or None,
+            seed=args.seed, start_iter=args.start_iter, log_fn=log_fn,
+            mesh=mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

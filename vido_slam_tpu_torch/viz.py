@@ -17,6 +17,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from vido_slam_tpu_torch.data.image_ops import hsv_to_rgb
 from vido_slam_tpu_torch.metrics import camera_centers
 from vido_slam_tpu_torch.slam_map import SlamMap
 
@@ -282,11 +283,142 @@ def flow_to_rgb(flow: np.ndarray, normalize: bool = True) -> np.ndarray:
         sat = (mag - lo) / max(hi - lo, 1e-12) * 255.0
     else:
         sat = np.clip(mag, 0, 255)
-    # HSV (cv2 layout: h in [0,180), s/v in [0,255]) -> RGB
-    from matplotlib.colors import hsv_to_rgb
-
+    # HSV (cv2 layout: h in [0,180), s/v in [0,255]) -> RGB, by
+    # matplotlib's hsv_to_rgb (image_ops' copy: the card has no matplotlib)
     hsv = np.stack([h_deg / 180.0, sat / 255.0, np.ones_like(sat)], axis=-1)
     return (hsv_to_rgb(hsv) * 255.0).astype(np.uint8)
+
+
+_ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
+
+
+def magma_image(disp: np.ndarray) -> np.ndarray:
+    """A disparity map (H, W) as the reference's test_simple.py colours it
+    (tools/infer_nets.py:38-46 of the JAX package): matplotlib's
+    ``Normalize(vmin=min, vmax=95th percentile)`` and the magma colormap's
+    ``to_rgba``, times 255, cut to uint8 -> (H, W, 3). The arithmetic is
+    matplotlib 3.10's: the normalisation in the data's dtype against float64
+    bounds, the index ``int(x * 256)`` with x == 1 on the last colour,
+    values above 1 on the last, NaN black. The table is
+    ``assets/magma.npy`` (``make_viz_assets``)."""
+    lut = np.load(os.path.join(_ASSETS, "magma.npy"))
+    n = lut.shape[0]
+    x = np.array(disp, copy=True)
+    vmin = np.float64(float(x.min()))
+    vmax = np.float64(float(np.percentile(x, 95)))
+    if vmin == vmax:
+        x.fill(0)
+    elif vmin > vmax:
+        raise ValueError("minvalue must be less than or equal to maxvalue")
+    else:
+        x -= vmin
+        x /= (vmax - vmin)
+    x *= n
+    x[x == n] = n - 1
+    bad = np.isnan(x)
+    with np.errstate(invalid="ignore"):
+        idx = np.clip(x, -1, n).astype(int)
+    idx[x < 0] = 0
+    idx[x >= n] = n - 1
+    idx[bad] = 0
+    rgb = lut[idx]
+    rgb[bad] = 0.0
+    return (rgb * 255).astype(np.uint8)
+
+
+BOX_COLOUR = (255, 64, 64)
+LABEL_COLOUR = (255, 255, 0)
+
+
+def _hline(img: np.ndarray, x0: int, y: int, x1: int, ink) -> None:
+    H, W = img.shape[:2]
+    if 0 <= y < H and x0 < W and x1 >= 0:
+        img[y, max(x0, 0):min(x1, W - 1) + 1] = ink
+
+
+def _vline(img: np.ndarray, x: int, y0: int, y1: int, ink) -> None:
+    """Pillow's line from (x, y0) to (x, y1): |y1 - y0| pixels from y0
+    towards y1, the end left out."""
+    H, W = img.shape[:2]
+    step = 1 if y1 >= y0 else -1
+    for y in range(y0, y1, step):
+        if 0 <= x < W and 0 <= y < H:
+            img[y, x] = ink
+
+
+def draw_rectangle(img: np.ndarray, box, ink=BOX_COLOUR) -> None:
+    """``ImageDraw.rectangle(box, outline=ink)`` of width 1 on an (H, W, 3)
+    uint8 image, in place: the corners cut to int toward zero, the top
+    and bottom rows, then the sides between them (Pillow's draw.c). A box
+    whose x1 < x0 or y1 < y0 raises ``ValueError``, as Pillow's does."""
+    if box[2] < box[0]:
+        raise ValueError("x1 must be greater than or equal to x0")
+    if box[3] < box[1]:
+        raise ValueError("y1 must be greater than or equal to y0")
+    x0, y0, x1, y1 = (int(v) for v in box)
+    _hline(img, x0, y0, x1, ink)
+    _hline(img, x0, y1, x1, ink)
+    _vline(img, x1, y0 + 1, y1, ink)
+    _vline(img, x0, y0 + 1, y1, ink)
+
+
+def label_font() -> dict:
+    """The glyph atlas ``assets/label_font.npz`` (``make_viz_assets``)."""
+    with np.load(os.path.join(_ASSETS, "label_font.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def draw_label(img: np.ndarray, xy, text: str, font: dict,
+               ink=LABEL_COLOUR):
+    """``ImageDraw.text(xy, text, fill=ink)`` with Pillow's default font,
+    from its glyph atlas ``font`` (``label_font``): each character's
+    coverage m blended over the image as Pillow blends it, (v (255 - m) +
+    ink m) / 255 rounded, at the pen's integer position (Pillow lays the
+    string out as a whole, at the position's fraction, so its glyph pixels
+    differ). In place; returns the (x0, y0, x1, y1) box of the pixels it
+    changed (x1, y1 excluded), or None."""
+    chars = str(font["chars"])
+    H, W = img.shape[:2]
+    pen, top = int(xy[0]), int(xy[1])
+    ink = np.asarray(ink, np.int32)
+    box = None
+    for ch in text:
+        i = chars.find(ch) if ch in chars else chars.find("?")
+        g = font["glyphs"][i].astype(np.int32)
+        gx, gy = (int(v) for v in font["offsets"][i])
+        x0, y0 = pen + gx, top + gy
+        cx0, cy0 = max(x0, 0), max(y0, 0)
+        cx1, cy1 = min(x0 + g.shape[1], W), min(y0 + g.shape[0], H)
+        if g.any() and cx0 < cx1 and cy0 < cy1:
+            m = g[cy0 - y0:cy1 - y0, cx0 - x0:cx1 - x0, None]
+            t = img[cy0:cy1, cx0:cx1].astype(np.int32) * (255 - m) \
+                + ink * m + 128
+            img[cy0:cy1, cx0:cx1] = ((t >> 8) + t) >> 8
+            ys, xs = np.nonzero(m[..., 0])
+            if len(ys):
+                b = (cx0 + xs.min(), cy0 + ys.min(), cx0 + xs.max() + 1,
+                     cy0 + ys.max() + 1)
+                box = b if box is None else (
+                    min(box[0], b[0]), min(box[1], b[1]),
+                    max(box[2], b[2]), max(box[3], b[3]))
+        pen += int(font["advances"][i])
+    return box
+
+
+def draw_detections(image: np.ndarray, boxes, texts) -> tuple:
+    """tools/infer_nets.py:176-183 of the JAX package without PIL: each
+    detection's box outlined (``draw_rectangle``), then its label drawn at
+    (x0 + 1, max(0, y0 - 10)) (``draw_label``), one detection after
+    another. Returns the annotated copy (H, W, 3) uint8 and the labels'
+    boxes."""
+    img = np.array(image, np.uint8, copy=True)
+    font = label_font()
+    label_boxes = []
+    for b, text in zip(boxes, texts):
+        draw_rectangle(img, b)
+        label_boxes.append(draw_label(img, (b[0] + 1, max(0.0, b[1] - 10)),
+                                      text, font))
+    return img, label_boxes
 
 
 def draw_frame_overlay(image: np.ndarray, slam_map: SlamMap,
