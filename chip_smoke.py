@@ -211,7 +211,27 @@ Phases, each of which fails the run by raising:
      RetinaNet (none) and Mask R-CNN (kernel 5 twice; its random init
      gives an inverted box, which both devices refuse to draw after the
      JSON, as the JAX CLI does) on a bench-clip frame, the detections held
-     by ``match_detections``;
+     by ``match_detections``. (r) the C facade, the standalone host, the
+     file prefetcher and the deformable detector in bf16: (r1) (a)'s 24
+     frames at 1280x560 through the C facade (``csrc/vido_system.cpp``,
+     built by g++ and loaded by ctypes, ``vido_system_init_ex`` with (a)'s
+     tracker arguments, on the card), then through the Python ``System``
+     on the card: kernel 1 twice a tracked frame (46) in each, every
+     pose, every frame's ``GetFrameOutputArray`` rows and the four result
+     txts equal, both ms a frame printed; (r2) ``run_vido_native`` (a C++
+     process that embeds CPython, ``vido_system_init`` on the card) as a
+     subprocess over 3 synthetic 160x256 frames: its printed translations
+     equal the Python ``System``'s on the same frames rebuilt in numpy,
+     and it ends with ``ok``; (r3) inside (h), ``FilePrefetcher`` over
+     (h)'s KAIST tree (24 frames x 4 files): its bytes equal the files,
+     the ms to read a frame's files with it and with ``open().read()``
+     printed; (r4) ``PerceptionModel(mask_cfg=RESNEXT101_FPN_DCN,
+     mask_dtype=torch.bfloat16)`` with (m1)'s offset convs and lift over
+     (m1)'s 3 frames: kernel 5's bf16 build twice a frame, held against its
+     plain version on the last frame's calls and timed there, ms a frame
+     beside the float32 DCN detector's on the same frames, and the bf16
+     detector on the card held against the port on the CPU in bf16 at
+     320x256 by ``match_detections``;
   5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
      call's arguments, its launches on (f) and (g), on (h1)-(h4), on
@@ -222,7 +242,9 @@ Phases, each of which fails the run by raising:
      shapes; its launches in (n1) and in (o1), (o2) and (o4), in (p1),
      (p3) and (p4) and in (q); kernel 5b's entry: its launches in (n1) and
      (p1), its device ms, plain ms and bound on a training step's calls
-     and at the inference shapes), then the device line.
+     and at the inference shapes; each kernel's launches in (r1) and (r4),
+     and kernel 5's bf16 device ms, plain ms and bound on (r4)'s last
+     frame), then the device line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -1863,9 +1885,12 @@ def check_unfilter(path):
     return raw.size
 
 
-def run_phase_h(counters, names, seq, vio_init, vio_attempts):
+def run_phase_h(counters, names, seq, vio_init, vio_attempts,
+                tree_hook=None):
     """Phase (h), the offline demo from files: the CLI's main() on trees
-    this function writes. Returns each kernel's launches on (h1)-(h4)."""
+    this function writes; ``tree_hook(root, n_frames)``, if given, runs on
+    the KAIST tree once it is written. Returns each kernel's launches on
+    (h1)-(h4)."""
     cards = card_line()
     out = {}
     with tempfile.TemporaryDirectory() as root:
@@ -1893,6 +1918,8 @@ def run_phase_h(counters, names, seq, vio_init, vio_attempts):
               f"1280x560 x {len(seq.frames)} (BayerBG PNG, .flo, 16-bit "
               f"depth, mask, {t_imu.size} IMU rows), KITTI 1242x375 x "
               f"{N_FRAMES}, online 640x192 x {DEMO_ONLINE_FRAMES}")
+        if tree_hook is not None:
+            tree_hook(os.path.join(root, "kaist"), N_FRAMES)
         first = sorted(os.listdir(kaist["image_path"]))[0]
         n_bytes = [check_unfilter(os.path.join(kaist["image_path"], first)),
                    check_unfilter(os.path.join(kitti["image_path"],
@@ -4537,6 +4564,347 @@ def run_phase_q(dev, counters, names, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (r): the C facade, the standalone host, the file prefetcher and
+# the deformable detector in bf16 (ROADMAP.md items 22, 10c and 19c)
+# ---------------------------------------------------------------------------
+
+RUNNER_FRAMES = 3
+# the camera of the JAX package's facade scene (simple_scene(256, 160)) for
+# the standalone host's fixed 160x256 frames
+RUNNER_CONFIG = {
+    "Camera.width": 256, "Camera.height": 160, "Camera.fx": 200.0,
+    "Camera.fy": 200.0, "Camera.cx": 128.0, "Camera.cy": 80.0,
+    "Camera.bf": 40.0, "ChooseData": 1, "DepthMapFactor": 100,
+    "Camera.fps": 10, "MaxTrackPointBG": 600, "WINDOW_SIZE": 4,
+    "slam_mode": 0,
+}
+RUNNER_TIMEOUT = 600.0
+RESULT_TXTS = ("obj_mot_rgbd_new.txt", "initial_rgbd_new.txt",
+               "refined_rgbd_new.txt", "cam_pose_gt.txt")
+
+
+def host_frames(inputs):
+    """(a)'s frames as a C caller holds them: contiguous host arrays of raw
+    depth (float32), flow (float32), mask (int32) and the ground truth."""
+    return [(np.ascontiguousarray(raw.cpu().numpy(), np.float32),
+             np.ascontiguousarray(flow.cpu().numpy(), np.float32),
+             np.ascontiguousarray(mask.cpu().numpy(), np.int32),
+             np.ascontiguousarray(gt, np.float32))
+            for raw, flow, mask, gt in inputs]
+
+
+def result_txts(save, d, tag) -> dict:
+    prefix = os.path.join(d, tag + "_")
+    save(prefix)
+    out = {}
+    for name in RESULT_TXTS:
+        with open(prefix + name, "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def run_facade(inputs, counters, names, card, dev="cuda"):
+    """(r1): (a)'s 24 frames at 1280x560 through the C facade
+    (``vido_system_init_ex`` with (a)'s tracker arguments, on the card),
+    loaded by ctypes into this process, then through the Python ``System``
+    on the card: every pose, every frame's ``GetFrameOutputArray`` rows
+    and the four result txts equal, kernel 1 twice a tracked frame in
+    each. ``dev="cpu"`` (a rehearsal) adds ``{"device": "cpu"}`` to the
+    arguments. Returns the facade run's launches and both ms a frame."""
+    import ctypes
+    import torch
+    from vido_slam_tpu_torch import native_system
+    from vido_slam_tpu_torch.system import Sensor, System
+
+    dev = torch.device(dev).type
+    lib = native_system.facade()
+    frames = host_frames(inputs)
+    n = len(frames)
+    H, W = frames[0][0].shape
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    kw = dict(TRACKER_KW, **({"device": "cpu"} if dev == "cpu" else {}))
+    with tempfile.TemporaryDirectory() as d:
+        cfg = os.path.join(d, "kaist.yaml")
+        write_config(cfg, OFFLINE_CONFIG)
+        sys_c = lib.vido_system_create()
+        check(bool(sys_c), "(r1): vido_system_create failed")
+        check(lib.vido_system_init_ex(sys_c, cfg.encode(), 2,
+                                      json.dumps(kw).encode()) == 0,
+              "(r1): vido_system_init_ex failed")
+        pose = np.zeros(16, np.float32)
+        c_poses, c_ms = [], []
+        for c in counters:
+            c.launches = 0
+        for k, (raw, flow, mask, gt) in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = lib.vido_system_track(sys_c, None, ptr(raw), ptr(flow),
+                                       ptr(mask), ptr(gt), k / 10.0, H, W,
+                                       ptr(pose))
+            torch.cuda.synchronize()
+            c_ms.append(1e3 * (time.perf_counter() - t0))
+            check(rc == 0, f"(r1): vido_system_track failed on frame {k}")
+            c_poses.append(pose.reshape(4, 4).copy())
+        launches = [c.launches for c in counters]
+        check(launches == [2 * (n - 1), 0, 0, 0, 0],
+              f"(r1) facade: {names} launched {launches} times over "
+              f"{n - 1} tracked frames")
+        c_rows = []
+        for k in range(n):
+            out = np.zeros((64, 10), np.float64)
+            m = lib.vido_system_get_objects(sys_c, k, ptr(out), 64)
+            check(0 <= m <= 64, f"(r1): get_objects gave {m}")
+            c_rows.append(out[:m])
+        c_txt = result_txts(lambda p: check(
+            lib.vido_system_save(sys_c, p.encode()) == 0,
+            "(r1): vido_system_save failed"), d, "c")
+        lib.vido_system_destroy(sys_c)
+
+        system = System()
+        system.Init(cfg, Sensor.RGBD, **kw)
+        check(system.tracker.device.type == dev, f"(r1): not on {dev}")
+        py_poses, py_ms = [], []
+        for c in counters:
+            c.launches = 0
+        for k, (raw, flow, mask, gt) in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Tcw = system.TrackRGBD(None, raw, flow, mask, gt, None, k / 10.0)
+            torch.cuda.synchronize()
+            py_ms.append(1e3 * (time.perf_counter() - t0))
+            py_poses.append(np.asarray(Tcw, np.float32))
+        py_launches = [c.launches for c in counters]
+        check(py_launches == launches, f"(r1) Python System: {names} "
+              f"launched {py_launches} times, the facade {launches}")
+        same_poses = all(np.array_equal(a, b)
+                         for a, b in zip(c_poses, py_poses))
+        py_rows = [system.GetFrameOutputArray(k) for k in range(n)]
+        same_rows = all(a.shape == b.shape and np.array_equal(a, b)
+                        for a, b in zip(c_rows, py_rows))
+        py_txt = result_txts(system.SaveResultsIJRR2020, d, "py")
+        gap = max(float(np.abs(a - b).max())
+                  for a, b in zip(c_poses, py_poses))
+        check(same_poses and same_rows and c_txt == py_txt,
+              ("(r1) facade against the Python System", same_poses,
+               same_rows, c_txt == py_txt, gap))
+        with_obj = sum(len(r) > 0 for r in c_rows)
+        check(with_obj > (n - 1) // 2,
+              f"(r1): objects on {with_obj} of {n} frames")
+    c_med = float(np.median(c_ms[4:]))
+    py_med = float(np.median(py_ms[4:]))
+    print(f"(r1) C facade (vido_system_init_ex with (a)'s tracker "
+          f"arguments, loaded by ctypes) on (a)'s {n} frames {W}x{H}: "
+          f"launches {launches}, poses, GetFrameOutputArray rows "
+          f"({sum(len(r) for r in c_rows)} over {with_obj} frames) and the "
+          f"four result txts equal to the Python System's on the card; "
+          f"ms/frame median facade {c_med:.2f}, Python System {py_med:.2f} "
+          f"(frames 4-{n - 1}, host clock over torch.cuda.synchronize); "
+          f"card {card}")
+    return launches, c_med, py_med
+
+
+def run_standalone_host(card, dev="cuda"):
+    """(r2): ``run_vido_native`` (``vido_system_init``: on the card) as a
+    subprocess over RUNNER_FRAMES synthetic frames; its printed
+    translations equal the Python ``System``'s on the card on the same
+    frames, rebuilt in numpy, and it ends with ``ok``. ``dev="cpu"`` (a
+    rehearsal) passes ``{"device": "cpu"}``. Returns its seconds."""
+    import torch
+    from vido_slam_tpu_torch import native_system
+    from vido_slam_tpu_torch.system import Sensor, System
+
+    dev = torch.device(dev).type
+    exe = native_system.runner()
+    with tempfile.TemporaryDirectory() as d:
+        cfg = os.path.join(d, "runner.yaml")
+        write_config(cfg, RUNNER_CONFIG)
+        t0 = time.perf_counter()
+        extra = [json.dumps({"device": "cpu"})] if dev == "cpu" else []
+        proc = subprocess.run([exe, cfg, str(RUNNER_FRAMES), *extra], cwd=d,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, timeout=RUNNER_TIMEOUT)
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        check(proc.returncode == 0 and lines and lines[-1] == "ok",
+              f"(r2) run_vido_native: exit {proc.returncode}\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        system = System()
+        system.Init(cfg, Sensor.RGBD, **({"device": "cpu"} if extra else {}))
+        check(system.tracker.device.type == dev, f"(r2): not on {dev}")
+        H, W = RUNNER_CONFIG["Camera.height"], RUNNER_CONFIG["Camera.width"]
+        depth = native_system.runner_depth(H, W)
+        flow = np.zeros((H, W, 2), np.float32)
+        mask = np.zeros((H, W), np.int32)
+        want = []
+        for t in range(RUNNER_FRAMES):
+            p = np.asarray(system.TrackRGBD(None, depth, flow, mask, None,
+                                            None, t / 10.0), np.float32)
+            want.append(f"frame {t}: t = [{p[0, 3]:.4f} {p[1, 3]:.4f} "
+                        f"{p[2, 3]:.4f}]")
+        got = [ln for ln in lines if ln.startswith("frame ")]
+        check(got == want, ("(r2) run_vido_native's translations", got,
+                            want))
+    print(f"(r2) run_vido_native {os.path.basename(exe)} (a C++ process "
+          f"embedding CPython, vido_system_init on the card): "
+          f"{RUNNER_FRAMES} frames {W}x{H}, {got[-1]!r} as the Python "
+          f"System, 'ok'; {secs:.1f} s with the interpreter's start; card "
+          f"{card}")
+    return secs
+
+
+def run_prefetcher(root, n_frames):
+    """(r3): ``FilePrefetcher`` over a KAIST tree's files (image, depth,
+    flow, mask of each frame, in frame order): its bytes equal the files;
+    ms to read a frame's four files with it and with ``open().read()``
+    (both from the page cache: the tree was just written). Returns
+    (ms with, ms without)."""
+    from vido_slam_tpu_torch.io.native import FilePrefetcher
+
+    stems = sorted(os.path.splitext(f)[0]
+                   for f in os.listdir(os.path.join(root, "image")))
+    stems = stems[:n_frames]
+    paths = [os.path.join(root, sub, stem + ext) for stem in stems
+             for sub, ext in (("image", ".png"), ("depth", ".png"),
+                              ("flow", ".flo"), ("mask", ".png"))]
+    t0 = time.perf_counter()
+    plain = []
+    for p in paths:
+        with open(p, "rb") as f:
+            plain.append(f.read())
+    plain_ms = 1e3 * (time.perf_counter() - t0) / len(stems)
+    pf = FilePrefetcher(paths, n_threads=2, max_ahead=8)
+    t0 = time.perf_counter()
+    got = [pf.get(i) for i in range(len(paths))]
+    pf_ms = 1e3 * (time.perf_counter() - t0) / len(stems)
+    pf.close()
+    check(got == plain, "(r3): the prefetcher's bytes differ from the files")
+    print(f"(r3) FilePrefetcher (2 threads, 8 ahead) over (h)'s KAIST tree, "
+          f"{len(stems)} frames x 4 files ({sum(map(len, got))} bytes): "
+          f"bytes equal to the files; ms to read a frame's files "
+          f"{pf_ms:.3f} with it, {plain_ms:.3f} with open().read() (page "
+          f"cache; for information: the CLI reads without it); card "
+          f"{card_line()}")
+    return pf_ms, plain_ms
+
+
+def dcn_detector(dev, dtype, cfg):
+    """The X-101-32x8d-FPN-DCN detector of (m1) on ``dev``: seed 0, cast to
+    ``dtype`` as ``PerceptionModel`` casts it, offset convs by
+    ``deformed`` and class 3 lifted."""
+    from vido_slam_tpu_torch.models.maskrcnn.model import MaskRCNN
+
+    model = MaskRCNN(cfg, seed=0, device=dev)
+    if dtype is not None:
+        model.to(dtype)
+    return lifted(deformed(model))
+
+
+def run_dcn_bf16(dev, counters, names, card):
+    """(r4): ``PerceptionModel(mask_cfg=RESNEXT101_FPN_DCN, mask_dtype=
+    bf16)`` (offset convs by ``deformed``, class 3 lifted) through
+    ``perception_mask`` over DCN_FRAMES clip frames at 1280x560, the
+    detector at 1088x800, after a warm-up frame: kernel 5's bf16 build
+    twice a frame, labelled pixels in every mask; the build held against
+    its plain version on the last frame's calls and timed there; the
+    float32 DCN detector over the same frames in this call; the bf16
+    detector on the card against the port on the CPU in bf16 at 320x256
+    (``match_detections``: validity and labels equal slot by slot except
+    within a bf16 margin of a threshold, as (j1) holds its detections; the
+    boxes matched at IoU >= 0.9 are printed: bf16 roundings of the card's
+    and the CPU's convolutions part through the 33 blocks). Returns
+    (launches, max error, timing)."""
+    import torch
+    from vido_slam_tpu_torch.io.synthetic import driving_clip
+    from vido_slam_tpu_torch.models.maskrcnn import roi_heads
+    from vido_slam_tpu_torch.models.maskrcnn import model as mm
+    from vido_slam_tpu_torch.models.maskrcnn.model import RESNEXT101_FPN_DCN
+    from vido_slam_tpu_torch.models.perception import PerceptionModel
+    from vido_slam_tpu_torch.ops import roi_align
+
+    bf = torch.bfloat16
+    c = OFFLINE_CONFIG
+    clip = driving_clip(height=FLOW_H, width=FLOW_W, n_frames=1 + DCN_FRAMES,
+                        fx=c["Camera.fx"], fy=c["Camera.fy"], device=dev)
+    model = PerceptionModel(FLOW_H, FLOW_W, mask_cfg=RESNEXT101_FPN_DCN,
+                            mask_dtype=bf, device=dev)
+    mask_model = lifted(deformed(model.mask_model))
+    check(next(mask_model.parameters()).dtype == bf,
+          "(r4): mask_dtype did not cast the DCN detector")
+    run_mask_path(clip[:1], mask_model, counters)
+    rec = KernelArgs(roi_heads.roi_align_multilevel, 6)
+    roi_heads.roi_align_multilevel = rec
+    try:
+        masks, dets, times, launches = run_mask_path(
+            clip[1:1 + DCN_FRAMES], mask_model, counters)
+    finally:
+        roi_heads.roi_align_multilevel = rec.wrapper
+    check(launches == [0, 0, 0, 0, 2 * DCN_FRAMES],
+          f"(r4): {names} launched {launches} times over {DCN_FRAMES} "
+          f"frames, not [0, 0, 0, 0, {2 * DCN_FRAMES}]")
+    check(all(a[0][0].dtype == bf for a, _ in rec.calls),
+          "(r4): kernel 5 was not given bf16 features")
+    n_valid = check_masks(masks, dets, "(r4) bf16 DCN frame")
+    cases = [(f"(r4) DCN bf16 frame {DCN_FRAMES} {what}", args)
+             for what, (args, _) in zip(("box head", "mask head"),
+                                        rec.calls[-2:])]
+    err = max(check_bf16_kernel(n, roi_align.roi_align_multilevel,
+                                roi_align.roi_align_multilevel_ref, a)
+              for n, a in cases)
+    timing = time_bf16(cases, roi_align.roi_align_multilevel,
+                       roi_align.roi_align_multilevel_ref,
+                       lambda a: (roi_align.nbytes(*a),
+                                  roi_align.operations_bf16(*a)))
+    del model, mask_model, masks, dets, rec, cases
+    f32 = dcn_detector(dev, None, RESNEXT101_FPN_DCN)
+    run_mask_path(clip[:1], f32, counters)
+    _, _, f32_times, _ = run_mask_path(clip[1:1 + DCN_FRAMES], f32, counters)
+    del f32
+    # the card against the CPU, both in bf16, at 320x256
+    h, w = FAMILY_CHECK
+    cfg = mm.MaskRCNNConfig(resnet=RESNEXT101_FPN_DCN.resnet, input_h=h,
+                            input_w=w)
+    x = frame_at(clip[0], h, w, 1 / 255.0)
+    out = {}
+    for d in (dev, "cpu"):
+        det = mm.maskrcnn_inference(dcn_detector(d, bf, cfg), x.to(d))
+        out[str(d)] = detections(det)
+    r = match_detections(out[str(dev)], out["cpu"], cfg.confidence_threshold)
+    check(not r["unexplained"] and min(r["valid"]) > 0,
+          ("(r4) bf16 DCN detector card against CPU", r))
+    ms = float(np.median(times)) * 1e3
+    f32_ms = float(np.median(f32_times)) * 1e3
+    print(f"(r4) X-101-32x8d-FPN-DCN with mask_dtype=torch.bfloat16 "
+          f"({FLOW_W}x{FLOW_H}, detector at {RESNEXT101_FPN_DCN.input_w}x"
+          f"{RESNEXT101_FPN_DCN.input_h}): launches {launches} (kernel 5's "
+          f"bf16 build), valid detections {n_valid}; ms/frame median bf16 "
+          f"{ms:.2f} ({[round(1e3 * t, 2) for t in times]}), float32 "
+          f"{f32_ms:.2f} ({[round(1e3 * t, 2) for t in f32_times]}) in this "
+          f"call; card vs CPU in bf16 at {w}x{h}: {r}; kernel 5 bf16 on the "
+          f"last frame: {timing[0]:.4f} ms (float32 build on the same "
+          f"values {timing[4]:.4f}), plain {timing[1]:.3f} ms, bound "
+          f"{timing[2]:.6f} ms by {timing[3]}, max error {err:.3e}; card "
+          f"{card}")
+    return launches, err, timing
+
+
+def run_phase_r(dev, counters, names, inputs, prefetch):
+    """Phase (r): (r1)-(r4) above; ``prefetch`` is (r3)'s result, taken
+    inside phase (h) while its KAIST tree exists. Returns each kernel's
+    launches in (r1) and (r4), kernel 5's bf16 error and timing in (r4)."""
+    t0 = time.perf_counter()
+    card = card_line()
+    r1, _, _ = run_facade(inputs, counters, names, card, dev)
+    run_standalone_host(card, dev)
+    check(prefetch is not None, "(r3) did not run")
+    r4, err, timing = run_dcn_bf16(dev, counters, names, card)
+    print(f"phase (r): {time.perf_counter() - t0:.1f} s")
+    return {"r1": r1, "r4": r4}, err, timing
+
+
 def main() -> int:
     import torch
 
@@ -4551,6 +4919,7 @@ def main() -> int:
     from vido_slam_tpu_torch.models.maskrcnn import roi_heads
     from vido_slam_tpu_torch.models.maskrcnn.model import (MaskRCNN,
                                                            RESNEXT101_FPN)
+    from vido_slam_tpu_torch import native_system
     from vido_slam_tpu_torch.ops import correlation, regularize, roi_align
     from vido_slam_tpu_torch.utils import cuda_build, host_build
     from vido_slam_tpu_torch.utils.device import resolve_device
@@ -4567,7 +4936,12 @@ def main() -> int:
     t0 = time.perf_counter()
     host = [os.path.basename(host_build.build(name))
             for name in ("png_unfilter", "jpeg_decode")]
-    print(f"host build of the PNG unfilter and the JPEG decoder {host}: "
+    host.append(os.path.basename(host_build.build("file_prefetcher",
+                                                  ["-pthread"])))
+    host += [os.path.basename(native_system.library_path()),
+             os.path.basename(native_system.runner())]
+    print(f"host build of the PNG unfilter, the JPEG decoder, the file "
+          f"prefetcher, the C facade and its standalone host {host}: "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
@@ -4813,8 +5187,10 @@ def main() -> int:
     bf16 = run_phase_j(dev, counters, names, online_ms)
 
     # (h) the offline demo from files: the CLI on trees written here
-    demo_launches = run_phase_h(counters, names, seq, init_frame,
-                                vio_attempts)
+    prefetch = {}
+    demo_launches = run_phase_h(
+        counters, names, seq, init_frame, vio_attempts,
+        lambda root, n: prefetch.update(r3=run_prefetcher(root, n)))
 
     # (i) weights and sessions in and out
     phase_i_launches, phase_i_err = run_phase_i(dev, counters, names, seq,
@@ -4852,6 +5228,12 @@ def main() -> int:
             infer_launches = run_phase_q(dev, counters, names, tmp)
         finally:
             finish_background(background)
+
+    # (r) the C facade and its standalone host on the card, the prefetcher
+    # (its part ran in (h)), the DCN detector in bf16
+    facade_launches, err_roi_r, timing_dcn_bf16 = run_phase_r(
+        dev, counters, names, main_path_inputs(seq, "cuda", N_FRAMES),
+        prefetch.get("r3"))
 
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
@@ -5004,6 +5386,15 @@ def main() -> int:
                                     eval_launches.items()}
         if e["name"] == "roi_align_multilevel":
             e["max_abs_err"] = max(e["max_abs_err"], err_roi_o)
+        # phase (r): (r1) the C facade over (a)'s frames, (r4) the DCN
+        # detector in bf16; kernel 5's bf16 build on (r4)'s last frame
+        e["facade_launches"] = facade_launches["r1"][i]
+        e["dcn_bf16_launches"] = facade_launches["r4"][i]
+        if e["name"] == "roi_align_multilevel":
+            t = timing_dcn_bf16
+            e.update(dcn_bf16_max_abs_err=err_roi_r, dcn_bf16_ms=t[0],
+                     dcn_bf16_plain_ms=t[1], dcn_bf16_bound_ms=t[2],
+                     dcn_bf16_bound_by=t[3], dcn_bf16_f32_ms_same_values=t[4])
         if e["name"] == "roi_align_multilevel":
             e.update(training_step_ms=train_fwd[0],
                      training_step_bound_ms=train_fwd[2])

@@ -20,6 +20,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import chip_smoke
 from test_torch_c2_loading import make_c2_blobs
 from vido_slam_tpu.models.maskrcnn import backbone as jb
 from vido_slam_tpu.models.maskrcnn import c2_loading as jc2
@@ -148,9 +149,23 @@ def test_zero_offsets_are_the_plain_conv(stride, pad, dil, groups):
 
 
 def test_deform_conv_refuses_bf16():
-    x = torch.zeros(1, 4, 6, 6, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="19c"):
-        deform_conv2d(x, torch.zeros(1, 18, 6, 6), torch.zeros(4, 4, 3, 3))
+    """bf16 input (it was refused until item 19c) returns float32, as the
+    JAX function does, with JAX's values (within 1e-5 of their scale,
+    tests/test_torch_dcn_bf16.py's bar); float16 is refused."""
+    rng = np.random.RandomState(6)
+    x, off, wt = (rng.randn(*s).astype(np.float32) for s in
+                  ((1, 6, 6, 4), (1, 6, 6, 18), (3, 3, 4, 4)))
+    j = [jnp.asarray(a).astype(jnp.bfloat16) for a in (x, off, wt)]
+    want = j_deform(*j)
+    assert want.dtype == jnp.float32
+    x, off, wt = (np.asarray(a.astype(jnp.float32)) for a in j)
+    got = deform_conv2d(nchw(x).to(torch.bfloat16),
+                        nchw(off).to(torch.bfloat16),
+                        oihw(wt).to(torch.bfloat16))
+    assert got.dtype == torch.float32
+    close_to_scale(nhwc(got), np.asarray(want), 1e-5)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        deform_conv2d(nchw(x).half(), nchw(off), oihw(wt))
 
 
 # ---------------------------------------------------------------------------
@@ -251,14 +266,40 @@ def test_dcn_configs_build_and_refuse_bf16():
     model = PerceptionModel(64, 96, small, device="cpu")
     assert isinstance(model.mask_model.backbone.body.layer4[0].conv2,
                       tb.DFConv2d)
-    with pytest.raises(NotImplementedError, match="19c"):
-        PerceptionModel(64, 96, small, device="cpu",
-                        mask_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="19c"):
-        PerceptionModel(64, 96, small, device="cpu",
-                        compute_dtype=torch.bfloat16)
     # float32 spelled out is float32
     PerceptionModel(64, 96, small, device="cpu", mask_dtype=torch.float32)
+    # in bf16 (refused until item 19c) both options run, and the detector
+    # equals JAX's bf16 detector on the same weights (seeded non-zero
+    # offset convs, class 3 lifted): validity and labels slot by slot
+    # except within a bf16 margin of a threshold, 80 % of the boxes
+    # matched at IoU >= 0.9 (tests/test_torch_bf16.py's bar)
+    jcfg = jm.RESNEXT101_FPN_DCN._replace(resnet=SMALL_DCN, input_h=64,
+                                          input_w=64)
+    p = jax.jit(jm.init_maskrcnn_params, static_argnums=1)(
+        jax.random.PRNGKey(0), jcfg)
+    p = lift_offsets({k: np.array(v) for k, v in p.items()}, 2)
+    p["roi_heads.box.predictor.cls_score.bias"][3] = LIFT
+    img = np.random.RandomState(3).uniform(0, 1, (1, 64, 64, 3)) \
+        .astype(np.float32)
+    want = jm.maskrcnn_inference(
+        {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in p.items()},
+        jnp.asarray(img).astype(jnp.bfloat16), jcfg)
+    want = {k: np.asarray(getattr(want, k).astype(jnp.float32))
+            if k in ("boxes", "scores") else np.asarray(getattr(want, k))
+            for k in ("boxes", "scores", "labels", "valid")}
+    state = convert.maskrcnn_state_dict_from_numpy(p, device="cpu")
+    for option in ("mask_dtype", "compute_dtype"):
+        model = PerceptionModel(64, 96, small, device="cpu", mask_state=state,
+                                **{option: torch.bfloat16})
+        got = model.mask_model(nchw(img))
+        got = {k: getattr(got, k).float().numpy()
+               if k in ("boxes", "scores") else getattr(got, k).numpy()
+               for k in ("boxes", "scores", "labels", "valid")}
+        report = chip_smoke.match_detections(got, want,
+                                             small.confidence_threshold)
+        print(f"{option} bf16 against JAX bf16: {report}")
+        assert report["boxes_matched"] >= 0.8 * min(report["valid"]) > 0 \
+            and not report["unexplained"], (option, report)
 
 
 def test_load_c2_on_a_dcn_model():

@@ -281,3 +281,19 @@ def test_drawing_needs_neither_matplotlib_nor_pil():
     out = subprocess.run([sys.executable, "-c", BLOCKED], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int64,
+                                   np.int32, np.int16, np.uint8])
+def test_magma_image_on_grids_and_ties_equals_jax(dtype, tmp_path):
+    """The colormap against the JAX CLI's ``_save_colormapped_disp`` on
+    maps where two implementations may part: values on an integer grid
+    with ties at the 95th percentile, a constant map, and integer maps
+    (matplotlib promotes those to float; the port raised on them)."""
+    grid = (np.arange(48).reshape(6, 8) % 7).astype(dtype)
+    const = np.full((3, 4), 5, dtype)
+    for k, disp in enumerate((grid, const, grid[::-1, ::2])):
+        path = str(tmp_path / f"{k}.png")
+        jax_cli()._save_colormapped_disp(disp, path)
+        np.testing.assert_array_equal(viz.magma_image(disp),
+                                      np.asarray(Image.open(path)))

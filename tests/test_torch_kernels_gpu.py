@@ -1315,3 +1315,86 @@ def test_mesh_detector_step_on_one_nccl_rank_equals_the_step_without():
     for k, g in ref_grads.items():
         scale = max(float(g.abs().max()), 1e-30)
         assert float((grads[k] - g).abs().max()) <= 1e-5 * scale, k
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase (r): the C facade and the bf16 DCN detector
+# ---------------------------------------------------------------------------
+
+def test_facade_on_the_card_equals_the_python_system(tmp_path):
+    """The C facade (``vido_system_init``: on the card) over 4 frames of
+    the offline scene at the KAIST calibration cut to 320x140, against the
+    Python ``System`` on the card on the same host arrays: kernel 1 twice
+    a tracked frame in both, poses and result txts equal to the bit."""
+    _need_card()
+    import ctypes
+    from vido_slam_tpu_torch import native_system
+    from vido_slam_tpu_torch.system import Sensor, System
+
+    cfg_d = dict(chip_smoke.OFFLINE_CONFIG, **{
+        "Camera.width": 320, "Camera.height": 140, "Camera.fx": 204.1,
+        "Camera.fy": 204.3, "Camera.cx": 152.0, "Camera.cy": 66.7})
+    frames = chip_smoke.host_frames(chip_smoke.main_path_inputs(
+        chip_smoke.offline_sequence(4, "cuda", cfg_d), "cuda", 4))
+    cfg = str(tmp_path / "kaist.yaml")
+    chip_smoke.write_config(cfg, cfg_d)
+    lib = native_system.facade()
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    sys_c = lib.vido_system_create()
+    assert sys_c and lib.vido_system_init(sys_c, cfg.encode(), 2) == 0
+    system = System()
+    system.Init(cfg, Sensor.RGBD)
+    assert system.tracker.device.type == "cuda"
+    pose = np.zeros(16, np.float32)
+    for run in ("c", "py"):
+        before = lm_kernel.pose_lm_batched.launches
+        poses = []
+        for k, (raw, flow, mask, gt) in enumerate(frames):
+            if run == "c":
+                assert lib.vido_system_track(
+                    sys_c, None, ptr(raw), ptr(flow), ptr(mask), ptr(gt),
+                    k / 10.0, 140, 320, ptr(pose)) == 0
+                poses.append(pose.reshape(4, 4).copy())
+            else:
+                poses.append(np.asarray(system.TrackRGBD(
+                    None, raw, flow, mask, gt, None, k / 10.0), np.float32))
+        assert lm_kernel.pose_lm_batched.launches - before == 6
+        if run == "c":
+            c_poses = poses
+    for a, b in zip(c_poses, poses):
+        np.testing.assert_array_equal(a, b)
+    assert lib.vido_system_save(sys_c, str(tmp_path / "c_").encode()) == 0
+    system.SaveResultsIJRR2020(str(tmp_path / "py_"))
+    for name in chip_smoke.RESULT_TXTS:
+        assert (tmp_path / ("c_" + name)).read_bytes() \
+            == (tmp_path / ("py_" + name)).read_bytes(), name
+    lib.vido_system_destroy(sys_c)
+
+
+def test_dcn_detector_bf16_on_the_card_matches_the_cpu():
+    """The X-101-32x8d-FPN-DCN detector with bf16 weights (seed 0, offset
+    convs by ``chip_smoke.deformed``, class 3 lifted) at 320x256 on a 0..1
+    image: kernel 5's bf16 build twice, the detections held to the CPU's
+    bf16 run by ``chip_smoke.match_detections`` (validity and labels equal
+    except within a bf16 margin of a threshold, as chip_smoke.py (r4))."""
+    _need_card()
+    from vido_slam_tpu_torch.models.maskrcnn import model as mm
+
+    cfg = mm.MaskRCNNConfig(resnet=mm.RESNEXT101_FPN_DCN.resnet,
+                            input_h=320, input_w=256)
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        0, 1, (1, 3, 320, 256)).astype(np.float32))
+    out = {}
+    for d in ("cuda", "cpu"):
+        before = roi_align.roi_align_multilevel.launches
+        det = mm.maskrcnn_inference(
+            chip_smoke.dcn_detector(d, torch.bfloat16, cfg), x.to(d))
+        if d == "cuda":
+            assert roi_align.roi_align_multilevel.launches - before == 2
+        out[d] = chip_smoke.detections(det)
+    r = chip_smoke.match_detections(out["cuda"], out["cpu"],
+                                    cfg.confidence_threshold)
+    assert not r["unexplained"] and min(r["valid"]) > 0, r

@@ -231,8 +231,10 @@ def test_fpn_matches_jax_features(model, image, jax_run):
 
 def test_unported_configs_raise():
     """Deformable stages are ported (tests/test_torch_dcn_roipool.py), in
-    float32: in bf16 they wait for item 19c. GroupNorm is ported
+    float32 and bf16 (item 19c: a bf16 input gives float32, as the JAX
+    function returns). GroupNorm is ported
     (tests/test_torch_maskrcnn_variants.py) and another norm is refused."""
+    from vido_slam_tpu.ops.deform_conv import deform_conv2d as j_deform
     from vido_slam_tpu_torch.ops.deform_conv import deform_conv2d
 
     with pytest.raises(ValueError, match="frozen_bn"):
@@ -242,9 +244,13 @@ def test_unported_configs_raise():
                                                         True)))
     assert isinstance(net.layer2[0].conv2, tb.DFConv2d)
     assert not isinstance(net.layer1[0].conv2, tb.DFConv2d)
-    with pytest.raises(NotImplementedError, match="19c"):
-        deform_conv2d(torch.zeros(1, 4, 6, 6, dtype=torch.bfloat16),
-                      torch.zeros(1, 18, 6, 6), torch.zeros(4, 4, 3, 3))
+    got = deform_conv2d(torch.ones(1, 4, 6, 6, dtype=torch.bfloat16),
+                        torch.zeros(1, 18, 6, 6), torch.ones(4, 4, 3, 3))
+    want = j_deform(jnp.ones((1, 6, 6, 4), jnp.bfloat16),
+                    jnp.zeros((1, 6, 6, 18)), jnp.ones((3, 3, 4, 4)))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_array_equal(got.numpy().transpose(0, 2, 3, 1),
+                                  np.asarray(want))
 
 
 # ---------------------------------------------------------------------------

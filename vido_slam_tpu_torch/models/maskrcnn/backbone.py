@@ -93,7 +93,12 @@ class DFConv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         om = self.offset(x)
         if self.modulated:
-            return self.conv(x, om[:, :18], torch.sigmoid(om[:, 18:27]))
+            # jax.nn.sigmoid as XLA expands it, 1 / (1 + exp(-x)), each
+            # step rounded to the logits' dtype: a bf16 mask then equals
+            # JAX's (torch.sigmoid rounds once, a bf16 step off in a third
+            # of the values)
+            mask = 1 / (1 + torch.exp(-om[:, 18:27]))
+            return self.conv(x, om[:, :18], mask)
         return self.conv(x, om)
 
 

@@ -128,7 +128,9 @@ class PerceptionModel:
     the same places pinned to float32 (the warp coordinates, LiteFlowNet's
     flow mean and output, GroupNorm statistics, the RPN and box decoding,
     the disparity and the detections before the paste). A deformable
-    detector (``RESNEXT101_FPN_DCN``) runs in float32 only."""
+    detector (``RESNEXT101_FPN_DCN``) in bf16 computes each deformable 3x3
+    and the norm and relu after it in float32, as JAX promotes there, and
+    the rest of the detector in bf16 (``ops/deform_conv.py``)."""
 
     def __init__(self, height: int, width: int,
                  mask_cfg: MaskRCNNConfig = RESNET50_FPN, seed: int = 0,
@@ -141,11 +143,6 @@ class PerceptionModel:
             net_dtype(d, f"PerceptionModel {name}") for d, name in (
                 (compute_dtype, "compute_dtype"), (mask_dtype, "mask_dtype"),
                 (flow_dtype, "flow_dtype")))
-        if any(mask_cfg.resnet.stage_with_dcn) \
-                and (mask_dtype or compute_dtype) == torch.bfloat16:
-            raise NotImplementedError(
-                "a deformable (DCN) detector in bf16 is not ported (ROADMAP "
-                "queue 1 item 19c): keep the detector in float32")
         self.height = height
         self.width = width
         self.mask_cfg = mask_cfg

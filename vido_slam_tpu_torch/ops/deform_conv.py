@@ -32,13 +32,14 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, w: torch.Tensor,
                   b: torch.Tensor = None, *, stride: int = 1,
                   padding: int = 1, dilation: int = 1,
                   mask: torch.Tensor = None, groups: int = 1) -> torch.Tensor:
-    """(N, Cout, Ho, Wo) deformable convolution of x, float32 (the JAX
-    function's ``Precision.HIGHEST``: the port's entry points turn TF32
-    off)."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"deform_conv2d: float32 only, got {x.dtype} (deformable "
-            f"convolution in bf16 is ROADMAP queue 1 item 19c)")
+    """(N, Cout, Ho, Wo) deformable convolution of x, float32 whether x
+    (and the offsets, weights and mask) are float32 or bf16, as the JAX
+    function promotes: the sample coordinates are float32, so the bilinear
+    samples of bf16 texels are float32, and each tap's contraction runs on
+    them against the tap's weights widened to float32 (the JAX einsum's
+    ``Precision.HIGHEST``; the port's entry points turn TF32 off)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"deform_conv2d: float32 or bfloat16, got {x.dtype}")
     N, Cin, H, W = x.shape
     Cout, cin_g, kh, kw = w.shape
     if Cin % groups or Cout % groups or cin_g * groups != Cin:
@@ -59,7 +60,7 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, w: torch.Tensor,
         - padding
     base_y = oy[:, None].expand(Ho, Wo)
     base_x = ox[None, :].expand(Ho, Wo)
-    out = x.new_zeros((N, Cout, Ho, Wo))
+    out = x.new_zeros((N, Cout, Ho, Wo), dtype=torch.float32)
     for ki in range(kh):
         for kj in range(kw):
             k = ki * kw + kj
@@ -68,7 +69,7 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, w: torch.Tensor,
             v = grid_sample(x, sx, sy)                    # (N, Cin, Ho, Wo)
             if mask is not None:
                 v = v * mask[:, k:k + 1]
-            wk = w[:, :, ki, kj]                          # (Cout, Cin/g)
+            wk = w[:, :, ki, kj].float()                  # (Cout, Cin/g)
             if groups == 1:
                 out = out + torch.einsum("nchw,dc->ndhw", v, wk)
             else:

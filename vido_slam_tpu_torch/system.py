@@ -192,6 +192,16 @@ class System:
                            camera_pose=rec.Tcw.copy(),
                            camera_position=Twc[:3, 3].copy(), objects=objs)
 
+    def GetFrameOutputArray(self, frame_index: int = -1) -> np.ndarray:
+        """Per-frame scene objects as (N, 10) float64 rows:
+        [tracking_id, label_index, pos_xyz, vel_xyz, yaw, speed_kmh]."""
+        out = self.GetFrameOutput(frame_index)
+        rows = [[float(o.tracking_id), float(o.label_index),
+                 *np.asarray(o.pose, np.float64),
+                 *np.asarray(o.velocity, np.float64),
+                 float(o.yaw), float(o.speed_kmh)] for o in out.objects]
+        return np.asarray(rows, np.float64).reshape(-1, 10)
+
     def AttachPerception(self, perception_model) -> None:
         """Bind a ``PerceptionModel`` for ``TrackFrames``: the dataset's
         depth conversion at base scale 1.0 (system.py:209-217)."""

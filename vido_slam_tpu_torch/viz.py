@@ -299,11 +299,16 @@ def magma_image(disp: np.ndarray) -> np.ndarray:
     ``to_rgba``, times 255, cut to uint8 -> (H, W, 3). The arithmetic is
     matplotlib 3.10's: the normalisation in the data's dtype against float64
     bounds, the index ``int(x * 256)`` with x == 1 on the last colour,
-    values above 1 on the last, NaN black. The table is
+    values above 1 on the last, NaN black; an integer map is first
+    promoted as ``Normalize.process_value`` promotes it (int8 and int16 to
+    float32, wider integers to float64). The table is
     ``assets/magma.npy`` (``make_viz_assets``)."""
     lut = np.load(os.path.join(_ASSETS, "magma.npy"))
     n = lut.shape[0]
-    x = np.array(disp, copy=True)
+    dtype = np.min_scalar_type(disp)
+    if np.issubdtype(dtype, np.integer):
+        dtype = np.promote_types(dtype, np.float32)
+    x = np.array(disp, dtype=dtype, copy=True)
     vmin = np.float64(float(x.min()))
     vmax = np.float64(float(np.percentile(x, 95)))
     if vmin == vmax:
