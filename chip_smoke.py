@@ -879,6 +879,33 @@ def check_roi_align(cases) -> float:
     return err
 
 
+def roi_plan_bf16(args):
+    """The launch plan the wrapper picks for the bf16 build on ``args``."""
+    from vido_slam_tpu_torch.ops import roi_align
+
+    feats, rois, _, _, r, s = args
+    return roi_align.launch_plan_bf16(rois.shape[0], feats[0].shape[1], r, s,
+                                      roi_align.level_sizes(feats))
+
+
+def check_roi_align_bf16(cases) -> float:
+    """Kernel 5's bf16 build on ``cases`` with the features cast to bf16
+    (``check_bf16_kernel``: two launches give the same bits, each output
+    within ``bf16_bar`` of the plain version), each case's plan printed.
+    Returns max_abs_err."""
+    import torch
+    from vido_slam_tpu_torch.ops import roi_align
+
+    err = 0.0
+    for name, (feats, *rest) in cases:
+        args = ([f.to(torch.bfloat16) for f in feats], *rest)
+        err = max(err, check_bf16_kernel(
+            f"{name} in bf16", roi_align.roi_align_multilevel,
+            roi_align.roi_align_multilevel_ref, args))
+        print(f"roi_align_multilevel bf16 {name}: plan {roi_plan_bf16(args)}")
+    return err
+
+
 def mask_inputs(dev):
     """The mask path's inputs on ``dev``: MASK_FRAMES frames of the driving
     clip at 1280x560 (KAIST focal lengths) and the port's Mask R-CNN
@@ -2317,11 +2344,12 @@ def to_f32(args):
     return tuple(conv(a) for a in args)
 
 
-def time_bf16(cases, kernel, plain, count):
+def time_bf16(cases, kernel, plain, count, plan=None):
     """The bf16 build's device ms over ``cases`` (a graph replay of 20
     calls each), its plain version's, their bound (``count(args)``: bytes,
     flops) and the float32 build's device ms on the same values:
-    (ms, plain_ms, bound_ms, bound_by, f32_ms)."""
+    (ms, plain_ms, bound_ms, bound_by, f32_ms). ``plan(args)``, if given,
+    is the bf16 build's launch plan, printed beside its time."""
     ms, plain_ms, f32_ms = 0.0, 0.0, 0.0
     nbytes = flops = 0
     for name, args in cases:
@@ -2332,7 +2360,8 @@ def time_bf16(cases, kernel, plain, count):
         b_, f_ = count(args)
         print(f"{kernel.__name__} bf16 {name}: kernel {k_ms:.4f} ms (float32 "
               f"build on the same values {f_ms:.4f}), plain {p_ms:.4f} ms, "
-              f"{b_} bytes, {f_} flops")
+              f"{b_} bytes, {f_} flops"
+              + (f", plan {plan(args)}" if plan else ""))
         ms += k_ms
         plain_ms += p_ms
         f32_ms += f_ms
@@ -2438,7 +2467,8 @@ def run_phase_j(dev, counters, names, f32_ms):
     timing = time_bf16(cases, roi_align.roi_align_multilevel,
                        roi_align.roi_align_multilevel_ref,
                        lambda a: (roi_align.nbytes(*a),
-                                  roi_align.operations_bf16(*a)))
+                                  roi_align.operations_bf16(*a)),
+                       roi_plan_bf16)
     roi = [launches[4], err, timing]
     del rec, cases, model
 
@@ -4857,7 +4887,8 @@ def run_dcn_bf16(dev, counters, names, card):
     timing = time_bf16(cases, roi_align.roi_align_multilevel,
                        roi_align.roi_align_multilevel_ref,
                        lambda a: (roi_align.nbytes(*a),
-                                  roi_align.operations_bf16(*a)))
+                                  roi_align.operations_bf16(*a)),
+                       roi_plan_bf16)
     del model, mask_model, masks, dets, rec, cases
     f32 = dcn_detector(dev, None, RESNEXT101_FPN_DCN)
     run_mask_path(clip[:1], f32, counters)
@@ -4978,7 +5009,10 @@ def main() -> int:
     reg_cases = regularize_cases(rng, dev)
     err_corr = check_correlation(corr_cases)
     err_reg = check_regularize(reg_cases)
-    err_roi = check_roi_align(roi_cases(rng, dev))
+    seeded_roi = roi_cases(rng, dev)
+    err_roi = check_roi_align(seeded_roi)
+    err_roi_bf16 = check_roi_align_bf16(seeded_roi)
+    del seeded_roi
     del corr_cases, reg_cases
 
     # phase 4; the stand-ins keep the kernels' arguments for phase 3 below
@@ -5396,6 +5430,7 @@ def main() -> int:
                      dcn_bf16_plain_ms=t[1], dcn_bf16_bound_ms=t[2],
                      dcn_bf16_bound_by=t[3], dcn_bf16_f32_ms_same_values=t[4])
         if e["name"] == "roi_align_multilevel":
+            e["bf16_seeded_max_abs_err"] = err_roi_bf16
             e.update(training_step_ms=train_fwd[0],
                      training_step_bound_ms=train_fwd[2])
     entries.append(dict(

@@ -34,6 +34,7 @@ import chip_smoke
 from test_torch_dcn_roipool import LIFT, SMALL_DCN, lift_offsets, nchw, nhwc
 from vido_slam_tpu.models.maskrcnn import backbone as jb
 from vido_slam_tpu.models.maskrcnn import model as jm
+from vido_slam_tpu.models.maskrcnn import roi_heads as jh
 from vido_slam_tpu.ops.deform_conv import deform_conv2d as j_deform
 from vido_slam_tpu_torch import convert
 from vido_slam_tpu_torch.models.maskrcnn import backbone as tb
@@ -101,6 +102,68 @@ def test_deform_conv_bf16_matches_jax(groups, stride, modulated):
     print(f"groups {groups} stride {stride} modulated {modulated}: max "
           f"error {err:.2e} of {scale:.2f}")
     assert err <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("modulated", [False, True],
+                         ids=["v1", "modulated"])
+def test_deform_conv_bf16_on_texels_and_past_the_border(stride, modulated):
+    """Where two implementations of a bf16 DCN may part: integer bf16
+    offsets, so that every sample lands exactly on a texel (one bilinear
+    weight 1, three 0), some of them past the border (the corners' offsets
+    all -1 or all +1 beside the padding), and the modulated mask of
+    DFConv2d at logits 0 (sigmoid 0.5 in bf16). Bar as
+    test_deform_conv_bf16_matches_jax."""
+    rng = np.random.RandomState(20 + 2 * stride + modulated)
+    N, h, w, cin, cout = 1, 9, 11, 32, 32
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    jx, x = bf(rng.randn(N, h, w, cin))
+    off = rng.randint(-3, 4, (N, ho, wo, 18)).astype(np.float32)
+    off[0, 0, 0, :] = -1.0
+    off[0, -1, -1, :] = 1.0
+    jo, off = bf(off)
+    jw, wt = bf(rng.randn(3, 3, cin, cout) * 0.2)
+    jm_ = m = None
+    if modulated:
+        jm_ = jax.nn.sigmoid(jnp.zeros((N, ho, wo, 9), BF))
+        m = 1 / (1 + torch.exp(-torch.zeros((N, 9, ho, wo), dtype=TB)))
+        np.testing.assert_array_equal(
+            np.asarray(jm_.astype(jnp.float32)).transpose(0, 3, 1, 2),
+            m.float().numpy())
+        assert float(m[0, 0, 0, 0]) == 0.5
+    want = np.asarray(j_deform(jx, jo, jw, stride=stride, padding=1,
+                               mask=jm_))
+    got = nhwc(deform_conv2d(tbf(x, (0, 3, 1, 2)), tbf(off, (0, 3, 1, 2)),
+                             tbf(wt, (3, 2, 0, 1)), stride=stride,
+                             padding=1, mask=m))
+    assert got.shape == want.shape
+    scale = max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got - want).max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("res", [7, 14])
+def test_roi_align_bf16_at_the_image_edges_matches_jax(res):
+    """The bf16 DCN detector's pooler (kernel 5's plain version in bf16) on
+    ROIs along the edges of a 128x160 image, each level in turn: the whole
+    image, boxes ending exactly on its last row and column, boxes reaching
+    past them; equal to JAX's bf16 ROIAlign to the bit."""
+    rng = np.random.RandomState(res)
+    sizes = [(32, 40), (16, 20), (8, 10), (4, 5)]
+    feats = [rng.randn(hh, ww, 8).astype(np.float32) for hh, ww in sizes]
+    rois = np.array([[0, 0, 160, 128], [0, 0, 159, 127], [150, 120, 160, 128],
+                     [-4, -4, 4, 4], [156, 124, 164, 132], [0, 100, 160, 128],
+                     [140, 0, 160, 128], [-1, -1, 161, 129]] * 4, np.float32)
+    levels = np.repeat(np.arange(4), 8).astype(np.int32)
+    want = jh.roi_align_multilevel(
+        tuple(jnp.asarray(f).astype(BF) for f in feats), jnp.asarray(rois),
+        jnp.asarray(levels), jh.POOLER_SCALES, res, 2)
+    got = t_roi.roi_align_multilevel(
+        [tbf(f, (2, 0, 1))[None] for f in feats], torch.from_numpy(rois),
+        torch.from_numpy(levels), jh.POOLER_SCALES, res, 2)
+    assert got.dtype == TB
+    np.testing.assert_array_equal(
+        got.float().numpy().transpose(0, 2, 3, 1),
+        np.asarray(want.astype(jnp.float32)))
 
 
 def test_dcn_bottleneck_bf16_matches_jax():

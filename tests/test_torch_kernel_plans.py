@@ -1,10 +1,12 @@
 """The launch plans of kernels 1, 2, 3 and 5 (``lm_kernel.launch_plan``,
 ``flow_joint_kernel.launch_plan``, ``correlation.launch_plan``,
-``roi_align.launch_plan``), which each wrapper computes in Python and the
-C launcher checks, at the main paths' shapes; kernel 4's flow copy width
+``roi_align.launch_plan`` and, for kernel 5's bf16 build,
+``roi_align.launch_plan_bf16``), which each wrapper computes in Python and
+the C launcher checks, at the main paths' shapes; kernel 4's flow copy width
 (``regularize.copy_width``); and the kernel build's hash over the headers a
 source includes. Runs on the CPU: no kernel is built or launched."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -184,6 +186,125 @@ def test_roi_align_grid_is_capped_by_small_levels():
     assert roi_align.smem_bytes(14, 2, [(60, 57)]) == 8 * (56 * 56 + 196)
     few = roi_align.launch_plan(1, 256, 7, 2, chip_smoke.MASK_LEVELS)
     assert few.group == 1                    # one ROI: 256 blocks
+
+
+# kernel 5's bf16 build: the float32 build's channel groups, its own
+# buffers (bf16 texels, t and bins; ``roi_align.bf16_channel_bytes``)
+
+TINY_LEVELS = [(9, 7), (5, 4), (3, 2), (1, 1)]
+
+
+@pytest.mark.parametrize("R,C,r,s", ROI_HEADS + [
+    (1000, 96, 7, 2), (200, 96, 6, 2), (100, 96, 14, 2), (37, 48, 14, 2),
+    (1000, 48, 7, 2), (37, 3, 7, 2), (1, 3, 14, 2), (1, 256, 7, 2),
+    (100, 256, 14, 4), (200, 48, 7, 1)])
+def test_roi_align_bf16_channel_groups_cover_c_exactly(R, C, r, s):
+    plan = roi_align.launch_plan_bf16(R, C, r, s, chip_smoke.MASK_LEVELS)
+    spans = [(g * plan.group, min(C, (g + 1) * plan.group))
+             for g in range(-(-C // plan.group))]
+    assert spans[0][0] == 0 and spans[-1][1] == C
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(hi > lo for lo, hi in spans)
+    assert 1 <= plan.group <= C
+    assert plan.threads % 32 == 0
+    assert roi_align.MIN_THREADS <= plan.threads <= roi_align.MAX_THREADS
+    assert plan.group == roi_align.launch_plan(
+        R, C, r, s, chip_smoke.MASK_LEVELS).group
+
+
+@pytest.mark.parametrize("levels", [chip_smoke.MASK_LEVELS, TINY_LEVELS,
+                                    [(68, 50)]], ids=["P2-P5", "tiny", "one"])
+@pytest.mark.parametrize("r,s", [(7, 2), (14, 2), (6, 2), (14, 4), (7, 1),
+                                 (16, 4), (32, 2), (64, 1)])
+def test_roi_align_bf16_plan_fits_the_largest_staged_grid(levels, r, s):
+    """Each of the two buffers holds one channel's largest footprint, and
+    the block's shared memory fits an SM less the static reserve (the
+    largest, r s = 64 on P2-P5: 128 rows of 256 texels)."""
+    plan = roi_align.launch_plan_bf16(1000, 256, r, s, levels)
+    need = roi_align.bf16_channel_bytes(r, s, levels)
+    assert plan.smem_bytes % 32 == 0
+    assert plan.smem_bytes // 2 >= max(need, roi_align.BF16_BUFFER_BYTES)
+    assert plan.smem_bytes + roi_align.SMEM_RESERVE <= SMEM_LIMIT
+    rows = roi_align.grid_lines(r, s, max(h for h, _ in levels))
+    cols = roi_align.grid_lines(r, s, max(w for _, w in levels))
+    assert need >= 2 * (rows * cols + r * r) + 4 * r * cols
+
+
+@pytest.mark.parametrize("R,C,r,s", ROI_HEADS)
+def test_roi_align_bf16_plan_at_the_heads(R, C, r, s):
+    """The heads' grids give two waves of blocks; at 7 x 7 the plan's
+    buffers are BF16_BUFFER_BYTES, at 14 x 14 one channel's footprint (56
+    rows of 112 texels: P2 is wider than 2 r s)."""
+    plan = roi_align.launch_plan_bf16(R, C, r, s, chip_smoke.MASK_LEVELS)
+    wave = roi_align.SM_COUNT * roi_align.BLOCKS_PER_SM
+    assert R * -(-C // plan.group) >= 2 * wave
+    assert (plan.group, plan.threads, plan.smem_bytes) == {
+        7: (32, 128, 24064), 14: (8, 128, 32320)}[r]
+
+
+def _staged_lines(lo, hi, size, r, s):
+    """A mirror of the bf16 build's staging rule on one axis
+    (csrc/roi_align.cu ``setup_bins``, float32 arithmetic step by step):
+    each bin's lines, and the lines staged (the window between the first
+    and the last line where it spans at most min(2 r s, size) lines, else
+    the bins' lines in 2 s slots a bin)."""
+    f = np.float32
+    lo, hi = f(lo), f(hi)
+    bin_ = f(max(f(hi - lo), f(1))) / f(r)
+    bins = []
+    for p in range(r):
+        lines = set()
+        for i in range(s):
+            pos = lo + (f(p) + f(f(i) + f(0.5)) / f(s)) * bin_
+            if -1 <= pos <= size - 1:
+                h0 = int(np.floor(min(max(pos, f(0)), f(size - 1))))
+                lines |= {h0, min(h0 + 1, size - 1)}
+        bins.append(sorted(lines))
+    used = [x for b in bins for x in b]
+    first, last = (min(used), max(used)) if used else (0, 0)
+    if last - first + 1 <= min(2 * r * s, size):
+        return bins, list(range(first, last + 1)), True
+    return bins, [x for b in bins for x in b + [0] * (2 * s - len(b))], False
+
+
+@pytest.mark.parametrize("level", range(4))
+@pytest.mark.parametrize("r,s", [(7, 2), (14, 2), (7, 1), (14, 4)])
+def test_roi_align_bf16_staging_covers_the_weighted_lines(level, r, s):
+    """On ROIs like chip_smoke.roi_cases' (sides 0.3 to 1500 px, starts up
+    to 60 px outside a 1088 x 800 image) each level in turn: every line
+    that the plain version weights above zero is staged, among its bin's
+    lines; the staged lines stay within ``grid_lines``, and one channel's
+    footprint within ``bf16_channel_bytes``."""
+    import torch
+    rng = np.random.RandomState(10 * level + r + s)
+    H, W = chip_smoke.MASK_LEVELS[level]
+    scale = 0.25 / 2 ** level
+    R = 300
+    x1, y1 = rng.uniform(-60, 800, R), rng.uniform(-60, 1088, R)
+    ww, hh = np.exp(rng.uniform(np.log(0.3), np.log(1500), (2, R)))
+    rois = np.stack([x1, y1, x1 + ww, y1 + hh], 1).astype(np.float32)
+    ry, rx = roi_align._level_weights(torch.from_numpy(rois), scale, H, W,
+                                      r, s)
+    need = roi_align.bf16_channel_bytes(r, s, chip_smoke.MASK_LEVELS)
+    modes = set()
+    for i in range(R):
+        b = rois[i] * np.float32(scale)
+        footprint = []
+        for lo, hi, size, w in ((b[1], b[3], H, ry[i]),
+                                (b[0], b[2], W, rx[i])):
+            bins, staged, window = _staged_lines(lo, hi, size, r, s)
+            modes.add(window)
+            assert len(staged) <= roi_align.grid_lines(r, s, size)
+            for p in range(r):
+                weighted = set(torch.nonzero(w[p] > 0)[:, 0].tolist())
+                assert weighted <= set(bins[p]) <= set(staged)
+            footprint.append((len(staged), window))
+        (nr, _), (nc, xwin) = footprint
+        pitch = -(-(nc + 7) // 8) * 8 if xwin else -(-2 * nc // 8) * 8
+        assert 2 * (nr * pitch + r * r) + 4 * r * (nc | 1) + 32 <= need
+    # both rules are reached wherever the level is wider than 2 r s
+    H, W = chip_smoke.MASK_LEVELS[level]
+    assert modes == ({True, False} if max(H, W) > 2 * r * s else {True})
 
 
 def test_library_path_follows_included_headers(tmp_path, monkeypatch):

@@ -970,18 +970,9 @@ def test_regularize_bf16_build_matches_plain(N, k, H, W):
     _within_bf16_ulp(got, ref)
 
 
-@pytest.mark.parametrize("R,C,res,level,border", [
-    (1000, 256, 7, None, False), (100, 256, 14, None, False),
-    (37, 256, 7, 0, False), (37, 256, 14, 1, False),
-    (37, 256, 7, 2, False), (37, 256, 14, 3, False),
-    (37, 48, 14, None, False), (200, 256, 7, None, True),
-])
-def test_roi_align_bf16_build_matches_plain(R, C, res, level, border):
-    _need_card()
-    feats, rois, levels, scales, res, s = _roi_args(R, C, res, seed=R + res,
-                                                    level=level,
-                                                    border=border)
-    feats = [f.to(torch.bfloat16) for f in feats]
+def _hold_bf16_build(feats, rois, levels, scales, res, s):
+    """One launch of kernel 5's bf16 build (counted), a second giving the
+    same bits, and both within ``bf16_bar`` of the plain version."""
     before = roi_align.roi_align_multilevel.launches
     got = roi_align.roi_align_multilevel(feats, rois, levels, scales, res, s)
     assert roi_align.roi_align_multilevel.launches == before + 1
@@ -992,6 +983,105 @@ def test_roi_align_bf16_build_matches_plain(R, C, res, level, border):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _within_bf16_ulp(got, ref)
+    return got
+
+
+# the heads, each level alone (level 3: P5, 25 texels wide, so its rows
+# start on odd and even texels), ragged and tiny channel counts (C 48, 3),
+# one ROI, every sampling ratio the kernel takes
+@pytest.mark.parametrize("R,C,res,level,border,s", [
+    (1000, 256, 7, None, False, 2), (100, 256, 14, None, False, 2),
+    (37, 256, 7, 0, False, 2), (37, 256, 14, 1, False, 2),
+    (37, 256, 7, 2, False, 2), (37, 256, 14, 3, False, 2),
+    (37, 48, 14, None, False, 2), (200, 256, 7, None, True, 2),
+    (37, 3, 7, None, False, 2), (37, 3, 14, 3, False, 2),
+    (1, 256, 7, None, False, 2), (1, 3, 14, None, False, 2),
+    (200, 48, 7, None, False, 1), (100, 48, 14, None, False, 3),
+    (100, 48, 7, None, True, 4), (37, 256, 14, 3, False, 4),
+])
+def test_roi_align_bf16_build_matches_plain(R, C, res, level, border, s):
+    _need_card()
+    feats, rois, levels, scales, res, _ = _roi_args(R, C, res, seed=R + res,
+                                                    level=level,
+                                                    border=border)
+    feats = [f.to(torch.bfloat16) for f in feats]
+    _hold_bf16_build(feats, rois, levels, scales, res, s)
+
+
+@pytest.mark.parametrize("case", ["whole image on each level", "sub-pixel",
+                                  "wholly outside", "1500x10 elongated"])
+@pytest.mark.parametrize("res", [7, 14])
+def test_roi_align_bf16_build_edge_rois(case, res):
+    """The staging's edges in bf16: a window of a sub-pixel ROI's few
+    lines (one row and one column at the image's corner), the lines
+    themselves of ROIs spanning a level (a 1500 x 10 box spans more than
+    2 r s columns of P2), no line at all. The case's ROIs repeated 250
+    times, so that a block pools a group of several channels."""
+    _need_card()
+    rng = np.random.RandomState(res)
+    feats = [torch.tensor(rng.randn(1, 64, h, w).astype(np.float32)).cuda()
+             .to(torch.bfloat16) for h, w in chip_smoke.MASK_LEVELS]
+    rois, levels = _edge_rois(case)
+    rois = torch.tensor(rois * 250, dtype=torch.float32).cuda()
+    levels = torch.tensor(levels * 250, dtype=torch.int32).cuda()
+    assert roi_align.launch_plan_bf16(
+        1000, 64, res, 2, chip_smoke.MASK_LEVELS).group > 1
+    got = _hold_bf16_build(feats, rois, levels, POOLER_SCALES, res, 2)
+    if case == "wholly outside":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("offsets", [(1, 3, 5, 7), (7, 2, 1, 0)])
+def test_roi_align_bf16_build_at_unaligned_levels(offsets):
+    """Levels that are contiguous views at storage offsets of 0 to 7
+    texels: the rows of P2 (400 bytes each) then all start off a 16-byte
+    boundary, and the first texels of the first plane and the last of the
+    last lie in 16-byte pieces that reach outside the level. The outputs
+    equal those of aligned copies to the bit."""
+    _need_card()
+    feats, rois, levels, scales, res, s = _roi_args(300, 24, 7, seed=5)
+    views = []
+    for f, k in zip(feats, offsets):
+        store = torch.zeros(f.numel() + 16, dtype=torch.bfloat16,
+                            device="cuda")
+        v = store[k:k + f.numel()].view(f.shape)
+        v.copy_(f)
+        views.append(v)
+    assert all(v.is_contiguous() for v in views)
+    aligned = [v.clone() for v in views]
+    got = _hold_bf16_build(views, rois, levels, scales, res, s)
+    want = roi_align.roi_align_multilevel(aligned, rois, levels, scales, res,
+                                          s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_roi_align_bf16_launcher_refuses_plans_it_cannot_run():
+    """The bf16 launcher checks the wrapper's plan as the float32 one does,
+    with its own buffer rule (``roi_align.bf16_channel_bytes``)."""
+    _need_card()
+    feats, rois, levels, scales, res, s = _roi_args(20, 16, 7, seed=3)
+    feats = [f.to(torch.bfloat16) for f in feats]
+    levels = levels.to(torch.int32).contiguous()
+    out = torch.empty(20, 16, 7, 7, device="cuda", dtype=torch.bfloat16)
+    sizes = roi_align.level_sizes(feats)
+    plan = roi_align.launch_plan_bf16(20, 16, 7, 2, sizes)
+    assert roi_align._launch(feats, rois, levels, scales, 7, 2, plan,
+                             out) == 0
+    need = roi_align.bf16_channel_bytes(7, 2, sizes)
+    tight = plan._replace(smem_bytes=2 * (-(-need // 16) * 16))
+    assert roi_align._launch(feats, rois, levels, scales, 7, 2, tight,
+                             out) == 0
+    for bad in (dict(group=0), dict(group=17), dict(threads=32),
+                dict(threads=512), dict(threads=100),
+                dict(smem_bytes=plan.smem_bytes + 16),       # not 32-byte
+                dict(smem_bytes=tight.smem_bytes - 32),      # too small
+                dict(smem_bytes=232448)):                    # over the SM's
+        assert roi_align._launch(feats, rois, levels, scales, 7, 2,
+                                 plan._replace(**bad), out) == 1, bad
+    assert roi_align._launch(feats, rois, levels, scales, 7, 5, plan,
+                             out) == 1   # sampling ratio above 4
+    torch.cuda.synchronize()
 
 
 def test_kernel_wrappers_refuse_mixed_and_half_dtypes_on_the_card():

@@ -15,7 +15,10 @@ N=3000) and object (B=8, N=4000) problems at every cluster size (1, 2, 4,
 (``ops/roi_align.py``): the box (R=1000, 7x7) and mask (R=100, 14x14) heads
 of chip_smoke.py's seeded 1088x800 pyramid and of the mask path's second
 frame (chip_smoke.py's driving clip and seeded R-50-FPN), every channel
-group (2 to 256) and block size (64, 128, 256). Kernel 4, the
+group (2 to 256) and block size (64, 128, 256); then its bf16 build on the
+same four calls with the features in bf16, every group, block size and
+buffer (the plan's, twice and four times that), each held to the plain
+version by ``chip_smoke.check_bf16_kernel``. Kernel 4, the
 regularization tail (``ops/regularize.py``): at each of the five levels
 (``chip_smoke.regularize_cases`` from seed 0), 16-byte against 4-byte flow
 copies, seven alternating timings each. A plan's ms is device time, 20
@@ -219,7 +222,51 @@ def sweep_roi_align(rng, dev):
                 print(f"roi_align {name}: group {group}, {threads} threads"
                       f"{mark}: {ms:.4f} ms, max error {err:.1e}", flush=True)
         summary[name] = rows
+        summary[f"{name} in bf16"] = sweep_roi_align_bf16(
+            f"{name} in bf16", ([f.to(torch.bfloat16) for f in feats], rois,
+                                levels, scales, r, s))
     return summary
+
+
+def sweep_roi_align_bf16(name, args):
+    """Kernel 5's bf16 build on ``args`` at every channel group (2 to 256),
+    block size (64, 128, 256) and buffer (the plan's, twice and four times
+    that, where it fits), each held to the plain version by
+    ``chip_smoke.check_bf16_kernel``."""
+    feats, rois, levels, scales, r, s = args
+    R, C = rois.shape[0], feats[0].shape[1]
+    chosen = roi_align.launch_plan_bf16(R, C, r, s,
+                                        roi_align.level_sizes(feats))
+    rows = {}
+    for group in (2, 4, 8, 16, 32, 64, 128, 256):
+        for threads in (64, 128, 256):
+            for scale in (1, 2, 4):
+                smem = scale * chosen.smem_bytes
+                if smem + roi_align.SMEM_RESERVE > roi_align.SMEM_LIMIT:
+                    continue
+                plan = roi_align.RoiAlignPlan(group, threads, smem)
+                out = torch.empty((R, C, r, r), dtype=torch.bfloat16,
+                                  device=rois.device)
+
+                def launch(*_, plan=plan, out=out):
+                    chip_smoke.check(roi_align._launch(
+                        feats, rois, levels, scales, r, s, plan, out) == 0,
+                        ("launch", name, plan))
+                    return out
+
+                def fresh(*a, plan=plan):
+                    return launch(plan=plan, out=torch.empty_like(out))
+                fresh.__name__ = "roi_align_multilevel"
+                err = chip_smoke.check_bf16_kernel(
+                    f"{name} {plan}", fresh,
+                    roi_align.roi_align_multilevel_ref, args)
+                ms = chip_smoke.time_cuda_graph(launch, 20)
+                mark = "*" if plan == chosen else ""
+                rows[f"{group}x{threads}x{smem}{mark}"] = ms
+                print(f"roi_align bf16 {name}: group {group}, {threads} "
+                      f"threads, {smem} B{mark}: {ms:.4f} ms, max error "
+                      f"{err:.1e}", flush=True)
+    return rows
 
 
 def sweep_flow_joint(rng, dev):

@@ -56,16 +56,43 @@
 // 154-168 computes it); t = Ry F, the y-contraction, summed in
 // float32 and rounded to bf16; out = t Rx^T summed in float32 and rounded
 // to bf16. A gather that kept t in float32 would differ from JAX by about a
-// bf16 ulp, so the rounding of t is kept. Design (correct first, not yet
-// fast): a block pools one ROI over a group of channels; its first warps
-// set up each bin's rows and columns (at most 2 s each, ascending) with
-// their bf16 weights in shared memory, and each thread computes whole
-// outputs (c, ph, pw): for each of the bin's columns the y-contraction over
-// the bin's rows, rounded to bf16, then the x-contraction, reading the
-// features straight from device memory (2 s x 2 s loads an output, most of
-// them from L1 and L2: neighbouring outputs share rows and columns). Every
-// product of two bf16 values is exact in float32, so only the order of the
-// sums (ascending rows and columns here) can part it from the plain version.
+// bf16 ulp, so the rounding of t is kept. What bounds it: bytes, half of
+// the float32 build's, most of them the output (35 of the 38.9 MB of the
+// bf16 DCN detector's two heads at 1088 x 800). Design, the float32
+// build's staging on bf16 texels:
+// 1. Setup once a block: warp 0 takes the rows, warp 1 the columns, a lane
+//    a bin: each bin's lines (at most 2 s, ascending) and their bf16
+//    weights, and the lines to stage (the window between the ROI's first
+//    and last line where it spans at most min(2 r s, the level's size),
+//    else each bin's lines in 2 s slots a bin), each bin-line as a slot
+//    among them.
+// 2. The channels in chunks through two buffers of shared memory filled by
+//    cp.async, as the float32 build does, the texels kept in bf16 (a
+//    buffer holds twice the float32 build's channels) and widened at use.
+//    A row of a window is one run of bf16 texels: it is copied in 16-byte
+//    pieces aligned in both address spaces, starting (address / 2) % 8
+//    texels into its row of shared memory (the levels' rows start on any
+//    texel: P5 is 25 wide); the columns themselves are copied a 4-byte word
+//    each, the texel in the word's half that its address gives. A piece
+//    that would reach outside its channel's plane is copied texel by
+//    texel.
+// 3. t in shared memory: a thread takes a bin row (c, p), its lines and
+//    weights in registers, and forms t(c, p, x) for every staged column x
+//    (split over up to 8 threads a row when a large ROI's chunk has fewer
+//    rows than threads): the y-contraction over bin p's rows in ascending
+//    order from 0 by fmaf, rounded to bf16; each t is formed once. Then
+//    each output (c, p, q) is the x-contraction of t over bin q's columns
+//    in ascending order by fmaf, rounded to bf16, into shared memory.
+// 4. The chunk's outputs, one contiguous run of (R, C, r, r), go out as
+//    16-byte streaming stores (8 bf16) from the run's first 16-byte
+//    boundary, with single stores before and after it.
+// Each output is written once, by one thread, in a fixed order: no atomics.
+// No tensor cores: a bin weights at most 2 s lines an axis, so a dense
+// product would multiply mostly zeros, and the rounding of t depends on
+// the order of its float32 sums. Every product of two bf16 values is exact
+// in float32, and the sums run in the plain version's row and column
+// order, so only the plain version's own summation order (a matrix
+// product's) can part the two.
 
 #include <climits>
 #include <cstdint>
@@ -171,7 +198,7 @@ __device__ void setup_axis(float lo, float hi, int size, int r, int s,
   if (lane == 0) ax.count = window ? span : 2 * n;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                "l"(src));
@@ -313,61 +340,105 @@ roi_align_kernel(Pyramid pyr, const float* __restrict__ rois,
 // the bf16 build
 // ---------------------------------------------------------------------------
 
-constexpr int kBinTaps = 2 * kMaxRatio;  // lines a bin's samples weight
-
+// One axis of a ROI in the bf16 build: the texel lines staged, and each
+// bin's lines (at most 2 s, ascending) as slots among them with their
+// weights rounded to bf16.
 struct BinAxis {
-  int line[kMaxSamples][kBinTaps];  // a bin's texel lines, ascending
-  float w[kMaxSamples][kBinTaps];   // their weights, rounded to bf16
-  int n[kMaxSamples];
+  int line[2 * kMaxSamples];   // the staged lines
+  int slot[2 * kMaxSamples];   // bin p's j-th line: slot[p * 2 s + j]
+  float w[2 * kMaxSamples];    // and its weight
+  int n[kMaxSamples];          // the lines of bin p
+  int count;                   // lines staged
+  int first;                   // a window's first line
+  int window;                  // 1: the window [first, first + count)
 };
 
-// Bin p of an axis of `size` texels: the lines its s samples weight and the
-// plain version's weight of each,
+// Run by one whole warp, a lane a bin: the r bins of [lo, hi] on an axis of
+// `size` texels. Bin p weights the lines that its in-range samples' two
+// texels cover, each with the plain version's weight
 //   bf16(sum_i max(0, 1 - |(c_i + off) - (line + off)|) / s)
 // over the samples i inside [-1, size - 1] (c_i clamped to [0, size - 1];
-// off: the level's first row in the stacked pyramid, 0 for columns).
-__device__ void setup_bin(float lo, float hi, int size, int off, int r,
-                          int s, int p, BinAxis& ax) {
+// off: the level's first row in the stacked pyramid, 0 for columns). The
+// lines staged are the window between the first and the last line of all
+// bins where it spans at most min(2 r s, size) lines, else each bin's own
+// lines in 2 s slots a bin (a large or elongated ROI, whose bins lie apart).
+template <int kS>
+__device__ void setup_bins(float lo, float hi, int size, int off, int r,
+                           BinAxis& ax) {
+  constexpr int kTaps = 2 * kS;
+  const int lane = threadIdx.x & 31;
   const float bin = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1.f), (float)r);
   const float top = (float)(size - 1);
-  float c[kMaxRatio];
-  bool in[kMaxRatio];
-  int cand[kBinTaps];
-  int n = 0;
-  for (int i = 0; i < s; ++i) {
-    const float frac = __fdiv_rn(__fadd_rn((float)i, 0.5f), (float)s);
-    const float pos =
-        __fadd_rn(lo, __fmul_rn(__fadd_rn((float)p, frac), bin));
-    in[i] = pos >= -1.f && pos <= top;  // false for NaN too
-    c[i] = fminf(fmaxf(pos, 0.f), top);
-    if (!in[i]) continue;
-    const int h0 = (int)floorf(c[i]);
-    for (int h = h0; h <= min(h0 + 1, size - 1); ++h) {
-      bool seen = false;
-      for (int j = 0; j < n; ++j) seen |= cand[j] == h;
-      if (!seen) cand[n++] = h;
+  int first = INT_MAX, last = -1;
+  for (int p = lane; p < r; p += 32) {
+    float c[kS];
+    bool in[kS];
+    int cand[kTaps];
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const float frac = __fdiv_rn(__fadd_rn((float)i, 0.5f), (float)kS);
+      const float pos =
+          __fadd_rn(lo, __fmul_rn(__fadd_rn((float)p, frac), bin));
+      in[i] = pos >= -1.f && pos <= top;  // false for NaN too
+      c[i] = fminf(fmaxf(pos, 0.f), top);
+      if (!in[i]) continue;
+      // the samples' positions ascend with i, so their lines come in
+      // ascending order and a line repeats only the last one
+      const int h0 = (int)floorf(c[i]);
+      if (n == 0 || h0 > cand[n - 1]) cand[n++] = h0;
+      if (h0 + 1 <= size - 1 && h0 + 1 > cand[n - 1]) cand[n++] = h0 + 1;
+    }
+    for (int j = 0; j < n; ++j) {
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        const float d =
+            __fsub_rn(__fadd_rn(c[i], (float)off), (float)(cand[j] + off));
+        const float hat = fmaxf(__fsub_rn(1.f, fabsf(d)), 0.f);
+        sum = __fadd_rn(sum, in[i] ? hat : 0.f);
+      }
+      ax.slot[p * kTaps + j] = cand[j];  // the line, made a slot below
+      ax.w[p * kTaps + j] =
+          __bfloat162float(__float2bfloat16_rn(__fdiv_rn(sum, (float)kS)));
+    }
+    ax.n[p] = n;
+    if (n > 0) {
+      first = min(first, cand[0]);
+      last = max(last, cand[n - 1]);
     }
   }
-  for (int a = 1; a < n; ++a)  // ascending
-    for (int j = a; j > 0 && cand[j - 1] > cand[j]; --j) {
-      const int t = cand[j];
-      cand[j] = cand[j - 1];
-      cand[j - 1] = t;
+  first = __reduce_min_sync(0xffffffffu, first);
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (last < 0) first = last = 0;  // no sample inside: one line
+  const int span = last - first + 1;
+  const bool window = span <= min(2 * r * kS, size);
+  for (int p = lane; p < r; p += 32)
+    for (int j = 0; j < kTaps; ++j) {
+      const int k = p * kTaps + j;
+      if (window) {
+        if (j < ax.n[p]) ax.slot[k] -= first;
+      } else {
+        ax.line[k] = j < ax.n[p] ? ax.slot[k] : 0;
+        ax.slot[k] = k;
+      }
     }
-  for (int j = 0; j < n; ++j) {
-    float sum = 0.f;
-    for (int i = 0; i < s; ++i) {
-      const float d =
-          __fsub_rn(__fadd_rn(c[i], (float)off), (float)(cand[j] + off));
-      const float hat = fmaxf(__fsub_rn(1.f, fabsf(d)), 0.f);
-      sum = __fadd_rn(sum, in[i] ? hat : 0.f);
-    }
-    ax.line[p][j] = cand[j];
-    ax.w[p][j] =
-        __bfloat162float(__float2bfloat16_rn(__fdiv_rn(sum, (float)s)));
+  if (window)
+    for (int j = lane; j < span; j += 32) ax.line[j] = first + j;
+  if (lane == 0) {
+    ax.count = window ? span : r * kTaps;
+    ax.first = first;
+    ax.window = window;
   }
-  ax.n[p] = n;
 }
+
+// blocks of kMaxThreads an SM must fit by registers (64 a thread): the
+// bf16 build's phases are short and wait on shared memory, so it needs
+// many warps resident
+constexpr int kBf16MinBlocks = 4;
+
+static_assert(2 * sizeof(BinAxis) <= kSmemReserve,
+              "the bf16 build's static shared memory exceeds the reserve");
 
 struct PyramidBf16 {
   const __nv_bfloat16* feat[kMaxLevels];
@@ -378,12 +449,90 @@ struct PyramidBf16 {
   int levels;
 };
 
-__global__ void __launch_bounds__(kMaxThreads)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// floor(a / d) for 0 <= a, d < 2^16 as one multiply-high by
+// div16_magic(d) = floor((2^32 - 1) / d) + 1 (exact there: a d < 2^32);
+// for d = 1 that wraps to 0, which stands for a / 1
+__device__ __forceinline__ unsigned div16_magic(int d) {
+  return 0xffffffffu / (unsigned)d + 1u;
+}
+
+__device__ __forceinline__ int div16(int a, unsigned magic) {
+  return magic ? (int)__umulhi((unsigned)a, magic) : a;
+}
+
+// A staged row of the bf16 build in shared memory, `pitch` texels (a
+// multiple of 8) from a 16-byte boundary. With a window of columns: the
+// row's run of nc texels, copied in 16-byte pieces aligned in both address
+// spaces, so the run starts at element (address / 2) % 8 of the row. With
+// the columns themselves: one 4-byte word a column, the texel in the word's
+// half that its address gives. `base`: the level's address / 2; all
+// element offsets below are from the level's first texel.
+//
+// Stages the grids of channels [c0, c0 + n) of the level `feat` (planes of
+// `chan` texels, rows of W) into `grid`, one staged row after another, by
+// cp.async. A piece that would reach outside its channel's plane (the
+// first or last texels of a plane whose address is not aligned) is copied
+// texel by texel instead, so nothing outside the plane is read.
+__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* feat,
+                                           unsigned base, long long chan,
+                                           int W, const BinAxis& ys,
+                                           const BinAxis& xs, int c0, int n,
+                                           int pitch, __nv_bfloat16* grid) {
+  const int nr = ys.count, nc = xs.count;
+  const unsigned by_nr = div16_magic(nr);
+  if (xs.window) {
+    const int pieces = pitch / 8;
+    const unsigned by_pieces = div16_magic(pieces);
+    for (int u = threadIdx.x; u < n * nr * pieces; u += blockDim.x) {
+      const int row = div16(u, by_pieces), k = u - row * pieces;
+      const int c = div16(row, by_nr), rs = row - c * nr;
+      const long long lo = (long long)(c0 + c) * chan;
+      const long long run = lo + (long long)ys.line[rs] * W + xs.first;
+      const int o = (int)((base + (unsigned)run) & 7u);
+      if (8 * k >= o + nc) continue;
+      const long long e0 = run - o + 8 * k;
+      __nv_bfloat16* dst = grid + row * pitch + 8 * k;
+      if (e0 >= lo && e0 + 8 <= lo + chan) {
+        cp_async16(dst, feat + e0);
+      } else {
+        for (int j = 0; j < 8; ++j)
+          if (e0 + j >= lo && e0 + j < lo + chan) dst[j] = feat[e0 + j];
+      }
+    }
+  } else {
+    const unsigned by_nc = div16_magic(nc);
+    for (int u = threadIdx.x; u < n * nr * nc; u += blockDim.x) {
+      const int row = div16(u, by_nc), x = u - row * nc;
+      const int c = div16(row, by_nr), rs = row - c * nr;
+      const long long lo = (long long)(c0 + c) * chan;
+      const long long e = lo + (long long)ys.line[rs] * W + xs.line[x];
+      const int o = (int)((base + (unsigned)e) & 1u);
+      __nv_bfloat16* dst = grid + row * pitch + 2 * x;
+      if (e - o >= lo && e - o + 2 <= lo + chan)
+        cp_async4(dst, feat + (e - o));
+      else
+        dst[o] = feat[e];
+    }
+  }
+}
+
+// kS: the sampling ratio s
+template <int kS>
+__global__ void __launch_bounds__(kMaxThreads, kBf16MinBlocks)
 roi_align_bf16_kernel(PyramidBf16 pyr, const float* __restrict__ rois,
                       const int* __restrict__ levels,
-                      __nv_bfloat16* __restrict__ out, int C, int r, int s,
-                      int group) {
+                      __nv_bfloat16* __restrict__ out, int C, int r,
+                      int group, int half) {
+  // two buffers of `half` bytes: a chunk's staged grids, its t and its bins
+  extern __shared__ __align__(16) unsigned char sm_bf16[];
   __shared__ BinAxis ys, xs;
+  constexpr int kTaps = 2 * kS;
   const int roi = blockIdx.y;
   const int c0 = blockIdx.x * group;
   const int ng = min(group, C - c0);
@@ -399,55 +548,179 @@ roi_align_bf16_kernel(PyramidBf16 pyr, const float* __restrict__ rois,
   const int row0 = lv == 0 ? pyr.row0[0] : lv == 1 ? pyr.row0[1]
                  : lv == 2 ? pyr.row0[2] : pyr.row0[3];
   const float* b = rois + 4 * (size_t)roi;
-  const int tid = threadIdx.x;
-  if (tid < r)
-    setup_bin(__fmul_rn(b[1], scale), __fmul_rn(b[3], scale), H, row0, r, s,
-              tid, ys);
-  else if (tid < 2 * r)
-    setup_bin(__fmul_rn(b[0], scale), __fmul_rn(b[2], scale), W, 0, r, s,
-              tid - r, xs);
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5;
+  if (warp == 0)
+    setup_bins<kS>(__fmul_rn(b[1], scale), __fmul_rn(b[3], scale), H, row0,
+                   r, ys);
+  else if (warp == 1)
+    setup_bins<kS>(__fmul_rn(b[0], scale), __fmul_rn(b[2], scale), W, 0, r,
+                   xs);
   __syncthreads();
 
-  const int rr = r * r;
-  const size_t chan = (size_t)H * W;
+  const int nr = ys.count, nc = xs.count, rr = r * r;
+  const bool xwin = xs.window;
+  const int pitch = xwin ? (nc + 14) & ~7 : (2 * nc + 7) & ~7;
+  // t's rows hold an odd number of floats: 32 rows fall in 32 banks
+  const int tpitch = nc | 1;
+  const int per = 2 * (nr * pitch + rr) + 4 * r * tpitch;  // bytes a channel
+  const int chunk = min(ng, (half - 32) / per);  // >= 1: the plan's check
+  const int nchunks = (ng + chunk - 1) / chunk;
+  const long long chan = (long long)H * W;
+  const unsigned base =
+      (unsigned)(reinterpret_cast<uintptr_t>(feat) >> 1);
+  // a thread that forms a whole row of t starts it at its own column, so
+  // that a warp's reads of 32 rows spread over the banks
+  const int skew = (2 * (tid & 31)) % nc;
+  // the bins: thread tid computes bin column q = tid % r of the bin rows
+  // tid / r + k (nthr / r)
+  const int oq = tid % r, orow = tid / r, ostep = nthr / r;
   __nv_bfloat16* dst = out + ((size_t)roi * C + c0) * rr;
-  for (int e = tid; e < ng * rr; e += blockDim.x) {
-    const int c = e / rr, pq = e - c * rr;
-    const int p = pq / r, q = pq - p * r;
-    const __nv_bfloat16* f = feat + (size_t)(c0 + c) * chan;
-    float acc = 0.f;
-    for (int j = 0; j < xs.n[q]; ++j) {
-      const int x = xs.line[q][j];
-      float t = 0.f;  // Ry F at (ph, x), rounded to bf16
-      for (int i = 0; i < ys.n[p]; ++i)
-        t = fmaf(ys.w[p][i],
-                 __bfloat162float(f[(size_t)ys.line[p][i] * W + x]), t);
-      acc = fmaf(xs.w[q][j], __bfloat162float(__float2bfloat16_rn(t)), acc);
+
+  stage_bf16(feat, base, chan, W, ys, xs, c0, chunk, pitch,
+             reinterpret_cast<__nv_bfloat16*>(sm_bf16));
+  for (int k = 0; k < nchunks; ++k) {
+    // chunk k has landed, and every thread is done with chunk k - 1's
+    // buffer, which chunk k + 1 takes
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    const int cb = k * chunk, n = min(chunk, ng - cb);
+    if (k + 1 < nchunks)
+      stage_bf16(feat, base, chan, W, ys, xs, c0 + cb + chunk,
+                 min(chunk, ng - cb - chunk), pitch,
+                 reinterpret_cast<__nv_bfloat16*>(sm_bf16 +
+                                                  ((k + 1) & 1) * half));
+    unsigned char* buf = sm_bf16 + (k & 1) * half;
+    const __nv_bfloat16* grid = reinterpret_cast<const __nv_bfloat16*>(buf);
+    float* t = reinterpret_cast<float*>(buf + 2 * n * nr * pitch);
+    __nv_bfloat16* chunk_dst = dst + (size_t)cb * rr;
+    const int shift =
+        (int)((reinterpret_cast<uintptr_t>(chunk_dst) >> 1) & 7u);
+    __nv_bfloat16* res = reinterpret_cast<__nv_bfloat16*>(
+        buf + ((2 * n * nr * pitch + 4 * n * r * tpitch + 15) & ~15)) + shift;
+
+    // t = Ry F at (c, p, x) for every staged column x: the y-contraction
+    // over bin p's rows in ascending order, rounded to bf16. A bin row
+    // (c, p) takes `split` threads (up to 8 when a large ROI's chunk has
+    // fewer rows than threads), each every split-th column; a thread keeps
+    // its p (the rows, their weights and offsets in registers) over the
+    // chunk's channels.
+    int lg = 0;
+    while (lg < 3 && (n * r << (lg + 1)) <= nthr) ++lg;
+    const int split = 1 << lg, sk = lg == 0 ? skew : 0;
+    const int per_c = r << lg, cstep = nthr / per_c;
+    const int tc = tid / per_c, p = (tid - tc * per_c) >> lg,
+              part = tid & (split - 1);
+    if (tc < cstep) {
+      const int ny = ys.n[p];
+      int rowoff[kTaps];
+      unsigned lineoff[kTaps];
+      float wy[kTaps];
+#pragma unroll
+      for (int i = 0; i < kTaps; ++i) {
+        const int rs = i < ny ? ys.slot[p * kTaps + i] : 0;
+        rowoff[i] = rs * pitch;
+        lineoff[i] = (unsigned)ys.line[rs] * (unsigned)W +
+                     (xwin ? (unsigned)xs.first : 0u);
+        wy[i] = i < ny ? ys.w[p * kTaps + i] : 0.f;
+      }
+      for (int c = tc; c < n; c += cstep) {
+        const unsigned plane = base + (unsigned)(c0 + cb + c) * (unsigned)chan;
+        const __nv_bfloat16* g = grid + c * nr * pitch;
+        float* tr = t + (c * r + p) * tpitch;
+        if (xwin) {
+          int at[kTaps];
+#pragma unroll
+          for (int i = 0; i < kTaps; ++i)
+            at[i] = rowoff[i] + (int)((plane + lineoff[i]) & 7u);
+          for (int j = part; j < nc; j += split) {
+            const int x = j + sk < nc ? j + sk : j + sk - nc;
+            float acc = 0.f;
+#pragma unroll
+            for (int i = 0; i < kTaps; ++i)
+              if (i < ny)
+                acc = fmaf(wy[i], __bfloat162float(g[at[i] + x]), acc);
+            tr[x] = __bfloat162float(__float2bfloat16_rn(acc));
+          }
+        } else {  // a word a column, the texel in the half of its parity
+          int par[kTaps];
+#pragma unroll
+          for (int i = 0; i < kTaps; ++i)
+            par[i] = (int)((plane + lineoff[i]) & 1u);
+          for (int j = part; j < nc; j += split) {
+            const int x = j + sk < nc ? j + sk : j + sk - nc;
+            const int xp = xs.line[x] & 1;
+            float acc = 0.f;
+#pragma unroll
+            for (int i = 0; i < kTaps; ++i)
+              if (i < ny)
+                acc = fmaf(wy[i],
+                           __bfloat162float(
+                               g[rowoff[i] + 2 * x + (par[i] ^ xp)]),
+                           acc);
+            tr[x] = __bfloat162float(__float2bfloat16_rn(acc));
+          }
+        }
+      }
     }
-    dst[e] = __float2bfloat16_rn(acc);
+    __syncthreads();
+    // the bins: the x-contraction of t over bin q's columns in ascending
+    // order, rounded to bf16, the columns' slots and weights in registers
+    const int onx = orow < ostep ? xs.n[oq] : 0;
+    int oslot[kTaps];
+    float ow[kTaps];
+#pragma unroll
+    for (int j = 0; j < kTaps; ++j) {
+      oslot[j] = j < onx ? xs.slot[oq * kTaps + j] : 0;
+      ow[j] = j < onx ? xs.w[oq * kTaps + j] : 0.f;
+    }
+    for (int row = orow < ostep ? orow : n * r; row < n * r; row += ostep) {
+      const float* tr = t + row * tpitch;
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTaps; ++j)
+        if (j < onx) acc = fmaf(ow[j], tr[oslot[j]], acc);
+      res[row * r + oq] = __float2bfloat16_rn(acc);
+    }
+    __syncthreads();
+    // the chunk's outputs, contiguous in (R, C, r, r): 16-byte streaming
+    // stores from the first 16-byte boundary, single texels before and after
+    const int total = n * rr;
+    const int head = min(total, (8 - shift) & 7);
+    const int vecs = (total - head) >> 3;
+    for (int u = tid; u < vecs; u += nthr)
+      __stcs(reinterpret_cast<int4*>(chunk_dst + head) + u,
+             reinterpret_cast<const int4*>(res + head)[u]);
+    for (int u = tid; u < total - 8 * vecs; u += nthr) {
+      const int e = u < head ? u : u + 8 * vecs;
+      chunk_dst[e] = res[e];
+    }
   }
 }
 
 }  // namespace
 
-// The bf16 build: blocks of `threads` threads pooling one ROI over `group`
-// channels, no dynamic shared memory. feats: the L levels' bf16 planes;
-// rois float32; out (R, C, r, r) bf16. Refuses (cudaErrorInvalidValue)
-// arguments it cannot run; otherwise returns the CUDA error of the launch.
+// The bf16 build, launched on `stream` with the wrapper's plan: blocks of
+// `threads` threads pooling one ROI over `group` channels with `smem_bytes`
+// of dynamic shared memory, two buffers that must each hold one channel's
+// largest staged grid, its t and its bins (bf16_channel_bytes). feats: the
+// L levels' bf16 planes; rois float32; out (R, C, r, r) bf16. Refuses
+// (cudaErrorInvalidValue) a plan or arguments it cannot run; otherwise
+// returns the CUDA error of the launch.
 extern "C" int roi_align_bf16_launch(const void* const* feats, const int* hs,
                                      const int* ws, const float* scales,
                                      int L, const float* rois,
                                      const int* levels, void* out, int R,
                                      int C, int r, int s, int group,
-                                     int threads, void* stream) {
+                                     int threads, int smem_bytes,
+                                     void* stream) {
   if (L < 1 || L > kMaxLevels || R < 1 || R > 65535 || C < 1 || r < 1 ||
-      s < 1 || s > kMaxRatio || r * s > kMaxSamples || 2 * r > threads ||
-      group < 1 || group > C || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || (long long)C * r * r > INT_MAX)
+      s < 1 || s > kMaxRatio || r * s > kMaxSamples ||
+      (long long)C * r * r > INT_MAX)
     return (int)cudaErrorInvalidValue;
   PyramidBf16 pyr{};
   pyr.levels = L;
   long long row = 0;
+  int max_h = 0, max_w = 0;
   for (int l = 0; l < L; ++l) {
     if (hs[l] < 1 || ws[l] < 1) return (int)cudaErrorInvalidValue;
     pyr.feat[l] = static_cast<const __nv_bfloat16*>(feats[l]);
@@ -456,11 +729,40 @@ extern "C" int roi_align_bf16_launch(const void* const* feats, const int* hs,
     pyr.row0[l] = (int)row;
     pyr.scale[l] = scales[l];
     row += hs[l];
+    max_h = hs[l] > max_h ? hs[l] : max_h;
+    max_w = ws[l] > max_w ? ws[l] : max_w;
   }
   if (row > (1 << 24)) return (int)cudaErrorInvalidValue;  // exact floats
+  // a channel's largest footprint in a buffer: staged rows x the widest
+  // row pitch (a window's texels from an unaligned start, or a word a
+  // column where a level is wider than 2 r s) and the bins in bf16, t's
+  // rows in float32 (an odd count a row), plus the alignment of the bins
+  const int n = r * s;
+  const int rows_cap = 2 * n < max_h ? 2 * n : max_h;
+  const int cols_cap = 2 * n < max_w ? 2 * n : max_w;
+  const int window_pitch = (cols_cap + 14) & ~7;
+  const int lines_pitch = max_w > 2 * n ? (4 * n + 7) & ~7 : 0;
+  const int pitch = window_pitch > lines_pitch ? window_pitch : lines_pitch;
+  const int need =
+      2 * (rows_cap * pitch + r * r) + 4 * r * (cols_cap | 1) + 32;
+  const int half = smem_bytes / 2;
+  const bool plan_ok = group >= 1 && group <= C && threads >= kMinThreads &&
+                       threads <= kMaxThreads && threads % 32 == 0 &&
+                       smem_bytes % 32 == 0 && half >= need &&
+                       smem_bytes + kSmemReserve <= kSmemLimit;
+  if (!plan_ok) return (int)cudaErrorInvalidValue;
+  void (*kernel)(PyramidBf16, const float*, const int*, __nv_bfloat16*, int,
+                 int, int, int) =
+      s == 1 ? roi_align_bf16_kernel<1>
+      : s == 2 ? roi_align_bf16_kernel<2>
+      : s == 3 ? roi_align_bf16_kernel<3>
+               : roi_align_bf16_kernel<4>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((C + group - 1) / group), R);
-  roi_align_bf16_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      pyr, rois, levels, static_cast<__nv_bfloat16*>(out), C, r, s, group);
+  kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      pyr, rois, levels, static_cast<__nv_bfloat16*>(out), C, r, group, half);
   return (int)cudaGetLastError();
 }
 

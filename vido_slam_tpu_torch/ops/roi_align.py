@@ -62,10 +62,16 @@ SMEM_LIMIT = 232448        # bytes of shared memory a block may use on sm_90
 SMEM_RESERVE = 4096        # room for the static shared memory
 
 
-# the bf16 build's plan: a block of BF16_THREADS pools one ROI over a group
-# of channels whose bins number about BF16_OUTPUTS
-BF16_THREADS = 256
-BF16_OUTPUTS = 1024
+# the bf16 build's plan, the float32 build's on bf16 texels: a block of
+# BF16_THREADS pools one ROI over a group of channels (the float32 rule),
+# staging each channel's grid, its t and its bins in shared memory, a chunk
+# of channels at a time through two buffers; 128 threads a block beat 256
+# on both heads (tools/sweep_kernel_plans.py roi_align)
+BF16_THREADS = 128
+# a buffer: 11.75 KB, so that 8 blocks fit an SM beside their static shared
+# memory (BinAxis, 3.6 KB), or one channel's largest footprint if that is
+# more
+BF16_BUFFER_BYTES = 12032
 
 
 class RoiAlignPlan(NamedTuple):
@@ -93,31 +99,71 @@ def smem_bytes(resolution: int, sampling_ratio: int,
     return 8 * max(BUFFER_FLOATS, rows * cols + resolution * resolution)
 
 
-def launch_plan(R: int, C: int, resolution: int, sampling_ratio: int,
-                level_sizes: Sequence[tuple]) -> RoiAlignPlan:
-    """THREADS a block and the largest power-of-two channel group, at most
-    C, whose bins stay within BLOCK_OUTPUTS and that still gives the R ROIs
-    two waves of blocks on the SMs (at least one channel). A block sets up
-    its ROI's sample grid once for all its channels but takes its chunks in
-    turn, so a group of 32 channels at 7 x 7 bins (the box head) or 8 at
-    14 x 14 (the mask head) balances the two. ``level_sizes``: the
-    pyramid's (height, width) pairs."""
+def channel_group(R: int, C: int, resolution: int) -> int:
+    """The largest power-of-two channel group, at most C, whose bins stay
+    within BLOCK_OUTPUTS and that still gives the R ROIs two waves of
+    blocks on the SMs (at least one channel)."""
     wave = SM_COUNT * BLOCKS_PER_SM
     group = 1
     while (2 * group <= C
            and 2 * group * resolution * resolution <= BLOCK_OUTPUTS
            and R * -(-C // (2 * group)) >= 2 * wave):
         group *= 2
-    return RoiAlignPlan(group, THREADS,
+    return group
+
+
+def launch_plan(R: int, C: int, resolution: int, sampling_ratio: int,
+                level_sizes: Sequence[tuple]) -> RoiAlignPlan:
+    """THREADS a block and ``channel_group``'s group. A block sets up its
+    ROI's sample grid once for all its channels but takes its chunks in
+    turn, so a group of 32 channels at 7 x 7 bins (the box head) or 8 at
+    14 x 14 (the mask head) balances the two. ``level_sizes``: the
+    pyramid's (height, width) pairs."""
+    return RoiAlignPlan(channel_group(R, C, resolution), THREADS,
                         smem_bytes(resolution, sampling_ratio, level_sizes))
 
 
-def launch_plan_bf16(C: int, resolution: int) -> RoiAlignPlan:
-    """The bf16 build's plan: BF16_THREADS a block, a group of channels of
-    at most BF16_OUTPUTS bins (at least one channel); no dynamic shared
-    memory."""
-    group = max(1, min(C, BF16_OUTPUTS // (resolution * resolution)))
-    return RoiAlignPlan(group, BF16_THREADS, 0)
+def _up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def bf16_channel_bytes(resolution: int, sampling_ratio: int,
+                       level_sizes: Sequence[tuple]) -> int:
+    """Bytes of a buffer that one channel takes in the bf16 build at the
+    largest staged grid (csrc/roi_align.cu's bf16 launcher checks the
+    same): ``grid_lines`` rows at the widest row pitch and the r x r bins
+    in bf16, t in float32 (r rows of the staged columns, an odd count a
+    row), plus 32 bytes for aligning the bins. A row of a window of
+    columns holds its texels from a 16-byte boundary, up to 7 texels in
+    (cols + 7, to a multiple of 8); a row of columns taken themselves, a
+    4-byte word (2 texels) a column, as soon as a level is wider than
+    2 r s."""
+    r, n = resolution, resolution * sampling_ratio
+    max_h = max(h for h, _ in level_sizes)
+    max_w = max(w for _, w in level_sizes)
+    rows = grid_lines(r, sampling_ratio, max_h)
+    cols = grid_lines(r, sampling_ratio, max_w)
+    pitch = max(_up(cols + 7, 8), _up(4 * n, 8) if max_w > 2 * n else 0)
+    return 2 * (rows * pitch + r * r) + 4 * r * (cols | 1) + 32
+
+
+def smem_bytes_bf16(resolution: int, sampling_ratio: int,
+                    level_sizes: Sequence[tuple]) -> int:
+    """Dynamic shared memory of a block of the bf16 build: two buffers of
+    BF16_BUFFER_BYTES, or of one channel's largest footprint if that is
+    more, each a multiple of 16 bytes."""
+    return 2 * _up(max(BF16_BUFFER_BYTES,
+                       bf16_channel_bytes(resolution, sampling_ratio,
+                                          level_sizes)), 16)
+
+
+def launch_plan_bf16(R: int, C: int, resolution: int, sampling_ratio: int,
+                     level_sizes: Sequence[tuple]) -> RoiAlignPlan:
+    """The bf16 build's plan: BF16_THREADS a block, ``channel_group``'s
+    group and ``smem_bytes_bf16``."""
+    return RoiAlignPlan(channel_group(R, C, resolution), BF16_THREADS,
+                        smem_bytes_bf16(resolution, sampling_ratio,
+                                        level_sizes))
 
 
 def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -349,14 +395,13 @@ def _launch(feats, rois, levels, spatial_scales, resolution, sampling_ratio,
         P, I = ctypes.c_void_p, ctypes.c_int
         head = [ctypes.POINTER(P), ctypes.POINTER(I), ctypes.POINTER(I),
                 ctypes.POINTER(ctypes.c_float), I, P, P, P]
+        fn = lib.roi_align_bf16_launch if bf16 else lib.roi_align_launch
+        fn.argtypes = head + [I] * 7 + [P]
+        fn.restype = ctypes.c_int
         if bf16:
-            _launch_bf16_fn = lib.roi_align_bf16_launch
-            _launch_bf16_fn.argtypes = head + [I] * 6 + [P]
-            _launch_bf16_fn.restype = ctypes.c_int
+            _launch_bf16_fn = fn
         else:
-            _launch_fn = lib.roi_align_launch
-            _launch_fn.argtypes = head + [I] * 7 + [P]
-            _launch_fn.restype = ctypes.c_int
+            _launch_fn = fn
     L = len(feats)
     R, C = rois.shape[0], feats[0].shape[1]
     ptrs = (ctypes.c_void_p * L)(*(f.data_ptr() for f in feats))
@@ -366,12 +411,10 @@ def _launch(feats, rois, levels, spatial_scales, resolution, sampling_ratio,
     dev = out.device
     args = (ptrs, hs, ws, scales, L, rois.data_ptr(), levels.data_ptr(),
             out.data_ptr(), R, C, resolution, sampling_ratio, plan.group,
-            plan.threads)
+            plan.threads, plan.smem_bytes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if bf16:
-            return _launch_bf16_fn(*args, stream)
-        return _launch_fn(*args, plan.smem_bytes, stream)
+        return (_launch_bf16_fn if bf16 else _launch_fn)(*args, stream)
 
 
 def _check_args(feats, rois, levels, spatial_scales, resolution,
@@ -428,9 +471,8 @@ def _forward(feats, rois, levels, spatial_scales, resolution,
                       device=rois.device)
     if R == 0:
         return out
-    plan = launch_plan_bf16(C, resolution) \
-        if out.dtype == torch.bfloat16 else \
-        launch_plan(R, C, resolution, sampling_ratio, level_sizes(feats))
+    plan = (launch_plan_bf16 if out.dtype == torch.bfloat16 else
+            launch_plan)(R, C, resolution, sampling_ratio, level_sizes(feats))
     rc = _launch(feats, rois, levels, spatial_scales, resolution,
                  sampling_ratio, plan, out)
     if rc != 0:
