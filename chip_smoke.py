@@ -111,11 +111,12 @@ Phases, each of which fails the run by raising:
      (``match_detections``), kernel 5's bf16 build held against its bf16
      plain version on call 3's arguments; (j2) one call each with
      ``flow_dtype`` and ``compute_dtype`` bf16: kernels 3 and 4's bf16
-     builds against their plain versions at every level, the flow within
+     builds against their plain versions at every level and at the flow
+     path's five levels of a 1280x576 pair (seeded), the flow within
      the JAX package's bf16 bar of the float32 flow, the depth within
      BF16_DEPTH_BAR; it prints the bf16 and the float32 ms a frame and
      each bf16 build's device ms, launches and bound beside the float32
-     build's on the same values. (k) JPEG frames: the fixtures under
+     build's on the same values, at both sizes. (k) JPEG frames: the fixtures under
      tests/data/jpeg (every sampling layout, a restart interval, optimised
      tables, gray, 24 KITTI frames of (h3)'s scene written by cv2 at
      quality 95) decoded bit-equal to cv2's committed arrays by the C++
@@ -607,6 +608,11 @@ CORR_LEVELS = [(64, 288, 640, 2), (64, 144, 320, 2), (96, 72, 160, 1),
                (128, 36, 80, 1), (192, 18, 40, 1)]
 REG_LEVELS = [(7, 288, 640), (5, 144, 320), (5, 72, 160), (3, 36, 80),
               (3, 18, 40)]
+# ... and of the online path's 640x192 frames (LiteFlowNet at 640x192)
+ONLINE_CORR_LEVELS = [(64, 96, 320, 2), (64, 48, 160, 2), (96, 24, 80, 1),
+                      (128, 12, 40, 1), (192, 6, 20, 1)]
+ONLINE_REG_LEVELS = [(7, 96, 320), (5, 48, 160), (5, 24, 80), (3, 12, 40),
+                     (3, 6, 20)]
 
 
 def flow_level(args) -> str:
@@ -2386,9 +2392,11 @@ def run_phase_j(dev, counters, names, f32_ms):
     to its plain version on call ONLINE_RECORD's arguments; (j2) one call
     with ``flow_dtype`` and one with ``compute_dtype`` bf16 against the
     float32 model, kernels 3 and 4's bf16 builds against their plain
-    versions at every level. ``f32_ms``: (e)'s median ms a frame. Returns
-    {kernel: (bf16 launches, max error, (ms, plain_ms, bound_ms, bound_by,
-    f32_ms))} for kernels 3-5."""
+    versions at every level of that call and at the flow path's five
+    levels (seeded, as phase 3's cases). ``f32_ms``: (e)'s median ms a
+    frame. Returns {kernel: (bf16 launches, max error, (ms, plain_ms,
+    bound_ms, bound_by, f32_ms)[, the same at the flow path's levels])}
+    for kernels 3-5."""
     import torch
     from vido_slam_tpu_torch.models import liteflownet, perception
     from vido_slam_tpu_torch.models.maskrcnn import roi_heads
@@ -2512,13 +2520,27 @@ def run_phase_j(dev, counters, names, f32_ms):
                                       lambda a: (regularize.nbytes(a[0]),
                                                  regularize.operations(
                                                      a[0])))}
+    plans = {"correlation": lambda a: correlation.plan_for(a[0], a[2]),
+             "dist_weighted_flow": lambda a: (
+                 f"{regularize.copy_width(a[1])}-byte flow copies")}
+    # ... and at the flow path's five levels (the 1280x576 pair's shapes,
+    # seeded as phase 3's cases) in bf16
+    rng = np.random.RandomState(0)
+    seeded = {"correlation": correlation_cases(rng, dev),
+              "dist_weighted_flow": regularize_cases(rng, dev)}
     for i, (attr, (kernel, plain, count)) in enumerate(kernels.items()):
         cases = [(f"(j2) level {6 - k} {tuple(args[0].shape)}", args)
                  for k, (args, _) in enumerate(recs[attr].calls)]
         err = max(check_bf16_kernel(n, kernel, plain, a) for n, a in cases)
+        path = [(f"(j2) flow path {n}", tuple(
+            a.to(bf) if torch.is_tensor(a) else a for a in args))
+            for n, args in seeded[attr]]
+        err = max([err] + [check_bf16_kernel(n, kernel, plain, a)
+                           for n, a in path])
         out[attr] = [launches_flow[2 + i], err,
-                     time_bf16(cases, kernel, plain, count)]
-    del recs
+                     time_bf16(cases, kernel, plain, count, plans[attr]),
+                     time_bf16(path, kernel, plain, count, plans[attr])]
+    del recs, seeded
     comp_model = PerceptionModel(ONLINE_H, ONLINE_W, cfg, seed=0, device=dev,
                                  compute_dtype=bf)
     for c in counters:
@@ -2542,11 +2564,14 @@ def run_phase_j(dev, counters, names, f32_ms):
           f"{depth_err:.5f} of the 65536 range (bar {BF16_DEPTH_BAR}, "
           f"mean {float(depth_diff.mean()):.5f}); "
           f"(j) {time.perf_counter() - t0:.1f} s; card {cards}")
-    for name, (n, err, t) in out.items():
+    for name, (n, err, t, *path) in out.items():
         print(f"(j) {name} bf16 build: {n} launches, device ms {t[0]:.4f} "
               f"(float32 build {t[4]:.4f} on the same values), plain "
               f"{t[1]:.3f} ms, bound {t[2]:.6f} ms by {t[3]}, max error "
-              f"{err:.3e}")
+              f"{err:.3e}" + "".join(
+                  f"; at the flow path's five levels device ms {p[0]:.4f} "
+                  f"(float32 build {p[4]:.4f}), plain {p[1]:.3f} ms, bound "
+                  f"{p[2]:.6f} ms by {p[3]}" for p in path))
     return out
 
 
@@ -5392,10 +5417,16 @@ def main() -> int:
             e[f"{key}_launches"] = pipelined_launches[cell][i]
         # the bf16 build (phase (j)): its launches there, its device ms on
         # the arguments (j) gave it, the float32 build's on the same values
-        n, err, t = bf16.get(e["name"], (None, None, (None,) * 5))
+        n, err, t, *path = bf16.get(e["name"], (None, None, (None,) * 5))
         e.update(bf16_launches=n, bf16_max_abs_err=err, bf16_ms=t[0],
                  bf16_plain_ms=t[1], bf16_bound_ms=t[2], bf16_bound_by=t[3],
                  f32_ms_same_values=t[4])
+        # kernels 3 and 4's bf16 builds at the flow path's five levels
+        for p in path:
+            e.update(bf16_flow_path_ms=p[0], bf16_flow_path_plain_ms=p[1],
+                     bf16_flow_path_bound_ms=p[2],
+                     bf16_flow_path_bound_by=p[3],
+                     bf16_flow_path_f32_ms=p[4])
         # phase (m): the launches of (m1) DCN (3 frames), (m2) FBNet (3
         # frames), (m3) RetinaNet, (m4) the keypoint head
         e["detector_families_launches"] = {

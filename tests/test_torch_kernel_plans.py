@@ -1,10 +1,11 @@
 """The launch plans of kernels 1, 2, 3 and 5 (``lm_kernel.launch_plan``,
 ``flow_joint_kernel.launch_plan``, ``correlation.launch_plan``,
-``roi_align.launch_plan`` and, for kernel 5's bf16 build,
-``roi_align.launch_plan_bf16``), which each wrapper computes in Python and
-the C launcher checks, at the main paths' shapes; kernel 4's flow copy width
-(``regularize.copy_width``); and the kernel build's hash over the headers a
-source includes. Runs on the CPU: no kernel is built or launched."""
+``roi_align.launch_plan`` and, for the bf16 builds of kernels 3 and 5,
+``correlation.launch_plan_bf16`` and ``roi_align.launch_plan_bf16``), which
+each wrapper computes in Python and the C launcher checks, at the main
+paths' shapes; kernel 4's flow copy width (``regularize.copy_width``); the
+bf16 builds' 16-byte pieces; and the kernel build's hash over the headers
+a source includes. Runs on the CPU: no kernel is built or launched."""
 
 import numpy as np
 import pytest
@@ -52,6 +53,113 @@ def test_correlation_channel_split_covers_c_exactly(N, C, H, W, stride):
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
     assert all(hi > lo for lo, hi in ranges)
     assert plan.grid[1] == N and plan.split <= C
+
+
+# kernel 3's bf16 build: the float32 plan's tiles and split, its own ring
+# (csrc/correlation.cu's bf16 launcher checks the same shared memory)
+
+@pytest.mark.parametrize("N,C,H,W,stride", [
+    (1,) + lv for lv in chip_smoke.CORR_LEVELS + chip_smoke.ONLINE_CORR_LEVELS
+] + [(2, 1, 37, 53, 2), (1, 1, 6, 20, 1), (1, 50, 72, 160, 1),
+     (2, 13, 24, 80, 1), (3, 7, 5, 3, 1), (1, 24, 30, 50, 3),
+     (2, 16, 33, 70, 4), (1, 64, 288, 640, 8)])
+def test_correlation_bf16_plan_covers_c_and_fits(N, C, H, W, stride):
+    plan = corr.launch_plan_bf16(N, C, H, W, stride)
+    f32 = corr.launch_plan(N, C, H, W, stride)
+    # the parent build's split: every rank sums the same channels
+    assert (plan.tile_h, plan.split, plan.grid) == \
+        (f32.tile_h, f32.split, f32.grid)
+    ranges = [(r * C // plan.split, (r + 1) * C // plan.split)
+              for r in range(plan.split)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == C
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(hi > lo for lo, hi in ranges)
+    assert 1 <= plan.chunk <= corr.MAX_BF16_CHUNK
+    assert plan.taps in corr.TAP_GROUPS
+    assert plan.taps == (4 if plan.tile_h == 4 else
+                         2 if plan.grid[0] * plan.grid[1] <= 264 else 1)
+    assert f32.taps == 1
+    assert plan.smem_bytes == corr.smem_bytes_bf16(
+        plan.tile_h, stride, plan.chunk) <= SMEM_LIMIT
+    # the partial sums reuse the ring; both builds' rule
+    part = 4 * corr.TAPS * plan.tile_h * corr.TILE_W
+    assert plan.smem_bytes >= part and f32.smem_bytes >= part
+    assert plan.smem_bytes % 16 == 0
+    # the largest chunk with which the grid stays resident, and no more
+    # than a rank's share needs
+    ctas = plan.grid[0] * plan.grid[1]
+    resident = corr.SM_COUNT * (SMEM_LIMIT // plan.smem_bytes)
+    assert plan.chunk in corr.BF16_CHUNKS
+    assert ctas <= resident or plan.chunk == 1
+    assert plan.chunk == 1 or plan.chunk // 2 < -(-C // plan.split)
+    bigger = [c for c in corr.BF16_CHUNKS if c > plan.chunk
+              and c // 2 < -(-C // plan.split)]
+    for c in bigger:
+        smem = corr.smem_bytes_bf16(plan.tile_h, stride, c)
+        assert ctas > corr.SM_COUNT * (SMEM_LIMIT // smem)
+    if (C, H, W, stride) in chip_smoke.CORR_LEVELS[:3]:
+        assert plan.chunk == 4   # the levels of 360 CTAs
+    # a chunk ragged at a rank's end where C / split is no multiple of it
+    if (C, stride) == (50, 1):
+        assert any((hi - lo) % plan.chunk for lo, hi in ranges)
+
+
+def _pieces(ptr, g, n, stride):
+    """A mirror of the bf16 builds' staging of one row (csrc/correlation.cu
+    ``stage``, csrc/regularize.cu): the row's n values start at element g
+    of a tensor at address ptr and lie `stride` apart. Returns its first
+    value's offset in its first 16-byte piece and each piece's first
+    element."""
+    sh = (ptr // 2 + g) % 8
+    span = (n - 1) * stride + 1
+    return sh, [g - sh + 8 * j for j in range(corr.row_pieces(n, stride))
+                if 8 * j < sh + span]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 6, 7])
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("W", range(41, 49))
+def test_bf16_pieces_cover_each_row_at_any_alignment(W, stride, offset):
+    """Kernel 3's rows (HALO_W and TILE_W values) and kernel 4's (40), of
+    a (2, 3, 9, W) bf16 view at a storage offset of 0-7 elements (W = 41-48:
+    rows start at every offset in a piece): every piece starts on a 16-byte
+    boundary, every value of the row lies in one, and a piece reaches
+    outside the tensor only at its first or last element (it is then
+    copied by plain loads). The copy width is 16 bytes at every W, stride
+    and offset."""
+    N, C, H = 2, 3, 9
+    store = torch.zeros(N * C * H * W + offset, dtype=torch.bfloat16)
+    f = store[offset:].view(N, C, H, W)
+    assert f.is_contiguous()
+    ptr, total, plane = f.data_ptr(), f.numel(), H * W
+    assert reg.copy_width(f[:, :2].contiguous()) == 16
+    Wo = -(-W // stride)
+    rows = 0
+    for n, c in ((0, 0), (1, C - 1), (0, 1)):
+        for a in range(-(-H // stride)):
+            for b0, vals in [(x0 - 3, corr.HALO_W) for x0 in
+                             range(0, Wo, corr.TILE_W)] + [
+                    (x0, corr.TILE_W) for x0 in range(0, Wo, corr.TILE_W)]:
+                g = (n * C + c) * plane + (a * W + b0) * stride
+                sh, firsts = _pieces(ptr, g, vals, stride)
+                assert all((ptr // 2 + e) % 8 == 0 for e in firsts)
+                for j in range(vals):
+                    if 0 <= b0 + j < Wo:   # a value inside the image
+                        e = g + j * stride
+                        assert any(p <= e < p + 8 for p in firsts)
+                        assert 0 <= e < total
+                outside = [p for p in firsts if p < 0 or p + 8 > total]
+                assert all(p < 8 or p + 8 > total - 8 for p in outside)
+                rows += 1
+    assert rows > 0
+    # kernel 4 (this view as a flow of 3 images): a staged row of the 40
+    # columns from x0 - 4 in at most 6 pieces (48 values a row)
+    for p in range(N * C):
+        for y in range(H):
+            for x0 in range(0, W, 32):
+                sh, firsts = _pieces(ptr, p * plane + y * W + x0 - 4, 40, 1)
+                assert len(firsts) <= 6 and sh + 40 <= 48
+                assert all((ptr // 2 + e) % 8 == 0 for e in firsts)
 
 
 @pytest.mark.parametrize("W", [640, 637])
@@ -175,6 +283,19 @@ def test_roi_align_plan_fits_the_sample_grids(R, C, r, s):
     assert plan.group * r * r <= roi_align.BLOCK_OUTPUTS
     assert (plan.group, plan.threads, plan.smem_bytes) == {
         7: (32, 256, 24576), 14: (8, 256, 26656)}[r]
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+@pytest.mark.parametrize("r", [7, 14])
+def test_roi_align_bf16_plan_for_one_roi(r, s):
+    """One ROI (R = 1) at every sampling ratio: a block a channel, the bf16
+    block size, and buffers that hold one channel's largest footprint."""
+    plan = roi_align.launch_plan_bf16(1, 256, r, s, chip_smoke.MASK_LEVELS)
+    assert plan.group == 1 and plan.threads == roi_align.BF16_THREADS
+    need = roi_align.bf16_channel_bytes(r, s, chip_smoke.MASK_LEVELS)
+    assert plan.smem_bytes // 2 >= max(need, roi_align.BF16_BUFFER_BYTES)
+    assert plan.smem_bytes % 32 == 0
+    assert plan.smem_bytes + roi_align.SMEM_RESERVE <= SMEM_LIMIT
 
 
 def test_roi_align_grid_is_capped_by_small_levels():

@@ -445,10 +445,8 @@ def test_flow_joint_cuda_tensors_never_reach_the_plain_version(monkeypatch):
 # the five pyramid levels of a 1280x576 pair (chip_smoke.CORR_LEVELS and
 # REG_LEVELS) and of the online path's 640x192 pair (down to 6 x 20 at
 # level 6), a ragged height and width, and two images
-ONLINE_CORR_LEVELS = [(64, 96, 320, 2), (64, 48, 160, 2), (96, 24, 80, 1),
-                      (128, 12, 40, 1), (192, 6, 20, 1)]
-ONLINE_REG_LEVELS = [(7, 96, 320), (5, 48, 160), (5, 24, 80), (3, 12, 40),
-                     (3, 6, 20)]
+ONLINE_CORR_LEVELS = chip_smoke.ONLINE_CORR_LEVELS
+ONLINE_REG_LEVELS = chip_smoke.ONLINE_REG_LEVELS
 
 
 @pytest.mark.parametrize("N,C,H,W,stride", [
@@ -1081,6 +1079,193 @@ def test_roi_align_bf16_launcher_refuses_plans_it_cannot_run():
                                  plan._replace(**bad), out) == 1, bad
     assert roi_align._launch(feats, rois, levels, scales, 7, 5, plan,
                              out) == 1   # sampling ratio above 4
+    torch.cuda.synchronize()
+
+
+# kernel 5's bf16 build where its staging can part from the plain version:
+# one staged line (levels one texel tall or wide), rows that start on an
+# odd texel (P5 is 25 wide), pieces that reach past their plane (levels
+# that end where their storage ends, at odd offsets), levels wider than
+# 2 r s (P2-P4 at s 1), one ROI at every sampling ratio
+
+STEP0_CASES = [("one staged line", 7, 2), ("one staged line", 14, 1),
+               ("one staged line", 7, 4), ("P5", 7, 1), ("P5", 7, 3),
+               ("P5", 14, 2), ("past the plane", 7, 2),
+               ("past the plane", 14, 3), ("wide levels", 7, 1),
+               ("wide levels", 14, 1)] + [
+    ("one ROI", r, s) for r in (7, 14) for s in (1, 2, 3, 4)]
+
+
+def _step0_args(case, res, s):
+    """(feats in bf16, rois, levels, scales, res, s) of one step-0 case."""
+    rng = np.random.RandomState(100 * res + 10 * s + len(case))
+    sizes = chip_smoke.MASK_LEVELS
+    if case == "one staged line":
+        sizes = [(1, 200), (136, 1), (1, 1), (2, 25)]
+    feats = [torch.tensor(rng.randn(1, 24, h, w).astype(np.float32)).cuda()
+             .to(torch.bfloat16) for h, w in sizes]
+    if case == "past the plane":
+        ends = []
+        for f, k in zip(feats, (1, 3, 5, 7)):
+            store = torch.empty(f.numel() + k, dtype=torch.bfloat16,
+                                device="cuda")
+            v = store[k:].view(f.shape)   # ends where its storage ends
+            v.copy_(f)
+            ends.append(v)
+        feats = ends
+    R = 1 if case == "one ROI" else 64
+    level = rng.randint(0, 4, R)
+    if case == "P5":
+        level[:] = 3
+    scale = np.asarray(POOLER_SCALES, np.float32)[level]
+    h = np.asarray([sizes[lv][0] for lv in level]) / scale
+    w = np.asarray([sizes[lv][1] for lv in level]) / scale
+    x1, y1 = rng.uniform(-0.1, 1.0, (2, R)) * np.stack([w, h])
+    bw, bh = np.exp(rng.uniform(np.log(0.3), np.log(1.2), (2, R))) \
+        * np.stack([w, h])
+    if case == "wide levels":   # long boxes: more than 2 r s columns
+        bw = np.maximum(bw, 0.9 * w)
+    rois = np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype(np.float32)
+    return (feats, torch.tensor(rois).cuda(),
+            torch.tensor(level, dtype=torch.int32).cuda(), POOLER_SCALES,
+            res, s)
+
+
+@pytest.mark.parametrize("case,res,s", STEP0_CASES)
+def test_roi_align_bf16_build_where_its_staging_can_part(case, res, s):
+    _need_card()
+    feats, rois, levels, scales, res, s = _step0_args(case, res, s)
+    got = _hold_bf16_build(feats, rois, levels, scales, res, s)
+    if case == "past the plane":
+        want = roi_align.roi_align_multilevel([f.clone() for f in feats],
+                                              rois, levels, scales, res, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+# kernels 3 and 4's bf16 builds at the edges of their raw staging: rows
+# that start at every offset in a 16-byte piece (W = 41-48), inputs that
+# start on an odd element (each result equal to the bit to that of an
+# aligned copy), two images, images smaller than a tile, C = 1 and C not a
+# multiple of the chunk, strides 3 and 4
+
+def _odd_view(t, k):
+    """A contiguous copy of t that starts k elements past its storage's
+    start (k odd: off every 4- and 16-byte boundary)."""
+    store = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    v = store[k:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("N,C,H,W,stride", [
+    (1, 16, 20, w, s) for w in range(41, 49) for s in (1, 2)] + [
+    (2, 64, 96, 320, 2), (2, 192, 6, 20, 1), (1, 16, 3, 5, 1),
+    (2, 8, 5, 20, 2), (1, 1, 7, 9, 1), (1, 13, 24, 80, 1),
+    (1, 50, 72, 160, 1), (1, 24, 30, 50, 3), (2, 16, 33, 70, 4)])
+def test_correlation_bf16_build_at_every_row_offset(N, C, H, W, stride):
+    _need_card()
+    rng = np.random.RandomState(N + C + H + W + stride)
+    f1, f2 = (torch.tensor(rng.randn(N, C, H, W).astype(np.float32)).cuda()
+              .to(torch.bfloat16) for _ in range(2))
+    got = correlation.correlation(f1, f2, stride)
+    again = correlation.correlation(f1, f2, stride)
+    k = 1 + 2 * (W % 4)
+    odd = correlation.correlation(_odd_view(f1, k), _odd_view(f2, k + 2),
+                                  stride)
+    ref = correlation.correlation_ref(f1, f2, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, odd)
+    _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("C,H,W,stride", [
+    (192, 18, 40, 1), (64, 48, 160, 2), (13, 20, 45, 1), (24, 30, 50, 3)])
+def test_correlation_bf16_plans_agree_to_the_bit(C, H, W, stride):
+    """At one split every ring and every number of tap groups gives the
+    same bits: each output is one thread's sum over the rank's channels in
+    order, whatever the plan."""
+    _need_card()
+    rng = np.random.RandomState(C + W)
+    f1, f2 = (torch.tensor(rng.randn(1, C, H, W).astype(np.float32)).cuda()
+              .to(torch.bfloat16) for _ in range(2))
+    plan = correlation.launch_plan_bf16(1, C, H, W, stride)
+    want = correlation.correlation(f1, f2, stride)
+    for taps in correlation.TAP_GROUPS:
+        for chunk in (1, 2, 8):
+            p = plan._replace(taps=taps, chunk=chunk,
+                              smem_bytes=correlation.smem_bytes_bf16(
+                                  plan.tile_h, stride, chunk))
+            got = torch.empty_like(want)
+            assert correlation._launch(f1, f2, stride, p, got) == 0, p
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), p
+
+
+def test_correlation_bf16_launcher_refuses_plans_it_cannot_run():
+    """The bf16 launcher checks its ring (chunk 1-16), its tap groups and the
+    shared memory of ``smem_bytes_bf16``; the float32 launcher takes only
+    its own ring (chunk 4) and one tap group."""
+    _need_card()
+    f = torch.randn(1, 16, 20, 40, device="cuda").to(torch.bfloat16)
+    out = torch.empty(1, 49, 20, 40, device="cuda", dtype=torch.bfloat16)
+    plan = correlation.launch_plan_bf16(1, 16, 20, 40, 1)
+    assert correlation._launch(f, f, 1, plan, out) == 0
+
+    def ring(chunk):
+        return plan._replace(chunk=chunk,
+                             smem_bytes=correlation.smem_bytes_bf16(
+                                 plan.tile_h, 1, chunk))
+    for good in (ring(1), ring(8), ring(16), plan._replace(taps=4),
+                 plan._replace(taps=1)):
+        assert correlation._launch(f, f, 1, good, out) == 0, good
+    for bad in (ring(0), ring(17), plan._replace(taps=3),
+                plan._replace(taps=8),
+                plan._replace(smem_bytes=plan.smem_bytes + 16),
+                plan._replace(tile_h=6),
+                plan._replace(split=16, grid=(plan.grid[0] * 2, 1))):
+        assert correlation._launch(f, f, 1, bad, out) == 1, bad
+    f32 = f.float()
+    out32 = out.float()
+    plan32 = correlation.launch_plan(1, 16, 20, 40, 1)
+    assert correlation._launch(f32, f32, 1, plan32, out32) == 0
+    for bad in (dict(chunk=8), dict(taps=2)):
+        assert correlation._launch(f32, f32, 1, plan32._replace(**bad),
+                                   out32) == 1, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("N,k,H,W", [
+    (1, 7, 12, w) for w in range(41, 49)] + [
+    (2, 5, 48, 160), (2, 3, 6, 20), (1, 7, 3, 5), (1, 3, 2, 70),
+    (2, 7, 9, 130), (1, 5, 37, 53)])
+def test_regularize_bf16_build_at_every_row_offset(N, k, H, W):
+    _need_card()
+    args = tuple(a.to(torch.bfloat16) if torch.is_tensor(a) else a
+                 for a in _reg_args(N, k, H, W, seed=N + k + H + W))
+    got = regularize.dist_weighted_flow(*args)
+    again = regularize.dist_weighted_flow(*args)
+    j = 1 + 2 * (W % 4)
+    odd = regularize.dist_weighted_flow(_odd_view(args[0], j),
+                                        _odd_view(args[1], j + 2), *args[2:])
+    ref = regularize.dist_weighted_flow_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, odd)
+    _within_bf16_ulp(got, ref)
+
+
+def test_regularize_bf16_launcher_refuses_what_it_cannot_run():
+    """The bf16 build copies 16 bytes at any alignment, and only 16."""
+    _need_card()
+    args = tuple(a.to(torch.bfloat16) if torch.is_tensor(a) else a
+                 for a in _reg_args(1, 7, 40, 63, seed=3))
+    out = torch.empty((1, 2, 40, 63), device="cuda", dtype=torch.bfloat16)
+    shifted = (_odd_view(args[0], 1), _odd_view(args[1], 3)) + args[2:6]
+    assert regularize._launch(*args[:6], 7, 16, out) == 0
+    assert regularize._launch(*shifted, 7, 16, out) == 0
+    for vec in (4, 2, 8):
+        assert regularize._launch(*args[:6], 7, vec, out) == 1, vec
+    assert regularize._launch(*args[:6], 9, 16, out) == 1
     torch.cuda.synchronize()
 
 

@@ -49,13 +49,29 @@
 //
 // The bf16 build (LiteFlowNet with flow_dtype bf16; the Pallas kernel's
 // arithmetic on bf16 inputs, regularize.py:37-62): every input and the
-// output are bf16, all arithmetic float32, the same as the float32 build's
-// after the loads. Only the loads and stores change: a thread converts its
-// logits as it loads them, and the block stages the weights and the haloed
-// flow tile converted to float by plain 2-byte loads (cp.async copies 4
-// bytes at least), so the shared memory and the arithmetic are the float32
-// build's. It moves half the bytes: level 2 of a 1280x576 pair 19.6 MB,
-// 0.0058 ms at 3.35 TB/s.
+// output are bf16, all arithmetic float32 and the float32 build's after
+// the loads, so it gives the bits of a build that converts each value as
+// it loads it. It moves half the bytes: level 2 of a 1280x576 pair 19.6
+// MB, 0.0058 ms at 3.35 TB/s. It keeps the float32 build's one trip to
+// memory a block and its one wait and one barrier:
+// - the logits go into registers raw (2-byte loads; a warp's load of a
+//   tap is 64 bytes), widened where they are used;
+// - the haloed u and v tile is staged raw by cp.async, as the 16-byte
+//   pieces (8 values) that cover each row from its first element's offset
+//   in its first piece (0-7, from the address: any W, storage offset and
+//   N). A piece that reaches past the image's left or right edge is copied
+//   all the same, and its elements outside the image are zeroed by the
+//   thread that copied it once its copies have landed, before the barrier;
+//   only a piece that reaches outside the tensor (its first or last
+//   element) is loaded element by element, so nothing outside the tensor
+//   is read. Each flow value is widened (a 16-bit shift) as it is read
+//   from shared memory;
+// - the weights and biases (2 K + 2 values, any alignment) by plain loads,
+//   one a thread, stored after the flow's copies are issued.
+// Two pixels a thread (a 4 x 64 tile of 128 threads, the two logits of a
+// tap in one 4-byte load: a warp's load one 128-byte line) was built and
+// swept against one: slower at every level on an H100 (PERF.md), not
+// kept.
 
 #include <climits>
 #include <cstdint>
@@ -91,31 +107,27 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(in ? 4 : 0));
 }
 
+// 16 bytes from a 16-byte aligned address (the bf16 build's pieces)
+__device__ __forceinline__ void cp_async16_raw(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
 // blocks an SM for at most K + 32 registers a thread
 constexpr int min_blocks(int K) { return 65536 / (kThreads * (K + 32)); }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// T: the element type (float, or __nv_bfloat16 with plain loads; V16 is
-// then false)
-template <typename T, int KS, bool V16>
+// the float32 build
+template <int KS, bool V16>
 __global__ void __launch_bounds__(kThreads, min_blocks(KS * KS))
-dist_weighted_flow_kernel(const T* __restrict__ dc,
-                          const T* __restrict__ flow,
-                          const T* __restrict__ wx,
-                          const T* __restrict__ bx,
-                          const T* __restrict__ wy,
-                          const T* __restrict__ by,
-                          T* __restrict__ out, int H, int W, int tiles_x,
+dist_weighted_flow_kernel(const float* __restrict__ dc,
+                          const float* __restrict__ flow,
+                          const float* __restrict__ wx,
+                          const float* __restrict__ bx,
+                          const float* __restrict__ wy,
+                          const float* __restrict__ by,
+                          float* __restrict__ out, int H, int W, int tiles_x,
                           int tiles_per_image) {
-  constexpr bool kF32 = sizeof(T) == 4;
   constexpr int K = KS * KS;
   constexpr int R = (KS - 1) / 2;
   constexpr int FR = kRows + 2 * R;          // flow rows staged
@@ -136,33 +148,19 @@ dist_weighted_flow_kernel(const T* __restrict__ dc,
   // the thread's logits, into registers
   float nd[K];
   {
-    const T* src = dc + (size_t)n * K * plane +
-                   (mine ? (size_t)y * W + x : 0);
+    const float* src = dc + (size_t)n * K * plane +
+                       (mine ? (size_t)y * W + x : 0);
 #pragma unroll
-    for (int t = 0; t < K; ++t)
-      nd[t] = mine ? to_float(__ldg(src + t * plane)) : 0.f;
+    for (int t = 0; t < K; ++t) nd[t] = mine ? __ldg(src + t * plane) : 0.f;
   }
-  // the weights and the haloed flow tile, by cp.async (float32) or by plain
-  // loads converted to float (bf16)
+  // the weights and the haloed flow tile, by cp.async
   for (int c = tid; c < 2 * K + 2; c += kThreads) {
-    const T* src = c < 2 * K ? (c & 1 ? wy : wx) + (c >> 1)
-                             : c == 2 * K ? bx : by;
-    if constexpr (kF32)
-      cp_async4(sw + c, reinterpret_cast<const float*>(src), true);
-    else
-      sw[c] = to_float(*src);
+    const float* src = c < 2 * K ? (c & 1 ? wy : wx) + (c >> 1)
+                                 : c == 2 * K ? bx : by;
+    cp_async4(sw + c, src, true);
   }
-  const T* u = flow + (size_t)n * 2 * plane;
-  if constexpr (!kF32) {
-    for (int c = tid; c < 2 * FLOW; c += kThreads) {
-      const int pl = c >= FLOW;
-      const int e = c - pl * FLOW;
-      const int row = e / kFlowCols, q = e - row * kFlowCols;
-      const int fy = y0 - R + row, fx = x0 - kPad + q;
-      const bool in = fy >= 0 && fy < H && fx >= 0 && fx < W;
-      su[c] = in ? to_float(u[pl * plane + (size_t)fy * W + fx]) : 0.f;
-    }
-  } else if (V16) {
+  const float* u = flow + (size_t)n * 2 * plane;
+  if (V16) {
     constexpr int kChunks = FR * (kFlowCols / 4);  // a plane's 16-byte chunks
     for (int c = tid; c < 2 * kChunks; c += kThreads) {
       const int pl = c >= kChunks;
@@ -171,9 +169,7 @@ dist_weighted_flow_kernel(const T* __restrict__ dc,
       const int fy = y0 - R + row, fx = x0 - kPad + 4 * q;
       const bool in = fy >= 0 && fy < H && fx >= 0 && fx < W;
       cp_async16(su + pl * FLOW + row * kFlowCols + 4 * q,
-                 reinterpret_cast<const float*>(u) + pl * plane +
-                     (in ? (size_t)fy * W + fx : 0),
-                 in);
+                 u + pl * plane + (in ? (size_t)fy * W + fx : 0), in);
     }
   } else {
     for (int c = tid; c < 2 * FLOW; c += kThreads) {
@@ -182,10 +178,7 @@ dist_weighted_flow_kernel(const T* __restrict__ dc,
       const int row = e / kFlowCols, q = e - row * kFlowCols;
       const int fy = y0 - R + row, fx = x0 - kPad + q;
       const bool in = fy >= 0 && fy < H && fx >= 0 && fx < W;
-      cp_async4(su + c,
-                reinterpret_cast<const float*>(u) + pl * plane +
-                    (in ? (size_t)fy * W + fx : 0),
-                in);
+      cp_async4(su + c, u + pl * plane + (in ? (size_t)fy * W + fx : 0), in);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -218,65 +211,227 @@ dist_weighted_flow_kernel(const T* __restrict__ dc,
   }
   const float2 b = w2[K];
   const float inv = 1.f / sum;
-  T* o = out + (size_t)n * 2 * plane + (size_t)y * W + x;
-  store(o, (ax + b.x) * inv);
-  store(o + plane, (ay + b.y) * inv);
+  float* o = out + (size_t)n * 2 * plane + (size_t)y * W + x;
+  *o = (ax + b.x) * inv;
+  o[plane] = (ay + b.y) * inv;
 }
 
-template <typename T>
-using Kernel = void (*)(const T*, const T*, const T*, const T*, const T*,
-                        const T*, T*, int, int, int, int);
+// a bf16 value (the low 16 bits of `raw`) as float: exact
+__device__ __forceinline__ float widen(uint32_t raw) {
+  return __uint_as_float(raw << 16);
+}
+
+// the bf16 build: the float32 build's tiles and threads
+template <int KS>
+__global__ void __launch_bounds__(kThreads, min_blocks(KS * KS))
+dist_weighted_flow_bf16_kernel(const __nv_bfloat16* __restrict__ dc,
+                               const __nv_bfloat16* __restrict__ flow,
+                               const __nv_bfloat16* __restrict__ wx,
+                               const __nv_bfloat16* __restrict__ bx,
+                               const __nv_bfloat16* __restrict__ wy,
+                               const __nv_bfloat16* __restrict__ by,
+                               __nv_bfloat16* __restrict__ out, int N, int H,
+                               int W, int tiles_x, int tiles_per_image) {
+  constexpr int K = KS * KS;
+  constexpr int R = (KS - 1) / 2;
+  constexpr int FR = kRows + 2 * R;          // flow rows staged
+  constexpr int FC = kFlowCols;              // flow columns a row needs
+  constexpr int RP = (FC + 14) / 8;          // pieces a row: FC at any offset
+  constexpr int RC = 8 * RP;                 // halfwords a staged row
+  static_assert(R <= kPad, "the halo fits the staged columns");
+  __shared__ __align__(16) float sw[(2 * K + 2 + 3) / 4 * 4];  // wx_0, wy_0,
+                                             // ..., bx, by
+  __shared__ __align__(16) uint16_t sf[2 * FR * RC];  // u rows, then v rows
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = blockIdx.x / tiles_per_image;
+  const int rem = blockIdx.x - n * tiles_per_image;
+  const int y0 = rem / tiles_x * kRows;
+  const int x0 = (rem - rem / tiles_x * tiles_x) * kCols;
+  const int y = y0 + warp, x = x0 + lane;
+  const size_t plane = (size_t)H * W;
+
+  // the thread's logits, raw, into registers
+  uint32_t lg[K];
+  {
+    const uint16_t* src = reinterpret_cast<const uint16_t*>(dc) +
+                          (size_t)n * K * plane + (size_t)(y < H ? y : 0) * W;
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      const uint16_t* at = src + t * plane + x;
+      lg[t] = y < H && x < W ? (uint32_t)__ldg(at) : 0u;
+    }
+  }
+  // the weights (one a thread: 2 K + 2 <= kThreads), by a plain load
+  // stored after the flow's copies are issued
+  static_assert(2 * K + 2 <= kThreads, "a weight a thread");
+  uint16_t wv = 0;
+  if (tid < 2 * K + 2)
+    wv = *reinterpret_cast<const uint16_t*>(
+        tid < 2 * K ? (tid & 1 ? wy : wx) + (tid >> 1)
+                    : tid == 2 * K ? bx : by);
+  // the haloed u and v tile, raw: row `row` of a plane holds the flow's
+  // columns x0 - kPad - sh ... in 16-byte pieces, sh its first column's
+  // offset from a 16-byte boundary. A piece of a row inside the image is
+  // copied by cp.async wherever it lies inside the tensor, and its
+  // elements outside the image are zeroed by the same thread once its
+  // copies have landed; only a piece that reaches outside the tensor (at
+  // its first or last element) is loaded element by element, and a row
+  // outside the image is zeros.
+  const uint16_t* u = reinterpret_cast<const uint16_t*>(flow) +
+                      (size_t)n * 2 * plane;
+  const unsigned al = (unsigned)(reinterpret_cast<uintptr_t>(u) >> 1) & 7u;
+  // the tensor's elements from u: [-n 2 plane, (N - n) 2 plane)
+  const long long t_lo = -(long long)n * 2 * plane;
+  const long long t_hi = (long long)(N - n) * 2 * plane;
+  // piece c of the tile: its place in shared memory, its first element
+  // from u and its first column; false where it holds nothing the tile
+  // needs
+  auto piece = [&](int c, uint16_t*& dst, long long& from, int& fx0,
+                   int& fy) {
+    const int pl = c >= FR * RP;
+    const int e = c - pl * FR * RP;
+    const int row = e / RP, j = e - row * RP;
+    fy = y0 - R + row;
+    const long long at = pl * (long long)plane + (long long)fy * W + x0 - kPad;
+    const int sh = (int)((al + (unsigned long long)at) & 7u);
+    if (8 * j >= sh + FC) return false;  // past the columns the tile needs
+    fx0 = x0 - kPad - sh + 8 * j;
+    from = at - sh + 8 * j;
+    dst = sf + (pl * FR + row) * RC + 8 * j;
+    return true;
+  };
+  for (int c = tid; c < 2 * FR * RP; c += kThreads) {
+    uint16_t* dst;
+    long long from;
+    int fx0, fy;
+    if (!piece(c, dst, from, fx0, fy)) continue;
+    if (fy < 0 || fy >= H) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) dst[q] = 0;
+    } else if (from >= t_lo && from + 8 <= t_hi) {
+      cp_async16_raw(dst, u + from);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int fx = fx0 + q;
+        dst[q] = fx >= 0 && fx < W ? u[from + q] : (uint16_t)0;
+      }
+    }
+  }
+  if (tid < 2 * K + 2) sw[tid] = widen(wv);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  // the copied pieces' elements outside the image, zeroed
+  if (x0 < kPad + 8 || x0 + FC - kPad > W - 8) {
+    for (int c = tid; c < 2 * FR * RP; c += kThreads) {
+      uint16_t* dst;
+      long long from;
+      int fx0, fy;
+      if (!piece(c, dst, from, fx0, fy) || fy < 0 || fy >= H ||
+          (fx0 >= 0 && fx0 + 8 <= W))
+        continue;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (fx0 + q < 0 || fx0 + q >= W) dst[q] = 0;
+    }
+  }
+  __syncthreads();
+  if (y >= H || x >= W) return;
+
+  const float2* w2 = reinterpret_cast<const float2*>(sw);
+  // row y - R + dy's first column's offset in its first piece is
+  // (b0 + dy W) mod 8 in u, (b0 + dy W + plane) mod 8 in v
+  const unsigned b0 = al + (unsigned)((y - R) * W + x0 - kPad);
+  float m = -INFINITY;
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    const float d = widen(lg[t]);
+    m = fmaxf(m, -__fmul_rn(d, d));
+  }
+  float sum = 0.f, ax = 0.f, ay = 0.f;
+#pragma unroll
+  for (int dy = 0; dy < KS; ++dy) {
+    const unsigned ru = b0 + (unsigned)(dy * W);
+    const uint16_t* fu = sf + (warp + dy) * RC + (ru & 7u) + lane + kPad - R;
+    const uint16_t* fv = sf + (FR + warp + dy) * RC +
+                         ((ru + (unsigned)plane) & 7u) + lane + kPad - R;
+#pragma unroll
+    for (int dx = 0; dx < KS; ++dx) {
+      const int t = dy * KS + dx;
+      const float2 w = w2[t];
+      const float d = widen(lg[t]);
+      const float e = expf(-__fmul_rn(d, d) - m);
+      sum += e;
+      ax += w.x * e * widen(fu[dx]);
+      ay += w.y * e * widen(fv[dx]);
+    }
+  }
+  const float2 b = w2[K];
+  const float inv = 1.f / sum;
+  __nv_bfloat16* o = out + (size_t)n * 2 * plane + (size_t)y * W + x;
+  *o = __float2bfloat16_rn((ax + b.x) * inv);
+  o[plane] = __float2bfloat16_rn((ay + b.y) * inv);
+}
+
+using F32Kernel = void (*)(const float*, const float*, const float*,
+                           const float*, const float*, const float*, float*,
+                           int, int, int, int);
+using B = __nv_bfloat16;
+using BF16Kernel = void (*)(const B*, const B*, const B*, const B*, const B*,
+                            const B*, B*, int, int, int, int, int);
 
 template <int KS>
-Kernel<float> pick(bool v16) {
-  return v16 ? dist_weighted_flow_kernel<float, KS, true>
-             : dist_weighted_flow_kernel<float, KS, false>;
-}
-
-template <typename T>
-int launch(Kernel<T> kernel, const void* dc, const void* flow, const void* wx,
-           const void* bx, const void* wy, const void* by, void* out, int N,
-           int H, int W, void* stream) {
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const long long tiles_x = (W + kCols - 1) / kCols;
-  const long long per_image = tiles_x * ((H + kRows - 1) / kRows);
-  if (N * per_image > INT_MAX) return (int)cudaErrorInvalidValue;
-  kernel<<<(int)(N * per_image), kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(dc), static_cast<const T*>(flow),
-      static_cast<const T*>(wx), static_cast<const T*>(bx),
-      static_cast<const T*>(wy), static_cast<const T*>(by),
-      static_cast<T*>(out), H, W, (int)tiles_x, (int)per_image);
-  return (int)cudaGetLastError();
+F32Kernel pick(bool v16) {
+  return v16 ? dist_weighted_flow_kernel<KS, true>
+             : dist_weighted_flow_kernel<KS, false>;
 }
 
 }  // namespace
 
 // Launches on `stream`: one block of 128 threads a 4 x 32 tile of each of
-// the N images. vec 16 or 4: the float32 build with flow copies of that
-// many bytes; vec 2: the bf16 build (every pointer bf16). k is the window
-// side, 3, 5 or 7. Refuses (cudaErrorInvalidValue) arguments it cannot run,
-// including 16-byte copies with W % 4 != 0 or a flow base that is not
+// the N images. The float32 build (bf16 0) with flow copies of `vec`
+// bytes, 16 or 4; the bf16 build (bf16 1, every pointer bf16) with 16-byte
+// copies at any alignment (vec 16). k is the window side, 3, 5 or 7.
+// Refuses (cudaErrorInvalidValue) arguments it cannot run, including
+// 16-byte float32 copies with W % 4 != 0 or a flow base that is not
 // 16-byte aligned; otherwise returns the CUDA error of the launch.
 extern "C" int dist_weighted_flow_launch(const void* dc, const void* flow,
                                          const void* wx, const void* bx,
                                          const void* wy, const void* by,
                                          void* out, int N, int H, int W,
-                                         int k, int vec, void* stream) {
+                                         int k, int vec, int bf16,
+                                         void* stream) {
   const bool v16 = vec == 16;
-  if (N < 1 || H < 1 || W < 1 || (vec != 4 && vec != 2 && !v16) ||
-      (v16 && (W % 4 != 0 || reinterpret_cast<uintptr_t>(flow) % 16 != 0)))
+  if (N < 1 || H < 1 || W < 1 || (k != 3 && k != 5 && k != 7) ||
+      (bf16 != 0 && bf16 != 1) ||
+      (bf16 ? !v16
+            : (vec != 4 && !v16) ||
+                  (v16 && (W % 4 != 0 ||
+                           reinterpret_cast<uintptr_t>(flow) % 16 != 0))))
     return (int)cudaErrorInvalidValue;
-  if (vec == 2) {
-    using B = __nv_bfloat16;
-    const Kernel<B> kernel = k == 3   ? dist_weighted_flow_kernel<B, 3, false>
-                             : k == 5 ? dist_weighted_flow_kernel<B, 5, false>
-                             : k == 7 ? dist_weighted_flow_kernel<B, 7, false>
-                                      : nullptr;
-    return launch(kernel, dc, flow, wx, bx, wy, by, out, N, H, W, stream);
+  const long long tiles_x = (W + kCols - 1) / kCols;
+  const long long per_image = tiles_x * ((H + kRows - 1) / kRows);
+  if (N * per_image > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(N * per_image);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) {
+    const BF16Kernel kernel = k == 3   ? dist_weighted_flow_bf16_kernel<3>
+                              : k == 5 ? dist_weighted_flow_bf16_kernel<5>
+                                       : dist_weighted_flow_bf16_kernel<7>;
+    kernel<<<blocks, kThreads, 0, st>>>(
+        static_cast<const B*>(dc), static_cast<const B*>(flow),
+        static_cast<const B*>(wx), static_cast<const B*>(bx),
+        static_cast<const B*>(wy), static_cast<const B*>(by),
+        static_cast<B*>(out), N, H, W, (int)tiles_x, (int)per_image);
+  } else {
+    const F32Kernel kernel = k == 3 ? pick<3>(v16)
+                             : k == 5 ? pick<5>(v16)
+                                      : pick<7>(v16);
+    kernel<<<blocks, kThreads, 0, st>>>(
+        static_cast<const float*>(dc), static_cast<const float*>(flow),
+        static_cast<const float*>(wx), static_cast<const float*>(bx),
+        static_cast<const float*>(wy), static_cast<const float*>(by),
+        static_cast<float*>(out), H, W, (int)tiles_x, (int)per_image);
   }
-  const Kernel<float> kernel = k == 3   ? pick<3>(v16)
-                               : k == 5 ? pick<5>(v16)
-                               : k == 7 ? pick<7>(v16)
-                                        : nullptr;
-  return launch(kernel, dc, flow, wx, bx, wy, by, out, N, H, W, stream);
+  return (int)cudaGetLastError();
 }

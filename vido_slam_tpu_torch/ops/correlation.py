@@ -39,7 +39,8 @@ TAPS = (2 * RADIUS + 1) ** 2
 
 # The kernel's launch plan (csrc/correlation.cu): tiles of TILE_W x tile_h
 # outputs, 2 outputs a thread along x, the channel sum split over a cluster
-# of `split` CTAs.
+# of `split` CTAs; the float32 build stages CHUNK channels at a time through
+# a ring of STAGES buffers, by 4-byte copies.
 SM_COUNT = 132       # H100 SXM
 TILE_W = 32
 HALO_W = TILE_W + 2 * RADIUS  # f2 columns staged for a tile row
@@ -56,13 +57,15 @@ class CorrelationPlan(NamedTuple):
     split: int              # CTAs of a cluster, each summing C / split
     grid: Tuple[int, int]   # (split * tiles, N); TILE_W * tile_h / 2 threads
     smem_bytes: int         # dynamic shared memory a CTA
+    chunk: int = CHUNK      # channels a stage of the ring
+    taps: int = 1           # thread groups, each over its share of tap rows
 
 
 def smem_bytes(tile_h: int) -> int:
     """A CTA's shared memory: STAGES stages of CHUNK channels of the haloed
     f2 tile and the f1 tile, or the 49 x tile_h x TILE_W partial sums that
     reuse them, whichever is larger."""
-    stage = CHUNK * ((tile_h + 2 * RADIUS) * HALO_W + tile_h * TILE_W)
+    stage = CHUNK * _chan_floats(tile_h)
     return 4 * max(STAGES * stage, TAPS * tile_h * TILE_W)
 
 
@@ -85,6 +88,80 @@ def launch_plan(N: int, C: int, H: int, W: int,
     return CorrelationPlan(tile_h=tile_h, split=split,
                            grid=(split * tiles(tile_h), N),
                            smem_bytes=smem_bytes(tile_h))
+
+
+def _chan_floats(tile_h: int) -> int:
+    """Floats of one channel's staged tiles: the haloed f2 tile and the f1
+    tile."""
+    return (tile_h + 2 * RADIUS) * HALO_W + tile_h * TILE_W
+
+
+# The bf16 build stages its rows raw, as the 16-byte pieces (8 values) that
+# cover each row from its first element's offset in its first piece (0-7):
+# any W, stride and storage offset. Its ring holds STAGES stages of
+# `chunk` channels, each widened a chunk ahead into one of two float tiles
+# (tools/sweep_kernel_plans.py correlation: the largest chunk whose grid
+# stays resident the fastest; 3, 4 and 6 stages timed alike).
+PIECE = 8              # bf16 values a 16-byte piece
+BF16_CHUNKS = (8, 4, 2, 1)
+# groups of TILE_W * tile_h / 2 threads, each summing its share of the 7
+# tap rows of every output: 4 at tiles of 4 rows, 2 at tiles of 8 where the
+# grid stays resident with 256 threads a CTA, else 1
+# (tools/sweep_kernel_plans.py correlation)
+TAP_GROUPS = (1, 2, 4)
+MAX_BF16_CHUNK = 16    # csrc/correlation.cu: kMaxChunk
+
+
+def row_pieces(n: int, stride: int) -> int:
+    """16-byte pieces of a staged row of n stride-phase values: they span
+    (n - 1) stride + 1 elements of the image row, from any of the 8
+    offsets in the first piece."""
+    return ((n - 1) * stride + 2 * PIECE - 1) // PIECE
+
+
+def chan_pieces(tile_h: int, stride: int) -> int:
+    """Pieces of one channel: the tile_h + 6 haloed f2 rows of HALO_W
+    values, then the tile_h f1 rows of TILE_W."""
+    return ((tile_h + 2 * RADIUS) * row_pieces(HALO_W, stride)
+            + tile_h * row_pieces(TILE_W, stride))
+
+
+def smem_bytes_bf16(tile_h: int, stride: int, chunk: int) -> int:
+    """A CTA's shared memory in the bf16 build: two float tiles of `chunk`
+    channels, STAGES raw buffers of `chunk` channels' pieces and a 16-byte
+    description of each piece of a channel, or the partial sums that reuse
+    them, whichever is larger."""
+    ring = (4 * 2 * chunk * _chan_floats(tile_h)
+            + 16 * (STAGES * chunk + 1) * chan_pieces(tile_h, stride))
+    return max(ring, 4 * TAPS * tile_h * TILE_W)
+
+
+def launch_plan_bf16(N: int, C: int, H: int, W: int,
+                     stride: int) -> CorrelationPlan:
+    """The bf16 build's plan: the float32 plan's tile height and split (so
+    that every rank sums the channels it summed before, in the same order:
+    the tap groups share out the sums, not the channels), the tap groups
+    of the rule above TAP_GROUPS, and a ring of STAGES stages of the most
+    channels (of BF16_CHUNKS, no more than twice a rank's share needs)
+    with which every CTA of the grid is resident at once (by shared
+    memory), else of one."""
+    plan = launch_plan(N, C, H, W, stride)
+    ctas = plan.grid[0] * plan.grid[1]
+    share = -(-C // plan.split)
+    for chunk in BF16_CHUNKS:
+        if chunk > 1 and chunk // 2 >= share:
+            continue
+        smem = smem_bytes_bf16(plan.tile_h, stride, chunk)
+        if smem <= SMEM_LIMIT and ctas <= SM_COUNT * (SMEM_LIMIT // smem):
+            break
+    taps = 4 if plan.tile_h == 4 else 2 if ctas <= 2 * SM_COUNT else 1
+    return plan._replace(chunk=chunk, taps=taps, smem_bytes=smem)
+
+
+def plan_for(f1: torch.Tensor, stride: int) -> CorrelationPlan:
+    """The plan the wrapper launches for f1's dtype and shape."""
+    fn = launch_plan_bf16 if f1.dtype == torch.bfloat16 else launch_plan
+    return fn(*f1.shape, int(stride))
 
 
 def _out_hw(H: int, W: int, stride: int):
@@ -135,7 +212,7 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, stride: int,
     if _launch_fn is None:
         fn = cuda_build.load("correlation").correlation_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P] + [I] * 10 + [P]
+        fn.argtypes = [P, P, P] + [I] * 12 + [P]
         fn.restype = ctypes.c_int
         _launch_fn = fn
     N, C, H, W = f1.shape
@@ -143,8 +220,9 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, stride: int,
         stream = torch.cuda.current_stream(f1.device).cuda_stream
         return _launch_fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), N, C,
                           H, W, int(stride), plan.tile_h, plan.split,
-                          plan.grid[0], plan.smem_bytes,
-                          int(f1.dtype == torch.bfloat16), stream)
+                          plan.grid[0], plan.chunk, plan.taps,
+                          plan.smem_bytes, int(f1.dtype == torch.bfloat16),
+                          stream)
 
 
 def correlation(f1: torch.Tensor, f2: torch.Tensor,
@@ -165,7 +243,7 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
     N, C, H, W = f1.shape
     Ho, Wo = _out_hw(H, W, stride)
     out = torch.empty((N, TAPS, Ho, Wo), dtype=f1.dtype, device=dev)
-    rc = _launch(f1, f2, stride, launch_plan(N, C, H, W, int(stride)), out)
+    rc = _launch(f1, f2, stride, plan_for(f1, stride), out)
     if rc != 0:
         raise RuntimeError(f"correlation kernel launch failed: CUDA error {rc}")
     correlation.launches += 1

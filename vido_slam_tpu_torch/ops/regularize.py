@@ -46,12 +46,14 @@ FLOPS_PIXEL = 5
 
 
 def copy_width(flow: torch.Tensor) -> int:
-    """Bytes a flow copy of the float32 build takes: 16 where every 4-float
+    """Bytes a flow copy takes. The float32 build: 16 where every 4-float
     chunk of a row is 16-byte aligned (W % 4 == 0 and the flow's first
     element 16-byte aligned; a contiguous view may start at a storage
-    offset), else 4. The bf16 build loads its flow by plain loads: 2."""
+    offset), else 4. The bf16 build: 16 at any W and alignment, since each
+    staged row keeps its first element's offset in its first 16-byte
+    piece."""
     if flow.dtype == torch.bfloat16:
-        return 2
+        return 16
     return 16 if flow.shape[-1] % 4 == 0 and flow.data_ptr() % 16 == 0 \
         else 4
 
@@ -94,14 +96,15 @@ _launch_fn = None
 
 def _launch(dc, flow, wx, bx, wy, by, k: int, vec: int,
             out: torch.Tensor) -> int:
-    """Launches the kernel on the current stream with flow copies of `vec`
-    bytes into `out`; returns the launcher's CUDA error
-    (cudaErrorInvalidValue for arguments it cannot run), 0 on success."""
+    """Launches the kernel (the bf16 build for bf16 tensors) on the current
+    stream with flow copies of `vec` bytes into `out`; returns the
+    launcher's CUDA error (cudaErrorInvalidValue for arguments it cannot
+    run), 0 on success."""
     global _launch_fn
     if _launch_fn is None:
         fn = cuda_build.load("regularize").dist_weighted_flow_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 7 + [I] * 5 + [P]
+        fn.argtypes = [P] * 7 + [I] * 6 + [P]
         fn.restype = ctypes.c_int
         _launch_fn = fn
     N, _, H, W = dc.shape
@@ -109,7 +112,8 @@ def _launch(dc, flow, wx, bx, wy, by, k: int, vec: int,
         stream = torch.cuda.current_stream(dc.device).cuda_stream
         return _launch_fn(dc.data_ptr(), flow.data_ptr(), wx.data_ptr(),
                           bx.data_ptr(), wy.data_ptr(), by.data_ptr(),
-                          out.data_ptr(), N, H, W, int(k), vec, stream)
+                          out.data_ptr(), N, H, W, int(k), vec,
+                          int(dc.dtype == torch.bfloat16), stream)
 
 
 def dist_weighted_flow(dc, flow, wx, bx, wy, by, k: int) -> torch.Tensor:
