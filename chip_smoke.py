@@ -2677,6 +2677,267 @@ def run_phase_k(counters, names):
 
 
 # ---------------------------------------------------------------------------
+# phase 4 (s): the images the JAX package reads through cv2 and PIL beyond
+# PNG and baseline JPEG: progressive and multi-scan JPEG, JPEG without
+# Huffman tables, BMP
+# ---------------------------------------------------------------------------
+
+PROGRESSIVE_FIXTURES = os.path.join("tests", "data", "progressive")
+BMP_FIXTURES = os.path.join("tests", "data")
+
+
+def image_digest(img) -> str:
+    """An image's shape and the SHA-256 of its bytes, as
+    tools/make_image_fixtures.py records cv2's and PIL's reads."""
+    import hashlib
+
+    return ",".join(map(str, img.shape)) + ":" + hashlib.sha256(
+        np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def write_bmp24(path, bgr) -> None:
+    """A 24-bit bottom-up BMP (40-byte header) of an (H, W, 3) BGR frame."""
+    import struct
+
+    H, W = bgr.shape[:2]
+    stride = (3 * W + 3) & ~3
+    rows = np.zeros((H, stride), np.uint8)
+    rows[:, :3 * W] = bgr[::-1].reshape(H, -1)
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54))
+        f.write(struct.pack("<IiiHHIIiiII", 40, W, H, 1, 24, 0, rows.size,
+                            2835, 2835, 0, 0))
+        f.write(rows.tobytes())
+
+
+def check_image_fixtures(root) -> int:
+    """(s1): each committed progressive, multi-scan, DHT-less and cut JPEG
+    fixture and each BMP fixture read as cv2 reads it in colour and in gray
+    (IMREAD_GRAYSCALE and IMREAD_ANYDEPTH: the JPEG's C++ and plain steps,
+    ``datasets.imread``) and as PIL reads it (``read_rgb_pil``), against
+    the digests of cv2's and PIL's reads (tools/make_image_fixtures.py);
+    the cut file raises as PIL does. Returns the number of reads held."""
+    from vido_slam_tpu_torch.io import datasets, jpeg
+
+    held = 0
+    for kind, ref_path, directory, ext in (
+            ("jpeg", os.path.join(root, PROGRESSIVE_FIXTURES, "layouts.npz"),
+             os.path.join(root, PROGRESSIVE_FIXTURES, "layouts"), ".jpg"),
+            ("bmp", os.path.join(root, BMP_FIXTURES, "bmp.npz"),
+             os.path.join(root, BMP_FIXTURES, "bmp"), ".bmp")):
+        ref = np.load(ref_path)
+        names = sorted(n for n in ref.files
+                       if not n.endswith(("_gray", "_pil")))
+        check(names == sorted(os.path.splitext(f)[0]
+                              for f in os.listdir(directory)),
+              f"(s1) {kind} fixtures {names}")
+        for name in names:
+            path = os.path.join(directory, name + ext)
+            with open(path, "rb") as f:
+                data = f.read()
+            reads = [(name, datasets.imread(path, datasets.IMREAD_COLOR)),
+                     (name + "_gray",
+                      datasets.imread(path, datasets.IMREAD_GRAYSCALE)),
+                     (name + "_gray",
+                      datasets.imread(path, datasets.IMREAD_ANYDEPTH))]
+            if kind == "jpeg":
+                reads += [(key, jpeg.decode_jpeg(data, gray=gray, plain=True))
+                          for key, gray in ((name, False),
+                                            (name + "_gray", True))]
+            for key, got in reads:
+                check(got is not None and image_digest(got) == str(ref[key]),
+                      f"(s1) {name}{ext} {key}: not cv2's read")
+                held += 1
+            if name + "_pil" in ref.files:
+                got = datasets.read_rgb_pil(path)
+                check(image_digest(got) == str(ref[name + "_pil"]),
+                      f"(s1) {name}{ext}: not PIL's read")
+            else:
+                try:
+                    datasets.read_rgb_pil(path)
+                    raised = None
+                except OSError as e:
+                    raised = e
+                check(isinstance(raised, jpeg.TruncatedJpeg),
+                      f"(s1) {name}{ext}: PIL's reader does not raise")
+            held += 1
+    return held
+
+
+def run_phase_s(counters, tmp, dev="cuda"):
+    """Phase (s): (s1) the committed fixtures against cv2's and PIL's reads;
+    (s2) the CLI on (h3)'s KITTI configuration over a tree of the 24
+    committed progressive 1242x375 frames (their cv2 SHA-256, kernel 1
+    twice a tracked frame, the StopFrame full batch), with a frame's decode
+    ms, progressive, baseline and PNG; (s3) ``infer_nets`` on a 24-bit BMP
+    of bench-clip frame INFER_FRAME written here and on the progressive
+    frames, card against ``--device cpu``: ``depth``, ``flow`` (kernels 3
+    and 4, 5 launches each) and the Mask R-CNN ``detector`` (kernel 5
+    twice). Returns each part's launches."""
+    import hashlib
+    import shutil
+
+    from vido_slam_tpu_torch.io import datasets
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cards = card_line()
+    t0 = time.perf_counter()
+    held = check_image_fixtures(root)
+    print(f"(s1) fixtures: progressive 4:4:4, 4:2:2, 4:2:0, 4:4:0, gray and "
+          f"restart, one sequential scan a component, a smoothed script, no "
+          f"DHT, a cut file; BMP palettes 1/4/8, RLE4/RLE8, 5-5-5, 5-6-5, "
+          f"24-, 32-bit, top-down: {held} reads bit-equal to cv2's and "
+          f"PIL's (C++ and plain)")
+    # (s2)
+    prog = os.path.join(root, PROGRESSIVE_FIXTURES, "kitti")
+    base = os.path.join(root, JPEG_FIXTURES, "kitti")
+    digests = np.load(os.path.join(root, PROGRESSIVE_FIXTURES,
+                                   "kitti.npz"))["sha256"]
+    files = sorted(os.listdir(prog))
+    check(len(files) == len(digests) == N_FRAMES,
+          f"(s2): {len(files)} progressive KITTI frames")
+    decode = {"progressive": [], "baseline": [], "png": []}
+    for k, fname in enumerate(files):
+        t1 = time.perf_counter()
+        img = datasets.imread(os.path.join(prog, fname))
+        decode["progressive"].append(time.perf_counter() - t1)
+        check(hashlib.sha256(img.tobytes()).hexdigest() == digests[k],
+              f"(s2) {fname}: not cv2's decode")
+        t1 = time.perf_counter()
+        datasets.imread(os.path.join(base, fname))
+        decode["baseline"].append(time.perf_counter() - t1)
+        png_path = os.path.join(tmp, f"s{k:010d}.png")
+        write_png(png_path, img)
+        t1 = time.perf_counter()
+        datasets.imread(png_path)
+        decode["png"].append(time.perf_counter() - t1)
+    ms = {k: 1e3 * float(np.median(v)) for k, v in decode.items()}
+    print(f"(s2) decode ms a 1242x375 frame (median of {N_FRAMES}, host): "
+          f"progressive {ms['progressive']:.2f}, baseline "
+          f"{ms['baseline']:.2f}, PNG (write_png) {ms['png']:.2f}; card "
+          f"{cards}")
+    kitti_seq = offline_sequence(N_FRAMES, dev, KITTI_CONFIG)
+
+    def copy_jpg(path, bgr):
+        shutil.copy(os.path.join(prog, os.path.basename(path)), path)
+    tree = write_tree(os.path.join(tmp, "kitti_s"), "kitti",
+                      demo_rows(kitti_seq, KITTI_CONFIG), jpg=copy_jpg)
+    cfg = os.path.join(tmp, "s.yaml")
+    write_config(cfg, dict(KITTI_CONFIG, slam_mode=0, **tree))
+    d = os.path.join(tmp, "out_s", "")
+    run, launches, _, batches = run_demo(
+        [cfg, "--output", d, "--max-frames", str(N_FRAMES), "--device",
+         dev], counters)
+    want = [2 * (N_FRAMES - 1), 0, 0, 0, 0]
+    ate0, ate1, path, _ = check_demo(
+        run, d, [fr.Tcw_gt for fr in kitti_seq.frames], N_FRAMES, launches,
+        want)
+    check(len(batches) == 1, f"(s2): {len(batches)} full batches")
+    secs, res = batches[0]
+    loop_ms, read_ms, share = demo_ms(run)
+    print(f"(s2) CLI KITTI VO on the progressive .jpg frames: {N_FRAMES} "
+          f"frames, launches {launches}, camera ATE initial {ate0:.5f} m, "
+          f"refined {ate1:.5f} m over {path:.3f} m; StopFrame full batch "
+          f"{secs:.2f} s, {res.num_iters} LM iterations; ms a frame of the "
+          f"CLI loop median {loop_ms:.2f}, reading {read_ms:.2f} "
+          f"({100 * share:.1f} %)")
+    del run, kitti_seq
+    parts = {"s2_cli": launches}
+    parts.update(run_infer_formats(counters, tmp, files[:2], prog))
+    print(f"phase (s): {time.perf_counter() - t0:.1f} s; card {cards}")
+    return {**parts, "decode_ms": ms}
+
+
+def run_infer_formats(counters, tmp, pair, prog):
+    """(s3): ``infer_nets`` card against CPU on a 24-bit BMP of bench-clip
+    frame INFER_FRAME and the progressive KITTI frames ``pair`` (in
+    ``prog``): depth over the three, flow on the pair, the Mask R-CNN
+    detector on the BMP. Returns each part's launches on the card."""
+    import shutil
+
+    from vido_slam_tpu_torch import infer_nets
+    from vido_slam_tpu_torch.io import datasets
+    from vido_slam_tpu_torch.io.datasets import read_flo
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    parts = {}
+    clip = np.load(os.path.join(root, ONLINE_CLIP))["clip"]
+    frame_bmp = os.path.join(tmp, "clip_frame.bmp")
+    write_bmp24(frame_bmp, np.ascontiguousarray(clip[INFER_FRAME][..., ::-1]))
+    check(np.array_equal(datasets.read_rgb_pil(frame_bmp),
+                         clip[INFER_FRAME]), "(s3): the BMP frame")
+    images = os.path.join(tmp, "s3_images")
+    os.makedirs(images)
+    shutil.copy(frame_bmp, images)
+    for fname in pair:
+        shutil.copy(os.path.join(prog, fname), images)
+
+    def both(argv, part, refuse=False):
+        """The CLI on the card (its launches), then on the CPU; the output
+        directories and each run's refusal (None where it finished)."""
+        outs, refusals = [], []
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"s3_{part}_{dev}")
+            extra = [] if dev == "cuda" else ["--device", "cpu"]
+
+            def call():
+                try:
+                    quiet(lambda: infer_nets.main(argv + ["--out", out]
+                                                  + extra))
+                except ValueError as e:
+                    if not refuse:
+                        raise
+                    return str(e)
+                return None
+            msg, n = launches_of(counters, lambda: host_timed(call, dev))
+            if dev == "cuda":
+                parts[part] = n
+            outs.append(out)
+            refusals.append(msg[0])
+        return outs, refusals
+    card, cpu = both(["depth", "--images", images], "depth")[0]
+    gap = 0.0
+    for fname in sorted(os.listdir(images)):
+        stem = os.path.splitext(fname)[0]
+        a = np.load(os.path.join(card, f"{stem}_disp.npy"))
+        b = np.load(os.path.join(cpu, f"{stem}_disp.npy"))
+        check(a.shape == b.shape and np.isfinite(a).all(),
+              f"(s3) depth {fname}: {a.shape}")
+        gap = max(gap, float(np.abs(a - b).max()) / float(np.abs(b).max()))
+    check(gap <= DEPTH_BAR and parts["depth"] == [0] * len(counters),
+          f"(s3) depth: card against CPU {gap:.2e}, launches "
+          f"{parts['depth']}")
+    card, cpu = both(["flow", "--first", os.path.join(images, pair[0]),
+                      "--second", os.path.join(images, pair[1])],
+                     "flow")[0]
+    a = read_flo(os.path.join(card, "flow.flo"))
+    b = read_flo(os.path.join(cpu, "flow.flo"))
+    fgap = float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+    check(a.shape == (375, 1242, 2) and fgap <= FLOW_BAR
+          and parts["flow"] == [0, 0, 5, 5, 0],
+          f"(s3) flow: {a.shape}, card against CPU {fgap:.2e}, launches "
+          f"{parts['flow']}")
+    (card, cpu), refusals = both(["detector", "--family", "maskrcnn",
+                                  "--image", frame_bmp], "maskrcnn",
+                                 refuse=True)
+    check(refusals[0] == refusals[1], f"(s3) maskrcnn: refusals {refusals}")
+    a = json_detections(os.path.join(card, "maskrcnn_detections.json"))
+    b = json_detections(os.path.join(cpu, "maskrcnn_detections.json"))
+    n = max(len(a["valid"]), len(b["valid"]))
+    m = match_detections(padded(a, n), padded(b, n),
+                         DETECTOR_THRESHOLDS["maskrcnn"])
+    check(not m["unexplained"] and parts["maskrcnn"] == [0, 0, 0, 0, 2],
+          f"(s3) maskrcnn: {m}, launches {parts['maskrcnn']}")
+    print(f"(s3) infer_nets on a BMP of clip frame {INFER_FRAME} and "
+          f"progressive KITTI frames {pair[0]}, {pair[1]}: depth card "
+          f"against CPU {gap:.2e} of the max (bar {DEPTH_BAR:.0e}); flow "
+          f"{fgap:.2e} of max(|flow|, 1) (bar {FLOW_BAR:.0e}), launches "
+          f"{parts['flow']}; maskrcnn on the BMP: card {m['valid'][0]} "
+          f"detections, CPU {m['valid'][1]}, launches {parts['maskrcnn']}")
+    return parts
+
+
+# ---------------------------------------------------------------------------
 # phase 4 (m): the detector families (ROADMAP.md item 19)
 # ---------------------------------------------------------------------------
 
@@ -5259,6 +5520,11 @@ def main() -> int:
     # of the committed .jpg frames
     jpeg_launches = run_phase_k(counters, names)
 
+    # (s) progressive, multi-scan and DHT-less JPEG and BMP: the fixtures,
+    # the CLI on progressive KITTI frames, infer_nets on a BMP frame
+    with tempfile.TemporaryDirectory() as tmp:
+        format_launches = run_phase_s(counters, tmp)
+
     # (m) the detector families: the DCN X-101, FBNet, RetinaNet, the
     # keypoint head and ROIPool
     family_launches, family_err, family_timing = run_phase_m(dev, counters,
@@ -5409,6 +5675,11 @@ def main() -> int:
                                    phase_i_err[e["name"]])
         e["online_ms"], e["online_bound_ms"] = timing[0], timing[2]
         e["jpeg_cli_launches"] = jpeg_launches[e["name"]]
+        # phase (s): (s2) the CLI on progressive frames, (s3) infer_nets
+        # on the BMP and progressive inputs
+        e["image_formats_launches"] = {
+            part: n[i] for part, n in format_launches.items()
+            if part != "decode_ms"}
         # (l1) offline VO, (l2) bJoint, (l3) online pairs, (l4) online VIO
         # pairs, all pipelined
         for cell, key in (("l1", "pipelined_vo"), ("l2", "pipelined_joint"),

@@ -9,8 +9,9 @@ tiny frame sizes, EXIF orientations 1-8, files cut short at every 97th
 byte and files with bytes overwritten inside the entropy-coded data. The
 C++ steps are bit-equal to their numpy plain versions; the committed
 fixtures (tests/data/jpeg, tools/make_jpeg_fixtures.py) decode to the
-arrays committed beside them. Progressive and arithmetic-coded files raise
-naming the mode; the format follows the signature, not the extension."""
+arrays committed beside them. Lossless and arithmetic-coded files raise
+naming the mode (progressive ones decode: test_torch_jpeg_progressive.py);
+the format follows the signature, not the extension."""
 
 import hashlib
 import os
@@ -199,7 +200,7 @@ def test_exif_orientation_applied_as_cv2(tmp_path, endian):
 
 
 @pytest.mark.parametrize("mode,what", [
-    ([cv2.IMWRITE_JPEG_PROGRESSIVE, 1], "progressive"),
+    ("lossless", "lossless"),
     ("arith", "arithmetic"), ("12bit", "12-bit"), ("cmyk", "CMYK"),
     ("adobe", "Adobe")])
 def test_refused_modes_raise_naming_them(tmp_path, mode, what):
@@ -209,7 +210,9 @@ def test_refused_modes_raise_naming_them(tmp_path, mode, what):
     data = bytearray(_encode(_image(16, 24, 0), cv2.IMWRITE_JPEG_QUALITY, 80,
                              *(mode if isinstance(mode, list) else [])))
     sof = data.find(b"\xff\xc0")
-    if mode == "arith":
+    if mode == "lossless":
+        data[sof + 1] = 0xC3
+    elif mode == "arith":
         data[sof + 1] = 0xC9
     elif mode == "12bit":
         data[sof + 4] = 12
@@ -228,8 +231,8 @@ def test_refused_modes_raise_naming_them(tmp_path, mode, what):
 def test_format_follows_the_signature(tmp_path):
     """The format follows the signature, not the extension: a ``.jpg``
     holding PNG bytes reads as the PNG, a ``.png`` holding JPEG bytes as
-    the JPEG, and another format cv2 decodes (BMP) raises, as cv2 reads
-    them all."""
+    the JPEG, one holding BMP bytes as the BMP, and another format cv2
+    decodes (TIFF) raises, as cv2 reads them all."""
     img = _image(16, 16, 0)
     path = str(tmp_path / "0000000000.jpg")
     cv2.imwrite(path, img)
@@ -244,9 +247,13 @@ def test_format_follows_the_signature(tmp_path):
     bmp = str(tmp_path / "b.png")
     cv2.imwrite(str(tmp_path / "b.bmp"), img)
     shutil.copy(str(tmp_path / "b.bmp"), bmp)
-    assert cv2.imread(bmp) is not None
-    with pytest.raises(ValueError, match="BMP"):
-        td.imread(bmp)
+    _check(bmp)
+    tiff = str(tmp_path / "t.png")
+    cv2.imwrite(str(tmp_path / "t.tiff"), img)
+    shutil.copy(str(tmp_path / "t.tiff"), tiff)
+    assert cv2.imread(tiff) is not None
+    with pytest.raises(ValueError, match="TIFF"):
+        td.imread(tiff)
 
 
 def test_cpp_steps_equal_plain_full_frame():

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.test_torch_kernels_gpu import STEP0_CORR, STEP0_REG
 from vido_slam_tpu_torch.estimation import flow_joint_kernel as fj
 from vido_slam_tpu_torch.estimation import lm_kernel
 from vido_slam_tpu_torch.ops import correlation as corr
@@ -160,6 +161,74 @@ def test_bf16_pieces_cover_each_row_at_any_alignment(W, stride, offset):
                 sh, firsts = _pieces(ptr, p * plane + y * W + x0 - 4, 40, 1)
                 assert len(firsts) <= 6 and sh + 40 <= 48
                 assert all((ptr // 2 + e) % 8 == 0 for e in firsts)
+
+
+def test_step0_cases_cover_what_they_are_for():
+    """The check of slice 17's inputs (tests/test_torch_kernels_gpu.py
+    STEP0_CORR, STEP0_REG): every number of tap groups, strides 3-8,
+    planes that are not whole 16-byte pieces, N > 1 with a rank's channels
+    not a multiple of the chunk."""
+    plans = {c: corr.launch_plan_bf16(*c) for c in STEP0_CORR}
+    assert {p.taps for p in plans.values()} == set(corr.TAP_GROUPS)
+    assert set(range(3, 9)) <= {c[4] for c in STEP0_CORR}
+    odd = [c for c in STEP0_CORR if c[2] * c[3] % 2 and c[1] > 1]
+    assert len(odd) >= 4
+    ragged = [c for c, p in plans.items() if c[0] > 1 and any(
+        ((r + 1) * c[1] // p.split - r * c[1] // p.split) % p.chunk
+        for r in range(p.split))]
+    assert len(ragged) >= 3
+    assert all(h * w % 2 and n > 1 or n == 1 for n, _, h, w in STEP0_REG[:3])
+
+
+@pytest.mark.parametrize("N,C,H,W,stride", STEP0_CORR)
+def test_correlation_bf16_plan_at_the_step0_inputs(N, C, H, W, stride):
+    """The float32 plan's tiles and split, every rank's channels covered
+    once, a chunk the launcher takes, the shared memory within the limit,
+    and each staged row's pieces covering it at every storage offset of a
+    plane that is not a whole number of pieces."""
+    plan = corr.launch_plan_bf16(N, C, H, W, stride)
+    f32 = corr.launch_plan(N, C, H, W, stride)
+    assert (plan.tile_h, plan.split, plan.grid) == \
+        (f32.tile_h, f32.split, f32.grid)
+    bounds = [r * C // plan.split for r in range(plan.split + 1)]
+    assert bounds[0] == 0 and bounds[-1] == C
+    assert all(b > a for a, b in zip(bounds, bounds[1:]))
+    assert 1 <= plan.chunk <= corr.MAX_BF16_CHUNK
+    assert plan.smem_bytes == corr.smem_bytes_bf16(plan.tile_h, stride,
+                                                   plan.chunk) <= SMEM_LIMIT
+    Wo = -(-W // stride)
+    for offset in (0, 1, 7):
+        ptr = 2 * offset
+        for n, c in ((0, 0), (N - 1, C - 1)):
+            for a in range(-(-H // stride)):
+                for b0, vals in [(x0 - 3, corr.HALO_W) for x0 in
+                                 range(0, Wo, corr.TILE_W)] + [
+                        (x0, corr.TILE_W) for x0 in range(0, Wo,
+                                                          corr.TILE_W)]:
+                    g = (n * C + c) * H * W + (a * W + b0) * stride
+                    sh, firsts = _pieces(ptr, g, vals, stride)
+                    assert all((ptr // 2 + e) % 8 == 0 for e in firsts)
+                    for j in range(vals):
+                        if 0 <= b0 + j < Wo:
+                            e = g + j * stride
+                            assert any(p <= e < p + 8 for p in firsts)
+
+
+@pytest.mark.parametrize("N,k,H,W", STEP0_REG)
+def test_regularize_bf16_copies_at_the_step0_inputs(N, k, H, W):
+    """Kernel 4's bf16 build copies 16 bytes at any offset, and a staged
+    row of its 40 columns from x0 - 4 stays within 6 pieces."""
+    for offset in (0, 1, 3):
+        store = torch.zeros(N * 2 * H * W + offset, dtype=torch.bfloat16)
+        flow = store[offset:].view(N, 2, H, W)
+        assert reg.copy_width(flow) == 16
+        ptr = flow.data_ptr()
+        for p in range(2 * N):
+            for y in range(H):
+                for x0 in range(0, W, 32):
+                    sh, firsts = _pieces(ptr, p * H * W + y * W + x0 - 4,
+                                         40, 1)
+                    assert len(firsts) <= 6 and sh + 40 <= 48
 
 
 @pytest.mark.parametrize("W", [640, 637])

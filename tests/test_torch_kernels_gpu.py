@@ -1269,6 +1269,58 @@ def test_regularize_bf16_launcher_refuses_what_it_cannot_run():
     torch.cuda.synchronize()
 
 
+# the check of slice 17: the inputs where the bf16 builds' raw staging can
+# part from the plain version (planes that are not whole 16-byte pieces,
+# strides 3-8, N > 1 with C not a multiple of the chunk, every number of
+# tap groups), each also on a view at an odd storage offset that ends where
+# its storage ends; tests/test_torch_kernel_plans.py checks their plans
+STEP0_CORR = [(1, 5, 7, 9, 1), (2, 13, 9, 21, 2), (3, 7, 11, 13, 1),
+              (2, 64, 45, 91, 1), (3, 50, 24, 60, 1), (2, 37, 30, 44, 2),
+              (2, 96, 33, 91, 1), (4, 64, 63, 145, 1)] + [
+    (1, 16, 40, 80, s) for s in range(3, 9)] + [
+    (2, 24, 61, 163, 5), (2, 24, 61, 163, 7)]
+STEP0_REG = [(1, 3, 7, 9), (2, 5, 9, 13), (3, 7, 11, 15), (2, 7, 37, 53),
+             (3, 3, 21, 39)]
+
+
+@pytest.mark.parametrize("N,C,H,W,stride", STEP0_CORR)
+def test_correlation_bf16_build_at_the_step0_inputs(N, C, H, W, stride):
+    """Two launches give the same bits, a view at an odd storage offset
+    that ends where its storage ends gives them too, and all are within
+    ``bf16_bar`` of the plain version."""
+    _need_card()
+    rng = np.random.RandomState(N * 7 + C + H + W + stride)
+    f1, f2 = (torch.tensor(rng.randn(N, C, H, W).astype(np.float32)).cuda()
+              .to(torch.bfloat16) for _ in range(2))
+    before = correlation.correlation.launches
+    got = correlation.correlation(f1, f2, stride)
+    assert correlation.correlation.launches == before + 1
+    again = correlation.correlation(f1, f2, stride)
+    odd = correlation.correlation(_odd_view(f1, 1), _odd_view(f2, 3),
+                                  stride)
+    ref = correlation.correlation_ref(f1, f2, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, odd)
+    _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("N,k,H,W", STEP0_REG)
+def test_regularize_bf16_build_at_the_step0_inputs(N, k, H, W):
+    _need_card()
+    args = tuple(a.to(torch.bfloat16) if torch.is_tensor(a) else a
+                 for a in _reg_args(N, k, H, W, seed=N * 5 + k + H + W))
+    before = regularize.dist_weighted_flow.launches
+    got = regularize.dist_weighted_flow(*args)
+    assert regularize.dist_weighted_flow.launches == before + 1
+    again = regularize.dist_weighted_flow(*args)
+    odd = regularize.dist_weighted_flow(_odd_view(args[0], 1),
+                                        _odd_view(args[1], 3), *args[2:])
+    ref = regularize.dist_weighted_flow_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, odd)
+    _within_bf16_ulp(got, ref)
+
+
 def test_kernel_wrappers_refuse_mixed_and_half_dtypes_on_the_card():
     """float16, or float32 beside bf16, raises before any launch; nothing
     is cast quietly."""
@@ -1535,6 +1587,44 @@ def test_detection_inference_launches_kernel_5(monkeypatch):
         torch.cuda.synchronize()
         scale = max(1.0, max(float(f.abs().max()) for f in args[0]))
         assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_infer_nets_detector_on_a_bmp_frame_matches_the_cpu(tmp_path):
+    """chip_smoke.py (s3): ``infer_nets detector --family maskrcnn`` on a
+    24-bit BMP of a bench-clip frame, on the card (kernel 5 twice) and
+    with ``--device cpu``; the detections JSON held together by
+    ``chip_smoke.match_detections``. The random-weight detector's inverted
+    box makes the drawing fail after the JSON on both devices, as (q)."""
+    _need_card()
+    from vido_slam_tpu_torch import infer_nets
+
+    clip = np.load(chip_smoke.ONLINE_CLIP)["clip"]
+    image = str(tmp_path / "frame.bmp")
+    chip_smoke.write_bmp24(image, np.ascontiguousarray(
+        clip[chip_smoke.INFER_FRAME][..., ::-1]))   # BGR, as (q)'s PNG
+    outs, refusals = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / dev)
+        argv = ["detector", "--family", "maskrcnn", "--image", image,
+                "--out", out] + ([] if dev == "cuda" else ["--device", "cpu"])
+        before = roi_align.roi_align_multilevel.launches
+        try:
+            chip_smoke.quiet(lambda: infer_nets.main(argv))
+            refusals[dev] = None
+        except ValueError as e:
+            refusals[dev] = str(e)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert roi_align.roi_align_multilevel.launches == before + 2
+        outs[dev] = chip_smoke.json_detections(
+            f"{out}/maskrcnn_detections.json")
+    assert refusals["cuda"] == refusals["cpu"]
+    n = max(len(outs["cuda"]["valid"]), len(outs["cpu"]["valid"]))
+    m = chip_smoke.match_detections(chip_smoke.padded(outs["cuda"], n),
+                                    chip_smoke.padded(outs["cpu"], n),
+                                    chip_smoke.DETECTOR_THRESHOLDS[
+                                        "maskrcnn"])
+    assert not m["unexplained"], m
 
 
 # ---------------------------------------------------------------------------

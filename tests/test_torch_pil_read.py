@@ -9,10 +9,15 @@ orientation 1-8 (PIL applies none, where ``imread`` applies it as cv2
 does), PNGs of every colour type at 8 and 16 bits (16-bit gray is PIL's
 ``I;16``, clipped at 255, where cv2 keeps the high byte), palette, LA,
 RGBA and 1-, 2- and 4-bit gray. ``imread`` stays cv2's: it still applies
-the orientation and keeps the high byte.
+the orientation and keeps the high byte. A JPEG whose bytes end before
+libjpeg is done with it raises OSError, as PIL does ("image file is
+truncated"), where ``imread`` returns cv2's gray-filled image; the files
+libjpeg only warns about (a cut scan followed by an EOI, a marker inside
+the scan) read as PIL reads them.
 """
 
 import glob
+import io
 import json
 import os
 
@@ -191,3 +196,72 @@ def test_coco_samples_of_pil_only_files_equal_jax(coco_tree):
     jb, tb = jd.batch([0, 1, 2, 3]), td.batch([0, 1, 2, 3])
     for k in jb:
         np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+
+
+def _jpeg_cuts(seed, **save):
+    """A 64 x 96 JPEG and its cuts inside the header, inside the scan(s)
+    and just before its EOI."""
+    rng = np.random.RandomState(seed)
+    buf = io.BytesIO()
+    Image.fromarray(rng.randint(0, 256, (64, 96, 3), np.uint8)).save(
+        buf, "JPEG", quality=90, **save)
+    data = buf.getvalue()
+    sos = data.find(b"\xff\xda")
+    return data, [sos // 2, sos + 20, len(data) // 2, len(data) * 3 // 4,
+                  len(data) - 2, len(data) - 1]
+
+
+@pytest.mark.parametrize("save", [{}, {"progressive": True}],
+                         ids=["baseline", "progressive"])
+def test_truncated_jpeg_raises_as_pil(tmp_path, save):
+    """Every cut raises where PIL raises (the parent returned the gray-filled
+    image of a cut scan); ``imread`` keeps cv2's image."""
+    data, cuts = _jpeg_cuts(7, **save)
+    for cut in cuts:
+        path = str(tmp_path / f"cut{cut}.jpg")
+        with open(path, "wb") as f:
+            f.write(data[:cut])
+        with pytest.raises(OSError):
+            pil(path)
+        with pytest.raises(OSError):
+            read_rgb_pil(path)
+        ref = cv2.imread(path)
+        got = imread(path)
+        assert (got is None) == (ref is None)
+        if ref is not None:
+            np.testing.assert_array_equal(got, ref)
+    path = str(tmp_path / "half.jpg")
+    with open(path, "wb") as f:
+        f.write(data[:len(data) // 2])
+    assert imread(path).shape == (64, 96, 3)
+
+
+@pytest.mark.parametrize("save", [{}, {"progressive": True}],
+                         ids=["baseline", "progressive"])
+def test_jpegs_libjpeg_only_warns_about_read_as_pil(tmp_path, save):
+    """A cut scan followed by an EOI, an RSTn, an EOI or a COM inside the
+    scan: libjpeg warns and PIL reads them, as the reader does; a stray
+    DHT or an unknown marker inside a baseline scan fails after the image
+    in libjpeg, so PIL raises and so does the reader."""
+    data, cuts = _jpeg_cuts(8, **save)
+    sos = data.find(b"\xff\xda")
+    files = {f"cut{c}+eoi": data[:c] + b"\xff\xd9" for c in cuts[2:4]}
+    at = (sos + len(data)) // 2
+    for name, marker in (("rst", b"\xff\xd3"), ("eoi", b"\xff\xd9"),
+                         ("com", b"\xff\xfe\x00\x04ab"),
+                         ("dht", b"\xff\xc4"), ("unknown", b"\xff\x55")):
+        files[name] = data[:at] + marker + data[at:]
+    raised = 0
+    for name, d in files.items():
+        path = str(tmp_path / f"{name}.jpg")
+        with open(path, "wb") as f:
+            f.write(d)
+        try:
+            ref = pil(path)
+        except OSError:
+            with pytest.raises((OSError, ValueError)):
+                read_rgb_pil(path)
+            raised += 1
+            continue
+        np.testing.assert_array_equal(read_rgb_pil(path), ref, err_msg=name)
+    assert raised < len(files)

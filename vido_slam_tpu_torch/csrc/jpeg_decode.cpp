@@ -1,16 +1,26 @@
-// Baseline JPEG decoding on the host, with the arithmetic of libjpeg-turbo
-// 3.1's defaults (what cv2.imread runs), so that a frame decodes to the
-// same bytes as cv2 gives. Bound with ctypes by io/jpeg.py, which parses
-// the markers and calls the three steps here:
+// JPEG decoding on the host, with the arithmetic of libjpeg-turbo 3.1's
+// defaults (what cv2.imread runs), so that a frame decodes to the same bytes
+// as cv2 gives. Bound with ctypes by io/jpeg.py, which parses the markers
+// and calls the steps here:
 //
-// 1. jpeg_entropy_decode: the Huffman-coded scan (one interleaved scan of
-//    every component, or the one component of a gray file) into each
-//    component's quantised coefficients, natural order, as JCOEF (int16).
-//    Restart markers (DRI/RSTn) reset the DC predictors; a marker or the
-//    end of the data where bits are still needed stuffs zero bits and
-//    leaves the rest of the restart segment's MCUs zero, which is what
-//    libjpeg's jdhuff.c does (uniform gray where a file is cut short).
-//    A misplaced restart marker is resynchronised by jdmarker.c's rules.
+// 1. jpeg_decode_scan: one Huffman-coded scan into the components'
+//    quantised coefficients, natural order, as JCOEF (int16), in the
+//    whole-image buffers that every scan of a file adds to. A sequential
+//    scan (jdhuff.c) decodes whole blocks; a progressive one (jdphuff.c)
+//    decodes a band of them: a DC first or refining scan of one or more
+//    components, or an AC first or refining scan of one (EOB runs,
+//    correction bits). Restart markers (DRI/RSTn) reset the DC predictors
+//    and the EOB run; a marker or the end of the data where bits are
+//    still needed stuffs zero bits and leaves the rest of the restart
+//    segment's MCUs as they were, which is what libjpeg does (uniform gray
+//    where a baseline file is cut short). A misplaced restart marker is
+//    resynchronised by jdmarker.c's rules. The scan's end is reported:
+//    the marker that ends it and whether the data ran out first.
+// 1b. jpeg_smooth_plane: jdcoefct.c's block smoothing of a progressive
+//    file whose low coefficients are incomplete at output (a file cut
+//    between or inside its scans, or a script that never sends them):
+//    the DC and the first nine AC coefficients predicted from the 5 x 5
+//    neighbourhood of DC values (libjpeg-turbo 2.1 and later).
 // 2. jpeg_idct_plane: dequantisation and the JDCT_ISLOW integer IDCT
 //    (jidctint.c, CONST_BITS 13, PASS1_BITS 2) of every block of a
 //    component, each sample limited to 0..255 after the +128 level shift.
@@ -28,6 +38,7 @@
 //
 // io/jpeg.py keeps a numpy version of steps 2 and 3 beside these.
 
+#include <climits>
 #include <cstdint>
 #include <cstring>
 
@@ -115,9 +126,14 @@ struct Reader {
   int nbits = 0;
   int marker = 0;
   bool insufficient = false;
+  bool eof = false;  // a byte past the end was asked for (jdatasrc.c's
+                     // fake EOI; a suspending source stops there)
 
   int byte() {  // the next byte of the source, -1 past its end
-    if (p >= end) return -1;
+    if (p >= end) {
+      eof = true;
+      return -1;
+    }
     return *p++;
   }
 
@@ -315,49 +331,134 @@ inline uint8_t clamp255(int64_t v) {
   return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
 }
 
+// One block of a sequential scan (jdhuff.c decode_mcu): the DC difference
+// added to the predictor, then the AC run/size symbols
+inline void sequential_block(Reader& rd, const Huff& dt, const Huff& at,
+                             int& last_dc, int16_t* b) {
+  int s = rd.decode(dt);
+  if (s) s = extend(rd.get(s), s);
+  last_dc = (int)((unsigned)last_dc + (unsigned)s);
+  b[0] = (int16_t)last_dc;
+  for (int k = 1; k < 64; ++k) {
+    const int rs = rd.decode(at);
+    const int r = rs >> 4;
+    s = rs & 15;
+    if (s) {
+      k += r;
+      b[kNatural[k]] = (int16_t)extend(rd.get(s), s);
+    } else {
+      if (r != 15) break;
+      k += 15;
+    }
+  }
+}
+
+// jdphuff.c decode_mcu_AC_refine for one block: correction bits for the
+// coefficients already nonzero, newly nonzero ones of magnitude 1 << al
+inline void ac_refine_block(Reader& rd, const Huff& at, int ss, int se,
+                            int al, unsigned& eobrun, int16_t* b) {
+  const int p1 = 1 << al;
+  const int m1 = -p1;
+  auto correct = [&](int16_t* t) {
+    if (rd.get(1) && (*t & p1) == 0)
+      *t = (int16_t)(*t >= 0 ? *t + p1 : *t + m1);
+  };
+  int k = ss;
+  if (eobrun == 0) {
+    for (; k <= se; ++k) {
+      const int rs = rd.decode(at);
+      int r = rs >> 4;
+      int s = rs & 15;
+      if (s) {
+        s = rd.get(1) ? p1 : m1;  // a size other than 1 is only warned of
+      } else if (r != 15) {
+        eobrun = 1u << r;
+        if (r) eobrun += (unsigned)rd.get(r);
+        break;  // the rest of the band goes by the EOB run below
+      }
+      do {  // past the nonzero coefficients and r zero ones
+        int16_t* t = b + kNatural[k];
+        if (*t != 0) {
+          correct(t);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= se);
+      if (s) b[kNatural[k]] = (int16_t)s;
+    }
+  }
+  if (eobrun > 0) {
+    for (; k <= se; ++k) {
+      int16_t* t = b + kNatural[k];
+      if (*t != 0) correct(t);
+    }
+    --eobrun;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Decodes the scan that starts at `data` (n bytes, to the end of the file)
-// into the components' coefficients. ncomp components; for component c:
-// h[c], v[c] its sampling factors (1, 1 for a one-component scan), dc[c]
-// and ac[c] its table numbers, coef[c] its (bh[c] x bw[c] blocks, 64) int16
-// buffer, zeroed by the caller. `bits` holds 8 tables of 16 counts (DC 0-3,
-// then AC 0-3), `vals` 8 x 256 symbols. mcux x mcuy MCUs, a restart every
-// `restart` MCUs (0: none). Returns 0, or -1 for a Huffman table libjpeg
-// rejects. `status` receives 1 where the data ran out (zero bits stuffed).
-int jpeg_entropy_decode(const uint8_t* data, int64_t n, int ncomp,
-                        const int* h, const int* v, const int* dc,
-                        const int* ac, int16_t* const* coef, const int* bw,
-                        const uint8_t* bits, const uint8_t* vals, int mcux,
-                        int mcuy, int restart, int* status) {
+// Decodes the scan whose entropy-coded data starts at data[start] (the
+// file is n bytes) into the components' coefficients. ncomp components in
+// the scan; for component c: h[c], v[c] its blocks in an MCU (1, 1 in a
+// scan of one component, whose MCUs are its real blocks), dc[c] and ac[c]
+// its table numbers, coef[c] its whole-image buffer of rows of bw[c]
+// blocks (64 int16 each). `bits` holds 8 tables of 16 counts (DC 0-3, then
+// AC 0-3), `vals` 8 x 256 symbols. mcux x mcuy MCUs, a restart every
+// `restart` MCUs (0: none). progressive = 0: a sequential scan (ss, se, ah,
+// al unused); else the spectral band ss..se (zigzag) and the successive
+// approximation bits ah, al, checked by the caller. Returns 0; -1 for a
+// Huffman table libjpeg rejects; -2 for a DC value past 32 bits (libjpeg's
+// JERR_BAD_DCT_COEF). stop[0] receives the offset after the marker that
+// ends the scan (n where the data ran out), stop[1] that marker (0xD9 where
+// the data ran out), stop[2] the first MCU in which the data ran out (-1:
+// none; zero bits were stuffed from there), stop[3] 1 where a byte past
+// the end of the data was asked for while decoding the MCUs, stop[4] 1
+// where that happened by the scan's end marker.
+int jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t start,
+                     int ncomp, const int* h, const int* v, const int* dc,
+                     const int* ac, int16_t* const* coef, const int* bw,
+                     const uint8_t* bits, const uint8_t* vals, int mcux,
+                     int mcuy, int restart, int progressive, int ss, int se,
+                     int ah, int al, int64_t* stop) {
+  const bool dc_band = progressive && ss == 0;
+  const bool need_dc = !progressive || (dc_band && ah == 0);
+  const bool need_ac = !progressive || !dc_band;
   Huff tables[8];
   for (int c = 0; c < ncomp; ++c) {
-    if (!derive(bits + 16 * dc[c], vals + 256 * dc[c], true, tables[dc[c]]))
+    if (need_dc && !derive(bits + 16 * dc[c], vals + 256 * dc[c], true,
+                           tables[dc[c]]))
       return -1;
-    if (!derive(bits + 16 * (4 + ac[c]), vals + 256 * (4 + ac[c]), false,
-                tables[4 + ac[c]]))
+    if (need_ac && !derive(bits + 16 * (4 + ac[c]), vals + 256 * (4 + ac[c]),
+                           false, tables[4 + ac[c]]))
       return -1;
   }
-  Reader rd{data, data + n};
+  Reader rd{data + start, data + n};
   int last_dc[4] = {0, 0, 0, 0};
+  unsigned eobrun = 0;
   int next_restart = 0;
   int to_go = restart;
-  bool ran_out = false;
+  int64_t first_short = -1;  // the first MCU in which the data ran out
   for (int my = 0; my < mcuy; ++my) {
     for (int mx = 0; mx < mcux; ++mx) {
+      if (rd.insufficient && first_short < 0)
+        first_short = (int64_t)my * mcux + mx - 1;
       if (restart) {
         if (to_go == 0) {
           rd.restart(next_restart);
           for (int c = 0; c < ncomp; ++c) last_dc[c] = 0;
+          eobrun = 0;
           to_go = restart;
         }
         --to_go;
       }
-      if (rd.insufficient) {
-        ran_out = true;
-        continue;  // the MCU stays zero
+      if (rd.insufficient) continue;  // the MCU stays as it was
+      if (need_ac && progressive && eobrun > 0 && ah == 0) {
+        --eobrun;  // a band of zeroes in an AC first scan
+        continue;
       }
       for (int c = 0; c < ncomp; ++c) {
         const Huff& dt = tables[dc[c]];
@@ -367,29 +468,193 @@ int jpeg_entropy_decode(const uint8_t* data, int64_t n, int ncomp,
             const int64_t blk =
                 (int64_t)(my * v[c] + by) * bw[c] + (mx * h[c] + bx);
             int16_t* b = coef[c] + 64 * blk;
-            int s = rd.decode(dt);
-            if (s) s = extend(rd.get(s), s);
-            last_dc[c] = (int)((unsigned)last_dc[c] + (unsigned)s);
-            b[0] = (int16_t)last_dc[c];
-            for (int k = 1; k < 64; ++k) {
-              int rs = rd.decode(at);
-              const int r = rs >> 4;
-              s = rs & 15;
-              if (s) {
-                k += r;
-                b[kNatural[k]] = (int16_t)extend(rd.get(s), s);
-              } else {
-                if (r != 15) break;
-                k += 15;
+            if (!progressive) {
+              sequential_block(rd, dt, at, last_dc[c], b);
+            } else if (dc_band && ah == 0) {  // DC first
+              int s = rd.decode(dt);
+              if (s) s = extend(rd.get(s), s);
+              const int last = last_dc[c];
+              if ((last >= 0 && s > INT_MAX - last) ||
+                  (last < 0 && s < INT_MIN - last))
+                return -2;
+              last_dc[c] = last + s;
+              b[0] = (int16_t)((unsigned)last_dc[c] << al);
+            } else if (dc_band) {  // DC refine: the next bit of the value
+              if (rd.get(1)) b[0] = (int16_t)(b[0] | (1 << al));
+            } else if (ah == 0) {  // AC first
+              for (int k = ss; k <= se; ++k) {
+                const int rs = rd.decode(at);
+                const int r = rs >> 4;
+                const int s = rs & 15;
+                if (s) {
+                  k += r;
+                  b[kNatural[k]] =
+                      (int16_t)((unsigned)extend(rd.get(s), s) << al);
+                } else if (r == 15) {
+                  k += 15;
+                } else {
+                  eobrun = 1u << r;
+                  if (r) eobrun += (unsigned)rd.get(r);
+                  --eobrun;  // this block is the run's first
+                  break;
+                }
               }
+            } else {
+              ac_refine_block(rd, at, ss, se, al, eobrun, b);
             }
           }
         }
       }
     }
   }
-  *status = ran_out || rd.insufficient ? 1 : 0;
+  if (rd.insufficient && first_short < 0)
+    first_short = (int64_t)mcuy * mcux - 1;
+  stop[2] = first_short;
+  stop[3] = rd.eof ? 1 : 0;
+  if (rd.marker == 0) rd.next_marker();  // jdmarker.c read_markers
+  stop[0] = rd.p - data;
+  stop[1] = rd.marker;
+  stop[4] = rd.eof ? 1 : 0;
   return 0;
+}
+
+// jdcoefct.c decompress_smooth_data for one component: each real block
+// (hib rows of wib, in a buffer of bh rows of bw blocks) of `coef` copied
+// to `out`, its DC and first nine AC coefficients predicted from the 5 x 5
+// DC values around it where they are incomplete. vs: the component's block
+// rows in an iMCU row, of which there are imcu_rows; the rows above and
+// below a block are taken as the iMCU rows' buffer gives them. quant: the
+// component's table (natural order); bits: its successive-approximation
+// bits of zigzag coefficients 0-9 (-1: none received).
+void jpeg_smooth_plane(const int16_t* coef, int bh, int bw, int hib, int wib,
+                       int vs, int imcu_rows, const uint16_t* quant,
+                       const int* cur_bits, const int* prev_bits,
+                       int last_good, int16_t* out) {
+  std::memcpy(out, coef, sizeof(int16_t) * 64 * (size_t)bh * bw);
+  const int64_t Q00 = quant[0], Q01 = quant[1], Q10 = quant[8],
+                Q20 = quant[16], Q11 = quant[9], Q02 = quant[2],
+                Q03 = quant[3], Q12 = quant[10], Q21 = quant[17],
+                Q30 = quant[24];
+  auto dcv = [&](int row, int col) {
+    col = col < 0 ? 0 : col >= wib ? wib - 1 : col;
+    return (int)coef[64 * ((int64_t)row * bw + col)];
+  };
+  // pred of a coefficient of table entry q from numerator num, held below
+  // 1 << al where al bits are still unknown
+  auto pred = [](int64_t q, int64_t num, int al) {
+    int p;
+    if (num >= 0) {
+      p = (int)(((q << 7) + num) / (q << 8));
+      if (al > 0 && p >= (1 << al)) p = (1 << al) - 1;
+    } else {
+      p = (int)(((q << 7) - num) / (q << 8));
+      if (al > 0 && p >= (1 << al)) p = (1 << al) - 1;
+      p = -p;
+    }
+    return (int16_t)p;
+  };
+  const int last = imcu_rows - 1;
+  for (int r = 0; r <= last; ++r) {
+    const int* bits = r > last_good ? prev_bits : cur_bits;
+    bool change_dc = true;  // no AC coefficient known: the DC is smoothed
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+    const int rows = r < last ? vs : (hib % vs ? hib % vs : vs);
+    for (int br = 0; br < rows; ++br) {
+      // the rows around, as libjpeg counts them: the iMCU row's own number
+      // of block rows times the iMCU rows (so an interleaved scan's padding
+      // row below the image's last can be taken; the last iMCU row clamps
+      // at itself)
+      const int R = r * vs + br;
+      const int ibr = r * rows + br;
+      const int ibrs = rows * imcu_rows;
+      const int prev = ibr > 0 ? R - 1 : R;
+      const int pprev = ibr > 1 ? R - 2 : prev;
+      const int next = ibr < ibrs - 1 ? R + 1 : R;
+      const int nnext = ibr < ibrs - 2 ? R + 2 : next;
+      for (int col = 0; col < wib; ++col) {
+        const int DC01 = dcv(pprev, col - 2), DC02 = dcv(pprev, col - 1),
+                  DC03 = dcv(pprev, col), DC04 = dcv(pprev, col + 1),
+                  DC05 = dcv(pprev, col + 2);
+        const int DC06 = dcv(prev, col - 2), DC07 = dcv(prev, col - 1),
+                  DC08 = dcv(prev, col), DC09 = dcv(prev, col + 1),
+                  DC10 = dcv(prev, col + 2);
+        const int DC11 = dcv(R, col - 2), DC12 = dcv(R, col - 1),
+                  DC13 = dcv(R, col), DC14 = dcv(R, col + 1),
+                  DC15 = dcv(R, col + 2);
+        const int DC16 = dcv(next, col - 2), DC17 = dcv(next, col - 1),
+                  DC18 = dcv(next, col), DC19 = dcv(next, col + 1),
+                  DC20 = dcv(next, col + 2);
+        const int DC21 = dcv(nnext, col - 2), DC22 = dcv(nnext, col - 1),
+                  DC23 = dcv(nnext, col), DC24 = dcv(nnext, col + 1),
+                  DC25 = dcv(nnext, col + 2);
+        int16_t* w = out + 64 * ((int64_t)R * bw + col);
+        int al;
+        if ((al = bits[1]) != 0 && w[1] == 0) {  // AC01
+          const int64_t num = Q00 * (change_dc ?
+              (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+               13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+               3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+               DC21 - DC22 + DC24 + DC25) :
+              (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+          w[1] = pred(Q01, num, al);
+        }
+        if ((al = bits[2]) != 0 && w[8] == 0) {  // AC10
+          const int64_t num = Q00 * (change_dc ?
+              (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+               13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+               13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+               3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+              (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+          w[8] = pred(Q10, num, al);
+        }
+        if ((al = bits[3]) != 0 && w[16] == 0) {  // AC20
+          const int64_t num = Q00 * (change_dc ?
+              (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+               14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+               DC23) :
+              (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+          w[16] = pred(Q20, num, al);
+        }
+        if ((al = bits[4]) != 0 && w[9] == 0) {  // AC11
+          const int64_t num = Q00 * (change_dc ?
+              (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+               DC21 - DC25) :
+              (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+               DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09));
+          w[9] = pred(Q11, num, al);
+        }
+        if ((al = bits[5]) != 0 && w[2] == 0) {  // AC02
+          const int64_t num = Q00 * (change_dc ?
+              (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+               14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+               2 * DC19) :
+              (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+          w[2] = pred(Q02, num, al);
+        }
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && w[3] == 0)  // AC03
+            w[3] = pred(Q03, Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 +
+                                    DC17 - DC19), al);
+          if ((al = bits[7]) != 0 && w[10] == 0)  // AC12
+            w[10] = pred(Q12, Q00 * (DC07 - 3 * DC08 + DC09 - DC17 +
+                                     3 * DC18 - DC19), al);
+          if ((al = bits[8]) != 0 && w[17] == 0)  // AC21
+            w[17] = pred(Q21, Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 +
+                                     DC17 - DC19), al);
+          if ((al = bits[9]) != 0 && w[24] == 0)  // AC30
+            w[24] = pred(Q30, Q00 * (DC07 + 2 * DC08 + DC09 - DC17 -
+                                     2 * DC18 - DC19), al);
+          // the DC itself, a weighted mean of the 25 (weights sum to 256)
+          w[0] = pred(Q00, Q00 * (
+              -2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+              6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+              8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 -
+              6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+              2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25), 0);
+        }
+      }
+    }
+  }
 }
 
 // Dequantises and inverse-transforms nblocks blocks of coef (natural

@@ -24,7 +24,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from vido_slam_tpu_torch.io import jpeg, png
+from vido_slam_tpu_torch.io import bmp, jpeg, png
 
 FLO_MAGIC = 202021.25
 
@@ -57,7 +57,7 @@ def write_flo(path: str, flow: np.ndarray) -> None:
 
 
 # signatures of the other formats cv2 decodes, which imread refuses
-OTHER_FORMATS = ((b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
                  (b"RIFF", "WebP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
                  (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"#?RADIANCE", "HDR"),
                  (b"\x76\x2f\x31\x01", "OpenEXR"))
@@ -99,10 +99,12 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
             return jpeg.decode_jpeg(data, gray=flags != IMREAD_COLOR)
         except jpeg.CorruptJpeg:
             return None
+    if data[:2] == bmp.SIGNATURE:
+        return bmp.read_cv2(data, color=flags == IMREAD_COLOR)
     for sig, name in OTHER_FORMATS:
         if data.startswith(sig):
             raise ValueError(f"{path}: {name} images are not supported "
-                             f"(PNG and JPEG only)")
+                             f"(PNG, JPEG and BMP only)")
     try:
         img = png.decode_png(data)
     except png.CorruptPng:
@@ -132,10 +134,12 @@ def read_rgb_pil(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == jpeg.SIGNATURE:
-        return np.ascontiguousarray(
-            jpeg.decode_jpeg(data, exif_orientation=False)[..., ::-1])
+        return np.ascontiguousarray(jpeg.decode_jpeg(
+            data, exif_orientation=False, strict=True)[..., ::-1])
+    if data[:2] == bmp.SIGNATURE:
+        return bmp.read_pil(data)
     if not data.startswith(png.SIGNATURE):
-        raise ValueError(f"{path}: PNG and JPEG images only")
+        raise ValueError(f"{path}: PNG, JPEG and BMP images only")
     img = png.decode_png(data)
     px = img.pixels
     if img.bit_depth == 16:
