@@ -252,6 +252,7 @@ Exits non-zero without a result when no CUDA device is available.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -1783,15 +1784,15 @@ KITTI_CONFIG = {
 DEMO_ONLINE_FRAMES = 8
 
 
-def demo_rows(seq, cfg):
+def demo_rows(seq, cfg, dev="cuda"):
     """The frames of ``seq`` as a dataset stores them: BGR uint8 rendered
-    by ``render_rgb``, raw 16-bit depth by the dataset's rule (metric = bf /
-    (raw / DepthMapFactor), KAIST and KITTI alike; 0 where no surface),
-    flow, uint8 mask, t = k / 10 s."""
+    by ``render_rgb`` on ``dev``, raw 16-bit depth by the dataset's rule
+    (metric = bf / (raw / DepthMapFactor), KAIST and KITTI alike; 0 where
+    no surface), flow, uint8 mask, t = k / 10 s."""
     import torch
     from vido_slam_tpu_torch.io.synthetic import render_rgb
 
-    dev = torch.device("cuda")
+    dev = torch.device(dev)
     f = cfg["DepthMapFactor"] * cfg["Camera.bf"]
     rows = []
     for k, fr in enumerate(seq.frames):
@@ -2935,6 +2936,307 @@ def run_infer_formats(counters, tmp, pair, prog):
           f"{parts['flow']}; maskrcnn on the BMP: card {m['valid'][0]} "
           f"detections, CPU {m['valid'][1]}, launches {parts['maskrcnn']}")
     return parts
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (t): the other images the JAX package reads through cv2 and PIL:
+# PBM/PGM/PPM, PAM, PFM, TIFF, Radiance HDR, Sun raster, CMYK/YCCK JPEG
+# ---------------------------------------------------------------------------
+
+FORMAT_FIXTURES = ("pxm", "tiff", "hdr", "sunras", "cmyk")
+FORMAT_FRAMES = 12   # (t2)'s tracked frames a tree, and no StopFrame
+
+
+def check_format_fixtures(root) -> int:
+    """(t1): each committed fixture of tests/data/<format>/ read as cv2
+    reads it under IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_ANYDEPTH
+    (``datasets.imread``; TIFF also by its codecs' plain versions, JPEG by
+    its plain steps) and as PIL reads it (``read_rgb_pil``), against the
+    digests of cv2's and PIL's reads (tools/make_image_fixtures.py;
+    "None" where cv2 gives None; no PIL digest where PIL raises, and then
+    ``read_rgb_pil`` raises). Returns the number of reads held."""
+    from vido_slam_tpu_torch.io import datasets, jpeg, tiff
+
+    held = 0
+    flags = ((datasets.IMREAD_COLOR, ""), (datasets.IMREAD_GRAYSCALE,
+                                           "_gray"),
+             (datasets.IMREAD_ANYDEPTH, "_any"))
+    for fmt in FORMAT_FIXTURES:
+        directory = os.path.join(root, "tests", "data", fmt)
+        ref = np.load(os.path.join(root, "tests", "data", fmt + ".npz"))
+        files = sorted(os.listdir(directory))
+        check(len(files) >= 3 and all(os.path.splitext(f)[0] in ref.files
+                                      for f in files),
+              f"(t1) {fmt} fixtures {files}")
+        for fname in files:
+            name = os.path.splitext(fname)[0]
+            path = os.path.join(directory, fname)
+            with open(path, "rb") as f:
+                data = f.read()
+            for flag, suffix in flags:
+                reads = [datasets.imread(path, flag)]
+                if fmt == "tiff":
+                    reads.append(tiff.read_cv2(data, flag, plain=True))
+                if fmt == "cmyk":
+                    reads.append(jpeg.decode_jpeg(
+                        data, gray=flag != datasets.IMREAD_COLOR, plain=True))
+                for got in reads:
+                    digest = "None" if got is None else image_digest(got)
+                    check(digest == str(ref[name + suffix]),
+                          f"(t1) {fname} {suffix or 'colour'}: not cv2's read")
+                    held += 1
+            try:
+                got, raised = datasets.read_rgb_pil(path), None
+            except (OSError, ValueError) as e:
+                got, raised = None, e
+            if name + "_pil" in ref.files:
+                check(got is not None
+                      and image_digest(got) == str(ref[name + "_pil"]),
+                      f"(t1) {fname}: not PIL's read ({raised})")
+            else:
+                check(raised is not None,
+                      f"(t1) {fname}: PIL raises, read_rgb_pil does not")
+            held += 1
+    return held
+
+
+def write_pnm(path, img) -> None:
+    """Binary PPM (an (H, W, 3) BGR frame) or PGM (8- or 16-bit gray)."""
+    img = np.asarray(img)
+    if img.ndim == 3:
+        head, body = b"P6", img[..., ::-1].tobytes()
+    else:
+        head = b"P5"
+        body = img.astype(">u2").tobytes() if img.dtype == np.uint16 \
+            else img.tobytes()
+    top = 65535 if img.dtype == np.uint16 else 255
+    with open(path, "wb") as f:
+        f.write(head + b"\n%d %d\n%d\n" % (img.shape[1], img.shape[0], top)
+                + body)
+
+
+@functools.lru_cache(maxsize=None)
+def image_encoders():
+    """tests/image_encoders.py, the test-side writers of the layouts cv2
+    and PIL read but do not write, loaded once by its path (a ``tests``
+    package installed elsewhere may shadow the repo's directory)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "image_encoders.py")
+    spec = importlib.util.spec_from_file_location("image_encoders", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_tiff_tree_file(path, img) -> None:
+    """A frame as an LZW TIFF (RGB, horizontal predictor, strips of 16
+    rows), a depth map as a 16-bit Deflate TIFF, a mask as an 8-bit PGM."""
+    write_tiff = image_encoders().write_tiff
+    img = np.asarray(img)
+    if img.ndim == 3:
+        write_tiff(path, np.ascontiguousarray(img[..., ::-1]), photometric=2,
+                   compression=5, predictor=2, rows_per_strip=16)
+    elif img.dtype == np.uint16:
+        write_tiff(path, img, photometric=1, compression=8, predictor=2,
+                   rows_per_strip=32)
+    else:
+        write_pnm(path, img)
+
+
+def run_format_trees(counters, tmp, dev="cuda", n_frames=FORMAT_FRAMES,
+                     cfg=None):
+    """(t2): the CLI on three KITTI trees of the same rendered frames, each
+    file under the name the reader expects (<10 digits>.png): PNG
+    (``write_png``), PPM frames with 16-bit PGM depth and 8-bit PGM masks
+    (``write_pnm``), LZW TIFF frames with 16-bit Deflate TIFF depth
+    (``write_tiff_tree_file``); times.txt lists one more frame, whose image
+    is missing, so no StopFrame full batch runs. Each tree decodes to the
+    PNG tree's arrays, so its launches and trajectories equal the PNG
+    run's. Returns (each tree's launches, each format's median decode ms
+    of a frame's image file and of its three files)."""
+    from vido_slam_tpu_torch.io import datasets
+
+    cfg = cfg or KITTI_CONFIG
+    seq = offline_sequence(n_frames, dev, cfg)
+    rows = demo_rows(seq, cfg, dev)
+    trees = {"png": write_png, "pnm": write_pnm,
+             "tiff": write_tiff_tree_file}
+    runs, launches, decode = {}, {}, {}
+    for tag, writer in trees.items():
+        root = os.path.join(tmp, f"t2_{tag}")
+        tree = write_tree(root, "kitti", rows, png=writer)
+        with open(os.path.join(root, "times.txt"), "a") as f:
+            f.write(f"{n_frames / 10.0:.6f}\n")     # its image is missing
+        stems = sorted(os.listdir(tree["image_path"]))
+        check(len(stems) == n_frames, f"(t2) {tag}: {stems}")
+        ms = []
+        for k, stem in enumerate(stems):
+            paths = (os.path.join(tree["image_path"], stem),
+                     os.path.join(root, "depth", stem),
+                     os.path.join(root, "mask", stem))
+            t0 = time.perf_counter()
+            bgr = datasets.imread(paths[0])
+            t1 = time.perf_counter()
+            depth = datasets.imread(paths[1], datasets.IMREAD_ANYDEPTH)
+            mask = datasets.imread(paths[2], datasets.IMREAD_GRAYSCALE)
+            ms.append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)))
+            check(np.array_equal(bgr, rows[k][0])
+                  and np.array_equal(depth, rows[k][1])
+                  and np.array_equal(mask, rows[k][3]),
+                  f"(t2) {tag} {stem}: not the rendered arrays")
+        decode[tag] = dict(zip(("frame", "files"),
+                               np.median(ms, axis=0).tolist()))
+        cfg_path = os.path.join(tmp, f"t2_{tag}.yaml")
+        write_config(cfg_path, dict(cfg, slam_mode=0, **tree))
+        out = os.path.join(tmp, f"t2_{tag}_out", "")
+        run, n, _, batches = run_demo(
+            [cfg_path, "--output", out, "--device", dev], counters)
+        check(not batches, f"(t2) {tag}: {len(batches)} full batches")
+        ate0, _, path, poses = check_demo(
+            run, out, [fr.Tcw_gt for fr in seq.frames], n_frames, n,
+            [2 * (n_frames - 1), 0, 0, 0, 0][:len(counters)])
+        runs[tag], launches[tag] = (poses, ate0, path), n
+        del run
+    base = runs["png"][0]
+    for tag in ("pnm", "tiff"):
+        for name, p in runs[tag][0].items():
+            check(np.array_equal(p, base[name]),
+                  f"(t2) {tag} {name}: not the PNG tree's trajectory")
+    print(f"(t2) CLI KITTI VO on PNG, PPM/PGM and TIFF/PGM trees of "
+          f"{n_frames} rendered 1242x375 frames (one listed frame missing: "
+          f"no StopFrame): launches {launches}, trajectories equal to the "
+          f"PNG tree's, camera ATE {runs['png'][1]:.5f} m over "
+          f"{runs['png'][2]:.3f} m; host decode ms (median) of a frame "
+          f"and of its frame, depth and mask files: PNG "
+          f"{decode['png']['frame']:.2f} and {decode['png']['files']:.2f}, "
+          f"PPM and PPM+PGM {decode['pnm']['frame']:.2f} and "
+          f"{decode['pnm']['files']:.2f}, LZW TIFF and LZW TIFF+Deflate "
+          f"TIFF+PGM {decode['tiff']['frame']:.2f} and "
+          f"{decode['tiff']['files']:.2f}")
+    return launches, decode
+
+
+def run_infer_new_formats(counters, tmp, dev="cuda"):
+    """(t3): ``infer_nets`` on the card on the new formats against the
+    same run on a PNG of the same pixels: flow on a binary PPM pair of the
+    progressive KITTI frames 0 and 1 (kernels 3 and 4, 5 launches each),
+    depth on an RGB LZW TIFF of bench-clip frame INFER_FRAME, the Mask
+    R-CNN detector on a CMYK JPEG of that frame read as PIL reads it
+    (kernel 5 twice). Returns each part's launches."""
+    from vido_slam_tpu_torch import infer_nets
+    from vido_slam_tpu_torch.io import datasets
+    from vido_slam_tpu_torch.io.datasets import read_flo
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    prog = os.path.join(root, PROGRESSIVE_FIXTURES, "kitti")
+    pair = sorted(os.listdir(prog))[:2]
+    d = os.path.join(tmp, "t3")
+    os.makedirs(d)
+    inputs = {}
+    for k, fname in enumerate(pair):
+        bgr = datasets.imread(os.path.join(prog, fname))
+        inputs[f"ppm{k}"] = os.path.join(d, f"pair{k}.ppm")
+        write_pnm(inputs[f"ppm{k}"], bgr)
+        inputs[f"png{k}"] = os.path.join(d, f"pair{k}.png")
+        write_png(inputs[f"png{k}"], bgr)
+    clip = np.load(os.path.join(root, ONLINE_CLIP))["clip"]
+    rgb = np.ascontiguousarray(clip[INFER_FRAME])
+    inputs["tiff"] = os.path.join(d, "frame.tif")
+    write_tiff_tree_file(inputs["tiff"], rgb[..., ::-1])
+    inputs["tiff_png"] = os.path.join(d, "frame_tif.png")
+    write_png(inputs["tiff_png"], datasets.read_rgb_pil(inputs["tiff"])[
+        ..., ::-1])
+    check(np.array_equal(datasets.read_rgb_pil(inputs["tiff"]), rgb),
+          "(t3): the TIFF frame")
+    inputs["cmyk"] = os.path.join(d, "frame_cmyk.jpg")
+    image_encoders().write_cmyk_jpeg(inputs["cmyk"], rgb)
+    cmyk_rgb = datasets.read_rgb_pil(inputs["cmyk"])
+    inputs["cmyk_png"] = os.path.join(d, "frame_cmyk.png")
+    write_png(inputs["cmyk_png"], cmyk_rgb[..., ::-1])
+    parts, refusals = {}, []
+
+    def call(argv):
+        try:
+            quiet(lambda: infer_nets.main(argv))
+        except ValueError as e:
+            # random Mask R-CNN weights give inverted boxes: the CLI
+            # refuses the drawing after writing the JSON, as JAX's does
+            refusals.append(str(e))
+
+    def run(argv, part, out):
+        argv = argv + ["--out", out] + ([] if dev == "cuda"
+                                        else ["--device", dev])
+        n = launches_of(counters, lambda: call(argv))[1]
+        parts.setdefault(part, n)
+        check(n == parts[part], f"(t3) {part}: launches {n}, "
+              f"{parts[part]} on the other input")
+        return out
+    a = run(["flow", "--first", inputs["ppm0"], "--second", inputs["ppm1"]],
+            "flow", os.path.join(d, "flow_ppm"))
+    b = run(["flow", "--first", inputs["png0"], "--second", inputs["png1"]],
+            "flow", os.path.join(d, "flow_png"))
+    fa, fb = (read_flo(os.path.join(x, "flow.flo")) for x in (a, b))
+    fgap = float(np.abs(fa - fb).max()) / max(1.0, float(np.abs(fb).max()))
+    a = run(["depth", "--images", inputs["tiff"]], "depth",
+            os.path.join(d, "depth_tiff"))
+    b = run(["depth", "--images", inputs["tiff_png"]], "depth",
+            os.path.join(d, "depth_png"))
+    da = np.load(os.path.join(a, "frame_disp.npy"))
+    db = np.load(os.path.join(b, "frame_tif_disp.npy"))
+    gap = float(np.abs(da - db).max()) / float(np.abs(db).max())
+    dets = []
+    for key in ("cmyk", "cmyk_png"):
+        out = run(["detector", "--family", "maskrcnn", "--image",
+                   inputs[key]], "maskrcnn", os.path.join(d, "det_" + key))
+        dets.append(json_detections(os.path.join(
+            out, "maskrcnn_detections.json")))
+    check(len(refusals) in (0, 2) and len(set(refusals)) <= 1,
+          f"(t3): the CLI's refusals {refusals}")
+    n = max(len(x["valid"]) for x in dets)
+    m = match_detections(padded(dets[0], n), padded(dets[1], n),
+                         DETECTOR_THRESHOLDS["maskrcnn"])
+    want = {"flow": [0, 0, 5, 5, 0], "depth": [0, 0, 0, 0, 0],
+            "maskrcnn": [0, 0, 0, 0, 2]}
+    check(fa.shape == (375, 1242, 2) and fgap <= FLOW_BAR
+          and da.shape == db.shape and gap <= DEPTH_BAR
+          and not m["unexplained"]
+          and all(parts[k] == want[k][:len(counters)] for k in want),
+          f"(t3): flow {fgap:.2e}, depth {gap:.2e}, maskrcnn {m}, launches "
+          f"{parts}")
+    print(f"(t3) infer_nets: flow on a PPM pair against the PNG pair "
+          f"{fgap:.2e} of max(|flow|, 1) (bar {FLOW_BAR:.0e}; "
+          f"{'bit-equal' if fgap == 0 else 'not bit-equal'}), launches "
+          f"{parts['flow']}; depth on an LZW TIFF against its PNG {gap:.2e} "
+          f"of the max ({'bit-equal' if gap == 0 else 'not bit-equal'}); "
+          f"Mask R-CNN on a CMYK JPEG against a PNG of PIL's read of it: "
+          f"{m['valid'][0]} and {m['valid'][1]} detections matched, "
+          f"launches {parts['maskrcnn']}")
+    return parts
+
+
+def run_phase_t(counters, tmp, dev="cuda"):
+    """Phase (t): (t1) the committed fixtures of tests/data/{pxm, tiff,
+    hdr, sunras, cmyk} against cv2's and PIL's digests; (t2) the CLI on
+    PNG, PPM/PGM and TIFF/PGM KITTI trees; (t3) ``infer_nets`` on PPM,
+    TIFF and CMYK JPEG inputs. Returns each part's launches and the decode
+    ms."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cards = card_line() if dev == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    held = check_format_fixtures(root)
+    print(f"(t1) fixtures: PBM/PGM/PPM (ASCII, binary, 8/16-bit, odd "
+          f"maxval), PAM, PFM, TIFF (strips, tiles, planes, BigTIFF, LZW "
+          f"both ways, Deflate, PackBits, predictors 2/3; 1/8/16-bit, "
+          f"float, RGB(A), palette), HDR (RLE, flat), Sun raster (1/8/24/"
+          f"32-bit, map, RLE, type 3), CMYK/YCCK/Adobe-RGB JPEG: {held} "
+          f"reads bit-equal to cv2's and PIL's (C++ and plain)")
+    launches, decode = run_format_trees(counters, tmp, dev)
+    parts = {f"t2_{k}": v for k, v in launches.items()}
+    parts.update(run_infer_new_formats(counters, tmp, dev))
+    print(f"phase (t): {time.perf_counter() - t0:.1f} s; card {cards}")
+    return {**parts, "decode_ms": decode}
 
 
 # ---------------------------------------------------------------------------
@@ -5252,13 +5554,13 @@ def main() -> int:
     print(f"build of {sorted(logs)}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     host = [os.path.basename(host_build.build(name))
-            for name in ("png_unfilter", "jpeg_decode")]
+            for name in ("png_unfilter", "jpeg_decode", "tiff_decode")]
     host.append(os.path.basename(host_build.build("file_prefetcher",
                                                   ["-pthread"])))
     host += [os.path.basename(native_system.library_path()),
              os.path.basename(native_system.runner())]
-    print(f"host build of the PNG unfilter, the JPEG decoder, the file "
-          f"prefetcher, the C facade and its standalone host {host}: "
+    print(f"host build of the PNG unfilter, the JPEG and TIFF decoders, the "
+          f"file prefetcher, the C facade and its standalone host {host}: "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
@@ -5525,6 +5827,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         format_launches = run_phase_s(counters, tmp)
 
+    # (t) PBM/PGM/PPM, PAM, PFM, TIFF, HDR, Sun raster and CMYK/YCCK JPEG:
+    # the fixtures, the CLI on PPM/PGM and TIFF trees, infer_nets on them
+    with tempfile.TemporaryDirectory() as tmp:
+        formats_t = run_phase_t(counters, tmp)
+
     # (m) the detector families: the DCN X-101, FBNet, RetinaNet, the
     # keypoint head and ROIPool
     family_launches, family_err, family_timing = run_phase_m(dev, counters,
@@ -5679,6 +5986,11 @@ def main() -> int:
         # on the BMP and progressive inputs
         e["image_formats_launches"] = {
             part: n[i] for part, n in format_launches.items()
+            if part != "decode_ms"}
+        # phase (t): (t2) the CLI on the PNG, PPM/PGM and TIFF trees, (t3)
+        # infer_nets on PPM, TIFF and CMYK JPEG inputs
+        e["image_formats_t_launches"] = {
+            part: n[i] for part, n in formats_t.items()
             if part != "decode_ms"}
         # (l1) offline VO, (l2) bJoint, (l3) online pairs, (l4) online VIO
         # pairs, all pipelined

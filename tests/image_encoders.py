@@ -8,7 +8,13 @@ write, for the port's readers to be held to ``cv2.imread`` and PIL on them:
     bands with EOB runs), restart intervals, quantisation tables
     redefined between scans, with or without DHT segments;
   - ``write_bmp``: BMP files of 1-, 4- and 8-bit palettes, RLE4 and RLE8,
-    16-bit 5-5-5 and 5-6-5, 24- and 32-bit pixels, bottom-up or top-down.
+    16-bit 5-5-5 and 5-6-5, 24- and 32-bit pixels, bottom-up or top-down;
+  - ``write_cmyk_jpeg``: CMYK and YCCK JPEGs of an RGB frame;
+  - ``write_sunras``, ``write_hdr``, ``write_tiff``: Sun raster (every
+    depth, colour maps, byte encoding, type 3), Radiance (run-length or
+    flat) and TIFF files (``lzw_encode`` of both bit orders,
+    ``packbits``, Deflate, the predictors, strips, tiles, planes,
+    BigTIFF, both byte orders).
 
 Neither is part of the port: the package reads these formats and writes
 none of them.
@@ -420,3 +426,400 @@ def write_bmp(path: str, pixels: np.ndarray, bits: int, *,
         f.write(b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0,
                                     offset))
         f.write(header + masks + pal + data)
+
+
+# ---------------------------------------------------------------------------
+# Sun raster
+# ---------------------------------------------------------------------------
+
+def sun_rle(raw: bytes) -> bytes:
+    """Sun raster's byte encoding: ``0x80 n v`` for n + 1 copies of v
+    (runs of 3 to 256), ``0x80 0x00`` for one 0x80, other bytes as they
+    are."""
+    out = bytearray()
+    i = 0
+    while i < len(raw):
+        v = raw[i]
+        n = 1
+        while i + n < len(raw) and raw[i + n] == v and n < 256:
+            n += 1
+        if n >= 3 or (v == 0x80 and n >= 2):
+            out += bytes([0x80, n - 1, v])
+        elif v == 0x80:
+            out += b"\x80\x00"
+            n = 1
+        else:
+            out += bytes([v] * n)
+        i += n
+    return bytes(out)
+
+
+def write_sunras(path: str, pixels: np.ndarray, depth: int, *,
+                 palette: Optional[np.ndarray] = None, rle: bool = False,
+                 rgb: bool = False) -> None:
+    """A Sun raster file (big-endian 32-byte header): ``pixels`` (H, W)
+    bits or indices for depths 1 and 8 (``palette`` (n, 3) RGB, written as
+    the R, G and B planes of an RMT_EQUAL_RGB map), else (H, W, 3) or
+    (H, W, 4) samples in file order (24: B, G, R or, with ``rgb``, type
+    3's R, G, B; 32: X, B, G, R or X, R, G, B). Rows are padded to 16 bits;
+    ``rle`` byte-encodes the padded rows (type 2)."""
+    H, W = pixels.shape[:2]
+    stride = ((W * depth + 15) // 16) * 2
+    raw = np.zeros((H, stride), np.uint8)
+    if depth == 1:
+        raw[:, :(W + 7) // 8] = np.packbits(pixels.astype(np.uint8), axis=1)
+    else:
+        flat = pixels.reshape(H, -1)
+        raw[:, :flat.shape[1]] = flat
+    data = raw.tobytes()
+    kind = 3 if rgb else 1
+    if rle:
+        data, kind = sun_rle(data), 2
+    cmap = b""
+    if palette is not None:
+        cmap = np.ascontiguousarray(np.asarray(palette, np.uint8).T).tobytes()
+    head = struct.pack(">8I", 0x59A66A95, W, H, depth, len(data), kind,
+                       1 if cmap else 0, len(cmap))
+    with open(path, "wb") as f:
+        f.write(head + cmap + data)
+
+
+# ---------------------------------------------------------------------------
+# Radiance HDR
+# ---------------------------------------------------------------------------
+
+def hdr_rle_row(row: np.ndarray) -> bytes:
+    """One new-style run-length row of (W, 4) RGBE bytes: ``2 2 W`` and
+    each channel as runs (``128 + n, v``, n 3-127) and literals (``n,
+    v...``, n 1-128)."""
+    W = len(row)
+    out = bytearray([2, 2, W >> 8, W & 255])
+    for ch in range(4):
+        v = row[:, ch]
+        i = 0
+        while i < W:
+            n = 1
+            while i + n < W and v[i + n] == v[i] and n < 127:
+                n += 1
+            if n >= 3:
+                out += bytes([128 + n, int(v[i])])
+                i += n
+                continue
+            j = i
+            while j < W and j - i < 128 and not (
+                    j + 2 < W and v[j] == v[j + 1] == v[j + 2]):
+                j += 1
+            out += bytes([j - i]) + bytes(int(x) for x in v[i:j])
+            i = j
+    return bytes(out)
+
+
+def write_hdr(path: str, rgbe: np.ndarray, *, rle: bool = True,
+              header: bytes = b"#?RADIANCE\n") -> None:
+    """A Radiance file of (H, W, 4) RGBE bytes: ``header`` lines, the
+    FORMAT line, a blank line, ``-Y H +X W``, then new-style run-length
+    rows (``rle``) or flat quadruples."""
+    H, W = rgbe.shape[:2]
+    body = (b"".join(hdr_rle_row(r) for r in rgbe) if rle
+            else np.ascontiguousarray(rgbe, np.uint8).tobytes())
+    with open(path, "wb") as f:
+        f.write(header + b"FORMAT=32-bit_rle_rgbe\n\n" + b"-Y %d +X %d\n"
+                % (H, W) + body)
+
+
+# ---------------------------------------------------------------------------
+# TIFF
+# ---------------------------------------------------------------------------
+
+def lzw_encode(data: bytes, old_style: bool = False) -> bytes:
+    """TIFF LZW of ``data`` as libtiff's ``LZWEncode`` writes it: Clear
+    first, codes of 9-12 bits MSB first, the width raised once the next
+    entry would not fit (the decoder raises it one code early), Clear when
+    the table is full, EOI last. ``old_style``: the pre-5.0 form libtiff
+    still reads, LSB first, its decoder raising the width on time (so the
+    encoder raises it one entry later)."""
+    out = bytearray()
+    acc = [0, 0]
+
+    def put(code, width):
+        if old_style:
+            acc[0] |= code << acc[1]
+            acc[1] += width
+            while acc[1] >= 8:
+                out.append(acc[0] & 255)
+                acc[0] >>= 8
+                acc[1] -= 8
+        else:
+            acc[0] = acc[0] << width | code
+            acc[1] += width
+            while acc[1] >= 8:
+                acc[1] -= 8
+                out.append(acc[0] >> acc[1] & 255)
+            acc[0] &= (1 << acc[1]) - 1
+
+    maxcode = (lambda w: (1 << w) - 1) if not old_style else \
+        (lambda w: 1 << w)
+    table = {bytes([i]): i for i in range(256)}
+    free, width = 258, 9
+    if not data:
+        put(256, width)
+        put(257, width)
+    else:
+        put(256, width)
+        w = data[:1]
+        for c in data[1:]:
+            wc = w + bytes([c])
+            if wc in table:
+                w = wc
+                continue
+            put(table[w], width)
+            table[wc] = free
+            free += 1
+            w = bytes([c])
+            if free == 4094:
+                put(256, width)
+                table = {bytes([i]): i for i in range(256)}
+                free, width = 258, 9
+            elif free > maxcode(width):
+                width += 1
+        put(table[w], width)
+        free += 1
+        if free == 4094:
+            put(256, width)
+            width = 9
+        elif free > maxcode(width):
+            width += 1
+        put(257, width)
+    if acc[1]:
+        out.append((acc[0] << (8 - acc[1]) if not old_style else acc[0])
+                   & 255)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 2-128 equal bytes as (257 - n, v), the rest as
+    literals of 1-128 bytes (n - 1, bytes)."""
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        n = 1
+        while i + n < len(data) and data[i + n] == data[i] and n < 128:
+            n += 1
+        if n >= 2:
+            out += bytes([257 - n, data[i]])
+            i += n
+            continue
+        j = i + 1
+        while j < len(data) and j - i < 128 and not (
+                j + 1 < len(data) and data[j] == data[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _predict(block: np.ndarray, predictor: int, spp: int) -> np.ndarray:
+    """Horizontal differencing (2) of (rows, cols, spp) integer samples, or
+    the floating-point predictor (3) of float32 ones: each row's bytes
+    split into byte planes (most significant first) and differenced as
+    bytes. Returns the block as the bytes of its rows (native order
+    applied by the caller for 2)."""
+    if predictor == 2:
+        d = block.copy()
+        d[:, 1:] = block[:, 1:] - block[:, :-1]
+        return d
+    rows, cols = block.shape[:2]
+    raw = block.astype(">f4").view(np.uint8).reshape(rows, cols * spp, 4)
+    planes = raw.transpose(0, 2, 1).reshape(rows, -1)
+    d = planes.copy()
+    d[:, spp:] = planes[:, spp:] - planes[:, :-spp]
+    return d
+
+
+def write_tiff(path: str, pixels: np.ndarray, *, photometric: int,
+               bits: Optional[int] = None, compression: int = 1,
+               predictor: int = 1, planar: int = 1,
+               rows_per_strip: Optional[int] = None,
+               tile: Optional[tuple] = None, big_endian: bool = False,
+               bigtiff: bool = False, extra: Sequence[int] = (),
+               colormap: Optional[np.ndarray] = None,
+               orientation: Optional[int] = None,
+               old_lzw: bool = False, fill_order: int = 1) -> None:
+    """A one-page TIFF of ``pixels`` (H, W, spp): uint8, uint16 or float32
+    samples, or 0/1 uint8 with ``bits`` 1. ``compression`` 1 (none), 5
+    (LZW; ``old_lzw`` its old bit order), 8 or 32946 (Deflate), 32773
+    (PackBits); ``predictor`` 2 or 3; ``planar`` 1 (contiguous) or 2;
+    strips of ``rows_per_strip`` rows or ``tile`` (width, height) tiles,
+    multiples of 16, overhanging the edge; ``extra``: ExtraSamples values;
+    ``colormap`` (3, 2^bits) uint16 for photometric 3."""
+    import zlib
+
+    if pixels.ndim == 2:
+        pixels = pixels[..., None]
+    H, W, spp = pixels.shape
+    dt = pixels.dtype
+    bits = bits or 8 * dt.itemsize
+    fmt = 3 if dt == np.float32 else 1
+    order = ">" if big_endian else "<"
+
+    def encode(block: np.ndarray) -> bytes:
+        """One strip or tile of (rows, cols, n) samples."""
+        rows, cols, n = block.shape
+        if bits == 1:
+            raw = np.packbits(block[..., 0].astype(np.uint8), axis=1)
+            if fill_order == 2:
+                raw = np.unpackbits(raw, axis=1).reshape(rows, -1, 8)[
+                    ..., ::-1]
+                raw = np.packbits(raw.reshape(rows, -1), axis=1)
+            data = raw.tobytes()
+        elif predictor == 3:
+            data = _predict(block, 3, n).tobytes()
+        else:
+            b = block
+            if predictor == 2:
+                b = _predict(block.astype(dt), 2, n)
+            data = b.astype(dt.newbyteorder(order)).tobytes()
+        if compression == 5:
+            return lzw_encode(data, old_lzw)
+        if compression in (8, 32946):
+            return zlib.compress(data)
+        if compression == 32773:
+            return packbits(data)
+        return data
+
+    chunks = []
+    planes = [pixels] if planar == 1 else [pixels[..., i:i + 1]
+                                           for i in range(spp)]
+    if tile:
+        tw, th = tile
+        for plane in planes:
+            for y in range(0, H, th):
+                for x in range(0, W, tw):
+                    blk = np.zeros((th, tw, plane.shape[2]), dt)
+                    part = plane[y:y + th, x:x + tw]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(encode(blk))
+    else:
+        rps = rows_per_strip or H
+        for plane in planes:
+            for y in range(0, H, rps):
+                chunks.append(encode(plane[y:y + rps]))
+    tags = {256: (3 if W < 65536 else 4, [W]),
+            257: (3 if H < 65536 else 4, [H]),
+            258: (3, [bits] * spp), 259: (3, [compression]),
+            262: (3, [photometric]), 277: (3, [spp]),
+            284: (3, [planar]), 339: (3, [fmt] * spp)}
+    if fill_order != 1:
+        tags[266] = (3, [fill_order])
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if extra:
+        tags[338] = (3, list(extra))
+    if colormap is not None:
+        tags[320] = (3, [int(v) for v in np.asarray(colormap).reshape(-1)])
+    if orientation is not None:
+        tags[274] = (3, [orientation])
+    long_t = 16 if bigtiff else 4
+    if tile:
+        tags[322] = (3, [tile[0]])
+        tags[323] = (3, [tile[1]])
+        off_tag, cnt_tag = 324, 325
+    else:
+        tags[278] = (4, [rows_per_strip or H])
+        off_tag, cnt_tag = 273, 279
+    tags[cnt_tag] = (long_t, [len(c) for c in chunks])
+    tags[off_tag] = (long_t, [0] * len(chunks))      # filled below
+    sizes = {3: 2, 4: 4, 16: 8}
+    header = 16 if bigtiff else 8
+    data_off = header
+    blob = bytearray()
+    offsets = []
+    for c in chunks:
+        offsets.append(data_off + len(blob))
+        blob += c
+        if len(blob) % 2:
+            blob += b"\0"
+    tags[off_tag] = (long_t, offsets)
+    ifd_off = data_off + len(blob)
+    entry = 20 if bigtiff else 12
+    inline = 8 if bigtiff else 4
+    n = len(tags)
+    ext_off = ifd_off + (8 if bigtiff else 2) + n * entry + (8 if bigtiff
+                                                             else 4)
+    ifd = bytearray(struct.pack(order + ("Q" if bigtiff else "H"), n))
+    ext = bytearray()
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        code = {3: "H", 4: "I", 16: "Q"}[typ]
+        payload = struct.pack(order + code * len(vals), *vals)
+        count = struct.pack(order + ("Q" if bigtiff else "I"), len(vals))
+        ifd += struct.pack(order + "HH", tag, typ) + count
+        if len(payload) <= inline:
+            ifd += payload + bytes(inline - len(payload))
+        else:
+            ifd += struct.pack(order + ("Q" if bigtiff else "I"),
+                               ext_off + len(ext))
+            ext += payload
+            if len(ext) % 2:
+                ext += b"\0"
+    ifd += bytes(8 if bigtiff else 4)
+    if bigtiff:
+        head = (b"MM\x00\x2b" if big_endian else b"II\x2b\x00") + \
+            struct.pack(order + "HHQ", 8, 0, ifd_off)
+    else:
+        head = (b"MM\x00\x2a" if big_endian else b"II\x2a\x00") + \
+            struct.pack(order + "I", ifd_off)
+    del sizes
+    with open(path, "wb") as f:
+        f.write(head + bytes(blob) + bytes(ifd) + bytes(ext))
+
+
+def write_cmyk_jpeg(path: str, rgb: np.ndarray, q: int = 4,
+                    ycck: bool = False) -> None:
+    """A baseline four-component JPEG of an (H, W, 3) RGB frame, as
+    Photoshop stores CMYK (an Adobe APP14 of transform 0, each ink
+    inverted): K = 255 - max(R, G, B) and C, M, Y its complements, every
+    component at full resolution, quantised by a flat table of ``q``, one
+    interleaved scan with tables of exactly its symbols. ``ycck``: an
+    Adobe transform of 2, the inverted C, M, Y stored as the JFIF YCbCr
+    of their complements (libjpeg's ycck_cmyk_convert undoes it)."""
+    rgb = np.asarray(rgb, np.int64)
+    H, W = rgb.shape[:2]
+    k = 255 - rgb.max(-1)
+    inks = [255 - (255 - rgb[..., i] - k) for i in range(3)] + [255 - k]
+    if ycck:
+        r, g, b = (255 - inks[i] for i in range(3))
+        inks[:3] = [np.clip(np.round(v), 0, 255).astype(np.int64) for v in (
+            0.299 * r + 0.587 * g + 0.114 * b,
+            128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+            128 + 0.5 * r - 0.418688 * g - 0.081312 * b)]
+    frame = jpeg.Frame(W, H, [jpeg.Component(ident, 1, 1, 0)
+                              for ident in (67, 77, 89, 75)], False)
+    lay = jpeg.layout(frame)
+    n = np.arange(8)
+    basis = np.cos((2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
+    basis *= np.where(n == 0, np.sqrt(1 / 8), np.sqrt(2 / 8))[:, None]
+    coefs = []
+    for plane in inks:
+        bh, bw = lay.blocks[0]
+        pad = np.zeros((8 * bh, 8 * bw))
+        pad[:H, :W] = plane - 128
+        pad[H:, :W] = pad[H - 1:H, :W]
+        pad[:, W:] = pad[:, W - 1:W]
+        blocks = pad.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        d = basis @ blocks @ basis.T
+        coefs.append(np.round(d / q).reshape(bh, bw, 64).astype(np.int16))
+    co = jpeg.Coefficients(frame, coefs, [np.full(64, q, np.uint16)] * 4,
+                           None, None, 1, lay.imcu_rows, 1, None,
+                           "ycck" if ycck else "cmyk")
+    out = bytearray(b"\xff\xd8")
+    out += _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0,
+                                            2 if ycck else 0]))
+    out += _dqt({0: np.full(64, q)})
+    sof = struct.pack(">BHHB", 8, H, W, 4)
+    for c in frame.comps:
+        sof += bytes([c.ident, 0x11, 0])
+    out += _segment(0xC0, sof)
+    out += _encode_scan(co, lay, Scan([0, 1, 2, 3]), False, 0, False, True)
+    with open(path, "wb") as f:
+        f.write(bytes(out + b"\xff\xd9"))

@@ -14,8 +14,8 @@ ends early), 16-bit 5-5-5 (BI_RGB and BI_BITFIELDS) and 5-6-5, 24-bit,
 32-bit with its fourth byte dropped (BI_RGB and BI_BITFIELDS), each
 bottom-up and top-down, at odd widths (row padding), and truncated files.
 Where cv2 and PIL part (5-bit fields shifted or scaled, gray palettes,
-RLE's edge cases), each reader copies its own library. TIFF, WebP, JPEG
-2000, HDR and OpenEXR still raise a ValueError naming the format.
+RLE's edge cases), each reader copies its own library. WebP, JPEG 2000
+and OpenEXR still raise a ValueError naming the format.
 """
 
 import struct
@@ -138,16 +138,13 @@ RLE_STREAMS = {
 @pytest.mark.parametrize("case", list(RLE_STREAMS))
 def test_rle_streams_at_their_edges(tmp_path, case, bits):
     """Hand-made streams of a 10 x 4 image, where cv2 and PIL part: each
-    reader holds to its own library (an RLE4 delta down a row, whose
-    reading by cv2 is not copied, raises ValueError)."""
+    reader holds to its own library (an RLE4 delta down a row, which cv2
+    reads as a skip along the rows that ignores dy, since queue 1 item
+    27)."""
     rng = np.random.RandomState(len(case))
     pal = rng.randint(0, 256, (1 << bits, 3)).astype(np.uint8)
     path = str(tmp_path / "s.bmp")
     _raw_rle(path, RLE_STREAMS[case], bits, 10, 4, pal)
-    if bits == 4 and case == "delta down a row (RLE8)":
-        with pytest.raises(ValueError, match="RLE4 BMP with a delta"):
-            td.imread(path)
-        return
     _check(path)
 
 
@@ -225,9 +222,22 @@ def test_truncated_files(tmp_path):
     ("JPEG 2000", b"\x00\x00\x00\x0cjP"), ("JPEG 2000", b"\xff\x4f\xff\x51"),
     ("HDR", b"#?RADIANCE"), ("OpenEXR", b"\x76\x2f\x31\x01")])
 def test_other_formats_still_raise_naming_them(tmp_path, name, head):
+    """The formats cv2 decodes and the port lacks raise ValueError naming
+    them. TIFF and HDR are read since slice 19: their signature and 64
+    zero bytes are no image, which the port finds as cv2 does (None);
+    ``RIFF`` alone is no WebP signature (cv2 wants ``WEBP`` and a chunk
+    after it), nor the first six bytes of JP2's twelve: each raises once
+    it has its whole signature."""
     path = str(tmp_path / "x.img")
     with open(path, "wb") as f:
         f.write(head + bytes(64))
+    if name in ("TIFF", "HDR", "WebP") or head == b"\x00\x00\x00\x0cjP":
+        assert cv2.imread(path) is None and td.imread(path) is None
+        if name in ("TIFF", "HDR"):
+            return
+        with open(path, "wb") as f:    # the whole of cv2's signature
+            f.write(head + bytes(4) + b"WEBPVP8 " + bytes(64)
+                    if name == "WebP" else head + b"  \r\n\x87\n" + bytes(64))
     with pytest.raises(ValueError, match=name):
         td.imread(path)
 
@@ -243,3 +253,73 @@ def test_committed_bmp_fixtures_read_as_cv2_and_pil():
     assert len(names) == 10
     for name in names:
         assert _check(os.path.join(root, name)) == (True, True)
+
+
+def _v3_bmp(path, px, header, masks, alpha=0):
+    """A 32-bit BI_BITFIELDS BMP of a ``header``-byte info header that
+    holds its own (red, green, blue) masks and, from 56 bytes, ``alpha``'s;
+    rows bottom-up."""
+    H, W = px.shape[:2]
+    head = struct.pack("<IiiHHIIiiII", header, W, H, 1, 32, 3, 4 * H * W,
+                       2835, 2835, 0, 0)
+    head += struct.pack("<3I", *masks)[:header - 40]
+    if header >= 56:
+        head += struct.pack("<I", alpha)
+    head += bytes(header - len(head))
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", 14 + header + px.size, 0, 0,
+                                    14 + header))
+        f.write(head + px[::-1].tobytes())
+
+
+MASKS = {"default": (0xFF0000, 0xFF00, 0xFF), "swapped": (0xFF, 0xFF00,
+                                                          0xFF0000),
+         "10-bit": (0x3FF00000, 0xFFC00, 0x3FF), "3-bit": (0xE0, 0x1C, 0x3),
+         "high": (0xFFFF0000, 0xFF00, 0xFF), "a zero": (0, 0xFF00, 0xFF),
+         "split": (0xFF00FF, 0xFF00, 0xFF0000)}
+
+
+@pytest.mark.parametrize("masks", list(MASKS))
+@pytest.mark.parametrize("header", [52, 56, 64, 108, 124])
+def test_v3_to_v5_bitfields_read_as_cv2(tmp_path, header, masks):
+    """Fault H (found by step 0 of slice 19): cv2 5.0 reads a 32-bit
+    BI_BITFIELDS file of a 56-byte or larger header by the masks in that
+    header (each field scaled to 8 bits by 255 / its maximum in float32,
+    truncated; a gray read weighs them in float32 and truncates), not as
+    the BGRA of smaller headers; a zero mask falls back to BGRA."""
+    rng = np.random.RandomState(header + len(masks))
+    px = rng.randint(0, 256, (6, 9, 4)).astype(np.uint8)
+    px[0, :2] = [[255, 255, 255, 255], [0, 0, 0, 0]]
+    path = str(tmp_path / "v.bmp")
+    _v3_bmp(path, px, header, MASKS[masks], alpha=0xFF000000)
+    assert _check(path)[0]
+
+
+def test_rle4_deltas_off_their_row(tmp_path):
+    """Queue 1 item 27: random RLE4 streams of deltas that leave their row
+    (cv2 skips dx pixels along the rows, filling palette entry 0, and
+    ignores dy), ends of line and bitmap, runs and absolute runs, against
+    cv2 and PIL."""
+    rng = np.random.RandomState(27)
+    path = str(tmp_path / "d.bmp")
+    for _ in range(120):
+        W, H = rng.randint(1, 12), rng.randint(1, 6)
+        stream = []
+        for _ in range(rng.randint(1, 12)):
+            r = rng.rand()
+            if r < 0.35:
+                stream += [int(rng.randint(1, 8)), int(rng.randint(0, 256))]
+            elif r < 0.6:
+                stream += [0, 2, int(rng.randint(0, 14)),
+                           int(rng.randint(0, 4))]
+            elif r < 0.75:
+                stream += [0, 0]
+            elif r < 0.9:
+                c = int(rng.randint(3, 8))
+                body = [int(v) for v in rng.randint(0, 256, (c + 1) // 2)]
+                stream += [0, c] + body + [0] * (len(body) % 2)
+            else:
+                stream += [0, 1]
+        pal = rng.randint(0, 256, (16, 3)).astype(np.uint8)
+        _raw_rle(path, stream + [0, 1] * int(rng.rand() < 0.7), 4, W, H, pal)
+        _check(path)

@@ -206,7 +206,9 @@ def test_exif_orientation_applied_as_cv2(tmp_path, endian):
 def test_refused_modes_raise_naming_them(tmp_path, mode, what):
     """Modes cv2 decodes and the port lacks raise ValueError naming the
     mode (the SOF marker or its precision rewritten for those cv2 does not
-    write), so that no frame is skipped silently."""
+    write), so that no frame is skipped silently. CMYK and Adobe-transformed
+    colour are read since queue 1 item 25: a CMYK file PIL wrote and a
+    file of an Adobe marker read bit-equal to cv2 instead."""
     data = bytearray(_encode(_image(16, 24, 0), cv2.IMWRITE_JPEG_QUALITY, 80,
                              *(mode if isinstance(mode, list) else [])))
     sof = data.find(b"\xff\xc0")
@@ -217,22 +219,30 @@ def test_refused_modes_raise_naming_them(tmp_path, mode, what):
     elif mode == "12bit":
         data[sof + 4] = 12
     elif mode == "cmyk":
-        data[sof + 9] = 4          # four components named; the test only
-    elif mode == "adobe":          # reads the header
+        import io
+        from PIL import Image
+        buf = io.BytesIO()
+        Image.fromarray(np.dstack([_image(16, 24, 0), _image(16, 24, 1)[
+            ..., :1]]), "CMYK").save(buf, "JPEG", quality=80)
+        data = bytearray(buf.getvalue())
+    elif mode == "adobe":
         body = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])
         data[2:2] = b"\xff\xee" + struct.pack(">H", len(body) + 2) + body
     path = _write(str(tmp_path / "r.jpg"), bytes(data))
+    if mode in ("cmyk", "adobe"):
+        assert cv2.imread(path) is not None
+        _check(path)
+        return
     with pytest.raises(ValueError, match=what):
         td.imread(path, td.IMREAD_COLOR)
-    if isinstance(mode, list) or mode == "adobe":
-        assert cv2.imread(path) is not None
 
 
 def test_format_follows_the_signature(tmp_path):
     """The format follows the signature, not the extension: a ``.jpg``
     holding PNG bytes reads as the PNG, a ``.png`` holding JPEG bytes as
-    the JPEG, one holding BMP bytes as the BMP, and another format cv2
-    decodes (TIFF) raises, as cv2 reads them all."""
+    the JPEG, one holding BMP bytes as the BMP, one holding TIFF bytes as
+    the TIFF, and a format cv2 decodes and the port lacks (WebP) raises,
+    as cv2 reads them all."""
     img = _image(16, 16, 0)
     path = str(tmp_path / "0000000000.jpg")
     cv2.imwrite(path, img)
@@ -252,8 +262,13 @@ def test_format_follows_the_signature(tmp_path):
     cv2.imwrite(str(tmp_path / "t.tiff"), img)
     shutil.copy(str(tmp_path / "t.tiff"), tiff)
     assert cv2.imread(tiff) is not None
-    with pytest.raises(ValueError, match="TIFF"):
-        td.imread(tiff)
+    _check(tiff)
+    webp = str(tmp_path / "w.png")
+    assert cv2.imwrite(str(tmp_path / "w.webp"), img)
+    shutil.copy(str(tmp_path / "w.webp"), webp)
+    assert cv2.imread(webp) is not None
+    with pytest.raises(ValueError, match="WebP"):
+        td.imread(webp)
 
 
 def test_cpp_steps_equal_plain_full_frame():

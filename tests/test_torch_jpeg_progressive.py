@@ -298,7 +298,10 @@ def test_cpp_steps_equal_plain_on_every_kind():
 def test_modes_still_refused_name_themselves(tmp_path, what):
     """Valid files of the modes the port lacks (the SOF marker or its
     fields rewritten where cv2 does not write them) raise ValueError naming
-    the mode; none is taken for a corrupt file."""
+    the mode; none is taken for a corrupt file. YCCK and Adobe-transformed
+    colour are read since queue 1 item 25: a progressive CMYK file PIL
+    wrote, its Adobe transform set to 2 (YCCK), and a progressive file of
+    an Adobe marker of transform 2 read as cv2 and PIL read them."""
     data = bytearray(_progressive(_image(16, 24, 0),
                                   cv2.IMWRITE_JPEG_QUALITY, 80))
     sof = data.find(b"\xff\xc2")
@@ -312,11 +315,20 @@ def test_modes_still_refused_name_themselves(tmp_path, what):
     elif what == "12-bit":
         data[sof + 4] = 12
     elif what == "YCCK":
-        data[sof + 9] = 4
-        match = "CMYK/YCCK"
+        import io
+        buf = io.BytesIO()
+        Image.fromarray(np.dstack([_image(16, 24, 0), _image(16, 24, 1)[
+            ..., :1]]), "CMYK").save(buf, "JPEG", quality=80,
+                                     progressive=True)
+        data = bytearray(buf.getvalue())
+        data[data.find(b"\xff\xeeAdobe"[:4]) + 15] = 2
     elif what == "Adobe":
         body = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 2])
         data[2:2] = b"\xff\xee" + bytes([0, len(body) + 2]) + body
+    if what in ("YCCK", "Adobe"):
+        assert cv2.imread(_check_path(tmp_path, data)) is not None
+        _check(str(tmp_path / "r.jpg"), bytes(data))
+        return
     path = str(tmp_path / "r.jpg")
     with open(path, "wb") as f:
         f.write(bytes(data))
@@ -325,6 +337,13 @@ def test_modes_still_refused_name_themselves(tmp_path, what):
     assert not isinstance(e.value, jpeg.CorruptJpeg)
     with pytest.raises(ValueError, match=match):
         td.read_rgb_pil(path)
+
+
+def _check_path(tmp_path, data):
+    path = str(tmp_path / "r.jpg")
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+    return path
 
 
 def test_committed_fixtures_read_as_cv2_and_pil():
@@ -359,3 +378,105 @@ def test_committed_fixtures_read_as_cv2_and_pil():
     sizes = [os.path.getsize(os.path.join(d, f))
              for d, _, fs in os.walk(data) for f in fs]
     assert sum(sizes) < 2 << 20
+
+
+@pytest.mark.parametrize("transform", ["none", 0, 1, 2, 7],
+                         ids=lambda t: f"adobe{t}")
+@pytest.mark.parametrize("layout", ["444", "420 progressive", "422",
+                                    "411 progressive"])
+def test_four_component_jpegs_as_cv2_and_pil(tmp_path, layout, transform):
+    """Queue 1 item 25: four-component JPEGs PIL writes, their Adobe
+    transform as given (none or 0: CMYK; 2 and the unknown 1 and 7: YCCK,
+    libjpeg's ycck_cmyk_convert). cv2 takes the inks for Adobe's inverted
+    ones (grfmt_jpeg.cpp's CMYK -> BGR and -> gray), PIL inverts them on
+    open ("CMYK;I") and converts (cmyk2rgb); cut files too. The C++ steps
+    equal the plain ones."""
+    import io
+    import struct
+
+    rng = np.random.RandomState(len(layout) + len(str(transform)))
+    sub = {"444": 0, "420 progressive": 2, "422": 1,
+           "411 progressive": 2}[layout]
+    for H, W in ((1, 1), (16, 16), (23, 37), (40, 9)):
+        ink = rng.randint(0, 256, (H, W, 4)).astype(np.uint8)
+        ink[::2] = ink[:1]
+        buf = io.BytesIO()
+        Image.fromarray(ink, "CMYK").save(
+            buf, "JPEG", quality=int(rng.choice([30, 90, 100])),
+            subsampling=sub, progressive="progressive" in layout)
+        data = bytearray(buf.getvalue())
+        at = data.find(b"\xff\xee")
+        if transform == "none":
+            n = struct.unpack(">H", data[at + 2:at + 4])[0]
+            data = data[:at] + data[at + 2 + n:]
+        else:
+            data[at + 15] = transform
+        path = str(tmp_path / "c.jpg")
+        _check(path, bytes(data))
+        for gray in (False, True):
+            np.testing.assert_array_equal(
+                jpeg.decode_jpeg(bytes(data), gray=gray),
+                jpeg.decode_jpeg(bytes(data), gray=gray, plain=True))
+        _check(path, bytes(data[:len(data) * 2 // 3]))
+
+
+@pytest.mark.parametrize("marker", ["adobe0", "adobe0 after JFIF",
+                                    "adobe1", "adobe2", "ids RGB",
+                                    "ids RGB with JFIF", "ids other"])
+def test_rgb_coded_three_component_jpegs(tmp_path, marker):
+    """libjpeg's colour space of three components: JFIF means YCbCr,
+    else Adobe transform 0 RGB (1 and others YCbCr), else component ids
+    82, 71, 66 RGB; an RGB file's gray read is libjpeg's rgb_gray_convert
+    (16-bit weights)."""
+    import struct
+
+    img = _image(27, 35, 4)
+    for samp in (0x111111, 0x221111):
+        data = _progressive(img, cv2.IMWRITE_JPEG_QUALITY, 90,
+                            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, samp)
+        app0 = data.find(b"\xff\xe0")
+        n = struct.unpack(">H", data[app0 + 2:app0 + 4])[0]
+        bare = data[:app0] + data[app0 + 2 + n:]
+        base = data if "JFIF" in marker else bare
+        if marker.startswith("adobe"):
+            body = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, int(marker[5])])
+            base = base[:2] + b"\xff\xee" + struct.pack(
+                ">H", len(body) + 2) + body + base[2:]
+        else:
+            ids = b"RGB" if "RGB" in marker else b"\x07\x08\x09"
+            out = bytearray(base)
+            sof = out.find(b"\xff\xc2")
+            for k in range(3):
+                out[sof + 10 + 3 * k] = ids[k]
+            at = 0
+            while True:
+                at = out.find(b"\xff\xda", at + 2)
+                if at < 0:
+                    break
+                for k in range(out[at + 4]):
+                    out[at + 5 + 2 * k] = ids[out[at + 5 + 2 * k] - 1]
+            base = bytes(out)
+        _check(str(tmp_path / "r.jpg"), base)
+        for gray in (False, True):
+            np.testing.assert_array_equal(
+                jpeg.decode_jpeg(base, gray=gray),
+                jpeg.decode_jpeg(base, gray=gray, plain=True))
+
+
+def test_cmyk_and_ycck_jpegs_of_the_test_encoder(tmp_path):
+    """``tests/image_encoders.write_cmyk_jpeg``'s CMYK and YCCK files
+    (the YCCK file's C, M, Y stored as YCbCr) read as cv2 and PIL read
+    them."""
+    from tests.image_encoders import write_cmyk_jpeg
+
+    rng = np.random.RandomState(25)
+    for H, W in ((8, 8), (19, 27)):
+        rgb = rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+        for ycck in (False, True):
+            path = str(tmp_path / "e.jpg")
+            write_cmyk_jpeg(path, rgb, ycck=ycck)
+            with open(path, "rb") as f:
+                data = f.read()
+            _check(path, data)
+            assert jpeg.read_coefficients(data).space == (
+                "ycck" if ycck else "cmyk")

@@ -46,10 +46,11 @@ need = {"vido_slam_tpu_torch." + m
                   "data.mono_dataset", "data.kitti_utils", "data.coco_eval",
                   "parallel.eval", "parallel.slam_eval", "parallel.mesh",
                   "parallel.dryrun", "infer_nets", "make_viz_assets",
-                  "native_system", "io.native")}
+                  "native_system", "io.native", "io.pxm", "io.tiff",
+                  "io.hdr", "io.sunras")}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 91 else 0)
+sys.exit(1 if bad or missing or len(names) < 95 else 0)
 """
 
 

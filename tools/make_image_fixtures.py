@@ -25,7 +25,21 @@ and ``io.bmp`` to these committed digests.
         45 x 61 BMPs of each layout (tests/image_encoders.write_bmp): 1-,
         4- and 8-bit palettes, RLE4, RLE8, 16-bit 5-5-5 and 5-6-5, 24-bit,
         32-bit, a top-down 24-bit file; the digests of cv2's colour and gray
-        reads and of PIL's RGB, as above.
+        reads and of PIL's RGB, as above;
+  tests/data/<format>/<name>.<ext> and tests/data/<format>.npz, for the
+  formats pxm, tiff, hdr, sunras and cmyk (``FORMATS``)
+        45 x 61 files of each layout those readers take: PBM, PGM and PPM
+        in ASCII and binary at 8 and 16 bits and an odd maxval, PAM (gray,
+        RGB, 16-bit RGB, black-and-white), PFM (gray and colour); TIFF
+        (strips, tiles, planar 2, BigTIFF, both byte orders, no
+        compression, LZW of both bit orders, Deflate, PackBits, both
+        predictors; 1-, 8- and 16-bit gray, float, RGB, RGBA, a palette);
+        Radiance HDR run-length and flat; Sun raster of depths 1, 8, 24
+        and 32, a colour map, byte encoding, type 3; CMYK, YCCK and
+        Adobe-RGB JPEGs; the digests ("digest", or "None" where cv2 gives
+        None) of cv2.imread with IMREAD_COLOR ("<name>"), IMREAD_GRAYSCALE
+        ("<name>_gray") and IMREAD_ANYDEPTH ("<name>_any"), and of PIL's
+        RGB ("<name>_pil"; absent where PIL raises).
 
 Run from the repository root: ``python tools/make_image_fixtures.py``.
 """
@@ -44,7 +58,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from tests.image_encoders import (Scan, drop_segments,  # noqa: E402
-                                  reencode_jpeg, write_bmp)
+                                  reencode_jpeg, write_bmp, write_hdr,
+                                  write_sunras, write_tiff)
 from tools.make_jpeg_fixtures import textured  # noqa: E402
 
 OUT = os.path.join(ROOT, "tests", "data")
@@ -122,10 +137,204 @@ def bmp_files(tmp: str) -> dict:
     return out
 
 
-def digest(img: np.ndarray) -> str:
-    """An image's shape and the SHA-256 of its bytes, "h,w[,c]:<hex>"."""
+def digest(img) -> str:
+    """An image's shape and the SHA-256 of its bytes, "h,w[,c]:<hex>"
+    ("None" for no image)."""
+    if img is None:
+        return "None"
     return ",".join(map(str, img.shape)) + ":" + hashlib.sha256(
         np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def pxm_files() -> dict:
+    """PBM, PGM, PPM, PAM and PFM files (name -> (extension, bytes))."""
+    rng = np.random.RandomState(40)
+    H, W = SIZE
+    bgr = textured(H, W, 41)
+    gray = bgr[..., 1]
+    deep = (gray.astype(np.uint16) * 257 + rng.randint(0, 257, (H, W))
+            ).astype(np.uint16)
+    bits = (gray > 128).astype(np.uint8)
+    out = {}
+
+    def head(kind, maxval=None):
+        return b"P%d\n# fixture\n%d %d\n" % (kind, W, H) + (
+            b"%d\n" % maxval if maxval is not None else b"")
+    ascii_rows = lambda a: b"\n".join(  # noqa: E731
+        b" ".join(b"%d" % v for v in row) for row in a.reshape(H, -1)) + b"\n"
+    out["p1_ascii"] = (".pbm", head(1) + ascii_rows(bits))
+    out["p4"] = (".pbm", head(4) + np.packbits(bits, axis=1).tobytes())
+    out["p2_ascii_max1000"] = (".pgm", head(2, 1000)
+                               + ascii_rows(deep % 1100))
+    out["p5_8"] = (".pgm", head(5, 255) + gray.tobytes())
+    out["p5_16"] = (".pgm", head(5, 65535) + deep.astype(">u2").tobytes())
+    out["p5_max4095"] = (".pgm", head(5, 4095)
+                         + (deep >> 4).astype(">u2").tobytes())
+    out["p5_max100"] = (".pgm", head(5, 100) + (gray % 101).tobytes())
+    out["p3_ascii"] = (".ppm", head(3, 255) + ascii_rows(bgr[..., ::-1]))
+    out["p6_8"] = (".ppm", head(6, 255) + bgr[..., ::-1].tobytes())
+    rgb16 = bgr[..., ::-1].astype(np.uint16) * 257
+    out["p6_16"] = (".ppm", head(6, 65535) + rgb16.astype(">u2").tobytes())
+    pam = (("pam_grayscale", gray, cv2.IMWRITE_PAM_FORMAT_GRAYSCALE),
+           ("pam_rgb", bgr, cv2.IMWRITE_PAM_FORMAT_RGB),
+           ("pam_rgb16", bgr.astype(np.uint16) * 257,
+            cv2.IMWRITE_PAM_FORMAT_RGB),
+           ("pam_bw", bits, cv2.IMWRITE_PAM_FORMAT_BLACKANDWHITE))
+    for name, img, kind in pam:
+        ok, enc = cv2.imencode(".pam", img, [cv2.IMWRITE_PAM_TUPLETYPE, kind])
+        assert ok
+        out[name] = (".pam", enc.tobytes())
+    f = (bgr.astype(np.float32) - 100) / 37
+    for name, img in (("pf_mono", f[..., 0]), ("pf_rgb", f)):
+        ok, enc = cv2.imencode(".pfm", img)
+        assert ok
+        out[name] = (".pfm", enc.tobytes())
+    return out
+
+
+def tiff_files(tmp: str) -> dict:
+    """TIFF layouts (tests/image_encoders.write_tiff)."""
+    rng = np.random.RandomState(50)
+    H, W = SIZE
+    bgr = textured(H, W, 51)
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    deep = (bgr[..., 1].astype(np.uint16) * 257 + rng.randint(0, 257, (H, W))
+            ).astype(np.uint16)
+    depth = (deep.astype(np.float32) / 1000).astype(np.float32)
+    alpha = rng.randint(0, 256, (H, W, 1)).astype(np.uint8)
+    cmap = rng.randint(0, 65536, (3, 256)).astype(np.uint16)
+    layouts = {
+        "g8_lzw": (bgr[..., 1], dict(photometric=1, compression=5)),
+        "g8_white_packbits": (bgr[..., 1], dict(photometric=0,
+                                                compression=32773)),
+        "g1": (bgr[..., 1] > 128, dict(photometric=1, bits=1)),
+        "g16_deflate_pred2": (deep, dict(photometric=1, compression=8,
+                                         predictor=2, rows_per_strip=8)),
+        "g16_be_lzw": (deep, dict(photometric=1, compression=5,
+                                  big_endian=True)),
+        "g16_bigtiff": (deep, dict(photometric=1, compression=32946,
+                                   bigtiff=True)),
+        "f32_pred3": (depth, dict(photometric=1, compression=8, predictor=3)),
+        "f32_be_tiles": (depth, dict(photometric=1, big_endian=True,
+                                     tile=(32, 16))),
+        "rgb8_lzw_old": (rgb, dict(photometric=2, compression=5,
+                                   old_lzw=True, rows_per_strip=10)),
+        "rgb8_planar2": (rgb, dict(photometric=2, planar=2,
+                                   compression=32773)),
+        "rgb8_tiles": (rgb, dict(photometric=2, compression=8,
+                                 tile=(16, 32))),
+        "rgb16_lzw_pred2": (rgb.astype(np.uint16) * 257 + 3,
+                            dict(photometric=2, compression=5, predictor=2)),
+        "rgba8_unassoc": (np.concatenate([rgb, alpha], -1),
+                          dict(photometric=2, extra=(2,))),
+        "pal8": (bgr[..., 2], dict(photometric=3, colormap=cmap,
+                                   compression=5)),
+        "g8_flipped": (bgr[..., 0], dict(photometric=1, orientation=3)),
+    }
+    out = {}
+    for name, (px, kw) in layouts.items():
+        path = os.path.join(tmp, name + ".tif")
+        write_tiff(path, np.asarray(px).astype(
+            np.uint8 if px.dtype == bool else px.dtype), **kw)
+        with open(path, "rb") as f:
+            out[name] = (".tif", f.read())
+    return out
+
+
+def hdr_files(tmp: str) -> dict:
+    rng = np.random.RandomState(60)
+    H, W = SIZE
+    rgbe = rng.randint(0, 256, (H, W, 4)).astype(np.uint8)
+    rgbe[..., 3] = rng.randint(120, 140, (H, W))
+    rgbe[:, ::3] = rgbe[:, :1]
+    out = {}
+    f = textured(H, W, 61).astype(np.float32) / 97
+    ok, enc = cv2.imencode(".hdr", f)
+    assert ok
+    out["cv2_rle"] = (".hdr", enc.tobytes())
+    for name, rle in (("rle", True), ("flat", False)):
+        path = os.path.join(tmp, name + ".hdr")
+        write_hdr(path, rgbe, rle=rle, header=b"#?RADIANCE\nEXPOSURE=1.0\n")
+        with open(path, "rb") as fh:
+            out[name] = (".hdr", fh.read())
+    return out
+
+
+def sunras_files(tmp: str) -> dict:
+    rng = np.random.RandomState(70)
+    H, W = SIZE
+    bgr = textured(H, W, 71)
+    idx = bgr[..., 1]
+    pal = rng.randint(0, 256, (200, 3)).astype(np.uint8)
+    layouts = {
+        "d8_map": (idx, 8, dict(palette=pal)),
+        "d8_nomap": (idx, 8, {}),
+        "d1": (idx > 128, 1, {}),
+        "d24": (bgr, 24, {}),
+        "d24_rgb": (bgr[..., ::-1], 24, dict(rgb=True)),
+        "d32": (np.concatenate([bgr[..., :1], bgr], -1), 32, {}),
+        "d8_rle": (np.repeat(idx[:, ::4], 4, 1)[:, :W], 8,
+                   dict(palette=pal, rle=True)),
+    }
+    out = {}
+    for name, (px, depth, kw) in layouts.items():
+        path = os.path.join(tmp, name + ".ras")
+        write_sunras(path, np.asarray(px).astype(np.uint8), depth, **kw)
+        with open(path, "rb") as f:
+            out[name] = (".ras", f.read())
+    return out
+
+
+def cmyk_files() -> dict:
+    import io
+    import struct
+
+    H, W = SIZE
+    ink = np.dstack([textured(H, W, 80), textured(H, W, 81)[..., :1]])
+    out = {}
+    for name, kw in (("cmyk", {}), ("cmyk_420_progressive",
+                                    dict(subsampling=2, progressive=True))):
+        buf = io.BytesIO()
+        Image.fromarray(ink, "CMYK").save(buf, "JPEG", quality=90, **kw)
+        out[name] = (".jpg", buf.getvalue())
+    data = bytearray(out["cmyk"][1])
+    data[data.find(b"\xff\xee") + 15] = 2
+    out["ycck"] = (".jpg", bytes(data))
+    app14 = data.find(b"\xff\xee")
+    out["cmyk_no_adobe"] = (".jpg", bytes(data[:app14] + data[app14 + 16:]))
+    base = _encode(textured(H, W, 82), [cv2.IMWRITE_JPEG_QUALITY, 90])
+    app0 = base.find(b"\xff\xe0")
+    n = struct.unpack(">H", base[app0 + 2:app0 + 4])[0]
+    body = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])
+    out["adobe_rgb"] = (".jpg", base[:2] + b"\xff\xee" + struct.pack(
+        ">H", len(body) + 2) + body + base[app0 + 2 + n:])
+    return out
+
+
+def format_references(files: dict, tmp: str) -> dict:
+    """The digests of cv2's three reads and of PIL's RGB of each file."""
+    arrays = {}
+    for name, (ext, data) in files.items():
+        path = os.path.join(tmp, name + ext)
+        with open(path, "wb") as f:
+            f.write(data)
+        arrays[name] = digest(cv2.imread(path, cv2.IMREAD_COLOR))
+        arrays[name + "_gray"] = digest(cv2.imread(path,
+                                                   cv2.IMREAD_GRAYSCALE))
+        arrays[name + "_any"] = digest(cv2.imread(path,
+                                                  cv2.IMREAD_ANYDEPTH))
+        try:
+            arrays[name + "_pil"] = digest(np.asarray(Image.open(path)
+                                                      .convert("RGB")))
+        except (OSError, ValueError, SyntaxError):
+            pass
+    return {k: np.array(v) for k, v in arrays.items()}
+
+
+# the formats of slice 19: directory under tests/data -> its files
+FORMATS = {"pxm": lambda tmp: pxm_files(), "tiff": tiff_files,
+           "hdr": hdr_files, "sunras": sunras_files,
+           "cmyk": lambda tmp: cmyk_files()}
 
 
 def references(files: dict, tmp: str, ext: str) -> dict:
@@ -168,6 +377,15 @@ def main() -> None:
         write(os.path.join(OUT, "bmp"), bmps, ".bmp")
         np.savez_compressed(os.path.join(OUT, "bmp.npz"),
                             **references(bmps, tmp, ".bmp"))
+        for fmt, make in FORMATS.items():
+            files = make(tmp)
+            directory = os.path.join(OUT, fmt)
+            os.makedirs(directory, exist_ok=True)
+            for name, (ext, data) in files.items():
+                with open(os.path.join(directory, name + ext), "wb") as f:
+                    f.write(data)
+            np.savez_compressed(os.path.join(OUT, fmt + ".npz"),
+                                **format_references(files, tmp))
     kitti = os.path.join(OUT, "progressive", "kitti")
     os.makedirs(kitti, exist_ok=True)
     digests = []
@@ -180,9 +398,11 @@ def main() -> None:
         digests.append(hashlib.sha256(dec.tobytes()).hexdigest())
     np.savez_compressed(os.path.join(OUT, "progressive", "kitti.npz"),
                         sha256=np.array(digests))
-    paths = [os.path.join(d, f) for sub in ("progressive", "bmp")
+    subs = ("progressive", "bmp") + tuple(FORMATS)
+    paths = [os.path.join(d, f) for sub in subs
              for d, _, fs in os.walk(os.path.join(OUT, sub)) for f in fs]
-    total = sum(map(os.path.getsize, paths + [os.path.join(OUT, "bmp.npz")]))
+    total = sum(map(os.path.getsize, paths + [
+        os.path.join(OUT, s + ".npz") for s in ("bmp",) + tuple(FORMATS)]))
     print(f"fixtures written under {OUT}: {total} bytes")
 
 

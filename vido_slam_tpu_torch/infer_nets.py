@@ -10,9 +10,13 @@ test_simple.py and flow_net run.py ``__main__``):
       --family fbnet|retinanet|maskrcnn --image <file|synthetic> --out <dir>
 
 Each takes ``--device`` (``cuda`` unless given ``cpu``). Images are read
-as PIL's ``convert("RGB")`` reads them (``io/datasets.read_rgb_pil``: PNG
-and JPEG) and resized by PIL's LANCZOS (``data/image_ops.
-resize_lanczos_u8``), to [0, 1].
+as PIL's ``convert("RGB")`` reads them (``io/datasets.read_rgb_pil``: PNG,
+JPEG (CMYK and YCCK too), BMP, PBM/PGM/PPM, ``Pf`` PFM, TIFF and Sun
+raster, told by their signature) and resized by PIL's LANCZOS
+(``data/image_ops.resize_lanczos_u8``), to [0, 1]. ``depth --images
+<dir>`` takes the files the JAX CLI globs there (``.png``, ``.jpg``,
+``.jpeg``, ``.bmp``, whatever their bytes); a single file of any of these
+formats may be named directly.
 
 Outputs, as the JAX CLI writes them: depth -> ``<name>_disp.npy`` (the
 scaled disparity at the image's own size) and ``<name>_disp.png``

@@ -45,8 +45,28 @@ CR, CG = int(0.299 * (1 << 14) + 0.5), int(0.587 * (1 << 14) + 0.5)
 CB = (1 << 14) - CR - CG
 
 
+# loadsave.cpp::validateInputImageSize, which cv2.imread holds on every
+# format once the decoder has read the header and before it reads a sample
+CV2_MAX_SIDE = 1 << 20
+CV2_MAX_PIXELS = 1 << 30
+
+
 class CorruptBmp(ValueError):
     """The bytes are no BMP the reader decodes."""
+
+
+class ImageTooLarge(ValueError):
+    """A header past cv2.imread's size limits: cv2 raises there (a
+    ``cv2.error``, not None), and so does the port."""
+
+
+def check_cv2_size(W: int, H: int) -> None:
+    """Raises ImageTooLarge where ``cv2.imread`` would: a side over
+    ``CV2_MAX_SIDE`` or more than ``CV2_MAX_PIXELS`` pixels."""
+    if W > CV2_MAX_SIDE or H > CV2_MAX_SIDE or W * H > CV2_MAX_PIXELS:
+        raise ImageTooLarge(f"a {W} x {H} image is past cv2.imread's limits "
+                            f"(sides {CV2_MAX_SIDE}, {CV2_MAX_PIXELS} "
+                            f"pixels)")
 
 
 class _Stream:
@@ -74,10 +94,11 @@ class _Stream:
 
 
 def to_gray(bgr: np.ndarray) -> np.ndarray:
-    """cv2's icvCvt_BGR2Gray_8u_C3C1R on (..., 3) BGR samples."""
+    """cv2's icvCvt_BGR2Gray_8u_C3C1R (and its 16-bit twin) on (..., 3)
+    BGR samples, in their own width."""
     v = bgr.astype(np.int64)
     return ((v[..., 0] * CB + v[..., 1] * CG + v[..., 2] * CR + (1 << 13))
-            >> 14).astype(np.uint8)
+            >> 14).astype(bgr.dtype)
 
 
 def _unpack(rows: np.ndarray, bits: int, W: int) -> np.ndarray:
@@ -124,6 +145,7 @@ def _read_cv2(data: bytes, color: bool) -> np.ndarray:
     if size <= 0:
         raise CorruptBmp("BMP header size")
     palette = np.zeros((256, 3), np.uint8)   # BGR; entries unread stay 0
+    bitfields = None
     if size >= 36:
         W, H = s.i32(), s.i32()
         bpp = s.i32() >> 16
@@ -132,7 +154,12 @@ def _read_cv2(data: bytes, color: bool) -> np.ndarray:
             raise CorruptBmp("BMP compression")
         s.take(12)
         used = s.i32()
-        s.take(size - 36)
+        head = s.take(size - 36)
+        if size >= 56 and bpp == 32 and rle == 3:
+            # a V3-V5 header's own masks, which cv2 5.0 reads (fault H)
+            masks = struct.unpack_from("<4I", head, 4)
+            if all(masks[:3]):
+                bitfields = masks
         ok = W > 0 and H != 0 and (
             bpp in (1, 4, 8, 24, 32) and rle == 0
             or bpp in (16, 32) and rle in (0, 3)
@@ -166,6 +193,7 @@ def _read_cv2(data: bytes, color: bool) -> np.ndarray:
         raise CorruptBmp("BMP header size")
     bottom_up = H > 0
     H = abs(H)
+    check_cv2_size(W, H)
     if offset < 0:
         raise CorruptBmp("BMP offset")
     if H * W * (3 if color else 1) >= 1 << 30:
@@ -189,12 +217,38 @@ def _read_cv2(data: bytes, color: bool) -> np.ndarray:
             bgr = [(t << 3) & 0xF8, (t >> 3) & 0xFC, (t >> 8) & 0xF8]
         img = np.stack(bgr, -1).astype(np.uint8)
         img = img if color else to_gray(img)
+    elif bitfields is not None:
+        img = _bitfields_cv2(rows[:, :4 * W].copy().view("<u4")[..., :W],
+                             bitfields, color)
     else:
         n = bpp // 8
         px = rows[:, :n * W].reshape(H, W, n)[..., :3]
         img = px if color else to_gray(px)
     img = img[::-1] if bottom_up else img
     return np.ascontiguousarray(img)
+
+
+def _bitfields_cv2(words: np.ndarray, masks: tuple,
+                   color: bool) -> np.ndarray:
+    """cv2 5.0's 32-bit BI_BITFIELDS pixels of a V3-V5 header: each field
+    (v & mask) >> shift scaled to 8 bits by 255 / (mask >> shift) in
+    float32, truncated;
+    a gray read weighs them in float32 (0.299 R + 0.587 G + 0.114 B,
+    truncated), not by the fixed-point weights of its other reads."""
+    w = words.astype(np.int64)
+    chans = []
+    for m in masks[2::-1]:                       # B, G, R
+        shift = (m & -m).bit_length() - 1
+        scale = np.float32(255) / np.float32(m >> shift)
+        v = ((w & m) >> shift).astype(np.float32)
+        chans.append(np.floor(v * scale).astype(np.int64))
+    bgr = np.stack(chans, -1)
+    if color:
+        return bgr.astype(np.uint8)
+    f = bgr.astype(np.float32)
+    g = (np.float32(0.299) * f[..., 2] + np.float32(0.587) * f[..., 1]
+         + np.float32(0.114) * f[..., 0])
+    return np.floor(g).astype(np.uint8)
 
 
 def _rle_cv2(data: bytes, offset: int, W: int, H: int, pal: np.ndarray,
@@ -257,12 +311,9 @@ def _rle_cv2(data: bytes, offset: int, W: int, H: int, pal: np.ndarray,
             if four or code or not line_end_flag or x_shift < W:
                 if code == 2:
                     x_shift, y_shift = s.u8(), s.u8()
-                    if four and (y_shift or d + x_shift > state["line_end"]):
-                        raise ValueError(
-                            "an RLE4 BMP with a delta off its row is not "
-                            "supported (cv2's reading of it is not copied)")
-                if code and not four:    # RLE4's end of bitmap ends the row
-                    x_shift += y_shift * W   # (its delta stays on it)
+                if code and not four:    # RLE4's end of bitmap ends the row;
+                    x_shift += y_shift * W   # its delta skips dx pixels and
+                    # ignores dy (cv2 computes the rows and drops them)
                 if not four and state["y"] >= H:
                     break
                 fill(x_shift, pal[0])

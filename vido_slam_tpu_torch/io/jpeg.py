@@ -52,6 +52,7 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 
+from vido_slam_tpu_torch.io.bmp import check_cv2_size
 from vido_slam_tpu_torch.utils import host_build
 
 SIGNATURE = b"\xff\xd8"
@@ -62,6 +63,9 @@ ZIGZAG = np.array([
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+# jmorecfg.h: the longest side libjpeg decodes (JERR_IMAGE_TOO_BIG)
+JPEG_MAX_DIMENSION = 65500
 
 # SOF markers this decoder refuses though libjpeg-turbo decodes them
 REFUSED_SOF = {0xC3: "lossless (SOF3)", 0xC9: "arithmetic-coded (SOF9)",
@@ -278,6 +282,8 @@ class Coefficients(NamedTuple):
     orientation: int
     broken: Optional[str]        # a libjpeg error after the image (in
                                  # jpeg_finish_decompress)
+    space: str = "ycc"           # libjpeg's jpeg_color_space: gray, ycc,
+                                 # rgb, cmyk or ycck
 
 
 class Layout(NamedTuple):
@@ -321,9 +327,7 @@ def _frame(m: int, body: bytes) -> Frame:
         raise ValueError(f"{prec}-bit JPEG is not supported (8-bit only)")
     if height == 0 or width == 0 or nf == 0:
         raise CorruptJpeg("JPEG frame is empty")
-    if nf == 4:
-        raise ValueError("CMYK/YCCK JPEG is not supported")
-    if nf not in (1, 3):
+    if nf not in (1, 3, 4):
         raise ValueError(f"JPEG of {nf} components is not supported")
     if len(body) != 6 + 3 * nf:
         raise CorruptJpeg("JPEG SOF has a bad length")
@@ -444,7 +448,8 @@ def read_coefficients(data: bytes, strict: bool = False) -> Coefficients:
     up to the first scan, then each scan and the markers between scans up
     to EOI (a file of one scan holding every component ends with it).
     ``strict``: where the file ends before libjpeg is done with it,
-    TruncatedJpeg, as PIL's suspending reader."""
+    TruncatedJpeg, as PIL's suspending reader; else ``cv2.imread``'s size
+    limits hold (``bmp.ImageTooLarge``)."""
     frame, orientation = None, 1
     tables = _Tables()
     jfif = adobe = None
@@ -460,7 +465,7 @@ def read_coefficients(data: bytes, strict: bool = False) -> Coefficients:
                 raise CorruptJpeg(f"JPEG SOF {m:#04x} is not supported by "
                                   f"libjpeg")
             frame = _frame(m, body)
-        elif m == 0xE0 and body[:5] == b"JFIF\x00":
+        elif m == 0xE0 and body[:5] == b"JFIF\x00" and len(body) >= 14:
             jfif = True
         elif m == 0xE1 and orientation == 1:
             orientation = _exif_orientation(body)
@@ -472,14 +477,13 @@ def read_coefficients(data: bytes, strict: bool = False) -> Coefficients:
             if frame is None:
                 raise CorruptJpeg("JPEG scan before its frame header")
             first = (body, end)
+    if frame.width > JPEG_MAX_DIMENSION or frame.height > JPEG_MAX_DIMENSION:
+        raise CorruptJpeg("JPEG image is larger than libjpeg's "
+                          f"{JPEG_MAX_DIMENSION} pixels a side")
+    if not strict:
+        check_cv2_size(frame.width, frame.height)
     comps = frame.comps
-    if len(comps) == 3:
-        ids = [c.ident for c in comps]
-        if adobe is not None and adobe != 1:
-            raise ValueError(f"Adobe-transformed JPEG (transform {adobe}) "
-                             f"is not supported")
-        if adobe is None and not jfif and ids == [82, 71, 66]:
-            raise ValueError("RGB-coded JPEG is not supported")
+    space = color_space([c.ident for c in comps], jfif, adobe)
     if not frame.progressive:
         tables.standard()
     lay = layout(frame)
@@ -529,7 +533,22 @@ def read_coefficients(data: bytes, strict: bool = False) -> Coefficients:
     quant = [q if q is not None else np.zeros(64, np.uint16)
              for q in latched]
     return Coefficients(frame, coefs, quant, bits, prev, scans, last_good,
-                        orientation, broken)
+                        orientation, broken, space)
+
+
+def color_space(ids: list, jfif: bool, adobe: Optional[int]) -> str:
+    """libjpeg's ``default_decompress_parms``: the colour space of a frame
+    of these component ids after a JFIF APP0 (``jfif``) and an Adobe APP14
+    of transform ``adobe`` (None: no such marker)."""
+    if len(ids) == 1:
+        return "gray"
+    if len(ids) == 4:
+        return "cmyk" if adobe in (None, 0) else "ycck"
+    if jfif:
+        return "ycc"
+    if adobe is not None:
+        return "rgb" if adobe == 0 else "ycc"
+    return "rgb" if ids == [82, 71, 66] else "ycc"
 
 
 def _table_marker(tables: _Tables, m: int, body: bytes) -> None:
@@ -832,9 +851,39 @@ def ycc_to_bgr_plain(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([b, g, r], -1), 0, 255).astype(np.uint8)
 
 
+def cmyk_to_bgr_cv2(cmyk: np.ndarray, gray: bool) -> np.ndarray:
+    """grfmt_jpeg.cpp's CMYK -> BGR (``icvCvt_CMYK2BGR_8u_C4C3R``) or
+    CMYK -> gray (``icvCvt_CMYK2Gray_8u_C4C1R``) of libjpeg's (H, W, 4)
+    CMYK output, which it takes for Adobe's inverted inks."""
+    v = cmyk.astype(np.int64)
+    k = v[..., 3:]
+    c, m, y = np.moveaxis(k - ((255 - v[..., :3]) * k >> 8), -1, 0)
+    if gray:
+        return ((y * 1868 + m * 9617 + c * 4899 + 8192) >> 14).astype(
+            np.uint8)
+    return np.stack([y, m, c], -1).astype(np.uint8)
+
+
+def cmyk_to_bgr_pil(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's "CMYK;I" rawmode (each ink inverted) then ``convert("RGB")``
+    (Convert.c's cmyk2rgb) of libjpeg's CMYK output, as BGR."""
+    v = 255 - cmyk.astype(np.int64)
+    nk = 255 - v[..., 3:]
+    t = v[..., :3] * nk + 128
+    rgb = np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
+    return rgb[..., ::-1].astype(np.uint8)
+
+
+def rgb_to_gray_libjpeg(rgb: np.ndarray) -> np.ndarray:
+    """libjpeg's ``rgb_gray_convert`` of (..., 3) R, G, B planes."""
+    v = rgb.astype(np.int64)
+    return ((19595 * v[..., 0] + 38470 * v[..., 1] + 7471 * v[..., 2]
+             + 32768) >> 16).astype(np.uint8)
+
+
 def decode_jpeg(data: bytes, *, gray: bool = False, plain: bool = False,
-                exif_orientation: bool = True,
-                strict: bool = False) -> np.ndarray:
+                exif_orientation: bool = True, strict: bool = False,
+                pil: bool = False) -> np.ndarray:
     """Decode a JPEG held in memory, as ``cv2.imread`` does with
     ``IMREAD_COLOR`` ((H, W, 3) uint8 BGR) or, with ``gray``,
     ``IMREAD_GRAYSCALE`` ((H, W) uint8), the EXIF orientation applied
@@ -842,7 +891,8 @@ def decode_jpeg(data: bytes, *, gray: bool = False, plain: bool = False,
     none). ``plain`` runs steps 2 and 3 in numpy. ``strict`` fails where
     PIL's reader fails and cv2's does not: TruncatedJpeg where the file
     ends before libjpeg is done with the image, CorruptJpeg where libjpeg
-    fails after it."""
+    fails after it. ``pil``: a CMYK or YCCK file's colours as PIL converts
+    them (BGR of its RGB), not as cv2 does."""
     co = read_coefficients(data, strict)
     if strict and co.broken:
         raise CorruptJpeg(co.broken)
@@ -851,14 +901,25 @@ def decode_jpeg(data: bytes, *, gray: bool = False, plain: bool = False,
     idct, up, conv = ((idct_plain, upsample_plain, ycc_to_bgr_plain) if plain
                       else (_idct, _upsample, _ycc_to_bgr))
     W, H = frame.width, frame.height
-    used = range(1 if gray or len(frame.comps) == 1 else 3)
+    n = len(frame.comps)
+    used = range(1 if n == 1 or gray and co.space == "ycc" else n)
     smooth = smoothing(co)
     planes = [up(idct(smoothed(co, lay, i) if smooth else co.coefs[i],
                       co.quant[i]),
                  lay.sizes[i], lay.expand[i], W, H) for i in used]
-    if gray:
+    if co.space in ("cmyk", "ycck"):
+        cmyk = np.stack(planes, -1)
+        if co.space == "ycck":       # ycck_cmyk_convert: 255 - RGB, K kept
+            cmyk[..., :3] = 255 - conv(*planes[:3])[..., ::-1]
+        img = (cmyk_to_bgr_pil(cmyk) if pil
+               else cmyk_to_bgr_cv2(cmyk, gray))
+    elif co.space == "rgb":
+        rgb = np.stack(planes, -1)
+        img = rgb_to_gray_libjpeg(rgb) if gray else np.ascontiguousarray(
+            rgb[..., ::-1])
+    elif gray:
         img = planes[0]
-    elif len(planes) == 1:
+    elif n == 1:
         img = np.repeat(planes[0][..., None], 3, axis=-1)
     else:
         img = conv(*planes)

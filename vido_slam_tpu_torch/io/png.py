@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from vido_slam_tpu_torch.io.bmp import check_cv2_size
 from vido_slam_tpu_torch.utils import host_build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -41,6 +42,10 @@ CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
 # colour type -> the bit depths the PNG standard allows for it
 VALID_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
                 4: (8, 16), 6: (8, 16)}
+
+
+# libpng's PNG_USER_WIDTH_MAX and PNG_USER_HEIGHT_MAX
+PNG_USER_MAX = 1000000
 
 
 class CorruptPng(ValueError):
@@ -170,8 +175,11 @@ def _samples(rows: np.ndarray, width: int, depth: int,
     return fields.reshape(h, -1)[:, :width, None]
 
 
-def decode_png(data: bytes, *, plain: bool = False) -> PngImage:
-    """Decode a PNG held in memory; ``plain`` takes the plain unfilter."""
+def decode_png(data: bytes, *, plain: bool = False,
+               imread_limits: bool = False) -> PngImage:
+    """Decode a PNG held in memory; ``plain`` takes the plain unfilter.
+    ``imread_limits``: the sizes ``cv2.imread`` refuses, libpng's user
+    limits (CorruptPng) and its own (``bmp.ImageTooLarge``)."""
     header, idat, palette = None, [], None
     for kind, body in _chunks(data):
         if header is None:
@@ -189,6 +197,10 @@ def decode_png(data: bytes, *, plain: bool = False) -> PngImage:
     if ctype == 3 and (palette is None or len(palette) % 3
                        or not 3 <= len(palette) <= 768):
         raise CorruptPng("PNG palette image without a valid PLTE")
+    if imread_limits:
+        if width > PNG_USER_MAX or height > PNG_USER_MAX:
+            raise CorruptPng("PNG image exceeds libpng's user limit")
+        check_cv2_size(width, height)
     try:
         raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     except zlib.error as e:
