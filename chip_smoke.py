@@ -2947,21 +2947,22 @@ FORMAT_FIXTURES = ("pxm", "tiff", "hdr", "sunras", "cmyk")
 FORMAT_FRAMES = 12   # (t2)'s tracked frames a tree, and no StopFrame
 
 
-def check_format_fixtures(root) -> int:
-    """(t1): each committed fixture of tests/data/<format>/ read as cv2
-    reads it under IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_ANYDEPTH
-    (``datasets.imread``; TIFF also by its codecs' plain versions, JPEG by
-    its plain steps) and as PIL reads it (``read_rgb_pil``), against the
+def check_format_fixtures(root, formats=FORMAT_FIXTURES) -> int:
+    """(t1), (u1): each committed fixture of tests/data/<format>/ read as
+    cv2 reads it under IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_ANYDEPTH
+    (``datasets.imread``; TIFF, GIF and WebP also by their host codecs'
+    plain versions, JPEG by its plain steps and plain arithmetic and
+    lossless decoders) and as PIL reads it (``read_rgb_pil``), against the
     digests of cv2's and PIL's reads (tools/make_image_fixtures.py;
     "None" where cv2 gives None; no PIL digest where PIL raises, and then
     ``read_rgb_pil`` raises). Returns the number of reads held."""
-    from vido_slam_tpu_torch.io import datasets, jpeg, tiff
+    from vido_slam_tpu_torch.io import datasets, gif, jpeg, tiff, webp
 
     held = 0
     flags = ((datasets.IMREAD_COLOR, ""), (datasets.IMREAD_GRAYSCALE,
                                            "_gray"),
              (datasets.IMREAD_ANYDEPTH, "_any"))
-    for fmt in FORMAT_FIXTURES:
+    for fmt in formats:
         directory = os.path.join(root, "tests", "data", fmt)
         ref = np.load(os.path.join(root, "tests", "data", fmt + ".npz"))
         files = sorted(os.listdir(directory))
@@ -2977,9 +2978,17 @@ def check_format_fixtures(root) -> int:
                 reads = [datasets.imread(path, flag)]
                 if fmt == "tiff":
                     reads.append(tiff.read_cv2(data, flag, plain=True))
-                if fmt == "cmyk":
-                    reads.append(jpeg.decode_jpeg(
-                        data, gray=flag != datasets.IMREAD_COLOR, plain=True))
+                if fmt in ("cmyk", "jpeg24"):
+                    try:
+                        reads.append(jpeg.decode_jpeg(
+                            data, gray=flag != datasets.IMREAD_COLOR,
+                            plain=True))
+                    except jpeg.CorruptJpeg:
+                        reads.append(None)
+                if fmt == "gif":
+                    reads.append(gif.read_cv2(data, flag, plain=True))
+                if fmt == "webp":
+                    reads.append(webp.read_cv2(data, flag, plain=True))
                 for got in reads:
                     digest = "None" if got is None else image_digest(got)
                     check(digest == str(ref[name + suffix]),
@@ -3236,6 +3245,265 @@ def run_phase_t(counters, tmp, dev="cuda"):
     parts = {f"t2_{k}": v for k, v in launches.items()}
     parts.update(run_infer_new_formats(counters, tmp, dev))
     print(f"phase (t): {time.perf_counter() - t0:.1f} s; card {cards}")
+    return {**parts, "decode_ms": decode}
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (u): arithmetic-coded, lossless and 12-bit JPEG, GIF and lossless
+# WebP (ROADMAP.md queue 1 items 24, 28b GIF and 26b VP8L)
+# ---------------------------------------------------------------------------
+
+U_FIXTURES = ("jpeg24", "gif", "webp")
+U_FRAMES = 12        # (u2)'s tracked frames a tree, and no StopFrame
+
+
+def write_gray_gif(path, img) -> None:
+    """An 8-bit gray image as a GIF of the gray ramp (cv2's gray of the
+    ramp's colours is the index itself)."""
+    enc = image_encoders()
+    ramp = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    with open(path, "wb") as f:
+        f.write(enc.write_gif((img.shape[1], img.shape[0]), [enc.gif_frame(
+            np.asarray(img, np.uint8), min_code_size=8)], palette=ramp))
+
+
+def write_lossless_webp(path, bgr) -> None:
+    """An (H, W, 3) BGR frame as a lossless WebP (VP8L: subtract-green,
+    literals)."""
+    b, g, r = (bgr[..., c].astype(np.uint32) for c in range(3))
+    with open(path, "wb") as f:
+        f.write(image_encoders().write_vp8l(
+            np.uint32(0xFF000000) | r << 16 | g << 8 | b,
+            subtract_green=True))
+
+
+def run_u_trees(counters, tmp, dev="cuda", n_frames=U_FRAMES, cfg=None):
+    """(u2): the CLI on two KITTI trees of the committed baseline .jpg
+    frames (tests/data/jpeg/kitti), the same rendered depth (16-bit PNG)
+    and masks: the frames as they are with PNG masks, and the frames
+    arithmetic-coded (re-coded from their coefficients) with GIF masks;
+    times.txt lists one more frame, whose image is missing, so no
+    StopFrame full batch runs. The two trees decode to the same arrays, so
+    their launches and trajectories are equal. Returns each tree's launches
+    and the median host decode ms of a frame: baseline JPEG, arithmetic
+    JPEG, a GIF mask, that mask as a lossless JPEG, a frame as a lossless
+    WebP."""
+    import shutil
+
+    from vido_slam_tpu_torch.io import datasets
+
+    enc = image_encoders()
+    cfg = cfg or KITTI_CONFIG
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        JPEG_FIXTURES, "kitti")
+    seq = offline_sequence(n_frames, dev, cfg)
+    rows = demo_rows(seq, cfg, dev)
+
+    def copy_jpg(path, bgr):
+        shutil.copy(os.path.join(root, os.path.basename(path)), path)
+
+    def arith_jpg(path, bgr):
+        with open(os.path.join(root, os.path.basename(path)), "rb") as f:
+            data = f.read()
+        with open(path, "wb") as f:
+            f.write(enc.reencode_jpeg(data, [enc.Scan([0, 1, 2])],
+                                      progressive=False, arithmetic=True))
+
+    def gif_masks(path, img):
+        if img.dtype == np.uint8 and img.ndim == 2:
+            write_gray_gif(path, img)
+        else:
+            write_png(path, img)
+    trees = {"jpeg": (copy_jpg, write_png), "arith": (arith_jpg, gif_masks)}
+    runs, launches, decode = {}, {}, {}
+    for tag, (jpg, png) in trees.items():
+        t_root = os.path.join(tmp, f"u2_{tag}")
+        tree = write_tree(t_root, "kitti", rows, png=png, jpg=jpg)
+        with open(os.path.join(t_root, "times.txt"), "a") as f:
+            f.write(f"{n_frames / 10.0:.6f}\n")     # its image is missing
+        stems = sorted(os.listdir(tree["image_path"]))
+        check(len(stems) == n_frames, f"(u2) {tag}: {stems}")
+        ms = {"frame": [], "mask": []}
+        for k, stem in enumerate(stems):
+            t0 = time.perf_counter()
+            bgr = datasets.imread(os.path.join(tree["image_path"], stem))
+            t1 = time.perf_counter()
+            mask = datasets.imread(os.path.join(t_root, "mask", stem[:-4]
+                                                + ".png"),
+                                   datasets.IMREAD_GRAYSCALE)
+            ms["frame"].append(1e3 * (t1 - t0))
+            ms["mask"].append(1e3 * (time.perf_counter() - t1))
+            check(np.array_equal(mask, rows[k][3]),
+                  f"(u2) {tag} {stem}: not the rendered mask")
+            runs.setdefault(("frames", k), bgr)
+            check(np.array_equal(bgr, runs[("frames", k)]),
+                  f"(u2) {tag} {stem}: not the baseline frame")
+        decode[tag] = {k: float(np.median(v)) for k, v in ms.items()}
+        cfg_path = os.path.join(tmp, f"u2_{tag}.yaml")
+        write_config(cfg_path, dict(cfg, slam_mode=0, **tree))
+        out = os.path.join(tmp, f"u2_{tag}_out", "")
+        run, n, _, batches = run_demo(
+            [cfg_path, "--output", out, "--device", dev], counters)
+        check(not batches, f"(u2) {tag}: {len(batches)} full batches")
+        ate0, _, path, poses = check_demo(
+            run, out, [fr.Tcw_gt for fr in seq.frames], n_frames, n,
+            [2 * (n_frames - 1), 0, 0, 0, 0][:len(counters)])
+        runs[tag], launches[tag] = (poses, ate0, path), n
+        del run
+    for name, p in runs["arith"][0].items():
+        check(np.array_equal(p, runs["jpeg"][0][name]),
+              f"(u2) arith {name}: not the baseline tree's trajectory")
+    check(launches["arith"] == launches["jpeg"],
+          f"(u2): launches {launches}")
+    # a mask as a lossless JPEG, a frame as a lossless WebP: decode ms
+    lossless = os.path.join(tmp, "u2_mask_lossless.jpg")
+    with open(lossless, "wb") as f:
+        f.write(enc.write_lossless_jpeg([rows[0][3].astype(np.int64)],
+                                        precision=8, predictor=1))
+    webp_path = os.path.join(tmp, "u2_frame.webp")
+    write_lossless_webp(webp_path, runs[("frames", 0)])
+    ms = {"lossless": [], "webp": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        m = datasets.imread(lossless, datasets.IMREAD_GRAYSCALE)
+        t1 = time.perf_counter()
+        w = datasets.imread(webp_path)
+        ms["lossless"].append(1e3 * (t1 - t0))
+        ms["webp"].append(1e3 * (time.perf_counter() - t1))
+    check(np.array_equal(m, rows[0][3]) and np.array_equal(
+        w, runs[("frames", 0)]), "(u2): the lossless JPEG or WebP frame")
+    decode.update({k: float(np.median(v)) for k, v in ms.items()})
+    print(f"(u2) CLI KITTI VO on the committed .jpg frames and on their "
+          f"arithmetic re-coding with GIF masks, {n_frames} 1242x375 frames "
+          f"(one listed frame missing: no StopFrame): launches {launches}, "
+          f"trajectories equal, camera ATE {runs['jpeg'][1]:.5f} m over "
+          f"{runs['jpeg'][2]:.3f} m; host decode ms (median) of a frame: "
+          f"baseline JPEG {decode['jpeg']['frame']:.2f}, arithmetic JPEG "
+          f"{decode['arith']['frame']:.2f}, lossless WebP "
+          f"{decode['webp']:.2f}; of a mask: PNG "
+          f"{decode['jpeg']['mask']:.2f}, GIF {decode['arith']['mask']:.2f}, "
+          f"lossless JPEG {decode['lossless']:.2f}")
+    return launches, decode
+
+
+def run_infer_u_formats(counters, tmp, dev="cuda"):
+    """(u3): ``infer_nets`` on the card on the new formats against the
+    same run on a PNG of the same pixels: flow on a lossless WebP pair of
+    the committed KITTI frames 0 and 1 (kernels 3 and 4, 5 launches each),
+    the Mask R-CNN R-50-FPN detector on a GIF of bench-clip frame
+    INFER_FRAME (posterised to 216 colours) read as PIL reads it (kernel 5
+    twice). Returns each part's launches."""
+    from vido_slam_tpu_torch import infer_nets
+    from vido_slam_tpu_torch.io import datasets
+    from vido_slam_tpu_torch.io.datasets import read_flo
+
+    enc = image_encoders()
+    root = os.path.dirname(os.path.abspath(__file__))
+    kitti = os.path.join(root, JPEG_FIXTURES, "kitti")
+    d = os.path.join(tmp, "u3")
+    os.makedirs(d)
+    inputs = {}
+    for k, fname in enumerate(sorted(os.listdir(kitti))[:2]):
+        bgr = datasets.imread(os.path.join(kitti, fname))
+        inputs[f"webp{k}"] = os.path.join(d, f"pair{k}.webp")
+        write_lossless_webp(inputs[f"webp{k}"], bgr)
+        inputs[f"png{k}"] = os.path.join(d, f"pair{k}.png")
+        write_png(inputs[f"png{k}"], bgr)
+        check(np.array_equal(datasets.imread(inputs[f"webp{k}"]), bgr)
+              and np.array_equal(datasets.read_rgb_pil(inputs[f"webp{k}"]),
+                                 bgr[..., ::-1]), f"(u3): WebP frame {k}")
+    clip = np.load(os.path.join(root, ONLINE_CLIP))["clip"]
+    rgb = np.ascontiguousarray(clip[INFER_FRAME]) // 51 * 51
+    levels = np.arange(0, 256, 51, dtype=np.uint8)
+    pal = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"),
+                   -1).reshape(-1, 3)
+    index = (rgb[..., 0] // 51 * 36 + rgb[..., 1] // 51 * 6
+             + rgb[..., 2] // 51).astype(np.uint8)
+    inputs["gif"] = os.path.join(d, "frame.gif")
+    table = np.zeros((256, 3), np.uint8)
+    table[:len(pal)] = pal
+    with open(inputs["gif"], "wb") as f:
+        f.write(enc.write_gif((rgb.shape[1], rgb.shape[0]),
+                              [enc.gif_frame(index, min_code_size=8)],
+                              palette=table))
+    check(np.array_equal(datasets.read_rgb_pil(inputs["gif"]), rgb),
+          "(u3): the GIF frame")
+    inputs["gif_png"] = os.path.join(d, "frame_gif.png")
+    write_png(inputs["gif_png"], rgb[..., ::-1])
+    parts, refusals = {}, []
+
+    def call(argv):
+        try:
+            quiet(lambda: infer_nets.main(argv))
+        except ValueError as e:
+            # random Mask R-CNN weights give inverted boxes: the CLI
+            # refuses the drawing after writing the JSON, as JAX's does
+            refusals.append(str(e))
+
+    def run(argv, part, out):
+        argv = argv + ["--out", out] + ([] if dev == "cuda"
+                                        else ["--device", dev])
+        n = launches_of(counters, lambda: call(argv))[1]
+        parts.setdefault(part, n)
+        check(n == parts[part], f"(u3) {part}: launches {n}, "
+              f"{parts[part]} on the other input")
+        return out
+    a = run(["flow", "--first", inputs["webp0"], "--second",
+             inputs["webp1"]], "flow", os.path.join(d, "flow_webp"))
+    b = run(["flow", "--first", inputs["png0"], "--second", inputs["png1"]],
+            "flow", os.path.join(d, "flow_png"))
+    fa, fb = (read_flo(os.path.join(x, "flow.flo")) for x in (a, b))
+    fgap = float(np.abs(fa - fb).max()) / max(1.0, float(np.abs(fb).max()))
+    dets = []
+    for key in ("gif", "gif_png"):
+        out = run(["detector", "--family", "maskrcnn", "--image",
+                   inputs[key]], "maskrcnn", os.path.join(d, "det_" + key))
+        dets.append(json_detections(os.path.join(
+            out, "maskrcnn_detections.json")))
+    check(len(refusals) in (0, 2) and len(set(refusals)) <= 1,
+          f"(u3): the CLI's refusals {refusals}")
+    n = max(len(x["valid"]) for x in dets)
+    m = match_detections(padded(dets[0], n), padded(dets[1], n),
+                         DETECTOR_THRESHOLDS["maskrcnn"])
+    want = {"flow": [0, 0, 5, 5, 0], "maskrcnn": [0, 0, 0, 0, 2]}
+    check(fa.shape == (375, 1242, 2) and fgap <= FLOW_BAR
+          and not m["unexplained"]
+          and all(parts[k] == want[k][:len(counters)] for k in want),
+          f"(u3): flow {fgap:.2e}, maskrcnn {m}, launches {parts}")
+    print(f"(u3) infer_nets: flow on a lossless WebP pair against the PNG "
+          f"pair {fgap:.2e} of max(|flow|, 1) (bar {FLOW_BAR:.0e}; "
+          f"{'bit-equal' if fgap == 0 else 'not bit-equal'}), launches "
+          f"{parts['flow']}; Mask R-CNN on a GIF read as PIL reads it "
+          f"against a PNG of the same pixels: {m['valid'][0]} and "
+          f"{m['valid'][1]} detections matched, launches "
+          f"{parts['maskrcnn']}")
+    return parts
+
+
+def run_phase_u(counters, tmp, dev="cuda"):
+    """Phase (u): (u1) the committed fixtures of tests/data/{jpeg24, gif,
+    webp} against cv2's and PIL's digests; (u2) the CLI on a baseline-JPEG
+    KITTI tree and its arithmetic-coded twin with GIF masks; (u3)
+    ``infer_nets`` on a lossless WebP pair and a GIF. Returns each part's
+    launches and the decode ms."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cards = card_line() if dev == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    held = check_format_fixtures(root, U_FIXTURES)
+    print(f"(u1) fixtures: arithmetic-coded JPEG (sequential, DAC and "
+          f"restarts, progressive with successive approximation, gray, "
+          f"cut), lossless JPEG (2-8 bits, predictors, point transform, "
+          f"RGB with restarts, 4:2:0, CMYK; JFIF and 12-bit as None), "
+          f"12-bit lossy and SOF11 (None), GIF (writers, local tables, "
+          f"interlace, offset and transparency, deferred clear, no table, "
+          f"animation, cut), lossless WebP (writers, alpha, palettes, every "
+          f"predictor mode, cross-colour, cache, LZ77, meta codes, "
+          f"animation): {held} reads bit-equal to cv2's and PIL's (C++ "
+          f"and plain)")
+    launches, decode = run_u_trees(counters, tmp, dev)
+    parts = {f"u2_{k}": v for k, v in launches.items()}
+    parts.update(run_infer_u_formats(counters, tmp, dev))
+    print(f"phase (u): {time.perf_counter() - t0:.1f} s; card {cards}")
     return {**parts, "decode_ms": decode}
 
 
@@ -5554,14 +5822,15 @@ def main() -> int:
     print(f"build of {sorted(logs)}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     host = [os.path.basename(host_build.build(name))
-            for name in ("png_unfilter", "jpeg_decode", "tiff_decode")]
+            for name in ("png_unfilter", "jpeg_decode", "tiff_decode",
+                         "gif_decode", "webp_decode")]
     host.append(os.path.basename(host_build.build("file_prefetcher",
                                                   ["-pthread"])))
     host += [os.path.basename(native_system.library_path()),
              os.path.basename(native_system.runner())]
-    print(f"host build of the PNG unfilter, the JPEG and TIFF decoders, the "
-          f"file prefetcher, the C facade and its standalone host {host}: "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"host build of the PNG unfilter, the JPEG, TIFF, GIF and WebP "
+          f"decoders, the file prefetcher, the C facade and its standalone "
+          f"host {host}: {time.perf_counter() - t0:.1f} s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             # each kernel's name, registers, shared memory, stack, spills
@@ -5832,6 +6101,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         formats_t = run_phase_t(counters, tmp)
 
+    # (u) arithmetic-coded, lossless and 12-bit JPEG, GIF and lossless
+    # WebP: the fixtures, the CLI on an arithmetic-coded tree with GIF
+    # masks, infer_nets on a WebP pair and a GIF
+    with tempfile.TemporaryDirectory() as tmp:
+        formats_u = run_phase_u(counters, tmp)
+
     # (m) the detector families: the DCN X-101, FBNet, RetinaNet, the
     # keypoint head and ROIPool
     family_launches, family_err, family_timing = run_phase_m(dev, counters,
@@ -5991,6 +6266,11 @@ def main() -> int:
         # infer_nets on PPM, TIFF and CMYK JPEG inputs
         e["image_formats_t_launches"] = {
             part: n[i] for part, n in formats_t.items()
+            if part != "decode_ms"}
+        # phase (u): (u2) the CLI on the baseline and arithmetic-coded
+        # trees, (u3) infer_nets on a lossless WebP pair and a GIF
+        e["image_formats_u_launches"] = {
+            part: n[i] for part, n in formats_u.items()
             if part != "decode_ms"}
         # (l1) offline VO, (l2) bJoint, (l3) online pairs, (l4) online VIO
         # pairs, all pipelined

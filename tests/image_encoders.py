@@ -40,12 +40,14 @@ class Scan(NamedTuple):
     """One scan of a re-encoded file: frame component indices, the band
     Ss..Se (zigzag) and the point transform Al (``progressive`` files;
     sequential scans send 0..63 at Al 0). ``dqt``: quantisation tables
-    {number: (64,) natural order} written just before the scan."""
+    {number: (64,) natural order} written just before the scan. ``ah``:
+    a refining scan of the bit Al after Ah (arithmetic coding only)."""
     comps: Sequence[int]
     ss: int = 0
     se: int = 63
     al: int = 0
     dqt: Optional[dict] = None
+    ah: int = 0
 
 
 class _Bits:
@@ -113,9 +115,14 @@ def _segment(marker: int, body: bytes) -> bytes:
 
 
 def _dqt(tables: dict) -> bytes:
+    """DQT of 8-bit entries, or 16-bit ones where a table needs them."""
     body = b""
     for k, q in sorted(tables.items()):
-        body += bytes([k]) + np.asarray(q, np.uint8)[ZIGZAG].tobytes()
+        q = np.asarray(q)[ZIGZAG]
+        if q.max() > 255:
+            body += bytes([0x10 | k]) + q.astype(">u2").tobytes()
+        else:
+            body += bytes([k]) + q.astype(np.uint8).tobytes()
     return _segment(0xDB, body)
 
 
@@ -171,31 +178,62 @@ def _symbols(block, scan, progressive):
 
 def reencode_jpeg(data: bytes, scans: List[Scan], *, progressive: bool,
                   restart: int = 0, standard_tables: bool = False,
-                  write_dht: bool = True) -> bytes:
+                  write_dht: bool = True, arithmetic: bool = False,
+                  dac: Optional[dict] = None,
+                  precision: Optional[int] = None) -> bytes:
     """The coefficients of ``data`` (any JPEG the port decodes; its
     quantisation tables kept) written as a JPEG of the given scans.
     ``standard_tables``: libjpeg's standard tables (sequential scans only),
     written as DHT segments unless ``write_dht`` is False; else each scan
     gets tables of exactly its symbols. ``restart``: a DRI interval in
-    MCUs, EOB runs flushed at each RSTn."""
-    co = jpeg.read_coefficients(data)
+    MCUs, EOB runs flushed at each RSTn. ``arithmetic``: arithmetic-coded
+    scans (SOF9 or SOF10, ``encode_arith_scan``) instead, conditioned by
+    ``dac`` ({DAC index: value}: 0-15 DC table's L | U << 4, 16-31 AC
+    table's K) where given. ``precision``: the SOF's sample precision
+    (the file's own by default; a 12-bit file's 16-bit DQT entries are
+    written as such)."""
+    return encode_coefficients(jpeg.read_coefficients(data), scans,
+                               progressive=progressive, restart=restart,
+                               standard_tables=standard_tables,
+                               write_dht=write_dht, arithmetic=arithmetic,
+                               dac=dac, precision=precision)
+
+
+def encode_coefficients(co, scans: List[Scan], *, progressive: bool,
+                        restart: int = 0, standard_tables: bool = False,
+                        write_dht: bool = True, arithmetic: bool = False,
+                        dac: Optional[dict] = None,
+                        precision: Optional[int] = None,
+                        head: bytes = b"") -> bytes:
+    """``reencode_jpeg`` of coefficients already read (``jpeg.Coefficients``:
+    its frame, coefficient buffers and latched tables), the marker
+    segments ``head`` written after SOI."""
     frame = co.frame
     lay = jpeg.layout(frame)
     quant = {c.quant: co.quant[i] for i, c in enumerate(frame.comps)}
-    out = bytearray(b"\xff\xd8")
+    out = bytearray(b"\xff\xd8" + head)
     out += _dqt(quant)
-    sof = struct.pack(">BHHB", 8, frame.height, frame.width,
-                      len(frame.comps))
+    sof = struct.pack(">BHHB", precision or frame.precision, frame.height,
+                      frame.width, len(frame.comps))
     for c in frame.comps:
         sof += bytes([c.ident, c.h << 4 | c.v, c.quant])
-    out += _segment(0xC2 if progressive else 0xC0, sof)
+    out += _segment((0xCA if progressive else 0xC9) if arithmetic else
+                    (0xC2 if progressive else 0xC1 if
+                     (precision or frame.precision) > 8 else 0xC0), sof)
     if restart:
         out += _segment(0xDD, struct.pack(">H", restart))
+    if dac:
+        out += _segment(0xCC, b"".join(bytes([k, v])
+                                       for k, v in sorted(dac.items())))
     for scan in scans:
         if scan.dqt:
             out += _dqt(scan.dqt)
-        out += _encode_scan(co, lay, scan, progressive, restart,
-                            standard_tables, write_dht)
+        if arithmetic:
+            out += encode_arith_scan(co, lay, scan, progressive, restart,
+                                     dac or {})
+        else:
+            out += _encode_scan(co, lay, scan, progressive, restart,
+                                standard_tables, write_dht)
     return bytes(out + b"\xff\xd9")
 
 
@@ -312,6 +350,450 @@ def _encode_scan(co, lay, scan, progressive, restart, standard, write_dht):
         + bytes(bits.out)
 
 
+# jaricom.c's jpeg_aritab (T.81 Table D.2): for each state its Qe, the next
+# state after an LPS (with the MPS switch in bit 7) and after an MPS; state
+# 113 is the fixed estimate of one half (T.851)
+ARITAB = [
+    (0x5a1d, 1 | 128, 1), (0x2586, 14, 2), (0x1114, 16, 3), (0x080b, 18, 4),
+    (0x03d8, 20, 5), (0x01da, 23, 6), (0x00e5, 25, 7), (0x006f, 28, 8),
+    (0x0036, 30, 9), (0x001a, 33, 10), (0x000d, 35, 11), (0x0006, 9, 12),
+    (0x0003, 10, 13), (0x0001, 12, 13), (0x5a7f, 15 | 128, 15),
+    (0x3f25, 36, 16), (0x2cf2, 38, 17), (0x207c, 39, 18), (0x17b9, 40, 19),
+    (0x1182, 42, 20), (0x0cef, 43, 21), (0x09a1, 45, 22), (0x072f, 46, 23),
+    (0x055c, 48, 24), (0x0406, 49, 25), (0x0303, 51, 26), (0x0240, 52, 27),
+    (0x01b1, 54, 28), (0x0144, 56, 29), (0x00f5, 57, 30), (0x00b7, 59, 31),
+    (0x008a, 60, 32), (0x0068, 62, 33), (0x004e, 63, 34), (0x003b, 32, 35),
+    (0x002c, 33, 9), (0x5ae1, 37 | 128, 37), (0x484c, 64, 38),
+    (0x3a0d, 65, 39), (0x2ef1, 67, 40), (0x261f, 68, 41), (0x1f33, 69, 42),
+    (0x19a8, 70, 43), (0x1518, 72, 44), (0x1177, 73, 45), (0x0e74, 74, 46),
+    (0x0bfb, 75, 47), (0x09f8, 77, 48), (0x0861, 78, 49), (0x0706, 79, 50),
+    (0x05cd, 48, 51), (0x04de, 50, 52), (0x040f, 50, 53), (0x0363, 51, 54),
+    (0x02d4, 52, 55), (0x025c, 53, 56), (0x01f8, 54, 57), (0x01a4, 55, 58),
+    (0x0160, 56, 59), (0x0125, 57, 60), (0x00f6, 58, 61), (0x00cb, 59, 62),
+    (0x00ab, 61, 63), (0x008f, 61, 32), (0x5b12, 65 | 128, 65),
+    (0x4d04, 80, 66), (0x412c, 81, 67), (0x37d8, 82, 68), (0x2fe8, 83, 69),
+    (0x293c, 84, 70), (0x2379, 86, 71), (0x1edf, 87, 72), (0x1aa9, 87, 73),
+    (0x174e, 72, 74), (0x1424, 72, 75), (0x119c, 74, 76), (0x0f6b, 74, 77),
+    (0x0d51, 75, 78), (0x0bb6, 77, 79), (0x0a40, 77, 48),
+    (0x5832, 80 | 128, 81), (0x4d1c, 88, 82), (0x438e, 89, 83),
+    (0x3bdd, 90, 84), (0x34ee, 91, 85), (0x2eae, 92, 86), (0x299a, 93, 87),
+    (0x2516, 86, 71), (0x5570, 88 | 128, 89), (0x4ca9, 95, 90),
+    (0x44d9, 96, 91), (0x3e22, 97, 92), (0x3824, 99, 93), (0x32b4, 99, 94),
+    (0x2e17, 93, 86), (0x56a8, 95 | 128, 96), (0x4f46, 101, 97),
+    (0x47e5, 102, 98), (0x41cf, 103, 99), (0x3c3d, 104, 100),
+    (0x375e, 99, 93), (0x5231, 105, 102), (0x4c0f, 106, 103),
+    (0x4639, 107, 104), (0x415e, 103, 99), (0x5627, 105 | 128, 106),
+    (0x50e7, 108, 107), (0x4b85, 109, 103), (0x5597, 110, 109),
+    (0x504f, 111, 107), (0x5a10, 110 | 128, 111), (0x5522, 112, 109),
+    (0x59eb, 112 | 128, 111), (0x5a1d, 113, 113)]
+
+
+class _ArithEncoder:
+    """jcarith.c's QM coder: ``encode`` one decision in a statistics bin
+    (a bytearray and an index: the state in bits 0-6, the MPS in bit 7),
+    ``finish`` the interval (section D.1.8's termination), ``out`` the
+    bytes with 0xFF stuffed."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.c, self.a, self.sc, self.zc, self.ct = 0, 0x10000, 0, 0, 11
+        self.buffer = -1
+
+    def _emit(self, b: int) -> None:
+        self.out.append(b)
+
+    def _zeros(self) -> None:
+        while self.zc:
+            self._emit(0)
+            self.zc -= 1
+
+    def _byte_out(self, temp: int) -> None:
+        if temp > 0xFF:          # a carry over all stacked 0xFF bytes
+            if self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+            self.buffer = temp & 0xFF
+        elif temp == 0xFF:
+            self.sc += 1
+        else:
+            self._flush_stacked()
+            self.buffer = temp & 0xFF
+
+    def _flush_stacked(self) -> None:
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._zeros()
+            self._emit(self.buffer)
+        if self.sc:
+            self._zeros()
+            for _ in range(self.sc):
+                self._emit(0xFF)
+                self._emit(0)
+            self.sc = 0
+
+    def encode(self, st: bytearray, i: int, val: int) -> None:
+        sv = st[i]
+        qe, nl, nm = ARITAB[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:       # the LPS
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:                    # the MPS
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:              # renormalisation
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                self._byte_out(self.c >> 19)
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            self._flush_stacked()
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if (self.c >> 19) & 0xFF == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if (self.c >> 11) & 0xFF == 0xFF:
+                    self._emit(0)
+        return bytes(self.out)
+
+
+def _arith_value(enc, stats, st, v, large, dc):
+    """Figures F.8 and F.9 after the sign: a nonzero v's magnitude
+    category from bin ``st`` (the DC's SP or SN, the AC's S0 + 2), the
+    categories above the first (DC) or second (AC) continuing at bin
+    ``large`` (DC: X1 = 20; AC: 189 or 217 by K), then its bits. Returns
+    the category's magnitude m (a power of two, 0 for |v| = 1)."""
+    m = 0
+    v = abs(v) - 1
+    if v:
+        enc.encode(stats, st, 1)
+        m = 1
+        v2 = v >> 1
+        if dc:
+            st = large
+        elif v2:
+            enc.encode(stats, st, 1)
+            m = 2
+            st = large
+            v2 >>= 1
+        while v2:
+            enc.encode(stats, st, 1)
+            m <<= 1
+            st += 1
+            v2 >>= 1
+    enc.encode(stats, st, 0)
+    st += 14
+    bit = m >> 1
+    while bit:
+        enc.encode(stats, st, 1 if bit & v else 0)
+        bit >>= 1
+    return m
+
+
+def encode_arith_scan(co, lay, scan, progressive, restart, dac) -> bytes:
+    """One arithmetic-coded scan (its SOS and entropy-coded data) of the
+    coefficients ``co``, as jcarith.c codes it: DC differences conditioned
+    by the DAC's L and U (0 and 1 by default), AC decisions by K (5),
+    successive approximation's first and refining scans, restarts that
+    reset the statistics."""
+    comps = list(scan.comps)
+    mcus = _blocks(co, lay, comps)
+    slot = {c: (0 if co.frame.comps[c].ident == co.frame.comps[0].ident
+                else 1) for c in comps}
+    head = bytes([len(comps)])
+    for c in comps:
+        head += bytes([co.frame.comps[c].ident, slot[c] << 4 | slot[c]])
+    ss, se = (scan.ss, scan.se) if progressive else (0, 63)
+    al, ah = (scan.al, scan.ah) if progressive else (0, 0)
+    head += bytes([ss, se, ah << 4 | al])
+    L = {t: dac.get(t, 0x10) & 15 for t in (0, 1)}
+    U = {t: dac.get(t, 0x10) >> 4 for t in (0, 1)}
+    K = {t: dac.get(16 + t, 5) for t in (0, 1)}
+    out = bytearray()
+    enc = None
+    fixed = bytearray([113])
+
+    def reset():
+        nonlocal enc
+        enc = _ArithEncoder()
+        return ({t: bytearray(64) for t in (0, 1)},
+                {t: bytearray(256) for t in (0, 1)},
+                {c: 0 for c in comps}, {c: 0 for c in comps})
+
+    dcs, acs, last, ctx = reset()
+    rst = 0
+    for i, mcu in enumerate(mcus):
+        if restart and i and i % restart == 0:
+            out += enc.finish() + bytes([0xFF, 0xD0 + rst])
+            rst = (rst + 1) % 8
+            dcs, acs, last, ctx = reset()
+        for c, b in mcu:
+            t = slot[c]
+            if ss == 0 and ah:                       # DC refinement
+                enc.encode(fixed, 0, (int(b[0]) >> al) & 1)
+                continue
+            if ss == 0:                              # DC (first scan)
+                v0 = int(b[0]) >> al
+                st = ctx[c]
+                d = v0 - last[c]
+                if d == 0:
+                    enc.encode(dcs[t], st, 0)
+                    ctx[c] = 0
+                else:
+                    last[c] = v0
+                    enc.encode(dcs[t], st, 1)
+                    enc.encode(dcs[t], st + 1, 0 if d > 0 else 1)
+                    ctx[c] = 4 if d > 0 else 8
+                    m = _arith_value(enc, dcs[t], st + (2 if d > 0 else 3),
+                                     d, 20, True)
+                    if m < (1 << L[t]) >> 1:
+                        ctx[c] = 0
+                    elif m > (1 << U[t]) >> 1:
+                        ctx[c] += 8
+                if progressive:
+                    continue
+            lo = max(ss, 1)
+            hi = se
+            vals = [int(b[ZIGZAG[k]]) for k in range(64)]
+
+            def pt(v, s):   # the point transform: |v| >> s, sign kept
+                return (abs(v) >> s) * (1 if v >= 0 else -1)
+            ke = 0
+            for k in range(hi, lo - 1, -1):
+                if pt(vals[k], al):
+                    ke = k
+                    break
+            stats = acs[t]
+            if not ah:
+                k = lo
+                while k <= ke:
+                    st = 3 * (k - 1)
+                    enc.encode(stats, st, 0)             # not EOB
+                    while pt(vals[k], al) == 0:
+                        enc.encode(stats, st + 1, 0)
+                        st += 3
+                        k += 1
+                    v = pt(vals[k], al)
+                    enc.encode(stats, st + 1, 1)
+                    enc.encode(fixed, 0, 0 if v > 0 else 1)
+                    _arith_value(enc, stats, st + 2, v,
+                                 189 if k <= K[t] else 217, False)
+                    k += 1
+                if k <= hi:
+                    enc.encode(stats, 3 * (k - 1), 1)    # EOB
+                continue
+            kex = 0                                      # AC refinement
+            for k in range(ke, 0, -1):
+                if pt(vals[k], ah):
+                    kex = k
+                    break
+            k = lo
+            while k <= ke:
+                st = 3 * (k - 1)
+                if k > kex:
+                    enc.encode(stats, st, 0)
+                while True:
+                    v = abs(vals[k]) >> al
+                    if v:
+                        if v >> 1:
+                            enc.encode(stats, st + 2, v & 1)
+                        else:
+                            enc.encode(stats, st + 1, 1)
+                            enc.encode(fixed, 0, 0 if vals[k] > 0 else 1)
+                        break
+                    enc.encode(stats, st + 1, 0)
+                    st += 3
+                    k += 1
+                k += 1
+            if k <= hi:
+                enc.encode(stats, 3 * (k - 1), 1)
+    out += enc.finish()
+    return _segment(0xDA, head) + bytes(out)
+
+
+def _lossless_diffs(planes, frame, comps, predictor, pt, restart_rows):
+    """The sample differences of one lossless scan as libjpeg-turbo's
+    decoder will undifference them (jddiffct.c, jdlossls.c): each MCU
+    row's (component, row, column) differences, dummy samples 0. The
+    predictors restart (the first row's rules) at the scan's start and in
+    the iMCU row during which a restart marker is read, for every
+    component, as the decoder resets them."""
+    P = frame.precision
+    hmax = max(c.h for c in frame.comps)
+    vmax = max(c.v for c in frame.comps)
+    H, W = frame.height, frame.width
+    imcu_rows = -(-H // vmax)
+    x = {c: np.asarray(planes[c], np.int64) >> pt for c in comps}
+    diffs = {c: np.zeros_like(x[c]) for c in comps}
+    first = {c: True for c in comps}
+    if len(comps) == 1:
+        c = comps[0]
+        v = frame.comps[c].v
+        ch = x[c].shape[0]
+        mcu_rows = [min(v, ch - r * v) for r in range(imcu_rows)]
+        mcus_per_row = x[c].shape[1]
+    else:
+        mcu_rows = [1] * imcu_rows
+        mcus_per_row = -(-W // hmax)
+    to_go = restart_rows
+    for r in range(imcu_rows):
+        for _ in range(mcu_rows[r]):
+            if restart_rows:
+                if to_go == 0:
+                    first = {c: True for c in comps}
+                    to_go = restart_rows
+                to_go -= 1
+        for c in comps:
+            v = frame.comps[c].v
+            ch = x[c].shape[0]
+            for row in range(r * v, min(r * v + v, ch)):
+                cur = x[c][row]
+                if first[c]:
+                    pred = np.empty_like(cur)
+                    pred[0] = 1 << (P - pt - 1)
+                    pred[1:] = cur[:-1]
+                    first[c] = False
+                else:
+                    up = x[c][row - 1]
+                    ra = np.concatenate([[0], cur[:-1]])
+                    rc = np.concatenate([[0], up[:-1]])
+                    pred = {1: ra, 2: up, 3: rc, 4: ra + up - rc,
+                            5: ra + ((up - rc) >> 1),
+                            6: up + ((ra - rc) >> 1),
+                            7: (ra + up) >> 1}[predictor]
+                    pred = pred.copy()
+                    pred[0] = up[0]
+                diffs[c][row] = (cur - pred) & 0xFFFF
+    return diffs, mcus_per_row, mcu_rows
+
+
+def write_lossless_jpeg(planes, *, precision: int, predictor: int,
+                        pt: int = 0, sampling=None, ids=None,
+                        restart_rows: int = 0, interleave: bool = True,
+                        head: bytes = b"", size=None) -> bytes:
+    """A lossless (SOF3) JPEG of ``planes`` (a list of (h, w) integer
+    sample planes, each the size its sampling (h, v) gives it, all 1, 1 by
+    default) at ``precision`` bits (2-16): predictor 1-7, point transform
+    ``pt``, a restart every ``restart_rows`` MCU rows, one interleaved scan
+    or one scan a component, Huffman tables of exactly each scan's
+    categories (0-16), the marker segments ``head`` after SOI (a JFIF
+    APP0, an Adobe APP14). ``size``: the frame's (H, W), by default the
+    first plane's."""
+    n = len(planes)
+    sampling = sampling or [(1, 1)] * n
+    ids = ids or list(range(1, n + 1))
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    H, W = size or np.asarray(planes[0]).shape[:2]
+    frame = jpeg.Frame(W, H, [jpeg.Component(i, h, v, 0) for i, (h, v)
+                              in zip(ids, sampling)], False, precision)
+    out = bytearray(b"\xff\xd8" + head)
+    sof = struct.pack(">BHHB", precision, H, W, n)
+    for c in frame.comps:
+        sof += bytes([c.ident, c.h << 4 | c.v, 0])
+    out += _segment(0xC3, sof)
+    if restart_rows:
+        mcus = -(-W // hmax) if interleave and n > 1 else None
+        per_scan = [mcus] if mcus else [np.asarray(p).shape[1]
+                                        for p in planes]
+        if len(set(per_scan)) > 1:
+            raise ValueError("one restart interval fits no two scans")
+        out += _segment(0xDD, struct.pack(">H", restart_rows * per_scan[0]))
+    scans = [list(range(n))] if interleave else [[c] for c in range(n)]
+    for comps in scans:
+        diffs, mcus_per_row, mcu_rows = _lossless_diffs(
+            planes, frame, comps, predictor, pt, restart_rows)
+        slot = {c: 0 if c == comps[0] else 1 for c in comps}
+        # the coded MCU rows: (component, category, value bits) in order
+        rows = []
+        for r, k in enumerate(mcu_rows):
+            for sub in range(k):
+                seq = []
+                for mx in range(mcus_per_row):
+                    for c in comps:
+                        comp = frame.comps[c]
+                        h, v = (comp.h, comp.v) if len(comps) > 1 else (1, 1)
+                        d = diffs[c]
+                        for by in range(v):
+                            for bx in range(h):
+                                y = (r * comp.v + sub) if len(comps) == 1 \
+                                    else r * v + by
+                                xx = mx * h + bx
+                                val = int(d[y, xx]) if (
+                                    y < d.shape[0] and xx < d.shape[1]) else 0
+                                if val >= 32768:
+                                    val -= 65536
+                                cat = 16 if val == -32768 else _category(val)
+                                seq.append((c, cat, _value_bits(val, cat)
+                                            if cat and cat < 16 else 0))
+                rows.append(seq)
+        tables = {}
+        for sl in set(slot.values()):
+            tables[sl] = _Table([cat for seq in rows for c, cat, _ in seq
+                                 if slot[c] == sl])
+        out += _segment(0xC4, b"".join(t.segment(0, sl)
+                                       for sl, t in sorted(tables.items())))
+        hdr = bytes([len(comps)])
+        for c in comps:
+            hdr += bytes([frame.comps[c].ident, slot[c] << 4])
+        out += _segment(0xDA, hdr + bytes([predictor, 0, pt]))
+        bits = _Bits()
+        rst = 0
+        for i, seq in enumerate(rows):
+            if restart_rows and i and i % restart_rows == 0:
+                bits.flush()
+                bits.out += bytes([0xFF, 0xD0 + rst])
+                rst = (rst + 1) % 8
+                bits = _reset_bits(bits)
+            for c, cat, vb in seq:
+                code, length = tables[slot[c]].code[cat]
+                bits.put(code, length)
+                if cat and cat < 16:
+                    bits.put(vb, cat)
+        bits.flush()
+        out += bits.out
+    return bytes(out + b"\xff\xd9")
+
+
+def _reset_bits(bits: "_Bits") -> "_Bits":
+    """A bit writer continuing ``bits``' bytes after a restart marker."""
+    fresh = _Bits()
+    fresh.out = bits.out
+    return fresh
+
+
 def drop_segments(data: bytes, marker: int) -> bytes:
     """``data`` without its marker segments of the given code (anywhere
     before the last scan's data: a DHT, a DQT)."""
@@ -426,6 +908,601 @@ def write_bmp(path: str, pixels: np.ndarray, bits: int, *,
         f.write(b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0,
                                     offset))
         f.write(header + masks + pal + data)
+
+
+# ---------------------------------------------------------------------------
+# GIF
+# ---------------------------------------------------------------------------
+
+def gif_lzw(indices: bytes, min_code_size: int, *, clear_when_full: bool =
+            True, early_clear: int = 0) -> bytes:
+    """GIF's LZW of the colour indices: a clear code first, a clear code
+    when the table is full (4096 entries; with ``clear_when_full`` False the
+    table stays full and codes go on at 12 bits: the deferred clear), a
+    clear every ``early_clear`` codes where given, the end code last; the
+    codes packed LSB first at the width a decoder reads each at
+    (``gif_pack``)."""
+    clear = 1 << min_code_size
+    codes = [clear]
+
+    def reset():
+        return {bytes([i]): i for i in range(min(clear, 256))}, clear + 2
+
+    table, nxt = reset()
+    w = b""
+    count = 0
+    for i in range(len(indices)):
+        c = indices[i:i + 1]
+        if w + c in table:
+            w = w + c
+            continue
+        codes.append(table[w])
+        count += 1
+        if nxt < 4096:
+            table[w + c] = nxt
+            nxt += 1
+        elif clear_when_full:
+            codes.append(clear)
+            table, nxt = reset()
+        if early_clear and count % early_clear == 0:
+            codes.append(clear)
+            table, nxt = reset()
+        w = c
+    if w:
+        codes.append(table[w])
+    codes.append(clear + 1)
+    return gif_pack(codes, min_code_size)
+
+
+def gif_pack(codes, min_code_size: int) -> bytes:
+    """GIF LZW codes packed LSB first, each at the width a decoder holds
+    when it reads it: min_code_size + 1 after a clear (or an end), one more
+    once the next free entry reaches 2^width (the decoder adds an entry for
+    every code but the first after a clear), at most 12."""
+    clear = 1 << min_code_size
+    nxt, width, first = clear + 2, min_code_size + 1, True
+    out = bytearray()
+    acc = nacc = 0
+    for c in codes:
+        acc |= c << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+        if c in (clear, clear + 1):
+            nxt, width, first = clear + 2, min_code_size + 1, True
+        elif first:
+            first = False
+        elif nxt < 4096:
+            nxt += 1
+            if nxt == 1 << width and width < 12:
+                width += 1
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def gif_blocks(data: bytes) -> bytes:
+    """Data sub-blocks of at most 255 bytes and the block terminator."""
+    out = bytearray()
+    for i in range(0, len(data), 255):
+        chunk = data[i:i + 255]
+        out += bytes([len(chunk)]) + chunk
+    return bytes(out + b"\x00")
+
+
+def gif_frame(indices: np.ndarray, *, offset=(0, 0), palette=None,
+              interlace: bool = False, min_code_size: Optional[int] = None,
+              transparency: Optional[int] = None, disposal: int = 0,
+              lzw: Optional[bytes] = None, **lzw_args) -> bytes:
+    """One image of a GIF: a Graphic Control Extension where
+    ``transparency`` or ``disposal`` is given, the image descriptor at
+    ``offset`` (left, top), a local colour table ``palette`` ((n, 3), n a
+    power of two from 2 to 256) where given, the rows in interlaced order
+    (8n, 8n + 4, 4n + 2, 2n + 1) with ``interlace``, the LZW data (``lzw``
+    as given, or ``gif_lzw`` of the indices)."""
+    h, w = indices.shape
+    out = bytearray()
+    if transparency is not None or disposal:
+        out += b"\x21\xf9\x04" + bytes([disposal << 2 | (
+            transparency is not None)]) + b"\x00\x00" + bytes(
+            [transparency or 0]) + b"\x00"
+    flags = 0x40 if interlace else 0
+    if palette is not None:
+        n = len(palette)
+        flags |= 0x80 | (n.bit_length() - 2)
+    out += b"\x2c" + struct.pack("<4H", offset[0], offset[1], w, h) + \
+        bytes([flags])
+    if palette is not None:
+        out += np.asarray(palette, np.uint8).tobytes()
+    rows = indices
+    if interlace:
+        order = (list(range(0, h, 8)) + list(range(4, h, 8))
+                 + list(range(2, h, 4)) + list(range(1, h, 2)))
+        rows = indices[order]
+    if min_code_size is None:
+        top = int(indices.max()) if indices.size else 0
+        min_code_size = max(2, top.bit_length())
+    data = lzw if lzw is not None else gif_lzw(
+        rows.astype(np.uint8).tobytes(), min_code_size, **lzw_args)
+    out += bytes([min_code_size]) + gif_blocks(data)
+    return bytes(out)
+
+
+def write_gif(screen, frames: Sequence[bytes], *, palette=None,
+              background: int = 0, version: bytes = b"89a",
+              trailer: bool = True) -> bytes:
+    """A GIF of logical screen ``screen`` (width, height), global colour
+    table ``palette`` ((n, 3)) where given, background index
+    ``background``, the images ``frames`` (``gif_frame``), the trailer."""
+    flags = 0
+    if palette is not None:
+        n = len(palette)
+        flags = 0x80 | 0x70 | (n.bit_length() - 2)
+    out = bytearray(b"GIF" + version + struct.pack("<2H", *screen)
+                    + bytes([flags, background, 0]))
+    if palette is not None:
+        out += np.asarray(palette, np.uint8).tobytes()
+    for f in frames:
+        out += f
+    return bytes(out + (b"\x3b" if trailer else b""))
+
+
+# ---------------------------------------------------------------------------
+# WebP lossless (VP8L)
+# ---------------------------------------------------------------------------
+
+class _LsbBits:
+    """Bits LSB first, as VP8L stores them."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.acc = self.nacc = self.n = 0
+
+    def put(self, v: int, k: int) -> None:
+        self.acc |= (v & ((1 << k) - 1)) << self.nacc
+        self.nacc += k
+        self.n += k
+        while self.nacc >= 8:
+            self.out.append(self.acc & 0xFF)
+            self.acc >>= 8
+            self.nacc -= 8
+
+    def put_code(self, code: int, length: int) -> None:
+        """A prefix code, its first bit the MSB of the canonical code."""
+        rev = 0
+        for i in range(length):
+            rev = rev << 1 | (code >> i) & 1
+        self.put(rev, length)
+
+    def put_bits(self, other: "_LsbBits", skip: int = 0) -> None:
+        """The bits of ``other`` from bit ``skip`` on."""
+        n = other.n - skip
+        value = int.from_bytes(other.data(), "little") >> skip
+        total = self.acc | (value << self.nacc)
+        nbits = self.nacc + n
+        whole = nbits // 8
+        self.out += (total & ((1 << (8 * whole)) - 1)).to_bytes(whole,
+                                                                "little")
+        self.acc = total >> (8 * whole)
+        self.nacc = nbits - 8 * whole
+        self.n += n
+
+    def put_array(self, values: np.ndarray, lengths: np.ndarray) -> None:
+        """Fields of the given lengths (values LSB first), packed at once."""
+        lengths = np.asarray(lengths, np.int64)
+        total = int(lengths.sum())
+        if not total:
+            return
+        start = np.repeat(np.cumsum(lengths) - lengths, lengths)
+        bits = (np.repeat(np.asarray(values, np.uint64), lengths)
+                >> (np.arange(total) - start).astype(np.uint64)) & 1
+        packed = _LsbBits()
+        packed.out = bytearray(np.packbits(bits.astype(np.uint8),
+                                           bitorder="little").tobytes())
+        packed.n = total
+        if total % 8:
+            packed.acc = packed.out.pop()
+            packed.nacc = total % 8
+        self.put_bits(packed)
+
+    def head(self, k: int) -> int:
+        """The first k bits (k at most 8)."""
+        data = self.data()
+        return (int.from_bytes(data[:2], "little") if data else 0) & (
+            (1 << k) - 1)
+
+    def data(self) -> bytes:
+        return bytes(self.out) + (bytes([self.acc]) if self.nacc else b"")
+
+
+def _prefix_lengths(counts, limit: int = 15):
+    """Code lengths of at most ``limit`` bits for the symbol counts: a
+    Huffman code, flattened to a complete code of equal lengths where
+    Huffman's are too long; a used symbol alone gets length 1."""
+    import heapq
+
+    used = [s for s, c in enumerate(counts) if c]
+    lengths = [0] * len(counts)
+    if len(used) <= 1:
+        for s in used:
+            lengths[s] = 1
+        return lengths
+    heap = [(counts[s], i, [s]) for i, s in enumerate(used)]
+    heapq.heapify(heap)
+    tie = len(heap)
+    while len(heap) > 1:
+        c1, _, a = heapq.heappop(heap)
+        c2, _, b = heapq.heappop(heap)
+        for x in a + b:
+            lengths[x] += 1
+        heapq.heappush(heap, (c1 + c2, tie, a + b))
+        tie += 1
+    if max(lengths) > limit:
+        n = len(used)
+        k = (n - 1).bit_length()
+        short = (1 << k) - n           # symbols one bit shorter
+        for i, sym in enumerate(used):
+            lengths[sym] = k - 1 if i < short else k
+    return lengths
+
+
+def _canonical(lengths):
+    """{symbol: (code, length)} of canonical codes (shorter codes first,
+    by symbol within a length)."""
+    codes, code = {}, 0
+    for n in range(1, 16):
+        for s, ln in enumerate(lengths):
+            if ln == n:
+                codes[s] = (code, n)
+                code += 1
+        code <<= 1
+    return codes
+
+
+def _write_code(bw: _LsbBits, lengths, *, simple: bool = True,
+                runs: bool = True, max_symbol: bool = False) -> dict:
+    """One prefix code of these lengths (a simple code where it can be
+    one and ``simple``; else a normal code: the code-length code, then the
+    lengths, zero runs and repeats coded by 16-18 where ``runs``, the
+    number of coded lengths given where ``max_symbol``). Returns the
+    canonical codes ({symbol: (code, length)}; a lone symbol costs 0
+    bits)."""
+    used = [s for s, n in enumerate(lengths) if n]
+    if simple and len(used) <= 2 and all(s < 256 for s in used) and used:
+        bw.put(1, 1)
+        bw.put(len(used) - 1, 1)
+        wide = used[0] > 1
+        bw.put(int(wide), 1)
+        bw.put(used[0], 8 if wide else 1)
+        if len(used) == 2:
+            bw.put(used[1], 8)
+        if len(used) == 1:
+            return {used[0]: (0, 0)}
+        return {used[0]: (0, 1), used[1]: (1, 1)}
+    bw.put(0, 1)
+
+    def sequence(last):
+        seq = []             # (code-length symbol, extra bits, their count)
+        i, prev = 0, 8
+        while i < last:
+            n = lengths[i]
+            run = 1
+            while i + run < last and lengths[i + run] == n:
+                run += 1
+            if runs and n == 0 and run >= 3:
+                take = min(run, 138)
+                seq.append((17, take - 3, 3) if take <= 10 else
+                           (18, take - 11, 7))
+                i += take
+                continue
+            if runs and n and n == prev and run >= 3:
+                take = min(run, 6)
+                seq.append((16, take - 3, 2))
+                i += take
+                continue
+            seq.append((n, 0, 0))
+            if n:
+                prev = n
+            i += 1
+        return seq
+
+    counted = max_symbol and used and len(sequence(max(used) + 1)) >= 2
+    seq = sequence(max(used) + 1 if counted else len(lengths))
+    counts = [0] * 19
+    for sym, _, _ in seq:
+        counts[sym] += 1
+    cl = _prefix_lengths(counts, 7)
+    if sum(1 for x in cl if x) == 1:    # the code-length code needs two
+        cl[next(s for s in range(19) if not counts[s])] = 1
+        cl[next(s for s in range(19) if counts[s])] = 1
+    order = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14,
+             15)
+    num = max(4, max(k for k in range(19) if cl[order[k]]) + 1)
+    bw.put(num - 4, 4)
+    for k in range(num):
+        bw.put(cl[order[k]], 3)
+    if counted:
+        bw.put(1, 1)
+        count = len(seq)
+        nbits = max(2, (count - 2).bit_length())
+        nbits += nbits & 1
+        bw.put((nbits - 2) // 2, 3)
+        bw.put(count - 2, nbits)
+    else:
+        bw.put(0, 1)
+    cl_codes = _canonical(cl)
+    for sym, extra, k in seq:
+        bw.put_code(*cl_codes[sym])
+        if k:
+            bw.put(extra, k)
+    codes = _canonical(lengths)
+    if len(used) == 1:
+        codes = {used[0]: (0, 0)}
+    return codes
+
+
+def _prefix_symbol(v: int):
+    """(prefix symbol, extra bits, their count) of a VP8L length or
+    distance value."""
+    v -= 1
+    if v < 4:
+        return v, 0, 0
+    hi = v.bit_length() - 1
+    second = (v >> (hi - 1)) & 1
+    extra = hi - 1
+    return 2 * hi + second, v & ((1 << extra) - 1), extra
+
+
+def _vp8l_image(bw: _LsbBits, px, width: int, *, cache_bits: int = 0,
+                groups=None, group_bits: int = 2, lz77: bool = False,
+                simple: bool = True, runs: bool = True) -> None:
+    """ARGB pixels (a flat list of uint32) coded as a VP8L image: the
+    colour cache, the meta prefix codes where ``groups`` (one group index
+    per tile of 2^group_bits; the main image only), five codes a group,
+    then literals, cache hits and (``lz77``) backward references at
+    distance 1 and one row up (plane codes 2 and 1)."""
+    if not cache_bits and groups is None and not lz77:
+        _vp8l_literals(bw, np.asarray(px, np.uint32), simple, runs)
+        return
+    cache = [None] * (1 << cache_bits) if cache_bits else None
+    shift = 32 - cache_bits
+    symbols = []            # (group, [(alphabet index, symbol)...], extras)
+    i = 0
+    mw = (width + (1 << group_bits) - 1) >> group_bits
+    while i < len(px):
+        y, x = divmod(i, width)
+        g = groups[(y >> group_bits) * mw + (x >> group_bits)] if groups \
+            else 0
+        p = px[i]
+        run = 0
+        dist_code = None
+        if lz77:
+            for code, dist in ((1, width), (2, 1)):
+                if i >= dist:
+                    k = 0
+                    while i + k < len(px) and k < 4096 and \
+                            px[i + k] == px[i + k - dist]:
+                        k += 1
+                    if k >= 3 and k > run:
+                        run, dist_code = k, code
+        if run:
+            ls, le, ln = _prefix_symbol(run)
+            ds, de, dn = _prefix_symbol(dist_code)
+            symbols.append((g, [(0, 256 + ls), (4, ds)], [(le, ln), (de, dn)],
+                            px[i:i + run]))
+            i += run
+        elif cache is not None and cache[(p * 0x1E35A7BD & 0xFFFFFFFF)
+                                         >> shift] == p:
+            key = (p * 0x1E35A7BD & 0xFFFFFFFF) >> shift
+            symbols.append((g, [(0, 280 + key)], [], [p]))
+            i += 1
+        else:
+            symbols.append((g, [(0, (p >> 8) & 0xFF), (1, (p >> 16) & 0xFF),
+                                (2, p & 0xFF), (3, p >> 24)], [], [p]))
+            i += 1
+        if cache is not None:
+            for q in symbols[-1][3]:
+                cache[(q * 0x1E35A7BD & 0xFFFFFFFF) >> shift] = q
+    if cache_bits:
+        bw.put(1, 1)
+        bw.put(cache_bits, 4)
+    else:
+        bw.put(0, 1)
+    ngroups = max(groups) + 1 if groups else 1
+    sizes = (256 + 24 + (1 << cache_bits if cache_bits else 0), 256, 256,
+             256, 40)
+    counts = [[[0] * n for n in sizes] for _ in range(ngroups)]
+    for g, syms, _, _ in symbols:
+        for a, sym in syms:
+            counts[g][a][sym] += 1
+    codes = []
+    for g in range(ngroups):
+        codes.append([_write_code(bw, _prefix_lengths(
+            c if any(c) else [1] + [0] * (len(c) - 1)), simple=simple,
+            runs=runs) for c in counts[g]])
+    for g, syms, extras, _ in symbols:
+        for k, (a, sym) in enumerate(syms):
+            bw.put_code(*codes[g][a][sym])
+            if a == 0 and sym >= 256 and sym < 280:
+                bw.put(*extras[0])
+            if a == 4:
+                bw.put(*extras[1])
+
+
+def _vp8l_literals(bw: _LsbBits, px: np.ndarray, simple: bool,
+                   runs: bool) -> None:
+    """``_vp8l_image`` of literals alone (no cache, one group, no LZ77),
+    counted and packed with numpy."""
+    bw.put(0, 1)                                    # no colour cache
+    chans = [(px >> 8) & 0xFF, (px >> 16) & 0xFF, px & 0xFF, px >> 24]
+    sizes = (280, 256, 256, 256, 40)
+    codes = []
+    for a, n in enumerate(sizes):
+        counts = np.bincount(chans[a], minlength=n)[:n] if a < 4 else \
+            np.zeros(n, np.int64)
+        if not counts.any():
+            counts[0] = 1
+        codes.append(_write_code(bw, _prefix_lengths(list(counts)),
+                                 simple=simple, runs=runs))
+    vals, lens = [], []
+    for a in range(4):
+        table = np.zeros((sizes[a], 2), np.int64)
+        for sym, (code, length) in codes[a].items():
+            rev = int(format(code, f"0{length}b")[::-1], 2) if length else 0
+            table[sym] = rev, length
+        vals.append(table[chans[a], 0])
+        lens.append(table[chans[a], 1])
+    bw.put_array(np.stack(vals, 1).ravel(), np.stack(lens, 1).ravel())
+
+
+def write_vp8l(argb: np.ndarray, *, predictor=None, cross_color=None,
+               subtract_green: bool = False, palette=None,
+               order=("palette", "subtract_green", "cross_color",
+                      "predictor"),
+               cache_bits: int = 0, groups=None, group_bits: int = 2,
+               lz77: bool = False, simple: bool = True, runs: bool = True,
+               alpha: bool = False, riff: bool = True) -> bytes:
+    """A lossless WebP of (H, W) uint32 ARGB pixels, each VP8L feature on
+    demand: ``predictor`` (bits, (th, tw) modes 0-15), ``cross_color``
+    (bits, (th, tw, 3) green-to-red, green-to-blue and red-to-blue
+    multipliers), ``subtract_green``, ``palette`` (the colours; the image
+    then holds their indices, bundled 2, 4 or 8 to a pixel for 16, 4 or 2
+    colours), applied in ``order`` (the decoder undoes them in reverse),
+    the colour cache, meta prefix codes ``groups`` (a group a tile of
+    2^group_bits), LZ77 references, simple codes where they fit, zero and
+    repeat runs in the code lengths."""
+    from vido_slam_tpu_torch.io import webp
+
+    H, W = argb.shape
+    px = [int(v) for v in np.asarray(argb, np.uint32).ravel()]
+    bw = _LsbBits()
+    bw.put(0x2F, 8)
+    bw.put(W - 1, 14)
+    bw.put(H - 1, 14)
+    bw.put(int(alpha), 1)
+    bw.put(0, 3)
+    width = W
+    for name in order:
+        if name == "palette" and palette is not None:
+            colors = [int(c) for c in palette]
+            n = len(colors)
+            bits = 0 if n > 16 else 1 if n > 4 else 2 if n > 2 else 3
+            index = {c: k for k, c in enumerate(colors)}
+            idx = [index[p] for p in px]
+            packed_w = (width + (1 << bits) - 1) >> bits
+            packed = []
+            for y in range(H):
+                for xp in range(packed_w):
+                    g = 0
+                    for k in range(1 << bits):
+                        x = (xp << bits) + k
+                        if x < width:
+                            g |= idx[y * width + x] << (k * (8 >> bits))
+                    packed.append(0xFF000000 | g << 8)
+            bw.put(1, 1)
+            bw.put(3, 2)
+            bw.put(n - 1, 8)
+            deltas = [colors[0]] + [webp._add(colors[k], _neg(colors[k - 1]))
+                                    for k in range(1, n)]
+            _vp8l_image(bw, deltas, n, simple=simple, runs=runs)
+            px, width = packed, packed_w
+        elif name == "subtract_green" and subtract_green:
+            bw.put(1, 1)
+            bw.put(2, 2)
+            px = [(p & 0xFF00FF00) | ((((p >> 16) - (p >> 8)) & 0xFF) << 16)
+                  | ((p - (p >> 8)) & 0xFF) for p in px]
+        elif name == "cross_color" and cross_color is not None:
+            bits, mult = cross_color
+            tw = (width + (1 << bits) - 1) >> bits
+            sub = [0xFF000000 | int(m[2]) << 16 | int(m[1]) << 8 | int(m[0])
+                   for m in np.asarray(mult).reshape(-1, 3)]
+            bw.put(1, 1)
+            bw.put(1, 2)
+            bw.put(bits - 2, 3)
+            _vp8l_image(bw, sub, tw, simple=simple, runs=runs)
+            out = []
+            for i, p in enumerate(px):
+                y, x = divmod(i, width)
+                m = sub[(y >> bits) * tw + (x >> bits)]
+                g = (p >> 8) & 0xFF
+                r = (p >> 16) & 0xFF
+                red = (r - webp._delta(m & 0xFF, g)) & 0xFF
+                blue = ((p & 0xFF) - webp._delta((m >> 8) & 0xFF, g)
+                        - webp._delta((m >> 16) & 0xFF, r)) & 0xFF
+                out.append((p & 0xFF00FF00) | red << 16 | blue)
+            px = out
+        elif name == "predictor" and predictor is not None:
+            bits, modes = predictor
+            tw = (width + (1 << bits) - 1) >> bits
+            sub = [0xFF000000 | int(m) << 8 for m in np.asarray(modes).ravel()]
+            bw.put(1, 1)
+            bw.put(0, 2)
+            bw.put(bits - 2, 3)
+            _vp8l_image(bw, sub, tw, simple=simple, runs=runs)
+            out = []
+            for i, p in enumerate(px):
+                y, x = divmod(i, width)
+                if y == 0:
+                    pred = 0xFF000000 if x == 0 else px[i - 1]
+                elif x == 0:
+                    pred = px[i - width]
+                else:
+                    mode = (sub[(y >> bits) * tw + (x >> bits)] >> 8) & 0xF
+                    pred = webp._predict(mode, px[i - 1], px[i - width],
+                                         px[i - width + 1],
+                                         px[i - width - 1])
+                out.append(webp._add(p, _neg(pred)))
+            px = out
+    bw.put(0, 1)                       # no more transforms
+    if groups is not None:
+        meta_w = (width + (1 << group_bits) - 1) >> group_bits
+        meta_h = (H + (1 << group_bits) - 1) >> group_bits
+        groups = list(np.asarray(groups).ravel()[:meta_w * meta_h])
+    _vp8l_main(bw, px, width, cache_bits, groups, group_bits, lz77, simple,
+               runs)
+    payload = bw.data()
+    if not riff:
+        return payload
+    chunk = b"VP8L" + struct.pack("<I", len(payload)) + payload
+    if len(payload) & 1:
+        chunk += b"\x00"
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+def _neg(p: int) -> int:
+    """The per-channel negation of an ARGB value (mod 256)."""
+    return sum(((256 - ((p >> s) & 0xFF)) & 0xFF) << s for s in (0, 8, 16, 24))
+
+
+def _vp8l_main(bw, px, width, cache_bits, groups, group_bits, lz77, simple,
+               runs) -> None:
+    """The main image: its colour cache bit, the meta prefix codes' entropy
+    image where ``groups`` are given, then ``_vp8l_image``'s codes and
+    pixels."""
+    if not groups:
+        # the main image has a meta-code flag after its cache bits
+        inner = _LsbBits()
+        _vp8l_image(inner, px, width, cache_bits=cache_bits, lz77=lz77,
+                    simple=simple, runs=runs)
+        # splice: cache flag (and bits), then "no meta codes", then the rest
+        k = 1 + (4 if cache_bits else 0)
+        bw.put(inner.head(k), k)
+        bw.put(0, 1)
+        bw.put_bits(inner, k)
+        return
+    inner = _LsbBits()
+    _vp8l_image(inner, px, width, cache_bits=cache_bits, groups=groups,
+                group_bits=group_bits, lz77=lz77, simple=simple, runs=runs)
+    k = 1 + (4 if cache_bits else 0)
+    bw.put(inner.head(k), k)
+    bw.put(1, 1)
+    bw.put(group_bits - 2, 3)
+    meta_w = (width + (1 << group_bits) - 1) >> group_bits
+    _vp8l_image(bw, [0xFF000000 | int(g) << 8 for g in groups], meta_w,
+                simple=simple, runs=runs)
+    bw.put_bits(inner, k)
 
 
 # ---------------------------------------------------------------------------

@@ -227,7 +227,9 @@ def test_other_formats_still_raise_naming_them(tmp_path, name, head):
     zero bytes are no image, which the port finds as cv2 does (None);
     ``RIFF`` alone is no WebP signature (cv2 wants ``WEBP`` and a chunk
     after it), nor the first six bytes of JP2's twelve: each raises once
-    it has its whole signature."""
+    it has its whole signature; lossless WebP is read since slice 20, and
+    a WebP of zero sizes is no image (None), so the WebP case raises on
+    cv2's lossy file (item 26d)."""
     path = str(tmp_path / "x.img")
     with open(path, "wb") as f:
         f.write(head + bytes(64))
@@ -238,6 +240,12 @@ def test_other_formats_still_raise_naming_them(tmp_path, name, head):
         with open(path, "wb") as f:    # the whole of cv2's signature
             f.write(head + bytes(4) + b"WEBPVP8 " + bytes(64)
                     if name == "WebP" else head + b"  \r\n\x87\n" + bytes(64))
+        if name == "WebP":   # lossy WebP raises, its zero sizes give None
+            assert cv2.imread(path) is None and td.imread(path) is None
+            ok, enc = cv2.imencode(".webp", np.zeros((4, 4, 3), np.uint8),
+                                   [cv2.IMWRITE_WEBP_QUALITY, 80])
+            with open(path, "wb") as f:
+                f.write(enc.tobytes())
     with pytest.raises(ValueError, match=name):
         td.imread(path)
 

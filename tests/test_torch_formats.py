@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from tests.image_encoders import write_hdr, write_sunras, write_tiff
+from tests.image_encoders import (gif_frame, write_hdr, write_sunras,
+                                  write_tiff, write_vp8l)
 from vido_slam_tpu_torch.io import datasets as td
 from vido_slam_tpu_torch.io.bmp import ImageTooLarge
 
@@ -75,6 +76,7 @@ def fault_g_files():
         "pfm": _encoded(".pfm", img.astype(np.float32) / 255),
         "sunras": _encoded(".ras", img),
         "gif": buf.getvalue(),
+        "webp": _encoded(".webp", img, cv2.IMWRITE_WEBP_QUALITY, 101),
         "avif": _encoded(".avif", img),
     }
 
@@ -92,7 +94,7 @@ def test_imread_never_returns_none_where_cv2_decodes(tmp_path, fmt, flag):
     with open(path, "wb") as f:
         f.write(fault_g_files()[fmt])
     ref = cv2.imread(path, FLAGS[flag])
-    if fmt in ("gif", "avif"):
+    if fmt == "avif":
         assert ref is not None
         with pytest.raises(ValueError, match="item 28b"):
             td.imread(path, FLAGS[flag])
@@ -167,15 +169,27 @@ def test_image_format_follows_cv2s_signatures(tmp_path):
 
 
 @pytest.mark.parametrize("fmt,item", [
-    ("webp", "26b"), ("jpeg2000", "26b"), ("openexr", "26b"),
+    ("webp", "26d"), ("jpeg2000", "26b"), ("openexr", "26b"),
     ("gif", "28b"), ("avif", "28b")])
 def test_formats_the_port_lacks_name_their_item(tmp_path, fmt, item):
     """Both readers raise ValueError naming the queue 1 item (OpenEXR,
     which this cv2 cannot decode at all, is refused as the other large
-    codecs are: a known deviation)."""
+    codecs are: a known deviation). A lossy WebP (cv2 at quality 80)
+    raises naming item 26d since lossless WebP is read; GIF is read since
+    item 28b's GIF part, as cv2 and PIL read it."""
     path = str(tmp_path / "x.png")
     with open(path, "wb") as f:
-        f.write(_signature_files(tmp_path)[fmt])
+        f.write(_signature_files(tmp_path)[fmt] if fmt != "webp" else
+                _encoded(".webp", _image(32, 32), cv2.IMWRITE_WEBP_QUALITY,
+                         80))
+    if fmt == "gif":
+        for flag in FLAGS.values():
+            np.testing.assert_array_equal(td.imread(path, flag),
+                                          cv2.imread(path, flag))
+        np.testing.assert_array_equal(
+            td.read_rgb_pil(path), np.asarray(Image.open(path).convert(
+                "RGB")))
+        return
     with pytest.raises(ValueError, match=f"item {item}"):
         td.imread(path)
     with pytest.raises(ValueError, match=f"item {item}"):
@@ -335,6 +349,14 @@ def _sized_file(fmt, W, H):
         return _tiff_gray8(W, H, bytes(n))
     if fmt == "png":
         return _png_gray8(W, H, bytes(n))
+    if fmt == "gif":         # a 1 x 1 frame on the screen, a 2-entry table
+        return (b"GIF89a" + struct.pack("<2H", W, H) + b"\x80\x00\x00"
+                + bytes(6) + gif_frame(np.zeros((1, 1), np.uint8)) + b";")
+    if fmt == "webp":        # a VP8X canvas over a 1 x 1 VP8L image
+        image = write_vp8l(np.zeros((1, 1), np.uint32))[12:]
+        body = b"VP8X" + struct.pack("<I", 10) + bytes(4) + struct.pack(
+            "<I", W - 1)[:3] + struct.pack("<I", H - 1)[:3] + image
+        return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
     jpg = _encoded(".jpg", np.zeros((8, 8), np.uint8))
     at = jpg.index(b"\xff\xc0") + 5
     return jpg[:at] + struct.pack(">HH", H, W) + jpg[at + 4:]
@@ -354,6 +376,12 @@ SIZE_CASES += [("png", 10 ** 6, 1), ("png", 10 ** 6 + 1, 1),
                ("png", 10 ** 6, 1074), ("jpeg", 65500, 1),
                ("jpeg", 65501, 1), ("jpeg", 1, 65501),
                ("jpeg", 65500, PIXELS // 65500 + 1), ("jpeg", 65535, 65535)]
+# GIF's 16-bit sides pass cv2's side limit, not its pixel limit; a WebP
+# canvas (24-bit sides) is checked before its image
+SIZE_CASES += [("gif", 65535, 1), ("gif", 1, 65535), ("gif", 65535, 16385),
+               ("gif", 65535, 65535), ("webp", 1, 1), ("webp", SIDE, 1),
+               ("webp", SIDE + 1, 1), ("webp", 1, SIDE + 1),
+               ("webp", SIDE, PIXELS // SIDE + 1)]
 
 
 @pytest.mark.parametrize("fmt,W,H", SIZE_CASES)

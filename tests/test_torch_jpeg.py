@@ -9,9 +9,10 @@ tiny frame sizes, EXIF orientations 1-8, files cut short at every 97th
 byte and files with bytes overwritten inside the entropy-coded data. The
 C++ steps are bit-equal to their numpy plain versions; the committed
 fixtures (tests/data/jpeg, tools/make_jpeg_fixtures.py) decode to the
-arrays committed beside them. Lossless and arithmetic-coded files raise
-naming the mode (progressive ones decode: test_torch_jpeg_progressive.py);
-the format follows the signature, not the extension."""
+arrays committed beside them. Lossless, arithmetic-coded and 12-bit files
+read as cv2 reads them (test_torch_jpeg_arith.py holds them at length;
+progressive ones: test_torch_jpeg_progressive.py); the format follows the
+signature, not the extension."""
 
 import hashlib
 import os
@@ -204,11 +205,13 @@ def test_exif_orientation_applied_as_cv2(tmp_path, endian):
     ("arith", "arithmetic"), ("12bit", "12-bit"), ("cmyk", "CMYK"),
     ("adobe", "Adobe")])
 def test_refused_modes_raise_naming_them(tmp_path, mode, what):
-    """Modes cv2 decodes and the port lacks raise ValueError naming the
-    mode (the SOF marker or its precision rewritten for those cv2 does not
-    write), so that no frame is skipped silently. CMYK and Adobe-transformed
-    colour are read since queue 1 item 25: a CMYK file PIL wrote and a
-    file of an Adobe marker read bit-equal to cv2 instead."""
+    """The modes once refused read as cv2 reads them, since queue 1 items
+    24 and 25: a baseline file's SOF rewritten to lossless (SOF3: its scan
+    is no valid lossless scan) or to arithmetic coding (SOF9: its Huffman
+    data read as arithmetic-coded data), or its precision to 12 (which cv2
+    does not decode): None where cv2 gives None, cv2's image where it
+    decodes; a CMYK file PIL wrote and a file of an Adobe marker read
+    bit-equal to cv2. No ValueError is left to name a mode."""
     data = bytearray(_encode(_image(16, 24, 0), cv2.IMWRITE_JPEG_QUALITY, 80,
                              *(mode if isinstance(mode, list) else [])))
     sof = data.find(b"\xff\xc0")
@@ -229,20 +232,18 @@ def test_refused_modes_raise_naming_them(tmp_path, mode, what):
         body = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])
         data[2:2] = b"\xff\xee" + struct.pack(">H", len(body) + 2) + body
     path = _write(str(tmp_path / "r.jpg"), bytes(data))
-    if mode in ("cmyk", "adobe"):
-        assert cv2.imread(path) is not None
-        _check(path)
-        return
-    with pytest.raises(ValueError, match=what):
-        td.imread(path, td.IMREAD_COLOR)
+    assert (cv2.imread(path) is not None) == (mode in ("arith", "cmyk",
+                                                       "adobe")), what
+    _check(path)
 
 
 def test_format_follows_the_signature(tmp_path):
     """The format follows the signature, not the extension: a ``.jpg``
     holding PNG bytes reads as the PNG, a ``.png`` holding JPEG bytes as
     the JPEG, one holding BMP bytes as the BMP, one holding TIFF bytes as
-    the TIFF, and a format cv2 decodes and the port lacks (WebP) raises,
-    as cv2 reads them all."""
+    the TIFF, one holding lossless WebP bytes as the WebP, as cv2 reads
+    them all, and one holding lossy WebP (which the port lacks) raises
+    naming item 26d."""
     img = _image(16, 16, 0)
     path = str(tmp_path / "0000000000.jpg")
     cv2.imwrite(path, img)
@@ -264,11 +265,17 @@ def test_format_follows_the_signature(tmp_path):
     assert cv2.imread(tiff) is not None
     _check(tiff)
     webp = str(tmp_path / "w.png")
-    assert cv2.imwrite(str(tmp_path / "w.webp"), img)
+    assert cv2.imwrite(str(tmp_path / "w.webp"), img,
+                       [cv2.IMWRITE_WEBP_QUALITY, 80])
     shutil.copy(str(tmp_path / "w.webp"), webp)
     assert cv2.imread(webp) is not None
-    with pytest.raises(ValueError, match="WebP"):
+    with pytest.raises(ValueError, match="26d"):
         td.imread(webp)
+    lossless = str(tmp_path / "l.png")
+    assert cv2.imwrite(str(tmp_path / "l.webp"), img,
+                       [cv2.IMWRITE_WEBP_QUALITY, 101])
+    shutil.copy(str(tmp_path / "l.webp"), lossless)
+    _check(lossless)
 
 
 def test_cpp_steps_equal_plain_full_frame():

@@ -27,7 +27,9 @@ and ``io.bmp`` to these committed digests.
         32-bit, a top-down 24-bit file; the digests of cv2's colour and gray
         reads and of PIL's RGB, as above;
   tests/data/<format>/<name>.<ext> and tests/data/<format>.npz, for the
-  formats pxm, tiff, hdr, sunras and cmyk (``FORMATS``)
+  formats pxm, tiff, hdr, sunras and cmyk (slice 19) and jpeg24
+  (arithmetic-coded, lossless and 12-bit JPEG), gif and webp (lossless)
+  (slice 20; ``FORMATS``)
         45 x 61 files of each layout those readers take: PBM, PGM and PPM
         in ASCII and binary at 8 and 16 bits and an odd maxval, PAM (gray,
         RGB, 16-bit RGB, black-and-white), PFM (gray and colour); TIFF
@@ -58,8 +60,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from tests.image_encoders import (Scan, drop_segments,  # noqa: E402
-                                  reencode_jpeg, write_bmp, write_hdr,
-                                  write_sunras, write_tiff)
+                                  encode_coefficients, gif_frame, gif_lzw,
+                                  reencode_jpeg, write_bmp, write_gif,
+                                  write_hdr, write_lossless_jpeg,
+                                  write_sunras, write_tiff, write_vp8l)
+from vido_slam_tpu_torch.io import jpeg  # noqa: E402
 from tools.make_jpeg_fixtures import textured  # noqa: E402
 
 OUT = os.path.join(ROOT, "tests", "data")
@@ -311,6 +316,163 @@ def cmyk_files() -> dict:
     return out
 
 
+def jpeg24_files() -> dict:
+    """Arithmetic-coded JPEGs re-coded from cv2's baseline files (sequential
+    with DAC conditioning and restarts, progressive with successive
+    approximation, gray, cut), lossless JPEGs (gray at 8 and 5 bits, RGB
+    with restarts, 4:2:0 RGB, CMYK, a JFIF one libjpeg cannot convert, a
+    12-bit one cv2 cannot read) and a 12-bit lossy and an arithmetic
+    lossless (SOF11) file, which cv2 and PIL fail on."""
+    H, W = SIZE
+    rng = np.random.RandomState(90)
+    out = {}
+    base = {k: _encode(textured(H, W, 91 + i), [
+        cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, f])
+        for i, (k, f) in enumerate((("420", 0x221111), ("444", 0x111111),
+                                    ("422", 0x211111)))}
+    out["arith_seq_420"] = reencode_jpeg(base["420"], [Scan([0, 1, 2])],
+                                         progressive=False, arithmetic=True)
+    out["arith_seq_dac_rst"] = reencode_jpeg(
+        base["444"], [Scan([0, 1, 2])], progressive=False, arithmetic=True,
+        restart=3, dac={0: 0x52, 1: 0x31, 16: 2, 17: 30})
+    out["arith_prog_sa"] = reencode_jpeg(
+        base["422"], [Scan([0, 1, 2], 0, 0, 1), Scan([0], 1, 5, 2),
+                      Scan([1], 1, 63, 1), Scan([2], 1, 63, 1),
+                      Scan([0], 6, 63, 2), Scan([0, 1, 2], 0, 0, 0, ah=1),
+                      Scan([0], 1, 63, 1, ah=2), Scan([0], 1, 63, 0, ah=1),
+                      Scan([1], 1, 63, 0, ah=1), Scan([2], 1, 63, 0, ah=1)],
+        progressive=True, arithmetic=True, restart=5)
+    gray = _encode(textured(H, W, 94)[..., 1], [cv2.IMWRITE_JPEG_QUALITY, 85])
+    out["arith_gray"] = reencode_jpeg(gray, [Scan([0])], progressive=False,
+                                      arithmetic=True)
+    prog = reencode_jpeg(base["420"], [Scan([0, 1, 2], 0, 0, 0)] + [
+        Scan([c], 1, 63, 0) for c in range(3)], progressive=True,
+        arithmetic=True)
+    out["arith_prog_cut"] = prog[:len(prog) * 2 // 3]
+    g = textured(H, W, 95)[..., 1].astype(np.int64)
+    out["lossless_gray8_p1"] = write_lossless_jpeg([g], precision=8,
+                                                   predictor=1)
+    out["lossless_gray5_p7_pt1"] = write_lossless_jpeg(
+        [g >> 3], precision=5, predictor=7, pt=1)
+    rgb = textured(H, W, 96)[..., ::-1].astype(np.int64)
+    planes = [rgb[..., c] for c in range(3)]
+    out["lossless_rgb_p4_rst"] = write_lossless_jpeg(
+        planes, precision=8, predictor=4, restart_rows=5)
+    sub = [planes[0], planes[1][::2, ::2], planes[2][::2, ::2]]
+    out["lossless_rgb_420_p6"] = write_lossless_jpeg(
+        sub, precision=8, predictor=6, sampling=[(2, 2), (1, 1), (1, 1)],
+        size=(H, W))
+    out["lossless_cmyk_p5"] = write_lossless_jpeg(
+        planes + [g], precision=8, predictor=5)
+    out["lossless_jfif"] = write_lossless_jpeg(
+        planes, precision=8, predictor=1,
+        head=b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
+             b"\x00\x00")
+    out["lossless_gray12"] = write_lossless_jpeg(
+        [rng.randint(0, 4096, (H, W))], precision=12, predictor=2)
+    co = jpeg.read_coefficients(base["444"])
+    out["lossy_12bit"] = encode_coefficients(
+        co._replace(frame=co.frame._replace(precision=12),
+                    quant=[q * 16 for q in co.quant]), [Scan([0, 1, 2])],
+        progressive=False)
+    sof11 = bytearray(out["lossless_gray8_p1"])
+    sof11[sof11.find(b"\xff\xc3") + 1] = 0xCB
+    out["sof11"] = bytes(sof11)
+    return {k: (".jpg", v) for k, v in out.items()}
+
+
+def gif_files() -> dict:
+    """GIFs of PIL's and cv2's writers, and hand-built ones (a local table
+    and interlaced rows, a frame smaller than its screen over a background
+    with a transparent index, a full table kept without a clear, no colour
+    table at all, an animation, a cut file)."""
+    import io
+
+    H, W = SIZE
+    rng = np.random.RandomState(100)
+    img = textured(H, W, 101)
+    out = {}
+    buf = io.BytesIO()
+    Image.fromarray(img[..., ::-1]).save(buf, "GIF")
+    out["pil_rgb"] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(img[..., 1]).save(buf, "GIF", interlace=True)
+    out["pil_gray_interlaced"] = buf.getvalue()
+    ok, enc = cv2.imencode(".gif", img)
+    assert ok
+    out["cv2_writer"] = enc.tobytes()
+    pal = rng.randint(0, 256, (32, 3))
+    idx = rng.randint(0, 32, (H, W)).astype(np.uint8)
+    out["local_interlaced"] = write_gif((W, H), [gif_frame(
+        idx, palette=pal, interlace=True)], palette=pal[::-1].copy())
+    small = rng.randint(0, 16, (H - 10, W - 13)).astype(np.uint8)
+    out["offset_transparent"] = write_gif((W, H), [gif_frame(
+        small, offset=(6, 4), transparency=3, disposal=2)],
+        palette=rng.randint(0, 256, (16, 3)), background=9)
+    noise = rng.randint(0, 256, (H, W)).astype(np.uint8)
+    out["deferred_clear"] = write_gif((W, H), [gif_frame(
+        noise, min_code_size=8, clear_when_full=False)],
+        palette=rng.randint(0, 256, (256, 3)))
+    out["no_table"] = write_gif((W, H), [gif_frame(noise // 16)])
+    out["animated"] = write_gif((W, H), [gif_frame(idx), gif_frame(
+        idx[::-1].copy())], palette=pal)
+    full = out["local_interlaced"]
+    out["cut"] = full[:len(full) * 2 // 3]
+    return {k: (".gif", v) for k, v in out.items()}
+
+
+def webp_files() -> dict:
+    """Lossless WebPs of cv2's and PIL's writers (with alpha, a palette,
+    the fastest method, an animation's first frame) and hand-built ones
+    (``write_vp8l``: every predictor mode, cross-colour with
+    subtract-green, the colour cache and LZ77, bundled palettes of 2, 4
+    and 16 colours, meta prefix codes)."""
+    import io
+
+    H, W = SIZE
+    rng = np.random.RandomState(110)
+    img = textured(H, W, 111)
+    out = {}
+    out["cv2_lossless"] = cv2.imencode(".webp", img, [
+        cv2.IMWRITE_WEBP_QUALITY, 101])[1].tobytes()
+    rgba = np.dstack([img[..., ::-1], rng.randint(0, 256, (H, W, 1))
+                      .astype(np.uint8)])
+    buf = io.BytesIO()
+    Image.fromarray(rgba).save(buf, "WEBP", lossless=True, exact=True)
+    out["pil_alpha"] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray((img[..., ::-1] // 64 * 85).astype(np.uint8)).save(
+        buf, "WEBP", lossless=True, method=6)
+    out["pil_palette"] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", lossless=True, method=0,
+                              quality=0)
+    out["pil_method0"] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", lossless=True, save_all=True,
+                              append_images=[Image.fromarray(img[::-1]
+                                                             .copy())])
+    out["pil_animated"] = buf.getvalue()
+    b, g, r = (img[..., c].astype(np.uint32) for c in range(3))
+    argb = np.uint32(0xFF000000) | r << 16 | g << 8 | b
+    th, tw = (H + 3) // 4, (W + 3) // 4
+    out["predictor_modes"] = write_vp8l(argb, predictor=(2, np.arange(
+        th * tw).reshape(th, tw) % 16))
+    out["cross_color_cache_lz77"] = write_vp8l(
+        argb, cross_color=(3, rng.randint(0, 256, ((H + 7) // 8,
+                                                   (W + 7) // 8, 3))),
+        subtract_green=True, cache_bits=6, lz77=True, simple=False)
+    for n in (2, 4, 16):
+        colors = (rng.randint(0, 1 << 24, n).astype(np.uint32)
+                  | np.uint32(0xFF000000))
+        out[f"palette{n}"] = write_vp8l(colors[rng.randint(0, n, (H, W))],
+                                        palette=colors)
+    out["meta_codes"] = write_vp8l(argb, groups=rng.randint(
+        0, 5, th * tw), group_bits=2, predictor=(2, rng.randint(
+            0, 14, (th, tw))))
+    return {k: (".webp", v) for k, v in out.items()}
+
+
 def format_references(files: dict, tmp: str) -> dict:
     """The digests of cv2's three reads and of PIL's RGB of each file."""
     arrays = {}
@@ -331,10 +493,12 @@ def format_references(files: dict, tmp: str) -> dict:
     return {k: np.array(v) for k, v in arrays.items()}
 
 
-# the formats of slice 19: directory under tests/data -> its files
+# the formats of slices 19 and 20: directory under tests/data -> its files
 FORMATS = {"pxm": lambda tmp: pxm_files(), "tiff": tiff_files,
            "hdr": hdr_files, "sunras": sunras_files,
-           "cmyk": lambda tmp: cmyk_files()}
+           "cmyk": lambda tmp: cmyk_files(),
+           "jpeg24": lambda tmp: jpeg24_files(),
+           "gif": lambda tmp: gif_files(), "webp": lambda tmp: webp_files()}
 
 
 def references(files: dict, tmp: str, ext: str) -> dict:

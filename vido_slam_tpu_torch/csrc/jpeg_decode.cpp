@@ -41,6 +41,7 @@
 #include <climits>
 #include <cstdint>
 #include <cstring>
+#include <utility>
 
 namespace {
 
@@ -65,8 +66,9 @@ struct Huff {
   uint16_t look[1 << kLook];
 };
 
-// jpeg_make_d_derived_tbl; false for a table libjpeg rejects
-bool derive(const uint8_t* bits, const uint8_t* vals, bool dc, Huff& h) {
+// jpeg_make_d_derived_tbl; false for a table libjpeg rejects (a DC table's
+// symbols above max_sym: 15, or 16 in a lossless file; -1: an AC table)
+bool derive(const uint8_t* bits, const uint8_t* vals, int max_sym, Huff& h) {
   int huffsize[257];
   uint32_t huffcode[257];
   int p = 0;
@@ -109,23 +111,18 @@ bool derive(const uint8_t* bits, const uint8_t* vals, bool dc, Huff& h) {
         h.look[first + k] = (uint16_t)(l << 8 | vals[p]);
     }
   }
-  if (dc)
+  if (max_sym >= 0)
     for (int i = 0; i < nsym; ++i)
-      if (vals[i] > 15) return false;
+      if (vals[i] > max_sym) return false;
   return true;
 }
 
-// The entropy-coded data after the SOS header: jdhuff.c's bit buffer over
-// jdmarker.c's byte source. `marker` is libjpeg's unread_marker: once a
-// marker (or the end of the data, read as the fake EOI that jdatasrc.c
-// inserts) is met, the buffer is filled with zero bits.
-struct Reader {
+// jdmarker.c's byte source over the file: its bytes, then (jdatasrc.c) fake
+// EOI markers. `marker` is libjpeg's unread_marker.
+struct Source {
   const uint8_t* p;
   const uint8_t* end;
-  uint64_t buf = 0;
-  int nbits = 0;
   int marker = 0;
-  bool insufficient = false;
   bool eof = false;  // a byte past the end was asked for (jdatasrc.c's
                      // fake EOI; a suspending source stops there)
 
@@ -136,6 +133,72 @@ struct Reader {
     }
     return *p++;
   }
+
+  // jdmarker.c next_marker: skip to an FF, then past fill FFs
+  void next_marker() {
+    for (;;) {
+      int c = byte();
+      while (c >= 0 && c != 0xFF) c = byte();
+      if (c < 0) {
+        marker = 0xD9;
+        return;
+      }
+      do {
+        c = byte();
+      } while (c == 0xFF);
+      if (c < 0) {
+        marker = 0xD9;
+        return;
+      }
+      if (c != 0) {
+        marker = c;
+        return;
+      }
+    }
+  }
+
+  // read_restart_marker: read RSTn, resynchronising by
+  // jpeg_resync_to_restart where another marker stands
+  void restart_marker(int& next_num) {
+    if (marker == 0) next_marker();
+    if (marker == 0xD0 + next_num) {
+      marker = 0;
+    } else {
+      for (;;) {
+        int action;
+        if (marker < 0xC0) {
+          action = 2;
+        } else if (marker < 0xD0 || marker > 0xD7) {
+          action = 3;
+        } else if (marker == 0xD0 + ((next_num + 1) & 7) ||
+                   marker == 0xD0 + ((next_num + 2) & 7)) {
+          action = 3;
+        } else if (marker == 0xD0 + ((next_num - 1) & 7) ||
+                   marker == 0xD0 + ((next_num - 2) & 7)) {
+          action = 2;
+        } else {
+          action = 1;
+        }
+        if (action == 1) {
+          marker = 0;
+          break;
+        }
+        if (action == 3) break;
+        marker = 0;
+        next_marker();
+      }
+    }
+    next_num = (next_num + 1) & 7;
+  }
+};
+
+// The Huffman-coded data after the SOS header: jdhuff.c's bit buffer over
+// the source. Once a marker (or the end of the data, read as the fake EOI
+// that jdatasrc.c inserts) is met, the buffer is filled with zero bits.
+struct Reader : Source {
+  uint64_t buf = 0;
+  int nbits = 0;
+  bool insufficient = false;
 
   // jpeg_fill_bit_buffer: whole bytes until 57 bits are held or a marker
   void fill() {
@@ -199,67 +262,138 @@ struct Reader {
     return h.huffval[(code + h.valoffset[l]) & 0xFF];
   }
 
-  // jdmarker.c next_marker: skip to an FF, then past fill FFs
-  void next_marker() {
-    for (;;) {
-      int c = byte();
-      while (c >= 0 && c != 0xFF) c = byte();
-      if (c < 0) {
-        marker = 0xD9;
-        return;
-      }
-      do {
-        c = byte();
-      } while (c == 0xFF);
-      if (c < 0) {
-        marker = 0xD9;
-        return;
-      }
-      if (c != 0) {
-        marker = c;
-        return;
-      }
-    }
-  }
-
-  // process_restart: drop the buffered bits, read RSTn (resynchronising by
-  // jpeg_resync_to_restart where another marker stands), and clear the
+  // process_restart: drop the buffered bits, read RSTn, and clear the
   // out-of-data flag unless a marker is still pending
   void restart(int& next_num) {
     nbits = 0;
     buf = 0;
-    if (marker == 0) next_marker();
-    if (marker == 0xD0 + next_num) {
-      marker = 0;
-    } else {
-      for (;;) {
-        int action;
-        if (marker < 0xC0) {
-          action = 2;
-        } else if (marker < 0xD0 || marker > 0xD7) {
-          action = 3;
-        } else if (marker == 0xD0 + ((next_num + 1) & 7) ||
-                   marker == 0xD0 + ((next_num + 2) & 7)) {
-          action = 3;
-        } else if (marker == 0xD0 + ((next_num - 1) & 7) ||
-                   marker == 0xD0 + ((next_num - 2) & 7)) {
-          action = 2;
-        } else {
-          action = 1;
-        }
-        if (action == 1) {
-          marker = 0;
-          break;
-        }
-        if (action == 3) break;
-        marker = 0;
-        next_marker();
-      }
-    }
-    next_num = (next_num + 1) & 7;
+    restart_marker(next_num);
     if (marker == 0) insufficient = false;
   }
 };
+
+// jaricom.c's jpeg_aritab (T.81 Table D.2): Qe << 16 | the next state after
+// an MPS << 8 | the MPS switch << 7 | the next state after an LPS; state 113
+// is the fixed estimate of one half
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// The arithmetic-coded data after the SOS header: jdarith.c's QM decoder
+// (sections D.2.4-D.2.6) over the source; past a marker (legal inside the
+// data) it reads zero bytes. ct = -1 is jdarith.c's error state: the rest
+// of the restart interval is left as it was.
+struct ArithReader : Source {
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read before the first decision
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (marker == 0) {
+          data = byte();
+          if (data < 0) {
+            marker = 0xD9;  // the fake EOI
+            data = 0;
+          } else if (data == 0xFF) {
+            do {
+              data = byte();
+            } while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker = data < 0 ? 0xD9 : data;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAritab[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - (int64_t)qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < (int64_t)qe) {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < (int64_t)qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // process_restart's reader part: RSTn, then two bytes to read again
+  void restart(int& next_num) {
+    restart_marker(next_num);
+    c = a = 0;
+    ct = -16;
+  }
+};
+
+// Figures F.21-F.24 after the sign: a nonzero value's magnitude category
+// from bin st (continuing at `large` above the first category for a DC
+// value, above the second for an AC one), then its bits. Returns |v| - 1
+// (m: its category's magnitude), or -1 where the category overflows
+// (jdarith.c's JWRN_ARITH_BAD_CODE).
+inline int arith_magnitude(ArithReader& rd, uint8_t* stats, uint8_t* st,
+                           int large, bool dc, int& mag) {
+  int m = rd.decode(st);
+  if (m != 0) {
+    if (dc || rd.decode(st)) {
+      if (!dc) m <<= 1;
+      st = stats + large;
+      while (rd.decode(st)) {
+        if ((m <<= 1) == 0x8000) return -1;
+        st += 1;
+      }
+    }
+  }
+  mag = m;
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (rd.decode(st)) v |= m;
+  return v;
+}
 
 inline int extend(int v, int s) {  // HUFF_EXTEND
   return v < (1 << (s - 1)) ? v + (int)((~0u) << s) + 1 : v;
@@ -429,11 +563,11 @@ int jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t start,
   const bool need_ac = !progressive || !dc_band;
   Huff tables[8];
   for (int c = 0; c < ncomp; ++c) {
-    if (need_dc && !derive(bits + 16 * dc[c], vals + 256 * dc[c], true,
+    if (need_dc && !derive(bits + 16 * dc[c], vals + 256 * dc[c], 15,
                            tables[dc[c]]))
       return -1;
     if (need_ac && !derive(bits + 16 * (4 + ac[c]), vals + 256 * (4 + ac[c]),
-                           false, tables[4 + ac[c]]))
+                           -1, tables[4 + ac[c]]))
       return -1;
   }
   Reader rd{data + start, data + n};
@@ -512,6 +646,305 @@ int jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t start,
   stop[2] = first_short;
   stop[3] = rd.eof ? 1 : 0;
   if (rd.marker == 0) rd.next_marker();  // jdmarker.c read_markers
+  stop[0] = rd.p - data;
+  stop[1] = rd.marker;
+  stop[4] = rd.eof ? 1 : 0;
+  return 0;
+}
+
+// Decodes the arithmetic-coded scan whose data starts at data[start]
+// (jdarith.c) into the components' coefficients: the arguments of
+// jpeg_decode_scan, with `dac` in place of the Huffman tables: the DAC
+// conditioning of the 16 tables, L[16], U[16] (DC) then K[16] (AC). Tables
+// are numbered 0-15. stop[0..4] as jpeg_decode_scan's (stop[2] is always
+// -1: arithmetic decoding has no out-of-data state, a marker supplies zero
+// bits), stop[5] the offset one past the last byte the decoder asked for
+// (where a suspending reader must have had the data).
+int jpeg_decode_arith_scan(const uint8_t* data, int64_t n, int64_t start,
+                           int ncomp, const int* h, const int* v,
+                           const int* dc, const int* ac,
+                           int16_t* const* coef, const int* bw,
+                           const uint8_t* dac, int mcux, int mcuy,
+                           int restart, int progressive, int ss, int se,
+                           int ah, int al, int64_t* stop) {
+  const bool dc_first = !progressive || (ss == 0 && ah == 0);
+  const bool ac_stats = !progressive || ss != 0;
+  static thread_local uint8_t dc_stats[16][64], ac_stat[16][256];
+  uint8_t fixed = 113;
+  int last_dc[4] = {0, 0, 0, 0}, context[4] = {0, 0, 0, 0};
+  auto reset = [&]() {
+    for (int c = 0; c < ncomp; ++c) {
+      if (dc_first) {
+        std::memset(dc_stats[dc[c]], 0, 64);
+        last_dc[c] = context[c] = 0;
+      }
+      if (ac_stats) std::memset(ac_stat[ac[c]], 0, 256);
+    }
+  };
+  reset();
+  ArithReader rd;
+  rd.p = data + start;
+  rd.end = data + n;
+  int next_restart = 0;
+  int to_go = restart;
+  const int p1 = 1 << al, m1 = -(1 << al);
+  for (int my = 0; my < mcuy; ++my) {
+    for (int mx = 0; mx < mcux; ++mx) {
+      if (restart) {
+        if (to_go == 0) {
+          rd.restart(next_restart);
+          reset();
+          to_go = restart;
+        }
+        --to_go;
+      }
+      if (rd.ct == -1) continue;  // the MCUs stay as they were
+      for (int c = 0; c < ncomp && rd.ct != -1; ++c) {
+        for (int by = 0; by < v[c] && rd.ct != -1; ++by) {
+          for (int bx = 0; bx < h[c] && rd.ct != -1; ++bx) {
+            const int64_t blk =
+                (int64_t)(my * v[c] + by) * bw[c] + (mx * h[c] + bx);
+            int16_t* b = coef[c] + 64 * blk;
+            if (progressive && ss == 0 && ah != 0) {  // DC refinement
+              if (rd.decode(&fixed)) b[0] = (int16_t)(b[0] | p1);
+              continue;
+            }
+            if (dc_first) {  // F.2.4.1: the DC difference
+              uint8_t* stats = dc_stats[dc[c]];
+              uint8_t* st = stats + context[c];
+              if (rd.decode(st) == 0) {
+                context[c] = 0;
+              } else {
+                const int sign = rd.decode(st + 1);
+                int m;
+                int val = arith_magnitude(rd, stats, st + 2 + sign, 20, true,
+                                          m);
+                if (val < 0) {
+                  rd.ct = -1;
+                  break;
+                }
+                const int L = dac[dc[c]], U = dac[16 + dc[c]];
+                if (m < (int)((1L << L) >> 1))
+                  context[c] = 0;
+                else if (m > (int)((1L << U) >> 1))
+                  context[c] = 12 + sign * 4;
+                else
+                  context[c] = 4 + sign * 4;
+                val += 1;
+                if (sign) val = -val;
+                last_dc[c] = (last_dc[c] + val) & 0xFFFF;
+              }
+              b[0] = (int16_t)(progressive ? (unsigned)last_dc[c] << al
+                                           : (unsigned)last_dc[c]);
+              if (progressive) continue;
+            }
+            uint8_t* stats = ac_stat[ac[c]];
+            const int K = dac[32 + ac[c]];
+            const int lo = progressive ? ss : 1, hi = progressive ? se : 63;
+            if (!progressive || ah == 0) {  // F.2.4.2: AC first
+              for (int k = lo; k <= hi; ++k) {
+                uint8_t* st = stats + 3 * (k - 1);
+                if (rd.decode(st)) break;  // EOB
+                while (rd.decode(st + 1) == 0) {
+                  st += 3;
+                  if (++k > hi) {
+                    rd.ct = -1;  // spectral overflow
+                    break;
+                  }
+                }
+                if (rd.ct == -1) break;
+                const int sign = rd.decode(&fixed);
+                int m;
+                int val = arith_magnitude(rd, stats, st + 2,
+                                          k <= K ? 189 : 217, false, m);
+                if (val < 0) {
+                  rd.ct = -1;
+                  break;
+                }
+                val += 1;
+                if (sign) val = -val;
+                b[kNatural[k]] = (int16_t)(progressive
+                                               ? (unsigned)val << al
+                                               : (unsigned)val);
+              }
+              continue;
+            }
+            int kex = hi;  // G.1.3.3: AC refinement
+            for (; kex > 0; --kex)
+              if (b[kNatural[kex]]) break;
+            for (int k = lo; k <= hi; ++k) {
+              uint8_t* st = stats + 3 * (k - 1);
+              if (k > kex && rd.decode(st)) break;  // EOB
+              for (;;) {
+                int16_t* t = b + kNatural[k];
+                if (*t) {
+                  if (rd.decode(st + 2))
+                    *t = (int16_t)(*t < 0 ? *t + m1 : *t + p1);
+                  break;
+                }
+                if (rd.decode(st + 1)) {
+                  *t = (int16_t)(rd.decode(&fixed) ? m1 : p1);
+                  break;
+                }
+                st += 3;
+                if (++k > hi) {
+                  rd.ct = -1;
+                  break;
+                }
+              }
+              if (rd.ct == -1) break;
+            }
+          }
+        }
+      }
+    }
+  }
+  stop[2] = -1;
+  stop[3] = rd.eof ? 1 : 0;
+  stop[5] = rd.p - data;
+  if (rd.marker == 0) rd.next_marker();
+  stop[0] = rd.p - data;
+  stop[1] = rd.marker;
+  stop[4] = rd.eof ? 1 : 0;
+  return 0;
+}
+
+// Decodes the lossless scan whose Huffman-coded data starts at data[start]
+// (libjpeg-turbo 3's jdlhuff.c, jddiffct.c and jdlossls.c) into the
+// components' sample planes: plane[c] of rows of cw[c] samples, ch[c] rows.
+// ncomp components in the scan, each with h[c] x v[c] samples in an MCU
+// (1, 1 for a scan of one component) and its DC table dc[c] (bits, vals as
+// jpeg_decode_scan's). `imcu_rows` iMCU rows, `mcu_rows[r]` MCU rows in
+// iMCU row r, mcus_per_row MCUs in each; comp_v[c] the component's sample
+// rows in an iMCU row; a restart every `restart_rows` MCU rows (0: none).
+// precision P, predictor psv (1-7) and point transform pt: each sample
+// undifferenced modulo 2^16 (the first row of the scan, and of the iMCU
+// row in which a restart marker is read, by the 1-D rule from
+// 2^(P - pt - 1)), then shifted left by pt into 8 bits. Where the data runs
+// out, the rest of that MCU row decodes from zero bits and the next MCU
+// rows are zero differences from restarted predictors (their samples
+// 2^(P - pt - 1) << pt), until a restart. Returns 0; -1 for a Huffman
+// table libjpeg rejects. stop as jpeg_decode_arith_scan's.
+int jpeg_decode_lossless_scan(const uint8_t* data, int64_t n, int64_t start,
+                              int ncomp, const int* h, const int* v,
+                              const int* dc, uint8_t* const* plane,
+                              const int* cw, const int* ch, const int* comp_v,
+                              const uint8_t* bits, const uint8_t* vals,
+                              int imcu_rows, const int* mcu_rows,
+                              int mcus_per_row, int restart_rows,
+                              int precision, int psv, int pt,
+                              int64_t* stop) {
+  Huff tables[4];
+  for (int c = 0; c < ncomp; ++c)
+    if (!derive(bits + 16 * dc[c], vals + 256 * dc[c], 16, tables[dc[c]]))
+      return -1;
+  Reader rd;
+  rd.p = data + start;
+  rd.end = data + n;
+  // each component's differences of an iMCU row (comp_v rows of the MCU
+  // row's width) and its previous undifferenced row
+  int* diff[4];
+  int* prev[4];
+  int* cur[4];
+  int width[4];
+  bool first[4];
+  for (int c = 0; c < ncomp; ++c) {
+    width[c] = mcus_per_row * h[c];
+    diff[c] = new int[(size_t)width[c] * comp_v[c]]();
+    prev[c] = new int[(size_t)cw[c] + 1]();
+    cur[c] = new int[(size_t)cw[c] + 1]();
+    first[c] = true;
+  }
+  const int initial = 1 << (precision - pt - 1);
+  int next_restart = 0;
+  int to_go = restart_rows;
+  for (int r = 0; r < imcu_rows; ++r) {
+    for (int y = 0; y < mcu_rows[r]; ++y) {
+      if (restart_rows) {
+        if (to_go == 0) {
+          rd.restart(next_restart);
+          for (int c = 0; c < ncomp; ++c) first[c] = true;
+          to_go = restart_rows;
+        }
+      }
+      if (rd.insufficient) {  // zero differences, restarted predictors
+        for (int c = 0; c < ncomp; ++c) {
+          const int rows = ncomp > 1 ? v[c] : 1;
+          for (int i = 0; i < rows; ++i)
+            std::memset(diff[c] + (size_t)(y * rows + i) * width[c], 0,
+                        sizeof(int) * width[c]);
+          first[c] = true;
+        }
+      } else {
+        for (int mx = 0; mx < mcus_per_row; ++mx) {
+          for (int c = 0; c < ncomp; ++c) {
+            const Huff& t = tables[dc[c]];
+            const int rows = ncomp > 1 ? v[c] : 1;
+            for (int by = 0; by < rows; ++by) {
+              for (int bx = 0; bx < h[c]; ++bx) {
+                int s = rd.decode(t);
+                if (s == 16) {
+                  s = 32768;
+                } else if (s) {
+                  s = extend(rd.get(s), s);
+                }
+                diff[c][(size_t)(y * rows + by) * width[c] + mx * h[c] + bx] =
+                    s;
+              }
+            }
+          }
+        }
+      }
+      if (restart_rows) --to_go;
+    }
+    // undifference and scale the iMCU row's rows of each component
+    for (int c = 0; c < ncomp; ++c) {
+      for (int i = 0; i < comp_v[c]; ++i) {
+        const int row = r * comp_v[c] + i;
+        if (row >= ch[c]) break;
+        const int* d = diff[c] + (size_t)i * width[c];
+        int* out = cur[c];
+        const int* up = prev[c];
+        if (first[c]) {
+          int ra = (d[0] + initial) & 0xFFFF;
+          out[0] = ra;
+          for (int x = 1; x < cw[c]; ++x) out[x] = ra = (d[x] + ra) & 0xFFFF;
+          first[c] = false;
+        } else {
+          int rb = up[0];
+          int ra = (d[0] + rb) & 0xFFFF;
+          out[0] = ra;
+          for (int x = 1; x < cw[c]; ++x) {
+            const int rc = rb;
+            rb = up[x];
+            int pred;
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
+            out[x] = ra = (d[x] + pred) & 0xFFFF;
+          }
+        }
+        uint8_t* o = plane[c] + (int64_t)row * cw[c];
+        for (int x = 0; x < cw[c]; ++x) o[x] = (uint8_t)(out[x] << pt);
+        std::swap(prev[c], cur[c]);
+      }
+    }
+  }
+  for (int c = 0; c < ncomp; ++c) {
+    delete[] diff[c];
+    delete[] prev[c];
+    delete[] cur[c];
+  }
+  stop[2] = -1;
+  stop[3] = rd.eof ? 1 : 0;
+  stop[5] = rd.p - data;
+  if (rd.marker == 0) rd.next_marker();
   stop[0] = rd.p - data;
   stop[1] = rd.marker;
   stop[4] = rd.eof ? 1 : 0;

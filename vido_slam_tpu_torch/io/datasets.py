@@ -15,11 +15,12 @@ Images are read by ``imread`` with the semantics of the ``cv2.imread``
 flags the demo passes, the format told by the signature as cv2 tells it
 (``image_format``), on the port's own decoders: PNG (``io/png.py``),
 JPEG (``io/jpeg.py``), BMP (``io/bmp.py``), PBM/PGM/PPM, PAM and PFM
-(``io/pxm.py``), TIFF (``io/tiff.py``), Radiance HDR (``io/hdr.py``) and
-Sun raster (``io/sunras.py``). The data pipelines, which the JAX package
-reads through PIL, read by ``read_rgb_pil`` on the same decoders, each
-by PIL's rules. WebP, JPEG 2000, OpenEXR, GIF and AVIF raise ValueError
-naming their ROADMAP.md queue 1 item.
+(``io/pxm.py``), TIFF (``io/tiff.py``), Radiance HDR (``io/hdr.py``), Sun
+raster (``io/sunras.py``), GIF (``io/gif.py``) and lossless WebP
+(``io/webp.py``). The data pipelines, which the JAX package reads through
+PIL, read by ``read_rgb_pil`` on the same decoders, each by PIL's rules.
+Lossy WebP, JPEG 2000, OpenEXR and AVIF raise ValueError naming their
+ROADMAP.md queue 1 item.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from vido_slam_tpu_torch.io import bmp, hdr, jpeg, png, pxm, sunras, tiff
+from vido_slam_tpu_torch.io import (bmp, gif, hdr, jpeg, png, pxm, sunras,
+                                    tiff, webp)
 
 FLO_MAGIC = 202021.25
 
@@ -63,9 +65,9 @@ def write_flo(path: str, flow: np.ndarray) -> None:
 
 
 # the formats whose signatures cv2 knows and the port does not decode, by
-# the queue 1 item of ROADMAP.md that names each
-REFUSED = {"webp": ("WebP", "26b"), "jpeg2000": ("JPEG 2000", "26b"),
-           "openexr": ("OpenEXR", "26b"), "gif": ("GIF", "28b"),
+# the queue 1 item of ROADMAP.md that names each (lossy WebP: io/webp.py
+# raises naming 26d)
+REFUSED = {"jpeg2000": ("JPEG 2000", "26b"), "openexr": ("OpenEXR", "26b"),
            "avif": ("AVIF", "28b")}
 
 
@@ -114,7 +116,7 @@ def image_format(data: bytes) -> Optional[str]:
         return "jpeg2000"
     if data[:4] == b"\x76\x2f\x31\x01":
         return "openexr"
-    if data[:6] in (b"GIF87a", b"GIF89a"):
+    if data[:6] in gif.SIGNATURES:
         return "gif"
     return None
 
@@ -139,9 +141,10 @@ def rgb_to_gray(px: np.ndarray) -> np.ndarray:
 def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
     """``cv2.imread(path, flags)``, bit-equal to it, the format told by the
     file's signature as cv2 tells it (``image_format``, not by the
-    extension): PNG, JPEG, BMP, PBM/PGM/PPM, PAM, PFM, TIFF, Radiance HDR
-    and Sun raster. ``IMREAD_COLOR`` gives (H, W, 3) uint8 BGR (gray
-    replicated, alpha dropped, 16-bit samples cut to their high byte);
+    extension): PNG, JPEG, BMP, PBM/PGM/PPM, PAM, PFM, TIFF, Radiance HDR,
+    Sun raster, GIF and lossless WebP. ``IMREAD_COLOR`` gives (H, W, 3)
+    uint8 BGR (gray replicated, alpha dropped, 16-bit samples cut to their
+    high byte);
     ``IMREAD_GRAYSCALE`` (H, W) uint8; ``IMREAD_ANYDEPTH`` (H, W) at the
     file's depth (uint16 for 16-bit PNG, PxM and TIFF samples, float32 for
     PFM, HDR and float TIFF), colour turned gray by each decoder's weights
@@ -160,11 +163,12 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
     with open(path, "rb") as f:
         data = f.read()
     fmt = image_format(data)
-    if fmt == "gif" and not (len(data) >= 10 and data[6:8] != b"\0\0"
-                             and data[8:10] != b"\0\0"):
-        return None             # GifDecoder::readHeader: an empty screen
     if fmt in REFUSED:
         _refuse(path, fmt)
+    if fmt == "gif":
+        return gif.read_cv2(data, flags)
+    if fmt == "webp":
+        return webp.read_cv2(data, flags)
     if fmt == "jpeg":
         try:
             return jpeg.decode_jpeg(data, gray=flags != IMREAD_COLOR)
@@ -202,20 +206,22 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
 
 # PIL's reading of the formats it opens and cv2 also reads
 _PIL_READERS = {"pxm": pxm.read_pil, "pfm": pxm.read_pil,
-                "tiff": tiff.read_pil, "sunras": sunras.read_pil}
+                "tiff": tiff.read_pil, "sunras": sunras.read_pil,
+                "gif": gif.read_pil, "webp": webp.read_pil}
 
 
 def read_rgb_pil(path: str) -> np.ndarray:
     """``np.asarray(Image.open(path).convert("RGB"))``, bit-equal to PIL:
     (H, W, 3) uint8 RGB, for PNG, JPEG (CMYK ones as PIL inverts and
-    converts them), BMP, PBM/PGM/PPM, ``Pf`` PFM, TIFF and Sun raster
-    files. It reads as ``imread`` reads colour (gray replicated, alpha
-    dropped, palette expanded, 16-bit RGB cut to its high byte) but for
+    converts them), BMP, PBM/PGM/PPM, ``Pf`` PFM, TIFF, Sun raster, GIF
+    and lossless WebP files. It reads as ``imread`` reads colour (gray
+    replicated, alpha dropped, palette expanded, 16-bit RGB cut to its high
+    byte) but for
     what PIL does otherwise: a JPEG's EXIF orientation is not applied, a
     16-bit gray PNG (PIL's ``I;16``) is clipped at 255, and each other
     format follows its module's ``read_pil``. A missing file, one PIL
     does not open (PAM, colour PFM, HDR) or one it fails on raises, as
-    ``Image.open`` does; GIF, WebP, JPEG 2000 and AVIF, which PIL opens,
+    ``Image.open`` does; lossy WebP, JPEG 2000 and AVIF, which PIL opens,
     raise ``ValueError`` naming their queue 1 item."""
     with open(path, "rb") as f:
         data = f.read()

@@ -3,45 +3,55 @@
 files (both libjpeg-turbo 3.1 at its defaults), bit for bit, for the
 port's dataset readers (``io/datasets.py``).
 
-Decoded: Huffman-coded JPEG of 8 bits, 1 or 3 components (YCbCr, or gray),
-baseline and extended sequential (SOF0, SOF1) in one interleaved scan or in
-several (one a component, or any grouping), and progressive (SOF2) with
-any script of spectral selection and successive approximation; any
-integer sampling layout — 4:4:4, 4:2:2 (h2v1), 4:2:0 (h2v2), 4:4:0 (h1v2)
-and the box-upsampled others —, 8- and 16-bit DQT tables (each
-component's latched at its first scan, as jdinput.c does), optimised
-Huffman tables, libjpeg's standard tables for a sequential scan that
-names table 0 or 1 where the file defines none (Motion-JPEG frames; a
-progressive file without them fails, as in cv2), tables redefined
-between scans, and DRI/RSTn restart intervals. The arithmetic is
-libjpeg's: the JDCT_ISLOW integer IDCT, fancy (triangle) upsampling, the
+Decoded: JPEG of 8-bit samples, 1, 3 or 4 components (gray, YCbCr, RGB,
+CMYK, YCCK), Huffman- or arithmetic-coded: baseline and extended
+sequential (SOF0, SOF1, SOF9) in one interleaved scan or in several (one
+a component, or any grouping), progressive (SOF2, SOF10) with any script
+of spectral selection and successive approximation; lossless (SOF3) of 2-8
+bits, any predictor and point transform; any integer sampling layout —
+4:4:4, 4:2:2 (h2v1), 4:2:0 (h2v2), 4:4:0 (h1v2) and the box-upsampled
+others —, 8- and 16-bit DQT tables (each component's latched at its first
+scan, as jdinput.c does), optimised Huffman tables, libjpeg's standard
+tables for a sequential scan that names table 0 or 1 where the file
+defines none (Motion-JPEG frames; a progressive file without them fails,
+as in cv2), tables and DAC conditioning redefined between scans, and
+DRI/RSTn restart intervals. The arithmetic is libjpeg's: jdarith.c's QM
+decoder, the JDCT_ISLOW integer IDCT, fancy (triangle) upsampling, the
 fixed-point YCbCr -> RGB tables, written out as BGR (the IDCT in the
 16-bit lanes of libjpeg-turbo's x86-64 SIMD build, which differ from
 jidctint.c only on corrupt coefficients: ``csrc/jpeg_decode.cpp``), and
 the block smoothing of a progressive file whose low coefficients are
 incomplete at output; a gray read of a colour file is the Y plane
-(libjpeg's ``JCS_GRAYSCALE`` output). The EXIF orientation tag is applied
-as ``cv2.imread`` applies it (flips and transposes).
+(libjpeg's ``JCS_GRAYSCALE`` output). A lossless file's samples are
+box-upsampled and converted to no other colour space (libjpeg fails on a
+gray read of RGB, a colour read of gray, and on YCbCr or YCCK). The EXIF
+orientation tag is applied as ``cv2.imread`` applies it (flips and
+transposes).
 
-Where the data ends early, or a marker stands inside the entropy-coded
+Where the data ends early, or a marker stands inside the Huffman-coded
 data, the rest of the restart segment keeps the coefficients it has (a
 baseline file decodes uniform gray there), as libjpeg does and cv2
 returns; past the end of the file libjpeg reads fake EOI markers, and so
-does this decoder. PIL's reader stops where libjpeg asks for a byte past
-the end (``strict``: ``TruncatedJpeg``, an ``OSError``, "image file is
-truncated"), and fails where libjpeg fails after the image. Bytes libjpeg
-fails on (no JPEG signature, no image before EOI, a missing or invalid
-table, an invalid frame header or progression, an unsupported SOF) raise
-``CorruptJpeg``, where ``cv2.imread`` returns None. Valid files of the
-modes this decoder lacks — arithmetic-coded (SOF9-11), lossless (SOF3),
-12-bit, CMYK/YCCK or Adobe-transformed colour, RGB-coded components —
-raise a plain ``ValueError`` naming the mode: cv2 decodes those, and
-returning None would skip a frame.
+does this decoder. Arithmetic-coded data reads zero bits past a marker;
+a decoding error leaves the rest of its restart interval as it was. PIL's
+reader stops where libjpeg asks for a byte past the end (``strict``:
+``TruncatedJpeg``, an ``OSError``, "image file is truncated"), fails where
+libjpeg fails after the image, and fails where an arithmetic-coded scan
+crosses one of the 64 KiB blocks it feeds libjpeg (``SuspendedJpeg``:
+jdarith.c cannot suspend). Bytes libjpeg fails on (no JPEG signature, no
+image before EOI, a missing or invalid table, an invalid frame header or
+progression, an unsupported SOF) raise ``CorruptJpeg``, where
+``cv2.imread`` returns None; so do the files libjpeg-turbo decodes only
+through its 12- and 16-bit interfaces, which cv2 and PIL do not call
+(12-bit lossy JPEG, lossless of 9-16 bits), and arithmetic-coded lossless
+files (SOF11), which it does not decode.
 
-The Huffman decoding, the smoothing and, by default, the rest run in host
-C++ (``csrc/jpeg_decode.cpp``, built at first use, bound by ctypes);
-``plain=True`` runs dequantisation, the IDCT, upsampling and colour in
-numpy instead, bit-equal to the C++ path.
+The Huffman, arithmetic and lossless decoding, the smoothing and, by
+default, the rest run in host C++ (``csrc/jpeg_decode.cpp``, built at
+first use, bound by ctypes); ``plain=True`` runs the arithmetic and
+lossless scan decoders in Python (``arith_scan_plain``,
+``lossless_scan_plain``) and dequantisation, the IDCT, upsampling and
+colour in numpy instead, bit-equal to the C++ path.
 """
 
 from __future__ import annotations
@@ -67,10 +77,13 @@ ZIGZAG = np.array([
 # jmorecfg.h: the longest side libjpeg decodes (JERR_IMAGE_TOO_BIG)
 JPEG_MAX_DIMENSION = 65500
 
-# SOF markers this decoder refuses though libjpeg-turbo decodes them
-REFUSED_SOF = {0xC3: "lossless (SOF3)", 0xC9: "arithmetic-coded (SOF9)",
-               0xCA: "arithmetic-coded progressive (SOF10)",
-               0xCB: "arithmetic-coded lossless (SOF11)"}
+# the SOF markers libjpeg-turbo reads: baseline, extended, progressive and
+# lossless, Huffman- or arithmetic-coded
+SOF_MARKERS = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA, 0xCB)
+
+# PIL's reader feeds libjpeg the file in blocks of this many bytes
+# (ImageFile.MAXBLOCK); jdarith.c cannot suspend inside a scan for more
+PIL_BLOCK = 65536
 
 # jstdhuff.c: the tables of JPEG's Annex K.3 (DC 0 and 1, AC 0 and 1),
 # which libjpeg-turbo puts in slots 0 and 1 that a sequential file leaves
@@ -107,6 +120,12 @@ class TruncatedJpeg(OSError):
     markers on."""
 
 
+class SuspendedJpeg(OSError):
+    """An arithmetic-coded scan runs past the end of one of the blocks PIL
+    feeds libjpeg: jdarith.c cannot suspend there and fails, and PIL
+    raises "broken data stream"."""
+
+
 class Component(NamedTuple):
     ident: int
     h: int
@@ -119,6 +138,9 @@ class Frame(NamedTuple):
     height: int
     comps: List[Component]
     progressive: bool = False
+    precision: int = 8
+    arithmetic: bool = False
+    lossless: bool = False
 
 
 class _Source:
@@ -284,6 +306,8 @@ class Coefficients(NamedTuple):
                                  # jpeg_finish_decompress)
     space: str = "ycc"           # libjpeg's jpeg_color_space: gray, ycc,
                                  # rgb, cmyk or ycck
+    planes: Optional[list] = None  # a lossless file's (ch, cw) uint8
+                                   # sample planes (its coefs are empty)
 
 
 class Layout(NamedTuple):
@@ -320,11 +344,21 @@ def layout(frame: Frame) -> Layout:
 
 
 def _frame(m: int, body: bytes) -> Frame:
+    """jdmarker.c get_sof and the checks of jdinput.c initial_setup, and
+    what the 8-bit interface that cv2 and PIL call refuses: a precision
+    other than 8 (2-8 lossless; libjpeg-turbo decodes 12-bit and 9-16-bit
+    lossless JPEG only through its 12- and 16-bit interfaces) and an
+    arithmetic-coded lossless file (SOF11: no decoder for it)."""
     if len(body) < 6:
         raise CorruptJpeg("JPEG SOF is too short")
     prec, height, width, nf = struct.unpack(">BHHB", body[:6])
-    if prec != 8:
-        raise ValueError(f"{prec}-bit JPEG is not supported (8-bit only)")
+    lossless = m in (0xC3, 0xCB)
+    if m == 0xCB:
+        raise CorruptJpeg("arithmetic-coded lossless JPEG (SOF11): "
+                          "libjpeg-turbo has no decoder for it")
+    if prec != 8 and not (lossless and 2 <= prec <= 8):
+        raise CorruptJpeg(f"{prec}-bit JPEG: the 8-bit interface of "
+                          f"libjpeg-turbo that cv2 and PIL call refuses it")
     if height == 0 or width == 0 or nf == 0:
         raise CorruptJpeg("JPEG frame is empty")
     if nf not in (1, 3, 4):
@@ -339,7 +373,8 @@ def _frame(m: int, body: bytes) -> Frame:
             raise CorruptJpeg("JPEG component has bad sampling factors or "
                               "table number")
         comps.append(Component(ident, h, v, tq))
-    return Frame(width, height, comps, m == 0xC2)
+    return Frame(width, height, comps, m in (0xC2, 0xCA), prec,
+                 m in (0xC9, 0xCA, 0xCB), lossless)
 
 
 class _Tables:
@@ -352,6 +387,10 @@ class _Tables:
         self.have = set()
         self.quant = {}
         self.restart = 0
+        # the DAC conditioning of the 16 arithmetic-coding tables: each DC
+        # table's L and U, then each AC table's K (libjpeg's defaults)
+        self.dac = np.concatenate([np.zeros(16), np.ones(16),
+                                   np.full(16, 5)]).astype(np.uint8)
 
     def dht(self, body: bytes) -> None:
         """jdmarker.c get_dht, its checks in its order."""
@@ -399,6 +438,28 @@ class _Tables:
         if left != 0:
             raise CorruptJpeg("JPEG DQT has a bad length")
 
+    def dac_segment(self, body: bytes) -> None:
+        """jdmarker.c get_dac: (index, value) pairs, 0-15 a DC table's
+        L | U << 4 (L at most U), 16-31 an AC table's K."""
+        pos, left = 0, getattr(body, "declared", len(body))
+        while left > 0:
+            if left < 2:     # libjpeg reads on past the segment, then fails
+                raise CorruptJpeg("JPEG DAC has a bad length")
+            _need(body, pos + 2)
+            index, val = body[pos], body[pos + 1]
+            left -= 2
+            if index >= 32:
+                raise CorruptJpeg("JPEG DAC names a bad table")
+            if index >= 16:
+                self.dac[32 + index - 16] = val
+            else:
+                if val & 15 > val >> 4:
+                    raise CorruptJpeg("JPEG DAC value is invalid")
+                self.dac[index], self.dac[16 + index] = val & 15, val >> 4
+            pos += 2
+        if left != 0:
+            raise CorruptJpeg("JPEG DAC has a bad length")
+
     def standard(self) -> None:
         """jstdhuff.c at the first scan of a sequential file (cv2's
         libjpeg-turbo does not for a progressive one): slots 0 and 1 left
@@ -442,29 +503,33 @@ def _scan_header(frame: Frame, body: bytes):
     return index, tables, ss, se, a >> 4, a & 15
 
 
-def read_coefficients(data: bytes, strict: bool = False) -> Coefficients:
+def read_coefficients(data: bytes, strict: bool = False,
+                      plain: bool = False) -> Coefficients:
     """Every scan of the file, as libjpeg's input controller absorbs them
-    before output (jdinput.c, jdmarker.c, jdhuff.c, jdphuff.c): the header
-    up to the first scan, then each scan and the markers between scans up
-    to EOI (a file of one scan holding every component ends with it).
-    ``strict``: where the file ends before libjpeg is done with it,
-    TruncatedJpeg, as PIL's suspending reader; else ``cv2.imread``'s size
-    limits hold (``bmp.ImageTooLarge``)."""
+    before output (jdinput.c, jdmarker.c, jdhuff.c, jdphuff.c, jdarith.c,
+    and jdlhuff.c with jddiffct.c for a lossless file, whose samples it
+    returns): the header up to the first scan, then each scan and the
+    markers between scans up to EOI (a file of one scan holding every
+    component ends with it). ``strict``: where the file ends before libjpeg
+    is done with it, TruncatedJpeg, as PIL's suspending reader, and where
+    an arithmetic-coded scan crosses one of PIL's blocks, SuspendedJpeg;
+    a precision other than 8 fails (PIL's own check); else ``cv2.imread``'s
+    size limits hold (``bmp.ImageTooLarge``). ``plain``: the arithmetic
+    and lossless scans by their Python decoders."""
     frame, orientation = None, 1
     tables = _Tables()
     jfif = adobe = None
     for m, body, end in _segments(data, strict):
-        if m in (0xC0, 0xC1, 0xC2) or m in REFUSED_SOF \
-                or 0xC5 <= m <= 0xCF and m != 0xCC:
+        if m in SOF_MARKERS or 0xC5 <= m <= 0xCF and m != 0xCC:
             if frame is not None:
                 raise CorruptJpeg("JPEG has two frame headers")
-            if m in REFUSED_SOF:
-                raise ValueError(f"{REFUSED_SOF[m]} JPEG is not supported "
-                                 f"(Huffman-coded only)")
-            if m not in (0xC0, 0xC1, 0xC2):
+            if m not in SOF_MARKERS:
                 raise CorruptJpeg(f"JPEG SOF {m:#04x} is not supported by "
                                   f"libjpeg")
             frame = _frame(m, body)
+            if strict and frame.precision != 8:
+                raise CorruptJpeg(f"PIL cannot handle {frame.precision}-bit "
+                                  f"layers")
         elif m == 0xE0 and body[:5] == b"JFIF\x00" and len(body) >= 14:
             jfif = True
         elif m == 0xE1 and orientation == 1:
@@ -483,12 +548,18 @@ def read_coefficients(data: bytes, strict: bool = False) -> Coefficients:
     if not strict:
         check_cv2_size(frame.width, frame.height)
     comps = frame.comps
-    space = color_space([c.ident for c in comps], jfif, adobe)
+    space = color_space([c.ident for c in comps], jfif, adobe,
+                        frame.lossless)
     if not frame.progressive:
         tables.standard()
     lay = layout(frame)
     n = len(comps)
-    coefs = [np.zeros((bh, bw, 64), np.int16) for bh, bw in lay.blocks]
+    planes = None
+    if frame.lossless:
+        coefs = [np.zeros((0, 0, 64), np.int16)] * n
+        planes = [np.zeros(size, np.uint8) for size in lay.sizes]
+    else:
+        coefs = [np.zeros((bh, bw, 64), np.int16) for bh, bw in lay.blocks]
     latched = [None] * n
     bits = prev = None
     if frame.progressive:
@@ -497,6 +568,7 @@ def read_coefficients(data: bytes, strict: bool = False) -> Coefficients:
     src = _Source(data, strict=strict)
     body, pos = first
     scans = 0
+    covered = set()          # the components a lossless scan reached
     multi = None
     broken = None
     while True:
@@ -504,8 +576,18 @@ def read_coefficients(data: bytes, strict: bool = False) -> Coefficients:
         index, tnums, ss, se, ah, al = _scan_header(frame, body)
         if multi is None:
             multi = frame.progressive or len(index) < n
-        stop = _decode_scan(data, pos, frame, lay, tables, coefs, latched,
-                            bits, prev, scans, index, tnums, ss, se, ah, al)
+        if frame.lossless:
+            stop = _decode_lossless_scan(data, pos, frame, lay, tables,
+                                         planes, index, tnums, ss, se, ah,
+                                         al, plain)
+            covered.update(index)
+        else:
+            stop = _decode_scan(data, pos, frame, lay, tables, coefs,
+                                latched, bits, prev, scans, index, tnums, ss,
+                                se, ah, al, plain)
+        if strict and frame.arithmetic and (
+                (stop[5] - 1) // PIL_BLOCK > (pos - 1) // PIL_BLOCK):
+            raise SuspendedJpeg("broken data stream when reading image file")
         ran_past, marker, pos = stop[3] or multi and stop[4], stop[1], stop[0]
         last_good = lay.imcu_rows
         if stop[2] >= 0:     # the iMCU row of the MCU where data ran out
@@ -530,16 +612,22 @@ def read_coefficients(data: bytes, strict: bool = False) -> Coefficients:
             _between_scans(tables, m, body)
         if body is None:
             break
+    if frame.lossless and len(covered) < n:
+        # jddiffct.c's whole-image buffer is not pre-zeroed: reading the
+        # rows of a component no scan reached fails (JERR_BAD_VIRTUAL_ACCESS)
+        raise CorruptJpeg("JPEG lossless component never scanned")
     quant = [q if q is not None else np.zeros(64, np.uint16)
              for q in latched]
     return Coefficients(frame, coefs, quant, bits, prev, scans, last_good,
-                        orientation, broken, space)
+                        orientation, broken, space, planes)
 
 
-def color_space(ids: list, jfif: bool, adobe: Optional[int]) -> str:
+def color_space(ids: list, jfif: bool, adobe: Optional[int],
+                lossless: bool = False) -> str:
     """libjpeg's ``default_decompress_parms``: the colour space of a frame
     of these component ids after a JFIF APP0 (``jfif``) and an Adobe APP14
-    of transform ``adobe`` (None: no such marker)."""
+    of transform ``adobe`` (None: no such marker); a lossless frame
+    without either is RGB, whatever its ids."""
     if len(ids) == 1:
         return "gray"
     if len(ids) == 4:
@@ -548,7 +636,7 @@ def color_space(ids: list, jfif: bool, adobe: Optional[int]) -> str:
         return "ycc"
     if adobe is not None:
         return "rgb" if adobe == 0 else "ycc"
-    return "rgb" if ids == [82, 71, 66] else "ycc"
+    return "rgb" if ids == [82, 71, 66] or lossless else "ycc"
 
 
 def _table_marker(tables: _Tables, m: int, body: bytes) -> None:
@@ -562,8 +650,10 @@ def _table_marker(tables: _Tables, m: int, body: bytes) -> None:
             raise CorruptJpeg("JPEG DRI has a bad length")
         _need(body, 2)
         tables.restart, = struct.unpack(">H", body)
-    elif not (0xE0 <= m <= 0xEF or m in (0xCC, 0xDC, 0xFE)):
-        # APPn, DAC, DNL and COM are skipped; libjpeg fails on the rest
+    elif m == 0xCC:
+        tables.dac_segment(body)
+    elif not (0xE0 <= m <= 0xEF or m in (0xDC, 0xFE)):
+        # APPn, DNL and COM are skipped; libjpeg fails on the rest
         raise CorruptJpeg(f"JPEG marker {m:#04x} is unknown to libjpeg")
 
 
@@ -597,10 +687,11 @@ def _trailing_error(data: bytes, marker: int, pos: int) -> Optional[str]:
 
 
 def _decode_scan(data, pos, frame, lay, tables, coefs, latched, bits, prev,
-                 scans, index, tnums, ss, se, ah, al):
+                 scans, index, tnums, ss, se, ah, al, plain=False):
     """One scan into the coefficient buffers (jdinput.c start_input_pass,
-    jdphuff.c start_pass_phuff_decoder, csrc/jpeg_decode.cpp). Returns the
-    C++ decoder's stop record."""
+    jdphuff.c start_pass_phuff_decoder or jdarith.c start_pass_decoder,
+    csrc/jpeg_decode.cpp). Returns the decoder's stop record. ``plain``:
+    an arithmetic-coded scan by ``arith_scan_plain``."""
     comps = [frame.comps[i] for i in index]
     ns = len(comps)
     if ns > 1 and sum(c.h * c.v for c in comps) > MAX_BLOCKS_IN_MCU:
@@ -625,9 +716,10 @@ def _decode_scan(data, pos, frame, lay, tables, coefs, latched, bits, prev,
         need_dc, need_ac = dc_band and ah == 0, not dc_band
     else:
         need_dc = need_ac = True
-    for td, ta in tnums:
-        if need_dc and (td > 3 or td not in tables.have) \
-                or need_ac and (ta > 3 or 4 + ta not in tables.have):
+    for td, ta in tnums:   # (an arithmetic-coded scan's tables are 0-15)
+        if not frame.arithmetic and (
+                need_dc and (td > 3 or td not in tables.have)
+                or need_ac and (ta > 3 or 4 + ta not in tables.have)):
             raise CorruptJpeg("JPEG scan names a Huffman table never "
                               "defined")
     if ns == 1:
@@ -636,25 +728,587 @@ def _decode_scan(data, pos, frame, lay, tables, coefs, latched, bits, prev,
     else:
         mcux, mcuy = lay.mcux, lay.mcuy
         h, v = [c.h for c in comps], [c.v for c in comps]
+    dcs, acs = [t[0] for t in tnums], [t[1] for t in tnums]
+    bws = [lay.blocks[i][1] for i in index]
+    if frame.arithmetic and plain:
+        return arith_scan_plain(data, pos, [coefs[i] for i in index], bws, h,
+                                v, dcs, acs, tables.dac, mcux, mcuy,
+                                tables.restart, progressive, ss, se, ah, al)
     I = ctypes.c_int * ns
     ptrs = (ctypes.c_void_p * ns)(*(coefs[i].ctypes.data for i in index))
     src = np.frombuffer(data, np.uint8)
-    stop = (ctypes.c_int64 * 5)()
+    stop = (ctypes.c_int64 * 6)()
     lib = host_build.load("jpeg_decode")
-    fn = lib.jpeg_decode_scan
+    if frame.arithmetic:
+        fn = lib.jpeg_decode_arith_scan
+        tabs = (ctypes.c_void_p(tables.dac.ctypes.data),)
+    else:
+        fn = lib.jpeg_decode_scan
+        tabs = (ctypes.c_void_p(tables.bits.ctypes.data),
+                ctypes.c_void_p(tables.vals.ctypes.data))
     fn.restype = ctypes.c_int
     rc = fn(ctypes.c_void_p(src.ctypes.data), ctypes.c_int64(len(data)),
-            ctypes.c_int64(pos), ns, I(*h), I(*v),
-            I(*(t[0] for t in tnums)), I(*(t[1] for t in tnums)), ptrs,
-            I(*(lay.blocks[i][1] for i in index)),
-            ctypes.c_void_p(tables.bits.ctypes.data),
-            ctypes.c_void_p(tables.vals.ctypes.data), mcux, mcuy,
-            tables.restart, int(progressive), ss, se, ah, al, stop)
+            ctypes.c_int64(pos), ns, I(*h), I(*v), I(*dcs), I(*acs), ptrs,
+            I(*bws), *tabs, mcux, mcuy, tables.restart, int(progressive), ss,
+            se, ah, al, stop)
     if rc == -1:
         raise CorruptJpeg("JPEG Huffman table is invalid")
     if rc == -2:
         raise CorruptJpeg("JPEG DC coefficient out of range")
     return list(stop)
+
+
+def lossless_geometry(frame: Frame, index: list):
+    """jdinput.c's and jddiffct.c's geometry of a lossless scan of the
+    components ``index`` (a sample a block): (MCUs a row, the MCU rows of
+    each iMCU row, each component's (h, v) in an MCU and its sample rows
+    in an iMCU row)."""
+    comps = [frame.comps[i] for i in index]
+    hmax = max(c.h for c in frame.comps)
+    vmax = max(c.v for c in frame.comps)
+    imcu_rows = -(-frame.height // vmax)
+    if len(index) > 1:
+        return (-(-frame.width // hmax), [1] * imcu_rows,
+                [(c.h, c.v) for c in comps], [c.v for c in comps])
+    c = comps[0]
+    ch = -(-frame.height * c.v // vmax)
+    last = ch % c.v or c.v
+    return (-(-frame.width * c.h // hmax),
+            [c.v] * (imcu_rows - 1) + [last], [(1, 1)], [c.v])
+
+
+def _decode_lossless_scan(data, pos, frame, lay, tables, planes, index,
+                          tnums, ss, se, ah, al, plain=False):
+    """One lossless scan into the sample planes (jdlossls.c
+    start_pass_lossless's checks, jddiffct.c, jdlhuff.c;
+    csrc/jpeg_decode.cpp jpeg_decode_lossless_scan, or
+    ``lossless_scan_plain``). Returns the decoder's stop record."""
+    ns = len(index)
+    comps = [frame.comps[i] for i in index]
+    if ns > 1 and sum(c.h * c.v for c in comps) > MAX_BLOCKS_IN_MCU:
+        raise CorruptJpeg("JPEG MCU has too many blocks")
+    if not 1 <= ss <= 7 or se != 0 or ah != 0 or al >= frame.precision:
+        raise CorruptJpeg(f"JPEG lossless scan Ss={ss} Se={se} Ah={ah} "
+                          f"Al={al} is invalid")
+    for td, _ in tnums:
+        if td > 3 or td not in tables.have:
+            raise CorruptJpeg("JPEG scan names a Huffman table never "
+                              "defined")
+    mcus_per_row, mcu_rows, hv, comp_v = lossless_geometry(frame, index)
+    if tables.restart % mcus_per_row:
+        raise CorruptJpeg("JPEG lossless restart interval is not a whole "
+                          "number of MCU rows")
+    restart_rows = tables.restart // mcus_per_row
+    dcs = [t[0] for t in tnums]
+    sizes = [lay.sizes[i] for i in index]
+    if plain:
+        return lossless_scan_plain(
+            data, pos, [planes[i] for i in index], hv, dcs, comp_v,
+            tables.bits, tables.vals, mcu_rows, mcus_per_row, restart_rows,
+            frame.precision, ss, al)
+    I = ctypes.c_int * ns
+    ptrs = (ctypes.c_void_p * ns)(*(planes[i].ctypes.data for i in index))
+    src = np.frombuffer(data, np.uint8)
+    stop = (ctypes.c_int64 * 6)()
+    fn = host_build.load("jpeg_decode").jpeg_decode_lossless_scan
+    fn.restype = ctypes.c_int
+    rc = fn(ctypes.c_void_p(src.ctypes.data), ctypes.c_int64(len(data)),
+            ctypes.c_int64(pos), ns, I(*(x[0] for x in hv)),
+            I(*(x[1] for x in hv)), I(*dcs), ptrs, I(*(x[1] for x in sizes)),
+            I(*(x[0] for x in sizes)), I(*comp_v),
+            ctypes.c_void_p(tables.bits.ctypes.data),
+            ctypes.c_void_p(tables.vals.ctypes.data), len(mcu_rows),
+            (ctypes.c_int * len(mcu_rows))(*mcu_rows), mcus_per_row,
+            restart_rows, frame.precision, ss, al, stop)
+    if rc == -1:
+        raise CorruptJpeg("JPEG Huffman table is invalid")
+    return list(stop)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions of the arithmetic and lossless scan decoders
+# ---------------------------------------------------------------------------
+
+# jaricom.c's jpeg_aritab, as csrc/jpeg_decode.cpp's kAritab
+ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171)
+
+
+class _PlainSource:
+    """The byte source of csrc/jpeg_decode.cpp (``Source``): the file's
+    bytes, -1 past the end; ``marker`` is libjpeg's unread_marker."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.data, self.p, self.n = data, pos, len(data)
+        self.marker = 0
+        self.eof = False
+
+    def byte(self) -> int:
+        if self.p >= self.n:
+            self.eof = True
+            return -1
+        self.p += 1
+        return self.data[self.p - 1]
+
+    def next_marker(self) -> None:
+        while True:
+            c = self.byte()
+            while c >= 0 and c != 0xFF:
+                c = self.byte()
+            if c < 0:
+                self.marker = 0xD9
+                return
+            c = self.byte()
+            while c == 0xFF:
+                c = self.byte()
+            if c < 0:
+                self.marker = 0xD9
+                return
+            if c != 0:
+                self.marker = c
+                return
+
+    def restart_marker(self, num: int) -> int:
+        """read_restart_marker (jpeg_resync_to_restart's rules); returns
+        the next restart number."""
+        if self.marker == 0:
+            self.next_marker()
+        if self.marker == 0xD0 + num:
+            self.marker = 0
+        else:
+            while True:
+                m = self.marker
+                if m < 0xC0:
+                    action = 2
+                elif m < 0xD0 or m > 0xD7:
+                    action = 3
+                elif m in (0xD0 + ((num + 1) & 7), 0xD0 + ((num + 2) & 7)):
+                    action = 3
+                elif m in (0xD0 + ((num - 1) & 7), 0xD0 + ((num - 2) & 7)):
+                    action = 2
+                else:
+                    action = 1
+                if action == 1:
+                    self.marker = 0
+                    break
+                if action == 3:
+                    break
+                self.marker = 0
+                self.next_marker()
+        return (num + 1) & 7
+
+    def stop(self) -> list:
+        """The stop record after the scan's MCUs (jpeg_decode_arith_scan's
+        layout)."""
+        eof, last = int(self.eof), self.p
+        if self.marker == 0:
+            self.next_marker()
+        return [self.p, self.marker, -1, eof, int(self.eof), last]
+
+
+class _PlainArith(_PlainSource):
+    """jdarith.c's QM decoder (``ArithReader``)."""
+
+    def __init__(self, data: bytes, pos: int):
+        super().__init__(data, pos)
+        self.c = self.a = 0
+        self.ct = -16
+
+    def decode(self, st: bytearray, i: int) -> int:
+        while self.a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                data = 0
+                if self.marker == 0:
+                    data = self.byte()
+                    if data < 0:
+                        self.marker, data = 0xD9, 0
+                    elif data == 0xFF:
+                        data = self.byte()
+                        while data == 0xFF:
+                            data = self.byte()
+                        if data == 0:
+                            data = 0xFF
+                        else:
+                            self.marker, data = (0xD9 if data < 0 else data,
+                                                 0)
+                self.c = (self.c << 8) | data
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        self.a = 0x8000
+            self.a <<= 1
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        temp = self.a << self.ct
+        if self.c >= temp:
+            self.c -= temp
+            if self.a < qe:
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            self.a = qe
+        elif self.a < 0x8000:
+            if self.a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+    def magnitude(self, stats, st, large, dc):
+        """``arith_magnitude``: (|v| - 1, its category's magnitude), or
+        (-1, 0) where the category overflows."""
+        m = self.decode(stats, st)
+        if m and (dc or self.decode(stats, st)):
+            if not dc:
+                m <<= 1
+            st = large
+            while self.decode(stats, st):
+                m <<= 1
+                if m == 0x8000:
+                    return -1, 0
+                st += 1
+        v, mag = m, m
+        st += 14
+        m >>= 1
+        while m:
+            if self.decode(stats, st):
+                v |= m
+            m >>= 1
+        return v, mag
+
+
+def _int16(x: int) -> int:
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def arith_scan_plain(data, pos, coefs, bw, h, v, dc, ac, dac, mcux, mcuy,
+                     restart, progressive, ss, se, ah, al) -> list:
+    """Plain version of ``jpeg_decode_arith_scan``: the scan's components'
+    coefficient buffers ``coefs`` ((bh, bw, 64) int16, written in place),
+    their blocks in an MCU (h, v), DC and AC table numbers and the DAC
+    conditioning ``dac`` (L[16], U[16], K[16])."""
+    dc_first = not progressive or (ss == 0 and ah == 0)
+    ac_needed = not progressive or ss != 0
+    flat = [c.reshape(-1, 64) for c in coefs]
+    ns = len(coefs)
+    fixed = bytearray([113])
+    state = {}
+
+    def reset():
+        for c in range(ns):
+            if dc_first:
+                state[("dc", dc[c])] = bytearray(64)
+            if ac_needed:
+                state[("ac", ac[c])] = bytearray(256)
+        return [0] * ns, [0] * ns
+
+    last, context = reset()
+    rd = _PlainArith(data, pos)
+    num, to_go = 0, restart
+    p1, m1 = 1 << al, -(1 << al)
+    lo, hi = (ss, se) if progressive else (1, 63)
+    for my in range(mcuy):
+        for mx in range(mcux):
+            if restart:
+                if to_go == 0:
+                    num = rd.restart_marker(num)
+                    rd.c = rd.a = 0
+                    rd.ct = -16
+                    last, context = reset()
+                    to_go = restart
+                to_go -= 1
+            if rd.ct == -1:
+                continue
+            for c in range(ns):
+                for by in range(v[c]):
+                    for bx in range(h[c]):
+                        if rd.ct == -1:
+                            break
+                        b = flat[c][(my * v[c] + by) * bw[c] + mx * h[c] + bx]
+                        _arith_block(rd, b, c, dc, ac, dac, state, fixed,
+                                     last, context, progressive, dc_first,
+                                     lo, hi, ah, al, p1, m1)
+    return rd.stop()
+
+
+def _arith_block(rd, b, c, dc, ac, dac, state, fixed, last, context,
+                 progressive, dc_first, lo, hi, ah, al, p1, m1) -> None:
+    """One block of an arithmetic-coded scan (jdarith.c decode_mcu and its
+    progressive DC/AC first and refine versions)."""
+    if progressive and lo == 0 and ah:          # DC refinement
+        if rd.decode(fixed, 0):
+            b[0] = _int16(int(b[0]) | p1)
+        return
+    if dc_first:
+        stats = state[("dc", dc[c])]
+        st = context[c]
+        if rd.decode(stats, st) == 0:
+            context[c] = 0
+        else:
+            sign = rd.decode(stats, st + 1)
+            val, m = rd.magnitude(stats, st + 2 + sign, 20, True)
+            if val < 0:
+                rd.ct = -1
+                return
+            L, U = int(dac[dc[c]]), int(dac[16 + dc[c]])
+            if m < (1 << L) >> 1:
+                context[c] = 0
+            elif m > (1 << U) >> 1:
+                context[c] = 12 + sign * 4
+            else:
+                context[c] = 4 + sign * 4
+            val += 1
+            last[c] = (last[c] + (-val if sign else val)) & 0xFFFF
+        b[0] = _int16(last[c] << al if progressive else last[c])
+        if progressive:
+            return
+    stats = state[("ac", ac[c])]
+    K = int(dac[32 + ac[c]])
+    if not progressive or ah == 0:              # AC first (or sequential)
+        k = lo
+        while k <= hi:
+            st = 3 * (k - 1)
+            if rd.decode(stats, st):
+                break                           # EOB
+            while rd.decode(stats, st + 1) == 0:
+                st += 3
+                k += 1
+                if k > hi:
+                    rd.ct = -1                  # spectral overflow
+                    return
+            sign = rd.decode(fixed, 0)
+            val, _ = rd.magnitude(stats, st + 2, 189 if k <= K else 217,
+                                  False)
+            if val < 0:
+                rd.ct = -1
+                return
+            val += 1
+            b[ZIGZAG[k]] = _int16((-val if sign else val) << al
+                                  if progressive else (-val if sign else val))
+            k += 1
+        return
+    kex = hi                                    # AC refinement
+    while kex > 0 and b[ZIGZAG[kex]] == 0:
+        kex -= 1
+    k = lo
+    while k <= hi:
+        st = 3 * (k - 1)
+        if k > kex and rd.decode(stats, st):
+            break
+        while True:
+            t = int(b[ZIGZAG[k]])
+            if t:
+                if rd.decode(stats, st + 2):
+                    b[ZIGZAG[k]] = _int16(t + (m1 if t < 0 else p1))
+                break
+            if rd.decode(stats, st + 1):
+                b[ZIGZAG[k]] = m1 if rd.decode(fixed, 0) else p1
+                break
+            st += 3
+            k += 1
+            if k > hi:
+                rd.ct = -1
+                return
+        k += 1
+
+
+class _PlainHuffman(_PlainSource):
+    """jdhuff.c's bit reader (``Reader``): 57 bits read ahead, zero bits
+    past a marker."""
+
+    def __init__(self, data: bytes, pos: int):
+        super().__init__(data, pos)
+        self.buf = self.nbits = 0
+        self.insufficient = False
+
+    def fill(self) -> None:
+        while self.nbits <= 56 and self.marker == 0:
+            c = self.byte()
+            if c < 0:
+                self.marker = 0xD9
+                break
+            if c == 0xFF:
+                c = self.byte()
+                while c == 0xFF:
+                    c = self.byte()
+                if c < 0:
+                    self.marker = 0xD9
+                    break
+                if c != 0:
+                    self.marker = c
+                    break
+                c = 0xFF
+            self.buf = ((self.buf << 8) | c) & ((1 << 64) - 1)
+            self.nbits += 8
+
+    def get(self, n: int) -> int:
+        if self.nbits < n:
+            self.fill()
+            if self.nbits < n:
+                self.insufficient = True
+                self.buf = (self.buf << (n - self.nbits)) & ((1 << 64) - 1)
+                self.nbits = n
+        self.nbits -= n
+        return (self.buf >> self.nbits) & ((1 << n) - 1)
+
+    def decode(self, table) -> int:
+        maxcode, valoffset, huffval, look = table
+        if self.nbits < 8:
+            self.fill()
+        if self.nbits >= 8:
+            e = look[(self.buf >> (self.nbits - 8)) & 0xFF]
+            if e:
+                self.nbits -= e >> 8
+                return e & 0xFF
+        length = 1
+        code = self.get(1)
+        while code > maxcode[length]:
+            code = (code << 1) | self.get(1)
+            length += 1
+        if length > 16:
+            return 0
+        return int(huffval[(code + valoffset[length]) & 0xFF])
+
+    def restart(self, num: int) -> int:
+        self.nbits = self.buf = 0
+        num = self.restart_marker(num)
+        if self.marker == 0:
+            self.insufficient = False
+        return num
+
+
+def derive_huffman(bits, vals, max_sym: int):
+    """jpeg_make_d_derived_tbl (csrc/jpeg_decode.cpp ``derive``): (maxcode,
+    valoffset, symbols, lookahead) of a table, CorruptJpeg for one libjpeg
+    rejects (a DC symbol above ``max_sym``; -1: an AC table)."""
+    sizes = [length for length in range(1, 17)
+             for _ in range(int(bits[length - 1]))]
+    if len(sizes) > 256:
+        raise CorruptJpeg("JPEG Huffman table is invalid")
+    codes, code, si, p = [], 0, sizes[0] if sizes else 0, 0
+    while p < len(sizes):
+        while p < len(sizes) and sizes[p] == si:
+            codes.append(code)
+            code += 1
+            p += 1
+        if code >= 1 << si:
+            raise CorruptJpeg("JPEG Huffman table is invalid")
+        code <<= 1
+        si += 1
+    maxcode, valoffset = [0] * 18, [0] * 18
+    p = 0
+    for length in range(1, 17):
+        k = int(bits[length - 1])
+        if k:
+            valoffset[length] = p - codes[p]
+            p += k
+            maxcode[length] = codes[p - 1]
+        else:
+            maxcode[length] = -1
+    maxcode[17] = 0xFFFFF
+    look = [0] * 256
+    for p, (length, code) in enumerate(zip(sizes, codes)):
+        if length <= 8:
+            first = code << (8 - length)
+            for k in range(1 << (8 - length)):
+                look[first + k] = length << 8 | int(vals[p])
+    if max_sym >= 0 and any(int(x) > max_sym for x in vals[:len(sizes)]):
+        raise CorruptJpeg("JPEG Huffman table is invalid")
+    return maxcode, valoffset, vals, look
+
+
+def _extend(v: int, s: int) -> int:
+    return v - (1 << s) + 1 if v < 1 << (s - 1) else v
+
+
+def _predict(psv: int, ra: int, rb: int, rc: int) -> int:
+    return (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+            rb + ((ra - rc) >> 1), (ra + rb) >> 1)[psv - 1]
+
+
+def lossless_scan_plain(data, pos, planes, hv, dc, comp_v, bits, vals,
+                        mcu_rows, mcus_per_row, restart_rows, precision, psv,
+                        pt) -> list:
+    """Plain version of ``jpeg_decode_lossless_scan``: the scan's
+    components' (ch, cw) uint8 planes written in place."""
+    ns = len(planes)
+    tables = [derive_huffman(bits[t], vals[t], 16) for t in dc]
+    rd = _PlainHuffman(data, pos)
+    width = [mcus_per_row * h for h, _ in hv]
+    diff = [np.zeros((cv, w), np.int64) for cv, w in zip(comp_v, width)]
+    prev = [None] * ns
+    first = [True] * ns
+    initial = 1 << (precision - pt - 1)
+    num, to_go = 0, restart_rows
+    for r, rows_here in enumerate(mcu_rows):
+        for y in range(rows_here):
+            if restart_rows and to_go == 0:
+                num = rd.restart(num)
+                first = [True] * ns
+                to_go = restart_rows
+            if rd.insufficient:
+                for c, (_, v) in enumerate(hv):
+                    rows = v if ns > 1 else 1
+                    diff[c][y * rows:y * rows + rows] = 0
+                    first[c] = True
+            else:
+                for mx in range(mcus_per_row):
+                    for c, (h, v) in enumerate(hv):
+                        rows = v if ns > 1 else 1
+                        for by in range(rows):
+                            for bx in range(h):
+                                s = rd.decode(tables[c])
+                                if s == 16:
+                                    s = 32768
+                                elif s:
+                                    s = _extend(rd.get(s), s)
+                                diff[c][y * rows + by, mx * h + bx] = s
+            if restart_rows:
+                to_go -= 1
+        for c in range(ns):
+            ch, cw = planes[c].shape
+            for i in range(comp_v[c]):
+                row = r * comp_v[c] + i
+                if row >= ch:
+                    break
+                d = diff[c][i, :cw]
+                out = np.empty(cw, np.int64)
+                if first[c]:
+                    out = (np.cumsum(d) + initial) & 0xFFFF
+                    first[c] = False
+                else:
+                    up = prev[c]
+                    ra = out[0] = (int(d[0]) + int(up[0])) & 0xFFFF
+                    for x in range(1, cw):
+                        ra = out[x] = (int(d[x]) + _predict(
+                            psv, ra, int(up[x]), int(up[x - 1]))) & 0xFFFF
+                planes[c][row] = (out << pt) & 0xFF
+                prev[c] = out
+    return rd.stop()
 
 
 def smoothing(co: Coefficients) -> bool:
@@ -881,6 +1535,33 @@ def rgb_to_gray_libjpeg(rgb: np.ndarray) -> np.ndarray:
              + 32768) >> 16).astype(np.uint8)
 
 
+def lossless_image(co: Coefficients, lay: Layout, gray: bool,
+                   pil: bool) -> np.ndarray:
+    """A lossless file's samples as libjpeg-turbo gives them to cv2 (``gray``
+    or colour) or to PIL (``pil``): box-upsampled (jdsample.c takes no
+    fancy upsampling there), with no colour conversion at all — libjpeg
+    fails where the colour space asked for (cv2: gray or BGR, CMYK for four
+    components; PIL: gray, RGB or CMYK by the component count) is not the
+    file's, as jdcolor.c does in lossless mode."""
+    n = len(co.frame.comps)
+    want = "cmyk" if n == 4 else "gray" if (n == 1 if pil else gray) \
+        else "rgb"
+    if co.space != want:
+        raise CorruptJpeg(f"libjpeg converts no colours of a lossless JPEG "
+                          f"({co.space} to {want})")
+    H, W = co.frame.height, co.frame.width
+    planes = [np.repeat(np.repeat(p, vx, 0), hx, 1)[:H, :W]
+              for p, (hx, vx) in zip(co.planes, lay.expand)]
+    if want == "cmyk":
+        cmyk = np.stack(planes, -1)
+        return cmyk_to_bgr_pil(cmyk) if pil else cmyk_to_bgr_cv2(cmyk, gray)
+    if want == "rgb":
+        return np.ascontiguousarray(np.stack(planes[::-1], -1))
+    if pil:
+        return np.repeat(planes[0][..., None], 3, axis=-1)
+    return np.ascontiguousarray(planes[0])
+
+
 def decode_jpeg(data: bytes, *, gray: bool = False, plain: bool = False,
                 exif_orientation: bool = True, strict: bool = False,
                 pil: bool = False) -> np.ndarray:
@@ -888,16 +1569,20 @@ def decode_jpeg(data: bytes, *, gray: bool = False, plain: bool = False,
     ``IMREAD_COLOR`` ((H, W, 3) uint8 BGR) or, with ``gray``,
     ``IMREAD_GRAYSCALE`` ((H, W) uint8), the EXIF orientation applied
     unless ``exif_orientation`` is False (PIL's ``Image.open`` applies
-    none). ``plain`` runs steps 2 and 3 in numpy. ``strict`` fails where
+    none). ``plain`` runs steps 2 and 3 in numpy, and an arithmetic-coded
+    or lossless file's scans by their Python decoders. ``strict`` fails where
     PIL's reader fails and cv2's does not: TruncatedJpeg where the file
     ends before libjpeg is done with the image, CorruptJpeg where libjpeg
     fails after it. ``pil``: a CMYK or YCCK file's colours as PIL converts
     them (BGR of its RGB), not as cv2 does."""
-    co = read_coefficients(data, strict)
+    co = read_coefficients(data, strict, plain)
     if strict and co.broken:
         raise CorruptJpeg(co.broken)
     frame = co.frame
     lay = layout(frame)
+    if frame.lossless:
+        img = lossless_image(co, lay, gray, pil)
+        return orient(img, co.orientation) if exif_orientation else img
     idct, up, conv = ((idct_plain, upsample_plain, ycc_to_bgr_plain) if plain
                       else (_idct, _upsample, _ycc_to_bgr))
     W, H = frame.width, frame.height
