@@ -233,7 +233,9 @@ Phases, each of which fails the run by raising:
      beside the float32 DCN detector's on the same frames, and the bf16
      detector on the card held against the port on the CPU in bf16 at
      320x256 by ``match_detections``;
-  5. summary: a ``{"kernels": [...]}`` JSON line (each kernel also with
+  5. summary: one ``summary (<phase>)`` line a phase with its headline
+     figures (printed with the failure instead where a check fails), then
+     a ``{"kernels": [...]}`` JSON line (each kernel also with
      its launches on the online path and its device ms on the online
      call's arguments, its launches on (f) and (g), on (h1)-(h4), on
      (i1)-(i3) and the B=1 calls and on (k), and its bf16 build's
@@ -245,7 +247,8 @@ Phases, each of which fails the run by raising:
      (p1), its device ms, plain ms and bound on a training step's calls
      and at the inference shapes; each kernel's launches in (r1) and (r4),
      and kernel 5's bf16 device ms, plain ms and bound on (r4)'s last
-     frame), then the device line.
+     frame; its launches in the image-format phases (s)-(v)), then the
+     device line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -286,6 +289,24 @@ TRACKER_KW = dict(n_bg=3000, n_obj=4000, max_objects=8, seed=0,
 JOINT_KW = dict(n_bg=3000, n_obj=4000, max_objects=8, seed=0,
                 ba_max_points=1000, ba_iters=10, joint_flow=True,
                 record="full")
+
+
+# one short line a phase (its result and headline figures), printed just
+# before the kernels line, and with the failure where a check fails, so
+# that every phase's result is in the last lines of the output
+SUMMARY = []
+
+
+def summarize(phase, text) -> None:
+    SUMMARY.append(f"summary ({phase}) pass: {str(text)[:320]}")
+
+
+def print_summary(failure=None) -> None:
+    for line in SUMMARY:
+        print(line)
+    if failure is not None:
+        print(f"summary FAIL after {len(SUMMARY)} phases: "
+              f"{str(failure)[:400]}")
 
 
 def check(ok, what) -> None:
@@ -2952,7 +2973,8 @@ def check_format_fixtures(root, formats=FORMAT_FIXTURES) -> int:
     cv2 reads it under IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_ANYDEPTH
     (``datasets.imread``; TIFF, GIF and WebP also by their host codecs'
     plain versions, JPEG by its plain steps and plain arithmetic and
-    lossless decoders) and as PIL reads it (``read_rgb_pil``), against the
+    lossless decoders) and as PIL reads it (``read_rgb_pil``; the files of
+    pil29 also by their host loops' plain versions), against the
     digests of cv2's and PIL's reads (tools/make_image_fixtures.py;
     "None" where cv2 gives None; no PIL digest where PIL raises, and then
     ``read_rgb_pil`` raises). Returns the number of reads held."""
@@ -2994,19 +3016,38 @@ def check_format_fixtures(root, formats=FORMAT_FIXTURES) -> int:
                     check(digest == str(ref[name + suffix]),
                           f"(t1) {fname} {suffix or 'colour'}: not cv2's read")
                     held += 1
-            try:
-                got, raised = datasets.read_rgb_pil(path), None
-            except (OSError, ValueError) as e:
-                got, raised = None, e
-            if name + "_pil" in ref.files:
-                check(got is not None
-                      and image_digest(got) == str(ref[name + "_pil"]),
-                      f"(t1) {fname}: not PIL's read ({raised})")
-            else:
-                check(raised is not None,
-                      f"(t1) {fname}: PIL raises, read_rgb_pil does not")
-            held += 1
+            readers = [lambda: datasets.read_rgb_pil(path)]
+            if fmt == "pil29" and pil29_plain_module(data) is not None:
+                readers.append(lambda: pil29_plain_module(data).read_pil(
+                    data, plain=True))
+            for read in readers:
+                try:
+                    got, raised = read(), None
+                except (OSError, ValueError) as e:
+                    got, raised = None, e
+                if name + "_pil" in ref.files:
+                    check(got is not None
+                          and image_digest(got) == str(ref[name + "_pil"]),
+                          f"(t1) {fname}: not PIL's read ({raised})")
+                else:
+                    check(raised is not None,
+                          f"(t1) {fname}: PIL raises, read_rgb_pil does not")
+                held += 1
     return held
+
+
+def pil29_plain_module(data):
+    """The reader module of a file of the formats PIL opens and cv2 does
+    not, where it has host loops with plain versions (``read_pil(data,
+    plain=True)``); None for the others (IM, ICO)."""
+    from vido_slam_tpu_torch.io import msp, pcx, pil_open, qoi, sgi, tga, xbm
+
+    modules = {"TGA": tga, "PCX": pcx, "SGI": sgi, "QOI": qoi, "XBM": xbm,
+               "MSP": msp}
+    try:
+        return modules.get(pil_open.pil_format(data))
+    except OSError:
+        return None
 
 
 def write_pnm(path, img) -> None:
@@ -3505,6 +3546,229 @@ def run_phase_u(counters, tmp, dev="cuda"):
     parts.update(run_infer_u_formats(counters, tmp, dev))
     print(f"phase (u): {time.perf_counter() - t0:.1f} s; card {cards}")
     return {**parts, "decode_ms": decode}
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (v): the formats PIL opens and cv2 does not (ROADMAP.md queue 1
+# item 29)
+# ---------------------------------------------------------------------------
+
+V_FIXTURES = ("pil29",)
+V_FORMATS = ("tga", "pcx", "sgi", "qoi", "ico")
+V_DECODE_REPS = 5
+V_BATCH = len(V_FORMATS)     # one training step over the whole COCO tree
+
+
+def write_pil29(path, fmt, bgr):
+    """An (H, W, 3) BGR frame as one of item 29's formats, by the test-side
+    writers (the card's machine has no PIL): run-length Targa, PCX of three
+    planes, run-length SGI, QOI, or an icon of one 24-bit BMP entry (at
+    most 256 pixels a side)."""
+    enc = image_encoders()
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    H, W = bgr.shape[:2]
+    data = {"tga": lambda: enc.write_tga(bgr, 10, 24),
+            "pcx": lambda: enc.write_pcx(np.ascontiguousarray(
+                rgb.transpose(0, 2, 1)), 8),
+            "sgi": lambda: enc.write_sgi(rgb),
+            "qoi": lambda: enc.write_qoi(rgb),
+            "ico": lambda: enc.write_ico([enc.dib(bgr, 24)],
+                                         [(W, H, 0, 24)])}[fmt]()
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def run_v_decode(tmp):
+    """(v2): a 1242x375 KITTI frame (the committed tests/data/jpeg frame 0
+    as cv2 decodes it) as run-length TGA, PCX, run-length SGI, QOI and
+    PNG, each read by ``read_rgb_pil`` (bit-equal to the frame) on the
+    host: the median ms of V_DECODE_REPS reads."""
+    from vido_slam_tpu_torch.io import datasets
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    kitti = os.path.join(root, JPEG_FIXTURES, "kitti")
+    bgr = datasets.imread(os.path.join(kitti, sorted(os.listdir(kitti))[0]))
+    rgb = bgr[..., ::-1]
+    ms = {}
+    for fmt in ("tga", "pcx", "sgi", "qoi", "png"):
+        path = os.path.join(tmp, f"v2.{fmt}")
+        if fmt == "png":
+            write_png(path, bgr)
+        else:
+            write_pil29(path, fmt, bgr)
+        times = []
+        for _ in range(V_DECODE_REPS):
+            t1 = time.perf_counter()
+            got = datasets.read_rgb_pil(path)
+            times.append(time.perf_counter() - t1)
+            check(np.array_equal(got, rgb), f"(v2) {fmt}: not the frame")
+        ms[fmt] = 1e3 * float(np.median(times))
+    return ms, bgr.shape
+
+
+def write_v_coco(tmp, clip):
+    """(v3)'s COCO tree: bench-clip frames as TGA, PCX, SGI, QOI and ICO
+    (the icon cropped to 256 wide), three boxes each (two with polygons),
+    and the ``instances`` json. Returns (ann file, image root, the RGB of
+    each file as written)."""
+    root = os.path.join(tmp, "coco_v")
+    os.makedirs(root)
+    rng = np.random.RandomState(29)
+    images, annotations, pixels = [], [], []
+    for i, fmt in enumerate(V_FORMATS):
+        bgr = np.ascontiguousarray(clip[2 * i][..., ::-1])
+        if fmt == "ico":
+            bgr = np.ascontiguousarray(bgr[:, :256])
+        h, w = bgr.shape[:2]
+        name = f"frame{i}.{fmt}"
+        write_pil29(os.path.join(root, name), fmt, bgr)
+        pixels.append(bgr[..., ::-1])
+        images.append({"id": i + 1, "file_name": name, "height": h,
+                       "width": w})
+        for k in range(3):
+            x, y = rng.uniform(0, w / 2), rng.uniform(0, h / 2)
+            bw, bh = rng.uniform(16, w / 2), rng.uniform(16, h / 2)
+            ann = {"id": 10 * i + k + 1, "image_id": i + 1,
+                   "category_id": [1, 3, 7][k], "bbox": [x, y, bw, bh],
+                   "iscrowd": 0}
+            if k != 2:
+                ann["segmentation"] = [[x, y, x + bw, y, x + bw * 0.8,
+                                        y + bh, x, y + bh * 0.7]]
+            annotations.append(ann)
+    ann = os.path.join(tmp, "instances_v.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": c, "name": f"c{c}"}
+                                  for c in (1, 3, 7)]}, f)
+    return ann, root, pixels
+
+
+def run_v_training(counters, tmp, clip, dev="cuda"):
+    """(v3): one step of ``python -m vido_slam_tpu_torch.train_maskrcnn``
+    in-process on the COCO tree of ``write_v_coco`` (R-50-FPN at
+    TRAIN_INPUT, all five images in the batch, each read by
+    ``read_rgb_pil`` first and held to the pixels written): kernel 5
+    forward and 5b backward twice an image; then both kernels against
+    their plain versions on the step's arguments. Returns the launches and
+    the max errors (kernel 5, 5b)."""
+    from vido_slam_tpu_torch import train_maskrcnn
+    from vido_slam_tpu_torch.io import datasets
+    from vido_slam_tpu_torch.models.maskrcnn import roi_heads
+
+    ann, root, pixels = write_v_coco(tmp, clip)
+    for i, fmt in enumerate(V_FORMATS):
+        got = datasets.read_rgb_pil(os.path.join(root, f"frame{i}.{fmt}"))
+        check(np.array_equal(got, pixels[i]), f"(v3) {fmt}: not the frame")
+    h, w = TRAIN_INPUT
+    argv = ["--ann-file", ann, "--image-root", root, "--batch",
+            str(V_BATCH), "--input-h", str(h), "--input-w", str(w), "--lr",
+            "1e-3", "--iters", "1", "--log-period", "1",
+            "--checkpoint-period", "100000", "--out",
+            os.path.join(tmp, "train_v")] + (
+                [] if dev == "cuda" else ["--device", dev])
+    lines = []
+    rec = GradArgs(roi_heads.roi_align_multilevel)
+    roi_heads.roi_align_multilevel = rec
+    try:
+        _, launches = launches_of(counters, lambda: train_maskrcnn.main(
+            argv, lines.append))
+    finally:
+        roi_heads.roi_align_multilevel = rec.wrapper
+    expect = [0, 0, 0, 0, 2 * V_BATCH, 2 * V_BATCH]
+    loss = float(re.search(r"loss ([0-9.naif+-]+) ", lines[-1]).group(1))
+    check(math.isfinite(loss) and (dev != "cuda" or launches == expect),
+          f"(v3) training step: loss {loss}, launches {launches}, not "
+          f"{expect}")
+    if dev != "cuda":
+        return launches, loss, 0.0, 0.0
+    cases = [(f"(v3) image {i // 2 + 1} {'box' if i % 2 == 0 else 'mask'} "
+              f"head", rec.calls[i][0], rec.grads[i])
+             for i in range(len(rec.calls))]
+    err5 = check_roi_align([(name, ([f.detach() for f in args[0]],)
+                             + tuple(args[1:])) for name, args, _ in cases])
+    err5b = check_roi_backward(cases, timed=False)
+    return launches, loss, err5, err5b
+
+
+def run_v_infer(counters, tmp, clip, dev="cuda"):
+    """(v3): ``infer_nets detector`` (Mask R-CNN R-50-FPN) on a QOI of
+    bench-clip frame INFER_FRAME against the same run on a PNG of the same
+    pixels: kernel 5 twice on each, the detections matched. Returns the
+    launches."""
+    from vido_slam_tpu_torch import infer_nets
+
+    bgr = np.ascontiguousarray(clip[INFER_FRAME][..., ::-1])
+    paths = {"qoi": os.path.join(tmp, "v3.qoi"),
+             "png": os.path.join(tmp, "v3.png")}
+    write_pil29(paths["qoi"], "qoi", bgr)
+    write_png(paths["png"], bgr)
+    dets, counts, refusals = [], [], []
+    for key, path in paths.items():
+        out = os.path.join(tmp, f"det_v_{key}")
+        argv = ["detector", "--family", "maskrcnn", "--image", path,
+                "--out", out] + ([] if dev == "cuda" else ["--device", dev])
+
+        def call():
+            try:
+                quiet(lambda: infer_nets.main(argv))
+            except ValueError as e:      # random weights' inverted boxes
+                refusals.append(str(e))
+        counts.append(launches_of(counters, call)[1])
+        dets.append(json_detections(os.path.join(
+            out, "maskrcnn_detections.json")))
+    n = max(len(x["valid"]) for x in dets)
+    m = match_detections(padded(dets[0], n), padded(dets[1], n),
+                         DETECTOR_THRESHOLDS["maskrcnn"])
+    want = [0, 0, 0, 0, 2][:len(counters)]
+    check(counts[0] == counts[1] and (dev != "cuda" or counts[0] == want)
+          and not m["unexplained"] and len(refusals) in (0, 2),
+          f"(v3) infer_nets on a QOI: launches {counts}, {m}, {refusals}")
+    return counts[0], m
+
+
+def run_phase_v(counters, tmp, dev="cuda"):
+    """Phase (v): (v1) the committed fixtures of tests/data/pil29 against
+    cv2's (None) and PIL's digests; (v2) a KITTI frame's decode ms as TGA,
+    PCX, SGI, QOI and PNG; (v3) a detector training step on a COCO tree of
+    TGA, PCX, SGI, QOI and ICO images (kernels 5 and 5b, held against
+    their plain versions) and ``infer_nets detector`` on a QOI. Returns
+    each part's launches, the decode ms and kernel 5's and 5b's errors."""
+    from vido_slam_tpu_torch.ops import roi_align
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cards = card_line() if dev == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    held = check_format_fixtures(root, V_FIXTURES)
+    print(f"(v1) fixtures: Targa (every type and depth PIL reads, run-length "
+          f"across rows, maps, orientations), PCX (1-bit planes, padded "
+          f"rows, palettes), SGI (run-length at 1 and 2 bytes, shared "
+          f"rows), QOI, XBM, IM (gray, palette, RGB, 16-bit, float), ICO "
+          f"(BMP and PNG entries), MSP (v1, v2), and files PIL fails on: "
+          f"{held} reads bit-equal to PIL's, None as cv2 (C++ and plain)")
+    ms, shape = run_v_decode(tmp)
+    print(f"(v2) read_rgb_pil ms a {shape[1]}x{shape[0]} frame (median of "
+          f"{V_DECODE_REPS}, host): " + ", ".join(
+              f"{k.upper()} {v:.2f}" for k, v in ms.items())
+          + f"; card {cards}")
+    clip = np.load(os.path.join(root, ONLINE_CLIP))["clip"]
+    counters_v = counters + [roi_align.roi_align_multilevel_backward]
+    train, loss, err5, err5b = run_v_training(counters_v, tmp, clip, dev)
+    print(f"(v3) detector training step on a COCO tree of "
+          f"{', '.join(f.upper() for f in V_FORMATS)} images (R-50-FPN "
+          f"{TRAIN_INPUT[1]}x{TRAIN_INPUT[0]}, batch {V_BATCH}): loss "
+          f"{loss:.4f}, launches {train} (kernel 5 and 5b); kernel 5 on the "
+          f"step's calls max error {err5:.3e}, 5b {err5b:.3e}")
+    infer, m = run_v_infer(counters, tmp, clip, dev)
+    print(f"(v3) infer_nets detector on a QOI frame against a PNG of the "
+          f"same pixels: {m['valid'][0]} and {m['valid'][1]} detections "
+          f"matched, launches {infer}")
+    secs = time.perf_counter() - t0
+    print(f"phase (v): {secs:.1f} s; card {cards}")
+    summarize("v", f"{held} fixture reads; decode ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()) + f"; training launches "
+        f"{train}, kernel 5 err {err5:.2e}, 5b err {err5b:.2e}; infer "
+        f"launches {infer}; {secs:.1f} s")
+    return {"v3_train": train, "v3_infer": infer + [0]}, ms, err5, err5b
 
 
 # ---------------------------------------------------------------------------
@@ -5905,6 +6169,9 @@ def main() -> int:
               f"mean {1e3 * np.mean(steady):.2f} median "
               f"{1e3 * np.median(steady):.2f} (frames 4-{n_tracked}, host "
               f"clock over torch.cuda.synchronize)")
+        summarize("ab"[own], f"{path}: ATE {ate:.4f} m, launches "
+                  f"{launches}, median {1e3 * np.median(steady):.2f} "
+                  f"ms/frame")
         runs[attr] = (recorder, launches[own])
         if attr == "pose_lm_batched":
             vo_poses = system.map.poses
@@ -5936,6 +6203,9 @@ def main() -> int:
           f"clock over torch.cuda.synchronize; init frame "
           f"{1e3 * times[init_frame]:.2f} ms); card {card_line()}")
     vio_attempts = tracker.imu_init_attempts
+    summarize("f", f"init frame {init_frame}, ATE SE(3) {ate_se3:.5f} m, "
+              f"launches {launches}, median {1e3 * np.median(steady):.2f} "
+              f"ms/frame")
     del tracker
 
     # (c) the flow path
@@ -5966,6 +6236,8 @@ def main() -> int:
           f"{1e3 * np.mean(steady):.2f} median {1e3 * np.median(steady):.2f} "
           f"(pairs 2-{FLOW_PAIRS}, host clock over torch.cuda.synchronize); "
           f"first pair {1e3 * times[0]:.2f} ms")
+    summarize("c", f"launches {launches}, median "
+              f"{1e3 * np.median(steady):.2f} ms/pair")
     del flows, clip, net
 
     # (d) the mask path
@@ -6003,6 +6275,8 @@ def main() -> int:
           f"valid detections {n_x101}; {1e3 * times2[0]:.2f} ms (first frame "
           f"{1e3 * times[0]:.2f} ms)")
     frame0 = clip[0].clone()
+    summarize("d", f"R-50-FPN launches {launches_roi} over {MASK_FRAMES} "
+              f"frames; X-101 launches {launches}, {n_x101} detections")
     del masks, dets, clip, model
 
     # (e) the online path: the three nets and the tracker from raw frames;
@@ -6046,6 +6320,7 @@ def main() -> int:
           f"call {ONLINE_RECORD} keeps the kernels' arguments); card "
           f"{card_line()}")
     online_cam = system.tracker.cam
+    summarize("e", f"launches {launches}, median {online_ms:.2f} ms/frame")
     frame_online = frames[1].clone()
     ref_l.update(e_poses=system.map.poses, e_launches=launches)
     del system, outputs
@@ -6056,6 +6331,7 @@ def main() -> int:
     attempts = check_online_vio(system, after, scales, launches,
                                 launches_online)
     launches_online_vio = launches
+    summarize("g", f"attempts {attempts}, launches {launches}")
     steady = times[4:]
     print(f"online VIO: {n_calls} calls of System.TrackFrames as IMU_RGBD "
           f"(phase (e)'s configuration, analytic {IMU_HZ:.0f} Hz IMU), "
@@ -6071,11 +6347,14 @@ def main() -> int:
     # (l) the pipelined paths, each beside its synchronous run in this call
     ref_l.update(g_launches=launches, frames=frames, tcw=tcw, model=model)
     pipelined_launches = run_phase_l(seq, counters, names, ref_l)
+    summarize("l", f"launches {pipelined_launches}")
     del ref_l, frames, model
 
     # (j) bf16 perception: the online cell with the JAX bench's default
     # mask_dtype, and one call each with flow_dtype and compute_dtype
     bf16 = run_phase_j(dev, counters, names, online_ms)
+    summarize("j", "bf16 builds: " + ", ".join(
+        f"{k} err {v[1]:.2e}" for k, v in bf16.items() if v[1] is not None))
 
     # (h) the offline demo from files: the CLI on trees written here
     prefetch = {}
@@ -6083,34 +6362,50 @@ def main() -> int:
         counters, names, seq, init_frame, vio_attempts,
         lambda root, n: prefetch.update(r3=run_prefetcher(root, n)))
 
+    summarize("h", f"launches {demo_launches}")
+
     # (i) weights and sessions in and out
     phase_i_launches, phase_i_err = run_phase_i(dev, counters, names, seq,
                                                 vo_poses)
 
     # (k) JPEG frames: the committed fixtures, and the CLI on a KITTI tree
     # of the committed .jpg frames
+    summarize("i", f"launches {phase_i_launches}")
     jpeg_launches = run_phase_k(counters, names)
+    summarize("k", f"launches {jpeg_launches}")
 
     # (s) progressive, multi-scan and DHT-less JPEG and BMP: the fixtures,
     # the CLI on progressive KITTI frames, infer_nets on a BMP frame
     with tempfile.TemporaryDirectory() as tmp:
         format_launches = run_phase_s(counters, tmp)
+    summarize("s", f"launches {format_launches}")
 
     # (t) PBM/PGM/PPM, PAM, PFM, TIFF, HDR, Sun raster and CMYK/YCCK JPEG:
     # the fixtures, the CLI on PPM/PGM and TIFF trees, infer_nets on them
     with tempfile.TemporaryDirectory() as tmp:
         formats_t = run_phase_t(counters, tmp)
+    summarize("t", f"launches {formats_t}")
 
     # (u) arithmetic-coded, lossless and 12-bit JPEG, GIF and lossless
     # WebP: the fixtures, the CLI on an arithmetic-coded tree with GIF
     # masks, infer_nets on a WebP pair and a GIF
     with tempfile.TemporaryDirectory() as tmp:
         formats_u = run_phase_u(counters, tmp)
+    summarize("u", f"launches {formats_u}")
+
+    # (v) TGA, PCX, SGI, QOI, XBM, IM, ICO and MSP (the formats PIL opens
+    # and cv2 does not): the fixtures, decode ms, a detector training step
+    # on a COCO tree of them, infer_nets on a QOI
+    with tempfile.TemporaryDirectory() as tmp:
+        formats_v, decode_v, err_roi_v, err_5b_v = run_phase_v(counters, tmp)
+    err_roi = max(err_roi, err_roi_v)
 
     # (m) the detector families: the DCN X-101, FBNet, RetinaNet, the
     # keypoint head and ROIPool
     family_launches, family_err, family_timing = run_phase_m(dev, counters,
                                                              names)
+    summarize("m", f"launches {family_launches}, kernel 5 err "
+              f"{family_err:.2e}")
 
     # (n) training: the detector CLI (kernels 5 and 5b), a detector step
     # card against CPU, MonoDepth2's self-supervised and supervised steps
@@ -6118,10 +6413,13 @@ def main() -> int:
     train_launches, err_5b, timing_5b, infer_5b, train_fwd, err_train = \
         run_phase_n(dev, counters_n, [c.__name__ for c in counters_n])
     err_roi = max(err_roi, err_train)
+    summarize("n", f"training launches {train_launches}, 5b err "
+              f"{err_5b:.2e}")
 
     # (o) the depth data pipeline and the single-device evaluation paths
     eval_launches, err_lm_o, err_roi_o, o_runs = run_phase_o(
         dev, counters, names, seq)
+    summarize("o", f"launches {eval_launches}")
 
     # (p) the multi-device paths on NCCL at world size 1, with the gloo
     # runs in processes of their own; (q) the inference CLI on the card
@@ -6135,12 +6433,15 @@ def main() -> int:
             infer_launches = run_phase_q(dev, counters, names, tmp)
         finally:
             finish_background(background)
+    summarize("p", f"launches {mesh_launches}")
+    summarize("q", f"launches {infer_launches}")
 
     # (r) the C facade and its standalone host on the card, the prefetcher
     # (its part ran in (h)), the DCN detector in bf16
     facade_launches, err_roi_r, timing_dcn_bf16 = run_phase_r(
         dev, counters, names, main_path_inputs(seq, "cuda", N_FRAMES),
         prefetch.get("r3"))
+    summarize("r", f"launches {facade_launches}")
 
     # phase 3 on the arguments the main paths gave the kernels in one frame
     recorder, launches_lm = runs["pose_lm_batched"]
@@ -6272,6 +6573,10 @@ def main() -> int:
         e["image_formats_u_launches"] = {
             part: n[i] for part, n in formats_u.items()
             if part != "decode_ms"}
+        # phase (v): (v3) the training step on the COCO tree of item 29's
+        # formats and infer_nets on a QOI
+        e["image_formats_v_launches"] = {part: n[i] for part, n in
+                                         formats_v.items()}
         # (l1) offline VO, (l2) bJoint, (l3) online pairs, (l4) online VIO
         # pairs, all pipelined
         for cell, key in (("l1", "pipelined_vo"), ("l2", "pipelined_joint"),
@@ -6332,14 +6637,20 @@ def main() -> int:
         source="vido_slam_tpu_torch/csrc/roi_align_backward.cu",
         replaces="vido_slam_tpu/ops/roi_align.py:112 (XLA autodiff of "
                  "roi_align_multilevel; no Pallas kernel)",
-        launches=train_launches[5], max_abs_err=err_5b,
+        launches=train_launches[5], max_abs_err=max(err_5b, err_5b_v),
         **dict(zip(keys, timing_5b)), library_ms=None,
         training_launches=train_launches[5],
+        image_formats_v_launches={part: n[5] for part, n in
+                                  formats_v.items()},
         multi_device_launches={part: n[5] for part, n in
                                mesh_launches.items()},
         inference_shapes_ms=infer_5b[0],
         inference_shapes_bound_ms=infer_5b[2]))
+    summarize("kernels", ", ".join(
+        f"{e['name']} launches {e['launches']} err {e['max_abs_err']:.2e}"
+        for e in entries))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print_summary()
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6348,4 +6659,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except BaseException as e:
+        print_summary(e)
+        raise
+    sys.exit(code)

@@ -14,7 +14,15 @@ write, for the port's readers to be held to ``cv2.imread`` and PIL on them:
     depth, colour maps, byte encoding, type 3), Radiance (run-length or
     flat) and TIFF files (``lzw_encode`` of both bit orders,
     ``packbits``, Deflate, the predictors, strips, tiles, planes,
-    BigTIFF, both byte orders).
+    BigTIFF, both byte orders);
+  - ``write_tga``, ``write_pcx``, ``write_sgi``, ``write_msp2``,
+    ``write_im``, ``write_ico`` (with ``dib``), ``write_qoi``: the layouts
+    of the formats PIL opens and cv2 does not that PIL's writers do not
+    make (run-length and colour-mapped Targa at every depth and
+    orientation, PCX of 1-bit planes, SGI at 2 bytes a channel and
+    run-length coded, MSP version 2, IM types, icons of several BMP and
+    PNG entries), and those the card's machine, which has no PIL, writes
+    for chip_smoke.py phase (v).
 
 Neither is part of the port: the package reads these formats and writes
 none of them.
@@ -1900,3 +1908,337 @@ def write_cmyk_jpeg(path: str, rgb: np.ndarray, q: int = 4,
     out += _encode_scan(co, lay, Scan([0, 1, 2, 3]), False, 0, False, True)
     with open(path, "wb") as f:
         f.write(bytes(out + b"\xff\xd9"))
+
+
+# ---------------------------------------------------------------------------
+# The formats PIL opens and cv2 does not (Targa, PCX, SGI, MSP, IM, ICO)
+# ---------------------------------------------------------------------------
+
+def tga_rle(flat: bytes, pixel: int, row: int, *,
+            cross_rows: bool = False) -> bytes:
+    """Targa run-length packets of ``flat`` (rows of ``row`` bytes,
+    ``pixel`` bytes a pixel): runs of 2-128 equal pixels (never across a
+    row's end, which PIL refuses), literals of the rest (up to 128 pixels;
+    with ``cross_rows`` a literal goes on into the next row, which PIL
+    reads)."""
+    npx = len(flat) // pixel
+    per_row = row // pixel
+    px = [flat[i * pixel:(i + 1) * pixel] for i in range(npx)]
+    out = bytearray()
+    i = 0
+    while i < npx:
+        end_row = (i // per_row + 1) * per_row
+        n = 1
+        while i + n < end_row and n < 128 and px[i + n] == px[i]:
+            n += 1
+        if n >= 2:
+            out += bytes([0x80 | (n - 1)]) + px[i]
+            i += n
+            continue
+        limit = npx if cross_rows else end_row
+        j = i + 1
+        while j < limit and j - i < 128 and not (
+                j + 1 < limit and px[j + 1] == px[j]
+                and (j + 1) // per_row == j // per_row):
+            j += 1
+        out += bytes([j - i - 1]) + b"".join(px[i:j])
+        i = j
+    return bytes(out)
+
+
+def write_tga(pixels: np.ndarray, kind: int, depth: int, *,
+              palette: Optional[np.ndarray] = None, map_depth: int = 24,
+              map_start: int = 0, flags: int = 0x20, id_section: bytes = b"",
+              cross_rows: bool = False) -> bytes:
+    """A Targa file: ``kind`` 1-3 (9-11 run-length, ``tga_rle``), ``pixels``
+    (H, W) indices or gray, (H, W, 2) gray and alpha, (H, W, 3) or (H, W,
+    4) BGR(A) samples, or (H, W) 16-bit words for depth 16 of kind 2 (1-5-5-5),
+    or (H, W) 0/1 bits for depth 1; ``palette`` (n, 3) RGB written at
+    ``map_depth`` 16 (5-5-5), 24 or 32 from entry ``map_start``; ``flags``
+    the descriptor (0x20 top-down, 0x10 mirrored)."""
+    H, W = pixels.shape[:2]
+    if not flags & 0x20:
+        pixels = pixels[::-1]
+    if flags & 0x10:
+        pixels = pixels[:, ::-1]
+    if depth == 1:
+        raw = np.packbits(pixels.astype(np.uint8), axis=1)
+    elif depth == 16 and pixels.ndim == 2:
+        raw = np.ascontiguousarray(pixels, "<u2").view(np.uint8).reshape(
+            H, 2 * W)
+    else:
+        raw = np.ascontiguousarray(pixels, np.uint8).reshape(H, -1)
+    flat = raw.tobytes()
+    if kind & 8:
+        flat = tga_rle(flat, max(depth // 8, 1), raw.shape[1],
+                       cross_rows=cross_rows)
+    cmap = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.int64)
+        if map_depth == 16:
+            words = (pal[:, 0] >> 3) << 10 | (pal[:, 1] >> 3) << 5 | \
+                pal[:, 2] >> 3
+            cmap = words.astype("<u2").tobytes()
+        else:
+            bgr = pal[:, ::-1].astype(np.uint8)
+            if map_depth == 32:
+                bgr = np.concatenate([bgr, np.full((len(pal), 1), 255,
+                                                   np.uint8)], 1)
+            cmap = bgr.tobytes()
+    head = struct.pack("<BBBHHBHHHHBB", len(id_section), int(palette is not
+                                                             None), kind,
+                       map_start, 0 if palette is None else len(palette),
+                       map_depth if palette is not None else 0, 0, 0, W, H,
+                       depth, flags)
+    return head + id_section + cmap + flat
+
+
+def pcx_rle(row: bytes) -> bytes:
+    """PCX's run-length coding of one row's planes: runs of 2-63 (and any
+    byte of 0xC0 or more) as ``0xC0 | n, v``, other bytes as they are."""
+    out = bytearray()
+    i = 0
+    while i < len(row):
+        v = row[i]
+        n = 1
+        while i + n < len(row) and row[i + n] == v and n < 63:
+            n += 1
+        if n > 1 or v >= 0xC0:
+            out += bytes([0xC0 | n, v])
+        else:
+            out.append(v)
+        i += n
+    return bytes(out)
+
+
+def write_pcx(planes: np.ndarray, bits: int, *, version: int = 5,
+              palette16: Optional[np.ndarray] = None,
+              palette256: Optional[np.ndarray] = None,
+              bytes_per_line: Optional[int] = None, origin=(0, 0)) -> bytes:
+    """A PCX file of ``planes`` (H, P, W) samples (bits 8) or 0/1 bits
+    (bits 1): each row's planes packed and padded to the stride PIL
+    computes (``bytes_per_line`` as written in the header, the packed
+    width by default), run-length coded; ``palette16`` (16, 3) in the
+    header, ``palette256`` (256, 3) behind 0x0C at the end."""
+    H, P, W = planes.shape
+    if bits == 1:
+        packed = np.packbits(planes.astype(np.uint8), axis=2)
+    else:
+        packed = planes.astype(np.uint8)
+    stride = packed.shape[2]
+    bpl = stride if bytes_per_line is None else bytes_per_line
+    real = stride if bpl == stride else stride + stride % 2
+    rows = np.zeros((H, P, real), np.uint8)
+    rows[:, :, :stride] = packed
+    x0, y0 = origin
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, x0, y0,
+                       x0 + W - 1, y0 + H - 1, 72, 72)
+    pal = np.zeros((16, 3), np.uint8) if palette16 is None else palette16
+    head += np.asarray(pal, np.uint8).tobytes() + bytes([0, P]) + \
+        struct.pack("<HH", bpl, 1)
+    head += bytes(128 - len(head))
+    body = b"".join(pcx_rle(r.tobytes()) for r in rows.reshape(H, -1))
+    tail = b""
+    if palette256 is not None:
+        tail = b"\x0c" + np.asarray(palette256, np.uint8).tobytes()
+    return head + body + tail
+
+
+def sgi_rle(samples: bytes, bpc: int) -> bytes:
+    """One SGI row of one channel, run-length coded: runs of 3-127 equal
+    samples, literals of the rest, a zero count last (counts are words at
+    2 bytes a channel)."""
+    n = len(samples) // bpc
+    vals = [samples[i * bpc:(i + 1) * bpc] for i in range(n)]
+    out = bytearray()
+
+    def count(c):
+        return bytes([c]) if bpc == 1 else bytes([0, c])
+    i = 0
+    while i < n:
+        r = 1
+        while i + r < n and r < 127 and vals[i + r] == vals[i]:
+            r += 1
+        if r >= 3:
+            out += count(r) + vals[i]
+            i += r
+            continue
+        j = i + 1
+        while j < n and j - i < 127 and not (
+                j + 2 < n and vals[j] == vals[j + 1] == vals[j + 2]):
+            j += 1
+        out += count(0x80 | (j - i)) + b"".join(vals[i:j])
+        i = j
+    return bytes(out + count(0))
+
+
+def write_sgi(pixels: np.ndarray, bpc: int = 1, *, rle: bool = True,
+              share_rows: bool = False) -> bytes:
+    """An SGI file of (H, W, z) samples (uint8, or uint16 for ``bpc`` 2),
+    rows bottom-up, verbatim or run-length coded with the start and length
+    tables (lengths in bytes); ``share_rows`` points every row equal to an
+    earlier one of its channel at that row's bytes."""
+    H, W, z = pixels.shape
+    dim = 3 if z > 1 else 2 if H > 1 else 1
+    head = struct.pack(">hBBHHHHll", 474, int(rle), bpc, dim, W, H, z, 0,
+                       255 if bpc == 1 else 65535)
+    head += bytes(4) + b"fixture".ljust(80, b"\0") + struct.pack(">l", 0)
+    head += bytes(512 - len(head))
+    planes = pixels[::-1].astype(">u2" if bpc == 2 else np.uint8)
+    if not rle:
+        return head + b"".join(planes[..., c].tobytes() for c in range(z))
+    base = 512 + 8 * H * z
+    starts, lengths, data = [], [], bytearray()
+    for c in range(z):
+        seen = {}
+        for y in range(H):
+            row = sgi_rle(planes[y, :, c].tobytes(), bpc)
+            if share_rows and row in seen:
+                starts.append(seen[row])
+            else:
+                seen[row] = base + len(data)
+                starts.append(base + len(data))
+                data += row
+            lengths.append(len(row))
+    tables = struct.pack(f">{H * z}I", *starts) + \
+        struct.pack(f">{H * z}I", *lengths)
+    return head + tables + bytes(data)
+
+
+def write_msp2(bits: np.ndarray, *, blank_rows=()) -> bytes:
+    """A Windows Paint version 2 (``LinS``) file of (H, W) 0/1 bits (1
+    white): the header with its checksum, the row map and each row
+    run-length coded (``0, n, v`` runs, ``n`` literal bytes); the rows
+    listed in ``blank_rows`` stored as length 0 (PIL fills them white)."""
+    H, W = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    coded = []
+    for y in range(H):
+        raw = rows[y].tobytes()
+        if y in blank_rows:
+            coded.append(b"")
+            continue
+        out = bytearray()
+        i = 0
+        while i < len(raw):
+            n = 1
+            while i + n < len(raw) and raw[i + n] == raw[i] and n < 255:
+                n += 1
+            if n >= 3:
+                out += bytes([0, n, raw[i]])
+                i += n
+                continue
+            j = min(i + 255, len(raw))
+            out += bytes([j - i]) + raw[i:j]
+            i = j
+        coded.append(bytes(out))
+    words = [struct.unpack("<H", b"Li")[0], struct.unpack("<H", b"nS")[0],
+             W, H, 1, 1, 1, 1, W, H, 0, 0, 0, 0, 0, 0]
+    check = 0
+    for w in words:
+        check ^= w
+    words[12] = check
+    return struct.pack("<16H", *words) + \
+        struct.pack(f"<{H}H", *map(len, coded)) + b"".join(coded)
+
+
+def write_im(pixels: np.ndarray, kind: str, *, lut: Optional[bytes] = None,
+             raw: Optional[bytes] = None) -> bytes:
+    """An IM file: the ``Image type`` line ``kind`` (e.g. ``L 16B image``),
+    the size line, a ``Lut`` of 768 bytes where given, the 0x1A and the
+    rows bottom-up (``raw``: the pixel bytes as given, already bottom-up)."""
+    H, W = pixels.shape[:2]
+    head = f"Image type: {kind}\r\nName: fixture.im\r\n" \
+           f"Image size (x*y): {W}*{H}\r\n"
+    if lut is not None:
+        head += "Lut: 1\r\n"
+    data = head.encode() + b"\0" * 8 + b"\x1a" + (lut or b"")
+    return data + (raw if raw is not None else pixels[::-1].tobytes())
+
+
+def dib(pixels: np.ndarray, bits: int, *, palette: Optional[np.ndarray] =
+        None, mask: Optional[np.ndarray] = None) -> bytes:
+    """An icon's bitmap: a 40-byte BMP info header of twice the height,
+    the palette ((n, 3) RGB as BGRX), the XOR rows bottom-up (indices of
+    1, 4 or 8 bits, or (H, W, 3)/(H, W, 4) BGR(A) samples) and the AND
+    mask ((H, W) bits, 1 transparent; zero where None)."""
+    H, W = pixels.shape[:2]
+    stride = ((W * bits + 31) // 32) * 4
+    rows = np.zeros((H, stride), np.uint8)
+    if bits <= 8:
+        per = 8 // bits
+        idx = np.asarray(pixels, np.uint8)
+        pad = (-W) % per
+        idx = np.pad(idx, ((0, 0), (0, pad)))
+        shifts = (8 - bits) - bits * np.arange(per)
+        packed = (idx.reshape(H, -1, per) << shifts).sum(-1).astype(np.uint8)
+        rows[:, :packed.shape[1]] = packed
+    else:
+        flat = np.asarray(pixels, np.uint8).reshape(H, -1)
+        rows[:, :flat.shape[1]] = flat
+    mstride = ((W + 31) // 32) * 4
+    mrows = np.zeros((H, mstride), np.uint8)
+    if mask is not None:
+        m = np.packbits(mask.astype(np.uint8), axis=1)
+        mrows[:, :m.shape[1]] = m
+    colors = 0 if palette is None else len(palette)
+    head = struct.pack("<IiiHHIIiiII", 40, W, 2 * H, 1, bits, 0, 0, 0, 0,
+                       colors, 0)
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        pal = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], 1)
+        pal = pal.tobytes()
+    return head + pal + rows[::-1].tobytes() + mrows[::-1].tobytes()
+
+
+def write_ico(images: Sequence[bytes], directory: Sequence[tuple]) -> bytes:
+    """An ICO file of the entries' data (a PNG file or ``dib``) and their
+    directory fields (width, height, colours, bits a pixel; 0 for 256),
+    each entry's size and offset as stored."""
+    n = len(images)
+    out = struct.pack("<HHH", 0, 1, n)
+    offset = 6 + 16 * n
+    for data, (w, h, colors, bpp) in zip(images, directory):
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, colors, 0, 1, bpp,
+                           len(data), offset)
+        offset += len(data)
+    return out + b"".join(images)
+
+
+def write_qoi(rgb: np.ndarray) -> bytes:
+    """A QOI file of (H, W, 3) RGB as the format's reference encoder codes
+    it: runs of the previous pixel (1-62), an index hit, a small
+    difference (DIFF), a luma difference, else the pixel (RGB), and the
+    8-byte end marker."""
+    H, W, _ = rgb.shape
+    out = bytearray(b"qoif" + struct.pack(">II", W, H) + b"\x03\x00")
+    seen = [None] * 64
+    prev, run = (0, 0, 0, 255), 0
+    pixels = [tuple(p) + (255,) for p in rgb.reshape(-1, 3).tolist()]
+    for i, p in enumerate(pixels):
+        if p == prev:
+            run += 1
+            if run == 62 or i == len(pixels) - 1:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        h = (p[0] * 3 + p[1] * 5 + p[2] * 7 + p[3] * 11) % 64
+        if seen[h] == p:
+            out.append(h)
+        else:
+            seen[h] = p
+            dr, dg, db = ((p[k] - prev[k] + 128) % 256 - 128
+                          for k in range(3))
+            if -2 <= dr < 2 and -2 <= dg < 2 and -2 <= db < 2:
+                out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+            elif -32 <= dg < 32 and -8 <= dr - dg < 8 and -8 <= db - dg < 8:
+                out += bytes([0x80 | (dg + 32),
+                              (dr - dg + 8) << 4 | (db - dg + 8)])
+            else:
+                out += bytes([0xFE]) + bytes(p[:3])
+        prev = p
+    return bytes(out + bytes(7) + b"\x01")

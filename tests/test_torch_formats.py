@@ -27,7 +27,7 @@ from PIL import Image
 from tests.image_encoders import (gif_frame, write_hdr, write_sunras,
                                   write_tiff, write_vp8l)
 from vido_slam_tpu_torch.io import datasets as td
-from vido_slam_tpu_torch.io.bmp import ImageTooLarge
+from vido_slam_tpu_torch.io.limits import ImageTooLarge
 
 FLAGS = {"color": td.IMREAD_COLOR, "gray": td.IMREAD_GRAYSCALE,
          "anydepth": td.IMREAD_ANYDEPTH}
@@ -172,11 +172,12 @@ def test_image_format_follows_cv2s_signatures(tmp_path):
     ("webp", "26d"), ("jpeg2000", "26b"), ("openexr", "26b"),
     ("gif", "28b"), ("avif", "28b")])
 def test_formats_the_port_lacks_name_their_item(tmp_path, fmt, item):
-    """Both readers raise ValueError naming the queue 1 item (OpenEXR,
-    which this cv2 cannot decode at all, is refused as the other large
-    codecs are: a known deviation). A lossy WebP (cv2 at quality 80)
-    raises naming item 26d since lossless WebP is read; GIF is read since
-    item 28b's GIF part, as cv2 and PIL read it."""
+    """Both readers raise ValueError naming the queue 1 item. A lossy WebP
+    (cv2 at quality 80) raises naming item 26d since lossless WebP is
+    read; GIF is read since item 28b's GIF part, as cv2 and PIL read it;
+    OpenEXR (item 1 of queue 1 since slice 21) is read as cv2 and PIL
+    read it: cv2, built without OpenEXR, gives None under every flag, and
+    PIL has no plugin for it."""
     path = str(tmp_path / "x.png")
     with open(path, "wb") as f:
         f.write(_signature_files(tmp_path)[fmt] if fmt != "webp" else
@@ -189,6 +190,15 @@ def test_formats_the_port_lacks_name_their_item(tmp_path, fmt, item):
         np.testing.assert_array_equal(
             td.read_rgb_pil(path), np.asarray(Image.open(path).convert(
                 "RGB")))
+        return
+    if fmt == "openexr":
+        for flag in FLAGS.values():
+            assert cv2.imread(path, flag) is None
+            assert td.imread(path, flag) is None
+        with pytest.raises(OSError):
+            Image.open(path)
+        with pytest.raises(OSError, match="cannot identify"):
+            td.read_rgb_pil(path)
         return
     with pytest.raises(ValueError, match=f"item {item}"):
         td.imread(path)
@@ -409,3 +419,57 @@ def test_imread_holds_cv2s_size_limits(tmp_path, fmt, W, H):
             assert not isinstance(got, str) and got is not None, flag
             assert got.dtype == ref.dtype
             np.testing.assert_array_equal(got, ref)
+
+
+def _exr_header(W, H, tiled=False):
+    """An OpenEXR scan-line (or tiled) file's header, written from the
+    format's layout: magic, version 2 (flag 0x200 for tiles), the required
+    attributes (channels R, G, B as HALF, compression NONE, the data and
+    display windows, line order, pixel aspect ratio, screen window), the
+    end of the header, an offset table and one line of zeros."""
+    def attr(name, kind, value):
+        return (name.encode() + b"\0" + kind.encode() + b"\0"
+                + struct.pack("<i", len(value)) + value)
+
+    chans = b"".join(c + b"\0" + struct.pack("<iB3xii", 1, 0, 1, 1)
+                     for c in (b"B", b"G", b"R")) + b"\0"
+    box = struct.pack("<4i", 0, 0, W - 1, H - 1)
+    head = (b"\x76\x2f\x31\x01" + struct.pack("<I", 2 | (0x200 if tiled
+                                                        else 0))
+            + attr("channels", "chlist", chans)
+            + attr("compression", "compression", b"\0")
+            + attr("dataWindow", "box2i", box)
+            + attr("displayWindow", "box2i", box)
+            + attr("lineOrder", "lineOrder", b"\0")
+            + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+            + attr("screenWindowCenter", "v2f", struct.pack("<2f", 0, 0))
+            + attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+            + b"\0")
+    table = len(head) + 8 * H
+    lines = b"".join(struct.pack("<ii", y, 6 * W) + bytes(6 * W)
+                     for y in range(H))
+    offsets = b"".join(struct.pack("<Q", table + y * (8 + 6 * W))
+                       for y in range(H))
+    return head + offsets + lines
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["scanline", "tiled"])
+def test_openexr_gives_none_as_cv2_without_openexr(tmp_path, tiled):
+    """Queue 1 item 1: the cv2 the port is held to is built without
+    OpenEXR (``getBuildInformation``: "OpenEXR: NO"), so ``cv2.imread``
+    gives None on an EXR file under every flag, and so does ``imread``
+    (the parent raised naming item 26b); PIL has no EXR plugin, and
+    ``read_rgb_pil`` raises as ``Image.open`` does."""
+    assert "OpenEXR:                     NO" in cv2.getBuildInformation() \
+        or "OpenEXR: NO" in " ".join(cv2.getBuildInformation().split())
+    path = str(tmp_path / "x.exr")
+    with open(path, "wb") as f:
+        f.write(_exr_header(5, 3, tiled))
+    assert td.image_format(open(path, "rb").read()) == "openexr"
+    for flag in FLAGS.values():
+        assert cv2.imread(path, flag) is None
+        assert td.imread(path, flag) is None
+    with pytest.raises(OSError):
+        Image.open(path)
+    with pytest.raises(OSError, match="cannot identify"):
+        td.read_rgb_pil(path)

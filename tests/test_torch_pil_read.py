@@ -20,6 +20,7 @@ import glob
 import io
 import json
 import os
+import struct
 
 import cv2
 import numpy as np
@@ -265,3 +266,255 @@ def test_jpegs_libjpeg_only_warns_about_read_as_pil(tmp_path, save):
             continue
         np.testing.assert_array_equal(read_rgb_pil(path), ref, err_msg=name)
     assert raised < len(files)
+
+
+# ---------------------------------------------------------------------------
+# fault J: files PIL opens that the parent refused as "no image PIL opens"
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt,save", [
+    ("TGA", {}), ("TGA", {"compression": "tga_rle"}), ("PCX", {}),
+    ("SGI", {}), ("ICO", {}), ("QOI", {}), ("IM", {}), ("DDS", {}),
+    ("XBM", {}), ("MSP", {})],
+    ids=["tga", "tga_rle", "pcx", "sgi", "ico", "qoi", "im", "dds", "xbm",
+         "msp"])
+def test_files_pil_opens_read_as_pil(tmp_path, fmt, save):
+    """A 23 x 17 RGB image (bilevel for XBM and MSP) saved by PIL: cv2 and
+    ``imread`` give None, ``read_rgb_pil`` reads it bit-equal to PIL, and
+    the plugin no reader ports (DDS) raises naming item 29b. The parent
+    raised "no image PIL opens (cannot identify image file)" on each."""
+    from vido_slam_tpu_torch.io import pil_open
+
+    rng = np.random.RandomState(26)
+    img = Image.fromarray(rng.randint(0, 256, (17, 23, 3)).astype(np.uint8))
+    if fmt in ("XBM", "MSP"):
+        img = img.convert("1")
+    path = str(tmp_path / "probe")
+    img.save(path, fmt, **save)
+    assert cv2.imread(path) is None and imread(path) is None
+    with open(path, "rb") as f:
+        assert pil_open.pil_format(f.read()) == Image.open(path).format == \
+            fmt
+    if fmt == "DDS":
+        with pytest.raises(ValueError, match="item 29b"):
+            read_rgb_pil(path)
+        return
+    np.testing.assert_array_equal(read_rgb_pil(path), pil(path))
+
+
+def test_eps_raises_as_pil_without_ghostscript(tmp_path):
+    """EPS: PIL needs Ghostscript to load it and raises without it; so does
+    the reader (the parent said no plugin opened it)."""
+    path = str(tmp_path / "x.eps")
+    Image.new("RGB", (8, 6), (10, 20, 30)).save(path, "EPS")
+    with pytest.raises(OSError):
+        pil(path)
+    with pytest.raises(OSError, match="Ghostscript"):
+        read_rgb_pil(path)
+
+
+def test_bytes_no_plugin_takes_raise_as_pil(tmp_path):
+    """Bytes no plugin takes (a Targa header PIL refuses, text, an OpenEXR
+    header) raise as PIL's "cannot identify image file"."""
+    path = str(tmp_path / "x.img")
+    for data in (b"\x00\x07\x02" + bytes(40), b"hello world\n" * 4,
+                 b"\x76\x2f\x31\x01" + bytes(40)):
+        with open(path, "wb") as f:
+            f.write(data)
+        with pytest.raises(OSError):
+            pil(path)
+        with pytest.raises(OSError, match="cannot identify"):
+            read_rgb_pil(path)
+
+
+# ---------------------------------------------------------------------------
+# fault K: PIL's decompression bomb limit, from the header
+# ---------------------------------------------------------------------------
+
+def _png_header(W, H, ctype=0, rows=None):
+    """A PNG of W x H 8-bit pixels (colour type ``ctype``; 3 with a
+    two-colour PLTE) whose zlib stream holds ``rows`` rows of each value
+    (a stream cut before its end where None)."""
+    import zlib
+
+    body = struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)
+    ihdr = struct.pack(">I", 13) + b"IHDR" + body + struct.pack(
+        ">I", zlib.crc32(b"IHDR" + body))
+    if ctype == 3:
+        plte = b"PLTE" + bytes([200, 100, 50, 1, 2, 3])
+        ihdr += struct.pack(">I", 6) + plte + struct.pack(
+            ">I", zlib.crc32(plte))
+    n = {0: 1, 2: 3, 3: 1}[ctype] * W
+    idat = zlib.compress(bytes(2 * (n + 1)))[:-6] if rows is None else \
+        zlib.compress(b"".join(bytes([0]) + bytes([1 + k % 3]) * n
+                               for k in range(rows)))
+    return (b"\x89PNG\r\n\x1a\n" + ihdr + struct.pack(">I", len(idat))
+            + b"IDAT" + idat + struct.pack(">I", zlib.crc32(b"IDAT" + idat))
+            + b"\x00\x00\x00\x00IEND\xaeB`\x82")
+
+
+def _tiff_header(W, H):
+    entries = [(256, 4, W), (257, 4, H), (258, 3, 8), (259, 3, 1),
+               (262, 3, 1), (273, 4, 8), (277, 3, 1), (278, 4, H),
+               (279, 4, W * H)]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHII", tag, kind, 1, v) for tag, kind, v in entries)
+    return b"II*\x00" + struct.pack("<I", 16) + bytes(8) + ifd + bytes(4)
+
+
+def _bomb_file(fmt, W, H):
+    """A small file whose header declares W x H."""
+    from tests.image_encoders import write_gif, gif_frame, write_vp8l
+
+    buf = io.BytesIO()
+    small = Image.new("RGB", (4, 3), (9, 8, 7))
+    if fmt == "png":
+        return _png_header(W, H)
+    if fmt == "bmp":
+        small.save(buf, "BMP")
+        d = bytearray(buf.getvalue())
+        d[18:26] = struct.pack("<ii", W, H)
+        return bytes(d)
+    if fmt == "tiff":
+        return _tiff_header(W, H)
+    if fmt == "tga":
+        small.save(buf, "TGA")
+        d = bytearray(buf.getvalue())
+        d[12:16] = struct.pack("<HH", W, H)
+        return bytes(d)
+    if fmt == "gif":
+        return write_gif((W, H), [gif_frame(np.zeros((3, 4), np.uint8))],
+                         palette=np.zeros((4, 3)))
+    if fmt == "webp":
+        d = bytearray(write_vp8l(np.zeros((3, 4), np.uint32)))
+        bits = (W - 1) | (H - 1) << 14
+        d[21:25] = struct.pack("<I", bits | (d[24] & 0xF0) << 24)
+        return bytes(d)
+    if fmt == "jpeg":
+        small.save(buf, "JPEG")
+        d = bytearray(buf.getvalue())
+        sof = d.find(b"\xff\xc0")
+        d[sof + 5:sof + 9] = struct.pack(">HH", H, W)
+        return bytes(d)
+    if fmt == "ppm":
+        return f"P6 {W} {H} 255\n".encode() + bytes(30)
+    if fmt == "sun":
+        return struct.pack(">8I", 0x59A66A95, W, H, 8, 0, 1, 0, 0) + bytes(9)
+    if fmt == "pcx":
+        small.save(buf, "PCX")
+        d = bytearray(buf.getvalue())
+        d[8:12] = struct.pack("<HH", W - 1, H - 1)
+        return bytes(d)
+    if fmt == "sgi":
+        small.save(buf, "SGI")
+        d = bytearray(buf.getvalue())
+        d[6:10] = struct.pack(">HH", W, H)
+        return bytes(d)
+    if fmt == "qoi":
+        return b"qoif" + struct.pack(">II", W, H) + b"\x03\x00" + bytes(20)
+    if fmt == "xbm":
+        return (f"#define a_width {W}\n#define a_height {H}\n"
+                f"static char a_bits[] = {{ 0x00 }};\n").encode()
+    if fmt == "im":
+        return (f"Image type: Greyscale image\nImage size (x*y): {W}*{H}\n"
+                ).encode() + b"\x1a" + bytes(20)
+    assert fmt == "msp"
+    words = [0x6144, 0x4D6E, W, H, 1, 1, 1, 1, W, H, 0, 0, 0, 0, 0, 0]
+    check = 0
+    for w in words:
+        check ^= w
+    words[12] = check
+    return struct.pack("<16H", *words) + bytes(20)
+
+
+BOMB_FORMATS = ["png", "bmp", "tiff", "tga", "gif", "webp", "jpeg", "ppm",
+                "sun", "pcx", "sgi", "qoi", "xbm", "im", "msp"]
+
+
+@pytest.mark.parametrize("fmt", BOMB_FORMATS)
+def test_header_past_pils_limit_raises_as_pil(tmp_path, fmt):
+    """Fault K: a header of 20000 x 20000 pixels (more than twice
+    ``Image.MAX_IMAGE_PIXELS``) makes ``Image.open`` raise
+    ``DecompressionBombError`` before it decodes anything; so does the
+    reader, from the header (the parent read on, raising on the missing
+    data or decoding it)."""
+    from vido_slam_tpu_torch.io.limits import DecompressionBombError
+
+    W, H = (16000, 16000) if fmt == "webp" else (20000, 20000)
+    path = str(tmp_path / "bomb")
+    with open(path, "wb") as f:
+        f.write(_bomb_file(fmt, W, H))
+    with pytest.raises(Image.DecompressionBombError):
+        pil(path)
+    with pytest.raises(DecompressionBombError):
+        read_rgb_pil(path)
+
+
+@pytest.mark.parametrize("fmt", ["png", "tga", "bmp"])
+def test_header_in_pils_warning_band_is_read_on(tmp_path, fmt):
+    """Between ``MAX_IMAGE_PIXELS`` and twice it PIL only warns and reads
+    on: here it then fails on the missing data, and the reader fails
+    there too, not at the limit."""
+    from vido_slam_tpu_torch.io.limits import DecompressionBombError
+
+    path = str(tmp_path / "band")
+    with open(path, "wb") as f:
+        f.write(_bomb_file(fmt, 10000, 10000))
+    with pytest.warns(Image.DecompressionBombWarning):
+        with pytest.raises(OSError):
+            pil(path)
+    with pytest.raises((OSError, ValueError)) as raised:
+        read_rgb_pil(path)
+    assert not isinstance(raised.value, DecompressionBombError)
+
+
+# ---------------------------------------------------------------------------
+# PNG by PIL's chunk rules
+# ---------------------------------------------------------------------------
+
+def test_png_read_by_pils_chunk_rules(tmp_path):
+    """PIL reads a PNG without IEND, with a bad IDAT CRC, with data after
+    IEND, with its IDAT cut after the image's bytes (the zlib checksum
+    missing) and with a zlib stream that ends before the image (the rows
+    it lacks stay 0: black, or palette entry 0), and refuses a bad CRC
+    before IDAT and a stream cut before its end; the reader does the same
+    (the parent refused the first four and the short streams, as libpng
+    does for cv2)."""
+    import zlib
+
+    rng = np.random.RandomState(3)
+    a = rng.randint(0, 256, (5, 7, 3)).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, "PNG")
+    d = buf.getvalue()
+    i = d.index(b"IDAT")
+    n = struct.unpack(">I", d[i - 4:i])[0]
+    bad_idat = bytearray(d)
+    bad_idat[i + 4 + n] ^= 1
+    text = b"tEXta\x00b"
+    bad_text = struct.pack(">I", 3) + text + struct.pack(
+        ">I", zlib.crc32(text) ^ 1)
+    files = {"no_iend": d[:-12], "bad_idat_crc": bytes(bad_idat),
+             "trailing": d + b"garbage", "cut_adler": d[:i + 4 + n - 2],
+             "bad_text_crc": d[:33] + bad_text + d[33:],
+             "cut_data": d[:i + 4 + n // 2],
+             "stream_ends_gray": _png_header(7, 5, 0, 2),
+             "stream_ends_palette": _png_header(7, 5, 3, 3),
+             "stream_ends_rgb": _png_header(7, 5, 2, 4),
+             "stream_cut": _png_header(7, 5, 2)}
+    read = []
+    for name, data in files.items():
+        path = str(tmp_path / f"{name}.png")
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            ref = pil(path)
+        except OSError:
+            with pytest.raises((OSError, ValueError)):
+                read_rgb_pil(path)
+            continue
+        np.testing.assert_array_equal(read_rgb_pil(path), ref, err_msg=name)
+        read.append(name)
+    assert read == ["no_iend", "bad_idat_crc", "trailing", "cut_adler",
+                    "stream_ends_gray", "stream_ends_palette",
+                    "stream_ends_rgb"]

@@ -29,7 +29,8 @@ and ``io.bmp`` to these committed digests.
   tests/data/<format>/<name>.<ext> and tests/data/<format>.npz, for the
   formats pxm, tiff, hdr, sunras and cmyk (slice 19) and jpeg24
   (arithmetic-coded, lossless and 12-bit JPEG), gif and webp (lossless)
-  (slice 20; ``FORMATS``)
+  (slice 20), and pil29 (slice 21: TGA, PCX, SGI, QOI, XBM, IM, ICO and
+  MSP, which cv2 gives None for; ``pil29_files``) (``FORMATS``)
         45 x 61 files of each layout those readers take: PBM, PGM and PPM
         in ASCII and binary at 8 and 16 bits and an odd maxval, PAM (gray,
         RGB, 16-bit RGB, black-and-white), PFM (gray and colour); TIFF
@@ -50,6 +51,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import struct
 import sys
 
 import cv2
@@ -59,11 +61,13 @@ from PIL import Image
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from tests.image_encoders import (Scan, drop_segments,  # noqa: E402
+from tests.image_encoders import (Scan, dib, drop_segments,  # noqa: E402
                                   encode_coefficients, gif_frame, gif_lzw,
                                   reencode_jpeg, write_bmp, write_gif,
-                                  write_hdr, write_lossless_jpeg,
-                                  write_sunras, write_tiff, write_vp8l)
+                                  write_hdr, write_ico, write_im,
+                                  write_lossless_jpeg, write_msp2, write_pcx,
+                                  write_sgi, write_sunras, write_tga,
+                                  write_tiff, write_vp8l)
 from vido_slam_tpu_torch.io import jpeg  # noqa: E402
 from tools.make_jpeg_fixtures import textured  # noqa: E402
 
@@ -473,6 +477,189 @@ def webp_files() -> dict:
     return {k: (".webp", v) for k, v in out.items()}
 
 
+def pil29_files() -> dict:
+    """Files of the formats PIL opens and cv2 does not (ROADMAP.md queue 1
+    item 29): PIL's own TGA, PCX, SGI, QOI, XBM, IM, ICO and MSP of each mode
+    its writers take, and hand-built layouts they do not make
+    (tests/image_encoders.py): run-length and colour-mapped Targa at 8, 16, 24
+    and 32 bits, bottom-up and mirrored, literals across rows, a gray file read
+    through its map, a 32-bit map and a 1-bit run-length file (both fail in
+    PIL); PCX of 2 and 4 one-bit planes, padded rows, an origin off 0, a
+    gray-ramp palette, no palette marker, versions 0-3; SGI run-length coded at
+    1 and 2 bytes a channel, rows sharing bytes, 16-bit verbatim; QOI ops PIL's
+    writer never emits (an index never written, a run past the end, channels
+    0); XBM with a hotspot, upper case digits and stray characters, and with
+    ``0X`` (PIL's decoder looks for a lower-case x only, and fails); IM 16-bit
+    big-endian, interleaved RGB, a non-linear gray LUT, an RGB LUT; icons of
+    several BMP (1, 4, 8, 24, 32 bits) and PNG entries with a directory that
+    misstates sizes, and a cut AND mask (PIL fails); MSP version 2 with runs
+    and blank rows, and cut."""
+    import io
+
+    H, W = SIZE
+    rng = np.random.RandomState(120)
+    img = textured(H, W, 121)                     # BGR
+    rgb = np.ascontiguousarray(img[..., ::-1])
+    gray = img[..., 1]
+    out = {}
+
+    def pil(name, im, fmt, ext, **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        out[name] = (ext, buf.getvalue())
+
+    base = Image.fromarray(rgb)
+    alpha = rng.randint(0, 256, (H, W, 1)).astype(np.uint8)
+    rgba = Image.fromarray(np.dstack([rgb, alpha]))
+    pal_img = base.quantize(64)
+    bw = Image.fromarray(gray > 128)
+    # Targa
+    for mode, im in (("rgb", base), ("rgba", rgba), ("l", base.convert("L")),
+                     ("la", base.convert("LA")), ("p", pal_img),
+                     ("1", bw)):
+        pil(f"tga_pil_{mode}", im, "TGA", ".tga")
+        if mode != "1":
+            pil(f"tga_pil_{mode}_rle", im, "TGA", ".tga", rle=True)
+    post = (img // 32 * 32).astype(np.uint8)      # runs for the packets
+    pal = rng.randint(0, 256, (40, 3))
+    idx = rng.randint(0, 40, (H, W)).astype(np.uint8) // 4 * 4
+    words = (rng.randint(0, 1 << 15, (H, W)) // 64 * 64).astype(np.uint16)
+    out["tga_rle_gray_bottom_up"] = (".tga", write_tga(
+        post[..., 1], 11, 8, flags=0))
+    out["tga_rle_rgb16"] = (".tga", write_tga(words, 10, 16, flags=0x20))
+    out["tga_rle_bgr24_mirrored"] = (".tga", write_tga(
+        post, 10, 24, flags=0x30))
+    out["tga_rle_bgra32_cross_rows"] = (".tga", write_tga(
+        np.dstack([post, alpha]), 10, 32, flags=0x10, cross_rows=True,
+        id_section=b"fixture"))
+    out["tga_rle_map16"] = (".tga", write_tga(
+        idx + 5, 9, 8, palette=np.vstack([np.zeros((5, 3)), pal]),
+        map_depth=16))
+    out["tga_map24_start_bottom_up"] = (".tga", write_tga(
+        idx + 3, 1, 8, palette=pal, map_start=3, flags=0x10))
+    out["tga_gray_with_map"] = (".tga", write_tga(idx, 3, 8, palette=pal))
+    out["tga_la16_bottom_up"] = (".tga", write_tga(
+        np.dstack([gray, alpha[..., 0]]), 3, 16, flags=0))
+    out["tga_map32_fails"] = (".tga", write_tga(idx, 1, 8, palette=pal,
+                                                map_depth=32))
+    out["tga_rle_1bit_fails"] = (".tga", write_tga(gray > 100, 11, 1))
+    # PCX
+    for mode, im in (("1", bw), ("l", base.convert("L")), ("p", pal_img),
+                     ("rgb", base)):
+        pil(f"pcx_pil_{mode}", im, "PCX", ".pcx")
+    bits4 = rng.randint(0, 16, (H, W))
+    out["pcx_planes4"] = (".pcx", write_pcx(
+        np.stack([(bits4 >> p) & 1 for p in range(4)], 1), 1,
+        palette16=rng.randint(0, 256, (16, 3))))
+    out["pcx_planes2_padded"] = (".pcx", write_pcx(
+        np.stack([(bits4 >> p) & 1 for p in range(2)], 1), 1,
+        palette16=rng.randint(0, 256, (16, 3)), bytes_per_line=9,
+        version=3))
+    out["pcx_rgb_padded_origin"] = (".pcx", write_pcx(
+        post.transpose(0, 2, 1)[:, ::-1], 8, bytes_per_line=W + 1,
+        origin=(7, 3)))
+    out["pcx_gray_ramp_palette"] = (".pcx", write_pcx(
+        post[:, None, :, 0], 8, palette256=np.arange(256).repeat(3)
+        .reshape(256, 3)))
+    out["pcx_gray_no_marker"] = (".pcx", write_pcx(
+        post[:, None, :, 0], 8) + bytes(769))
+    out["pcx_1bit_v0"] = (".pcx", write_pcx((gray > 90)[:, None], 1,
+                                            version=0))
+    # SGI
+    for mode, im in (("l", base.convert("L")), ("rgb", base),
+                     ("rgba", rgba)):
+        pil(f"sgi_pil_{mode}", im, "SGI", ".sgi")
+        pil(f"sgi_pil_{mode}_bpc2", im, "SGI", ".sgi", bpc=2)
+    wide = (post.astype(np.uint16) * 257
+            + rng.randint(0, 3, post.shape)).astype(np.uint16)
+    out["sgi_rle_rgb"] = (".sgi", write_sgi(post))
+    out["sgi_rle_gray16"] = (".sgi", write_sgi(wide[..., :1], 2))
+    out["sgi_rle_rgba16_shared"] = (".sgi", write_sgi(
+        np.dstack([wide, wide[..., :1]]), 2, share_rows=True))
+    out["sgi_rle_rows_shared"] = (".sgi", write_sgi(
+        np.repeat(post[::9], 9, 0)[:H], share_rows=True))
+    out["sgi_raw16_rgb"] = (".sgi", write_sgi(wide, 2, rle=False))
+    # QOI
+    pil("qoi_pil_rgb", base, "QOI", ".qoi")
+    pil("qoi_pil_rgba", rgba, "QOI", ".qoi")
+    ops = bytearray(b"\x05\xfe\x10\x20\x30\xc0\x3f\x55\x9f\x88"
+                    b"\xff\x01\x02\x03\x80\x2d")
+    while len(ops) < 3 * H * W:
+        ops += bytes([0x40 | rng.randint(0, 64), 0x80 | rng.randint(0, 64),
+                      rng.randint(0, 256), rng.randint(0, 64),
+                      0xC0 | rng.randint(0, 62)])
+    out["qoi_ops_channels0"] = (".qoi", b"qoif" + struct.pack(">II", W, H)
+                                + b"\x00\x00" + bytes(ops) + bytes(7)
+                                + b"\x01")
+    out["qoi_ops_rgb"] = (".qoi", b"qoif" + struct.pack(">II", W, H)
+                          + b"\x03\x01" + bytes(ops) + bytes(7) + b"\x01")
+    # XBM
+    pil("xbm_pil", bw, "XBM", ".xbm")
+    pil("xbm_pil_hotspot", bw, "XBM", ".xbm", hotspot=(3, 4))
+    row = (W + 7) // 8
+    vals = rng.randint(0, 256, row * H)
+    hexes = ",".join(("0x%02X" if k % 3 else "0x%02x") % v + (
+        " /* 0X7F */" if k % 50 == 1 else "") for k, v in enumerate(vals))
+    out["xbm_upper_stray"] = (".xbm", (
+        f"#define fix_width {W}\n#define fix_height {H}\n"
+        f"static unsigned char fix_bits[] = {{ 0xq1,\n{hexes} }};\n")
+        .encode())
+    out["xbm_capital_x_fails"] = (".xbm", (
+        f"#define fix_width {W}\n#define fix_height {H}\n"
+        f"static char fix_bits[] = {{\n{hexes.replace('0x', '0X')} }};\n")
+        .encode())
+    # IM
+    for mode, im in (("1", bw), ("l", base.convert("L")), ("p", pal_img),
+                     ("rgb", base), ("rgba", rgba), ("la", base.convert("LA")),
+                     ("i16", Image.fromarray(wide[..., 0] // 128)),
+                     ("f", Image.fromarray(
+                         (rng.randn(H, W) * 150 + 100).astype(np.float32)))):
+        pil(f"im_pil_{mode}", im, "IM", ".im")
+    out["im_l16b"] = (".im", write_im(wide[..., 0] // 64, "L 16B image",
+                                      raw=(wide[::-1, :, 0] // 64)
+                                      .astype(">u2").tobytes()))
+    out["im_x24"] = (".im", write_im(rgb, "X 24 image"))
+    ramp = np.arange(256, dtype=np.uint8)
+    out["im_lut_gray_nonlinear"] = (".im", write_im(
+        gray, "Greyscale image", lut=(255 - ramp).tobytes() * 3))
+    out["im_rgb_lut"] = (".im", write_im(
+        rgb, "RGB image", lut=rng.randint(0, 256, 768).astype(np.uint8)
+        .tobytes(), raw=np.ascontiguousarray(rgb[::-1].transpose(0, 2, 1))
+        .tobytes()))
+    # ICO
+    pil("ico_pil_png", rgba, "ICO", ".ico", sizes=[(16, 16), (32, 32),
+                                                    (48, 48)])
+    pil("ico_pil_bmp", rgba, "ICO", ".ico", sizes=[(16, 16), (32, 32)],
+        bitmap_format="bmp")
+    small = rgb[:20, :24]
+    ipal = rng.randint(0, 256, (16, 3))
+    png = io.BytesIO()
+    Image.fromarray(rgb[:30, :40]).save(png, "PNG")
+    entries = [dib(rng.randint(0, 16, (20, 24)), 4, palette=ipal),
+               dib(small[..., ::-1], 24, mask=rng.randint(0, 2, (20, 24))),
+               dib(rng.randint(0, 2, (20, 24)), 1, palette=ipal[:2]),
+               png.getvalue()]
+    out["ico_bmp_entries"] = (".ico", write_ico(entries[:3], [
+        (24, 20, 16, 4), (24, 20, 0, 24), (24, 20, 2, 1)]))
+    out["ico_png_among_bmp"] = (".ico", write_ico(entries, [
+        (24, 20, 16, 4), (24, 20, 0, 24), (24, 20, 2, 1), (40, 30, 0, 32)]))
+    out["ico_depth_from_colors"] = (".ico", write_ico(
+        [entries[0], dib(rng.randint(0, 256, (20, 24)), 8,
+                         palette=rng.randint(0, 256, (256, 3)))],
+        [(24, 20, 16, 0), (24, 20, 0, 8)]))
+    out["ico_size_misstated"] = (".ico", write_ico(
+        [dib(np.dstack([small[..., ::-1], alpha[:20, :24]]), 32)],
+        [(16, 16, 0, 32)]))
+    cut = write_ico(entries[1:2], [(24, 20, 0, 24)])
+    out["ico_cut_mask_fails"] = (".ico", cut[:-30])
+    # MSP
+    pil("msp_pil_v1", bw, "MSP", ".msp")
+    out["msp_v2"] = (".msp", write_msp2(gray > 120, blank_rows=(3, 17)))
+    v2 = write_msp2(gray > 60)
+    out["msp_v2_cut_fails"] = (".msp", v2[:len(v2) * 2 // 3])
+    return out
+
+
 def format_references(files: dict, tmp: str) -> dict:
     """The digests of cv2's three reads and of PIL's RGB of each file."""
     arrays = {}
@@ -493,12 +680,13 @@ def format_references(files: dict, tmp: str) -> dict:
     return {k: np.array(v) for k, v in arrays.items()}
 
 
-# the formats of slices 19 and 20: directory under tests/data -> its files
+# the formats of slices 19-21: directory under tests/data -> its files
 FORMATS = {"pxm": lambda tmp: pxm_files(), "tiff": tiff_files,
            "hdr": hdr_files, "sunras": sunras_files,
            "cmyk": lambda tmp: cmyk_files(),
            "jpeg24": lambda tmp: jpeg24_files(),
-           "gif": lambda tmp: gif_files(), "webp": lambda tmp: webp_files()}
+           "gif": lambda tmp: gif_files(), "webp": lambda tmp: webp_files(),
+           "pil29": lambda tmp: pil29_files()}
 
 
 def references(files: dict, tmp: str, ext: str) -> dict:

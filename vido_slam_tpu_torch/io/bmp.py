@@ -38,6 +38,8 @@ from typing import Optional
 
 import numpy as np
 
+from vido_slam_tpu_torch.io.limits import check_cv2_size, check_pil_size
+
 SIGNATURE = b"BM"
 
 # cv2's fixed-point gray weights (imgcodecs/src/utils.cpp, SCALE 14)
@@ -45,28 +47,8 @@ CR, CG = int(0.299 * (1 << 14) + 0.5), int(0.587 * (1 << 14) + 0.5)
 CB = (1 << 14) - CR - CG
 
 
-# loadsave.cpp::validateInputImageSize, which cv2.imread holds on every
-# format once the decoder has read the header and before it reads a sample
-CV2_MAX_SIDE = 1 << 20
-CV2_MAX_PIXELS = 1 << 30
-
-
 class CorruptBmp(ValueError):
     """The bytes are no BMP the reader decodes."""
-
-
-class ImageTooLarge(ValueError):
-    """A header past cv2.imread's size limits: cv2 raises there (a
-    ``cv2.error``, not None), and so does the port."""
-
-
-def check_cv2_size(W: int, H: int) -> None:
-    """Raises ImageTooLarge where ``cv2.imread`` would: a side over
-    ``CV2_MAX_SIDE`` or more than ``CV2_MAX_PIXELS`` pixels."""
-    if W > CV2_MAX_SIDE or H > CV2_MAX_SIDE or W * H > CV2_MAX_PIXELS:
-        raise ImageTooLarge(f"a {W} x {H} image is past cv2.imread's limits "
-                            f"(sides {CV2_MAX_SIDE}, {CV2_MAX_PIXELS} "
-                            f"pixels)")
 
 
 class _Stream:
@@ -352,10 +334,27 @@ def read_pil(data: bytes) -> np.ndarray:
     RGB; CorruptBmp where PIL raises."""
     if data[:2] != SIGNATURE:
         raise CorruptBmp("not a BMP file")
-    s = _Stream(data, 10)
-    offset = struct.unpack("<I", s.take(4))[0]
+    offset = struct.unpack("<I", _Stream(data, 10).take(4))[0]
+    return _read_pil(data, 14, offset)[0]
+
+
+def read_pil_dib(data: bytes, pos: int = 0, icon: bool = False):
+    """PIL's DIB plugin (``DibImageFile``): a BMP without its file header,
+    the info header at ``pos``, the pixels right after the header (and
+    masks and palette). ``icon``: an ICO entry's bitmap, read at half its
+    height by PIL's raw decoder (no mapped file) for ``io/ico.py``, which
+    also gets the pixels' offset: (image, offset)."""
+    img, offset = _read_pil(data, pos, 0, icon)
+    return (img, offset) if icon else img
+
+
+def _read_pil(data: bytes, pos: int, offset: int, icon: bool = False):
+    """``BmpImageFile._bitmap`` from the info header at ``pos`` (pixels at
+    ``offset``, or where the headers end where it is 0) and the load:
+    (image, the pixels' offset)."""
+    s = _Stream(data, pos)
     hsize = struct.unpack("<I", s.take(4))[0]
-    head = s.take(hsize - 4)
+    head = s.take(max(hsize - 4, 0))
     u16 = lambda i: struct.unpack_from("<H", head, i)[0]  # noqa: E731
     u32 = lambda i: struct.unpack_from("<I", head, i)[0]  # noqa: E731
     masks = None
@@ -412,6 +411,12 @@ def read_pil(data: bytes) -> np.ndarray:
             palette[:len(entries)] = entries
     if W == 0 or H == 0:
         raise CorruptBmp("BMP of no pixels")
+    check_pil_size(W, H)
+    offset = offset or s.pos
+    if icon:
+        H = int(H / 2)
+        if H == 0:
+            raise CorruptBmp("BMP icon of no rows")
     if rle is not None:
         idx = _rle_pil(data, offset, W, H, rle)
     else:
@@ -419,7 +424,7 @@ def read_pil(data: bytes) -> np.ndarray:
                    "BGR;16": 16, "BGR": 24}.get(raw, 32)
         stride = ((W * bits + 31) >> 3) & ~3
         need = (W * rawbits + 7) // 8
-        if raw == mode and offset + H * stride <= len(data):
+        if raw == mode and not icon and offset + H * stride <= len(data):
             # PIL maps the file: a row is `need` bytes from its start,
             # whatever the stride (zeros past the end of the file)
             raw_rows = data[offset:] + bytes(need)
@@ -435,7 +440,7 @@ def read_pil(data: bytes) -> np.ndarray:
         img = np.where(img > 0, 255, 0).astype(np.uint8)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, -1)
-    return np.ascontiguousarray(img)
+    return np.ascontiguousarray(img), offset
 
 
 def _pil_pixels(rows: np.ndarray, raw: str, W: int) -> np.ndarray:

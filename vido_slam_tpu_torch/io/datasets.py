@@ -17,10 +17,12 @@ flags the demo passes, the format told by the signature as cv2 tells it
 JPEG (``io/jpeg.py``), BMP (``io/bmp.py``), PBM/PGM/PPM, PAM and PFM
 (``io/pxm.py``), TIFF (``io/tiff.py``), Radiance HDR (``io/hdr.py``), Sun
 raster (``io/sunras.py``), GIF (``io/gif.py``) and lossless WebP
-(``io/webp.py``). The data pipelines, which the JAX package reads through
-PIL, read by ``read_rgb_pil`` on the same decoders, each by PIL's rules.
-Lossy WebP, JPEG 2000, OpenEXR and AVIF raise ValueError naming their
-ROADMAP.md queue 1 item.
+(``io/webp.py``); OpenEXR gives None, as cv2 built without OpenEXR
+does. The data pipelines, which the JAX package reads through
+PIL, read by ``read_rgb_pil`` on the same decoders, each by PIL's rules,
+and on those of the formats PIL opens and cv2 does not (Targa, PCX, SGI,
+QOI, XBM, IM, ICO, MSP). Lossy WebP, JPEG 2000 and AVIF raise ValueError
+naming their ROADMAP.md queue 1 item.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from vido_slam_tpu_torch.io import (bmp, gif, hdr, jpeg, png, pxm, sunras,
-                                    tiff, webp)
+from vido_slam_tpu_torch.io import (bmp, gif, hdr, ico, im, jpeg, msp,
+                                    pcx, pil_open, png, pxm, qoi, sgi,
+                                    sunras, tga, tiff, webp, xbm)
 
 FLO_MAGIC = 202021.25
 
@@ -66,9 +69,9 @@ def write_flo(path: str, flow: np.ndarray) -> None:
 
 # the formats whose signatures cv2 knows and the port does not decode, by
 # the queue 1 item of ROADMAP.md that names each (lossy WebP: io/webp.py
-# raises naming 26d)
-REFUSED = {"jpeg2000": ("JPEG 2000", "26b"), "openexr": ("OpenEXR", "26b"),
-           "avif": ("AVIF", "28b")}
+# raises naming 26d). OpenEXR is not among them: the cv2 the port copies
+# is built without it ("OpenEXR: NO") and gives None; PIL has no plugin.
+REFUSED = {"jpeg2000": ("JPEG 2000", "26b"), "avif": ("AVIF", "28b")}
 
 
 def _avif(data: bytes) -> bool:
@@ -153,9 +156,10 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
     is no decodable image (a bad signature, truncation, CRC, inflate), gives
     None, as in cv2. A valid file of a mode or format the decoders lack
     raises ``ValueError`` naming its ROADMAP.md queue 1 item: cv2 decodes
-    it, so returning None would skip a frame silently. A header past
-    cv2's size limits (``bmp.check_cv2_size``) raises ``ImageTooLarge``,
-    where cv2 raises too."""
+    it, so returning None would skip a frame silently. OpenEXR gives None,
+    as cv2 built without OpenEXR does. A header past cv2's size limits
+    (``limits.check_cv2_size``) raises ``ImageTooLarge``, where cv2
+    raises too."""
     if not os.path.exists(path):
         return None
     if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE, IMREAD_ANYDEPTH):
@@ -165,6 +169,8 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
     fmt = image_format(data)
     if fmt in REFUSED:
         _refuse(path, fmt)
+    if fmt == "openexr":
+        return None
     if fmt == "gif":
         return gif.read_cv2(data, flags)
     if fmt == "webp":
@@ -204,50 +210,51 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
     return np.ascontiguousarray(px)
 
 
-# PIL's reading of the formats it opens and cv2 also reads
-_PIL_READERS = {"pxm": pxm.read_pil, "pfm": pxm.read_pil,
-                "tiff": tiff.read_pil, "sunras": sunras.read_pil,
-                "gif": gif.read_pil, "webp": webp.read_pil}
+def _jpeg_pil(data: bytes) -> np.ndarray:
+    return np.ascontiguousarray(jpeg.decode_jpeg(
+        data, exif_orientation=False, strict=True, pil=True)[..., ::-1])
+
+
+# the reader of each PIL plugin the port reads (``pil_open.PLUGINS``' names)
+_PIL_READERS = {"BMP": bmp.read_pil, "DIB": bmp.read_pil_dib,
+                "GIF": gif.read_pil, "JPEG": _jpeg_pil, "PPM": pxm.read_pil,
+                "PNG": png.read_pil, "PCX": pcx.read_pil,
+                "ICO": ico.read_pil, "IM": im.read_pil, "TIFF": tiff.read_pil,
+                "MSP": msp.read_pil, "QOI": qoi.read_pil, "SGI": sgi.read_pil,
+                "SUN": sunras.read_pil, "TGA": tga.read_pil,
+                "WEBP": webp.read_pil, "XBM": xbm.read_pil}
+# PIL's plugins of the formats that cv2 reads too and the port refuses
+_PIL_REFUSED = {"JPEG2000": "jpeg2000", "AVIF": "avif"}
+PIL_ITEM = "ROADMAP.md queue 1 item 29b"
 
 
 def read_rgb_pil(path: str) -> np.ndarray:
     """``np.asarray(Image.open(path).convert("RGB"))``, bit-equal to PIL:
-    (H, W, 3) uint8 RGB, for PNG, JPEG (CMYK ones as PIL inverts and
-    converts them), BMP, PBM/PGM/PPM, ``Pf`` PFM, TIFF, Sun raster, GIF
-    and lossless WebP files. It reads as ``imread`` reads colour (gray
-    replicated, alpha dropped, palette expanded, 16-bit RGB cut to its high
-    byte) but for
-    what PIL does otherwise: a JPEG's EXIF orientation is not applied, a
-    16-bit gray PNG (PIL's ``I;16``) is clipped at 255, and each other
-    format follows its module's ``read_pil``. A missing file, one PIL
-    does not open (PAM, colour PFM, HDR) or one it fails on raises, as
-    ``Image.open`` does; lossy WebP, JPEG 2000 and AVIF, which PIL opens,
-    raise ``ValueError`` naming their queue 1 item."""
+    (H, W, 3) uint8 RGB. The plugin is the one ``Image.open`` picks
+    (``pil_open.pil_format``: PIL's plugins in their order, each by its
+    own header tests, not by the extension), and each plugin the port
+    reads has its module's ``read_pil``: BMP and DIB, GIF, JPEG (no EXIF
+    orientation; CMYK as PIL inverts and converts it), PBM/PGM/PPM and
+    ``Pf`` PFM, PNG (16-bit gray clipped at 255), PCX, ICO, IM, TIFF, MSP,
+    QOI, SGI, Sun raster, Targa, lossless WebP and XBM. A missing file,
+    one no plugin takes ("cannot identify image file"), one past PIL's
+    decompression bomb limit (``limits.DecompressionBombError``, from the
+    header) or one its plugin fails on raises, as ``Image.open`` and
+    ``convert`` do; EPS fails as PIL fails without Ghostscript. Lossy
+    WebP, JPEG 2000 and AVIF raise ``ValueError`` naming their queue 1
+    item, and the plugins no reader ports (DDS, ICNS, PSD, ...) item
+    29b."""
     with open(path, "rb") as f:
         data = f.read()
-    fmt = image_format(data)
-    if fmt in REFUSED:
-        _refuse(path, fmt)
-    if fmt == "jpeg":
-        return np.ascontiguousarray(jpeg.decode_jpeg(
-            data, exif_orientation=False, strict=True, pil=True)[..., ::-1])
-    if fmt == "bmp":
-        return bmp.read_pil(data)
-    if fmt in _PIL_READERS and (fmt != "pfm" or pxm.pil_opens(data)):
+    fmt = pil_open.pil_format(data)
+    if fmt in _PIL_READERS:
         return _PIL_READERS[fmt](data)
-    if fmt != "png":
-        raise ValueError(f"{path}: no image PIL opens (cannot identify "
-                         f"image file)")
-    img = png.decode_png(data)
-    px = img.pixels
-    if img.bit_depth == 16:
-        # gray opens as PIL's I;16, which clips; the other modes keep the
-        # high byte
-        px = np.minimum(px, 255) if px.shape[-1] == 1 else px >> 8
-    px = px.astype(np.uint8)
-    if px.shape[-1] < 3:
-        return np.repeat(px[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(px[..., :3])
+    if fmt in _PIL_REFUSED:
+        _refuse(path, _PIL_REFUSED[fmt])
+    if fmt in pil_open.FAILING:
+        raise pil_open.PluginFails(f"{path}: {pil_open.FAILING[fmt]}")
+    raise ValueError(f"{path}: PIL's {fmt} images are not supported "
+                     f"({PIL_ITEM})")
 
 
 def demosaic_bayer_bg2bgr(raw: np.ndarray) -> np.ndarray:

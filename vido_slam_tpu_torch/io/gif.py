@@ -41,14 +41,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from vido_slam_tpu_torch.io import hdr
-from vido_slam_tpu_torch.io.bmp import check_cv2_size
+from vido_slam_tpu_torch.io.limits import check_cv2_size, check_pil_size
 from vido_slam_tpu_torch.utils import host_build
 
 SIGNATURES = (b"GIF87a", b"GIF89a")
-
-# PIL's Image.open raises DecompressionBombError past twice its
-# MAX_IMAGE_PIXELS
-PIL_BOMB = 2 * 89478485
 
 # cv2's table where a GIF has none: index i is gray i, but index 1 white
 # (as cv2 5.0 decodes such a file)
@@ -391,9 +387,7 @@ def read_pil(data: bytes, plain: bool = False) -> np.ndarray:
     """``np.asarray(Image.open(p).convert("RGB"))`` of a GIF's first frame:
     (H, W, 3) uint8 RGB. Raises where PIL raises."""
     (W, H), table, img = parse_pil(data)
-    if W * H > PIL_BOMB:
-        raise ValueError(f"GIF of {W * H} pixels: PIL's decompression bomb "
-                         f"limit")
+    check_pil_size(W, H)
     npix = img.width * img.height
     px = np.full((H, W), img.transparency or 0, np.uint8)
     if npix:

@@ -27,7 +27,7 @@ from typing import Optional
 
 import numpy as np
 
-from vido_slam_tpu_torch.io.bmp import check_cv2_size
+from vido_slam_tpu_torch.io.limits import check_cv2_size
 from vido_slam_tpu_torch.io.pxm import saturate_u8
 
 SIGNATURES = (b"#?RGBE", b"#?RADIANCE")

@@ -62,7 +62,7 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 
-from vido_slam_tpu_torch.io.bmp import check_cv2_size
+from vido_slam_tpu_torch.io.limits import check_cv2_size, check_pil_size
 from vido_slam_tpu_torch.utils import host_build
 
 SIGNATURE = b"\xff\xd8"
@@ -514,7 +514,7 @@ def read_coefficients(data: bytes, strict: bool = False,
     is done with it, TruncatedJpeg, as PIL's suspending reader, and where
     an arithmetic-coded scan crosses one of PIL's blocks, SuspendedJpeg;
     a precision other than 8 fails (PIL's own check); else ``cv2.imread``'s
-    size limits hold (``bmp.ImageTooLarge``). ``plain``: the arithmetic
+    size limits hold (``limits.ImageTooLarge``). ``plain``: the arithmetic
     and lossless scans by their Python decoders."""
     frame, orientation = None, 1
     tables = _Tables()
@@ -547,6 +547,8 @@ def read_coefficients(data: bytes, strict: bool = False,
                           f"{JPEG_MAX_DIMENSION} pixels a side")
     if not strict:
         check_cv2_size(frame.width, frame.height)
+    else:
+        check_pil_size(frame.width, frame.height)
     comps = frame.comps
     space = color_space([c.ident for c in comps], jfif, adobe,
                         frame.lossless)

@@ -28,13 +28,14 @@ and a Python loop would take seconds on a 1280x560 frame.
 from __future__ import annotations
 
 import ctypes
+import re
 import struct
 import zlib
 from typing import NamedTuple
 
 import numpy as np
 
-from vido_slam_tpu_torch.io.bmp import check_cv2_size
+from vido_slam_tpu_torch.io.limits import check_cv2_size, check_pil_size
 from vido_slam_tpu_torch.utils import host_build
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -83,6 +84,40 @@ def _chunks(data: bytes):
         yield kind, body
         if kind == b"IEND":
             return
+        pos += 12 + n
+
+
+def _pil_chunks(data: bytes):
+    """(type, payload) of each chunk as ``PngImagePlugin`` reads it: the
+    chunks before the first IDAT whole, their types four word characters
+    and their CRCs checked; then the IDAT payloads up to the first other
+    chunk or the end of the file, cut where the file is and their CRCs not
+    read."""
+    if data[:8] != SIGNATURE:
+        raise CorruptPng("not a PNG file (bad signature)")
+    pos = 8
+    while True:
+        if pos + 8 > len(data):
+            raise CorruptPng("PNG ends before its image data")
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        if kind == b"IDAT":
+            break
+        if not re.fullmatch(rb"\w{4}", kind):
+            raise CorruptPng(f"broken PNG file (chunk {kind!r})")
+        if pos + 12 + n > len(data):
+            raise CorruptPng(f"PNG chunk {kind!r} is truncated")
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) != crc:
+            raise CorruptPng(f"PNG chunk {kind!r} fails its CRC")
+        if kind == b"IEND":
+            raise CorruptPng("PNG has no image data")
+        yield kind, body
+        pos += 12 + n
+    while pos + 8 <= len(data) and data[pos + 4:pos + 8] == b"IDAT":
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        yield b"IDAT", data[pos + 8:pos + 8 + n]
         pos += 12 + n
 
 
@@ -176,12 +211,16 @@ def _samples(rows: np.ndarray, width: int, depth: int,
 
 
 def decode_png(data: bytes, *, plain: bool = False,
-               imread_limits: bool = False) -> PngImage:
+               imread_limits: bool = False, pil: bool = False) -> PngImage:
     """Decode a PNG held in memory; ``plain`` takes the plain unfilter.
     ``imread_limits``: the sizes ``cv2.imread`` refuses, libpng's user
-    limits (CorruptPng) and its own (``bmp.ImageTooLarge``)."""
+    limits (CorruptPng) and its own (``limits.ImageTooLarge``). ``pil``:
+    PIL's reading (``_pil_chunks``; data past the image ignored, a zlib
+    stream that ends before the image leaves the rows it lacks 0, a stream
+    cut before its end raises) and its size limit
+    (``limits.DecompressionBombError``)."""
     header, idat, palette = None, [], None
-    for kind, body in _chunks(data):
+    for kind, body in (_pil_chunks if pil else _chunks)(data):
         if header is None:
             if kind != b"IHDR" or len(body) != 13:
                 raise CorruptPng("PNG does not start with a valid IHDR")
@@ -201,10 +240,18 @@ def decode_png(data: bytes, *, plain: bool = False,
         if width > PNG_USER_MAX or height > PNG_USER_MAX:
             raise CorruptPng("PNG image exceeds libpng's user limit")
         check_cv2_size(width, height)
+    if pil:
+        check_pil_size(width, height)
     try:
-        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+        if pil:
+            inflater = zlib.decompressobj()
+            raw = inflater.decompress(b"".join(idat))
+            ended = inflater.eof
+        else:
+            raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise CorruptPng(f"PNG image data does not inflate: {e}") from None
+    raw = np.frombuffer(raw, np.uint8)
     channels = 1 if ctype == 3 else CHANNELS[ctype]
     bits = channels * depth
     bpp = max(1, bits // 8)
@@ -212,11 +259,19 @@ def decode_png(data: bytes, *, plain: bool = False,
     sizes = [(-(-(height - y0) // dy), -(-(width - x0) // dx))
              for x0, y0, dx, dy in passes]
     need = sum(h * (-(-w * bits // 8) + 1) for h, w in sizes if h and w)
-    if raw.size != need:
+    if pil:
+        # PIL's decoder stops at the image's end, and where the zlib stream
+        # ends first it keeps the rows it has (the others stay 0); data cut
+        # before the stream's end is "image file is truncated"
+        if raw.size < need and not ended:
+            raise CorruptPng(f"PNG image data holds {raw.size} bytes, not "
+                             f"{need} (image file is truncated)")
+        raw = raw[:need]
+    elif raw.size != need:
         kind = CorruptPng if raw.size < need else ValueError
         raise kind(f"PNG image data holds {raw.size} bytes, not {need}")
     fn = unfilter_plain if plain else unfilter
-    out = np.empty((height, width, channels),
+    out = np.zeros((height, width, channels),
                    np.uint16 if depth == 16 else np.uint8)
     pos = 0
     for (x0, y0, dx, dy), (h, w) in zip(passes, sizes):
@@ -224,9 +279,13 @@ def decode_png(data: bytes, *, plain: bool = False,
             continue
         rowbytes = -(-w * bits // 8)
         size = h * (rowbytes + 1)
-        rows = fn(raw[pos:pos + size], h, rowbytes, bpp)
+        rows = min(h, (raw.size - pos) // (rowbytes + 1))
+        if rows <= 0:
+            break
+        out[y0::dy, x0::dx][:rows] = _samples(
+            fn(raw[pos:pos + rows * (rowbytes + 1)], rows, rowbytes, bpp),
+            w, depth, channels)
         pos += size
-        out[y0::dy, x0::dx] = _samples(rows, w, depth, channels)
     if ctype == 3:
         table = np.zeros((256, 3), np.uint8)
         table[:len(palette) // 3] = np.frombuffer(palette, np.uint8) \
@@ -235,6 +294,23 @@ def decode_png(data: bytes, *, plain: bool = False,
     elif depth < 8:
         out = out * np.uint8(255 // ((1 << depth) - 1))
     return PngImage(out, ctype, 16 if depth == 16 else 8)
+
+
+def read_pil(data: bytes) -> np.ndarray:
+    """``np.asarray(Image.open(p).convert("RGB"))`` of PNG bytes: (H, W, 3)
+    uint8 RGB (gray replicated, alpha dropped, palette expanded; 16-bit
+    gray opens as PIL's ``I;16``, which clips at 255, the other 16-bit
+    modes keep their high byte), by PIL's reading of the chunks
+    (``_pil_chunks``). Raises CorruptPng where PIL raises, and
+    ``DecompressionBombError`` past PIL's limit from the IHDR."""
+    img = decode_png(data, pil=True)
+    px = img.pixels
+    if img.bit_depth == 16:
+        px = np.minimum(px, 255) if px.shape[-1] == 1 else px >> 8
+    px = px.astype(np.uint8)
+    if px.shape[-1] < 3:
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
 
 
 def read_png(path: str, *, plain: bool = False) -> PngImage:

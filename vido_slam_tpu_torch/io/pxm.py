@@ -43,7 +43,8 @@ from typing import Optional
 
 import numpy as np
 
-from vido_slam_tpu_torch.io.bmp import check_cv2_size, to_gray
+from vido_slam_tpu_torch.io.bmp import to_gray
+from vido_slam_tpu_torch.io.limits import check_cv2_size, check_pil_size
 
 # C's isspace, and PIL's header whitespace (PpmImagePlugin.b_whitespace)
 WHITESPACE = b" \t\n\v\f\r"
@@ -422,6 +423,7 @@ def read_pil(data: bytes) -> np.ndarray:
     W, H = _pil_int(f.token()), _pil_int(f.token())
     if W <= 0 or H <= 0:
         raise CorruptPxm("PPM size")
+    check_pil_size(W, H)
     plain = kind in b"123"
     if mode == "F":
         try:
@@ -498,8 +500,4 @@ def read_pil(data: bytes) -> np.ndarray:
         px = np.repeat(px, 3, -1)
     return np.ascontiguousarray(px)
 
-
-def pil_opens(data: bytes) -> bool:
-    """PIL's PpmImagePlugin accepts the file (by its magic)."""
-    return data[:2] in PIL_MODES
 

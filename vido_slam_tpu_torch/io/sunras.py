@@ -22,9 +22,9 @@ carry on into the next row), depths 1 (1 black, no map), 4, 8 (gray, or
 a palette of the map's entries, missing ones black), 24 and 32 (the
 fourth byte read as B, G, R, X in type 1, R, G, B, X in type 3; a map
 beside 1, 24 or 32 bits fails). PIL tries its GIMP brush plugin first,
-which takes a file of width 1 and length 1 or 4 and fails on it. A file
-cv2 fails on gives None from ``read_cv2``; one PIL fails on raises
-``CorruptSunRaster`` from ``read_pil``.
+which takes a file of width 1 and length 1 or 4 (``pil_open`` names
+it). A file cv2 fails on gives None from ``read_cv2``; one PIL's Sun
+plugin fails on raises ``CorruptSunRaster`` from ``read_pil``.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ from typing import Optional
 
 import numpy as np
 
-from vido_slam_tpu_torch.io.bmp import check_cv2_size, to_gray
+from vido_slam_tpu_torch.io.bmp import to_gray
+from vido_slam_tpu_torch.io.limits import check_cv2_size, check_pil_size
 
 SIGNATURE = b"\x59\xa6\x6a\x95"
 
@@ -132,10 +133,6 @@ def read_pil(data: bytes) -> np.ndarray:
     """``np.asarray(Image.open(p).convert("RGB"))`` of Sun raster bytes:
     (H, W, 3) RGB; CorruptSunRaster where PIL raises."""
     W, H, depth, length, kind, maptype, maplen = _header(data)
-    if W == 1 and length in (1, 4) and H > 0 and depth > 0:
-        # GbrImagePlugin, tried before SunImagePlugin, takes the header for
-        # a GIMP brush's (version 1, depth `length`) and fails on it
-        raise CorruptSunRaster("PIL opens it as a GIMP brush and fails")
     if depth not in (1, 4, 8, 24, 32):
         raise CorruptSunRaster("Sun raster depth PIL does not read")
     palette = None
@@ -153,6 +150,7 @@ def read_pil(data: bytes) -> np.ndarray:
         raise CorruptSunRaster("Sun raster type PIL does not read")
     if W <= 0 or H <= 0:
         raise CorruptSunRaster("Sun raster size")
+    check_pil_size(W, H)
     offset = 32 + maplen
     rowbytes = (W * depth + 7) // 8
     if kind == 2:

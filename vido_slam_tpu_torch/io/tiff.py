@@ -47,7 +47,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
-from vido_slam_tpu_torch.io.bmp import check_cv2_size, to_gray
+from vido_slam_tpu_torch.io.bmp import to_gray
+from vido_slam_tpu_torch.io.limits import check_cv2_size, check_pil_size
 from vido_slam_tpu_torch.io.jpeg import orient
 from vido_slam_tpu_torch.utils import host_build
 
@@ -554,6 +555,7 @@ def read_pil(data: bytes) -> np.ndarray:
     if data[:4] == b"MM\x00+":
         raise CorruptTiff("PIL: cannot identify a big-endian BigTIFF")
     pg = read_page(data, pil=True)
+    check_pil_size(pg.width, pg.height)
     if pg.compression == 1:
         pg, px = samples(data, pil=True)
     else:

@@ -36,8 +36,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
-from vido_slam_tpu_torch.io import gif, hdr
-from vido_slam_tpu_torch.io.bmp import check_cv2_size
+from vido_slam_tpu_torch.io import hdr
+from vido_slam_tpu_torch.io.limits import check_cv2_size, check_pil_size
 from vido_slam_tpu_torch.utils import host_build
 
 ITEM = "ROADMAP.md queue 1 item 26d"
@@ -737,8 +737,8 @@ def _canvas(data: bytes, plain: bool, cv2_limits: bool) -> np.ndarray:
     """The first frame on its canvas as (H, W, 4) B, G, R, A bytes (the
     canvas transparent black outside the frame). ``cv2_limits``: cv2's
     reading (a still file by ``parse_still``) and size limits
-    (``bmp.check_cv2_size``), else PIL's (``parse``) and its decompression
-    bomb limit."""
+    (``limits.check_cv2_size``), else PIL's (``parse``) and its
+    decompression bomb limit (``limits.check_pil_size``)."""
     if cv2_limits and not _animated(data):
         (cw, ch), start = parse_still(data)
         return decode_vp8l(data[start:], plain).view(np.uint8).reshape(
@@ -747,9 +747,8 @@ def _canvas(data: bytes, plain: bool, cv2_limits: bool) -> np.ndarray:
     cw, ch = frame.canvas
     if cv2_limits:
         check_cv2_size(cw, ch)
-    elif cw * ch > gif.PIL_BOMB:
-        raise ValueError(f"WebP of {cw * ch} pixels: PIL's decompression "
-                         f"bomb limit")
+    else:
+        check_pil_size(cw, ch)
     argb = decode_vp8l(frame.payload, plain)
     canvas = np.zeros((ch, cw), np.uint32)
     x, y = frame.offset
