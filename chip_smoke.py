@@ -2971,9 +2971,9 @@ FORMAT_FRAMES = 12   # (t2)'s tracked frames a tree, and no StopFrame
 def check_format_fixtures(root, formats=FORMAT_FIXTURES) -> int:
     """(t1), (u1): each committed fixture of tests/data/<format>/ read as
     cv2 reads it under IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_ANYDEPTH
-    (``datasets.imread``; TIFF, GIF and WebP also by their host codecs'
-    plain versions, JPEG by its plain steps and plain arithmetic and
-    lossless decoders) and as PIL reads it (``read_rgb_pil``; the files of
+    (``datasets.imread``; TIFF (tiff, tiff26c), GIF and WebP also by
+    their host codecs' plain versions, JPEG by its plain steps and plain
+    arithmetic and lossless decoders) and as PIL reads it (``read_rgb_pil``; the files of
     pil29 also by their host loops' plain versions), against the
     digests of cv2's and PIL's reads (tools/make_image_fixtures.py;
     "None" where cv2 gives None; no PIL digest where PIL raises, and then
@@ -2998,7 +2998,7 @@ def check_format_fixtures(root, formats=FORMAT_FIXTURES) -> int:
                 data = f.read()
             for flag, suffix in flags:
                 reads = [datasets.imread(path, flag)]
-                if fmt == "tiff":
+                if fmt in ("tiff", "tiff26c"):
                     reads.append(tiff.read_cv2(data, flag, plain=True))
                 if fmt in ("cmyk", "jpeg24"):
                     try:
@@ -3606,23 +3606,12 @@ def run_v_decode(tmp):
     return ms, bgr.shape
 
 
-def write_v_coco(tmp, clip):
-    """(v3)'s COCO tree: bench-clip frames as TGA, PCX, SGI, QOI and ICO
-    (the icon cropped to 256 wide), three boxes each (two with polygons),
-    and the ``instances`` json. Returns (ann file, image root, the RGB of
-    each file as written)."""
-    root = os.path.join(tmp, "coco_v")
-    os.makedirs(root)
-    rng = np.random.RandomState(29)
-    images, annotations, pixels = [], [], []
-    for i, fmt in enumerate(V_FORMATS):
-        bgr = np.ascontiguousarray(clip[2 * i][..., ::-1])
-        if fmt == "ico":
-            bgr = np.ascontiguousarray(bgr[:, :256])
-        h, w = bgr.shape[:2]
-        name = f"frame{i}.{fmt}"
-        write_pil29(os.path.join(root, name), fmt, bgr)
-        pixels.append(bgr[..., ::-1])
+def write_coco_json(path, names, sizes, seed):
+    """An ``instances`` json of the images ``names`` of (height, width)
+    ``sizes``: three boxes each (two with polygons), drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    images, annotations = [], []
+    for i, (name, (h, w)) in enumerate(zip(names, sizes)):
         images.append({"id": i + 1, "file_name": name, "height": h,
                        "width": w})
         for k in range(3):
@@ -3635,18 +3624,38 @@ def write_v_coco(tmp, clip):
                 ann["segmentation"] = [[x, y, x + bw, y, x + bw * 0.8,
                                         y + bh, x, y + bh * 0.7]]
             annotations.append(ann)
-    ann = os.path.join(tmp, "instances_v.json")
-    with open(ann, "w") as f:
+    with open(path, "w") as f:
         json.dump({"images": images, "annotations": annotations,
                    "categories": [{"id": c, "name": f"c{c}"}
                                   for c in (1, 3, 7)]}, f)
+
+
+def write_v_coco(tmp, clip):
+    """(v3)'s COCO tree: bench-clip frames as TGA, PCX, SGI, QOI and ICO
+    (the icon cropped to 256 wide), three boxes each (two with polygons),
+    and the ``instances`` json. Returns (ann file, image root, the RGB of
+    each file as written)."""
+    root = os.path.join(tmp, "coco_v")
+    os.makedirs(root)
+    names, sizes, pixels = [], [], []
+    for i, fmt in enumerate(V_FORMATS):
+        bgr = np.ascontiguousarray(clip[2 * i][..., ::-1])
+        if fmt == "ico":
+            bgr = np.ascontiguousarray(bgr[:, :256])
+        names.append(f"frame{i}.{fmt}")
+        write_pil29(os.path.join(root, names[-1]), fmt, bgr)
+        pixels.append(bgr[..., ::-1])
+        sizes.append(bgr.shape[:2])
+    ann = os.path.join(tmp, "instances_v.json")
+    write_coco_json(ann, names, sizes, 29)
     return ann, root, pixels
 
 
-def run_v_training(counters, tmp, clip, dev="cuda"):
+def run_v_training(counters, tmp, clip, dev="cuda", coco=None, tag="v3"):
     """(v3): one step of ``python -m vido_slam_tpu_torch.train_maskrcnn``
-    in-process on the COCO tree of ``write_v_coco`` (R-50-FPN at
-    TRAIN_INPUT, all five images in the batch, each read by
+    in-process on the COCO tree of ``write_v_coco`` (or ``coco``, another
+    writer's (ann file, image root, file names, pixels)) (R-50-FPN at
+    TRAIN_INPUT, all its images in the batch, each read by
     ``read_rgb_pil`` first and held to the pixels written): kernel 5
     forward and 5b backward twice an image; then both kernels against
     their plain versions on the step's arguments. Returns the launches and
@@ -3655,16 +3664,21 @@ def run_v_training(counters, tmp, clip, dev="cuda"):
     from vido_slam_tpu_torch.io import datasets
     from vido_slam_tpu_torch.models.maskrcnn import roi_heads
 
-    ann, root, pixels = write_v_coco(tmp, clip)
-    for i, fmt in enumerate(V_FORMATS):
-        got = datasets.read_rgb_pil(os.path.join(root, f"frame{i}.{fmt}"))
-        check(np.array_equal(got, pixels[i]), f"(v3) {fmt}: not the frame")
+    if coco is None:
+        ann, root, pixels = write_v_coco(tmp, clip)
+        files = [f"frame{i}.{fmt}" for i, fmt in enumerate(V_FORMATS)]
+    else:
+        ann, root, files, pixels = coco
+    for name, want in zip(files, pixels):
+        got = datasets.read_rgb_pil(os.path.join(root, name))
+        check(np.array_equal(got, want), f"({tag}) {name}: not the frame")
+    batch = len(files)
     h, w = TRAIN_INPUT
     argv = ["--ann-file", ann, "--image-root", root, "--batch",
-            str(V_BATCH), "--input-h", str(h), "--input-w", str(w), "--lr",
+            str(batch), "--input-h", str(h), "--input-w", str(w), "--lr",
             "1e-3", "--iters", "1", "--log-period", "1",
             "--checkpoint-period", "100000", "--out",
-            os.path.join(tmp, "train_v")] + (
+            os.path.join(tmp, f"train_{tag}")] + (
                 [] if dev == "cuda" else ["--device", dev])
     lines = []
     rec = GradArgs(roi_heads.roi_align_multilevel)
@@ -3674,15 +3688,16 @@ def run_v_training(counters, tmp, clip, dev="cuda"):
             argv, lines.append))
     finally:
         roi_heads.roi_align_multilevel = rec.wrapper
-    expect = [0, 0, 0, 0, 2 * V_BATCH, 2 * V_BATCH]
+    expect = [0, 0, 0, 0, 2 * batch, 2 * batch]
     loss = float(re.search(r"loss ([0-9.naif+-]+) ", lines[-1]).group(1))
     check(math.isfinite(loss) and (dev != "cuda" or launches == expect),
-          f"(v3) training step: loss {loss}, launches {launches}, not "
+          f"({tag}) training step: loss {loss}, launches {launches}, not "
           f"{expect}")
     if dev != "cuda":
         return launches, loss, 0.0, 0.0
-    cases = [(f"(v3) image {i // 2 + 1} {'box' if i % 2 == 0 else 'mask'} "
-              f"head", rec.calls[i][0], rec.grads[i])
+    cases = [(f"({tag}) image {i // 2 + 1} "
+              f"{'box' if i % 2 == 0 else 'mask'} head", rec.calls[i][0],
+              rec.grads[i])
              for i in range(len(rec.calls))]
     err5 = check_roi_align([(name, ([f.detach() for f in args[0]],)
                              + tuple(args[1:])) for name, args, _ in cases])
@@ -3769,6 +3784,277 @@ def run_phase_v(counters, tmp, dev="cuda"):
         f"{train}, kernel 5 err {err5:.2e}, 5b err {err5b:.2e}; infer "
         f"launches {infer}; {secs:.1f} s")
     return {"v3_train": train, "v3_infer": infer + [0]}, ms, err5, err5b
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (w): the TIFF modes of ROADMAP.md queue 1 item 26c, part 1
+# ---------------------------------------------------------------------------
+
+W_FIXTURES = ("tiff26c",)
+W_DECODE_REPS = 5
+W_FORMATS = ("jpeg", "ycbcr", "cmyk", "lzma")   # (w3)'s COCO tree
+
+
+def kitti_jpg(k=0):
+    """The committed KITTI frame ``k`` of tests/data/jpeg (a cv2 baseline
+    JPEG, 1242x375, 4:2:0): (its path, its bytes)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        JPEG_FIXTURES, "kitti")
+    path = os.path.join(root, sorted(os.listdir(root))[k])
+    with open(path, "rb") as f:
+        return path, f.read()
+
+
+def ycbcr_of(rgb):
+    """JPEG's full-range YCbCr of (H, W, 3) RGB, rounded: the samples a
+    YCbCr TIFF holds (libtiff converts them back by its own tables)."""
+    v = rgb.astype(np.float64)
+    y = 0.299 * v[..., 0] + 0.587 * v[..., 1] + 0.114 * v[..., 2]
+    cb = 128 + (v[..., 2] - y) / 1.772
+    cr = 128 + (v[..., 0] - y) / 1.402
+    return np.clip(np.round(np.stack([y, cb, cr], -1)), 0, 255).astype(
+        np.uint8)
+
+
+def write_tiff26c(path, fmt, rgb):
+    """An (H, W, 3) RGB frame as one of item 26c's TIFF modes, by the
+    test-side writers (the card's machine has no PIL): "ycbcr" 2x2 YCbCr
+    units in LZW strips of 16 rows; "cmyk" the inks 255 - R, G, B and no
+    black, LZW (both libraries give the frame back); "lzma" RGB in LZMA
+    strips of 64 rows; "g4" the frame's green above 127 as a T.6 mask."""
+    enc = image_encoders()
+    if fmt == "ycbcr":
+        chunks = enc.ycbcr_chunks(ycbcr_of(rgb), (2, 2), rows_per_strip=16)
+        enc.write_tiff(path, rgb, photometric=6, compression=5,
+                       rows_per_strip=16, tags={530: (3, [2, 2])},
+                       chunks=[enc.lzw_encode(c) for c in chunks])
+    elif fmt == "cmyk":
+        ink = np.concatenate([255 - rgb, np.zeros_like(rgb[..., :1])], -1)
+        enc.write_tiff(path, ink, photometric=5, compression=5,
+                       rows_per_strip=16)
+    elif fmt == "lzma":
+        enc.write_tiff(path, rgb, photometric=2, compression=34925,
+                       rows_per_strip=64)
+    else:
+        mask = (rgb[..., 1] > 127).astype(np.uint8)
+        enc.write_tiff(path, mask, bits=1, photometric=0, compression=4,
+                       chunks=[enc.fax_encode(mask, 4)])
+
+
+def run_w_decode(tmp):
+    """(w2): the committed KITTI frame 0 (1242x375) as JPEG-in-TIFF (its
+    own 4:2:0 stream), LZW YCbCr (2x2), LZW CMYK, LZMA RGB, a T.6 mask
+    and PNG, each decoded on the host (``imread``, ``read_rgb_pil`` for
+    LZMA, which cv2 does not read) and held to what it must give: the ms
+    median of W_DECODE_REPS reads."""
+    from vido_slam_tpu_torch.io import datasets, tiff
+
+    jpg, data = kitti_jpg(0)
+    bgr = datasets.imread(jpg)
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    ms = {}
+    for fmt in ("jpeg", "ycbcr", "cmyk", "lzma", "g4", "png"):
+        path = os.path.join(tmp, f"w2_{fmt}.tif")
+        if fmt == "jpeg":
+            image_encoders().jpeg_to_tiff(path, data)
+        elif fmt == "png":
+            write_png(path, bgr)
+        else:
+            write_tiff26c(path, fmt, rgb)
+        if fmt == "lzma":
+            read = lambda: datasets.read_rgb_pil(path)  # noqa: E731
+            want = rgb
+        elif fmt == "g4":
+            read = lambda: datasets.imread(  # noqa: E731
+                path, datasets.IMREAD_GRAYSCALE)
+            want = np.where(rgb[..., 1] > 127, 0, 255).astype(np.uint8)
+        else:
+            read = lambda: datasets.imread(path)  # noqa: E731
+            want = None if fmt == "ycbcr" else bgr
+        times = []
+        for _ in range(W_DECODE_REPS):
+            t1 = time.perf_counter()
+            got = read()
+            times.append(time.perf_counter() - t1)
+        if want is None:
+            # the YCbCr round trip: the plain codecs' read, near the frame
+            with open(path, "rb") as f:
+                plain = tiff.read_cv2(f.read(), 1, plain=True)
+            err = np.abs(got.astype(int) - bgr).mean()
+            check(np.array_equal(got, plain) and err < 8,
+                  f"(w2) ycbcr: plain read differs or mean error {err:.2f}")
+        else:
+            check(np.array_equal(got, want), f"(w2) {fmt}: not the frame")
+        ms[fmt] = 1e3 * float(np.median(times))
+    return ms, bgr.shape
+
+
+def run_w_cli(counters, tmp, dev="cuda", n_frames=FORMAT_FRAMES):
+    """(w3): the CLI on (t2)'s KITTI configuration over the committed
+    KITTI .jpg frames each moved into a JPEG-in-TIFF (under its .jpg
+    name: imread tells the format by the signature), depth and masks as
+    PNG, one more frame listed and missing (no StopFrame); each frame
+    decoded bit-equal to its .jpg. Returns kernel 1's launches (a list as
+    ``launches_of``), the camera ATE and the trajectory's length."""
+    from vido_slam_tpu_torch.io import datasets
+
+    seq = offline_sequence(n_frames, dev, KITTI_CONFIG)
+    rows = demo_rows(seq, KITTI_CONFIG, dev)
+    convert = image_encoders().jpeg_to_tiff
+
+    def jpeg_tiff(path, bgr):
+        k = int(os.path.basename(path)[:10])
+        src, data = kitti_jpg(k)
+        convert(path, data)
+        check(np.array_equal(datasets.imread(path), datasets.imread(src)),
+              f"(w3) {os.path.basename(path)}: not the .jpg's pixels")
+    root = os.path.join(tmp, "w3_kitti")
+    tree = write_tree(root, "kitti", rows, jpg=jpeg_tiff)
+    with open(os.path.join(root, "times.txt"), "a") as f:
+        f.write(f"{n_frames / 10.0:.6f}\n")          # its image is missing
+    cfg_path = os.path.join(tmp, "w3.yaml")
+    write_config(cfg_path, dict(KITTI_CONFIG, slam_mode=0, **tree))
+    out = os.path.join(tmp, "w3_out", "")
+    run, n, _, batches = run_demo(
+        [cfg_path, "--output", out, "--device", dev], counters)
+    check(not batches, f"(w3) {len(batches)} full batches")
+    ate0, _, path, _ = check_demo(
+        run, out, [fr.Tcw_gt for fr in seq.frames], n_frames, n,
+        [2 * (n_frames - 1), 0, 0, 0, 0][:len(counters)])
+    del run
+    return n, ate0, path
+
+
+def write_w_coco(tmp, clip):
+    """(w3)'s COCO tree: the committed KITTI frame 1 as JPEG-in-TIFF and
+    bench-clip frames as LZW YCbCr, LZW CMYK and LZMA RGB TIFFs, with the
+    ``instances`` json. Returns (ann file, image root, file names, the RGB
+    ``read_rgb_pil`` must give: the .jpg's decode, the plain codecs' cv2
+    read of the YCbCr file (cv2 and PIL read it alike), held near its
+    frame, the frames)."""
+    from vido_slam_tpu_torch.io import datasets, tiff
+
+    root = os.path.join(tmp, "coco_w")
+    os.makedirs(root)
+    names, sizes, pixels = [], [], []
+    for i, fmt in enumerate(W_FORMATS):
+        name = f"frame{i}.tif"
+        path = os.path.join(root, name)
+        if fmt == "jpeg":
+            src, data = kitti_jpg(1)
+            image_encoders().jpeg_to_tiff(path, data)
+            rgb = np.ascontiguousarray(datasets.imread(src)[..., ::-1])
+        else:
+            rgb = np.ascontiguousarray(clip[2 * i])
+            write_tiff26c(path, fmt, rgb)
+            if fmt == "ycbcr":
+                with open(path, "rb") as f:
+                    rgb = tiff.read_cv2(f.read(), 1, plain=True)[..., ::-1]
+                err = np.abs(rgb.astype(int) - clip[2 * i]).mean()
+                check(err < 8, f"(w3) ycbcr: mean error {err:.2f}")
+        names.append(name)
+        sizes.append(rgb.shape[:2])
+        pixels.append(rgb)
+    ann = os.path.join(tmp, "instances_w.json")
+    write_coco_json(ann, names, sizes, 26)
+    return ann, root, names, pixels
+
+
+def run_w_infer(counters, tmp, dev="cuda"):
+    """(w3): ``infer_nets detector`` (Mask R-CNN R-50-FPN) on the committed
+    KITTI frame 2 as JPEG-in-TIFF against the same run on a PNG of its
+    pixels: kernel 5 twice on each, the detections matched. Returns the
+    launches."""
+    from vido_slam_tpu_torch import infer_nets
+    from vido_slam_tpu_torch.io import datasets
+
+    src, data = kitti_jpg(2)
+    paths = {"tif": os.path.join(tmp, "w3.tif"),
+             "png": os.path.join(tmp, "w3.png")}
+    image_encoders().jpeg_to_tiff(paths["tif"], data)
+    write_png(paths["png"], datasets.imread(src))
+    dets, counts, refusals = [], [], []
+    for key, path in paths.items():
+        out = os.path.join(tmp, f"det_w_{key}")
+        argv = ["detector", "--family", "maskrcnn", "--image", path,
+                "--out", out] + ([] if dev == "cuda" else ["--device", dev])
+
+        def call():
+            try:
+                quiet(lambda: infer_nets.main(argv))
+            except ValueError as e:      # random weights' inverted boxes
+                refusals.append(str(e))
+        counts.append(launches_of(counters, call)[1])
+        dets.append(json_detections(os.path.join(
+            out, "maskrcnn_detections.json")))
+    n = max(len(x["valid"]) for x in dets)
+    m = match_detections(padded(dets[0], n), padded(dets[1], n),
+                         DETECTOR_THRESHOLDS["maskrcnn"])
+    want = [0, 0, 0, 0, 2][:len(counters)]
+    check(counts[0] == counts[1] and (dev != "cuda" or counts[0] == want)
+          and not m["unexplained"] and len(refusals) in (0, 2),
+          f"(w3) infer_nets on a JPEG-in-TIFF: launches {counts}, {m}, "
+          f"{refusals}")
+    return counts[0], m
+
+
+def run_phase_w(counters, tmp, dev="cuda"):
+    """Phase (w): (w1) the committed fixtures of tests/data/tiff26c
+    against cv2's and PIL's digests (C++ and plain codecs); (w2) a KITTI
+    frame's host decode ms as JPEG-in-TIFF, LZW YCbCr, LZW CMYK, LZMA, a
+    T.6 mask and PNG; (w3) the CLI on JPEG-in-TIFF KITTI frames (kernel
+    1), a detector training step on a COCO tree of JPEG-in-TIFF, YCbCr,
+    CMYK and LZMA TIFFs (kernels 5 and 5b, held against their plain
+    versions) and ``infer_nets detector`` on a JPEG-in-TIFF (kernel 5).
+    Imports ``lzma`` first: a Python without it fails here. Returns each
+    part's launches, the decode ms and kernel 5's and 5b's errors."""
+    import lzma
+
+    from vido_slam_tpu_torch.ops import roi_align
+
+    check(lzma.decompress(lzma.compress(b"26c")) == b"26c",
+          "(w) the standard library's lzma")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cards = card_line() if dev == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    held = check_format_fixtures(root, W_FIXTURES)
+    print(f"(w1) fixtures: JPEG-in-TIFF (YCbCr 1x1, 2x1, 2x2, tiles, "
+          f"big-endian; RGB, gray, CMYK), YCbCr units (2x2, 2x1, 4x2 tiles, "
+          f"reference black and white), CMYK (8, 16 bits, extra, InkSet 2), "
+          f"CCITT (runs, T.4 1-D and 2-D, T.6, word-aligned), fill order 2, "
+          f"2-/4-bit gray, 1-/2-/4-bit palettes, signed, 32-bit, 16- and "
+          f"64-bit float, LZMA: {held} reads bit-equal to cv2's and PIL's "
+          f"(None where they fail; C++ and plain)")
+    ms, shape = run_w_decode(tmp)
+    print(f"(w2) host decode ms a {shape[1]}x{shape[0]} frame (median of "
+          f"{W_DECODE_REPS}): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in ms.items())
+          + f" (LZMA by read_rgb_pil, the T.6 mask gray); card {cards}")
+    cli, ate, length = run_w_cli(counters, tmp, dev)
+    print(f"(w3) CLI KITTI VO on {FORMAT_FRAMES} JPEG-in-TIFF frames "
+          f"(bit-equal to their .jpg): launches {cli}, camera ATE "
+          f"{ate:.5f} m over {length:.3f} m")
+    clip = np.load(os.path.join(root, ONLINE_CLIP))["clip"]
+    counters_w = counters + [roi_align.roi_align_multilevel_backward]
+    train, loss, err5, err5b = run_v_training(
+        counters_w, tmp, clip, dev, coco=write_w_coco(tmp, clip), tag="w3")
+    print(f"(w3) detector training step on a COCO tree of JPEG-in-TIFF, "
+          f"LZW YCbCr, LZW CMYK and LZMA TIFFs (R-50-FPN "
+          f"{TRAIN_INPUT[1]}x{TRAIN_INPUT[0]}, batch {len(W_FORMATS)}): "
+          f"loss {loss:.4f}, launches {train} (kernel 5 and 5b); kernel 5 "
+          f"on the step's calls max error {err5:.3e}, 5b {err5b:.3e}")
+    infer, m = run_w_infer(counters, tmp, dev)
+    print(f"(w3) infer_nets detector on a JPEG-in-TIFF frame against a PNG "
+          f"of the same pixels: {m['valid'][0]} and {m['valid'][1]} "
+          f"detections matched, launches {infer}")
+    secs = time.perf_counter() - t0
+    print(f"phase (w): {secs:.1f} s; card {cards}")
+    summarize("w", f"{held} fixture reads; decode ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()) + f"; CLI launches {cli}; "
+        f"training launches {train}, kernel 5 err {err5:.2e}, 5b err "
+        f"{err5b:.2e}; infer launches {infer}; {secs:.1f} s")
+    return ({"w3_cli": cli + [0], "w3_train": train, "w3_infer": infer + [0]},
+            ms, err5, err5b)
 
 
 # ---------------------------------------------------------------------------
@@ -6400,6 +6686,13 @@ def main() -> int:
         formats_v, decode_v, err_roi_v, err_5b_v = run_phase_v(counters, tmp)
     err_roi = max(err_roi, err_roi_v)
 
+    # (w) item 26c's TIFF modes: the fixtures, decode ms, the CLI on
+    # JPEG-in-TIFF KITTI frames, a detector training step on JPEG-in-TIFF,
+    # YCbCr, CMYK and LZMA TIFFs, infer_nets on a JPEG-in-TIFF
+    with tempfile.TemporaryDirectory() as tmp:
+        formats_w, decode_w, err_roi_w, err_5b_w = run_phase_w(counters, tmp)
+    err_roi = max(err_roi, err_roi_w)
+
     # (m) the detector families: the DCN X-101, FBNet, RetinaNet, the
     # keypoint head and ROIPool
     family_launches, family_err, family_timing = run_phase_m(dev, counters,
@@ -6577,6 +6870,10 @@ def main() -> int:
         # formats and infer_nets on a QOI
         e["image_formats_v_launches"] = {part: n[i] for part, n in
                                          formats_v.items()}
+        # phase (w): (w3) the CLI on JPEG-in-TIFF frames, the training step
+        # on item 26c's TIFFs and infer_nets on a JPEG-in-TIFF
+        e["image_formats_w_launches"] = {part: n[i] for part, n in
+                                         formats_w.items()}
         # (l1) offline VO, (l2) bJoint, (l3) online pairs, (l4) online VIO
         # pairs, all pipelined
         for cell, key in (("l1", "pipelined_vo"), ("l2", "pipelined_joint"),
@@ -6637,11 +6934,14 @@ def main() -> int:
         source="vido_slam_tpu_torch/csrc/roi_align_backward.cu",
         replaces="vido_slam_tpu/ops/roi_align.py:112 (XLA autodiff of "
                  "roi_align_multilevel; no Pallas kernel)",
-        launches=train_launches[5], max_abs_err=max(err_5b, err_5b_v),
+        launches=train_launches[5], max_abs_err=max(err_5b, err_5b_v,
+                                                    err_5b_w),
         **dict(zip(keys, timing_5b)), library_ms=None,
         training_launches=train_launches[5],
         image_formats_v_launches={part: n[5] for part, n in
                                   formats_v.items()},
+        image_formats_w_launches={part: n[5] for part, n in
+                                  formats_w.items()},
         multi_device_launches={part: n[5] for part, n in
                                mesh_launches.items()},
         inference_shapes_ms=infer_5b[0],

@@ -1729,14 +1729,26 @@ def write_tiff(path: str, pixels: np.ndarray, *, photometric: int,
                bigtiff: bool = False, extra: Sequence[int] = (),
                colormap: Optional[np.ndarray] = None,
                orientation: Optional[int] = None,
-               old_lzw: bool = False, fill_order: int = 1) -> None:
-    """A one-page TIFF of ``pixels`` (H, W, spp): uint8, uint16 or float32
-    samples, or 0/1 uint8 with ``bits`` 1. ``compression`` 1 (none), 5
-    (LZW; ``old_lzw`` its old bit order), 8 or 32946 (Deflate), 32773
-    (PackBits); ``predictor`` 2 or 3; ``planar`` 1 (contiguous) or 2;
-    strips of ``rows_per_strip`` rows or ``tile`` (width, height) tiles,
-    multiples of 16, overhanging the edge; ``extra``: ExtraSamples values;
-    ``colormap`` (3, 2^bits) uint16 for photometric 3."""
+               old_lzw: bool = False, fill_order: int = 1,
+               chunks: Optional[Sequence[bytes]] = None,
+               tags: Optional[dict] = None) -> None:
+    """A one-page TIFF of ``pixels`` (H, W, spp): unsigned, signed or
+    floating-point samples of any width numpy holds (the sample format
+    follows the dtype), or 0/1 uint8 with ``bits`` 1, 0..3 with 2, 0..15
+    with 4 (packed MSB first, rows padded to a byte). ``compression`` 1
+    (none), 5 (LZW; ``old_lzw`` its old bit order), 8 or 32946 (Deflate),
+    32773 (PackBits), 34925 (LZMA, the ``xz`` container libtiff writes);
+    ``predictor`` 2 or 3; ``planar`` 1 (contiguous) or 2; strips of
+    ``rows_per_strip`` rows or ``tile`` (width, height) tiles, multiples of
+    16, overhanging the edge; ``extra``: ExtraSamples values; ``colormap``
+    (3, 2^bits) uint16 for photometric 3; ``fill_order`` 2: every byte of
+    each encoded strip or tile bit-reversed. ``chunks``: the strips or
+    tiles already encoded (JPEG, CCITT, subsampled YCbCr), in place of
+    ``pixels``' samples, which then give only the sizes; ``tags``: more
+    fields, tag -> (type, values) (type 2 ASCII and 7 UNDEFINED take
+    bytes, 5 RATIONAL (numerator, denominator) pairs), which replace the
+    written ones."""
+    import lzma
     import zlib
 
     if pixels.ndim == 2:
@@ -1744,18 +1756,16 @@ def write_tiff(path: str, pixels: np.ndarray, *, photometric: int,
     H, W, spp = pixels.shape
     dt = pixels.dtype
     bits = bits or 8 * dt.itemsize
-    fmt = 3 if dt == np.float32 else 1
+    fmt = {"f": 3, "i": 2}.get(dt.kind, 1)
     order = ">" if big_endian else "<"
 
     def encode(block: np.ndarray) -> bytes:
         """One strip or tile of (rows, cols, n) samples."""
         rows, cols, n = block.shape
-        if bits == 1:
-            raw = np.packbits(block[..., 0].astype(np.uint8), axis=1)
-            if fill_order == 2:
-                raw = np.unpackbits(raw, axis=1).reshape(rows, -1, 8)[
-                    ..., ::-1]
-                raw = np.packbits(raw.reshape(rows, -1), axis=1)
+        if bits < 8:
+            v = block.reshape(rows, cols * n).astype(np.uint8)
+            v = np.unpackbits(v[..., None], axis=-1)[..., 8 - bits:]
+            raw = np.packbits(v.reshape(rows, -1), axis=1)
             data = raw.tobytes()
         elif predictor == 3:
             data = _predict(block, 3, n).tobytes()
@@ -1765,17 +1775,25 @@ def write_tiff(path: str, pixels: np.ndarray, *, photometric: int,
                 b = _predict(block.astype(dt), 2, n)
             data = b.astype(dt.newbyteorder(order)).tobytes()
         if compression == 5:
-            return lzw_encode(data, old_lzw)
-        if compression in (8, 32946):
-            return zlib.compress(data)
-        if compression == 32773:
-            return packbits(data)
+            data = lzw_encode(data, old_lzw)
+        elif compression in (8, 32946):
+            data = zlib.compress(data)
+        elif compression == 32773:
+            data = packbits(data)
+        elif compression == 34925:
+            data = lzma.compress(data, check=lzma.CHECK_NONE)
+        if fill_order == 2:
+            data = bytes(np.unpackbits(np.frombuffer(data, np.uint8),
+                                       bitorder="little").reshape(-1, 8)
+                         .dot(1 << np.arange(7, -1, -1)).astype(np.uint8))
         return data
 
-    chunks = []
     planes = [pixels] if planar == 1 else [pixels[..., i:i + 1]
                                            for i in range(spp)]
-    if tile:
+    if chunks is not None:
+        chunks = list(chunks)
+    elif tile:
+        chunks = []
         tw, th = tile
         for plane in planes:
             for y in range(0, H, th):
@@ -1785,10 +1803,12 @@ def write_tiff(path: str, pixels: np.ndarray, *, photometric: int,
                     blk[:part.shape[0], :part.shape[1]] = part
                     chunks.append(encode(blk))
     else:
+        chunks = []
         rps = rows_per_strip or H
         for plane in planes:
             for y in range(0, H, rps):
                 chunks.append(encode(plane[y:y + rps]))
+    tags_given = dict(tags or {})
     tags = {256: (3 if W < 65536 else 4, [W]),
             257: (3 if H < 65536 else 4, [H]),
             258: (3, [bits] * spp), 259: (3, [compression]),
@@ -1814,7 +1834,7 @@ def write_tiff(path: str, pixels: np.ndarray, *, photometric: int,
         off_tag, cnt_tag = 273, 279
     tags[cnt_tag] = (long_t, [len(c) for c in chunks])
     tags[off_tag] = (long_t, [0] * len(chunks))      # filled below
-    sizes = {3: 2, 4: 4, 16: 8}
+    tags.update(tags_given)
     header = 16 if bigtiff else 8
     data_off = header
     blob = bytearray()
@@ -1835,9 +1855,18 @@ def write_tiff(path: str, pixels: np.ndarray, *, photometric: int,
     ext = bytearray()
     for tag in sorted(tags):
         typ, vals = tags[tag]
-        code = {3: "H", 4: "I", 16: "Q"}[typ]
-        payload = struct.pack(order + code * len(vals), *vals)
-        count = struct.pack(order + ("Q" if bigtiff else "I"), len(vals))
+        if typ in (1, 2, 7):
+            payload, n_vals = bytes(vals), len(vals)
+        elif typ in (5, 10):
+            flat = [int(v) for pair in vals for v in pair]
+            payload = struct.pack(order + ("I" if typ == 5 else "i")
+                                  * len(flat), *flat)
+            n_vals = len(vals)
+        else:
+            code = {3: "H", 4: "I", 8: "h", 9: "i", 16: "Q"}[typ]
+            payload = struct.pack(order + code * len(vals), *vals)
+            n_vals = len(vals)
+        count = struct.pack(order + ("Q" if bigtiff else "I"), n_vals)
         ifd += struct.pack(order + "HH", tag, typ) + count
         if len(payload) <= inline:
             ifd += payload + bytes(inline - len(payload))
@@ -1854,7 +1883,6 @@ def write_tiff(path: str, pixels: np.ndarray, *, photometric: int,
     else:
         head = (b"MM\x00\x2a" if big_endian else b"II\x2a\x00") + \
             struct.pack(order + "I", ifd_off)
-    del sizes
     with open(path, "wb") as f:
         f.write(head + bytes(blob) + bytes(ifd) + bytes(ext))
 
@@ -2242,3 +2270,240 @@ def write_qoi(rgb: np.ndarray) -> bytes:
                 out += bytes([0xFE]) + bytes(p[:3])
         prev = p
     return bytes(out + bytes(7) + b"\x01")
+
+
+# ---------------------------------------------------------------------------
+# TIFF modes PIL's writer does not make: JPEG strips and tiles of any
+# subsampling, subsampled YCbCr, CCITT fax of every kind
+# ---------------------------------------------------------------------------
+
+def jpeg_tiff_chunks(pixels: np.ndarray, *, rows_per_strip: Optional[int]
+                     = None, tile: Optional[tuple] = None,
+                     subsampling: int = 0, quality: int = 75) -> tuple:
+    """(JPEGTables, chunks) of JPEG-in-TIFF strips or tiles of ``pixels``
+    ((H, W) gray, (H, W, 3) RGB coded as YCbCr, (H, W, 4) CMYK): each
+    strip or tile (edge tiles padded by replication) a baseline JPEG of
+    PIL's at ``subsampling`` (0: 1x1, 1: 2x1, 2: 2x2), its DQT and DHT
+    segments moved into the tables, as libtiff writes them."""
+    import io
+    from PIL import Image
+
+    H, W = pixels.shape[:2]
+    mode = {2: "L", 3: "RGB", 4: "CMYK"}[pixels.ndim if pixels.ndim == 2
+                                          else pixels.shape[2] + 0]
+    blocks = []
+    if tile:
+        tw, th = tile
+        for y in range(0, H, th):
+            for x in range(0, W, tw):
+                part = pixels[y:y + th, x:x + tw]
+                pad = [(0, th - part.shape[0]), (0, tw - part.shape[1])]
+                blocks.append(np.pad(part, pad + [(0, 0)] * (part.ndim - 2),
+                                     mode="edge"))
+    else:
+        rps = rows_per_strip or H
+        blocks = [pixels[y:y + rps] for y in range(0, H, rps)]
+    tables, chunks = b"", []
+    for blk in blocks:
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(blk), mode).save(
+            buf, "JPEG", quality=quality, subsampling=subsampling)
+        first, stream, _ = split_jpeg(buf.getvalue())
+        tables = tables or first
+        chunks.append(stream)
+    return tables, chunks
+
+
+def split_jpeg(data: bytes) -> tuple:
+    """(JPEGTables, the abbreviated stream, the frame header's body) of a
+    baseline JPEG: its DQT and DHT segments as a tables-only stream, the
+    rest without its APPn segments."""
+    segs, pos = [], 2
+    while data[pos + 1] != 0xDA:
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        segs.append(data[pos:pos + 2 + n])
+        pos += 2 + n
+    tables = b"\xff\xd8" + b"".join(
+        s for s in segs if s[1] in (0xDB, 0xC4)) + b"\xff\xd9"
+    stream = b"\xff\xd8" + b"".join(
+        s for s in segs if s[1] not in (0xDB, 0xC4) and not
+        0xE0 <= s[1] <= 0xEF) + data[pos:]
+    sof = next(s for s in segs if s[1] in (0xC0, 0xC1))
+    return tables, stream, sof[4:]
+
+
+def ycbcr_chunks(ycc: np.ndarray, subsampling: tuple, *,
+                 rows_per_strip: Optional[int] = None,
+                 tile: Optional[tuple] = None) -> list:
+    """Uncompressed YCbCr data units (TIFF 6.0 section 21) of (H, W, 3)
+    uint8 Y, Cb, Cr samples in strips or tiles: hs x vs Y samples, then
+    the unit's Cb and Cr (its top-left pixel's), the edges padded by
+    replication."""
+    hs, vs = subsampling
+    H, W = ycc.shape[:2]
+    if tile:
+        tw, th = tile
+        spans = [(y, x, th, tw) for y in range(0, H, th)
+                 for x in range(0, W, tw)]
+    else:
+        rps = rows_per_strip or H
+        spans = [(y, 0, min(rps, H - y), W) for y in range(0, H, rps)]
+    out = []
+    for y, x, h, w in spans:
+        part = ycc[y:y + h, x:x + w]
+        uh, uw = -(-h // vs) * vs, -(-w // hs) * hs
+        part = np.pad(part, [(0, uh - part.shape[0]),
+                             (0, uw - part.shape[1]), (0, 0)], mode="edge")
+        units = part.reshape(uh // vs, vs, uw // hs, hs, 3).transpose(
+            0, 2, 1, 3, 4)
+        lum = units[..., 0].reshape(uh // vs, uw // hs, vs * hs)
+        chroma = units[:, :, 0, 0, 1:]
+        out.append(np.concatenate([lum, chroma], -1).tobytes())
+    return out
+
+
+class _MsbBits:
+    """A bit writer, first bit the most significant of each byte."""
+
+    def __init__(self):
+        self.bits = []
+
+    def put(self, code: str) -> None:
+        self.bits.extend(int(c) for c in code)
+
+    def align(self, n: int) -> None:
+        self.bits.extend([0] * (-len(self.bits) % n))
+
+    def tobytes(self) -> bytes:
+        self.align(8)
+        return np.packbits(np.array(self.bits, np.uint8)).tobytes()
+
+
+def _fax_span(w: _MsbBits, span: int, codes: dict) -> None:
+    """libtiff's putspan: make-up codes of 2560 while the run reaches 2624,
+    one make-up code, then the terminating code."""
+    while span >= 2624:
+        w.put(codes[2560])
+        span -= 2560
+    if span >= 64:
+        w.put(codes[span // 64 * 64])
+        span -= span // 64 * 64
+    w.put(codes[span])
+
+
+def _fax_1d(w: _MsbBits, row: np.ndarray, white: dict, black: dict) -> None:
+    """A modified Huffman row: runs from white, alternating."""
+    x, color = 0, 0
+    while True:
+        end = _finddiff(row, x, color)
+        _fax_span(w, end - x, black if color else white)
+        x, color = end, 1 - color
+        if x >= len(row):
+            break
+
+
+def _finddiff(row: np.ndarray, start: int, color: int) -> int:
+    x = start
+    while x < len(row) and row[x] == color:
+        x += 1
+    return x
+
+
+def _fax_2d(w: _MsbBits, row: np.ndarray, ref: np.ndarray, white: dict,
+            black: dict) -> None:
+    """tif_fax3.c's Fax3Encode2DRow of a row against its reference."""
+    from vido_slam_tpu_torch.io.tiff_fax import MODES_2D
+
+    W = len(row)
+    mode = {(state, p): code for code, state, p in MODES_2D}
+    v = {0: mode[(3, 0)], -1: mode[(4, 1)], -2: mode[(4, 2)],
+         -3: mode[(4, 3)], 1: mode[(5, 1)], 2: mode[(5, 2)],
+         3: mode[(5, 3)]}
+    px = lambda r, x: int(r[x]) if x < W else 0  # noqa: E731
+    a0 = 0
+    a1 = 0 if row[0] else _finddiff(row, 0, 0)
+    b1 = 0 if ref[0] else _finddiff(ref, 0, 0)
+    while True:
+        b2 = _finddiff(ref, b1, px(ref, b1)) if b1 < W else W
+        if b2 >= a1:
+            d = b1 - a1
+            if not -3 <= d <= 3:
+                a2 = _finddiff(row, a1, px(row, a1)) if a1 < W else W
+                w.put(mode[(2, 0)])
+                if a0 + a1 == 0 or px(row, a0) == 0:
+                    _fax_span(w, a1 - a0, white)
+                    _fax_span(w, a2 - a1, black)
+                else:
+                    _fax_span(w, a1 - a0, black)
+                    _fax_span(w, a2 - a1, white)
+                a0 = a2
+            else:
+                w.put(v[d])
+                a0 = a1
+        else:
+            w.put(mode[(1, 0)])
+            a0 = b2
+        if a0 >= W:
+            break
+        c = px(row, a0)
+        a1 = _finddiff(row, a0, c)
+        b1 = _finddiff(ref, a0, 1 - c)
+        b1 = _finddiff(ref, b1, c)
+
+
+def fax_encode(bits: np.ndarray, mode: int, *, k: int = 2,
+               eol_fill: bool = False, rtc: bool = True) -> bytes:
+    """One strip of (rows, W) 0/1 pixels (1 black) as CCITT fax, ``mode``
+    as io/tiff_fax.MODES: 2 modified Huffman rows, each byte-aligned;
+    32771 the same, word-aligned; 3 T.4 1-D, an EOL before each row
+    (``eol_fill``: zero bits so that each EOL ends on a byte); 103 T.4
+    with 2-D rows, a 1-D row every ``k`` rows, the EOL's tag bit after it;
+    4 T.6 (2-D rows from an all-white reference, EOFB at the end). ``rtc``:
+    T.4's six EOLs at the end."""
+    from vido_slam_tpu_torch.io.tiff_fax import EOL, black_codes, white_codes
+
+    white, black = white_codes(), black_codes()
+    w = _MsbBits()
+    ref = np.zeros(bits.shape[1], np.uint8)
+    for i, row in enumerate(bits.astype(np.uint8)):
+        if mode in (3, 103):
+            if eol_fill:
+                w.bits.extend([0] * ((4 - len(w.bits)) % 8))
+            w.put(EOL)
+        if mode == 103:
+            one_d = i % k == 0
+            w.put("1" if one_d else "0")
+            if one_d:
+                _fax_1d(w, row, white, black)
+            else:
+                _fax_2d(w, row, ref, white, black)
+        elif mode == 4:
+            _fax_2d(w, row, ref, white, black)
+        else:
+            _fax_1d(w, row, white, black)
+            if mode in (2, 32771):
+                w.align(8 if mode == 2 else 16)
+        ref = row
+    if mode == 4:
+        w.put(EOL + EOL)
+    elif mode in (3, 103) and rtc:
+        for _ in range(6):
+            w.put(EOL + ("1" if mode == 103 else ""))
+    return w.tobytes()
+
+
+def jpeg_to_tiff(path: str, data: bytes, *, big_endian: bool = False
+                 ) -> None:
+    """A baseline JPEG file as a JPEG-in-TIFF of one strip: its DQT and DHT
+    segments moved into the JPEGTables tag, its APPn segments dropped, the
+    rest the strip's abbreviated stream; photometric YCbCr (the frame's
+    first component's sampling as YCbCrSubsampling) for three components,
+    gray for one. Needs neither PIL nor cv2."""
+    tables, strip, sof = split_jpeg(data)
+    H, W, nc = struct.unpack(">HHB", sof[1:6])
+    tags = {347: (7, tables)}
+    if nc == 3:
+        tags[530] = (3, [sof[7] >> 4, sof[7] & 15])
+    write_tiff(path, np.zeros((H, W, nc), np.uint8),
+               photometric=6 if nc == 3 else 1, compression=7,
+               chunks=[strip], tags=tags, big_endian=big_endian)

@@ -14,9 +14,12 @@ palette; strips of any height, tiles over the edge, planar
 configurations 1 and 2, classic and BigTIFF, both byte orders; no
 compression, LZW of both bit orders, Deflate (8 and 32946), PackBits,
 predictors 2 and 3; orientations 1-8; cut files. Modes the port lacks
-raise ValueError naming ROADMAP.md queue 1 item 26c, and so do the
+raise ValueError naming ROADMAP.md queue 1 item 26e, and so do the
 layouts whose cv2 read garbles its pixels (libtiff's RGBA tile readers
-on flipped or gray tiles, separate planes read as interleaved).
+on flipped or gray tiles, separate planes read as interleaved) — but only
+where cv2 decodes the file: where cv2 gives None, the port gives None
+(fault M: the codecs cv2's libtiff lacks, LZMA and Zstandard among them,
+and the sample layouts its reads refuse).
 """
 
 import zlib
@@ -33,10 +36,20 @@ from vido_slam_tpu_torch.io import tiff
 FLAGS = (td.IMREAD_COLOR, td.IMREAD_GRAYSCALE, td.IMREAD_ANYDEPTH)
 
 
-def _check(path):
+def _refusal(e, refuse):
+    """Whether ``e`` is a refusal naming item 26e that ``refuse`` allows:
+    True, any; else one whose message holds one of its strings."""
+    msg = str(e)
+    return "item 26e" in msg and (refuse is True or any(
+        r in msg for r in refuse))
+
+
+def _check(path, refuse=True):
     """The port against cv2 in its three modes (plain codecs too) and
     against PIL; returns (cv2's colour read gave an image, PIL did), with
-    None for a read the port refuses with ValueError naming item 26c."""
+    None for a read the port refuses with ValueError naming item 26e, which
+    it may only where cv2 decodes the file (where PIL decodes it, for
+    ``read_rgb_pil``), and only as ``refuse`` allows (``_refusal``)."""
     with open(path, "rb") as f:
         data = f.read()
     seen = []
@@ -45,7 +58,7 @@ def _check(path):
         try:
             got = td.imread(path, flag)
         except ValueError as e:
-            assert "item 26c" in str(e)
+            assert _refusal(e, refuse) and ref is not None, (path, flag, e)
             seen.append(None)
             continue
         if ref is None:
@@ -66,7 +79,7 @@ def _check(path):
     try:
         got = td.read_rgb_pil(path)
     except ValueError as e:
-        assert "item 26c" in str(e)
+        assert _refusal(e, refuse), (path, e)
         return seen[0], None
     np.testing.assert_array_equal(got, ref)
     return seen[0], True
@@ -210,55 +223,114 @@ def test_eight_bit_reads_of_wider_samples(tmp_path):
         _check(path)
 
 
-@pytest.mark.parametrize("what,kw", [
-    ("JPEG compression", dict(compression=7)),
-    ("CCITT compression", dict(compression=4, bits=1)),
-    ("YCbCr", dict(photometric=6)),
-    ("CMYK", dict(photometric=5, channels=4)),
-    ("LogLuv", dict(photometric=32845)),
-    ("fill order 2", dict(fill_order=2)),
-    ("12-bit samples", dict(bits=12)),
-    ("samples of format 2", dict(sample_format=2)),
-    ("4-bit palette", dict(photometric=3, bits=4))])
-def test_modes_the_port_lacks_name_their_item(tmp_path, what, kw):
-    """Valid headers of the modes the port lacks raise ValueError naming
-    item 26c, never None (the fields of a written file rewritten)."""
-    import struct
+def _pack12(px: np.ndarray) -> bytes:
+    """12-bit samples packed MSB first, rows padded to a byte."""
+    bits = np.unpackbits(px.astype(">u2").view(np.uint8).reshape(
+        px.shape[0], -1, 2), axis=-1)[..., 4:].reshape(px.shape[0], -1)
+    return np.packbits(bits, axis=1).tobytes()
 
-    kw = dict(kw)
-    channels = kw.pop("channels", 3 if kw.get("photometric") in (6,) else 1)
-    ph = kw.pop("photometric", 1)
+
+@pytest.mark.parametrize("what", ["CIELab", "12-bit samples",
+                                  "separate YCbCr planes",
+                                  "palette with alpha"])
+def test_modes_the_port_lacks_name_their_item(tmp_path, what):
+    """Files of the modes the port lacks, which cv2 decodes, raise
+    ValueError naming item 26e under the flag cv2 decodes them with, never
+    None (item 26c's modes are read: tests/test_torch_tiff26c.py)."""
     rng = np.random.RandomState(1)
-    px = rng.randint(0, 256, (8, 8, channels)).astype(np.uint8)
     path = str(tmp_path / "m.tif")
-    write_tiff(path, px, photometric=1 if ph == 32845 else min(ph, 2)
-               if ph != 3 else 3, colormap=np.zeros((3, 256), np.uint16)
-               if ph == 3 else None)
-    with open(path, "rb") as f:
-        data = bytearray(f.read())
-    ifd = struct.unpack_from("<I", data, 4)[0]
-    fields = {259: kw.get("compression"), 262: ph if ph != 1 else None,
-              258: kw.get("bits"), 266: kw.get("fill_order"),
-              339: kw.get("sample_format")}
-    n = struct.unpack_from("<H", data, ifd)[0]
-    for i in range(n):
-        p = ifd + 2 + 12 * i
-        tag, typ, count = struct.unpack_from("<HHI", data, p)
-        if fields.get(tag) is not None and count == 1:
-            struct.pack_into("<H", data, p + 8, fields[tag])
-    if kw.get("fill_order"):
-        # append FillOrder: rewrite the directory with one more entry
-        entries = bytes(data[ifd + 2:ifd + 2 + 12 * n]) + struct.pack(
-            "<HHIHH", 266, 3, 1, 2, 0)
-        entries = b"".join(sorted(entries[i:i + 12]
-                                  for i in range(0, len(entries), 12)))
-        data = data[:ifd] + struct.pack("<H", n + 1) + entries + bytes(4) \
-            + data[ifd + 2 + 12 * n + 4:]
-    with open(path, "wb") as f:
-        f.write(bytes(data))
-    with pytest.raises(ValueError, match="item 26c") as e:
-        td.imread(path)
+    flag = td.IMREAD_COLOR
+    if what == "CIELab":
+        write_tiff(path, rng.randint(0, 256, (8, 8, 3)).astype(np.uint8),
+                   photometric=8)
+    elif what == "12-bit samples":
+        px = rng.randint(0, 4096, (8, 8)).astype(np.uint16)
+        write_tiff(path, px, photometric=1, bits=12, chunks=[_pack12(px)])
+        flag = td.IMREAD_ANYDEPTH
+    elif what == "separate YCbCr planes":
+        write_tiff(path, rng.randint(0, 256, (8, 8, 3)).astype(np.uint8),
+                   photometric=6, planar=2, tags={530: (3, [1, 1])})
+    else:
+        write_tiff(path, rng.randint(0, 256, (8, 8, 2)).astype(np.uint8),
+                   photometric=3, extra=(2,),
+                   colormap=rng.randint(0, 65536, (3, 256)))
+    assert cv2.imread(path, flag) is not None
+    with pytest.raises(ValueError, match="item 26e") as e:
+        td.imread(path, flag)
     assert not isinstance(e.value, tiff.CorruptTiff)
+
+
+FAULT_M = {
+    "lzma": dict(compression=34925),
+    "zstd": None,                        # written by PIL
+    "i32": dict(dtype=np.int32),
+    "u32_rgb": dict(dtype=np.uint32, channels=3),
+    "f16": dict(dtype=np.float16),
+    "g12_color": dict(bits=12),
+    "g24": dict(bits=24),
+    "mixed_bits": dict(mixed=True),
+    "logluv_raw": dict(photometric=32845),
+    "palette16": dict(photometric=3, dtype=np.uint16),
+}
+
+
+@pytest.mark.parametrize("name", list(FAULT_M))
+def test_fault_m_none_where_cv2_gives_none(tmp_path, name):
+    """Fault M: TIFFs cv2 gives None on (a codec its libtiff is built
+    without: LZMA, Zstandard; samples its reads refuse: 32-bit integers
+    and 16-bit floats under the 8-bit reads, 12-bit samples there, 24-bit
+    samples, mixed sizes, LogLuv without its codec, 16-bit palettes) give
+    None from imread under each flag where cv2 gives None, and cv2's own
+    array where it decodes (signed 32-bit samples under IMREAD_ANYDEPTH:
+    int32), not ValueError."""
+    rng = np.random.RandomState(len(name))
+    path = str(tmp_path / f"{name}.tif")
+    kw = FAULT_M[name]
+    if kw is None:
+        Image.fromarray(rng.randint(0, 256, (9, 11, 3)).astype(np.uint8)) \
+            .save(path, compression="zstd")
+    else:
+        kw = dict(kw)
+        dt = kw.pop("dtype", np.uint8)
+        channels = kw.pop("channels", 1)
+        bits = kw.pop("bits", None)
+        mixed = kw.pop("mixed", False)
+        info = np.iinfo(dt) if np.dtype(dt).kind in "iu" else None
+        shape = (9, 11, channels) if channels > 1 else (9, 11)
+        if info is not None:
+            px = rng.randint(int(info.min), int(info.max) + 1, shape,
+                             dtype=np.int64).astype(dt)
+        else:
+            px = rng.randn(*shape).astype(dt)
+        ph = kw.pop("photometric", 1 if channels == 1 else 2)
+        extra = {}
+        if bits == 12:
+            px = (px.astype(np.uint16) & 4095)
+            extra = dict(chunks=[_pack12(px)], bits=12)
+        elif bits == 24:
+            extra = dict(chunks=[bytes(9 * 11 * 3)], bits=24)
+        if mixed:
+            px = rng.randint(0, 256, (9, 11, 3)).astype(np.uint8)
+            ph = 2
+            extra = dict(chunks=[bytes(9 * 11 * 4)],
+                         tags={258: (3, [8, 8, 16])})
+        if ph == 3:
+            extra["colormap"] = rng.randint(0, 65536, (3, 65536))
+        write_tiff(path, px, photometric=ph, **kw, **extra)
+    nones = 0
+    for flag in FLAGS:
+        ref = cv2.imread(path, flag)
+        if ref is None:
+            assert td.imread(path, flag) is None, (name, flag)
+            nones += 1
+        elif name == "g12_color":       # 12-bit samples stay item 26e's
+            with pytest.raises(ValueError, match="item 26e"):
+                td.imread(path, flag)
+        else:
+            got = td.imread(path, flag)
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            np.testing.assert_array_equal(got, ref)
+    assert nones
 
 
 def test_cut_files(tmp_path):

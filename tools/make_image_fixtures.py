@@ -250,6 +250,166 @@ def tiff_files(tmp: str) -> dict:
     return out
 
 
+def _tiff_bytes(tmp: str, name: str, px: np.ndarray, **kw) -> tuple:
+    path = os.path.join(tmp, name + ".tif")
+    write_tiff(path, px, **kw)
+    with open(path, "rb") as f:
+        return ".tif", f.read()
+
+
+def _pil_tiff(im, **kw) -> tuple:
+    import io
+
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", **kw)
+    return ".tif", buf.getvalue()
+
+
+def tiff26c_files(tmp: str) -> dict:
+    """The TIFF modes of ROADMAP.md item 26c, part 1: JPEG-in-TIFF (YCbCr
+    at 1x1, 2x1 and 2x2 in strips and tiles, RGB, gray, CMYK), subsampled
+    YCbCr without JPEG, CMYK of 8 and 16 bits, CCITT (modified Huffman
+    runs, T.4 1-D with and without fill bits, T.4 2-D, T.6, word-aligned
+    runs), fill order 2 under each codec, 2- and 4-bit gray, 1-, 2- and
+    4-bit palettes, signed and 32-bit integers, 16- and 64-bit floats and
+    LZMA (tests/image_encoders.py's writers, and PIL's)."""
+    import zlib
+
+    from tests.image_encoders import (fax_encode, jpeg_tiff_chunks,
+                                      lzw_encode, packbits, ycbcr_chunks)
+
+    rng = np.random.RandomState(270)
+    H, W = SIZE
+    bgr = textured(H, W, 271)
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    gray = bgr[..., 1]
+    ink = np.dstack([textured(H, W, 272), textured(H, W, 273)[..., :1]])
+    mask = (gray > 128).astype(np.uint8)
+    out = {}
+
+    def tif(name, px, **kw):
+        out[name] = _tiff_bytes(tmp, name, px, **kw)
+
+    # JPEG-in-TIFF: YCbCr at three subsamplings, strips, tiles, big-endian
+    for name, sub, hv, kw in (
+            ("jpeg_ycc11", 0, (1, 1), dict(rows_per_strip=16)),
+            ("jpeg_ycc21", 1, (2, 1), dict(rows_per_strip=8)),
+            ("jpeg_ycc22", 2, (2, 2), {}),
+            ("jpeg_ycc22_tiles", 2, (2, 2), dict(tile=(32, 16))),
+            ("jpeg_ycc22_be", 2, (2, 2), dict(rows_per_strip=32,
+                                              big_endian=True))):
+        tables, chunks = jpeg_tiff_chunks(
+            rgb, subsampling=sub, quality=85,
+            rows_per_strip=kw.get("rows_per_strip"), tile=kw.get("tile"))
+        tif(name, rgb, photometric=6, compression=7, chunks=chunks,
+            tags={347: (7, tables), 530: (3, list(hv))}, **kw)
+    tables, chunks = jpeg_tiff_chunks(gray, quality=90, rows_per_strip=16)
+    tif("jpeg_gray", gray, photometric=1, compression=7, chunks=chunks,
+        rows_per_strip=16, tags={347: (7, tables)})
+    out["jpeg_rgb_pil"] = _pil_tiff(Image.fromarray(rgb), compression="jpeg",
+                                    quality=80)
+    out["jpeg_cmyk_pil"] = _pil_tiff(Image.fromarray(ink, "CMYK"),
+                                     compression="jpeg", quality=80)
+    # YCbCr data units without JPEG
+    ycc = np.asarray(Image.fromarray(rgb).convert("YCbCr"))
+    for name, hv, comp, kw in (("ycc22_lzw", (2, 2), 5, {}),
+                               ("ycc21_deflate", (2, 1), 8,
+                                dict(rows_per_strip=10)),
+                               ("ycc42_tiles_packbits", (4, 2), 32773,
+                                dict(tile=(32, 32))),
+                               ("ycc22_raw", (2, 2), 1,
+                                dict(rows_per_strip=6))):
+        chunks = ycbcr_chunks(ycc, hv, **kw)
+        enc = {5: lzw_encode, 8: zlib.compress, 32773: packbits,
+               1: bytes}[comp]
+        tif(name, ycc, photometric=6, compression=comp,
+            chunks=[enc(c) for c in chunks], tags={530: (3, list(hv))},
+            **kw)
+    chunks = ycbcr_chunks(ycc, (2, 2))
+    tif("ycc22_lzw_refbw", ycc, photometric=6, compression=5,
+        chunks=[lzw_encode(c) for c in chunks],
+        tags={530: (3, [2, 2]), 529: (5, [(2990, 10000), (5870, 10000),
+                                          (1140, 10000)]),
+              532: (5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                        (240, 1)])})
+    # CMYK
+    tif("cmyk8_lzw", ink, photometric=5, compression=5)
+    tif("cmyk8_tiles", ink, photometric=5, tile=(16, 32))
+    tif("cmyk16_deflate", ink.astype(np.uint16) * 257 + 5, photometric=5,
+        compression=8, predictor=2)
+    tif("cmyk8_extra", np.dstack([ink, gray]), photometric=5, extra=(0,),
+        compression=32773)
+    tif("cmyk8_inkset2", ink, photometric=5, tags={332: (3, [2])})
+    # CCITT fax
+    for name, mode, comp, t4, kw in (
+            ("fax_rle", 2, 2, None, dict(rows_per_strip=16)),
+            ("fax_g3_1d_eolfill", 3, 3, 4, {}),
+            ("fax_g3_2d", 103, 3, 1, dict(rows_per_strip=20)),
+            ("fax_g3_2d_eolfill", 103, 3, 5, {}),
+            ("fax_g4", 4, 4, None, dict(rows_per_strip=30)),
+            ("fax_g4_white", 4, 4, None, dict(photometric=0))):
+        rps = kw.get("rows_per_strip", H)
+        chunks = [fax_encode(mask[y:y + rps], mode, k=3,
+                             eol_fill=bool(t4 and t4 & 4))
+                  for y in range(0, H, rps)]
+        tif(name, mask, bits=1, compression=comp, chunks=chunks,
+            photometric=kw.get("photometric", 1), rows_per_strip=rps,
+            tags={} if t4 is None else {292: (4, [t4])})
+    # word-aligned runs: rows of one run each, which libtiff's alignment
+    # keeps in step
+    bars = np.zeros((H, W), np.uint8)
+    bars[:, :17] = 1
+    tif("fax_rlew", bars, bits=1, compression=32771, photometric=1,
+        chunks=[fax_encode(bars, 32771)])
+    out["fax_g3_pil"] = _pil_tiff(Image.fromarray(mask.astype(bool)),
+                                  compression="group3")
+    # fill order 2
+    tif("fill2_g1", mask, bits=1, photometric=1, fill_order=2)
+    tif("fill2_g8_lzw", gray, photometric=1, compression=5, fill_order=2)
+    tif("fill2_rgb_packbits", rgb, photometric=2, compression=32773,
+        fill_order=2)
+    tif("fill2_g8_deflate", gray, photometric=0, compression=8,
+        fill_order=2)
+    tif("fill2_g4", mask, bits=1, compression=4, photometric=0,
+        fill_order=2, chunks=[bytes(int(f"{b:08b}"[::-1], 2)
+                                    for b in fax_encode(mask, 4))])
+    # other sample sizes and formats
+    for b in (2, 4):
+        v = (gray >> (8 - b)).astype(np.uint8)
+        tif(f"g{b}", v, bits=b, photometric=1, compression=5)
+        tif(f"g{b}_white", v, bits=b, photometric=0)
+    for b in (1, 2, 4):
+        v = (gray >> (8 - b)).astype(np.uint8)
+        cmap = rng.randint(0, 65536, (3, 1 << b))
+        tif(f"pal{b}", v, bits=b, photometric=3, colormap=cmap)
+        tif(f"pal{b}_8bitmap", v, bits=b, photometric=3,
+            colormap=cmap >> 8, compression=32773)
+    tif("i8", (gray.astype(np.int16) - 128).astype(np.int8), photometric=1)
+    tif("i8_rgb_be", (rgb.astype(np.int16) - 128).astype(np.int8),
+        photometric=2, big_endian=True, compression=5)
+    deep = (gray.astype(np.int32) * 257 - 32768).astype(np.int16)
+    tif("i16", deep, photometric=1, compression=8, predictor=2)
+    tif("i16_be_lzw", deep, photometric=1, compression=5, big_endian=True)
+    tif("i16_rgb", (rgb.astype(np.int32) * 200 - 20000).astype(np.int16),
+        photometric=2)
+    tif("i32", (gray.astype(np.int64) * 16777259 - 2 ** 31).astype(
+        np.int32), photometric=1)
+    tif("i32_be_deflate", (gray.astype(np.int32) - 100) * 3,
+        photometric=1, big_endian=True, compression=8)
+    tif("u32", gray.astype(np.uint32) * 16843009, photometric=1,
+        compression=32773)
+    tif("f16", (gray / 7).astype(np.float16), photometric=1)
+    tif("f64", (gray / 7.0 - 3).astype(np.float64), photometric=1,
+        compression=8)
+    # LZMA (cv2's libtiff is built without it: None; PIL reads it)
+    tif("lzma_rgb", rgb, photometric=2, compression=34925)
+    tif("lzma_g16_pred2", gray.astype(np.uint16) * 250, photometric=1,
+        compression=34925, predictor=2, rows_per_strip=12)
+    out["lzma_cmyk_pil"] = _pil_tiff(Image.fromarray(ink, "CMYK"),
+                                     compression="lzma")
+    return out
+
+
 def hdr_files(tmp: str) -> dict:
     rng = np.random.RandomState(60)
     H, W = SIZE
@@ -686,7 +846,7 @@ FORMATS = {"pxm": lambda tmp: pxm_files(), "tiff": tiff_files,
            "cmyk": lambda tmp: cmyk_files(),
            "jpeg24": lambda tmp: jpeg24_files(),
            "gif": lambda tmp: gif_files(), "webp": lambda tmp: webp_files(),
-           "pil29": lambda tmp: pil29_files()}
+           "pil29": lambda tmp: pil29_files(), "tiff26c": tiff26c_files}
 
 
 def references(files: dict, tmp: str, ext: str) -> dict:

@@ -114,6 +114,11 @@ class CorruptJpeg(ValueError):
     """The bytes are no decodable JPEG (libjpeg fails on them too)."""
 
 
+class UnsupportedJpeg(ValueError):
+    """A frame libjpeg may decode that this reader does not: one of other
+    than 1, 3 or 4 components."""
+
+
 class TruncatedJpeg(OSError):
     """The file ends where libjpeg still wants its bytes: PIL's suspending
     reader stops there ("image file is truncated"); cv2's reads fake EOI
@@ -362,7 +367,7 @@ def _frame(m: int, body: bytes) -> Frame:
     if height == 0 or width == 0 or nf == 0:
         raise CorruptJpeg("JPEG frame is empty")
     if nf not in (1, 3, 4):
-        raise ValueError(f"JPEG of {nf} components is not supported")
+        raise UnsupportedJpeg(f"JPEG of {nf} components is not supported")
     if len(body) != 6 + 3 * nf:
         raise CorruptJpeg("JPEG SOF has a bad length")
     comps = []
@@ -1580,11 +1585,20 @@ def decode_jpeg(data: bytes, *, gray: bool = False, plain: bool = False,
     co = read_coefficients(data, strict, plain)
     if strict and co.broken:
         raise CorruptJpeg(co.broken)
+    img = render(co, gray=gray, plain=plain, pil=pil)
+    return orient(img, co.orientation) if exif_orientation else img
+
+
+def render(co: Coefficients, *, gray: bool = False, plain: bool = False,
+           pil: bool = False) -> np.ndarray:
+    """The pixels of a file's coefficients (``read_coefficients``), as
+    ``decode_jpeg`` returns them but for the EXIF orientation. A caller
+    that names the colour space itself, as libtiff does, sets
+    ``co.space``: "raw" gives the components as coded, (H, W, n)."""
     frame = co.frame
     lay = layout(frame)
     if frame.lossless:
-        img = lossless_image(co, lay, gray, pil)
-        return orient(img, co.orientation) if exif_orientation else img
+        return lossless_image(co, lay, gray, pil)
     idct, up, conv = ((idct_plain, upsample_plain, ycc_to_bgr_plain) if plain
                       else (_idct, _upsample, _ycc_to_bgr))
     W, H = frame.width, frame.height
@@ -1594,7 +1608,9 @@ def decode_jpeg(data: bytes, *, gray: bool = False, plain: bool = False,
     planes = [up(idct(smoothed(co, lay, i) if smooth else co.coefs[i],
                       co.quant[i]),
                  lay.sizes[i], lay.expand[i], W, H) for i in used]
-    if co.space in ("cmyk", "ycck"):
+    if co.space == "raw":
+        img = np.stack(planes, -1)
+    elif co.space in ("cmyk", "ycck"):
         cmyk = np.stack(planes, -1)
         if co.space == "ycck":       # ycck_cmyk_convert: 255 - RGB, K kept
             cmyk[..., :3] = 255 - conv(*planes[:3])[..., ::-1]
@@ -1610,4 +1626,4 @@ def decode_jpeg(data: bytes, *, gray: bool = False, plain: bool = False,
         img = np.repeat(planes[0][..., None], 3, axis=-1)
     else:
         img = conv(*planes)
-    return orient(img, co.orientation) if exif_orientation else img
+    return img
