@@ -2971,10 +2971,11 @@ FORMAT_FRAMES = 12   # (t2)'s tracked frames a tree, and no StopFrame
 def check_format_fixtures(root, formats=FORMAT_FIXTURES) -> int:
     """(t1), (u1): each committed fixture of tests/data/<format>/ read as
     cv2 reads it under IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_ANYDEPTH
-    (``datasets.imread``; TIFF (tiff, tiff26c), GIF and WebP also by
-    their host codecs' plain versions, JPEG by its plain steps and plain
-    arithmetic and lossless decoders) and as PIL reads it (``read_rgb_pil``; the files of
-    pil29 also by their host loops' plain versions), against the
+    (``datasets.imread``; TIFF (tiff, tiff26c), GIF and WebP (webp,
+    webp26d) also by their host codecs' plain versions, JPEG by its plain
+    steps and plain arithmetic and lossless decoders) and as PIL reads it
+    (``read_rgb_pil``; the files of pil29 also by their host loops' plain
+    versions), against the
     digests of cv2's and PIL's reads (tools/make_image_fixtures.py;
     "None" where cv2 gives None; no PIL digest where PIL raises, and then
     ``read_rgb_pil`` raises). Returns the number of reads held."""
@@ -3009,7 +3010,7 @@ def check_format_fixtures(root, formats=FORMAT_FIXTURES) -> int:
                         reads.append(None)
                 if fmt == "gif":
                     reads.append(gif.read_cv2(data, flag, plain=True))
-                if fmt == "webp":
+                if fmt in ("webp", "webp26d"):
                     reads.append(webp.read_cv2(data, flag, plain=True))
                 for got in reads:
                     digest = "None" if got is None else image_digest(got)
@@ -4054,6 +4055,227 @@ def run_phase_w(counters, tmp, dev="cuda"):
         f"training launches {train}, kernel 5 err {err5:.2e}, 5b err "
         f"{err5b:.2e}; infer launches {infer}; {secs:.1f} s")
     return ({"w3_cli": cli + [0], "w3_train": train, "w3_infer": infer + [0]},
+            ms, err5, err5b)
+
+
+# ---------------------------------------------------------------------------
+# phase (x): lossy WebP (item 26d): a VP8 frame, its ALPH alpha, an
+# animation's first frame
+# ---------------------------------------------------------------------------
+
+X_FIXTURES = ("webp26d", "webp26d_clip", "webp26d_kitti")
+X_DECODE_REPS = 5
+X_KITTI = os.path.join("tests", "data", "webp26d_kitti")
+X_CLIP = os.path.join("tests", "data", "webp26d_clip")
+
+
+def x_reference(directory):
+    """The digests of cv2's and PIL's reads of a committed fixture
+    directory (tests/data/<name>.npz)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return np.load(os.path.join(root, directory + ".npz"))
+
+
+def x_kitti(k=0):
+    """The committed KITTI frame ``k`` as PIL's lossy WebP (quality 80):
+    (its path, its bytes, its name)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), X_KITTI)
+    name = sorted(os.listdir(root))[k]
+    path = os.path.join(root, name)
+    with open(path, "rb") as f:
+        return path, f.read(), os.path.splitext(name)[0]
+
+
+def run_x_decode(tmp):
+    """(x2): the committed KITTI frame 0 (1242x375) as lossy WebP, the
+    same frame with a VP8L-compressed ALPH chunk (a ramp, vertical filter;
+    VP8X), as lossless WebP (of its decode) and as PNG, each read by
+    ``imread`` on the host and held to what it must give (the lossy ones
+    to the digest of cv2's read: alpha leaves the colour read as it is):
+    the ms median of X_DECODE_REPS reads."""
+    from vido_slam_tpu_torch.io import datasets
+
+    enc = image_encoders()
+    path, data, name = x_kitti(0)
+    ref = x_reference(X_KITTI)
+    bgr = datasets.imread(path)
+    check(image_digest(bgr) == str(ref[name]), "(x2) the lossy frame")
+    H, W = bgr.shape[:2]
+    yy, xx = np.mgrid[:H, :W]
+    alpha = ((xx // 8 + yy // 8) % 256).astype(np.uint8)
+    frame = data[20:20 + int.from_bytes(data[16:20], "little")]
+    files = {"lossy": path, "lossy_alpha": os.path.join(tmp, "x2a.webp"),
+             "lossless": os.path.join(tmp, "x2l.webp"),
+             "png": os.path.join(tmp, "x2.png")}
+    with open(files["lossy_alpha"], "wb") as f:
+        f.write(enc.webp_file([enc.vp8x_chunk(W, H, 0x10),
+                               enc.alph_chunk(alpha, 1, 2),
+                               enc.webp_chunk(b"VP8 ", frame)]))
+    write_lossless_webp(files["lossless"], bgr)
+    write_png(files["png"], bgr)
+    ms = {}
+    for key, p in files.items():
+        times = []
+        for _ in range(X_DECODE_REPS):
+            t1 = time.perf_counter()
+            got = datasets.imread(p)
+            times.append(time.perf_counter() - t1)
+            check(np.array_equal(got, bgr), f"(x2) {key}: not the frame")
+        ms[key] = 1e3 * float(np.median(times))
+    return ms, bgr.shape
+
+
+def run_x_cli(counters, tmp, dev="cuda", n_frames=FORMAT_FRAMES):
+    """(x3): the CLI on (t2)'s KITTI configuration over the committed
+    lossy WebP KITTI frames (under their .jpg names: imread tells the
+    format by the signature), depth and masks as PNG, one more frame
+    listed and missing (no StopFrame); each frame held to the digest of
+    cv2's read. Returns kernel 1's launches, the camera ATE and the
+    trajectory's length."""
+    from vido_slam_tpu_torch.io import datasets
+
+    seq = offline_sequence(n_frames, dev, KITTI_CONFIG)
+    rows = demo_rows(seq, KITTI_CONFIG, dev)
+    ref = x_reference(X_KITTI)
+
+    def lossy(path, bgr):
+        _, data, name = x_kitti(int(os.path.basename(path)[:10]))
+        with open(path, "wb") as f:
+            f.write(data)
+        check(image_digest(datasets.imread(path)) == str(ref[name]),
+              f"(x3) {os.path.basename(path)}: not cv2's read")
+    root = os.path.join(tmp, "x3_kitti")
+    tree = write_tree(root, "kitti", rows, jpg=lossy)
+    with open(os.path.join(root, "times.txt"), "a") as f:
+        f.write(f"{n_frames / 10.0:.6f}\n")         # its image is missing
+    cfg_path = os.path.join(tmp, "x3.yaml")
+    write_config(cfg_path, dict(KITTI_CONFIG, slam_mode=0, **tree))
+    out = os.path.join(tmp, "x3_out", "")
+    run, n, _, batches = run_demo(
+        [cfg_path, "--output", out, "--device", dev], counters)
+    check(not batches, f"(x3) {len(batches)} full batches")
+    ate0, _, path, _ = check_demo(
+        run, out, [fr.Tcw_gt for fr in seq.frames], n_frames, n,
+        [2 * (n_frames - 1), 0, 0, 0, 0][:len(counters)])
+    del run
+    return n, ate0, path
+
+
+def write_x_coco(tmp):
+    """(x3)'s COCO tree: the five committed bench-clip lossy WebPs (PIL's,
+    two with VP8L alpha, an animation; cv2's), with the ``instances``
+    json; each read by ``read_rgb_pil`` and held to the digest of PIL's
+    read. Returns (ann file, image root, file names, the RGB reads)."""
+    from vido_slam_tpu_torch.io import datasets
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), X_CLIP)
+    ref = x_reference(X_CLIP)
+    root = os.path.join(tmp, "coco_x")
+    os.makedirs(root)
+    names, sizes, pixels = [], [], []
+    for name in sorted(os.listdir(src)):
+        with open(os.path.join(src, name), "rb") as f:
+            data = f.read()
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(data)
+        rgb = datasets.read_rgb_pil(os.path.join(root, name))
+        check(image_digest(rgb) == str(ref[os.path.splitext(name)[0]
+                                           + "_pil"]),
+              f"(x3) {name}: not PIL's read")
+        names.append(name)
+        sizes.append(rgb.shape[:2])
+        pixels.append(rgb)
+    ann = os.path.join(tmp, "instances_x.json")
+    write_coco_json(ann, names, sizes, 23)
+    return ann, root, names, pixels
+
+
+def run_x_flow(counters, tmp, dev="cuda"):
+    """(x3): ``infer_nets flow`` on the committed lossy WebP KITTI frames 0
+    and 1 against the same run on PNGs of their pixels: kernels 3 and 4
+    five times each on both, the flows within FLOW_BAR of max(|flow|, 1).
+    Returns the launches and the flows' gap."""
+    from vido_slam_tpu_torch import infer_nets
+    from vido_slam_tpu_torch.io import datasets
+    from vido_slam_tpu_torch.io.datasets import read_flo
+
+    d = os.path.join(tmp, "x3_flow")
+    os.makedirs(d)
+    inputs = {}
+    for k in (0, 1):
+        inputs[f"webp{k}"], _, _ = x_kitti(k)
+        inputs[f"png{k}"] = os.path.join(d, f"pair{k}.png")
+        write_png(inputs[f"png{k}"], datasets.imread(inputs[f"webp{k}"]))
+    counts, flows = [], []
+    for key in ("webp", "png"):
+        out = os.path.join(d, key)
+        argv = ["flow", "--first", inputs[f"{key}0"], "--second",
+                inputs[f"{key}1"], "--out", out] + (
+                    [] if dev == "cuda" else ["--device", dev])
+        counts.append(launches_of(counters, lambda: quiet(
+            lambda: infer_nets.main(argv)))[1])
+        flows.append(read_flo(os.path.join(out, "flow.flo")))
+    gap = float(np.abs(flows[0] - flows[1]).max()) / max(
+        1.0, float(np.abs(flows[1]).max()))
+    want = [0, 0, 5, 5, 0][:len(counters)]
+    check(counts[0] == counts[1] and (dev != "cuda" or counts[0] == want)
+          and flows[0].shape == (375, 1242, 2) and gap <= FLOW_BAR,
+          f"(x3) flow on a lossy WebP pair: launches {counts}, gap {gap}")
+    return counts[0], gap
+
+
+def run_phase_x(counters, tmp, dev="cuda"):
+    """Phase (x): (x1) the committed fixtures of tests/data/webp26d,
+    webp26d_clip and webp26d_kitti against cv2's and PIL's digests (the
+    plain decoders too on webp26d); (x2) a KITTI frame's host decode ms as
+    lossy WebP, lossy WebP with VP8L alpha, lossless WebP and PNG; (x3)
+    the CLI on lossy WebP KITTI frames (kernel 1), a detector training
+    step on a COCO tree of lossy WebPs (kernels 5 and 5b, held against
+    their plain versions) and ``infer_nets flow`` on a lossy WebP pair
+    (kernels 3 and 4). Returns each part's launches, the decode ms and
+    kernel 5's and 5b's errors."""
+    from vido_slam_tpu_torch.ops import roi_align
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cards = card_line() if dev == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    held = check_format_fixtures(root, X_FIXTURES)
+    print(f"(x1) fixtures: PIL's and cv2's lossy files (qualities, methods, "
+          f"raw, VP8L and level-reduced alpha, an animation), ALPH filters "
+          f"raw and VP8L, a frame at an offset on an animation's canvas, "
+          f"random-syntax VP8 frames (segments, filter deltas, the simple "
+          f"filter, 2/4/8 partitions, quantisers 0 and 127, category 6, "
+          f"every mode), a cut partition and a bad ALPH header, 5 "
+          f"bench-clip and 12 KITTI frames: {held} reads bit-equal to "
+          f"cv2's and PIL's (None where they fail; C++ and plain)")
+    ms, shape = run_x_decode(tmp)
+    print(f"(x2) host decode ms a {shape[1]}x{shape[0]} frame (median of "
+          f"{X_DECODE_REPS}): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in ms.items()) + f"; card {cards}")
+    cli, ate, length = run_x_cli(counters, tmp, dev)
+    print(f"(x3) CLI KITTI VO on {FORMAT_FRAMES} lossy WebP frames (each "
+          f"cv2's read): launches {cli}, camera ATE {ate:.5f} m over "
+          f"{length:.3f} m")
+    clip = np.load(os.path.join(root, ONLINE_CLIP))["clip"]
+    counters_x = counters + [roi_align.roi_align_multilevel_backward]
+    train, loss, err5, err5b = run_v_training(
+        counters_x, tmp, clip, dev, coco=write_x_coco(tmp), tag="x3")
+    print(f"(x3) detector training step on a COCO tree of lossy WebPs "
+          f"(R-50-FPN {TRAIN_INPUT[1]}x{TRAIN_INPUT[0]}, batch 5, two with "
+          f"alpha, one an animation): loss {loss:.4f}, launches {train} "
+          f"(kernel 5 and 5b); kernel 5 on the step's calls max error "
+          f"{err5:.3e}, 5b {err5b:.3e}")
+    flow, gap = run_x_flow(counters, tmp, dev)
+    print(f"(x3) infer_nets flow on a lossy WebP pair against PNGs of the "
+          f"same pixels: {gap:.2e} of max(|flow|, 1) (bar {FLOW_BAR:.0e}), "
+          f"launches {flow}")
+    secs = time.perf_counter() - t0
+    print(f"phase (x): {secs:.1f} s; card {cards}")
+    summarize("x", f"{held} fixture reads; decode ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()) + f"; CLI launches {cli}; "
+        f"training launches {train}, kernel 5 err {err5:.2e}, 5b err "
+        f"{err5b:.2e}; flow launches {flow}; {secs:.1f} s")
+    return ({"x3_cli": cli + [0], "x3_train": train, "x3_flow": flow + [0]},
             ms, err5, err5b)
 
 
@@ -6693,6 +6915,13 @@ def main() -> int:
         formats_w, decode_w, err_roi_w, err_5b_w = run_phase_w(counters, tmp)
     err_roi = max(err_roi, err_roi_w)
 
+    # (x) lossy WebP (item 26d): the fixtures, decode ms, the CLI on lossy
+    # WebP KITTI frames, a detector training step on lossy WebPs,
+    # infer_nets flow on a lossy WebP pair
+    with tempfile.TemporaryDirectory() as tmp:
+        formats_x, decode_x, err_roi_x, err_5b_x = run_phase_x(counters, tmp)
+    err_roi = max(err_roi, err_roi_x)
+
     # (m) the detector families: the DCN X-101, FBNet, RetinaNet, the
     # keypoint head and ROIPool
     family_launches, family_err, family_timing = run_phase_m(dev, counters,
@@ -6874,6 +7103,10 @@ def main() -> int:
         # on item 26c's TIFFs and infer_nets on a JPEG-in-TIFF
         e["image_formats_w_launches"] = {part: n[i] for part, n in
                                          formats_w.items()}
+        # phase (x): (x3) the CLI on lossy WebP frames, the training step on
+        # lossy WebPs and infer_nets flow on a lossy WebP pair
+        e["image_formats_x_launches"] = {part: n[i] for part, n in
+                                         formats_x.items()}
         # (l1) offline VO, (l2) bJoint, (l3) online pairs, (l4) online VIO
         # pairs, all pipelined
         for cell, key in (("l1", "pipelined_vo"), ("l2", "pipelined_joint"),
@@ -6935,13 +7168,15 @@ def main() -> int:
         replaces="vido_slam_tpu/ops/roi_align.py:112 (XLA autodiff of "
                  "roi_align_multilevel; no Pallas kernel)",
         launches=train_launches[5], max_abs_err=max(err_5b, err_5b_v,
-                                                    err_5b_w),
+                                                    err_5b_w, err_5b_x),
         **dict(zip(keys, timing_5b)), library_ms=None,
         training_launches=train_launches[5],
         image_formats_v_launches={part: n[5] for part, n in
                                   formats_v.items()},
         image_formats_w_launches={part: n[5] for part, n in
                                   formats_w.items()},
+        image_formats_x_launches={part: n[5] for part, n in
+                                  formats_x.items()},
         multi_device_launches={part: n[5] for part, n in
                                mesh_launches.items()},
         inference_shapes_ms=infer_5b[0],

@@ -2507,3 +2507,401 @@ def jpeg_to_tiff(path: str, data: bytes, *, big_endian: bool = False
     write_tiff(path, np.zeros((H, W, nc), np.uint8),
                photometric=6 if nc == 3 else 1, compression=7,
                chunks=[strip], tags=tags, big_endian=big_endian)
+
+
+# ---------------------------------------------------------------------------
+# lossy WebP: VP8 key frames of random syntax, ALPH chunks, the container
+# ---------------------------------------------------------------------------
+
+class _BoolWriter:
+    """RFC 6386 section 7.3's boolean encoder."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob: int, bit) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value(self, v: int, n: int) -> None:
+        for k in range(n - 1, -1, -1):
+            self.put(128, (v >> k) & 1)
+
+    def signed(self, v: int, n: int) -> None:
+        self.value(abs(v), n)
+        self.put(128, v < 0)
+
+    def flag_value(self, v: Optional[int], n: int, signed=True) -> None:
+        """An optional field: a flag, then the value."""
+        self.put(128, v is not None)
+        if v is not None:
+            (self.signed if signed else self.value)(v, n)
+
+    def data(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+# the ten 4x4 modes' paths in the mode tree: (probability index, bit)
+_B_MODE_PATHS = {
+    0: ((0, 0),), 1: ((0, 1), (1, 0)), 2: ((0, 1), (1, 1), (2, 0)),
+    3: ((0, 1), (1, 1), (2, 1), (3, 0), (4, 0)),
+    4: ((0, 1), (1, 1), (2, 1), (3, 0), (4, 1), (5, 0)),
+    5: ((0, 1), (1, 1), (2, 1), (3, 0), (4, 1), (5, 1)),
+    6: ((0, 1), (1, 1), (2, 1), (3, 1), (6, 0)),
+    7: ((0, 1), (1, 1), (2, 1), (3, 1), (6, 1), (7, 0)),
+    8: ((0, 1), (1, 1), (2, 1), (3, 1), (6, 1), (7, 1), (8, 0)),
+    9: ((0, 1), (1, 1), (2, 1), (3, 1), (6, 1), (7, 1), (8, 1))}
+# 16x16 modes DC 0, TM 1, V 2, H 3; chroma the same
+_Y_MODE_PATHS = {0: ((156, 0), (163, 0)), 2: ((156, 0), (163, 1)),
+                 3: ((156, 1), (128, 0)), 1: ((156, 1), (128, 1))}
+_UV_MODE_PATHS = {0: ((142, 0),), 2: ((142, 1), (114, 0)),
+                  3: ((142, 1), (114, 1), (183, 0)),
+                  1: ((142, 1), (114, 1), (183, 1))}
+
+
+def _put_large(bw: _BoolWriter, v: int, p) -> None:
+    """A token of value v >= 2 (GetLargeValue's tree and categories)."""
+    from vido_slam_tpu_torch.io import vp8
+    if v <= 4:
+        bw.put(p[3], 0)
+        if v == 2:
+            bw.put(p[4], 0)
+        else:
+            bw.put(p[4], 1)
+            bw.put(p[5], v - 3)
+        return
+    bw.put(p[3], 1)
+    if v <= 10:
+        bw.put(p[6], 0)
+        if v <= 6:
+            bw.put(p[7], 0)
+            bw.put(159, v - 5)
+        else:
+            bw.put(p[7], 1)
+            bw.put(165, (v - 7) >> 1)
+            bw.put(145, (v - 7) & 1)
+        return
+    bw.put(p[6], 1)
+    cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+    bw.put(p[8], cat >> 1)
+    bw.put(p[9 + (cat >> 1)], cat & 1)
+    extra = v - 3 - (8 << cat)
+    probs = vp8.CAT3456[cat]
+    for k, prob in enumerate(probs):
+        bw.put(prob, (extra >> (len(probs) - 1 - k)) & 1)
+
+
+def _put_block(bw: _BoolWriter, prob, ctx: int, first: int, levels,
+               run_out: bool) -> int:
+    """One block's tokens (``levels``: 16 quantised values in zigzag
+    order; ``run_out``: zero tokens to the end in place of the end of
+    block); returns what GetCoeffs returns."""
+    last = max([k for k in range(first, 16) if levels[k]], default=-1)
+    n = first
+    p = prob[n][ctx]
+    while n <= last:
+        bw.put(p[0], 1)
+        while not levels[n]:
+            bw.put(p[1], 0)
+            n += 1
+            p = prob[n][0]
+        bw.put(p[1], 1)
+        v = abs(int(levels[n]))
+        if v == 1:
+            bw.put(p[2], 0)
+            p = prob[n + 1][1]
+        else:
+            bw.put(p[2], 1)
+            _put_large(bw, v, p)
+            p = prob[n + 1][2]
+        bw.put(128, levels[n] < 0)
+        n += 1
+    if n == 16:
+        return 16
+    if run_out:
+        bw.put(p[0], 1)
+        while n < 16:
+            bw.put(p[1], 0)
+            n += 1
+            p = prob[n][0]
+        return 16
+    bw.put(p[0], 0)
+    return n
+
+
+def _levels(rng, scale: float, cat6: float):
+    """16 random quantised values in zigzag order: mostly none or a few
+    small ones, at times large ones and category-6 values."""
+    out = np.zeros(16, np.int64)
+    count = int(rng.choice([0, 0, 1, 2, 3, 5, 16]))
+    for k in rng.choice(16, count, replace=False):
+        v = 1 + int(abs(rng.standard_normal()) * scale)
+        if rng.rand() < cat6:
+            v = int(rng.randint(67, 2115))
+        out[k] = min(v, 2114) * (1 if rng.rand() < 0.5 else -1)
+    return out
+
+
+def write_vp8(rng, width: int, height: int, *, segments=..., update_map=None,
+              absolute=None, filter_type=None, level=None, sharpness=None,
+              lf_deltas=..., partitions=None, q=None, dq=...,
+              updates: float = 0.1, skip_p=..., i4x4: float = 0.5,
+              scale: float = 4.0, cat6: float = 0.02, run_out: float = 0.05,
+              scale_bits: int = 0) -> bytes:
+    """A VP8 key frame (the payload of a ``VP8 `` chunk) of random syntax
+    at once valid and decodable, not an encoding of any image. Options
+    left at their defaults are drawn from ``rng`` (None, or ``...`` where
+    None means off): ``segments`` (per segment (quantiser, filter
+    strength), or None for none), ``update_map`` (a segment map and
+    its tree probabilities), ``absolute`` values or deltas,
+    ``filter_type`` (0 simple, 1 normal), ``level`` 0-63, ``sharpness``
+    0-7, ``lf_deltas`` (4 reference and 4 mode deltas, None for off),
+    ``partitions`` (log2 of 1, 2, 4, 8 token partitions), ``q`` 0-127 and
+    ``dq`` (the five deltas, None each for absent), ``updates`` (the share
+    of coefficient probabilities replaced), ``skip_p`` (None: no skip
+    flags), ``i4x4`` (the share of macroblocks with 4x4 modes; every mode
+    drawn evenly), ``scale`` and ``cat6`` (coefficient sizes), ``run_out``
+    (the share of blocks ended by zero tokens to the last position)."""
+    from vido_slam_tpu_torch.io import vp8
+
+    def pick(v, draw):
+        return draw() if v is None else v
+    if segments is ...:
+        segments = [(int(rng.randint(-127, 128)), int(rng.randint(-63, 64)))
+                    for _ in range(4)] if rng.rand() < 0.5 else None
+    update_map = pick(update_map, lambda: segments is not None and
+                      bool(rng.rand() < 0.8))
+    absolute = pick(absolute, lambda: bool(rng.rand() < 0.5))
+    filter_type = pick(filter_type, lambda: int(rng.randint(2)))
+    level = pick(level, lambda: int(rng.choice([0, 63, rng.randint(64)])))
+    sharpness = pick(sharpness, lambda: int(rng.randint(8)))
+    if lf_deltas is ...:
+        lf_deltas = [int(rng.randint(-63, 64)) for _ in range(8)] \
+            if rng.rand() < 0.5 else None
+    partitions = pick(partitions, lambda: int(rng.randint(4)))
+    q = pick(q, lambda: int(rng.choice([0, 127, rng.randint(128)])))
+    if dq is ...:
+        dq = [int(rng.randint(-15, 16)) if rng.rand() < 0.4 else None
+              for _ in range(5)]
+    if skip_p is ...:
+        skip_p = int(rng.randint(256)) if rng.rand() < 0.5 else None
+    seg_proba = [int(rng.randint(256)) if rng.rand() < 0.7 else None
+                 for _ in range(3)]
+    bw = _BoolWriter()
+    bw.put(128, int(rng.randint(2)))           # colour space
+    bw.put(128, int(rng.randint(2)))           # clamping type
+    bw.put(128, segments is not None)
+    if segments is not None:
+        bw.put(128, update_map)
+        bw.put(128, 1)                         # segment data follow
+        bw.put(128, absolute)
+        for qs, _ in segments:
+            bw.flag_value(qs if rng.rand() < 0.9 else None, 7)
+        for _, fs in segments:
+            bw.flag_value(fs if rng.rand() < 0.9 else None, 6)
+        if update_map:
+            for p in seg_proba:
+                bw.flag_value(p, 8, signed=False)
+    bw.put(128, filter_type == 0)
+    bw.value(level, 6)
+    bw.value(sharpness, 3)
+    bw.put(128, lf_deltas is not None)
+    if lf_deltas is not None:
+        bw.put(128, 1)
+        for d in lf_deltas:
+            bw.flag_value(d if rng.rand() < 0.8 else None, 6)
+    bw.value(partitions, 2)
+    bw.value(q, 7)
+    for d in dq:
+        bw.flag_value(d, 4)
+    bw.put(128, int(rng.randint(2)))           # refresh entropy probs
+    proba = []
+    for i, up in enumerate(vp8.COEFF_UPDATE):
+        if rng.rand() < updates:
+            v = int(rng.randint(1, 256))
+            bw.put(up, 1)
+            bw.value(v, 8)
+        else:
+            bw.put(up, 0)
+            v = vp8.COEFF_PROBA0[i]
+        proba.append(v)
+    bands = [[[proba[((t * 8 + b) * 3 + c) * 11:((t * 8 + b) * 3 + c) * 11
+                     + 11] for c in range(3)] for b in range(8)]
+             for t in range(4)]
+    prob = [[bands[t][vp8.BANDS[k]] for k in range(17)] for t in range(4)]
+    bw.value(skip_p is not None, 1)
+    if skip_p is not None:
+        bw.value(skip_p, 8)
+    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
+    nparts = 1 << partitions
+    tokens = [_BoolWriter() for _ in range(nparts)]
+    intra_t = [0] * (4 * mb_w)
+    top_nz = [[0] * 9 for _ in range(mb_w)]
+    sp = [255 if p is None else p for p in seg_proba]
+    for mb_y in range(mb_h):
+        left = [0] * 4
+        left_nz = [0] * 9
+        tw = tokens[mb_y % nparts]
+        for mb_x in range(mb_w):
+            if update_map:
+                seg = int(rng.randint(4))
+                bw.put(sp[0], seg >> 1)
+                bw.put(sp[1 + (seg >> 1)], seg & 1)
+            skip = skip_p is not None and rng.rand() < 0.3
+            if skip_p is not None:
+                bw.put(skip_p, skip)
+            is4 = rng.rand() < i4x4
+            bw.put(145, not is4)
+            top = intra_t[4 * mb_x:4 * mb_x + 4]
+            if not is4:
+                ymode = int(rng.randint(4))
+                for p, b in _Y_MODE_PATHS[ymode]:
+                    bw.put(p, b)
+                top, left = [ymode] * 4, [ymode] * 4
+            else:
+                for y in range(4):
+                    for x in range(4):
+                        m = int(rng.randint(10))
+                        pr = vp8.BMODES_PROBA[(top[x] * 10 + left[y]) * 9:]
+                        for k, b in _B_MODE_PATHS[m]:
+                            bw.put(pr[k], b)
+                        top[x] = left[y] = m
+            intra_t[4 * mb_x:4 * mb_x + 4] = top
+            for p, b in _UV_MODE_PATHS[int(rng.randint(4))]:
+                bw.put(p, b)
+            tnz = top_nz[mb_x]
+            if skip:
+                for k in range(8):
+                    tnz[k] = left_nz[k] = 0
+                if not is4:
+                    tnz[8] = left_nz[8] = 0
+                continue
+            if not is4:
+                nz = _put_block(tw, prob[1], tnz[8] + left_nz[8], 0,
+                                _levels(rng, scale, cat6),
+                                rng.rand() < run_out)
+                tnz[8] = left_nz[8] = int(nz > 0)
+            first = 0 if is4 else 1
+            ac = prob[3] if is4 else prob[0]
+            for y in range(4):
+                for x in range(4):
+                    nz = _put_block(tw, ac, left_nz[y] + tnz[x], first,
+                                    _levels(rng, scale, cat6),
+                                    rng.rand() < run_out)
+                    left_nz[y] = tnz[x] = int(nz > first)
+            for ch in (4, 6):
+                for y in range(2):
+                    for x in range(2):
+                        nz = _put_block(tw, prob[2],
+                                        left_nz[ch + y] + tnz[ch + x], 0,
+                                        _levels(rng, scale, cat6),
+                                        rng.rand() < run_out)
+                        left_nz[ch + y] = tnz[ch + x] = int(nz > 0)
+    first_part = bw.data()
+    parts = [t.data() for t in tokens]
+    frame_tag = (len(first_part) << 5) | 0x10   # key frame, profile 0, shown
+    head = struct.pack("<I", frame_tag)[:3] + b"\x9d\x01\x2a" + \
+        struct.pack("<HH", width | scale_bits << 14, height | scale_bits << 14)
+    sizes = b"".join(struct.pack("<I", len(p))[:3] for p in parts[:-1])
+    return head + first_part + sizes + b"".join(parts)
+
+
+def webp_chunk(tag: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk with its padding byte."""
+    return tag + struct.pack("<I", len(payload)) + payload + \
+        b"\x00" * (len(payload) & 1)
+
+
+def webp_file(chunks: Sequence[bytes]) -> bytes:
+    """A RIFF WEBP file of the given chunks."""
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def vp8x_chunk(width: int, height: int, flags: int = 0) -> bytes:
+    """A VP8X chunk: the flags (0x10 alpha, 0x02 animation, ...) and the
+    canvas."""
+    return webp_chunk(b"VP8X", bytes([flags, 0, 0, 0])
+                      + (width - 1).to_bytes(3, "little")
+                      + (height - 1).to_bytes(3, "little"))
+
+
+def anmf_chunk(frame_chunks: bytes, x: int, y: int, width: int,
+               height: int, duration: int = 100, flags: int = 0) -> bytes:
+    """An ANMF chunk at (x, y) (even) holding an image's chunks."""
+    return webp_chunk(b"ANMF", (x // 2).to_bytes(3, "little")
+                      + (y // 2).to_bytes(3, "little")
+                      + (width - 1).to_bytes(3, "little")
+                      + (height - 1).to_bytes(3, "little")
+                      + duration.to_bytes(3, "little") + bytes([flags])
+                      + frame_chunks)
+
+
+def alpha_filter(alpha: np.ndarray, kind: int) -> np.ndarray:
+    """The forward ALPH filters (horizontal 1, vertical 2, gradient 3) the
+    decoder undoes."""
+    a = alpha.astype(np.int64)
+    out = a.copy()
+    if kind == 0:
+        return alpha.copy()
+    H, W = a.shape
+    for y in range(H):
+        for x in range(W):
+            if y == 0 or (kind == 1 and x > 0):
+                pred = a[y, x - 1] if x else (a[y - 1, 0] if y else 0)
+            elif kind == 1 or x == 0:
+                pred = a[y - 1, x]
+            elif kind == 2:
+                pred = a[y - 1, x]
+            else:
+                pred = min(max(a[y, x - 1] + a[y - 1, x] - a[y - 1, x - 1],
+                               0), 255)
+            out[y, x] = (a[y, x] - pred) & 0xFF
+    return out.astype(np.uint8)
+
+
+def alph_chunk(alpha: np.ndarray, method: int = 0, kind: int = 0,
+               pre: int = 0, header: Optional[int] = None, **vp8l) -> bytes:
+    """An ALPH chunk of an (H, W) alpha plane: filtered by ``kind``, raw
+    (``method`` 0) or as a VP8L stream without its header whose green
+    channel is the plane (``method`` 1, ``write_vp8l``'s options);
+    ``header`` overrides the header byte."""
+    byte = method | kind << 2 | pre << 4 if header is None else header
+    plane = alpha_filter(alpha, kind)
+    if method == 0:
+        data = plane.tobytes()
+    else:
+        argb = 0xFF000000 | plane.astype(np.uint32) << 8
+        data = write_vp8l(argb, riff=False, **vp8l)[5:]
+    return webp_chunk(b"ALPH", bytes([byte]) + data)

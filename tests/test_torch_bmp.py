@@ -227,10 +227,11 @@ def test_other_formats_still_raise_naming_them(tmp_path, name, head):
     zero bytes are no image, which the port finds as cv2 does (None);
     ``RIFF`` alone is no WebP signature (cv2 wants ``WEBP`` and a chunk
     after it), nor the first six bytes of JP2's twelve: each raises once
-    it has its whole signature; lossless WebP is read since slice 20, and
-    a WebP of zero sizes is no image (None), so the WebP case raises on
-    cv2's lossy file (item 26d). OpenEXR gives None since slice 21, as
-    cv2 built without OpenEXR ("OpenEXR: NO") does."""
+    it has its whole signature; lossless WebP is read since slice 20 and
+    lossy WebP since slice 23, and a WebP of zero sizes is no image
+    (None), so the WebP case reads cv2's lossy file as cv2 does. OpenEXR
+    gives None since slice 21, as cv2 built without OpenEXR ("OpenEXR:
+    NO") does."""
     path = str(tmp_path / "x.img")
     with open(path, "wb") as f:
         f.write(head + bytes(64))
@@ -241,12 +242,17 @@ def test_other_formats_still_raise_naming_them(tmp_path, name, head):
         with open(path, "wb") as f:    # the whole of cv2's signature
             f.write(head + bytes(4) + b"WEBPVP8 " + bytes(64)
                     if name == "WebP" else head + b"  \r\n\x87\n" + bytes(64))
-        if name == "WebP":   # lossy WebP raises, its zero sizes give None
+        if name == "WebP":   # lossy WebP reads, its zero sizes give None
             assert cv2.imread(path) is None and td.imread(path) is None
             ok, enc = cv2.imencode(".webp", np.zeros((4, 4, 3), np.uint8),
                                    [cv2.IMWRITE_WEBP_QUALITY, 80])
             with open(path, "wb") as f:
                 f.write(enc.tobytes())
+            for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE,
+                         cv2.IMREAD_ANYDEPTH):
+                np.testing.assert_array_equal(td.imread(path, flag),
+                                              cv2.imread(path, flag))
+            return
     if name == "OpenEXR":   # cv2 built without OpenEXR: None
         assert cv2.imread(path) is None and td.imread(path) is None
         return

@@ -371,6 +371,31 @@ def test_cut_and_corrupt(tmp_path):
     assert (True, True) in outcomes
 
 
+@pytest.mark.parametrize("seed", range(2))
+def test_jpeg_tables_cut_short(tmp_path, seed):
+    """Fault N: a JPEGTables field cut inside a segment, or without its
+    EOI. libtiff's tables source gives libjpeg fake EOIs past the field's
+    end, so the cut segment reads on through FF D9 bytes and cv2 and PIL
+    decode the strip with those quantisation or Huffman values, or fail
+    with libjpeg; the port read the strip's own bytes there."""
+    from tests.image_encoders import split_jpeg
+    rng = np.random.RandomState(60 + seed)
+    path = str(tmp_path / "t.tif")
+    H, W = rng.randint(8, 40), rng.randint(8, 60)
+    px = rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+    data = cv2.imencode(".jpg", px, [cv2.IMWRITE_JPEG_QUALITY, 60])[1]
+    tables, strip, sof = split_jpeg(data.tobytes())
+    hv = [sof[7] >> 4, sof[7] & 15]
+    outcomes = set()
+    cuts = list(rng.randint(2, len(tables) - 2, 12)) + [len(tables) - 2]
+    for k in cuts:
+        write_tiff(path, np.zeros((H, W, 3), np.uint8), photometric=6,
+                   compression=7, chunks=[strip],
+                   tags={347: (7, tables[:k]), 530: (3, hv)})
+        outcomes.add(_check(path))
+    assert (True, True) in outcomes and (False, False) in outcomes
+
+
 @pytest.mark.parametrize("nf", [2, 5, 221])
 def test_jpeg_chunk_of_other_components(tmp_path, nf):
     """A JPEG strip whose frame header names other than 1, 3 or 4

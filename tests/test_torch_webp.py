@@ -16,9 +16,9 @@ code lengths, images of one pixel, row or column; then cut and corrupt
 files. Found by probe and held here: the VP8L reader also gets the chunk's
 padding byte; cv2 needs 32 bytes of file; both read through the demuxer,
 which takes the first frame of an animation onto a transparent canvas.
-Lossy WebP (``VP8 ``, with or without ``ALPH``) raises ValueError naming
-ROADMAP.md queue 1 item 26d. Bar: bit-equal, None where cv2 gives None, a
-raise where PIL raises.
+Lossy WebP (``VP8 ``, with or without ``ALPH``) is read too
+(tests/test_torch_webp_lossy.py holds it in full). Bar: bit-equal, None
+where cv2 gives None, a raise where PIL raises.
 """
 
 import io
@@ -194,9 +194,10 @@ def test_animations_first_frame(tmp_path):
 
 
 @pytest.mark.parametrize("how", ["cv2", "pil", "pil alpha", "pil anim"])
-def test_lossy_webp_raises_naming_26d(tmp_path, how):
-    """Lossy WebP (a VP8 frame, with its alpha in ALPH) raises ValueError
-    naming item 26d in both readers; cv2 and PIL decode it."""
+def test_lossy_webp_reads_as_cv2_and_pil(tmp_path, how):
+    """Lossy WebP (a VP8 frame, with its alpha in ALPH; the first frame of
+    an animation) reads as cv2 and PIL read it, under cv2's three flags and
+    through ``read_rgb_pil``, the plain decoders too."""
     rng = np.random.RandomState(1)
     img = rng.randint(0, 256, (20, 30, 3)).astype(np.uint8)
     if how == "cv2":
@@ -210,13 +211,8 @@ def test_lossy_webp_raises_naming_26d(tmp_path, how):
         im.save(buf, "WEBP", quality=80, save_all=how == "pil anim",
                 append_images=[im] if how == "pil anim" else [])
         data = buf.getvalue()
-    path = str(tmp_path / "x.webp")
-    with open(path, "wb") as f:
-        f.write(data)
-    assert cv2.imread(path) is not None
-    for fn in (td.imread, td.read_rgb_pil):
-        with pytest.raises(ValueError, match="item 26d"):
-            fn(path)
+    assert b"VP8 " in data and b"VP8L" not in data
+    assert _check(tmp_path, data) == (True, True)
 
 
 def test_containers_as_cv2_and_pil(tmp_path):

@@ -30,7 +30,10 @@ and ``io.bmp`` to these committed digests.
   formats pxm, tiff, hdr, sunras and cmyk (slice 19) and jpeg24
   (arithmetic-coded, lossless and 12-bit JPEG), gif and webp (lossless)
   (slice 20), and pil29 (slice 21: TGA, PCX, SGI, QOI, XBM, IM, ICO and
-  MSP, which cv2 gives None for; ``pil29_files``) (``FORMATS``)
+  MSP, which cv2 gives None for; ``pil29_files``), tiff26c (slice 22)
+  and webp26d, webp26d_kitti and webp26d_clip (slice 23: lossy WebP;
+  ``webp26d_files``, and the KITTI and bench-clip frames chip_smoke.py
+  phase (x) reads) (``FORMATS``)
         45 x 61 files of each layout those readers take: PBM, PGM and PPM
         in ASCII and binary at 8 and 16 bits and an odd maxval, PAM (gray,
         RGB, 16-bit RGB, black-and-white), PFM (gray and colour); TIFF
@@ -67,7 +70,9 @@ from tests.image_encoders import (Scan, dib, drop_segments,  # noqa: E402
                                   write_hdr, write_ico, write_im,
                                   write_lossless_jpeg, write_msp2, write_pcx,
                                   write_sgi, write_sunras, write_tga,
-                                  write_tiff, write_vp8l)
+                                  write_tiff, write_vp8, write_vp8l,
+                                  alph_chunk, anmf_chunk, vp8x_chunk,
+                                  webp_chunk, webp_file)
 from vido_slam_tpu_torch.io import jpeg  # noqa: E402
 from tools.make_jpeg_fixtures import textured  # noqa: E402
 
@@ -637,6 +642,151 @@ def webp_files() -> dict:
     return {k: (".webp", v) for k, v in out.items()}
 
 
+def webp26d_files() -> dict:
+    """Lossy WebPs (item 26d): cv2's and PIL's writers at several qualities
+    and methods, with alpha (raw, VP8L-compressed, level-reduced), an
+    animation's first frame, and hand-built ones: ALPH chunks of each
+    filter, raw and VP8L (a palette: libwebp's 8-bit path), a lossy frame
+    at an offset on an animation's canvas, VP8 key frames of random syntax
+    (``write_vp8``: segments with and without a map, absolute and delta
+    values, the simple and normal filters, sharpness, levels 0 and 63,
+    filter deltas, 2, 4 and 8 token partitions, quantisers 0 and 127 with
+    deltas, category-6 coefficients, skip flags, every intra mode), images
+    of one pixel, row and column, and files both libraries fail on (a cut
+    token partition, a bad ALPH header)."""
+    import io
+
+    H, W = SIZE
+    rng = np.random.RandomState(260)
+    img = textured(H, W, 261)
+    rgb = np.ascontiguousarray(img[..., ::-1])
+    yy, xx = np.mgrid[:H, :W]
+    smooth = ((xx * 4 + yy * 3) % 256).astype(np.uint8)
+    noisy = rng.randint(0, 256, (H, W)).astype(np.uint8)
+    out = {}
+
+    def pil(name, im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "WEBP", **kw)
+        out[name] = buf.getvalue()
+    pil("pil_q80", Image.fromarray(rgb), quality=80)
+    pil("pil_q5_m6", Image.fromarray(rgb), quality=5, method=6)
+    pil("pil_q100_m0", Image.fromarray(rgb), quality=100, method=0)
+    out["cv2_q50"] = cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY,
+                                                 50])[1].tobytes()
+    pil("pil_alpha_raw", Image.fromarray(np.dstack([rgb, noisy])),
+        quality=80)
+    pil("pil_alpha_vp8l", Image.fromarray(np.dstack([rgb, smooth])),
+        quality=80)
+    pil("pil_alpha_q30", Image.fromarray(np.dstack([rgb, smooth])),
+        quality=60, alpha_quality=30)
+    frames = [Image.fromarray(np.dstack([rgb, smooth])),
+              Image.fromarray(np.dstack([rgb[::-1], noisy]))]
+    pil("pil_animated", frames[0], save_all=True, append_images=frames[1:],
+        quality=70)
+    payload = out["pil_q80"][20:]
+    vp8 = webp_chunk(b"VP8 ", payload[:struct.unpack(
+        "<I", out["pil_q80"][16:20])[0]])
+    for kind in (1, 2, 3):
+        out[f"alph_raw_f{kind}"] = webp_file([
+            vp8x_chunk(W, H, 0x10), alph_chunk(noisy, 0, kind), vp8])
+        out[f"alph_vp8l_f{kind}"] = webp_file([
+            vp8x_chunk(W, H, 0x10), alph_chunk(smooth, 1, kind, kind & 1),
+            vp8])
+    levels = (smooth // 64 * 85).astype(np.uint8)
+    out["alph_palette"] = webp_file([vp8x_chunk(W, H, 0x10), alph_chunk(
+        levels, 1, palette=[0xFF000000 | v << 8 for v in (0, 85, 170, 255)]),
+        vp8])
+    anim = webp_chunk(b"ANIM", bytes(6))
+    out["anim_offset"] = webp_file([
+        vp8x_chunk(W + 6, H + 4, 0x12), anim,
+        anmf_chunk(alph_chunk(smooth, 1, 3) + vp8, 4, 2, W, H),
+        anmf_chunk(vp8, 0, 0, W, H)])
+
+    def frame(name, w=W, h=H, **kw):
+        out[name] = webp_file([webp_chunk(b"VP8 ", write_vp8(
+            np.random.RandomState(len(out)), w, h, **kw))])
+    segs = [(10, 20), (60, -10), (-5, 40), (127, 63)]
+    frame("syntax_segments_abs", segments=segs, update_map=True,
+          absolute=True, filter_type=1, level=30, partitions=0)
+    frame("syntax_segments_delta", segments=segs, update_map=False,
+          absolute=False, filter_type=1, level=20, lf_deltas=[3, 0, 0, 0,
+                                                             -9, 0, 0, 0])
+    frame("syntax_simple_sharp7", filter_type=0, level=63, sharpness=7,
+          lf_deltas=[-4, 1, 2, 3, 12, 1, 2, 3], segments=None)
+    frame("syntax_level0", level=0, segments=segs, absolute=False,
+          sharpness=3)
+    for k in (1, 2, 3):
+        frame(f"syntax_parts{1 << k}", partitions=k, filter_type=1,
+              level=int(rng.randint(1, 64)), sharpness=k)
+    frame("syntax_q0_skip", q=0, dq=[-15, 15, None, 7, -7], skip_p=100)
+    frame("syntax_q127_cat6", q=127, dq=[15, 15, 15, 15, 15], cat6=0.3,
+          scale=40.0)
+    frame("syntax_i16", i4x4=0.0, skip_p=None, updates=0.3)
+    frame("syntax_i4", i4x4=1.0, run_out=0.3, updates=0.5)
+    frame("syntax_1x1", 1, 1)
+    frame("syntax_17x1", 17, 1)
+    frame("syntax_1x23", 1, 23)
+    frame("syntax_scale_bits", scale_bits=3)
+    cut = write_vp8(np.random.RandomState(7), W, H, partitions=0)
+    out["fail_cut_partition"] = webp_file([webp_chunk(b"VP8 ",
+                                                      cut[:-40])])
+    out["fail_alph_header"] = webp_file([
+        vp8x_chunk(W, H, 0x10), webp_chunk(b"ALPH", b"\x03" + noisy.tobytes()),
+        vp8])
+    return {k: (".webp", v) for k, v in out.items()}
+
+
+def webp26d_kitti_files() -> dict:
+    """The first 12 KITTI frames of tests/data/jpeg/kitti as cv2 decodes
+    them, written again as lossy WebP by PIL at quality 80: the CLI's
+    frames of chip_smoke.py phase (x3)."""
+    import io
+
+    out = {}
+    for name in sorted(os.listdir(KITTI_IN))[:12]:
+        bgr = cv2.imread(os.path.join(KITTI_IN, name), cv2.IMREAD_COLOR)
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(
+            buf, "WEBP", quality=80)
+        out[os.path.splitext(name)[0]] = (".webp", buf.getvalue())
+    return out
+
+
+def webp26d_clip_files() -> dict:
+    """Bench-clip frames 0, 2, 4, 6 and 8 (assets/bench_clip_192x640_24.npz)
+    as lossy WebPs for chip_smoke.py phase (x3)'s COCO tree: PIL at
+    quality 80, with two VP8L-compressed alphas (halves, a gradient), an
+    animation (its first frame the clip frame), and cv2 at quality 60."""
+    import io
+
+    clip = np.load(os.path.join(ROOT, "assets",
+                                "bench_clip_192x640_24.npz"))["clip"]
+    H, W = clip.shape[1:3]
+    yy, xx = np.mgrid[:H, :W]
+    alpha = ((xx + 2 * yy) % 256).astype(np.uint8)
+    out = {}
+    for k in range(5):
+        rgb = clip[2 * k]
+        buf = io.BytesIO()
+        if k == 0:
+            Image.fromarray(rgb).save(buf, "WEBP", quality=80)
+        elif k in (1, 2):
+            a = alpha if k == 2 else np.where(xx < W // 2, 255, 128
+                                              ).astype(np.uint8)
+            Image.fromarray(np.dstack([rgb, a])).save(buf, "WEBP",
+                                                      quality=80)
+        elif k == 3:
+            Image.fromarray(rgb).save(buf, "WEBP", quality=80, save_all=True,
+                                      append_images=[Image.fromarray(
+                                          clip[2 * k + 1])])
+        else:
+            buf.write(cv2.imencode(".webp", np.ascontiguousarray(
+                rgb[..., ::-1]), [cv2.IMWRITE_WEBP_QUALITY, 60])[1])
+        out[f"frame{k}"] = (".webp", buf.getvalue())
+    return out
+
+
 def pil29_files() -> dict:
     """Files of the formats PIL opens and cv2 does not (ROADMAP.md queue 1
     item 29): PIL's own TGA, PCX, SGI, QOI, XBM, IM, ICO and MSP of each mode
@@ -846,7 +996,10 @@ FORMATS = {"pxm": lambda tmp: pxm_files(), "tiff": tiff_files,
            "cmyk": lambda tmp: cmyk_files(),
            "jpeg24": lambda tmp: jpeg24_files(),
            "gif": lambda tmp: gif_files(), "webp": lambda tmp: webp_files(),
-           "pil29": lambda tmp: pil29_files(), "tiff26c": tiff26c_files}
+           "pil29": lambda tmp: pil29_files(), "tiff26c": tiff26c_files,
+           "webp26d": lambda tmp: webp26d_files(),
+           "webp26d_kitti": lambda tmp: webp26d_kitti_files(),
+           "webp26d_clip": lambda tmp: webp26d_clip_files()}
 
 
 def references(files: dict, tmp: str, ext: str) -> dict:

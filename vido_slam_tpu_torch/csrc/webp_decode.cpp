@@ -18,6 +18,17 @@
 // end once more bits were read than max(64, 8 n) (its first 8 bytes are a
 // window), and decoding then fails. Returns 0; a negative code where
 // libwebp fails. io/webp.py keeps a Python version (``vp8l_plain``).
+//
+// webp_alph_decode: a lossy image's ALPH chunk as alpha_dec.c reads it: the
+// header byte (compression 0 or 1, filter 0-3, pre-processing 0 or 1,
+// reserved bits 0), then the raw plane (at least width x height bytes) or
+// a VP8L stream of the frame's size without the 5-byte header, whose green
+// channel is the plane; then the horizontal, vertical or gradient unfilter.
+// libwebp decodes a stream whose one transform is colour indexing, with no
+// colour cache and one-symbol red, blue and alpha codes, by DecodeAlphaData,
+// which fails on reading past the end only where pixels are left (the
+// pixels it then reads are its own garbage, which no reader returns: here
+// they are read as zeros).
 
 #include <cstdint>
 #include <cstdlib>
@@ -195,12 +206,14 @@ struct Transform {
 
 int image_stream(Bits& br, int xsize, int ysize, bool level0,
                  std::vector<Transform>& transforms,
-                 std::vector<uint32_t>& out, int& coded_width);
+                 std::vector<uint32_t>& out, int& coded_width,
+                 bool alpha = false);
 
-// DecodeImageData
+// DecodeImageData; ``lenient``: DecodeAlphaData's end of stream
 int image_data(Bits& br, int width, int height, std::vector<Code>& codes,
                const std::vector<uint32_t>* meta, int meta_bits,
-               int cache_bits, std::vector<uint32_t>& out) {
+               int cache_bits, std::vector<uint32_t>& out,
+               bool lenient = false) {
   const int64_t total = (int64_t)width * height;
   out.assign(total, 0);
   std::vector<uint32_t> cache(cache_bits ? (size_t)1 << cache_bits : 0, 0);
@@ -219,18 +232,18 @@ int image_data(Bits& br, int width, int height, std::vector<Code>& codes,
              : 0;
     Code* g = &codes[5 * (size_t)group];
     const int code = g[0].read(br);
-    if (br.eos()) break;
+    if (br.eos() && !lenient) break;
     if (code < 256) {
       const int red = g[1].read(br);
       const int blue = g[2].read(br);
       const int alpha = g[3].read(br);
-      if (br.eos()) break;
+      if (br.eos() && !lenient) break;
       out[i++] = (uint32_t)alpha << 24 | (uint32_t)red << 16 |
                  (uint32_t)code << 8 | (uint32_t)blue;
     } else if (code < 280) {
       const int length = copy_value(code - 256, br);
       const int dist = plane_distance(width, copy_value(g[4].read(br), br));
-      if (br.eos()) break;
+      if (br.eos() && !lenient) break;
       if (i < dist || total - i < length) return -3;
       for (int64_t k = i; k < i + length; ++k) out[k] = out[k - dist];
       i += length;
@@ -240,14 +253,15 @@ int image_data(Bits& br, int width, int height, std::vector<Code>& codes,
       ++i;
     }
     insert();
+    if (lenient && br.eos()) break;
   }
-  if (br.eos()) return -4;
+  if (br.eos() && (!lenient || i < total)) return -4;
   return 0;
 }
 
 int image_stream(Bits& br, int xsize, int ysize, bool level0,
                  std::vector<Transform>& transforms,
-                 std::vector<uint32_t>& out, int& coded_width) {
+                 std::vector<uint32_t>& out, int& coded_width, bool alpha) {
   if (level0) {
     int seen = 0;
     while (br.read(1)) {
@@ -302,9 +316,15 @@ int image_stream(Bits& br, int xsize, int ysize, bool level0,
       if (!read_code(br, alphabet, codes[5 * (size_t)gi + j])) return -2;
     }
   coded_width = xsize;
+  // VP8LDecodeAlphaHeader's Is8bOptimizable case
+  bool lenient = alpha && transforms.size() == 1 && transforms[0].kind == 3 &&
+                 cache_bits == 0;
+  for (int gi = 0; lenient && gi < groups; ++gi)
+    for (int j = 1; j < 4; ++j)
+      if (codes[5 * (size_t)gi + j].single < 0) lenient = false;
   return image_data(br, xsize, ysize, codes,
                     level0 && !meta.empty() ? &meta : nullptr, meta_bits,
-                    cache_bits, out);
+                    cache_bits, out, lenient);
 }
 
 inline uint32_t average2(uint32_t a, uint32_t b) {
@@ -422,6 +442,26 @@ void inverse(const Transform& t, int height, std::vector<uint32_t>& px) {
   }
 }
 
+// the unfilters of a row (filters_utils / dsp/filters.c); prev is the row
+// above, null for the first
+void unfilter(int filter, const uint8_t* prev, uint8_t* row, int width) {
+  if (filter == 0) return;
+  if (filter == 1 || prev == nullptr) {
+    uint8_t pred = (filter == 1 && prev != nullptr) ? prev[0] : 0;
+    for (int i = 0; i < width; ++i) pred = row[i] = (uint8_t)(pred + row[i]);
+  } else if (filter == 2) {
+    for (int i = 0; i < width; ++i) row[i] = (uint8_t)(prev[i] + row[i]);
+  } else {
+    int top_left = prev[0], left = prev[0];
+    for (int i = 0; i < width; ++i) {
+      const int top = prev[i];
+      left = (uint8_t)(row[i] + clip255(left + top - top_left));
+      top_left = top;
+      row[i] = (uint8_t)left;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -438,6 +478,34 @@ int webp_vp8l_decode(const uint8_t* data, int64_t n, uint32_t* out,
   for (size_t k = transforms.size(); k-- > 0;)
     inverse(transforms[k], height, px);
   std::memcpy(out, px.data(), sizeof(uint32_t) * (size_t)width * height);
+  return 0;
+}
+
+int webp_alph_decode(const uint8_t* data, int64_t n, uint8_t* out, int width,
+                     int height) {
+  if (n <= 1) return -1;
+  const int method = data[0] & 3, filter = (data[0] >> 2) & 3;
+  const int pre = (data[0] >> 4) & 3;
+  if (method > 1 || pre > 1 || (data[0] >> 6)) return -1;
+  const int64_t size = (int64_t)width * height;
+  if (method == 0) {
+    if (n - 1 < size) return -1;
+    std::memcpy(out, data + 1, (size_t)size);
+  } else {
+    Bits br{data + 1, n - 1, 0, 8 * (n - 1) > 64 ? 8 * (n - 1) : 64};
+    std::vector<Transform> transforms;
+    std::vector<uint32_t> px;
+    int coded;
+    const int rc = image_stream(br, width, height, true, transforms, px,
+                                coded, true);
+    if (rc) return rc;
+    for (size_t k = transforms.size(); k-- > 0;)
+      inverse(transforms[k], height, px);
+    for (int64_t i = 0; i < size; ++i) out[i] = (uint8_t)(px[i] >> 8);
+  }
+  for (int y = 0; y < height; ++y)
+    unfilter(filter, y ? out + (int64_t)(y - 1) * width : nullptr,
+             out + (int64_t)y * width, width);
   return 0;
 }
 

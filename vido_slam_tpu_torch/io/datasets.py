@@ -16,12 +16,12 @@ flags the demo passes, the format told by the signature as cv2 tells it
 (``image_format``), on the port's own decoders: PNG (``io/png.py``),
 JPEG (``io/jpeg.py``), BMP (``io/bmp.py``), PBM/PGM/PPM, PAM and PFM
 (``io/pxm.py``), TIFF (``io/tiff.py``), Radiance HDR (``io/hdr.py``), Sun
-raster (``io/sunras.py``), GIF (``io/gif.py``) and lossless WebP
-(``io/webp.py``); OpenEXR gives None, as cv2 built without OpenEXR
-does. The data pipelines, which the JAX package reads through
-PIL, read by ``read_rgb_pil`` on the same decoders, each by PIL's rules,
-and on those of the formats PIL opens and cv2 does not (Targa, PCX, SGI,
-QOI, XBM, IM, ICO, MSP). Lossy WebP, JPEG 2000 and AVIF raise ValueError
+raster (``io/sunras.py``), GIF (``io/gif.py``) and WebP, lossless and
+lossy (``io/webp.py``, ``io/vp8.py``); OpenEXR gives None, as cv2 built
+without OpenEXR does. The data pipelines, which the JAX package reads
+through PIL, read by ``read_rgb_pil`` on the same decoders, each by PIL's
+rules, and on those of the formats PIL opens and cv2 does not (Targa,
+PCX, SGI, QOI, XBM, IM, ICO, MSP). JPEG 2000 and AVIF raise ValueError
 naming their ROADMAP.md queue 1 item.
 """
 
@@ -68,9 +68,9 @@ def write_flo(path: str, flow: np.ndarray) -> None:
 
 
 # the formats whose signatures cv2 knows and the port does not decode, by
-# the queue 1 item of ROADMAP.md that names each (lossy WebP: io/webp.py
-# raises naming 26d). OpenEXR is not among them: the cv2 the port copies
-# is built without it ("OpenEXR: NO") and gives None; PIL has no plugin.
+# the queue 1 item of ROADMAP.md that names each. OpenEXR is not among
+# them: the cv2 the port copies is built without it ("OpenEXR: NO") and
+# gives None; PIL has no plugin.
 REFUSED = {"jpeg2000": ("JPEG 2000", "26b"), "avif": ("AVIF", "28b")}
 
 

@@ -453,6 +453,34 @@ def _lzma_decode(raw: bytes, need: int) -> bytes:
     return buf
 
 
+def _jpeg_tables(tables: bytes) -> bytes:
+    """The JPEGTables' segments as JPEGSetupDecode's tables-only
+    jpeg_read_header reads them: from the SOI to the first EOI, a field cut
+    short read on through libtiff's source, which then gives fake EOIs (FF
+    D9, again and again). Returns the bytes between the SOI and that EOI;
+    CorruptTiff where the field starts with no SOI."""
+    if tables[:2] != b"\xff\xd8":
+        raise CorruptTiff("TIFF JPEGTables is no JPEG stream")
+    n = len(tables)
+
+    def byte(i: int) -> int:
+        return tables[i] if i < n else 0xFF if (i - n) % 2 == 0 else 0xD9
+    pos = 2
+    while True:                              # next_marker, then its segment
+        while byte(pos) != 0xFF:
+            pos += 1
+        start = pos
+        while byte(pos) == 0xFF:
+            pos += 1
+        code = byte(pos)
+        pos += 1
+        if code == 0xD9:
+            break
+        if code != 0 and not 0xD0 <= code <= 0xD8 and code != 0x01:
+            pos += byte(pos) << 8 | byte(pos + 1)
+    return bytes(byte(i) for i in range(2, start))
+
+
 def _jpeg_chunk(pg: Page, raw: bytes, rows: int, cols: int, per: int,
                 last_strip: bool, plain: bool) -> np.ndarray:
     """tif_jpeg.c's JPEGPreDecode and JPEGDecode of one strip or tile: the
@@ -462,9 +490,7 @@ def _jpeg_chunk(pg: Page, raw: bytes, rows: int, cols: int, per: int,
     coded). Raises CorruptTiff where libtiff fails the chunk."""
     tables = pg.jpeg_tables
     if tables:
-        if tables[:2] != b"\xff\xd8":
-            raise CorruptTiff("TIFF JPEGTables is no JPEG stream")
-        tables = tables[2:-2] if tables[-2:] == b"\xff\xd9" else tables[2:]
+        tables = _jpeg_tables(tables)
     if raw[:2] != b"\xff\xd8":
         raise CorruptTiff("TIFF JPEG chunk is no JPEG stream")
     try:

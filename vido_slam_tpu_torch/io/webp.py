@@ -1,12 +1,19 @@
-"""WebP reading without cv2 or PIL: lossless WebP (VP8L) as ``cv2.imread``
-(OpenCV 5.0 over libwebp) and PIL's ``Image.open(p).convert("RGB")``
-(``WebPImagePlugin`` over libwebp's ``WebPAnimDecoder``) give it, bit for
-bit.
+"""WebP reading without cv2 or PIL, as ``cv2.imread`` (OpenCV 5.0 over
+libwebp) and PIL's ``Image.open(p).convert("RGB")`` (``WebPImagePlugin``
+over libwebp's ``WebPAnimDecoder``) give it, bit for bit: lossless WebP
+(VP8L) here, lossy WebP's VP8 frame in ``io/vp8.py`` and its ALPH chunk
+here.
 
-The container: a RIFF ``WEBP`` file of a ``VP8L`` chunk, or an extended
-one (``VP8X``, metadata chunks, then ``VP8L``); the first frame of an
-animation (``ANIM``/``ANMF``) where its frame is a VP8L image covering the
-canvas. The bitstream (libwebp 1.x ``vp8l_dec.c``): the 5-byte header,
+The container: a RIFF ``WEBP`` file of a ``VP8L`` or ``VP8 `` chunk, or
+an extended one (``VP8X``, metadata chunks, an ``ALPH`` chunk before a
+``VP8 `` one, then the image); the first frame of an animation
+(``ANIM``/``ANMF``) at its offset on the canvas. cv2 reads a still file
+by WebPDecode (the last ALPH chunk before the image, whatever the VP8X
+flags say; the decoder is given the rest of the file), an animation and
+every PIL read by the demuxer (the padded chunk; a still image's ALPH
+chunk dropped without the VP8X alpha flag).
+
+The VP8L bitstream (libwebp 1.x ``vp8l_dec.c``): the 5-byte header,
 then the transforms in their stored order — predictor (the 14 modes, 14
 and 15 read as mode 0), cross-colour, subtract-green, colour indexing with
 pixel bundling —, then the ARGB image: prefix codes (simple and normal,
@@ -18,14 +25,20 @@ code, a code of one used length other than 1 symbol, a reference before
 the image or past its end, and bits read past the end of the data; so
 does the port (``CorruptWebp``: cv2 gives None, PIL raises).
 
-The entropy-coded decoding runs in host C++ (``csrc/webp_decode.cpp``,
-built at first use, bound by ctypes); ``plain=True`` runs the Python
-version here, bit-equal to it. The inverse transforms are numpy.
+The ALPH chunk (``alpha_dec.c``): its header byte (compression 0 or 1,
+filter 0-3, pre-processing 0 or 1, reserved bits 0: anything else fails
+the read, cv2's colour read too), the raw plane or a VP8L stream of the
+frame's size without the 5-byte header whose green channel is the plane,
+then the horizontal, vertical or gradient unfilter. Alpha leaves the RGB
+reads as they are; only its failures show.
+
+The entropy-coded decoding and the ALPH chunk run in host C++
+(``csrc/webp_decode.cpp``, built at first use, bound by ctypes);
+``plain=True`` runs the Python versions here, bit-equal to it. The
+inverse transforms are numpy.
 
 cv2 decodes to BGR (alpha dropped) and takes cvtColor's 8-bit gray of it
 for IMREAD_GRAYSCALE and IMREAD_ANYDEPTH; PIL's RGB drops alpha too.
-Lossy WebP (a ``VP8 `` chunk, with or without ``ALPH``) raises
-``ValueError`` naming ROADMAP.md queue 1 item 26d.
 """
 
 from __future__ import annotations
@@ -36,11 +49,9 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
-from vido_slam_tpu_torch.io import hdr
+from vido_slam_tpu_torch.io import hdr, vp8
 from vido_slam_tpu_torch.io.limits import check_cv2_size, check_pil_size
 from vido_slam_tpu_torch.utils import host_build
-
-ITEM = "ROADMAP.md queue 1 item 26d"
 
 # vp8l_dec.c: the order the code-length code's lengths are stored in
 CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12,
@@ -207,9 +218,11 @@ def _plane_distance(xsize: int, code: int) -> int:
 
 
 def _image_stream(br: _Bits, xsize: int, ysize: int, level0: bool,
-                  transforms: list):
+                  transforms: list, alpha: bool = False):
     """DecodeImageStream: (ARGB pixels as a flat list, the width they were
-    coded at)."""
+    coded at). ``alpha``: an ALPH chunk's stream, which libwebp decodes by
+    DecodeAlphaData where its one transform is colour indexing, with no
+    colour cache and one-symbol red, blue and alpha codes."""
     if level0:
         seen = set()
         while br.read(1):
@@ -249,14 +262,21 @@ def _image_stream(br: _Bits, xsize: int, ysize: int, level0: bool,
         codes.append([_read_code(br, a + (1 << cache_bits
                                           if i == 0 and cache_bits else 0))
                       for i, a in enumerate(ALPHABETS)])
+    lenient = alpha and len(transforms) == 1 and transforms[0][0] == 3 \
+        and not cache_bits and all(0 in table for group in codes
+                                   for table in group[1:4])
     pixels = _image_data(br, xsize, ysize, codes, meta, meta_bits,
-                         cache_bits)
+                         cache_bits, lenient)
     return pixels, xsize
 
 
-def _image_data(br, width, height, codes, meta, meta_bits, cache_bits):
+def _image_data(br, width, height, codes, meta, meta_bits, cache_bits,
+                lenient=False):
     """DecodeImageData: literals, backward references and colour cache
-    hits, each pixel's codes those of its entropy-image tile."""
+    hits, each pixel's codes those of its entropy-image tile. ``lenient``:
+    DecodeAlphaData, which fails on reading past the end only where pixels
+    are left (the pixels it then reads are libwebp's garbage, which no
+    reader returns: here they are read as zeros)."""
     total = width * height
     out = [0] * total
     cache = [0] * (1 << cache_bits) if cache_bits else None
@@ -268,13 +288,13 @@ def _image_data(br, width, height, codes, meta, meta_bits, cache_bits):
         group = codes[meta[(y >> meta_bits) * mw + (x >> meta_bits)]] \
             if meta is not None else codes[0]
         code = _symbol(br, group[0])
-        if br.eos:
+        if br.eos and not lenient:
             break
         if code < 256:
             red = _symbol(br, group[1])
             blue = _symbol(br, group[2])
             alpha = _symbol(br, group[3])
-            if br.eos:
+            if br.eos and not lenient:
                 break
             out[i] = alpha << 24 | red << 16 | code << 8 | blue
             i += 1
@@ -282,7 +302,7 @@ def _image_data(br, width, height, codes, meta, meta_bits, cache_bits):
             length = _copy_value(code - 256, br)
             dist = _plane_distance(width, _copy_value(_symbol(br, group[4]),
                                                       br))
-            if br.eos:
+            if br.eos and not lenient:
                 break
             if i < dist or total - i < length:
                 raise CorruptWebp("VP8L backward reference leaves the image")
@@ -301,7 +321,9 @@ def _image_data(br, width, height, codes, meta, meta_bits, cache_bits):
                 cache[(out[cached] * 0x1E35A7BD & 0xFFFFFFFF) >> shift] = \
                     out[cached]
                 cached += 1
-    if br.eos:
+        if lenient and br.eos:
+            break
+    if br.eos and (not lenient or i < total):
         raise CorruptWebp("VP8L data ends before the image")
     return out
 
@@ -436,14 +458,19 @@ def _inverse_color_indexing(px, width, height, bits, sub, packed_width):
     return out
 
 
-def vp8l_plain(payload: bytes):
+def vp8l_plain(payload: bytes, size: Optional[tuple] = None):
     """Plain version of ``webp_vp8l_decode``: (width, height, whether the
-    header says alpha is used, (H, W) uint32 ARGB)."""
-    width, height, alpha = vp8l_header(payload)
+    header says alpha is used, (H, W) uint32 ARGB). With ``size`` (width,
+    height), an ALPH chunk's stream, which has no header."""
     br = _Bits(payload)
-    br.pos = 40
+    if size is None:
+        width, height, alpha = vp8l_header(payload)
+        br.pos = 40
+    else:
+        (width, height), alpha = size, 1
     transforms = []
-    px, xsize = _image_stream(br, width, height, True, transforms)
+    px, xsize = _image_stream(br, width, height, True, transforms,
+                              size is not None)
     for kind, w, bits, sub in reversed(transforms):
         if kind == 0:
             px = _inverse_predictor(px, w, height, bits, sub)
@@ -476,8 +503,10 @@ def vp8l_header(payload: bytes):
 class Frame(NamedTuple):
     canvas: tuple           # (width, height)
     offset: tuple           # (x, y) of the frame on the canvas
-    payload: bytes          # the VP8L chunk's payload with its padding
-                            # byte (libwebp's bit reader gets it too)
+    kind: bytes             # b"VP8L" or b"VP8 "
+    payload: bytes          # the image chunk's payload with its padding
+                            # byte (libwebp's decoder gets it too)
+    alpha: Optional[bytes]  # a lossy frame's ALPH payload, if it has one
 
 
 MAX_CHUNK = (1 << 32) - 1 - 10     # MAX_CHUNK_PAYLOAD
@@ -520,42 +549,59 @@ class _Mem:
 
 
 def _store_frame(mem: _Mem, min_size: int = 0):
-    """demux.c StoreFrame: an ALPH chunk (at most one) then a VP8 or VP8L
-    chunk from mem's position, stopping at any other chunk. Returns (kind,
-    payload with its padding, width, height) or None where no image chunk
-    was found."""
+    """demux.c StoreFrame: an ALPH chunk and a VP8 or VP8L chunk (at most
+    one of each) from mem's position, stopping at any other chunk. Returns
+    (kind, payload with its padding, width, height, the ALPH payload or
+    None, whether the ALPH chunk came after the image); kind is None where
+    the frame has no image chunk."""
     if mem.left() < 8 or mem.left() < min_size:
         raise CorruptWebp("WebP frame is cut")
-    alpha = False
-    image = None
+    alpha = None
+    image = (None, None, 0, 0)
+    after = False
     while True:
         start = mem.pos
         tag, size, padded = mem.header()
-        if tag == b"ALPH" and not alpha:
-            alpha = True
-        elif tag in (b"VP8L", b"VP8 ") and image is None:
-            if tag == b"VP8L" and alpha:
+        if tag == b"ALPH" and alpha is None:
+            alpha = mem.data[start + 8:start + 8 + size]
+            after = image[0] is not None
+        elif tag in (b"VP8L", b"VP8 ") and image[0] is None:
+            if tag == b"VP8L" and alpha is not None:
                 raise CorruptWebp("WebP VP8L frame after an ALPH chunk")
             payload = mem.data[start + 8:start + 8 + padded]
             if tag == b"VP8L":
                 w, h, _ = vp8l_header(payload)
             else:
                 w, h = vp8_info(payload, size)
-            image = (tag, payload, w, h, alpha)
+            image = (tag, payload, w, h)
         else:
-            return image
+            break
         mem.pos = start + 8 + padded
         if mem.pos == mem.end:
-            return image
+            break
         if mem.left() < 8:
             raise CorruptWebp("WebP chunk header is cut")
+    return image + (alpha, after)
+
+
+def _frame(image: tuple, keep_alpha: bool, x: int = 0, y: int = 0):
+    """A stored frame as (kind, payload, width, height, ALPH payload or
+    None, x, y): its alpha dropped unless ``keep_alpha``; IsValidExtended
+    Format fails on a kept ALPH chunk after the image."""
+    kind, payload, w, h, alpha, after = image
+    if not keep_alpha:
+        alpha = None
+    elif alpha is not None and after:
+        raise CorruptWebp("WebP ALPH chunk after its image")
+    return kind, payload, w, h, alpha, x, y
 
 
 def parse(data: bytes) -> Frame:
     """The first frame of a WebP file as WebPDemux (demux.c: ReadHeader,
     ParseSingleImage, ParseVP8X and its chunk walk, the validity checks)
-    finds it for WebPAnimDecoder. CorruptWebp where it fails; ValueError
-    naming item 26d where the frame is lossy (VP8)."""
+    finds it for WebPAnimDecoder; ParseSingleImage drops the ALPH chunk of
+    a still image whose VP8X header lacks the alpha flag (or that has no
+    VP8X). CorruptWebp where it fails."""
     if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
         raise CorruptWebp("not a RIFF WebP file")
     riff = struct.unpack("<I", data[4:8])[0]
@@ -568,9 +614,9 @@ def parse(data: bytes) -> Frame:
     frames = []        # (kind, payload, width, height, alpha, x, y)
     if first in (b"VP8 ", b"VP8L", b"ALPH"):
         image = _store_frame(mem)
-        if image is None:
+        if image[0] is None:
             raise CorruptWebp("WebP has no image")
-        frames.append(image + (0, 0))
+        frames.append(_frame(image, False))
         canvas, animated = (image[2], image[3]), False
     elif first == b"VP8X":
         tag, size, padded = mem.header()
@@ -585,6 +631,7 @@ def parse(data: bytes) -> Frame:
         mem.pos += 8 + padded
         animated = bool(flags & 0x02)
         anim = 0
+        stored = False
         if mem.left() < 8:
             raise CorruptWebp("WebP has no chunk after VP8X")
         while True:
@@ -593,11 +640,12 @@ def parse(data: bytes) -> Frame:
             if tag == b"VP8X":
                 raise CorruptWebp("WebP has two VP8X chunks")
             if tag in (b"ALPH", b"VP8 ", b"VP8L"):
-                if anim or animated or frames:
+                if anim or animated or stored:
                     raise CorruptWebp("WebP image chunk outside its ANMF")
-                image = _store_frame(mem)
-                if image is not None:
-                    frames.append(image + (0, 0))
+                stored = True
+                image = _frame(_store_frame(mem), bool(flags & 0x10))
+                if image[0] is not None:
+                    frames.append(image)
             elif tag == b"ANIM":
                 if padded < 6:
                     raise CorruptWebp("WebP ANIM chunk is too short")
@@ -619,8 +667,10 @@ def parse(data: bytes) -> Frame:
                 image = _store_frame(mem, padded - 16)
                 if mem.pos - (p + 16) > padded - 16:
                     raise CorruptWebp("WebP frame runs past its ANMF")
-                if image is not None and animated:
-                    frames.append(image + (x, y))
+                if animated and image[0] is not None:
+                    frames.append(_frame(image, True, x, y))
+                elif animated and image[4] is not None:
+                    raise CorruptWebp("WebP frame has no image")
             else:
                 mem.pos = start + 8 + padded
             if mem.pos == mem.end:
@@ -636,9 +686,7 @@ def parse(data: bytes) -> Frame:
                 (not animated and (x, y, w, h) != (0, 0) + canvas):
             raise CorruptWebp("WebP frame does not fit its canvas")
     kind, payload, w, h, alpha, x, y = frames[0]
-    if kind == b"VP8 ":
-        raise ValueError(f"lossy WebP is not supported ({ITEM})")
-    return Frame(canvas, (x, y), payload)
+    return Frame(canvas, (x, y), kind, payload, alpha)
 
 
 def parse_still(data: bytes):
@@ -646,16 +694,16 @@ def parse_still(data: bytes):
     (the VP8X canvas, then cv2's size limits), then WebPDecode's parse of
     the whole file (webp_dec.c ParseHeadersInternal: ParseRIFF, ParseVP8X,
     ParseOptionalChunks, ParseVP8Header). Returns (canvas (width, height),
-    the VP8L payload's offset); the bitstream reader is given the file from
-    there to its end. CorruptWebp where libwebp fails; ValueError naming
-    item 26d for a lossy (VP8) image."""
+    the image payload's offset, its kind, the payload of the last ALPH
+    chunk before it or None); the decoder is given the file from that
+    offset to its end. CorruptWebp where libwebp fails."""
     if data[8:12] != b"WEBP":
         raise CorruptWebp("not a WebP file")
     riff = struct.unpack("<I", data[4:8])[0]
     if riff < 12 or riff > MAX_CHUNK:
         raise CorruptWebp("WebP RIFF size is invalid")
     pos, left = 12, len(data) - 12
-    canvas = None
+    canvas = alpha = None
     if data[pos:pos + 4] == b"VP8X":
         if struct.unpack("<I", data[pos + 4:pos + 8])[0] != 10 or left < 18:
             raise CorruptWebp("WebP VP8X chunk is invalid")
@@ -685,6 +733,8 @@ def parse_still(data: bytes):
                 break
             if left < disk:
                 raise CorruptWebp("WebP chunk is cut")
+            if data[pos:pos + 4] == b"ALPH":
+                alpha = data[pos + 8:pos + 8 + size]
             pos, left = pos + disk, left - disk
     if left < 8:
         raise CorruptWebp("WebP image chunk header is cut")
@@ -696,12 +746,12 @@ def parse_still(data: bytes):
         raise CorruptWebp("WebP image chunk size is invalid")
     payload = data[pos + 8:]
     if tag == b"VP8 ":
-        vp8_info(payload, size)
-        raise ValueError(f"lossy WebP is not supported ({ITEM})")
-    width, height, _ = vp8l_header(payload)
+        width, height = vp8_info(payload, size)
+    else:
+        width, height, _ = vp8l_header(payload)
     if canvas is not None and canvas != (width, height):
         raise CorruptWebp("WebP canvas differs from its image")
-    return (width, height), pos + 8
+    return (width, height), pos + 8, tag, alpha
 
 
 def _animated(data: bytes) -> bool:
@@ -733,6 +783,86 @@ def decode_vp8l(payload: bytes, plain: bool = False) -> np.ndarray:
     return out
 
 
+def _unfilter(kind: int, plane: np.ndarray) -> np.ndarray:
+    """The ALPH unfilters (horizontal 1, vertical 2, gradient 3) row by
+    row; the first row by the horizontal one from 0, the first pixel of
+    the others from the pixel above."""
+    if kind == 0:
+        return plane
+    out = plane.astype(np.int64)
+    H, W = out.shape
+    for y in range(H):
+        row = out[y]
+        if kind == 1 or y == 0:
+            row[0] = (row[0] + (out[y - 1, 0] if kind == 1 and y else 0)) \
+                & 0xFF
+            row[:] = np.cumsum(row) & 0xFF
+        elif kind == 2:
+            row[:] = (row + out[y - 1]) & 0xFF
+        else:
+            prev = out[y - 1]
+            left, top_left = int(prev[0]), int(prev[0])
+            for x in range(W):
+                top = int(prev[x])
+                left = (int(row[x]) + min(max(left + top - top_left, 0),
+                                          255)) & 0xFF
+                top_left = top
+                row[x] = left
+    return out.astype(np.uint8)
+
+
+def alph_plain(data: bytes, width: int, height: int) -> np.ndarray:
+    """Plain version of ``webp_alph_decode``: an ALPH chunk's (H, W)
+    alpha plane; CorruptWebp where libwebp fails."""
+    if len(data) <= 1:
+        raise CorruptWebp("ALPH chunk is empty")
+    method, kind = data[0] & 3, (data[0] >> 2) & 3
+    if method > 1 or (data[0] >> 4) & 3 > 1 or data[0] >> 6:
+        raise CorruptWebp("ALPH header is invalid")
+    if method == 0:
+        if len(data) - 1 < width * height:
+            raise CorruptWebp("ALPH data is short")
+        plane = np.frombuffer(data, np.uint8, width * height, 1).reshape(
+            height, width)
+    else:
+        argb = vp8l_plain(data[1:], (width, height))[3]
+        plane = ((argb >> 8) & 0xFF).astype(np.uint8)
+    return _unfilter(kind, plane)
+
+
+def decode_alph(data: bytes, width: int, height: int,
+                plain: bool = False) -> np.ndarray:
+    """An ALPH chunk's (H, W) alpha plane (``webp_alph_decode``, or
+    ``alph_plain``); CorruptWebp where libwebp fails."""
+    if plain:
+        return alph_plain(data, width, height)
+    fn = host_build.load("webp_decode").webp_alph_decode
+    fn.restype = ctypes.c_int
+    out = np.empty((height, width), np.uint8)
+    src = np.frombuffer(data, np.uint8)
+    rc = fn(ctypes.c_void_p(src.ctypes.data), ctypes.c_int64(len(data)),
+            ctypes.c_void_p(out.ctypes.data), width, height)
+    if rc != 0:
+        raise CorruptWebp(f"ALPH data is invalid ({rc})")
+    return out
+
+
+def _image(kind: bytes, payload: bytes, alpha: Optional[bytes],
+           plain: bool) -> np.ndarray:
+    """A frame's (H, W, 4) B, G, R, A bytes: VP8L, or VP8 (``vp8.decode``)
+    with its ALPH plane; CorruptWebp where libwebp fails on either."""
+    if kind == b"VP8L":
+        argb = decode_vp8l(payload, plain)
+        return argb.view(np.uint8).reshape(argb.shape + (4,))
+    bgra = vp8.decode(payload, plain)
+    if bgra is None:
+        raise CorruptWebp("VP8 bitstream is invalid")
+    if alpha is not None:
+        bgra[..., 3] = decode_alph(alpha, bgra.shape[1], bgra.shape[0],
+                                   plain)
+    return bgra
+
+
 def _canvas(data: bytes, plain: bool, cv2_limits: bool) -> np.ndarray:
     """The first frame on its canvas as (H, W, 4) B, G, R, A bytes (the
     canvas transparent black outside the frame). ``cv2_limits``: cv2's
@@ -740,20 +870,19 @@ def _canvas(data: bytes, plain: bool, cv2_limits: bool) -> np.ndarray:
     (``limits.check_cv2_size``), else PIL's (``parse``) and its
     decompression bomb limit (``limits.check_pil_size``)."""
     if cv2_limits and not _animated(data):
-        (cw, ch), start = parse_still(data)
-        return decode_vp8l(data[start:], plain).view(np.uint8).reshape(
-            ch, cw, 4)
+        _, start, kind, alpha = parse_still(data)
+        return _image(kind, data[start:], alpha, plain)
     frame = parse(data)
     cw, ch = frame.canvas
     if cv2_limits:
         check_cv2_size(cw, ch)
     else:
         check_pil_size(cw, ch)
-    argb = decode_vp8l(frame.payload, plain)
-    canvas = np.zeros((ch, cw), np.uint32)
+    image = _image(frame.kind, frame.payload, frame.alpha, plain)
+    canvas = np.zeros((ch, cw, 4), np.uint8)
     x, y = frame.offset
-    canvas[y:y + argb.shape[0], x:x + argb.shape[1]] = argb
-    return canvas.view(np.uint8).reshape(ch, cw, 4)
+    canvas[y:y + image.shape[0], x:x + image.shape[1]] = image
+    return canvas
 
 
 def read_cv2(data: bytes, flags: int, plain: bool = False
